@@ -1,0 +1,217 @@
+"""Build and bind the hand-written CUDA kernels of grove_tpu_torch.
+
+The sources in `csrc/` are compiled with nvcc for `sm_90a` into one shared
+library with a plain C interface, at first use, into `_build/` (listed in
+.gitignore). The library's name carries a hash of the sources and flags, so
+an edited source rebuilds. It is loaded with ctypes: every pointer and the
+stream are `c_void_p`, and each entry point returns `cudaGetLastError()`,
+which `Kernel.__call__` turns into an exception.
+
+Nothing here runs at import, so a machine without nvcc or a card can import
+every module of the package (the CPU tests do).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+from typing import Dict, Optional, Sequence
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
+
+# head dims the kernels are instantiated for (attention_core.cuh)
+HEAD_DIMS = (8, 64, 80, 128)
+MAX_BATCH_HEADS = 65535          # gridDim.y
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+def sources() -> Sequence[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
+    for p in sorted(CSRC.iterdir()):
+        if p.suffix in (".cu", ".cuh"):
+            h.update(p.name.encode())
+            h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_DIR / f"libgrove_kernels_{source_hash()}.so"
+
+
+def find_nvcc() -> str:
+    cands = [shutil.which("nvcc")]
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root:
+            cands.append(str(Path(root) / "bin" / "nvcc"))
+    for c in cands:
+        if c and Path(c).is_file():
+            return c
+    raise RuntimeError("nvcc not found (looked on PATH, $CUDA_HOME/bin and "
+                       "/usr/local/cuda/bin): the CUDA kernels of "
+                       "grove_tpu_torch cannot be built")
+
+
+def build() -> Path:
+    """Compile csrc/*.cu (one nvcc per file, in parallel) and link them into
+    the hashed library; a no-op when it already exists."""
+    out = library_path()
+    if out.exists():
+        return out
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    try:
+        jobs = []
+        for src in sources():
+            obj = tmp / (src.stem + ".o")
+            cmd = [nvcc, *COMPILE_FLAGS, "-c", str(src), "-o", str(obj)]
+            jobs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        for src, _, proc in jobs:
+            log = proc.communicate()[0]
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name}:\n{log}")
+        lib = tmp / out.name
+        link = [nvcc, "-shared", *ARCH_FLAGS, *(str(o) for _, o, _ in jobs),
+                "-o", str(lib)]
+        res = subprocess.run(link, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{res.stdout}")
+        os.replace(lib, out)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def load() -> ctypes.CDLL:
+    """Build if needed, load once, and declare every entry point."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for k in KERNELS.values():
+                fn = getattr(lib, k.symbol)
+                fn.argtypes = list(k.argtypes)
+                fn.restype = ctypes.c_int
+            lib.grove_error_string.argtypes = [ctypes.c_int]
+            lib.grove_error_string.restype = ctypes.c_char_p
+            _lib = lib
+    return _lib
+
+
+class Kernel:
+    """One C entry point of the library and its launch count.
+
+    `launches` goes up by one after each launch the card accepted, and
+    nowhere else; `chip_smoke.py` zeroes it before the main path and reads
+    it after, to show which kernels that path ran."""
+
+    def __init__(self, symbol: str, argtypes: Sequence, source: str,
+                 replaces: str):
+        self.symbol = symbol
+        self.argtypes = tuple(argtypes)
+        self.source = source
+        self.replaces = replaces
+        self.launches = 0
+
+    def __call__(self, *args) -> None:
+        lib = load()
+        code = getattr(lib, self.symbol)(*args)
+        if code != 0:
+            msg = lib.grove_error_string(code).decode()
+            raise RuntimeError(f"{self.symbol}: CUDA error {code}: {msg}")
+        self.launches += 1
+
+
+KERNELS: Dict[str, Kernel] = {
+    "sam_window_attention": Kernel(
+        "grove_sam_window_attention",
+        [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+        "grove_tpu_torch/csrc/sam_window_attention.cu",
+        "grove_tpu/ops/sam_attention.py:537"),
+    "sam_global_attention": Kernel(
+        "grove_sam_global_attention",
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+        "grove_tpu_torch/csrc/sam_global_attention.cu",
+        "grove_tpu/ops/sam_attention.py:235"),
+    "grouped_plain_attention": Kernel(
+        "grove_grouped_plain_attention",
+        [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+        "grove_tpu_torch/csrc/grouped_plain_attention.cu",
+        "grove_tpu/ops/attention.py:404"),
+    "flash_forward_lse": Kernel(
+        "grove_flash_forward_lse",
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
+        "grove_tpu_torch/csrc/flash_forward_lse.cu",
+        "grove_tpu/ops/flash_backward.py:210"),
+}
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS.values():
+        k.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# argument checks shared by the wrappers
+# ---------------------------------------------------------------------------
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def on_cpu(*tensors: torch.Tensor) -> bool:
+    """True when the wrapper should take its plain version: the tensors lie
+    on the CPU. A CUDA tensor launches the kernel; any other device raises."""
+    dev = tensors[0].device.type
+    if dev not in ("cpu", "cuda"):
+        raise ValueError(f"grove_tpu_torch kernels take CPU or CUDA tensors, "
+                         f"got {tensors[0].device}")
+    if any(t.device != tensors[0].device for t in tensors):
+        raise ValueError("kernel inputs lie on different devices: "
+                         f"{[str(t.device) for t in tensors]}")
+    return dev == "cpu"
+
+
+def check_cuda_inputs(name: str, tensors: Sequence[torch.Tensor],
+                      head_dim: int, batch_heads: int) -> int:
+    """Validate what the kernel `name` takes; return its dtype code."""
+    dt = tensors[0].dtype
+    if dt not in _DTYPE_CODES:
+        raise ValueError(f"{name}: dtype {dt} not supported "
+                         "(float32 or bfloat16)")
+    for t in tensors:
+        if t.dtype != dt:
+            raise ValueError(f"{name}: mixed dtypes "
+                             f"{[x.dtype for x in tensors]}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {head_dim} not in {HEAD_DIMS}")
+    if not 0 < batch_heads <= MAX_BATCH_HEADS:
+        raise ValueError(f"{name}: batch * heads = {batch_heads} outside "
+                         f"(0, {MAX_BATCH_HEADS}]")
+    return _DTYPE_CODES[dt]
+
+
+def stream_ptr(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,0 +1,68 @@
+// K1: windowed SAM attention with decomposed rel-pos bias, reading the
+// UNSPLIT qkv projection.
+//
+// Replaces grove_tpu/ops/sam_attention.py:_grouped_kernel_v3 (its
+// pallas_call is at :537, reached through sam_window_attention_fused, :692),
+// used by the 28 windowed blocks of the SAM ViT-H encoder.
+//
+//   out[w, i, h] = softmax_j(q_h[i] . k_h[j] * scale
+//                            + rel_h[w, i, h, j / gw] + rel_w[w, i, h, j % gw])
+//                  . v_h[j]
+//
+// qkv is (nW, S, 3C) with C = heads * head_dim: q, k and v of head h are
+// read in place at lane offsets h*D, C + h*D and 2C + h*D, so the three-way
+// split is never materialized. rel is (nW, S, heads*(gh + gw)), per head
+// [rel_h | rel_w], as grove_tpu_torch.ops.sam_attention.relpos_terms_raw
+// packs it. out is (nW, S, C).
+//
+// Bound on the H100: fp32 FMA issue and shared-memory reads (see
+// attention_core.cuh). At the full-width shape (nW = 9 per frame, S = 196,
+// 16 heads, D = 80) each (window, head) runs 7 blocks of 32 rows; the S x S
+// logits never leave registers.
+//
+// Numerics against the TPU kernel: the TPU kernel uses exp2 with a constant
+// shift (EXP2_SHIFT = 32) instead of subtracting the row max, rounds
+// q * scale * log2(e), rel * log2(e) and the probabilities to the input
+// dtype, and takes the denominator from the rounded probabilities. This
+// kernel subtracts a running max and keeps every intermediate in fp32. The
+// results agree to bf16 rounding, except for a row whose logits all
+// underflow the shift: the TPU kernel returns 0 there and this kernel a
+// normal softmax.
+
+#include "attention_core.cuh"
+
+GROVE_ATTENTION_ENTRY(sam_window_attention)
+
+extern "C" int grove_sam_window_attention(const void* qkv, const void* rel,
+                                          void* out, int nw, int s,
+                                          int heads, int head_dim, int gh,
+                                          int gw, float scale, int dtype,
+                                          void* stream) {
+  const long long esize = dtype == 0 ? 4 : 2;
+  const long long c = (long long)heads * head_dim;
+  const long long gs = gh + gw;
+  const char* base = static_cast<const char*>(qkv);
+  grove::AttnArgs a{};
+  a.q = base;
+  a.k = base + c * esize;
+  a.v = base + 2 * c * esize;
+  a.o = out;
+  a.lse = nullptr;
+  a.rh = rel;
+  a.rw = static_cast<const char*>(rel) + gh * esize;
+  a.qs = {s * 3 * c, 3 * c, head_dim};
+  a.ks = a.qs;
+  a.vs = a.qs;
+  a.os = {s * c, c, head_dim};
+  a.rhs = {s * heads * gs, heads * gs, gs};
+  a.rws = a.rhs;
+  a.B = nw;
+  a.H = heads;
+  a.S = s;
+  a.gh = gh;
+  a.gw = gw;
+  a.scale = scale;
+  a.causal = 0;
+  return sam_window_attention_dispatch(a, dtype, head_dim,
+                                       static_cast<cudaStream_t>(stream));
+}
