@@ -164,6 +164,21 @@ KERNELS: Dict[str, Kernel] = {
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
         "grove_tpu_torch/csrc/flash_forward_lse.cu",
         "grove_tpu/ops/flash_backward.py:210"),
+    "prefill_attention": Kernel(
+        "grove_prefill_attention",
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+        "grove_tpu_torch/csrc/prefill_attention.cu",
+        "grove_tpu/ops/attention.py:248"),
+    "int8_decode_attention": Kernel(
+        "grove_int8_decode_attention",
+        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
+        "grove_tpu_torch/csrc/int8_decode_attention.cu",
+        "grove_tpu/ops/decode_attention.py:122"),
+    "int4_matmul": Kernel(
+        "grove_int4_matmul",
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+        "grove_tpu_torch/csrc/int4_matmul.cu",
+        "grove_tpu/ops/int4_matmul.py:317"),
 }
 
 
@@ -192,19 +207,31 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
     return dev == "cpu"
 
 
+def dtype_code(name: str, t: torch.Tensor) -> int:
+    """The kernels' code for a float32 or bfloat16 operand; raise for any
+    other dtype."""
+    if t.dtype not in _DTYPE_CODES:
+        raise ValueError(f"{name}: dtype {t.dtype} not supported "
+                         "(float32 or bfloat16)")
+    return _DTYPE_CODES[t.dtype]
+
+
+def check_typed(name: str, pairs) -> None:
+    """Raise unless each (tensor, dtype) pair has that dtype and is
+    contiguous (the non-float operands of the quantized kernels)."""
+    for t, dt in pairs:
+        if t.dtype != dt:
+            raise ValueError(f"{name}: expected {dt}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
+
+
 def check_cuda_inputs(name: str, tensors: Sequence[torch.Tensor],
                       head_dim: int, batch_heads: int) -> int:
     """Validate what the kernel `name` takes; return its dtype code."""
     dt = tensors[0].dtype
-    if dt not in _DTYPE_CODES:
-        raise ValueError(f"{name}: dtype {dt} not supported "
-                         "(float32 or bfloat16)")
-    for t in tensors:
-        if t.dtype != dt:
-            raise ValueError(f"{name}: mixed dtypes "
-                             f"{[x.dtype for x in tensors]}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: inputs must be contiguous")
+    dtype_code(name, tensors[0])
+    check_typed(name, [(t, dt) for t in tensors])
     if head_dim not in HEAD_DIMS:
         raise ValueError(f"{name}: head dim {head_dim} not in {HEAD_DIMS}")
     if not 0 < batch_heads <= MAX_BATCH_HEADS:

@@ -1,4 +1,5 @@
-// Shared body of the four hand-written attention kernels of grove_tpu_torch.
+// Shared body of the five hand-written attention kernels of grove_tpu_torch
+// (K1-K5).
 //
 // One thread block owns kBQ = kWarps * kRows query rows of one
 // (batch, head) pair and streams the keys of that pair through shared memory
@@ -18,6 +19,9 @@
 //     (S, gh) and (S, gw) term tables that the block stages in shared memory:
 //     bias = rel_h[row, key / gw] + rel_w[row, key % gw];
 //   * a causal mask, and an optional log-sum-exp output (natural log);
+//   * an optional per-batch left-pad count: keys below it are masked except
+//     each row's own key (K5, the int8-cache prefill);
+//   * the TPU K1's all-underflow contract (see kExp2Shift);
 //   * the ragged edge: keys at or past S are masked and rows past S are not
 //     written, so no caller pads.
 //
@@ -42,6 +46,13 @@ constexpr int kBK = 32;                   // keys per tile: one per lane
 constexpr int kThreads = kWarps * 32;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
+// EXP2_SHIFT of grove_tpu/ops/sam_attention.py:29-39. The TPU K1 takes its
+// softmax as exp2(logit - EXP2_SHIFT) in log2 units with no max pass, so a
+// row whose largest logit lies below EXP2_SHIFT - 126 underflows everywhere
+// and its denominator guard returns 0. With `zero_underflow` set this body
+// returns 0 for such a row too, and a max-subtracted softmax otherwise (the
+// overflow of terms above EXP2_SHIFT + 127 on the TPU is not copied).
+constexpr float kExp2Shift = 32.f;
 
 // Element strides of a (batch, seq, head, dim) view; dim is contiguous.
 struct Strides {
@@ -56,10 +67,12 @@ struct AttnArgs {
   float* lse;         // (B, H, S) natural-log LSE, or nullptr
   const void* rh;     // rel_h terms (row, gh) per (b, h), or nullptr
   const void* rw;     // rel_w terms (row, gw) per (b, h)
+  const int* pad;     // (B,) left-pad counts, or nullptr
   Strides qs, ks, vs, os, rhs, rws;
   int B, H, S, gh, gw;
   float scale;
   int causal;
+  int zero_underflow; // rows with max logit < kExp2Shift - 126 (log2) -> 0
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -122,6 +135,7 @@ __device__ __forceinline__ void attention_block(const AttnArgs& a) {
   const int warp = tid >> 5;
   const bool bias = a.rh != nullptr;
   const int gs = a.gh + a.gw;
+  const int pad = a.pad != nullptr ? a.pad[b] : 0;
 
   const T* q = static_cast<const T*>(a.q) + b * a.qs.b + h * a.qs.h;
   const T* k = static_cast<const T*>(a.k) + b * a.ks.b + h * a.ks.h;
@@ -194,7 +208,8 @@ __device__ __forceinline__ void attention_block(const AttnArgs& a) {
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       const int row = q0 + wrow + r;
-      const bool valid = key < a.S && (!a.causal || key <= row);
+      const bool valid = key < a.S && (!a.causal || key <= row) &&
+                         (key >= pad || key == row);
       float x = s[r];
       if (bias && key < a.S) {
         const float* rr = sR + (wrow + r) * gs;
@@ -235,7 +250,8 @@ __device__ __forceinline__ void attention_block(const AttnArgs& a) {
     const int row = q0 + wrow + r;
     if (row >= a.S) continue;
     const float lsafe = fmaxf(l[r], 1e-30f);
-    const float inv = 1.f / lsafe;
+    const bool underflow = a.zero_underflow && m[r] < kExp2Shift - 126.f;
+    const float inv = underflow ? 0.f : 1.f / lsafe;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int d = lane + 32 * c;

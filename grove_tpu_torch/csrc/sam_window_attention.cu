@@ -25,9 +25,10 @@
 // q * scale * log2(e), rel * log2(e) and the probabilities to the input
 // dtype, and takes the denominator from the rounded probabilities. This
 // kernel subtracts a running max and keeps every intermediate in fp32. The
-// results agree to bf16 rounding, except for a row whose logits all
-// underflow the shift: the TPU kernel returns 0 there and this kernel a
-// normal softmax.
+// results agree to bf16 rounding. A row whose largest logit (log2 units)
+// lies below EXP2_SHIFT - 126 underflows everywhere on the TPU and comes out
+// as 0 there; this kernel returns 0 for it too (zero_underflow, see
+// kExp2Shift in attention_core.cuh).
 
 #include "attention_core.cuh"
 
@@ -63,6 +64,7 @@ extern "C" int grove_sam_window_attention(const void* qkv, const void* rel,
   a.gw = gw;
   a.scale = scale;
   a.causal = 0;
+  a.zero_underflow = 1;
   return sam_window_attention_dispatch(a, dtype, head_dim,
                                        static_cast<cudaStream_t>(stream));
 }

@@ -1,8 +1,9 @@
 """Greedy KV-cache generation and grounded-caption assembly.
 
 Counterpart of `grove_tpu/infer/generate.py` (reference `evaluate()`,
-`model/GROVE.py:412-451`): prefill, then a Python greedy loop over the bf16
-cache that keeps every step's post-norm hidden state in a (B, max_new, D)
+`model/GROVE.py:412-451`): prefill, then a Python greedy loop over the KV
+cache (bf16 by default, `cache_dtype=torch.int8` for the quantized one) that
+keeps every step's post-norm hidden state in a (B, max_new, D)
 buffer for the [DET] gather, and freezes each sequence after its EOS,
 exactly as `_decode_fn` (`generate.py:60-139`). With `early_exit` the loop
 stops once every sequence is done; emitted ids are the same either way.
@@ -106,10 +107,12 @@ def generate_grounded(model: GroveModel, cfg: GroveConfig, tokenizer,
                       max_new_tokens: int = 64, pad_lens=None,
                       cache_dtype: Optional[torch.dtype] = None,
                       early_exit: bool = True, num_beams: int = 1,
-                      sam_valid_hw=None, **sampling) -> Dict:
+                      length_penalty: float = 1.0, sam_valid_hw=None,
+                      **sampling) -> Dict:
     """Grounded caption generation: encoders -> greedy decode -> host
     [DET]-position extraction -> grounding head. Returns numpy arrays plus
-    the parsed text fields, with the JAX function's keys."""
+    the parsed text fields, with the JAX function's keys. `length_penalty`
+    applies to beam search only."""
     if num_beams > 1:
         raise NotImplementedError("beam search is not ported yet (ROADMAP "
                                   "Queue 1 item 12)")

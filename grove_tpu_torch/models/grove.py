@@ -6,7 +6,8 @@ reference torch names (`model.*`, `lm_head.*`):
 
   encode_video        CLIP tower + mm_projector (exact-erf GELU)
   encode_grounding    SAM encoder -> (B*T, HW, C)
-  prefill/decode_step the generation loop innards over the bf16 KV cache
+  prefill/decode_step the generation loop innards over the KV cache (bf16
+                      or int8)
   ground              [DET] gather -> text projection -> prompt encoder ->
                       two-way transformer -> box/objectness heads
   forward_boxes       teacher-forced boxes for the sliding windows
@@ -35,7 +36,7 @@ from grove_tpu.config import GroveConfig
 
 from ..data.preprocess import CLIP_MEAN, CLIP_STD, SAM_MEAN, SAM_STD
 from .clip import ClipVisionTower
-from .llama import LlamaModel
+from .llama import LlamaModel, _dense
 from .region import MLVLROIQueryModule
 from .sam_decoder import GroveBoxDecoder, PromptEncoder
 from .sam_encoder import SamImageEncoder, encode_frames_chunked
@@ -87,17 +88,18 @@ class GroveModel(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.model = GroveBackbone(cfg, device=device, dtype=dtype)
-        self.lm_head = nn.Linear(cfg.llama.hidden_size,
-                                 cfg.llama.padded_vocab_size, bias=False,
-                                 device=device, dtype=dtype)
+        # int8 even in the int4 config, as `llama.py:459-466` pins it
+        self.lm_head = _dense(cfg.llama, cfg.llama.hidden_size,
+                              cfg.llama.padded_vocab_size, bits=8,
+                              device=device, dtype=dtype)
 
     @property
     def device(self) -> torch.device:
-        return self.lm_head.weight.device
+        return self.model.embed_tokens.weight.device
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.lm_head.weight.dtype
+        return self.model.embed_tokens.weight.dtype
 
     # ------------------------------------------------------------------
     # encoders
@@ -288,8 +290,11 @@ def init_params_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     scales, zero biases, N(0, 0.02) position and token tables, N(0, 1)
     prompt tokens. Adapter gates get alpha = 0.1 instead of the reference's
     zero so the random-weight model runs its Conv3d adapters. Values are
-    drawn in fp32 on the parameter's device and cast."""
-    from .layers import LayerNorm2d, RMSNorm
+    drawn in fp32 on the parameter's device and cast. Quantized linears get
+    the JAX init's placeholders (zero kernels, unit scales); random
+    quantized weights come from quantizing random float ones
+    (`ops.quant.quantize_llama_`)."""
+    from .layers import Int4Linear, Int8Linear, LayerNorm2d, RMSNorm
 
     def randn(p, std):
         x = torch.randn(p.shape, generator=generator, device=p.device,
@@ -297,6 +302,8 @@ def init_params_(model: nn.Module, generator: torch.Generator) -> nn.Module:
         p.copy_(x * std)
 
     for mname, mod in model.named_modules():
+        if isinstance(mod, (Int4Linear, Int8Linear)):
+            mod.reset_placeholders_()
         for pname, p in mod.named_parameters(recurse=False):
             full = f"{mname}.{pname}" if mname else pname
             if pname == "alpha":

@@ -1,9 +1,12 @@
-"""Shared building blocks, bf16 inference parts.
+"""Shared building blocks.
 
-Counterpart of `grove_tpu/models/layers.py` without the quantized layers
-(`Int8Dense`, `Int4Dense`, `LayerNormQuant`: ROADMAP Queue 1 item 11).
-Module and parameter names follow the reference torch checkpoints, so
-`checkpoint.convert.load_reference_state_dict` loads them strictly.
+Counterpart of `grove_tpu/models/layers.py`: the bf16 inference parts and
+the weight-only quantized linears `Int8Linear` (W8A16) and `Int4Linear`
+(W4A16). Their activation-quantized modes and `LayerNormQuant` are ROADMAP
+Queue 1 items 11b and 11c. Module and parameter names follow the reference
+torch checkpoints, so `checkpoint.convert.load_reference_state_dict` loads
+them strictly; the quantized linears keep the JAX package's buffer names
+and layouts (`kernel_q`, `kernel_q4p`, `scale`).
 
 Layouts: the video adapter and pooling keep the JAX package's channels-last
 token grids; `LayerNorm2d` normalizes dim 1 of NCHW maps like the reference
@@ -19,13 +22,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.int4_matmul import int4_matmul
+from ..ops.quant import (int4_group, quantize_kernel, quantize_kernel_int4,
+                         unpack_int4)
+
 
 def check_vision_config(cfg) -> None:
     """The port runs the bf16 vision towers only."""
     if cfg.quant_w8a8:
         raise NotImplementedError(
             f"{type(cfg).__name__}.quant_w8a8: the W8A8 vision path is not "
-            "ported yet (ROADMAP Queue 1 item 11, quantized serving)")
+            "ported yet (ROADMAP Queue 1 item 11c, W8A8-static towers)")
 
 
 def gelu_tanh(x):
@@ -49,6 +56,112 @@ class RMSNorm(nn.Module):
         var = xf.pow(2).mean(-1, keepdim=True)
         out = xf * torch.rsqrt(var + self.eps)
         return (out * self.weight.float()).to(x.dtype)
+
+
+class Int8Linear(nn.Module):
+    """int8-weight linear, W8A16: y = (x @ kernel_q) * scale, no bias.
+
+    Counterpart of `Int8Dense` (`layers.py:62-126`) with `act_quant=False`:
+    kernel_q (K, N) int8 and a per-output-channel fp32 scale (N,), the
+    JAX parameter layout, as buffers. The kernel is cast to the compute
+    dtype for a plain matmul, as XLA computes it outside any Pallas
+    kernel. A fresh module holds the JAX init's placeholders (zeros,
+    ones); `from_kernel` quantizes a float (K, N) kernel."""
+
+    def __init__(self, in_features: int, out_features: int, *, device=None,
+                 dtype=None):
+        super().__init__()
+        self.in_features, self.out_features = in_features, out_features
+        self.compute_dtype = dtype or torch.get_default_dtype()
+        self.register_buffer("kernel_q", torch.empty(
+            (in_features, out_features), dtype=torch.int8, device=device))
+        self.register_buffer("scale", torch.empty(
+            (out_features,), dtype=torch.float32, device=device))
+        self.reset_placeholders_()
+
+    @torch.no_grad()
+    def reset_placeholders_(self):
+        if not self.kernel_q.is_meta:
+            self.kernel_q.zero_()
+            self.scale.fill_(1.0)
+
+    @classmethod
+    def from_kernel(cls, kernel: torch.Tensor) -> "Int8Linear":
+        mod = cls(*kernel.shape, device="meta", dtype=kernel.dtype)
+        mod.kernel_q, mod.scale = quantize_kernel(kernel)
+        return mod
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        y = torch.matmul(x.to(dt), self.kernel_q.to(dt))
+        return y * self.scale.to(dt)
+
+    def extra_repr(self):
+        return f"{self.in_features}, {self.out_features}, W8A16"
+
+
+class Int4Linear(nn.Module):
+    """int4-weight linear, W4A16, group-wise scales, no bias.
+
+    Counterpart of `Int4Dense` (`layers.py:129-278`) with `act_quant=False`:
+    kernel_q4p (K/2, N) int8, group-pair packed (`ops.quant.pack_int4`),
+    and scale (K/G, N) fp32, as buffers; G is `group` halved until 2G
+    divides K (narrow test configs). Dispatch, as the JAX package's:
+    * CUDA, fewer than 64 rows (decode): K7a, `ops.int4_matmul`;
+    * CUDA, 64 rows or more (prefill, teacher-forced pass): a dequantized
+      view in the compute dtype and `torch.matmul` (`layers.py:238-256`
+      takes a plain XLA dot there);
+    * CPU: K7a's plain twin, the JAX package's grouped einsum."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 group: int = 128, *, device=None, dtype=None):
+        super().__init__()
+        self.in_features, self.out_features = in_features, out_features
+        self.compute_dtype = dtype or torch.get_default_dtype()
+        g = int4_group(in_features, group)
+        self.register_buffer("kernel_q4p", torch.empty(
+            (in_features // 2, out_features), dtype=torch.int8,
+            device=device))
+        self.register_buffer("scale", torch.empty(
+            (in_features // g, out_features), dtype=torch.float32,
+            device=device))
+        self.reset_placeholders_()
+
+    @torch.no_grad()
+    def reset_placeholders_(self):
+        if not self.kernel_q4p.is_meta:
+            self.kernel_q4p.zero_()
+            self.scale.fill_(1.0)
+
+    @classmethod
+    def from_kernel(cls, kernel: torch.Tensor,
+                    group: int = 128) -> "Int4Linear":
+        mod = cls(*kernel.shape, group, device="meta", dtype=kernel.dtype)
+        mod.kernel_q4p, mod.scale = quantize_kernel_int4(kernel, group)
+        return mod
+
+    @property
+    def group(self) -> int:
+        return self.in_features // self.scale.shape[0]
+
+    def dequantized(self) -> torch.Tensor:
+        """(K, N) weights in the compute dtype."""
+        w = unpack_int4(self.kernel_q4p, self.group).float()
+        return (w * self.scale[:, None, :]).to(self.compute_dtype).reshape(
+            self.in_features, self.out_features)
+
+    def forward(self, x):
+        lead = x.shape[:-1]
+        x2 = x.to(self.compute_dtype).reshape(-1, self.in_features)
+        if x2.is_cuda and x2.shape[0] >= 64:
+            y = torch.matmul(x2, self.dequantized())
+        else:
+            y = int4_matmul(x2, self.kernel_q4p, self.scale)
+        return y.reshape(*lead, self.out_features)
+
+    def extra_repr(self):
+        return (f"{self.in_features}, {self.out_features}, W4A16, "
+                f"group={self.group}")
 
 
 class LayerNorm2d(nn.Module):

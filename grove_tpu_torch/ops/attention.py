@@ -1,4 +1,5 @@
-"""Attention ops: the plain fp32-softmax path and the CLIP kernel (K3).
+"""Attention ops: the plain fp32-softmax path, the CLIP kernel (K3) and
+the raw-layout causal prefill kernel (K5).
 
 Counterpart of `grove_tpu/ops/attention.py`. All shapes are
 (batch, seq, heads, head_dim); softmax runs in fp32 whatever the input
@@ -9,6 +10,11 @@ dtype.
   over the bf16 cache use it directly, as the JAX package does.
 * `grouped_plain_attention` is K3, non-causal self-attention over a ragged
   S (CLIP's 577), beside its plain twin `grouped_plain_attention_torch`.
+* `prefill_attention_raw` is K5, causal self-attention with a per-sample
+  left pad in the raw (B, S, H*D) projection layout (the int8-cache
+  prefill), beside `prefill_attention_raw_torch`;
+  `prefill_attention_trainable` is its pure-causal forward for the
+  cache-free pass at a ragged S.
 * `multi_head_attention` dispatches by the tensors' device only: the
   wrappers below take their plain version for CPU tensors and launch the
   kernel for CUDA tensors. The TPU rules for VMEM size and lane alignment
@@ -23,6 +29,8 @@ from typing import Optional
 import torch
 
 from .. import _kernels
+
+NEG_INF = -1e30          # grove_tpu/ops/attention.py:63, K5's masked logit
 
 
 def xla_attention(q, k, v, *, causal: bool = False,
@@ -100,3 +108,65 @@ def multi_head_attention(q, k, v, *, causal: bool = False,
         from .flash_backward import flash_forward_lse
         return flash_forward_lse(q, k, v, causal=True, scale=scale)[0]
     return grouped_plain_attention(q, k, v, scale=scale)
+
+
+def prefill_attention_raw_torch(q, k, v, pad_lens, num_heads: int,
+                                scale: float):
+    """Plain version of K5 with the TPU kernel's numerics
+    (`grove_tpu/ops/attention.py:197-226`): fp32 logits, invalid slots set
+    to NEG_INF, one softmax over the full S, p cast to the input dtype
+    before P.V (fp32 accumulation) and the fp32 sum of p, floored at 1e-30,
+    as the denominator. Valid: (k <= q) & ((k >= pad) | (k == q))."""
+    b, s, c = q.shape
+    hd = c // num_heads
+    qh, kh, vh = (t.reshape(b, s, num_heads, hd) for t in (q, k, v))
+    logits = torch.einsum("bqhd,bkhd->bhqk", qh.float(), kh.float()) * scale
+    pos = torch.arange(s, device=q.device)
+    qpos, kpos = pos[:, None], pos[None, :]
+    pad = pad_lens.long()[:, None, None, None]
+    valid = (kpos <= qpos) & ((kpos >= pad) | (kpos == qpos))
+    logits = torch.where(valid, logits, NEG_INF)
+    p = torch.exp(logits - logits.amax(-1, keepdim=True))
+    denom = p.sum(-1, keepdim=True).clamp_min(1e-30)
+    out = torch.einsum("bhqk,bkhd->bqhd", p.to(q.dtype).float(), vh.float())
+    out = out / denom.permute(0, 2, 1, 3)
+    return out.to(q.dtype).reshape(b, s, c)
+
+
+def prefill_attention_raw(q, k, v, pad_lens, num_heads: int, scale: float):
+    """K5: causal self-attention over fresh q/k/v in the raw (B, S, H*D)
+    layout; pad_lens (B,) counts each sample's leading masked key slots
+    (0 = pure causal). Returns (B, S, H*D).
+
+    CPU tensors take `prefill_attention_raw_torch`; CUDA tensors launch
+    `csrc/prefill_attention.cu`, which reads the heads in place."""
+    b, s, c = q.shape
+    if k.shape != q.shape or v.shape != q.shape or c % num_heads:
+        raise ValueError(f"prefill_attention_raw: q/k/v {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)} with "
+                         f"{num_heads} heads")
+    if tuple(pad_lens.shape) != (b,):
+        raise ValueError(f"prefill_attention_raw: pad_lens "
+                         f"{tuple(pad_lens.shape)} for batch {b}")
+    if _kernels.on_cpu(q, k, v, pad_lens):
+        return prefill_attention_raw_torch(q, k, v, pad_lens, num_heads,
+                                           scale)
+    hd = c // num_heads
+    dt = _kernels.check_cuda_inputs("prefill_attention_raw", (q, k, v), hd,
+                                    b * num_heads)
+    pad = pad_lens.to(torch.int32).contiguous()
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        _kernels.KERNELS["prefill_attention"](
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), pad.data_ptr(),
+            out.data_ptr(), b, s, num_heads, hd, float(scale), dt,
+            _kernels.stream_ptr(q))
+    return out
+
+
+def prefill_attention_trainable(q, k, v, num_heads: int, scale: float):
+    """Forward of the JAX package's `prefill_attention_trainable`: K5 with
+    no pad, for the cache-free pass at an S that is not a multiple of 64.
+    Its backward belongs to the training slice."""
+    pad = torch.zeros((q.shape[0],), dtype=torch.int32, device=q.device)
+    return prefill_attention_raw(q, k, v, pad, num_heads, scale)

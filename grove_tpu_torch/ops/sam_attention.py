@@ -30,6 +30,14 @@ from .. import _kernels
 from .attention import xla_attention
 from .sam_encoder_tables import gather_rel_tables
 
+# The TPU K1 takes its softmax as exp2(logit - EXP2_SHIFT) in log2 units
+# (grove_tpu/ops/sam_attention.py:29-39), so a row whose largest logit lies
+# below EXP2_SHIFT - 126 underflows everywhere and comes out as 0. K1 and its
+# plain twin keep that contract; the overflow of terms above
+# EXP2_SHIFT + 127 on the TPU is a fault they do not copy.
+EXP2_SHIFT = 32.0
+LOG2E = 1.4426950408889634
+
 
 def relpos_terms(q, rel_pos_h, rel_pos_w, hw: Tuple[int, int]):
     """q: (B, S, H, D) unscaled -> (B, H, S, gh), (B, H, S, gw)."""
@@ -139,15 +147,20 @@ def grouped_window_attention_relpos_v3_torch(qkv, rel_packed,
                                              hw: Tuple[int, int],
                                              num_heads: int):
     """Plain version of K1: split views of qkv, materialized bias,
-    max-subtracted fp32 softmax (the TPU kernel's exp2 constant shift is
-    not reproduced). qkv (nW, S, 3C) -> (nW, S, C)."""
+    max-subtracted fp32 softmax, and 0 for a row whose largest logit
+    (log2 units) lies below EXP2_SHIFT - 126. qkv (nW, S, 3C) ->
+    (nW, S, C)."""
     gh, gw = hw
     b, s, c3 = qkv.shape
     q, k, v = _split_heads(qkv, num_heads)
     rel = rel_packed.reshape(b, s, num_heads, gh + gw).permute(0, 2, 1, 3)
     bias = _expand_bias(rel[..., :gh], rel[..., gh:])
-    out = xla_attention(q, k, v, bias=bias,
-                        scale=1.0 / math.sqrt(q.shape[-1]))
+    logits = (torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+              * (1.0 / math.sqrt(q.shape[-1])) + bias)
+    underflow = (logits.amax(-1, keepdim=True) * LOG2E
+                 < EXP2_SHIFT - 126.0)
+    probs = torch.softmax(logits, dim=-1).masked_fill(underflow, 0.0)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs.to(qkv.dtype), v)
     return out.reshape(b, s, c3 // 3)
 
 
@@ -158,7 +171,8 @@ def grouped_window_attention_relpos_v3(qkv, rel_packed, hw: Tuple[int, int],
 
     CPU tensors take `grouped_window_attention_relpos_v3_torch`; CUDA
     tensors launch `csrc/sam_window_attention.cu`, which reads q, k and v
-    at lane offsets of the unsplit qkv."""
+    at lane offsets of the unsplit qkv. Both return 0 for an all-underflow
+    row (see EXP2_SHIFT)."""
     gh, gw = hw
     b, s, c3 = qkv.shape
     c = c3 // 3

@@ -22,6 +22,8 @@ from grove_tpu.ops import flash_backward as jflash  # noqa: E402
 from grove_tpu.ops import sam_attention as jsam  # noqa: E402
 from grove_tpu_torch import _kernels  # noqa: E402
 from grove_tpu_torch.ops import attention as tattn  # noqa: E402
+from grove_tpu_torch.ops import decode_attention as tdec  # noqa: E402
+from grove_tpu_torch.ops import int4_matmul as tint4  # noqa: E402
 from grove_tpu_torch.ops import flash_backward as tflash  # noqa: E402
 from grove_tpu_torch.ops import sam_attention as tsam  # noqa: E402
 
@@ -55,6 +57,32 @@ def test_k1_window_attention_matches_pallas(nw, win, heads, d):
                                            heads)
     got = tsam.sam_window_attention_fused(_t(qkv), _t(rh), _t(rw),
                                           (win, win), heads)
+    _close(got, want)
+
+
+def test_k1_all_underflow_row_is_zero():
+    """K1's contract from the TPU kernel's constant exp2 shift
+    (`sam_attention.py:29-39`): row 0 of window 0 has every logit near -300
+    in log2 units, so the Pallas kernel (interpret mode) returns zeros
+    there, and so does the port's plain K1; every other row matches."""
+    rng = np.random.default_rng(7)
+    nw, win, heads, d = 2, 4, 2, 8
+    s, c = win * win, heads * d
+    qkv = _randn(rng, nw, s, 3 * c)
+    kk = np.ones(d, np.float32)
+    for h in range(heads):
+        qkv[0, :, c + h * d:c + (h + 1) * d] = (
+            kk + 0.3 * _randn(rng, s, d))
+        qkv[0, 0, h * d:(h + 1) * d] = -73.0 * kk
+    rh = _randn(rng, 2 * win - 1, d) * 0.01
+    rw = _randn(rng, 2 * win - 1, d) * 0.01
+    want = np.asarray(jsam.sam_window_attention_fused(
+        jnp.asarray(qkv), jnp.asarray(rh), jnp.asarray(rw), (win, win),
+        heads))
+    got = tsam.sam_window_attention_fused(_t(qkv), _t(rh), _t(rw),
+                                          (win, win), heads).numpy()
+    assert np.all(want[0, 0] == 0) and np.all(got[0, 0] == 0)
+    assert np.all(np.abs(got[0, 1:]) > 0)
     _close(got, want)
 
 
@@ -160,6 +188,11 @@ def test_wrappers_refuse_other_devices():
         tattn.grouped_plain_attention(q, q, q)
     with pytest.raises(ValueError, match="CPU or CUDA"):
         tflash.flash_forward_lse(q, q, q, causal=True, scale=1.0)
+    x = torch.zeros(2, 64, device="meta")
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        tint4.int4_matmul(x, torch.zeros(32, 8, dtype=torch.int8,
+                                         device="meta"),
+                          torch.ones(2, 8, device="meta"))
 
 
 def test_launch_counts_untouched_by_plain_path():
@@ -167,6 +200,16 @@ def test_launch_counts_untouched_by_plain_path():
     x = torch.zeros(1, 4, 2, 8)
     tattn.grouped_plain_attention(x, x, x)
     tflash.flash_forward_lse(x, x, x, causal=True, scale=1.0)
+    tattn.prefill_attention_raw(x.reshape(1, 4, 16), x.reshape(1, 4, 16),
+                                x.reshape(1, 4, 16),
+                                torch.zeros(1, dtype=torch.long), 2, 1.0)
+    kt = torch.zeros(1, 2, 128, 8, dtype=torch.int8)
+    sc = torch.ones(1, 2, 128, dtype=torch.bfloat16)
+    tdec.int8_cache_decode_attention(x[:, 0], kt, kt, sc, sc,
+                                     torch.zeros(1, 128))
+    tint4.int4_matmul(torch.zeros(2, 64), torch.zeros(32, 8,
+                                                      dtype=torch.int8),
+                      torch.ones(2, 8))
     assert all(k.launches == 0 for k in _kernels.KERNELS.values())
     assert {k.source.split("/")[-1] for k in _kernels.KERNELS.values()} == {
         p.name for p in _kernels.sources() if p.name != "errors.cu"}

@@ -39,7 +39,8 @@ def test_normalization_constants_equal_originals():
 
 def test_import_leaves_jax_and_pil_out():
     code = ("import sys, grove_tpu_torch, grove_tpu_torch.infer.sliding, "
-            "grove_tpu_torch.checkpoint.convert, grove_tpu_torch._kernels; "
+            "grove_tpu_torch.checkpoint.convert, grove_tpu_torch._kernels, "
+            "grove_tpu_torch.api, grove_tpu_torch.api.processor; "
             "print(sorted(m for m in ('jax', 'PIL', 'flax') "
             "if m in sys.modules))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -108,8 +109,38 @@ def test_video_adapter_matches_jax():
                                atol=1e-5)
 
 
-@pytest.mark.parametrize("field", ["weight_quant", "act_quant", "fused_qkv",
-                                   "lora_r"])
+def test_skip_patterns_copy_equals_original():
+    from grove_tpu.checkpoint import torch_convert
+    from grove_tpu_torch.checkpoint import convert
+    assert convert.SKIP_PATTERNS == torch_convert.SKIP_PATTERNS
+
+
+@pytest.mark.parametrize("key", [None, "bf16", "bfloat16", "int8", "fp32",
+                                 "float32"])
+def test_decode_kwargs_table_equals_original(key):
+    """The port's copy of `api/processor.py:_decode_kwargs` maps each
+    kv_cache_dtype to the same dtype and builds the same other options."""
+    from grove_tpu.api.processor import _decode_kwargs as jkw
+    from grove_tpu_torch.api.processor import _decode_kwargs as tkw
+    want, got = jkw(key, True), tkw(key, True)
+    assert set(got) == set(want)
+    assert str(got.pop("cache_dtype")).split(".")[-1] == \
+        jnp.dtype(want.pop("cache_dtype")).name
+    assert got == want
+
+
+def test_decode_kwargs_rejects_like_original():
+    from grove_tpu.api.processor import _decode_kwargs as jkw
+    from grove_tpu_torch.api.processor import _decode_kwargs as tkw
+    for args, kw in ((("int4", True), {}), (("int8", True),
+                                            {"num_beams": 2}),
+                     ((None, True), {"top_k": 3})):
+        for fn in (jkw, tkw):
+            with pytest.raises(ValueError):
+                fn(*args, **kw)
+
+
+@pytest.mark.parametrize("field", ["act_quant", "fused_qkv", "lora_r"])
 def test_unported_llama_options_raise(field):
     value = 8 if field == "lora_r" else True
     cfg = dataclasses.replace(LlamaConfig.tiny(), **{field: value})
@@ -144,8 +175,8 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="sampled decoding"):
         greedy_decode(model, ids, feats, [-1], max_new_tokens=2, eos_id=2,
                       temperature=0.7)
-    with pytest.raises(NotImplementedError, match="int8 cache"):
-        tllama.init_kv_caches(cfg.llama, 1, 4, dtype=torch.int8,
+    with pytest.raises(ValueError, match="KV cache dtype"):
+        tllama.init_kv_caches(cfg.llama, 1, 4, dtype=torch.int16,
                               device="cpu")
 
 

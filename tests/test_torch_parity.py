@@ -86,6 +86,34 @@ def test_strict_load_names_every_parameter(models):
             GroveModel(cfg, device="cpu", dtype=torch.float32), sd)
 
 
+def test_strict_load_drops_reference_only_keys(models, tmp_path):
+    """A reference checkpoint's `vision_model.post_layernorm.*` and
+    `rotary_emb.inv_freq` keys are dropped (the JAX converter's
+    SKIP_PATTERNS); any other unknown key still raises."""
+    cfg, _, variables, _ = models
+    sd = to_torch_state_dict(variables["params"], cfg)
+    tower = "model.vision_tower.vision_tower.vision_model."
+    d = cfg.clip.hidden_size
+    sd[tower + "post_layernorm.weight"] = np.ones(d, np.float32)
+    sd[tower + "post_layernorm.bias"] = np.zeros(d, np.float32)
+    sd["model.layers.0.self_attn.rotary_emb.inv_freq"] = np.ones(
+        cfg.llama.head_dim // 2, np.float32)
+    model = GroveModel(cfg, device="cpu", dtype=torch.float32)
+    load_reference_state_dict(model, sd)
+    # the same file through the API entry point
+    from grove_tpu_torch.api import GroveForCausalLM
+    path = tmp_path / "grove.bin"
+    torch.save({k: torch.from_numpy(np.array(v)) for k, v in sd.items()},
+               path)
+    lm = GroveForCausalLM.from_pretrained(str(path), "tiny",
+                                          dtype=torch.float32)
+    for k, v in model.state_dict().items():
+        assert torch.equal(lm.model.state_dict()[k], v), k
+    sd["model.layers.0.self_attn.unknown.weight"] = np.ones(2, np.float32)
+    with pytest.raises(RuntimeError, match="Unexpected key"):
+        load_reference_state_dict(model, sd)
+
+
 def test_clip_encode_video_matches(models):
     cfg, jmodel, variables, tmodel = models
     fc, _ = _frames(cfg, np.random.default_rng(1), 2)
