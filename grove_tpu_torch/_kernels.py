@@ -179,6 +179,21 @@ KERNELS: Dict[str, Kernel] = {
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
         "grove_tpu_torch/csrc/int4_matmul.cu",
         "grove_tpu/ops/int4_matmul.py:317"),
+    "layernorm_quant": Kernel(
+        "grove_layernorm_quant",
+        [_P, _P, _P, _P, _I, _I, _F, _I, _P],
+        "grove_tpu_torch/csrc/layernorm_quant.cu",
+        "grove_tpu/ops/fused_ln.py:213"),
+    "add_layernorm_quant": Kernel(
+        "grove_add_layernorm_quant",
+        [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
+        "grove_tpu_torch/csrc/layernorm_quant.cu",
+        "grove_tpu/ops/fused_ln.py:68"),
+    "sam_window_attention_q8": Kernel(
+        "grove_sam_window_attention_q8",
+        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+        "grove_tpu_torch/csrc/sam_window_attention.cu",
+        "grove_tpu/ops/sam_attention.py:537"),
 }
 
 

@@ -1,5 +1,5 @@
 """Load a reference-named state dict into `models.grove.GroveModel`, and
-carry the JAX package's quantized LLM leaves across.
+carry the JAX package's quantized LLM and tower leaves across.
 
 The port's module tree carries the reference torch names
 (`model.vision_tower.vision_tower.vision_model.*`, `model.layers.N.*`,
@@ -76,7 +76,8 @@ def load_jax_quantized_llama(model: nn.Module, params: Mapping) -> nn.Module:
     buffer of the model is written. Other leaves are left to
     `load_reference_state_dict`."""
     targets = {name: buf for name, buf in model.named_buffers()
-               if name.rsplit(".", 1)[-1] in _QUANT_BUFFERS}
+               if name.rsplit(".", 1)[-1] in _QUANT_BUFFERS
+               and name.startswith(("model.layers.", "lm_head."))}
     written = set()
     for path, leaf in _flatten(params):
         m = _QUANT_LEAF.match(path)
@@ -105,4 +106,59 @@ def load_jax_quantized_llama(model: nn.Module, params: Mapping) -> nn.Module:
     if missing:
         raise KeyError(f"load_jax_quantized_llama: no leaf for {missing[:4]}"
                        f"{' ...' if len(missing) > 4 else ''}")
+    return model
+
+
+_TOWER_LEAVES = ("kernel_q", "scale", "act_scale", "proj_act_scale")
+
+
+@torch.no_grad()
+def load_jax_quantized_towers(model: nn.Module, params: Mapping) -> nn.Module:
+    """Copy the quantized tower leaves of a JAX GroveModel parameter tree
+    (after `quantize_clip_tree` / `quantize_sam_tree` and
+    `install_act_scales`: `kernel_q`, `scale`, `act_scale`,
+    `proj_act_scale` under `vision_tower/` and `grounding_encoder/`) into
+    the buffers of a port model whose towers are W8A8
+    (`ops.quant.quantize_vision_`), by path: `vision_tower/layers_N/fc2`
+    -> `...vision_model.encoder.layers.N.mlp.fc2`,
+    `grounding_encoder/blocks_N/attn` -> `...image_encoder.blocks.N.attn`
+    (`ops.quant.jax_site_path`). Strict: every such leaf lands in a buffer
+    of the same shape and dtype, and every such buffer of the towers is
+    written. Float leaves (norms, biases, rel-pos tables) are unchanged by
+    quantization and load through `load_reference_state_dict`."""
+    from ..ops.quant import jax_site_path, vision_towers
+    targets = {}
+    for key, tower in vision_towers(model).items():
+        for name, buf in tower.named_buffers():
+            mod, leaf = name.rsplit(".", 1)
+            if leaf in _TOWER_LEAVES:
+                path = (f"{key}/{jax_site_path(mod, key == 'vision_tower')}"
+                        f"/{leaf}")
+                targets[path] = (name, buf)
+    flat = dict(_flatten(params))
+    # a `scale` is quantized only beside a kernel_q (LayerNorm gammas are
+    # `scale` too)
+    quantized = {p.rsplit("/", 1)[0] for p in flat if p.endswith("/kernel_q")}
+    written = set()
+    for path, leaf in flat.items():
+        parent, name = path.rsplit("/", 1)
+        if (not path.startswith(("vision_tower/", "grounding_encoder/"))
+                or name not in _TOWER_LEAVES
+                or (name == "scale" and parent not in quantized)):
+            continue
+        if path not in targets:
+            raise KeyError(f"load_jax_quantized_towers: quantized leaf {path}"
+                           " has no buffer in the model")
+        name, dst = targets[path]
+        src = torch.from_numpy(np.array(leaf))
+        if src.shape != dst.shape or src.dtype != dst.dtype:
+            raise ValueError(f"load_jax_quantized_towers: {path} is "
+                             f"{src.dtype}{tuple(src.shape)}, {name} is "
+                             f"{dst.dtype}{tuple(dst.shape)}")
+        dst.copy_(src)
+        written.add(path)
+    missing = sorted(set(targets) - written)
+    if missing:
+        raise KeyError(f"load_jax_quantized_towers: no leaf for "
+                       f"{missing[:4]}{' ...' if len(missing) > 4 else ''}")
     return model

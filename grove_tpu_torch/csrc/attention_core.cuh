@@ -22,6 +22,8 @@
 //   * an optional per-batch left-pad count: keys below it are masked except
 //     each row's own key (K5, the int8-cache prefill);
 //   * the TPU K1's all-underflow contract (see kExp2Shift);
+//   * an int8 output (K1q): clip(rint(out * *out_inv), -127, 127), with the
+//     reciprocal of the static activation scale read from device memory;
 //   * the ragged edge: keys at or past S are masked and rows past S are not
 //     written, so no caller pads.
 //
@@ -36,6 +38,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace grove {
 
@@ -68,6 +71,7 @@ struct AttnArgs {
   const void* rh;     // rel_h terms (row, gh) per (b, h), or nullptr
   const void* rw;     // rel_w terms (row, gw) per (b, h)
   const int* pad;     // (B,) left-pad counts, or nullptr
+  const float* out_inv;  // K1q: o is int8, rint(out * *out_inv); or nullptr
   Strides qs, ks, vs, os, rhs, rws;
   int B, H, S, gh, gw;
   float scale;
@@ -244,7 +248,10 @@ __device__ __forceinline__ void attention_block(const AttnArgs& a) {
     }
   }
 
-  T* o = static_cast<T*>(a.o) + b * a.os.b + h * a.os.h;
+  const long long obase = b * a.os.b + h * a.os.h;
+  T* o = static_cast<T*>(a.o) + obase;
+  int8_t* oq = static_cast<int8_t*>(a.o) + obase;
+  const float qinv = a.out_inv != nullptr ? *a.out_inv : 0.f;
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     const int row = q0 + wrow + r;
@@ -255,7 +262,13 @@ __device__ __forceinline__ void attention_block(const AttnArgs& a) {
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int d = lane + 32 * c;
-      if (d < D) o[row * a.os.s + d] = from_f<T>(acc[r][c] * inv);
+      if (d >= D) continue;
+      const float x = acc[r][c] * inv;
+      if (a.out_inv != nullptr)
+        oq[row * a.os.s + d] =
+            (int8_t)fminf(fmaxf(rintf(x * qinv), -127.f), 127.f);
+      else
+        o[row * a.os.s + d] = from_f<T>(x);
     }
     if (a.lse != nullptr && lane == 0)
       a.lse[((long long)b * a.H + h) * a.S + row] = (m[r] + log2f(lsafe)) * kLn2;

@@ -1,9 +1,18 @@
-// K1: windowed SAM attention with decomposed rel-pos bias, reading the
-// UNSPLIT qkv projection.
+// K1 and K1q: windowed SAM attention with decomposed rel-pos bias, reading
+// the UNSPLIT qkv projection.
 //
 // Replaces grove_tpu/ops/sam_attention.py:_grouped_kernel_v3 (its
-// pallas_call is at :537, reached through sam_window_attention_fused, :692),
-// used by the 28 windowed blocks of the SAM ViT-H encoder.
+// pallas_call is at :537, reached through sam_window_attention_fused, :692,
+// and with quantize=True through sam_window_attention_fused_q8, :675), used
+// by the 28 windowed blocks of the SAM ViT-H encoder: K1 in the bf16 tower,
+// K1q in the W8A8-static one, where it writes the int8 input of the proj
+// linear directly,
+//
+//   out_q8 = clip(rint(out * inv_scale), -127, 127),
+//   inv_scale = 1 / max(proj_act_scale, 1e-12)
+//
+// (an all-underflow row is 0 before and after). inv_scale is a (1,) fp32
+// tensor on the card, read by the kernel, so the host never syncs on it.
 //
 //   out[w, i, h] = softmax_j(q_h[i] . k_h[j] * scale
 //                            + rel_h[w, i, h, j / gw] + rel_w[w, i, h, j % gw])
@@ -13,7 +22,7 @@
 // read in place at lane offsets h*D, C + h*D and 2C + h*D, so the three-way
 // split is never materialized. rel is (nW, S, heads*(gh + gw)), per head
 // [rel_h | rel_w], as grove_tpu_torch.ops.sam_attention.relpos_terms_raw
-// packs it. out is (nW, S, C).
+// packs it. out is (nW, S, C), in qkv's dtype (K1) or int8 (K1q).
 //
 // Bound on the H100: fp32 FMA issue and shared-memory reads (see
 // attention_core.cuh). At the full-width shape (nW = 9 per frame, S = 196,
@@ -34,11 +43,11 @@
 
 GROVE_ATTENTION_ENTRY(sam_window_attention)
 
-extern "C" int grove_sam_window_attention(const void* qkv, const void* rel,
-                                          void* out, int nw, int s,
-                                          int heads, int head_dim, int gh,
-                                          int gw, float scale, int dtype,
-                                          void* stream) {
+namespace {
+
+grove::AttnArgs window_args(const void* qkv, const void* rel, void* out,
+                            int nw, int s, int heads, int head_dim, int gh,
+                            int gw, float scale, int dtype) {
   const long long esize = dtype == 0 ? 4 : 2;
   const long long c = (long long)heads * head_dim;
   const long long gs = gh + gw;
@@ -65,6 +74,29 @@ extern "C" int grove_sam_window_attention(const void* qkv, const void* rel,
   a.scale = scale;
   a.causal = 0;
   a.zero_underflow = 1;
+  return a;
+}
+
+}  // namespace
+
+extern "C" int grove_sam_window_attention(const void* qkv, const void* rel,
+                                          void* out, int nw, int s,
+                                          int heads, int head_dim, int gh,
+                                          int gw, float scale, int dtype,
+                                          void* stream) {
+  const grove::AttnArgs a = window_args(qkv, rel, out, nw, s, heads,
+                                        head_dim, gh, gw, scale, dtype);
+  return sam_window_attention_dispatch(a, dtype, head_dim,
+                                       static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int grove_sam_window_attention_q8(
+    const void* qkv, const void* rel, const void* inv_scale, void* out,
+    int nw, int s, int heads, int head_dim, int gh, int gw, float scale,
+    int dtype, void* stream) {
+  grove::AttnArgs a = window_args(qkv, rel, out, nw, s, heads, head_dim, gh,
+                                  gw, scale, dtype);
+  a.out_inv = static_cast<const float*>(inv_scale);
   return sam_window_attention_dispatch(a, dtype, head_dim,
                                        static_cast<cudaStream_t>(stream));
 }

@@ -13,6 +13,13 @@ reference's HF CLIP (`model.vision_tower.vision_tower.vision_model.*`):
 
 Self-attention goes through `ops.attention.multi_head_attention`, i.e. K3 on
 the card.
+
+With `cfg.quant_w8a8` (the W8A8 tower, `ops.quant.quantize_clip_` or a
+quantized config; `clip.py:41-137`): `layer_norm1` / `layer_norm2` are
+`LayerNormQuant`s whose int8 output feeds q/k/v_proj and fc1 (one quantize
+for the three projections), out_proj and fc2 quantize their own inputs, and
+the adapters' conv is `Int8Conv3d`. Attention stays K3 in the compute
+dtype; the embeddings, `pre_layrnorm` and the pooling stay float.
 """
 
 from __future__ import annotations
@@ -25,8 +32,25 @@ from torch import nn
 from grove_tpu.config import ClipVisionConfig
 
 from ..ops.attention import multi_head_attention
-from .layers import (SpatioTemporalConvAdapter, adaptive_avg_pool_3d,
-                     check_vision_config)
+from .layers import (Int8Linear, LayerNormQuant, SpatioTemporalConvAdapter,
+                     adaptive_avg_pool_3d)
+
+
+def _linear(cfg: ClipVisionConfig, k: int, n: int, f, act_site=False):
+    """nn.Linear, or the W8A8 `Int8Linear` of a quantized tower (the JAX
+    `_dense` factory, `clip.py:41-49`)."""
+    if cfg.quant_w8a8:
+        return Int8Linear(k, n, bias=True, act_quant=True, act_site=act_site,
+                          static_act=cfg.quant_static_act, **f)
+    return nn.Linear(k, n, **f)
+
+
+def _norm(cfg: ClipVisionConfig, f):
+    if cfg.quant_w8a8:
+        return LayerNormQuant(cfg.hidden_size, cfg.layer_norm_eps,
+                              static_act=cfg.quant_static_act,
+                              use_kernel=cfg.quant_ln_kernel, **f)
+    return nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps, **f)
 
 
 class ClipAttention(nn.Module):
@@ -35,17 +59,18 @@ class ClipAttention(nn.Module):
         d = cfg.hidden_size
         f = dict(device=device, dtype=dtype)
         self.num_heads = cfg.num_heads
-        self.q_proj = nn.Linear(d, d, **f)
-        self.k_proj = nn.Linear(d, d, **f)
-        self.v_proj = nn.Linear(d, d, **f)
-        self.out_proj = nn.Linear(d, d, **f)
+        self.q_proj = _linear(cfg, d, d, f)
+        self.k_proj = _linear(cfg, d, d, f)
+        self.v_proj = _linear(cfg, d, d, f)
+        self.out_proj = _linear(cfg, d, d, f, act_site=True)
 
-    def forward(self, x):
+    def forward(self, x, sx=None):          # int8 x + sx in W8A8
         b, s, d = x.shape
         hd = d // self.num_heads
-        q = self.q_proj(x).reshape(b, s, self.num_heads, hd)
-        k = self.k_proj(x).reshape(b, s, self.num_heads, hd)
-        v = self.v_proj(x).reshape(b, s, self.num_heads, hd)
+        xs = (x,) if sx is None else (x, sx)
+        q = self.q_proj(*xs).reshape(b, s, self.num_heads, hd)
+        k = self.k_proj(*xs).reshape(b, s, self.num_heads, hd)
+        v = self.v_proj(*xs).reshape(b, s, self.num_heads, hd)
         out = multi_head_attention(q, k, v)
         return self.out_proj(out.reshape(b, s, d))
 
@@ -54,11 +79,12 @@ class ClipMLP(nn.Module):
     def __init__(self, cfg: ClipVisionConfig, *, device=None, dtype=None):
         super().__init__()
         f = dict(device=device, dtype=dtype)
-        self.fc1 = nn.Linear(cfg.hidden_size, cfg.intermediate_size, **f)
-        self.fc2 = nn.Linear(cfg.intermediate_size, cfg.hidden_size, **f)
+        self.fc1 = _linear(cfg, cfg.hidden_size, cfg.intermediate_size, f)
+        self.fc2 = _linear(cfg, cfg.intermediate_size, cfg.hidden_size, f,
+                           act_site=True)
 
-    def forward(self, x):
-        h = self.fc1(x)
+    def forward(self, x, sx=None):
+        h = self.fc1(x) if sx is None else self.fc1(x, sx)
         return self.fc2(h * torch.sigmoid(1.702 * h))   # OpenAI quick_gelu
 
 
@@ -67,15 +93,19 @@ class ClipEncoderLayer(nn.Module):
         super().__init__()
         f = dict(device=device, dtype=dtype)
         self.self_attn = ClipAttention(cfg, **f)
-        self.layer_norm1 = nn.LayerNorm(cfg.hidden_size,
-                                        eps=cfg.layer_norm_eps, **f)
+        self.layer_norm1 = _norm(cfg, f)
         self.mlp = ClipMLP(cfg, **f)
-        self.layer_norm2 = nn.LayerNorm(cfg.hidden_size,
-                                        eps=cfg.layer_norm_eps, **f)
+        self.layer_norm2 = _norm(cfg, f)
 
     def forward(self, x):
-        x = x + self.self_attn(self.layer_norm1(x))
-        return x + self.mlp(self.layer_norm2(x))
+        """The norms hand (int8, scale) to the projections in W8A8, the
+        float activations otherwise."""
+        x = x + self.self_attn(*_tuple(self.layer_norm1(x)))
+        return x + self.mlp(*_tuple(self.layer_norm2(x)))
+
+
+def _tuple(out):
+    return out if isinstance(out, tuple) else (out,)
 
 
 class ClipEmbeddings(nn.Module):
@@ -108,7 +138,8 @@ class ClipEncoder(nn.Module):
         # one adapter after each layer i with i % adapter_every == 0 (the
         # JAX tower's count; `cfg.num_adapters` rounds down instead)
         self.adapters = nn.ModuleList(
-            SpatioTemporalConvAdapter(cfg.hidden_size, **f)
+            SpatioTemporalConvAdapter(cfg.hidden_size, w8a8=cfg.quant_w8a8,
+                                      static_act=cfg.quant_static_act, **f)
             for _ in range(0, cfg.num_layers, cfg.adapter_every))
 
 
@@ -120,7 +151,6 @@ class ClipVisionTransformer(nn.Module):
                  pool_thw: Tuple[int, int, int], num_region_levels: int = 4,
                  *, device=None, dtype=None):
         super().__init__()
-        check_vision_config(cfg)
         f = dict(device=device, dtype=dtype)
         self.cfg = cfg
         self.pool_thw = tuple(pool_thw)

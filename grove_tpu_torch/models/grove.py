@@ -1,4 +1,5 @@
-"""GROVE top-level model: grounded video caption generation, bf16 inference.
+"""GROVE top-level model: grounded video caption generation, inference in
+bf16 or with the quantized serving modules (`ops.quant`).
 
 Counterpart of `grove_tpu/models/grove.py` (`GroveModel`), with the module
 tree of the reference `GROVEForCausalLM` so its state dict carries the
@@ -293,8 +294,8 @@ def init_params_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     drawn in fp32 on the parameter's device and cast. Quantized linears get
     the JAX init's placeholders (zero kernels, unit scales); random
     quantized weights come from quantizing random float ones
-    (`ops.quant.quantize_llama_`)."""
-    from .layers import Int4Linear, Int8Linear, LayerNorm2d, RMSNorm
+    (`ops.quant.quantize_llama_`, `quantize_vision_`)."""
+    from .layers import LayerNorm2d, LayerNormQuant, RMSNorm
 
     def randn(p, std):
         x = torch.randn(p.shape, generator=generator, device=p.device,
@@ -302,7 +303,7 @@ def init_params_(model: nn.Module, generator: torch.Generator) -> nn.Module:
         p.copy_(x * std)
 
     for mname, mod in model.named_modules():
-        if isinstance(mod, (Int4Linear, Int8Linear)):
+        if hasattr(mod, "reset_placeholders_"):
             mod.reset_placeholders_()
         for pname, p in mod.named_parameters(recurse=False):
             full = f"{mname}.{pname}" if mname else pname
@@ -310,7 +311,8 @@ def init_params_(model: nn.Module, generator: torch.Generator) -> nn.Module:
                 p.fill_(0.1)
             elif pname == "bias":
                 p.zero_()
-            elif isinstance(mod, _ONES + (LayerNorm2d, RMSNorm)):
+            elif isinstance(mod, _ONES + (LayerNorm2d, LayerNormQuant,
+                                          RMSNorm)):
                 p.fill_(1.0)
             elif isinstance(mod, (nn.Linear, nn.Conv2d, nn.Conv3d)):
                 fan_in = p[0].numel()

@@ -12,6 +12,16 @@ adapter after each global block. Activations stay channels-last
   the unsplit qkv (`ops.sam_attention.sam_window_attention_fused`).
 * Global blocks: K2 over the full grid (`sam_attention_with_relpos`).
 * The neck runs in fp32 like the reference's overflow guard.
+
+With `cfg.quant_w8a8` (the W8A8 tower, `ops.quant.quantize_sam_` or a
+quantized config) the blocks follow `sam_encoder.py:120-270`: the norms are
+`LayerNormQuant`s that hand int8 activations to qkv and lin1, so the window
+partition moves int8 bytes; with static scales (`quant_static_act`) the
+windowed attention is K1q, which writes proj's int8 input directly, and
+every residual add happens inside the next norm's K8b: a block returns its
+MLP branch un-added, and the sum is materialized only after each global
+block (the adapter needs it) and before the neck. Patch embedding, position
+embeddings, adapters' gates and the neck stay float.
 """
 
 from __future__ import annotations
@@ -24,9 +34,11 @@ from grove_tpu.config import SamEncoderConfig
 
 from ..ops.attention import xla_attention
 from ..ops.sam_attention import (sam_attention_with_relpos,
-                                 sam_window_attention_fused)
-from .layers import (LayerNorm2d, MLPBlock, SpatioTemporalConvAdapter,
-                     check_vision_config)
+                                 sam_window_attention_fused,
+                                 sam_window_attention_fused_q8)
+from .layers import (Int8Linear, LayerNorm2d, LayerNormQuant, MLPBlock,
+                     SpatioTemporalConvAdapter, quant_act, quant_act_static,
+                     record_absmax)
 
 
 def window_partition(x, window: int):
@@ -53,6 +65,10 @@ def window_unpartition(windows, window: int, pad_hw, hw):
 
 
 class SamAttention(nn.Module):
+    """ViTDet attention. In W8A8 (`w8a8`) qkv and proj are `Int8Linear`s
+    and the module owns `proj_act_scale`, the calibrated scale of proj's
+    input; `static_act` selects the static path (`sam_encoder.py:100-229`)."""
+
     def __init__(self, cfg: SamEncoderConfig, input_size: int,
                  window: int = 0, *, device=None, dtype=None):
         super().__init__()
@@ -61,8 +77,17 @@ class SamAttention(nn.Module):
         self.num_heads = cfg.num_heads
         self.window = window
         self.use_rel_pos = cfg.use_rel_pos
-        self.qkv = nn.Linear(c, 3 * c, **f)
-        self.proj = nn.Linear(c, c, **f)
+        self.static_act = cfg.quant_static_act
+        if cfg.quant_w8a8:
+            q = dict(bias=True, act_quant=True,
+                     static_act=cfg.quant_static_act, **f)
+            self.qkv = Int8Linear(c, 3 * c, **q)
+            self.proj = Int8Linear(c, c, **q)
+            self.register_buffer("proj_act_scale", torch.ones(
+                (), dtype=torch.float32, device=device))
+        else:
+            self.qkv = nn.Linear(c, 3 * c, **f)
+            self.proj = nn.Linear(c, c, **f)
         if cfg.use_rel_pos:
             hd = c // cfg.num_heads
             self.rel_pos_h = nn.Parameter(
@@ -70,22 +95,46 @@ class SamAttention(nn.Module):
             self.rel_pos_w = nn.Parameter(
                 torch.zeros(2 * input_size - 1, hd, **f))
 
-    def forward(self, x):                               # (B, H, W, C)
+    @property
+    def w8a8(self) -> bool:
+        return isinstance(self.qkv, Int8Linear)
+
+    @torch.no_grad()
+    def reset_placeholders_(self):
+        if self.w8a8 and not self.proj_act_scale.is_meta:
+            self.proj_act_scale.fill_(1.0)
+
+    def forward(self, x, sx=None):          # (B, H, W, C); int8 + sx in W8A8
         b, h, w, c = x.shape
         nh = self.num_heads
         hd = c // nh
         win = self.window
+        if self.w8a8 and sx is None:
+            x, sx = quant_act(x)            # standalone use, no LN producer
         if win > 0:
-            xw, pad_hw = window_partition(x, win)       # (nW, win, win, C)
-            nb, s, hw = xw.shape[0], win * win, (win, win)
-            qkv = self.qkv(xw.reshape(nb, s, c))        # (nW, S, 3C)
+            x, pad_hw = window_partition(x, win)        # (nW, win, win, C)
+            if sx is not None and sx.dim() > 0:
+                sx, _ = window_partition(sx, win)
+            nb, s, hw = x.shape[0], win * win, (win, win)
         else:
             nb, s, hw = b, h * w, (h, w)
-            qkv = self.qkv(x.reshape(b, s, c))
+        if sx is None:
+            qkv = self.qkv(x.reshape(nb, s, c))         # (nb, S, 3C)
+        else:
+            qkv = self.qkv(x.reshape(nb, s, c),
+                           sx if sx.dim() == 0 else sx.reshape(nb, s, 1))
 
+        static = self.w8a8 and self.static_act
+        out_q8 = None                       # proj's int8 input, from K1q
         if self.use_rel_pos and win > 0:
-            out = sam_window_attention_fused(qkv, self.rel_pos_h,
-                                             self.rel_pos_w, hw, nh)
+            if static:
+                out_q8 = sam_window_attention_fused_q8(
+                    qkv, self.rel_pos_h, self.rel_pos_w, hw, nh,
+                    self.proj_act_scale)
+                out = out_q8
+            else:
+                out = sam_window_attention_fused(qkv, self.rel_pos_h,
+                                                 self.rel_pos_w, hw, nh)
         else:
             q, k, v = (t.reshape(nb, s, nh, hd).contiguous()
                        for t in qkv.split(c, dim=-1))
@@ -100,7 +149,19 @@ class SamAttention(nn.Module):
             out = window_unpartition(out.reshape(nb, win, win, c), win,
                                      pad_hw, (h, w))
         out = out.reshape(b, h * w, c)
-        return self.proj(out).reshape(b, h, w, c)
+        if not self.w8a8:
+            return self.proj(out).reshape(b, h, w, c)
+        if out_q8 is not None:
+            out = self.proj(out, self.proj_act_scale)
+        elif static:
+            xq, _ = quant_act_static(out, self.proj_act_scale)
+            out = self.proj(xq, self.proj_act_scale)
+        else:
+            # dynamic serving and the calibration pass: this module owns
+            # the stat, so proj never re-quantizes
+            record_absmax(self, "proj_absmax", out)
+            out = self.proj(*quant_act(out))
+        return out.reshape(b, h, w, c)
 
 
 class SamBlock(nn.Module):
@@ -109,15 +170,32 @@ class SamBlock(nn.Module):
         super().__init__()
         f = dict(device=device, dtype=dtype)
         c = cfg.embed_dim
-        self.norm1 = nn.LayerNorm(c, eps=cfg.layer_norm_eps, **f)
+        if cfg.quant_w8a8:
+            q = dict(static_act=cfg.quant_static_act,
+                     use_kernel=cfg.quant_ln_kernel, **f)
+            self.norm1 = LayerNormQuant(c, cfg.layer_norm_eps, **q)
+            self.norm2 = LayerNormQuant(c, cfg.layer_norm_eps, **q)
+        else:
+            self.norm1 = nn.LayerNorm(c, eps=cfg.layer_norm_eps, **f)
+            self.norm2 = nn.LayerNorm(c, eps=cfg.layer_norm_eps, **f)
         self.attn = SamAttention(cfg, input_size=window_size or cfg.grid,
                                  window=window_size, **f)
-        self.norm2 = nn.LayerNorm(c, eps=cfg.layer_norm_eps, **f)
-        self.mlp = MLPBlock(c, int(c * cfg.mlp_ratio), **f)
+        self.mlp = MLPBlock(c, int(c * cfg.mlp_ratio), w8a8=cfg.quant_w8a8,
+                            static_act=cfg.quant_static_act, **f)
 
-    def forward(self, x):
-        x = x + self.attn(self.norm1(x))
-        return x + self.mlp(self.norm2(x))
+    def forward(self, x, branch=None):
+        """bf16: the reference dataflow. W8A8: takes the previous block's
+        un-added MLP branch and returns (resid, this block's MLP branch),
+        so each residual add runs inside a norm (`sam_encoder.py:237-270`)."""
+        if not isinstance(self.norm1, LayerNormQuant):
+            x = x + self.attn(self.norm1(x))
+            return x + self.mlp(self.norm2(x))
+        if branch is None:
+            xq, sx = self.norm1(x)
+        else:
+            x, xq, sx = self.norm1(x, branch)
+        x, hq, s2 = self.norm2(x, self.attn(xq, sx))
+        return x, self.mlp(hq, s2)
 
 
 class SamPatchEmbed(nn.Module):
@@ -136,7 +214,6 @@ class SamImageEncoder(nn.Module):
 
     def __init__(self, cfg: SamEncoderConfig, *, device=None, dtype=None):
         super().__init__()
-        check_vision_config(cfg)
         f = dict(device=device, dtype=dtype)
         self.cfg = cfg
         g, c = cfg.grid, cfg.embed_dim
@@ -147,7 +224,8 @@ class SamImageEncoder(nn.Module):
                      else cfg.window_size, **f)
             for i in range(cfg.depth))
         self.adapters = nn.ModuleList(
-            SpatioTemporalConvAdapter(c, **f)
+            SpatioTemporalConvAdapter(c, w8a8=cfg.quant_w8a8,
+                                      static_act=cfg.quant_static_act, **f)
             for _ in cfg.global_attn_indexes)
         oc = cfg.out_chans
         self.neck = nn.Sequential(
@@ -162,14 +240,23 @@ class SamImageEncoder(nn.Module):
         x = self.patch_embed(frames.reshape(b * t, hh, ww, 3))
         x = x + self.pos_embed.to(x.dtype)
         n_adapter = 0
+        branch = None                   # W8A8: the pending un-added branch
         for i, blk in enumerate(self.blocks):
-            x = blk(x)
-            if i in cfg.global_attn_indexes:
+            is_global = i in cfg.global_attn_indexes
+            if cfg.quant_w8a8:
+                x, branch = blk(x, branch)
+                if is_global:           # the adapter needs the sum
+                    x, branch = x + branch, None
+            else:
+                x = blk(x)
+            if is_global:
                 g = cfg.grid
                 grid5 = x.reshape(b, t, g, g, cfg.embed_dim)
                 grid5 = self.adapters[n_adapter](grid5)
                 x = grid5.reshape(b * t, g, g, cfg.embed_dim)
                 n_adapter += 1
+        if branch is not None:
+            x = x + branch
         # neck in fp32 (the reference guards against fp16 overflow here)
         xf = x.float().permute(0, 3, 1, 2)
         xf = F.conv2d(xf, self.neck[0].weight.float())

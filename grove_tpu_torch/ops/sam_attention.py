@@ -143,15 +143,11 @@ def _split_heads(qkv, num_heads: int):
             for i in range(3))
 
 
-def grouped_window_attention_relpos_v3_torch(qkv, rel_packed,
-                                             hw: Tuple[int, int],
-                                             num_heads: int):
-    """Plain version of K1: split views of qkv, materialized bias,
-    max-subtracted fp32 softmax, and 0 for a row whose largest logit
-    (log2 units) lies below EXP2_SHIFT - 126. qkv (nW, S, 3C) ->
-    (nW, S, C)."""
+def _v3_probs(qkv, rel_packed, hw: Tuple[int, int], num_heads: int):
+    """K1's fp32 probabilities (B, H, S, S), 0 on all-underflow rows, and
+    the v view of qkv."""
     gh, gw = hw
-    b, s, c3 = qkv.shape
+    b, s, _ = qkv.shape
     q, k, v = _split_heads(qkv, num_heads)
     rel = rel_packed.reshape(b, s, num_heads, gh + gw).permute(0, 2, 1, 3)
     bias = _expand_bias(rel[..., :gh], rel[..., gh:])
@@ -159,20 +155,46 @@ def grouped_window_attention_relpos_v3_torch(qkv, rel_packed,
               * (1.0 / math.sqrt(q.shape[-1])) + bias)
     underflow = (logits.amax(-1, keepdim=True) * LOG2E
                  < EXP2_SHIFT - 126.0)
-    probs = torch.softmax(logits, dim=-1).masked_fill(underflow, 0.0)
+    return torch.softmax(logits, dim=-1).masked_fill(underflow, 0.0), v
+
+
+def grouped_window_attention_relpos_v3_torch(qkv, rel_packed,
+                                             hw: Tuple[int, int],
+                                             num_heads: int):
+    """Plain version of K1: split views of qkv, materialized bias,
+    max-subtracted fp32 softmax, and 0 for a row whose largest logit
+    (log2 units) lies below EXP2_SHIFT - 126. qkv (nW, S, 3C) ->
+    (nW, S, C)."""
+    b, s, c3 = qkv.shape
+    probs, v = _v3_probs(qkv, rel_packed, hw, num_heads)
     out = torch.einsum("bhqk,bkhd->bqhd", probs.to(qkv.dtype), v)
     return out.reshape(b, s, c3 // 3)
 
 
-def grouped_window_attention_relpos_v3(qkv, rel_packed, hw: Tuple[int, int],
-                                       num_heads: int):
-    """K1: qkv (nW, S, 3*H*D) fused projection output, rel_packed as from
-    `relpos_terms_raw` on its q third -> (nW, S, H*D).
+def grouped_window_attention_relpos_v3_q8_torch(qkv, rel_packed,
+                                                inv_scale,
+                                                hw: Tuple[int, int],
+                                                num_heads: int):
+    """Plain version of K1q: K1's fp32 output, then
+    clip(round(out * inv_scale), -127, 127) as int8 (nW, S, C)."""
+    b, s, c3 = qkv.shape
+    probs, v = _v3_probs(qkv, rel_packed, hw, num_heads)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, v.float())
+    q = torch.clamp(torch.round(out * inv_scale.float()), -127, 127)
+    return q.to(torch.int8).reshape(b, s, c3 // 3)
 
-    CPU tensors take `grouped_window_attention_relpos_v3_torch`; CUDA
-    tensors launch `csrc/sam_window_attention.cu`, which reads q, k and v
-    at lane offsets of the unsplit qkv. Both return 0 for an all-underflow
-    row (see EXP2_SHIFT)."""
+
+def grouped_window_attention_relpos_v3(qkv, rel_packed, hw: Tuple[int, int],
+                                       num_heads: int, inv_scale=None):
+    """K1: qkv (nW, S, 3*H*D) fused projection output, rel_packed as from
+    `relpos_terms_raw` on its q third -> (nW, S, H*D) in qkv's dtype; K1q
+    with `inv_scale` ((1,) fp32, 1 / act_scale): the same attention
+    quantized to int8 by the static-scale epilogue.
+
+    CPU tensors take the plain twins; CUDA tensors launch
+    `csrc/sam_window_attention.cu`, which reads q, k and v at lane offsets
+    of the unsplit qkv. All return 0 for an all-underflow row (see
+    EXP2_SHIFT)."""
     gh, gw = hw
     b, s, c3 = qkv.shape
     c = c3 // 3
@@ -184,17 +206,32 @@ def grouped_window_attention_relpos_v3(qkv, rel_packed, hw: Tuple[int, int],
     if rel_packed.shape != (b, s, num_heads * (gh + gw)):
         raise ValueError(f"grouped_window_attention_relpos_v3: rel "
                          f"{tuple(rel_packed.shape)}")
-    if _kernels.on_cpu(qkv, rel_packed):
+    quantize = inv_scale is not None
+    if quantize:
+        inv_scale = inv_scale.reshape(1)
+    if _kernels.on_cpu(qkv, rel_packed, *((inv_scale,) if quantize else ())):
+        if quantize:
+            return grouped_window_attention_relpos_v3_q8_torch(
+                qkv, rel_packed, inv_scale, hw, num_heads)
         return grouped_window_attention_relpos_v3_torch(qkv, rel_packed, hw,
                                                         num_heads)
     dt = _kernels.check_cuda_inputs("grouped_window_attention_relpos_v3",
                                     (qkv, rel_packed), hd, b * num_heads)
-    out = torch.empty((b, s, c), device=qkv.device, dtype=qkv.dtype)
-    with torch.cuda.device(qkv.device):
-        _kernels.KERNELS["sam_window_attention"](
-            qkv.data_ptr(), rel_packed.data_ptr(), out.data_ptr(), b, s,
-            num_heads, hd, gh, gw, 1.0 / math.sqrt(hd), dt,
+    args = (b, s, num_heads, hd, gh, gw, 1.0 / math.sqrt(hd), dt,
             _kernels.stream_ptr(qkv))
+    with torch.cuda.device(qkv.device):
+        if quantize:
+            _kernels.check_typed("grouped_window_attention_relpos_v3",
+                                 [(inv_scale, torch.float32)])
+            out = torch.empty((b, s, c), device=qkv.device,
+                              dtype=torch.int8)
+            _kernels.KERNELS["sam_window_attention_q8"](
+                qkv.data_ptr(), rel_packed.data_ptr(), inv_scale.data_ptr(),
+                out.data_ptr(), *args)
+        else:
+            out = torch.empty((b, s, c), device=qkv.device, dtype=qkv.dtype)
+            _kernels.KERNELS["sam_window_attention"](
+                qkv.data_ptr(), rel_packed.data_ptr(), out.data_ptr(), *args)
     return out
 
 
@@ -205,3 +242,16 @@ def sam_window_attention_fused(qkv, rel_pos_h, rel_pos_w,
     c = qkv.shape[-1] // 3
     rel = relpos_terms_raw(qkv[..., :c], rel_pos_h, rel_pos_w, hw, num_heads)
     return grouped_window_attention_relpos_v3(qkv, rel, hw, num_heads)
+
+
+def sam_window_attention_fused_q8(qkv, rel_pos_h, rel_pos_w,
+                                  hw: Tuple[int, int], num_heads: int,
+                                  act_scale):
+    """`sam_window_attention_fused` emitting the proj's int8 input: K1q
+    with inv = 1 / max(act_scale, 1e-12) in fp32 (`sam_attention.py:675`).
+    Returns int8 (nW, S, C)."""
+    c = qkv.shape[-1] // 3
+    rel = relpos_terms_raw(qkv[..., :c], rel_pos_h, rel_pos_w, hw, num_heads)
+    inv = 1.0 / act_scale.float().clamp_min(1e-12)
+    return grouped_window_attention_relpos_v3(qkv, rel, hw, num_heads,
+                                              inv_scale=inv)

@@ -40,7 +40,9 @@ def test_normalization_constants_equal_originals():
 def test_import_leaves_jax_and_pil_out():
     code = ("import sys, grove_tpu_torch, grove_tpu_torch.infer.sliding, "
             "grove_tpu_torch.checkpoint.convert, grove_tpu_torch._kernels, "
-            "grove_tpu_torch.api, grove_tpu_torch.api.processor; "
+            "grove_tpu_torch.api, grove_tpu_torch.api.processor, "
+            "grove_tpu_torch.ops.quant, grove_tpu_torch.ops.fused_ln, "
+            "grove_tpu_torch.ops.int8_matmul, grove_tpu_torch.profile_towers; "
             "print(sorted(m for m in ('jax', 'PIL', 'flax') "
             "if m in sys.modules))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -180,6 +182,23 @@ def test_unported_paths_raise():
                               device="cpu")
 
 
+def test_calibrate_requires_quantized_towers():
+    """`calibrate` on a model whose towers are float, or whose LLM alone
+    was quantized, raises and leaves the model as it was
+    (`api/model.py:150-151` asserts the same)."""
+    from grove_tpu_torch.api import GroveForCausalLM
+    lm = GroveForCausalLM.from_pretrained(None, "tiny", dtype=torch.float32,
+                                          seed=0)
+    frames = torch.zeros(1, 2, 28, 28, 3, dtype=torch.uint8)
+    sam = torch.zeros(1, 2, 32, 32, 3, dtype=torch.uint8)
+    for step in (lambda: None, lambda: lm.quantize(bits=4)):
+        step()
+        with pytest.raises(ValueError, match="quantize\\(vision=True\\)"):
+            lm.calibrate(frames, sam)
+        assert not lm.cfg.clip.quant_w8a8
+        assert not lm.cfg.sam_enc.quant_static_act
+
+
 def test_random_init_is_seeded_and_sane():
     """init_grove_params fills every parameter from the seed: two builds
     agree, another seed differs, and norms / gates get their set values."""
@@ -213,3 +232,18 @@ def test_chip_smoke_fails_without_card_or_package(tmp_path, alone):
     assert out.returncode != 0
     assert '"ok"' not in out.stdout and '"kernels"' not in out.stdout
     assert "chip_smoke FAILED" in out.stderr
+
+
+def test_profile_towers_fails_without_card():
+    """The towers' profiling script exits non-zero, having printed nothing
+    on its standard output, where there is no CUDA device."""
+    from pathlib import Path
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    out = subprocess.run(
+        [sys.executable, "-m", "grove_tpu_torch.profile_towers"],
+        cwd=Path(__file__).resolve().parents[1], capture_output=True,
+        text=True, timeout=120)
+    assert out.returncode != 0
+    assert out.stdout == ""
+    assert "needs an NVIDIA GPU" in out.stderr

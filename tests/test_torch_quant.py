@@ -384,9 +384,8 @@ def test_grove_for_causal_lm_quantize_in_place():
     assert lm.quantize(bits=4) is lm and lm.model is model
     assert lm.cfg.llama.weight_quant_bits == 4 and model.cfg is lm.cfg
     assert isinstance(model.model.layers[0].mlp.down_proj, Int4Linear)
-    for call, match in ((lambda: lm.quantize(vision=True), "11c"),
-                        (lambda: lm.quantize(act_quant=True), "11b"),
-                        (lm.calibrate, "11c"), (lm.fuse, "11b"),
+    for call, match in ((lambda: lm.quantize(act_quant=True), "11b"),
+                        (lm.fuse, "11b"),
                         (lambda: lm.save_pretrained("x"), "item 14")):
         with pytest.raises(NotImplementedError, match=match):
             call()
