@@ -13,28 +13,41 @@ Phases, each printing its own line; any failure exits non-zero:
      LSE's too) and at small fp32 shapes (<= 1e-4), with median CUDA-event
      times of both. One fp32 K1 case and one fp32 K1q case carry an
      all-underflow row, which must come out as exact zeros (the TPU
-     kernel's EXP2_SHIFT contract). The int8 outputs are held in LSBs: K8a
-     and K8b |diff| <= 1 on at most 0.1% of the elements (K8b's residual
-     sum bit-equal), K1q <= 2 LSB on at most 0.1% in bf16 and <= 1 LSB on
-     at most 0.01% in fp32.
-     K6, K7a, K8a and K8b take microseconds and read inputs that are cold
+     kernel's EXP2_SHIFT contract). The int8 outputs are held in LSBs: K8a,
+     K8b and K8c |diff| <= 1 on at most 0.1% of the elements (a residual
+     sum of the int8's shape bit-equal, K8c's per-token scales within 1e-6
+     relative), K7c bit-equal, K1q <= 2 LSB on at most 0.1% in bf16 and
+     <= 1 LSB on at most 0.01% in fp32.
+     K6, K7a-K7c, K8a-K8c take microseconds and read inputs that are cold
      in the model (every layer has its own cache, weights or
      activations), so they are timed as CUDA-graph replays over copies of
      more than 64 MiB, beyond the 50 MB L2 (eager calls between events
-     would time the host's launch overhead). K7a has three full-width
-     shapes (the q/k/v/o, gate/up and down projections of a decode step),
-     K8a two (the CLIP and SAM norm sites); their JSON times are the sums;
+     would time the host's launch overhead). K7a, K7b and K7c have three
+     full-width shapes each (the q/k/v/o, gate/up and down projections of
+     LLaMA-7B), K8a two (the CLIP and SAM norm sites); their JSON times are
+     the sums. Beside each kernel the phase prints its bound, the least
+     time the card could take for the same work: the larger of its bytes
+     (inputs read once, outputs written once) over 3.35 TB/s and its
+     operations over the H100's peak for their type (989 TFLOP/s bf16,
+     1979 TOP/s int8, 67 TFLOP/s fp32 off the tensor cores), and, for K1-K5,
+     the time of the one PyTorch call that computes the same function
+     (`F.scaled_dot_product_attention`, rel-pos terms and pads as a mask),
+     which the port never calls;
   3  slice: GroveConfig() (CLIP ViT-L/336, SAM ViT-H/512, LLaMA-7B) built
      on the card from a seed (GroveForCausalLM.from_pretrained), first in
      bf16, then quantized in place (quantize(bits=4): int4 projections,
      int8 lm_head) and run with the int8 KV cache, then with the towers
      W8A8 too (ops.quant.quantize_vision_ in place, GroveForCausalLM.
-     calibrate on one synthetic clip: static activation scales). Each run
-     drives infer_clips_batched on 2 synthetic 24-frame clips (64 new
-     tokens) and ground_clip_with_caption with the launch counts zeroed
-     just before and read just after; outputs must carry the JAX package's
-     keys and be finite; the bf16 run must launch K1-K4, the int4 run
-     K1-K7a, the W8A8-static run K2-K7a, K8b and K1q. Then a timed replay
+     calibrate on one synthetic clip: static activation scales), then the
+     flagship configuration of the JAX package's bench.py with the LLM's
+     activations int8 as well (quantize(bits=4, act_quant=True), switched
+     in place: W4A8). Each run drives infer_clips_batched on 2 synthetic
+     24-frame clips (64 new tokens) and ground_clip_with_caption with the
+     launch counts zeroed just before and read just after; outputs must
+     carry the JAX package's keys and be finite; the bf16 run must launch
+     K1-K4, the int4 run K1-K7a, the W8A8-static run K2-K7a, K8b and K1q,
+     the flagship K2-K6, K7b, K7c, K8b, K8c (both entries) and K1q and no
+     K7a (decode takes K7b, as the JAX dispatch does). Then a timed replay
      of the stages, peak device memory and weight bytes of each, and how
      many greedy tokens the quantized replays share with the bf16 one;
   4  parity: GroveConfig.small() in fp32, one set of weights, on the card
@@ -54,16 +67,26 @@ Phases, each printing its own line; any failure exits non-zero:
      K8a, K8b or the chain; each SamAttention, i.e. K1q or K2 and a static
      quantize; each Int8Linear and Int8Conv3d) is then fed the CPU's input
      to that site: int8 activations <= 1 LSB on at most 0.1% of a site's,
-     float outputs within 1e-5 of the CPU's max-abs.
+     float outputs within 1e-5 of the CPU's max-abs. Last, the LLM W4A8
+     (quantize_llama_(..., act_quant=True)) with the CPU taking the card's
+     branches through the `models.layers._on_card` seam (otherwise it
+     would compute another function: the generic path never quantizes the
+     activations): boxes and objectness within 1e-2, the CPU's greedy ids
+     through prefill and 16 decode steps within 1e-2 of max-abs, the card
+     launching K7b, K7c and K8c and no K7a; then `fuse()` on the card:
+     fused and unfused hidden states of the prompt within 1e-5 of max-abs,
+     and their greedy agreement printed.
 
 The line before the last is a JSON object with each kernel's measurements
 (`launches`: K1-K4 from the bf16 run of phase 3, K5-K7a from the int4 one,
-K8b and K1q from the W8A8-static one, K8a from phase 4's W8A8-static
-model path); the last line is {"ok": true, "device": {...}}.
+K8b and K1q from the W8A8-static one, K7b, K7c and K8c from the flagship
+one, K8a from phase 4's W8A8-static model path); the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -83,12 +106,20 @@ PARITY_TOL = 1e-3        # phase 4 boxes / objectness
 STEP_TOL = 1e-2          # phase 4 int8-cache decode steps, of max-abs
 W8A8_TOL = 1e-2          # phase 4 W8A8-static towers: boxes / objectness
 SITE_TOL = 1e-5          # phase 4 float outputs of a quant site, of max-abs
-LSB_SHARE = 1e-3         # share of int8 outputs allowed off (K8a, K8b, K1q)
+W4A8_TOL = 1e-2          # phase 4 W4A8 LLM: boxes / objectness
+FUSE_TOL = 1e-5          # phase 4 fused vs unfused hidden states, of max-abs
+LSB_SHARE = 1e-3         # share of int8 outputs allowed off (K8a-c, K1q)
 FP32_LSB_SHARE = 1e-4    # the same for K1q in fp32
+SX_REL = 1e-6            # K8c's per-token scales, relative
 COLD_BYTES = 64 * 2**20  # inputs cycled past the L2 when timing cold kernels
 QUANT_KERNELS = ("prefill_attention", "int8_decode_attention", "int4_matmul")
 W8A8_KERNELS = ("add_layernorm_quant", "sam_window_attention_q8")
+FLAGSHIP_KERNELS = ("int4_matmul_a8", "int4_requant_int8", "rmsnorm_quant",
+                    "add_rmsnorm_quant")
 LN_KERNEL = "layernorm_quant"             # phase 4's quant_ln_kernel path
+# one H100 SXM (NVIDIA's data sheet, dense): device memory and peak rates
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
 CAPTION = "a person is slicing tomatoes on a wooden board"
 
 
@@ -135,7 +166,9 @@ def phase_build():
 
 def _cases(torch):
     """name -> dict(fn, plain, make(gen, dtype, shape) -> args, full
-    shapes, small fp32 shapes, cold)."""
+    shapes, small fp32 shapes, cold, int8 limits, ops(args) -> (count,
+    peak key), library(args) -> a call of PyTorch's own, or None)."""
+    import torch.nn.functional as F
     from grove_tpu_torch.ops import (attention, decode_attention,
                                      flash_backward, fused_ln, int4_matmul,
                                      sam_attention)
@@ -211,6 +244,19 @@ def _cases(torch):
         return (randn(gen, (m, k), dtype), int8s(gen, (k // 2, n), -128),
                 uniform(gen, (k // g, n), 0.001, 0.02))
 
+    def k7b_inputs(gen, dtype, shape):
+        # dtype is the output's: the activations arrive int8
+        m, k, n, g = shape
+        return (int8s(gen, (m, k)), uniform(gen, (m, 1), 0.002, 0.02),
+                int8s(gen, (k // 2, n), -128),
+                uniform(gen, (k // g, n), 0.001, 0.02), dtype)
+
+    def k7c_inputs(gen, dtype, shape):
+        k, n, g = shape
+        scale = uniform(gen, (k // g, n), 0.001, 0.02)
+        return (int8s(gen, (k // 2, n), -128),
+                int4_matmul.requant_multipliers(scale)[1])
+
     def k1q_inputs(gen, dtype, shape):
         qkv, rel, hw, heads = k1_inputs(gen, dtype, shape)
         # an act scale that puts the outputs across the int8 range
@@ -235,70 +281,185 @@ def _cases(torch):
             return (x, randn(gen, (rows, c), dtype), gs, bs, 1e-6)
         return (x, gs, bs, 1e-5)
 
+    def rms_inputs(gen, dtype, shape, add=False):
+        rows, c = shape
+        x = (randn(gen, (rows, c), torch.float32) * 2 + 0.3).to(dtype)
+        w = uniform(gen, (c,), 0.5, 1.5)
+        if add:
+            return (x, randn(gen, (rows, c), dtype), w, 1e-6)
+        return (x, w, 1e-6)
+
+    def rms(x, w, eps):
+        return fused_ln.add_rmsnorm_quant_dyn(x, None, w, eps=eps)
+
+    def rms_plain(x, w, eps):
+        return fused_ln.add_rmsnorm_quant_dyn_torch(x, None, w, eps)
+
+    def add_rms(a, b, w, eps):
+        return fused_ln.add_rmsnorm_quant_dyn(a, b, w, eps=eps)
+
+    def add_rms_plain(a, b, w, eps):
+        return fused_ln.add_rmsnorm_quant_dyn_torch(a, b, w, eps)
+
+    # operation counts: an attention pair of (query, key) costs 2 * 2 * D
+    # flops (the QK dot and the PV update); the norms count ~8 fp32
+    # operations per element; K7c only moves and shifts bytes
+    def attn_ops(b, h, d, pairs):
+        return 4 * b * h * d * pairs
+
+    def k1_ops(a):
+        qkv, heads = a[0], a[3]
+        nw, s, c3 = qkv.shape
+        return attn_ops(nw, heads, c3 // 3 // heads, s * s), "bf16"
+
+    def bshd_ops(a, causal=False):
+        b, s, h, d = a[0].shape
+        return attn_ops(b, h, d, s * (s + 1) // 2 if causal else s * s), \
+            "bf16"
+
+    def k5_ops(a):
+        q, pads, heads = a[0], a[3], a[4]
+        b, s, c = q.shape
+        # row r attends keys [pad, r], and a pad row only itself
+        pairs = sum(p + (s - p) * (s - p + 1) // 2
+                    for p in pads.tolist())
+        return attn_ops(1, heads, c // heads, pairs), "bf16"
+
+    def k6_ops(a):
+        b, h, d = a[0].shape
+        return attn_ops(b, h, d, a[1].shape[2]), "int8"
+
+    def k7a_ops(a):                         # (x, wp, scale)
+        m, k = a[0].shape
+        return 2 * m * k * a[1].shape[1], "bf16"
+
+    def k7b_ops(a):                         # (xq, sx, wp, scale, dtype)
+        m, k = a[0].shape
+        return 2 * m * k * a[2].shape[1], "int8"
+
+    def norm_ops(a):
+        return 8 * a[0].numel(), "fp32"
+
+    # one PyTorch call computing the same function, for its time only
+    def sdpa(q, k, v, **kw):
+        return lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), **kw)
+
+    def k1_library(qkv, rel, hw, heads):
+        q, k, v = sam_attention._split_heads(qkv, heads)
+        nw, s = qkv.shape[:2]
+        r = rel.reshape(nw, s, heads, hw[0] + hw[1]).permute(0, 2, 1, 3)
+        bias = sam_attention._expand_bias(r[..., :hw[0]], r[..., hw[0]:])
+        return sdpa(q, k, v, attn_mask=bias.to(qkv.dtype))
+
+    def k2_library(q, k, v, rh, rw, hw):
+        bias = sam_attention._expand_bias(rh, rw)
+        return sdpa(q, k, v, attn_mask=bias.to(q.dtype))
+
+    def k5_library(q, k, v, pads, heads, scale):
+        b, s, c = q.shape
+        pos = torch.arange(s, device=q.device)
+        qp, kp = pos[:, None], pos[None, :]
+        pad = pads.long()[:, None, None, None]
+        mask = (kp <= qp) & ((kp >= pad) | (kp == qp))
+        q, k, v = (t.view(b, s, heads, c // heads) for t in (q, k, v))
+        return sdpa(q, k, v, attn_mask=mask, scale=scale)
+
     # full-width shapes of the main paths: 16 frames (2 clips x 8) of SAM
-    # (9 windows each) and CLIP, 2 teacher-forced windows of LLaMA-7B, and
-    # the int8-cache prefill (2 x 640 tokens) and decode step of the
-    # quantized run (M = 2 rows, a 768-slot cache)
-    def case(fn, plain, make, full, small, cold=False, int8=None):
+    # (9 windows each) and CLIP, 2 teacher-forced windows of LLaMA-7B, the
+    # int8-cache prefill (2 x 640 tokens) and decode step of the quantized
+    # runs (M = 2 rows, a 768-slot cache), and the W4A8 projections
+    def case(fn, plain, make, full, small, ops, cold=False, int8=None,
+             library=None):
         """int8: (LSB, share) limits of an int8 output, full bf16 and small
         fp32, instead of the float error limits."""
         return dict(fn=fn, plain=plain, make=make, full=full, small=small,
-                    cold=cold, int8=int8)
+                    cold=cold, int8=int8, ops=ops, library=library)
 
+    proj_shapes = [(4096, 4096), (4096, 11008), (11008, 4096)]
     return {
         "sam_window_attention": case(
             sam_attention.grouped_window_attention_relpos_v3,
             sam_attention.grouped_window_attention_relpos_v3_torch,
             k1_inputs, [(144, 14, 16, 80)],
-            [(4, 8, 6, 64), (3, 2, 4, 8), (2, 4, 2, 64, "underflow")]),
+            [(4, 8, 6, 64), (3, 2, 4, 8), (2, 4, 2, 64, "underflow")],
+            k1_ops, library=k1_library),
         "sam_global_attention": case(
             sam_attention.grouped_window_attention_relpos,
             sam_attention.grouped_window_attention_relpos_torch,
-            k2_inputs, [(16, 32, 16, 80)], [(2, 16, 6, 64), (2, 4, 4, 8)]),
+            k2_inputs, [(16, 32, 16, 80)], [(2, 16, 6, 64), (2, 4, 4, 8)],
+            bshd_ops, library=k2_library),
         "grouped_plain_attention": case(
             attention.grouped_plain_attention,
             attention.grouped_plain_attention_torch,
             qkv_inputs, [(16, 577, 16, 64)],
-            [(2, 257, 8, 64), (2, 5, 4, 8)]),
+            [(2, 257, 8, 64), (2, 5, 4, 8)], bshd_ops, library=sdpa),
         "flash_forward_lse": case(
             k4, k4_plain, qkv_inputs, [(2, 704, 32, 128)],
-            [(2, 192, 12, 64), (1, 45, 4, 8)]),
+            [(2, 192, 12, 64), (1, 45, 4, 8)],
+            lambda a: bshd_ops(a, causal=True),
+            library=lambda q, k, v: sdpa(q, k, v, is_causal=True)),
         "prefill_attention": case(
             attention.prefill_attention_raw,
             attention.prefill_attention_raw_torch,
             k5_inputs, [(2, 640, 32, 128, 37)],
-            [(2, 130, 4, 64, 5), (1, 45, 2, 128, 3), (2, 24, 4, 8, 5)]),
+            [(2, 130, 4, 64, 5), (1, 45, 2, 128, 3), (2, 24, 4, 8, 5)],
+            k5_ops, library=k5_library),
         "int8_decode_attention": case(
             decode_attention.int8_cache_decode_attention,
             decode_attention.int8_cache_decode_attention_torch,
             k6_inputs, [(2, 32, 32, 768, 128)],
             [(2, 8, 2, 256, 64), (2, 4, 4, 128, 128), (1, 12, 12, 640, 64)],
-            cold=True),
+            k6_ops, cold=True),
         "int4_matmul": case(
             int4_matmul.int4_matmul, int4_matmul.int4_matmul_torch,
-            k7a_inputs,
-            [(2, 4096, 4096, 128), (2, 4096, 11008, 128),
-             (2, 11008, 4096, 128)],
+            k7a_inputs, [(2, k, n, 128) for k, n in proj_shapes],
             [(1, 512, 384, 128), (5, 512, 384, 128), (37, 768, 256, 32),
              (3, 1024, 68, 64)],
-            cold=True),
+            k7a_ops, cold=True),
         # 16 frames of CLIP (577 tokens, C 1024) and of SAM (32 x 32, 1280)
         "layernorm_quant": case(
             fused_ln.layernorm_quant_folded,
             fused_ln.layernorm_quant_folded_torch, ln_inputs,
             [(16 * 577, 1024), (16 * 1024, 1280)],
-            [(300, 256), (37, 384), (5, 2048)], cold=True,
+            [(300, 256), (37, 384), (5, 2048)], norm_ops, cold=True,
             int8={"full": (1, LSB_SHARE), "small": (1, LSB_SHARE)}),
         "add_layernorm_quant": case(
             fused_ln.add_layernorm_quant_folded,
             fused_ln.add_layernorm_quant_folded_torch,
             lambda g, d, sh: ln_inputs(g, d, sh, add=True),
-            [(16 * 1024, 1280)], [(300, 256), (37, 512)], cold=True,
+            [(16 * 1024, 1280)], [(300, 256), (37, 512)], norm_ops,
+            cold=True,
             int8={"full": (1, LSB_SHARE), "small": (1, LSB_SHARE)}),
         "sam_window_attention_q8": case(
             k1q, k1q_plain, k1q_inputs, [(144, 14, 16, 80)],
             [(4, 8, 6, 64), (3, 2, 4, 8), (2, 4, 2, 64, "underflow")],
+            k1_ops,
             int8={"full": (2, LSB_SHARE), "small": (1, FP32_LSB_SHARE)}),
+        "int4_matmul_a8": case(
+            int4_matmul.int4_matmul_a8, int4_matmul.int4_matmul_a8_torch,
+            k7b_inputs, [(2, k, n, 128) for k, n in proj_shapes],
+            [(1, 512, 384, 128), (2, 512, 384, 128), (37, 768, 256, 32),
+             (3, 1024, 68, 64)],
+            k7b_ops, cold=True),
+        "int4_requant_int8": case(
+            int4_matmul.int4_requant_int8,
+            int4_matmul.int4_requant_int8_torch, k7c_inputs,
+            [(k, n, 128) for k, n in proj_shapes],
+            [(512, 256, 128), (1024, 384, 256), (768, 128, 64)],
+            lambda a: (0, "int8"), cold=True,
+            int8={"full": (0, 0.0), "small": (0, 0.0)}),
+        # the W4A8 prefill's norm sites: 2 x 640 tokens of C 4096
+        "rmsnorm_quant": case(
+            rms, rms_plain, rms_inputs, [(1280, 4096)],
+            [(300, 256), (37, 768), (5, 8192)], norm_ops, cold=True,
+            int8={"full": (1, LSB_SHARE), "small": (1, LSB_SHARE)}),
+        "add_rmsnorm_quant": case(
+            add_rms, add_rms_plain,
+            lambda g, d, sh: rms_inputs(g, d, sh, add=True),
+            [(1280, 4096)], [(300, 256), (37, 768), (70, 4096)], norm_ops,
+            cold=True,
+            int8={"full": (1, LSB_SHARE), "small": (1, LSB_SHARE)}),
     }
 
 
@@ -357,28 +518,38 @@ def _max_err(got, want):
 
 def _int8_diff(got, want):
     """(max |diff| in LSBs, share of elements that differ) of int8
-    outputs; a float output (K8b's residual sum) must be bit-equal, so it
-    counts its own max-abs difference."""
-    if not got.dtype.is_floating_point:
-        d = (got.int() - want.int()).abs()
-        return int(d.max()), float((d > 0).float().mean())
-    return _max_err(got, want), 0.0
+    outputs."""
+    d = (got.int() - want.int()).abs()
+    return int(d.max()), float((d > 0).float().mean())
 
 
 def _check_int8(name, label, got, want, limits):
     """Raise unless every output of an int8 kernel is within `limits`
-    (LSB, share); return the worst (LSB, share)."""
+    (LSB, share); a float output of the int8's shape (K8b's and K8c's
+    residual sum) must be bit-equal, another (K8c's per-token scales)
+    within SX_REL of the twin's, relative. Returns the worst (LSB,
+    share)."""
     lsb_lim, share_lim = limits
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
+    q_shape = next(g.shape for g in got if not g.dtype.is_floating_point)
     worst = (0, 0.0)
     for g, w in zip(got, want):
-        lsb, share = _int8_diff(g, w)
-        if g.dtype.is_floating_point:
-            if lsb != 0:
+        if g.dtype.is_floating_point and g.shape == q_shape:
+            err = _max_err(g, w)
+            if err != 0:
                 raise PhaseError(f"{name} {label}: residual sum differs "
-                                 f"from the plain twin's by {lsb:.3e}")
+                                 f"from the plain twin's by {err:.3e}")
             continue
+        if g.dtype.is_floating_point:
+            rel = float(((g.float() - w.float()).abs()
+                         / w.float().abs()).max())
+            if not rel <= SX_REL:
+                raise PhaseError(f"{name} {label}: scales differ from the "
+                                 f"plain twin's by {rel:.3e} relative > "
+                                 f"{SX_REL}")
+            continue
+        lsb, share = _int8_diff(g, w)
         if not (lsb <= lsb_lim and share <= share_lim):
             raise PhaseError(f"{name} {label}: int8 outputs {lsb} LSB apart "
                              f"on {share:.3e} of them (limit {lsb_lim} LSB "
@@ -409,6 +580,20 @@ def _check_full(name, full, got, want):
     return out
 
 
+def _bound(torch, c, args, out):
+    """(ms, "bytes" or "operations") the card needs at least for one call:
+    every input read once and every output written once at HBM_BYTES_PER_S,
+    or the call's operations at the peak rate of their type, whichever is
+    longer. An output that is one of the inputs (K8c hands `a` back
+    unchanged) is not written."""
+    outs = [o for o in _tensors(out) if not any(o is a for a in args)]
+    t_bytes = (_nbytes(torch, args) + _nbytes(torch, outs)) / HBM_BYTES_PER_S
+    ops, kind = c["ops"](args)
+    t_ops = ops / PEAK_OPS_PER_S[kind]
+    return (t_bytes * 1e3, "bytes") if t_bytes >= t_ops else \
+        (t_ops * 1e3, "operations")
+
+
 def phase_kernels(torch, gpu):
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = {}
@@ -437,11 +622,15 @@ def phase_kernels(torch, gpu):
                                      "(plain), not 0")
                 note += "; the all-underflow row is exactly 0 in both"
             say(2, f"{name} fp32 {shape}: {note}")
-        errs, ms, plain_ms = [], 0.0, 0.0
+        errs, ms, plain_ms, bound = [], 0.0, 0.0, {"bytes": 0.0,
+                                                    "operations": 0.0}
+        library_ms = 0.0 if c["library"] else None
         for full in c["full"]:
             args = make(gen, torch.bfloat16, full)
             got, want = fn(*args), plain(*args)
             torch.cuda.synchronize()
+            b_ms, b_by = _bound(torch, c, args, got)
+            bound[b_by] += b_ms
             if int8:
                 lsb, share = _check_int8(name, f"bf16 {full}", got, want,
                                          int8["full"])
@@ -462,8 +651,16 @@ def phase_kernels(torch, gpu):
                 timer = _graph_ms
                 how = f" (CUDA graph over {len(sets)} cold copies)"
             t, tp = timer(torch, fn, sets), timer(torch, plain, sets)
+            lib = ""
+            if c["library"]:
+                call = c["library"](*args)
+                t_lib = _time_ms(torch, call, [()])
+                library_ms += t_lib
+                lib = f", one PyTorch call {t_lib:.4f} ms"
+                del call
             say(2, f"{name} bf16 {full}: {what}; kernel {t:.4f} ms, plain "
-                   f"{tp:.4f} ms{how} on {gpu}")
+                   f"{tp:.4f} ms{lib}{how}; bound {b_ms:.4f} ms by {b_by} "
+                   f"on {gpu}")
             ms += t
             plain_ms += tp
             del args, sets
@@ -472,7 +669,10 @@ def phase_kernels(torch, gpu):
         second = "lsb_share" if int8 else "rel_err"
         rows[name] = {"max_abs_err": max(e for e, _ in errs),
                       second: max(r for _, r in errs), "ms": ms,
-                      "plain_ms": plain_ms}
+                      "plain_ms": plain_ms,
+                      "bound_ms": bound["bytes"] + bound["operations"],
+                      "bound_by": max(bound, key=bound.get),
+                      "library_ms": library_ms}
     return rows
 
 
@@ -603,10 +803,10 @@ def _replay(torch, gpu, model, cfg, tok, clips, label, cache_dtype,
 
 
 def phase_slice(torch, gpu):
-    from grove_tpu.text.mock_tokenizer import MockTokenizer
     from grove_tpu_torch import _kernels
     from grove_tpu_torch.api import GroveForCausalLM
     from grove_tpu_torch.ops.quant import quantize_vision_
+    from grove_tpu_torch.text.mock_tokenizer import MockTokenizer
 
     t0 = time.perf_counter()
     lm = GroveForCausalLM.from_pretrained(None, "full", device="cuda",
@@ -623,7 +823,8 @@ def phase_slice(torch, gpu):
     clips = _synthetic_clips(cfg, 2, t_total, seed=1)
     quant = set(QUANT_KERNELS)
     bf16 = [k for k in _kernels.KERNELS
-            if k not in quant | set(W8A8_KERNELS) | {LN_KERNEL}]
+            if k not in quant | set(W8A8_KERNELS) | set(FLAGSHIP_KERNELS)
+            | {LN_KERNEL}]
     launches = _run_path(torch, gpu, model, cfg, tok, clips, t_total,
                          "bf16", bf16)
     st_bf16, gen_bf16 = _replay(torch, gpu, model, cfg, tok, clips, "bf16",
@@ -658,7 +859,8 @@ def phase_slice(torch, gpu):
            f"{time.perf_counter() - t0:.1f} s: weights "
            f"{_model_bytes(model) / 2**30:.2f} GiB")
     need = [k for k in _kernels.KERNELS
-            if k not in ("sam_window_attention", LN_KERNEL)]
+            if k not in ("sam_window_attention", LN_KERNEL)
+            + FLAGSHIP_KERNELS]
     w_launches = _run_path(torch, gpu, model, cfg, tok, clips, t_total,
                            label, need, decode_kwargs=int8_kv)
     launches.update({k: w_launches[k] for k in W8A8_KERNELS})
@@ -668,6 +870,34 @@ def phase_slice(torch, gpu):
            f"CLIP {st_w['clip']:.1f} vs {st_bf16['clip']:.1f} ms, SAM "
            f"{st_w['sam']:.1f} vs {st_bf16['sam']:.1f} ms on {gpu}")
     _same_tokens(gen_w, gen_bf16, label)
+
+    # the flagship of the JAX package's bench.py: the LLM's activations
+    # int8 too, switched on in place (the int4 bytes stay)
+    t0 = time.perf_counter()
+    lm.quantize(bits=4, act_quant=True)
+    torch.cuda.synchronize()
+    cfg = lm.cfg
+    label = "W4A8 + int8 KV + W8A8-static towers (flagship)"
+    say(3, f"quantize(bits=4, act_quant=True) in place in "
+           f"{time.perf_counter() - t0:.1f} s: weights "
+           f"{_model_bytes(model) / 2**30:.2f} GiB")
+    need = [k for k in _kernels.KERNELS
+            if k not in ("sam_window_attention", LN_KERNEL, "int4_matmul")]
+    f_launches = _run_path(torch, gpu, model, cfg, tok, clips, t_total,
+                           label, need, decode_kwargs=int8_kv)
+    if f_launches["int4_matmul"]:
+        raise PhaseError(f"{label}: K7a launched {f_launches['int4_matmul']}"
+                         " times; W4A8 decode takes K7b")
+    launches.update({k: f_launches[k] for k in FLAGSHIP_KERNELS})
+    st_f, gen_f = _replay(torch, gpu, model, cfg, tok, clips, label,
+                          torch.int8, encoders=True)
+    say(3, f"LLaMA stages, W4A8 vs W4A16 (both with W8A8-static towers): "
+           f"prefill {st_f['prefill']:.1f} vs {st_w['prefill']:.1f} ms, "
+           f"decode {st_f['decode_64'] / 64:.2f} vs "
+           f"{st_w['decode_64'] / 64:.2f} ms/step, teacher-forced "
+           f"{st_f['teacher_forced_2x8']:.1f} vs "
+           f"{st_w['teacher_forced_2x8']:.1f} ms on {gpu}")
+    _same_tokens(gen_f, gen_bf16, label)
     del model, lm
     torch.cuda.empty_cache()
     return launches
@@ -877,9 +1107,10 @@ def _parity_pass(torch, cfg, tok, clip, ap, cpu, gpu, label,
     return p_ids, starts, gens[1]
 
 
-def _int8_steps(torch, cfg, clip, model, p_ids, starts, tokens):
+def _int8_steps(torch, cfg, clip, model, p_ids, starts, tokens, noise=0.0):
     """Hidden states of the prefill's last row and of len(tokens) decode
-    steps fed `tokens`, over an int8 cache."""
+    steps fed `tokens`, over an int8 cache; the video embeddings scaled by
+    (1 + noise * N(0, 1))."""
     from grove_tpu_torch.models.llama import init_kv_caches
     dev = model.device
     ls = p_ids.shape[1]
@@ -887,6 +1118,10 @@ def _int8_steps(torch, cfg, clip, model, p_ids, starts, tokens):
     with torch.inference_mode():
         emb, _ = model.encode_video(
             torch.from_numpy(clip["frames_clip"][None]).to(dev))
+        if noise:
+            gen = torch.Generator().manual_seed(0)
+            emb = emb * (1 + noise * torch.randn(emb.shape, generator=gen)
+                         .to(dev))
         caches = init_kv_caches(cfg.llama, 1, ls + len(tokens),
                                 dtype=torch.int8, device=dev)
         h, _, caches = model.prefill(ids, emb, starts, caches)
@@ -899,14 +1134,15 @@ def _int8_steps(torch, cfg, clip, model, p_ids, starts, tokens):
 
 
 def phase_parity(torch):
-    from grove_tpu.config import GroveConfig
-    from grove_tpu.text.mock_tokenizer import MockTokenizer
-    from grove_tpu.text.packing import pack_text
-    from grove_tpu.text.prompts import grounding_prompt, tokenize_with_video
     from grove_tpu_torch import _kernels
+    from grove_tpu_torch.config import GroveConfig
     from grove_tpu_torch.models.grove import init_grove_params
     from grove_tpu_torch.ops.quant import (calibrate_vision_, quantize_llama_,
                                            quantize_vision_)
+    from grove_tpu_torch.text.mock_tokenizer import MockTokenizer
+    from grove_tpu_torch.text.packing import pack_text
+    from grove_tpu_torch.text.prompts import (grounding_prompt,
+                                              tokenize_with_video)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -917,6 +1153,7 @@ def phase_parity(torch):
         cfg, clip=dataclasses.replace(cfg.clip, quant_ln_kernel=True),
         sam_enc=dataclasses.replace(cfg.sam_enc, quant_ln_kernel=True))
     tok = MockTokenizer(base_vocab_size=cfg.llama.vocab_size)
+    float_cfg = cfg
     cpu = init_grove_params(cfg, device="cpu", dtype=torch.float32, seed=2)
     gpu = copy.deepcopy(cpu).to("cuda")
     clip = _synthetic_clips(cfg, 1, cfg.num_frames, seed=3)[0]
@@ -984,7 +1221,179 @@ def phase_parity(torch):
                        for n, g, c in zip(names, outs[2], outs[1]))
            + f" (informational); kernel launches {launches}")
     _site_parity(torch, cpu, gpu, clip, label)
+    del cpu, gpu
+    _w4a8_parity(torch, float_cfg, tok, clip, ap)
     return launches
+
+
+@contextlib.contextmanager
+def _card_branches_on_cpu():
+    """CPU tensors take the card's branches too (`models.layers._on_card`,
+    the port's one seam for them), so that the CPU computes the function
+    the card does, with the kernels' plain twins."""
+    from grove_tpu_torch.models import layers
+    on_card = layers._on_card
+    layers._on_card = lambda x: True
+    try:
+        yield
+    finally:
+        layers._on_card = on_card
+
+
+def _hidden_on(torch, model, clip, p_ids, starts):
+    """The LLaMA's hidden states of the prompt, teacher-forced, as numpy."""
+    dev = model.device
+    with torch.inference_mode():
+        emb, _ = model.encode_video(
+            torch.from_numpy(clip["frames_clip"][None]).to(dev))
+        h = model._lm_hidden(torch.from_numpy(p_ids).to(dev), emb, starts)
+    return h.float().cpu().numpy()
+
+
+def _llm_sites(model):
+    """name -> module of every W4A8 quant site of a GroveModel's LLaMA: each
+    RMSNorm (K8c when called with quant_dyn) and each Int4Linear (K7b, or
+    K7c and the int8 GEMM)."""
+    from grove_tpu_torch.models.layers import Int4Linear, RMSNorm
+    return {n: m for n, m in model.model.layers.named_modules()
+            if isinstance(m, (Int4Linear, RMSNorm))}
+
+
+def _llm_site_parity(torch, cfg, clip, cpu, gpu, p_ids, starts, tokens,
+                     label):
+    """Every W4A8 quant site of the card's LLaMA fed the CPU's input to
+    that site in the CPU's prefill and decode steps over `tokens` (the CPU
+    in the card's branches), so no int8 flip of an earlier site reaches
+    it: a K8c norm's int8 output at most 1 LSB off on at most LSB_SHARE of
+    it, its scales within SX_REL, its residual sum bit-equal; an Int4Linear's
+    output within SITE_TOL of the CPU's max-abs."""
+    from grove_tpu_torch.models.layers import RMSNorm
+    calls, handles = {}, []
+    for name, mod in _llm_sites(cpu).items():
+        def hook(mod, args, kwargs, out, name=name):
+            if not isinstance(mod, RMSNorm) or kwargs.get("quant_dyn"):
+                calls.setdefault(name, []).append((args, kwargs, out))
+        handles.append(mod.register_forward_hook(hook, with_kwargs=True))
+    try:
+        _int8_steps(torch, cfg, clip, cpu, p_ids, starts, tokens)
+    finally:
+        for h in handles:
+            h.remove()
+    sites = _llm_sites(gpu)
+    worst = {"lsb": (0, 0.0), "sx": 0.0, "float": 0.0}
+    flipped = elems = n = 0
+    with torch.inference_mode():
+        for name, recs in calls.items():
+            for args, kwargs, want in recs:
+                n += 1
+                got = sites[name](*(a.to("cuda") if isinstance(
+                    a, torch.Tensor) else a for a in args), **kwargs)
+                if isinstance(want, tuple):           # K8c: resid, q8, sx
+                    if _max_err(got[0].cpu(), want[0]) != 0:
+                        raise PhaseError(f"{label}: {name} resid differs")
+                    d = (got[1].cpu().int() - want[1].int()).abs()
+                    lsb, k = int(d.max()), int((d > 0).sum())
+                    sx = float(((got[2].cpu() - want[2]).abs()
+                                / want[2].abs()).max())
+                    if not (lsb <= 1 and k <= LSB_SHARE * d.numel()
+                            and sx <= SX_REL):
+                        raise PhaseError(
+                            f"{label}: {name} fed the CPU's input: int8 "
+                            f"{lsb} LSB apart on {k} of {d.numel()}, scales "
+                            f"{sx:.2e} relative")
+                    worst["lsb"] = max(worst["lsb"], (lsb, k / d.numel()))
+                    worst["sx"] = max(worst["sx"], sx)
+                    flipped, elems = flipped + k, elems + d.numel()
+                    continue
+                err = _rel_max(got.float().cpu().numpy(),
+                               want.float().numpy())
+                if not err <= SITE_TOL:
+                    raise PhaseError(f"{label}: {name} fed the CPU's input: "
+                                     f"output {err:.2e} of max-abs from the "
+                                     f"CPU's > {SITE_TOL}")
+                worst["float"] = max(worst["float"], err)
+    lsb, share = worst["lsb"]
+    say(4, f"{label}, each of {len(calls)} quant sites fed the CPU's input "
+           f"({n} calls: prefill and {len(tokens)} decode steps): K8c int8 "
+           f"at most {lsb} LSB apart on at most {share:.2e} of a call's, "
+           f"{flipped} of {elems} in all, scales within {worst['sx']:.2e} "
+           f"relative, resid bit-equal; Int4Linear outputs (K7b, K7c + the "
+           f"int8 GEMM) within {worst['float']:.2e} of max-abs")
+
+
+def _w4a8_parity(torch, cfg, tok, clip, ap):
+    """The small model's LLM W4A8 (`quantize_llama_(..., act_quant=True)`,
+    float towers) on the card and on the CPU in the card's branches:
+    teacher-forced boxes within W4A8_TOL; every quant site fed the CPU's
+    input (`_llm_site_parity`); K7b, K7c and K8c launched and K7a not. The
+    CPU's greedy ids through prefill and 16 int8-cache decode steps are
+    printed beside the CPU's own spread under 1e-6 input noise, for
+    information: per-token int8 flips cascade through the layers as in the
+    W8A8 towers. Then `fuse()` on the card: the prompt's hidden states
+    within FUSE_TOL of the unfused model's (the int8-view path sums
+    exactly in int32), and the greedy agreement of the two
+    (informational: K7b's split of K follows the fused width)."""
+    from grove_tpu_torch import _kernels
+    from grove_tpu_torch.infer.generate import generate_grounded
+    from grove_tpu_torch.infer.sliding import center_prompts
+    from grove_tpu_torch.models.fuse import fuse_llama_
+    from grove_tpu_torch.models.grove import init_grove_params
+    from grove_tpu_torch.ops.quant import quantize_llama_
+    cpu = init_grove_params(cfg, device="cpu", dtype=torch.float32, seed=2)
+    quantize_llama_(cpu, 4, act_quant=True)
+    gpu = copy.deepcopy(cpu).to("cuda")
+    cfg = cpu.cfg
+    label = "GroveConfig.small() fp32, W4A8 LLM + int8 KV"
+    p_ids, starts, _ = center_prompts(cfg, tok, [None])
+    _kernels.reset_launch_counts()
+    with _card_branches_on_cpu():
+        _boxes_parity(torch, clip, ap, cpu, gpu, label, W4A8_TOL)
+        g = generate_grounded(
+            cpu, cfg, tok, p_ids, starts,
+            torch.from_numpy(clip["frames_clip"][None]),
+            torch.from_numpy(clip["frames_sam"][None]), max_new_tokens=64,
+            early_exit=False, cache_dtype=torch.int8)
+        ids = g["generated_ids"][0][:16]
+        card = _int8_steps(torch, cfg, clip, gpu, p_ids, starts, ids)
+        host = _int8_steps(torch, cfg, clip, cpu, p_ids, starts, ids)
+        noisy = _int8_steps(torch, cfg, clip, cpu, p_ids, starts, ids,
+                            noise=1e-6)
+        launches = {k: v.launches for k, v in _kernels.KERNELS.items()}
+        _llm_site_parity(torch, cfg, clip, cpu, gpu, p_ids, starts, ids[:2],
+                         label)
+    missing = [k for k in FLAGSHIP_KERNELS if launches[k] <= 0]
+    if missing or launches["int4_matmul"]:
+        raise PhaseError(f"{label}: kernels never launched {missing}, or "
+                         f"K7a launched {launches['int4_matmul']} times")
+    rels = [_rel_max(g, c) for g, c in zip(card, host)]
+    spread = [_rel_max(g, c) for g, c in zip(noisy, host)]
+    say(4, f"{label}, the CPU's greedy ids through prefill + 16 decode "
+           f"steps: hidden states card vs CPU relative to max-abs, worst "
+           f"{max(rels):.2e}, last {rels[-1]:.2e}; the CPU against itself "
+           f"on video embeddings moved by 1e-6: worst {max(spread):.2e}, "
+           f"last {spread[-1]:.2e} (informational); card kernel launches "
+           f"{launches}")
+    del cpu
+    fused = copy.deepcopy(gpu)
+    fuse_llama_(fused)
+    h_unfused = _hidden_on(torch, gpu, clip, p_ids, starts)
+    h_fused = _hidden_on(torch, fused, clip, p_ids, starts)
+    err = _rel_max(h_fused, h_unfused)
+    gens = []
+    for model in (gpu, fused):
+        g = generate_grounded(
+            model, cfg, tok, p_ids, starts,
+            torch.from_numpy(clip["frames_clip"][None]).to("cuda"),
+            torch.from_numpy(clip["frames_sam"][None]).to("cuda"),
+            max_new_tokens=64, early_exit=False, cache_dtype=torch.int8)
+        gens.append(g["generated_ids"][0])
+    agree = float(np.mean(gens[0] == gens[1]))
+    say(4, f"{label}, fuse() on the card: prompt hidden states fused vs "
+           f"unfused {err:.2e} of max-abs; greedy tokens fused vs unfused: "
+           f"{agree * 100:.1f}% of 64 agree (informational)")
+    if not err <= FUSE_TOL:
+        raise PhaseError(f"{label}: fused vs unfused {err:.2e} > "
+                         f"{FUSE_TOL} of max-abs")
 
 
 # ---------------------------------------------------------------------------

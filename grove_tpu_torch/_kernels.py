@@ -194,6 +194,26 @@ KERNELS: Dict[str, Kernel] = {
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
         "grove_tpu_torch/csrc/sam_window_attention.cu",
         "grove_tpu/ops/sam_attention.py:537"),
+    "int4_matmul_a8": Kernel(
+        "grove_int4_matmul_a8",
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+        "grove_tpu_torch/csrc/int4_matmul_a8.cu",
+        "grove_tpu/ops/int4_matmul.py:372"),
+    "int4_requant_int8": Kernel(
+        "grove_int4_requant_int8",
+        [_P, _P, _P, _I, _I, _I, _P],
+        "grove_tpu_torch/csrc/int4_requant.cu",
+        "grove_tpu/ops/int4_matmul.py:270"),
+    "rmsnorm_quant": Kernel(
+        "grove_rmsnorm_quant",
+        [_P, _P, _P, _P, _I, _I, _F, _I, _P],
+        "grove_tpu_torch/csrc/rmsnorm_quant.cu",
+        "grove_tpu/ops/fused_ln.py:155"),
+    "add_rmsnorm_quant": Kernel(
+        "grove_add_rmsnorm_quant",
+        [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
+        "grove_tpu_torch/csrc/rmsnorm_quant.cu",
+        "grove_tpu/ops/fused_ln.py:162"),
 }
 
 
@@ -222,13 +242,14 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
     return dev == "cpu"
 
 
-def dtype_code(name: str, t: torch.Tensor) -> int:
-    """The kernels' code for a float32 or bfloat16 operand; raise for any
-    other dtype."""
-    if t.dtype not in _DTYPE_CODES:
-        raise ValueError(f"{name}: dtype {t.dtype} not supported "
+def dtype_code(name: str, t) -> int:
+    """The kernels' code for a float32 or bfloat16 operand (a tensor, or
+    the dtype of an output); raise for any other dtype."""
+    dt = t.dtype if isinstance(t, torch.Tensor) else t
+    if dt not in _DTYPE_CODES:
+        raise ValueError(f"{name}: dtype {dt} not supported "
                          "(float32 or bfloat16)")
-    return _DTYPE_CODES[t.dtype]
+    return _DTYPE_CODES[dt]
 
 
 def check_typed(name: str, pairs) -> None:

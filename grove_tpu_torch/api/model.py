@@ -3,18 +3,18 @@
 Counterpart of `grove_tpu/api/model.py:25-172`, with the parts the
 quantized serving slices need:
 
-    lm = GroveForCausalLM.from_pretrained(None, "full", device="cuda",
-                                          seed=0)
-    lm = lm.quantize(bits=4, vision=True)   # int4 LLM, W8A8 towers
+    lm = GroveForCausalLM.from_pretrained(None, "full", seed=0)  # on cuda
+    # W4A8 LLM, W8A8 towers: the JAX package's serving configuration
+    lm = lm.quantize(bits=4, vision=True, act_quant=True)
     lm = lm.calibrate(clip_frames, sam_frames)  # static act scales
     infer_clips_batched(lm.model, lm.cfg, tokenizer, clips,
                         decode_kwargs={"cache_dtype": torch.int8})
 
-`quantize` and `calibrate` work IN PLACE on the one model (a full-width
-model quantizes on the card without a second copy of the weights), where
-the JAX methods return a new instance beside the old one. `act_quant`,
-`fuse`, the HF-layout / Orbax directory loaders and `save_pretrained`
-raise, each naming its ROADMAP item.
+`quantize`, `calibrate` and `fuse` work IN PLACE on the one model (a
+full-width model quantizes on the card without a second copy of the
+weights), where the JAX methods return a new instance beside the old one.
+The HF-layout / Orbax directory loaders and `save_pretrained` raise,
+naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -24,11 +24,12 @@ from typing import Optional
 
 import torch
 
-from grove_tpu.config import GroveConfig
-
+from ..config import GroveConfig
 from ..checkpoint.convert import load_reference_state_dict
 from ..models.grove import GroveModel, init_grove_params
-from ..ops.quant import calibrate_vision_, quantize_llama_, quantize_vision_
+from ..models.fuse import fuse_llama_
+from ..ops.quant import (calibrate_vision_, quantize_llama_,
+                         quantize_vision_, set_llm_act_quant_)
 
 _SIZES = {"tiny": GroveConfig.tiny, "small": GroveConfig.small,
           "full": GroveConfig}
@@ -43,11 +44,12 @@ class GroveForCausalLM:
     def from_pretrained(cls, checkpoint: Optional[str] = None,
                         model_size: str = "full",
                         dtype: torch.dtype = torch.bfloat16, seed: int = 0,
-                        device="cpu") -> "GroveForCausalLM":
+                        device="cuda") -> "GroveForCausalLM":
         """Fresh weights from `seed` (checkpoint=None), or a strict load
         of a reference torch state dict file (reference names; the key
         families in `checkpoint.convert.SKIP_PATTERNS` are dropped), built
-        directly on `device` in `dtype`."""
+        directly on `device` (the card unless the caller asks for another)
+        in `dtype`."""
         if checkpoint is not None and os.path.isdir(checkpoint):
             raise NotImplementedError(
                 "HF-layout (flax_model.msgpack) and Orbax checkpoint "
@@ -67,17 +69,27 @@ class GroveForCausalLM:
 
     def quantize(self, vision: bool = False, bits: int = 8,
                  act_quant: bool = False) -> "GroveForCausalLM":
-        """Serving quantization, in place: the LLM's projections become
-        per-channel int8 (bits=8, W8A16) or group-128 int4 (bits=4, W4A16),
-        lm_head per-channel int8 either way; with `vision=True` the CLIP and
-        SAM towers also become W8A8 (int8 weights, dynamic int8
-        activations until `calibrate`). Returns this instance, whose `cfg`
-        now has `weight_quant=True` (and the towers' `quant_w8a8=True`)."""
-        if act_quant:
-            raise NotImplementedError(
-                "quantize(act_quant=True): W4A8 / W8A8 LLM activations are "
-                "not ported yet (ROADMAP Queue 1 item 11b)")
-        quantize_llama_(self.model, bits, group=self.cfg.llama.quant_group)
+        """Serving quantization, in place (`api/model.py:89-133`): the
+        LLM's projections become per-channel int8 (bits=8) or group-128
+        int4 (bits=4), lm_head per-channel int8 either way; with
+        `act_quant` their activations are quantized per token too (W8A8 /
+        W4A8: the int8 GEMM at prefill, K7b at decode); with `vision=True`
+        the CLIP and SAM towers also become W8A8 (dynamic int8 activations
+        until `calibrate`). On an LLM already quantized at these bits only
+        `act_quant` is switched (`ops.quant.set_llm_act_quant_`): the
+        weights stay as they are. Returns this instance, whose `cfg` has
+        `weight_quant=True` and `act_quant` (and the towers'
+        `quant_w8a8=True`)."""
+        llama = self.cfg.llama
+        if llama.weight_quant:
+            if llama.weight_quant_bits != bits:
+                raise ValueError(f"quantize(bits={bits}): the LLM is already "
+                                 f"quantized to {llama.weight_quant_bits} "
+                                 "bits")
+            set_llm_act_quant_(self.model, act_quant)
+        else:
+            quantize_llama_(self.model, bits, group=llama.quant_group,
+                            act_quant=act_quant)
         if vision:
             quantize_vision_(self.model)
         self.cfg = self.model.cfg
@@ -95,10 +107,15 @@ class GroveForCausalLM:
         self.cfg = self.model.cfg
         return self
 
-    def fuse(self):
-        raise NotImplementedError(
-            "fuse: fused qkv / gate_up projections are not ported yet "
-            "(ROADMAP Queue 1 item 11b)")
+    def fuse(self) -> "GroveForCausalLM":
+        """Fused qkv / gate_up projections, in place (`models.fuse`,
+        `api/model.py:174-188`): fewer, wider matmuls per LLaMA layer, the
+        same numbers up to the order of K7a's and K7b's split sums on the
+        card. Composes with `quantize` in either order. Returns this
+        instance, whose `cfg` has `fused_qkv=True`."""
+        fuse_llama_(self.model)
+        self.cfg = self.model.cfg
+        return self
 
     def save_pretrained(self, save_dir: str):
         raise NotImplementedError(

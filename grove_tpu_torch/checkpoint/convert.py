@@ -49,7 +49,8 @@ def load_reference_state_dict(model: nn.Module,
 
 _QUANT_LEAF = re.compile(
     r"^llama/layers_(\d+)/(self_attn|mlp)/"
-    r"(q_proj|k_proj|v_proj|o_proj|gate_proj|up_proj|down_proj)/"
+    r"(q_proj|k_proj|v_proj|o_proj|gate_proj|up_proj|down_proj|qkv_proj|"
+    r"gate_up_proj)/"
     r"(kernel_q4p|kernel_q|scale)$")
 _LM_HEAD_LEAF = re.compile(r"^lm_head/lm_head/(kernel_q|scale)$")
 _QUANT_BUFFERS = ("kernel_q4p", "kernel_q", "scale")
@@ -67,14 +68,16 @@ def _flatten(tree, prefix=""):
 @torch.no_grad()
 def load_jax_quantized_llama(model: nn.Module, params: Mapping) -> nn.Module:
     """Copy the quantized LLM leaves of a JAX GroveModel parameter tree
-    (after `quantize_llama_tree_int4` or `quantize_llama_tree`: numpy or
-    jax `kernel_q4p`, `kernel_q`, `scale`) into the `Int4Linear` /
-    `Int8Linear` buffers of a quantized port model, by path:
-    `llama/layers_N/self_attn/q_proj` -> `model.layers.N.self_attn.q_proj`,
-    `lm_head/lm_head` -> `lm_head`. Strict: every quantized leaf of the
-    tree lands in a buffer of the same shape and dtype, and every quantized
-    buffer of the model is written. Other leaves are left to
-    `load_reference_state_dict`."""
+    (after `quantize_llama_tree_int4` or `quantize_llama_tree`, fused by
+    `fuse_llama_projections` or not: numpy or jax `kernel_q4p`,
+    `kernel_q`, `scale`) into the `Int4Linear` / `Int8Linear` buffers of a
+    quantized port model of the same options (`act_quant`, `fused_qkv`),
+    by path: `llama/layers_N/self_attn/q_proj` (or `qkv_proj`) ->
+    `model.layers.N.self_attn.q_proj`, `lm_head/lm_head` -> `lm_head`.
+    Strict: every quantized leaf of the tree lands in a buffer of the same
+    shape and dtype, and every quantized buffer of the model is written.
+    The copy keeps each buffer's layout (a W8A8 `kernel_q` stays
+    column-major). Other leaves are left to `load_reference_state_dict`."""
     targets = {name: buf for name, buf in model.named_buffers()
                if name.rsplit(".", 1)[-1] in _QUANT_BUFFERS
                and name.startswith(("model.layers.", "lm_head."))}

@@ -29,56 +29,15 @@
 #include <stdint.h>
 
 #include "attention_core.cuh"
+#include "vec4.cuh"
 
 namespace {
 
 constexpr int kWarpsPerBlock = 8;
 constexpr int kMaxChunks = 16;            // C <= kMaxChunks * 128
 
-__device__ __forceinline__ void load4(const float* p, float v[4]) {
-  const float4 t = *reinterpret_cast<const float4*>(p);
-  v[0] = t.x;
-  v[1] = t.y;
-  v[2] = t.z;
-  v[3] = t.w;
-}
-
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float v[4]) {
-  const uint2 t = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&t.x));
-  const float2 hi = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&t.y));
-  v[0] = lo.x;
-  v[1] = lo.y;
-  v[2] = hi.x;
-  v[3] = hi.y;
-}
-
-__device__ __forceinline__ void store4(float* p, const float v[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float v[4]) {
-  uint2 t;
-  *reinterpret_cast<__nv_bfloat162*>(&t.x) =
-      __floats2bfloat162_rn(v[0], v[1]);
-  *reinterpret_cast<__nv_bfloat162*>(&t.y) =
-      __floats2bfloat162_rn(v[2], v[3]);
-  *reinterpret_cast<uint2*>(p) = t;
-}
-
-// a + b rounded to T, as torch and XLA add two values of T
-__device__ __forceinline__ float add_in(float, float x, float y) {
-  return __fadd_rn(x, y);
-}
-__device__ __forceinline__ float add_in(__nv_bfloat16, float x, float y) {
-  return __bfloat162float(__float2bfloat16_rn(__fadd_rn(x, y)));
-}
-
 __device__ __forceinline__ int8_t quant(float d, float r, float g, float b) {
-  const float y = __fadd_rn(__fmul_rn(__fmul_rn(d, r), g), b);
-  return (int8_t)fminf(fmaxf(rintf(y), -127.f), 127.f);
+  return grove::to_int8(__fadd_rn(__fmul_rn(__fmul_rn(d, r), g), b));
 }
 
 template <typename T, bool kAdd>
@@ -99,13 +58,14 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32) layernorm_quant_kernel(
   for (int i = 0; i < kMaxChunks; ++i) {
     if (i < nch) {
       const int col = (i * 32 + lane) * 4;
-      load4(a + base + col, x[i]);
+      grove::load4(a + base + col, x[i]);
       if (kAdd) {
         float y[4];
-        load4(b + base + col, y);
+        grove::load4(b + base + col, y);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) x[i][j] = add_in(T(), x[i][j], y[j]);
-        store4(resid + base + col, x[i]);
+        for (int j = 0; j < 4; ++j)
+          x[i][j] = grove::add_in(T(), x[i][j], y[j]);
+        grove::store4(resid + base + col, x[i]);
       }
       sum += (x[i][0] + x[i][1]) + (x[i][2] + x[i][3]);
     }

@@ -19,10 +19,9 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from grove_tpu.config import GroveConfig
-from grove_tpu.text import tagging
-from grove_tpu.text.packing import det_gather_positions
-
+from ..config import GroveConfig
+from ..text import tagging
+from ..text.packing import det_gather_positions
 from ..models.grove import GroveModel
 from ..models.llama import init_kv_caches
 

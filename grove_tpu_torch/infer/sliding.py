@@ -24,11 +24,10 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from grove_tpu.config import GroveConfig
-from grove_tpu.text import tagging
-from grove_tpu.text.packing import pack_text
-from grove_tpu.text.prompts import grounding_prompt, tokenize_with_video
-
+from ..config import GroveConfig
+from ..text import tagging
+from ..text.packing import pack_text
+from ..text.prompts import grounding_prompt, tokenize_with_video
 from ..data.sampling import center_window_index, sliding_segment_with_mask
 from ..models.grove import GroveModel
 from .generate import generate_grounded, left_pad_prompts

@@ -29,8 +29,7 @@ from typing import List, Tuple
 import torch
 from torch import nn
 
-from grove_tpu.config import ClipVisionConfig
-
+from ..config import ClipVisionConfig
 from ..ops.attention import multi_head_attention
 from .layers import (Int8Linear, LayerNormQuant, SpatioTemporalConvAdapter,
                      adaptive_avg_pool_3d)

@@ -33,8 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from grove_tpu.config import GroveConfig
-
+from ..config import GroveConfig
 from ..data.preprocess import CLIP_MEAN, CLIP_STD, SAM_MEAN, SAM_STD
 from .clip import ClipVisionTower
 from .llama import LlamaModel, _dense

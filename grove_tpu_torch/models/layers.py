@@ -2,13 +2,20 @@
 
 Counterpart of `grove_tpu/models/layers.py`: the bf16 inference parts, the
 quantized linears `Int8Linear` (W8A16, and W8A8 with dynamic per-token or
-static per-tensor activations) and `Int4Linear` (W4A16), and the W8A8
+static per-tensor activations) and `Int4Linear` (W4A16 and W4A8), the
+LLaMA `RMSNorm` with its fused add + norm + dynamic int8 form, and the W8A8
 tower parts `LayerNormQuant` and `Int8Conv3d` with the activation
-quantizers `quant_act` / `quant_act_static`. Int4Linear's W4A8 mode is
-ROADMAP Queue 1 item 11b. Module and parameter names follow the reference
-torch checkpoints, so `checkpoint.convert.load_reference_state_dict` loads
-them strictly; the quantized modules keep the JAX package's buffer names
-and layouts (`kernel_q`, `kernel_q4p`, `scale`, `act_scale`).
+quantizers `quant_act` / `quant_act_static`. Module and parameter names
+follow the reference torch checkpoints, so
+`checkpoint.convert.load_reference_state_dict` loads them strictly; the
+quantized modules keep the JAX package's buffer names and layouts
+(`kernel_q`, `kernel_q4p`, `scale`, `act_scale`).
+
+Dispatch: where the JAX package asks `_backend() == "tpu"` (`layers.py:
+19-23`) to pick a Pallas kernel, the port asks `_on_card(x)`, whether the
+activation lies on a CUDA device. Tests monkeypatch it, as the JAX tests
+patch `_backend`, so that CPU tensors take the card's branches through the
+kernels' plain twins.
 
 Calibration: a W8A8 site that quantizes its own input records the running
 absmax of what it quantizes (`record_absmax`) while
@@ -29,11 +36,20 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.fused_ln import add_layernorm_quant, layernorm_quant
-from ..ops.int4_matmul import int4_matmul
+from ..ops.fused_ln import (add_layernorm_quant, add_rmsnorm_quant_dyn,
+                            layernorm_quant)
+from ..ops.int4_matmul import (int4_matmul, int4_matmul_a8,
+                               int4_requant_int8, requant_multipliers)
 from ..ops.int8_matmul import column_major, int8_matmul
 from ..ops.quant import (int4_group, quantize_kernel, quantize_kernel_int4,
                          unpack_int4)
+
+
+def _on_card(x: torch.Tensor) -> bool:
+    """Whether `x` takes the kernel dispatch of the JAX package's TPU
+    branches: it lies on a CUDA device. The one seam for that question,
+    monkeypatched by the tests."""
+    return x.is_cuda
 
 
 def quant_act(x):
@@ -75,7 +91,12 @@ def gelu_tanh(x):
 
 
 class RMSNorm(nn.Module):
-    """LLaMA RMSNorm; statistics in fp32."""
+    """LLaMA RMSNorm; statistics in fp32 (`layers.py:343-365`).
+
+    With `branch`, the residual x + branch (in x's dtype) is normalized.
+    With `quant_dyn` (the W4A8 fused-norm carry) it returns
+    (resid, q8, sx) from `ops.fused_ln.add_rmsnorm_quant_dyn` (K8c):
+    resid = x [+ branch] and rmsnorm(resid) ~= q8 * sx per token."""
 
     def __init__(self, dim: int, eps: float = 1e-6, *, device=None,
                  dtype=None):
@@ -84,7 +105,11 @@ class RMSNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(dim, device=device,
                                               dtype=dtype))
 
-    def forward(self, x):
+    def forward(self, x, branch=None, quant_dyn: bool = False):
+        if quant_dyn:
+            return add_rmsnorm_quant_dyn(x, branch, self.weight, eps=self.eps)
+        if branch is not None:
+            x = x + branch.to(x.dtype)
         xf = x.float()
         var = xf.pow(2).mean(-1, keepdim=True)
         out = xf * torch.rsqrt(var + self.eps)
@@ -101,7 +126,8 @@ class Int8Linear(nn.Module):
     * W8A16 (`act_quant=False`, the LLM): the kernel is cast to the compute
       dtype for a plain matmul, as XLA computes it outside any Pallas
       kernel;
-    * W8A8 (`act_quant=True`, the vision towers): the activations are int8,
+    * W8A8 (`act_quant=True`: the vision towers, and the LLM's linears
+      with `LlamaConfig.act_quant`): the activations are int8,
       either handed in pre-quantized as `(x_int8, sx)` by a producer that
       already quantized them (a `LayerNormQuant`, K1q), or quantized here:
       per token (`quant_act`) or, with `static_act`, per tensor with the
@@ -193,23 +219,37 @@ class Int8Linear(nn.Module):
 
 
 class Int4Linear(nn.Module):
-    """int4-weight linear, W4A16, group-wise scales, no bias.
+    """int4-weight linear, group-wise scales, no bias: W4A16, or W4A8 with
+    `act_quant`.
 
-    Counterpart of `Int4Dense` (`layers.py:129-278`) with `act_quant=False`:
-    kernel_q4p (K/2, N) int8, group-pair packed (`ops.quant.pack_int4`),
-    and scale (K/G, N) fp32, as buffers; G is `group` halved until 2G
-    divides K (narrow test configs). Dispatch, as the JAX package's:
-    * CUDA, fewer than 64 rows (decode): K7a, `ops.int4_matmul`;
-    * CUDA, 64 rows or more (prefill, teacher-forced pass): a dequantized
-      view in the compute dtype and `torch.matmul` (`layers.py:238-256`
-      takes a plain XLA dot there);
-    * CPU: K7a's plain twin, the JAX package's grouped einsum."""
+    Counterpart of `Int4Dense` (`layers.py:129-278`): kernel_q4p (K/2, N)
+    int8, group-pair packed (`ops.quant.pack_int4`), and scale (K/G, N)
+    fp32, as buffers; G is `group` halved until 2G divides K (narrow test
+    configs). `forward(x, sx)` takes x already quantized per token when
+    `sx` is given (x ~= x_int8 * sx, from the fused-norm carry). Dispatch,
+    as the JAX package's, where "card" means `_on_card(x)` and G and N
+    multiples of 128 (`layers.py:198-199`):
+    * card, 64 rows or more, `act_quant` (prefill, the teacher-forced
+      pass): the int8 view of the weights (K7c, `ops.int4_matmul.
+      int4_requant_int8`) with per-channel scales s8, the activations
+      quantized per token unless `sx` came with them, the exact int8 GEMM
+      (`ops.int8_matmul`) and `(acc * sx) * s8`;
+    * card, 64 rows or more: a dequantized view in the compute dtype and
+      `torch.matmul` (`layers.py:238-256` takes a plain XLA dot there);
+    * card, fewer rows, `act_quant` (decode): `quant_act`, then K7b
+      (`ops.int4_matmul.int4_matmul_a8`);
+    * otherwise K7a (`ops.int4_matmul.int4_matmul`), whose CPU twin is the
+      JAX package's grouped einsum.
+    Where `sx` arrives but no int8 path takes it, x * sx is formed exactly
+    in fp32 and cast to the compute dtype first (`layers.py:200-205`)."""
 
     def __init__(self, in_features: int, out_features: int,
-                 group: int = 128, *, device=None, dtype=None):
+                 group: int = 128, *, act_quant: bool = False, device=None,
+                 dtype=None):
         super().__init__()
         self.in_features, self.out_features = in_features, out_features
         self.compute_dtype = dtype or torch.get_default_dtype()
+        self.act_quant = act_quant
         g = int4_group(in_features, group)
         self.register_buffer("kernel_q4p", torch.empty(
             (in_features // 2, out_features), dtype=torch.int8,
@@ -226,9 +266,10 @@ class Int4Linear(nn.Module):
             self.scale.fill_(1.0)
 
     @classmethod
-    def from_kernel(cls, kernel: torch.Tensor,
-                    group: int = 128) -> "Int4Linear":
-        mod = cls(*kernel.shape, group, device="meta", dtype=kernel.dtype)
+    def from_kernel(cls, kernel: torch.Tensor, group: int = 128,
+                    **kw) -> "Int4Linear":
+        mod = cls(*kernel.shape, group, device="meta", dtype=kernel.dtype,
+                  **kw)
         mod.kernel_q4p, mod.scale = quantize_kernel_int4(kernel, group)
         return mod
 
@@ -242,17 +283,40 @@ class Int4Linear(nn.Module):
         return (w * self.scale[:, None, :]).to(self.compute_dtype).reshape(
             self.in_features, self.out_features)
 
-    def forward(self, x):
+    def forward(self, x, sx=None):
+        dt = self.compute_dtype
         lead = x.shape[:-1]
-        x2 = x.to(self.compute_dtype).reshape(-1, self.in_features)
-        if x2.is_cuda and x2.shape[0] >= 64:
-            y = torch.matmul(x2, self.dequantized())
+        x2 = x.reshape(-1, self.in_features)
+        tokens = x2.shape[0]
+        card = (_on_card(x) and self.group % 128 == 0
+                and self.out_features % 128 == 0)
+        int8_view = card and tokens >= 64 and self.act_quant
+        if sx is not None and not int8_view:
+            x2 = (x2.float() * sx.reshape(-1, 1)).to(dt)
+            sx = None
+        if int8_view:
+            s8, mult = requant_multipliers(self.scale)
+            q8 = int4_requant_int8(self.kernel_q4p, mult)
+            if sx is None:
+                xq, sxt = quant_act(x2)
+            else:
+                xq, sxt = x2, sx.reshape(-1, 1)
+            acc = int8_matmul(xq.contiguous(), q8)
+            y = acc.float() * sxt * s8
+        elif card and tokens >= 64:
+            y = torch.matmul(x2.to(dt), self.dequantized())
+        elif card and self.act_quant:
+            xq, sxt = quant_act(x2)
+            y = int4_matmul_a8(xq, sxt, self.kernel_q4p, self.scale,
+                               out_dtype=dt)
         else:
-            y = int4_matmul(x2, self.kernel_q4p, self.scale)
-        return y.reshape(*lead, self.out_features)
+            y = int4_matmul(x2.to(dt).contiguous(), self.kernel_q4p,
+                            self.scale)
+        return y.to(dt).reshape(*lead, self.out_features)
 
     def extra_repr(self):
-        return (f"{self.in_features}, {self.out_features}, W4A16, "
+        return (f"{self.in_features}, {self.out_features}, "
+                f"{'W4A8' if self.act_quant else 'W4A16'}, "
                 f"group={self.group}")
 
 

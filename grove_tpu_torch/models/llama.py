@@ -1,5 +1,6 @@
 """LLaMA decoder with an explicit KV cache: bf16 or int8 cache, float or
-weight-quantized (W8A16 / W4A16) projections.
+weight-quantized projections (W8A16 / W4A16, and with `act_quant` W8A8 /
+W4A8), unfused or fused (`fused_qkv`).
 
 Counterpart of `grove_tpu/models/llama.py` with the HF `LlamaModel` module
 tree (`model.embed_tokens`, `model.layers.N.*`, `model.norm`):
@@ -10,8 +11,16 @@ tree (`model.embed_tokens`, `model.layers.N.*`, `model.norm`):
 * the model consumes `inputs_embeds`; the video splice happens in
   `models.grove`;
 * `_dense` picks `nn.Linear`, `Int4Linear` or `Int8Linear` by
-  `weight_quant` / `weight_quant_bits` (`llama.py:43-61`); quantized
-  weights come from `ops.quant.quantize_llama_`.
+  `weight_quant` / `weight_quant_bits` and hands them `act_quant`
+  (`llama.py:43-61`); quantized weights come from `ops.quant.
+  quantize_llama_`;
+* `fused_qkv` (`models.fuse`): one `qkv_proj` and one `gate_up_proj`
+  whose outputs are split, `llama.py:149-159`, `:321-327`;
+* the W4A8 fused-norm carry (`llama.py:332-371`, `:401-440`): where the
+  gate of `LlamaModel._fuse_ln` holds, every norm site runs K8c
+  (`RMSNorm(quant_dyn=True)`) and hands its projections int8 activations
+  with per-token scales, and each block returns its residual and its MLP
+  branch un-added, for the next norm to add.
 
 Attention:
 * no cache (teacher-forced pass): causal self-attention through
@@ -41,24 +50,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from grove_tpu.config import LlamaConfig
-
+from ..config import LlamaConfig
 from ..ops.attention import (multi_head_attention, prefill_attention_raw,
                              prefill_attention_trainable, xla_attention)
 from ..ops.decode_attention import NEG_INF, int8_cache_decode_attention
+from . import layers
 from .layers import Int4Linear, Int8Linear, RMSNorm
 
 
 def check_llama_config(cfg: LlamaConfig) -> None:
     """Raise for the LLaMA options the port does not run yet."""
-    if cfg.act_quant:
-        raise NotImplementedError(
-            "LlamaConfig.act_quant: W4A8 / W8A8 LLM activations are not "
-            "ported yet (ROADMAP Queue 1 item 11b)")
-    if cfg.fused_qkv:
-        raise NotImplementedError(
-            "LlamaConfig.fused_qkv: fused projections are not ported yet "
-            "(ROADMAP Queue 1 item 11b)")
     if cfg.lora_r > 0:
         raise NotImplementedError(
             "LlamaConfig.lora_r > 0: LoRA belongs to the training slice "
@@ -72,13 +73,15 @@ def _dense(cfg: LlamaConfig, in_features: int, out_features: int, *,
            bits: int = 0, device=None, dtype=None) -> nn.Module:
     """Linear factory (`llama.py:43-61`): `nn.Linear`, or with
     `weight_quant` an `Int4Linear` (`weight_quant_bits == 4`) or an
-    `Int8Linear`; callers pin `bits=8` for lm_head."""
+    `Int8Linear`, W4A8 / W8A8 with `act_quant`; callers pin `bits=8` for
+    lm_head."""
     f = dict(device=device, dtype=dtype)
     if cfg.weight_quant:
         if (bits or cfg.weight_quant_bits) == 4:
             return Int4Linear(in_features, out_features, cfg.quant_group,
-                              **f)
-        return Int8Linear(in_features, out_features, **f)
+                              act_quant=cfg.act_quant, **f)
+        return Int8Linear(in_features, out_features, act_quant=cfg.act_quant,
+                          **f)
     return nn.Linear(in_features, out_features, bias=False, **f)
 
 
@@ -118,6 +121,17 @@ def _repeat_kv(x: torch.Tensor, reps: int) -> torch.Tensor:
     return x if reps == 1 else x.repeat_interleave(reps, dim=2)
 
 
+def _project(mod: nn.Module, x, sx):
+    """A projection of x, or of the int8 carry (x, sx): only `Int4Linear`
+    takes the carry (`llama.py:137-147`)."""
+    if isinstance(mod, Int4Linear):
+        return mod(x, sx)
+    if sx is not None:
+        raise ValueError("the fused-norm int8 carry reached a "
+                         f"{type(mod).__name__}, which cannot take it")
+    return mod(x)
+
+
 class LlamaAttention(nn.Module):
     def __init__(self, cfg: LlamaConfig, *, device=None, dtype=None):
         super().__init__()
@@ -125,20 +139,34 @@ class LlamaAttention(nn.Module):
         self.cfg = cfg
         d, hd = cfg.hidden_size, cfg.head_dim
         nq, nkv = cfg.num_heads * hd, cfg.num_kv_heads * hd
-        self.q_proj = _dense(cfg, d, nq, **f)
-        self.k_proj = _dense(cfg, d, nkv, **f)
-        self.v_proj = _dense(cfg, d, nkv, **f)
+        if cfg.fused_qkv:
+            self.qkv_proj = _dense(cfg, d, nq + 2 * nkv, **f)
+        else:
+            self.q_proj = _dense(cfg, d, nq, **f)
+            self.k_proj = _dense(cfg, d, nkv, **f)
+            self.v_proj = _dense(cfg, d, nkv, **f)
         self.o_proj = _dense(cfg, nq, d, **f)
 
     def forward(self, x, positions, kv_cache: Optional[Dict] = None,
-                cache_offset: int = 0, attn_mask=None, pad_lens=None):
+                cache_offset: int = 0, attn_mask=None, pad_lens=None,
+                sx=None):
+        """`sx` given: x arrived per-token int8 from the fused-norm carry
+        (x ~= x_int8 * sx)."""
         cfg = self.cfg
         b, s, _ = x.shape
         hd = cfg.head_dim
+        nq, nkv = cfg.num_heads * hd, cfg.num_kv_heads * hd
         reps = cfg.num_heads // cfg.num_kv_heads
-        q = self.q_proj(x).reshape(b, s, cfg.num_heads, hd)
-        k = self.k_proj(x).reshape(b, s, cfg.num_kv_heads, hd)
-        v = self.v_proj(x).reshape(b, s, cfg.num_kv_heads, hd)
+        if cfg.fused_qkv:
+            # contiguous thirds: the attention kernels take no strides
+            q, k, v = (t.contiguous() for t in torch.split(
+                _project(self.qkv_proj, x, sx), (nq, nkv, nkv), dim=-1))
+        else:
+            q, k, v = (_project(m, x, sx)
+                       for m in (self.q_proj, self.k_proj, self.v_proj))
+        q = q.reshape(b, s, cfg.num_heads, hd)
+        k = k.reshape(b, s, cfg.num_kv_heads, hd)
+        v = v.reshape(b, s, cfg.num_kv_heads, hd)
         cos, sin = rope_angles(positions, hd, cfg.rope_theta)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
@@ -223,13 +251,24 @@ class LlamaMLP(nn.Module):
     def __init__(self, cfg: LlamaConfig, *, device=None, dtype=None):
         super().__init__()
         f = dict(device=device, dtype=dtype)
+        self.cfg = cfg
         d, i = cfg.hidden_size, cfg.intermediate_size
-        self.gate_proj = _dense(cfg, d, i, **f)
-        self.up_proj = _dense(cfg, d, i, **f)
+        if cfg.fused_qkv:
+            self.gate_up_proj = _dense(cfg, d, 2 * i, **f)
+        else:
+            self.gate_proj = _dense(cfg, d, i, **f)
+            self.up_proj = _dense(cfg, d, i, **f)
         self.down_proj = _dense(cfg, i, d, **f)
 
-    def forward(self, x):
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+    def forward(self, x, sx=None):
+        if self.cfg.fused_qkv:
+            gu = _project(self.gate_up_proj, x, sx)
+            i = self.cfg.intermediate_size
+            gate, up = gu[..., :i], gu[..., i:]
+        else:
+            gate = _project(self.gate_proj, x, sx)
+            up = _project(self.up_proj, x, sx)
+        return self.down_proj(F.silu(gate) * up)
 
 
 class LlamaDecoderLayer(nn.Module):
@@ -248,30 +287,79 @@ class LlamaDecoderLayer(nn.Module):
                                cache_offset, attn_mask, pad_lens)
         return x + self.mlp(self.post_attention_layernorm(x))
 
+    def forward_fused_ln(self, x, branch, positions, kv_cache=None,
+                         cache_offset: int = 0, attn_mask=None,
+                         pad_lens=None):
+        """The W4A8 fused-norm block (`llama.py:349-361`): both norms run
+        K8c and hand their projections (q8, sx); x + branch, the previous
+        block's un-added residual carry, is added by the first norm.
+        Returns the carry (resid, mlp branch)."""
+        resid, q8, sx = self.input_layernorm(x, branch, quant_dyn=True)
+        attn_out = self.self_attn(q8, positions, kv_cache, cache_offset,
+                                  attn_mask, pad_lens, sx=sx)
+        resid, q8, sx = self.post_attention_layernorm(resid, attn_out,
+                                                      quant_dyn=True)
+        return resid, self.mlp(q8, sx)
+
 
 class LlamaModel(nn.Module):
     """Embedding table + decoder stack + final norm (HF `LlamaModel`).
-    `forward` takes `inputs_embeds` and returns post-final-norm states."""
+    `forward` takes `inputs_embeds` and returns post-final-norm states.
+    `llama_cfg` is the config its modules were built for; the in-place
+    transforms of `ops.quant` and `models.fuse` update it through
+    `set_llama_cfg_`."""
 
     def __init__(self, cfg: LlamaConfig, *, device=None, dtype=None):
         super().__init__()
         check_llama_config(cfg)
         f = dict(device=device, dtype=dtype)
+        self.llama_cfg = cfg
         self.embed_tokens = nn.Embedding(cfg.padded_vocab_size,
                                          cfg.hidden_size, **f)
         self.layers = nn.ModuleList(LlamaDecoderLayer(cfg, **f)
                                     for _ in range(cfg.num_layers))
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, **f)
 
+    def _fuse_ln(self, x) -> bool:
+        """The gate of the fused-norm carry (`llama.py:408-419`): W4A8
+        weights on the card, no LoRA, a multi-token shape of 64 tokens or
+        more, and every width the int8-view path takes. The port has no
+        `act_sharding` and no `remat`, the gate's other two terms."""
+        cfg = self.llama_cfg
+        b, s = x.shape[:2]
+        hd = cfg.head_dim
+        return (layers._on_card(x) and cfg.weight_quant
+                and cfg.weight_quant_bits == 4 and cfg.act_quant
+                and cfg.lora_r == 0 and s > 1 and b * s >= 64
+                and cfg.hidden_size % 128 == 0
+                and cfg.quant_group % 128 == 0
+                and cfg.intermediate_size % 128 == 0
+                and (cfg.num_heads * hd) % 128 == 0
+                and (cfg.num_kv_heads * hd) % 128 == 0)
+
     def forward(self, inputs_embeds, positions,
                 kv_caches: Optional[List[Dict]] = None,
                 cache_offset: int = 0, attn_mask=None, pad_lens=None):
         x = inputs_embeds
+        fuse_ln = self._fuse_ln(x)
+        branch = None
         for i, layer in enumerate(self.layers):
-            x = layer(x, positions,
-                      kv_caches[i] if kv_caches is not None else None,
-                      cache_offset, attn_mask, pad_lens)
-        return self.norm(x)
+            args = (positions, kv_caches[i] if kv_caches is not None
+                    else None, cache_offset, attn_mask, pad_lens)
+            if fuse_ln:
+                x, branch = layer.forward_fused_ln(x, branch, *args)
+            else:
+                x = layer(x, *args)
+        return self.norm(x, branch)
+
+
+def set_llama_cfg_(model: LlamaModel, cfg: LlamaConfig) -> None:
+    """Point a decoder stack and its attention and MLP modules at `cfg`,
+    after an in-place transform changed the flags they read
+    (`act_quant`, `fused_qkv`, the quantization fields)."""
+    model.llama_cfg = cfg
+    for layer in model.layers:
+        layer.self_attn.cfg = layer.mlp.cfg = cfg
 
 
 def init_kv_caches(cfg: LlamaConfig, batch: int, max_len: int, *,

@@ -24,8 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from grove_tpu.config import SamDecoderConfig
-
+from ..config import SamDecoderConfig
 from .layers import MLP, LayerNorm2d, MLPBlock
 
 _LN_EPS = 1e-6

@@ -30,8 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from grove_tpu.config import SamEncoderConfig
-
+from ..config import SamEncoderConfig
 from ..ops.attention import xla_attention
 from ..ops.sam_attention import (sam_attention_with_relpos,
                                  sam_window_attention_fused,

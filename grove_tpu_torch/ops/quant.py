@@ -18,7 +18,9 @@ so the results are byte-identical to the numpy originals.
 
 Module transforms, all IN PLACE, layer by layer on the model's device,
 each float weight dropped once its int8 copy exists: `quantize_llama_`
-(`quantize_llama_tree` / `quantize_llama_tree_int4`), and for the W8A8
+(`quantize_llama_tree` / `quantize_llama_tree_int4`, with `act_quant` the
+W4A8 / W8A8 LLM), `set_llm_act_quant_` (the same switch on an LLM that is
+already quantized), and for the W8A8
 towers `quantize_sam_` / `quantize_clip_` (`quantize_sam_tree` /
 `quantize_clip_tree`, the sites of SAM_QUANT_PATTERNS / CLIP_QUANT_PATTERNS,
 `quant.py:43-61`), joined by `quantize_vision_`.
@@ -42,9 +44,6 @@ from typing import Callable, Dict, Iterator, Tuple
 
 import torch
 from torch import nn
-
-LLAMA_PROJECTIONS = (("self_attn", ("q_proj", "k_proj", "v_proj", "o_proj")),
-                     ("mlp", ("gate_proj", "up_proj", "down_proj")))
 
 
 def quantize_kernel(kernel: torch.Tensor) -> Tuple[torch.Tensor,
@@ -112,39 +111,76 @@ def quantize_kernel_int4(kernel: torch.Tensor, group: int = 128
     return pack_int4(q.reshape(kin, out).to(torch.int8), group), scale
 
 
+def _llama_projections(model: nn.Module):
+    """(parent module, name) of every projection of a GroveModel's LLM,
+    unfused or fused, then lm_head."""
+    for layer in model.model.layers:
+        for sub in (layer.self_attn, layer.mlp):
+            for name, _ in sub.named_children():
+                yield sub, name
+    yield model, "lm_head"
+
+
 @torch.no_grad()
-def quantize_llama_(model: nn.Module, bits: int, group: int = 128):
-    """Quantise a `models.grove.GroveModel`'s LLM IN PLACE: the seven
-    projections of every layer become `Int4Linear` (bits=4, group-wise) or
-    `Int8Linear` (bits=8), and `lm_head` becomes `Int8Linear` either way
-    (`quant.py:103-106`, `:179-204`). It works layer by layer on the
-    model's device and drops each float weight once its quantised buffers
-    exist, so a full-width model quantises on the card without two copies.
-    `model.cfg` is updated to `weight_quant=True, weight_quant_bits=bits`.
-    Returns the model."""
+def quantize_llama_(model: nn.Module, bits: int, group: int = 128,
+                    act_quant: bool = False):
+    """Quantise a `models.grove.GroveModel`'s LLM IN PLACE: the projections
+    of every layer (fused or not) become `Int4Linear` (bits=4, group-wise)
+    or `Int8Linear` (bits=8), and `lm_head` becomes `Int8Linear` either way
+    (`quant.py:103-106`, `:179-204`), all W4A8 / W8A8 with `act_quant`
+    (`api/model.py:113-122`). It works layer by layer on the model's device
+    and drops each float weight once its quantised buffers exist, so a
+    full-width model quantises on the card without two copies. `model.cfg`
+    is updated to `weight_quant=True, weight_quant_bits=bits,
+    act_quant=act_quant`. Returns the model."""
     from ..models.layers import Int4Linear, Int8Linear
+    from ..models.llama import set_llama_cfg_
     if bits not in (4, 8):
         raise ValueError(f"quantize_llama_: bits must be 4 or 8, got {bits}")
     llama = dataclasses.replace(model.cfg.llama, weight_quant=True,
-                                weight_quant_bits=bits, quant_group=group)
-
-    def swap(parent: nn.Module, name: str, int4: bool):
+                                weight_quant_bits=bits, quant_group=group,
+                                act_quant=act_quant)
+    for parent, name in list(_llama_projections(model)):
         lin = getattr(parent, name)
         if not isinstance(lin, nn.Linear):
             raise TypeError(f"quantize_llama_: {name} is "
                             f"{type(lin).__name__}, not nn.Linear (already "
                             "quantized?)")
         kernel = lin.weight.t()            # (in, out), the JAX layout
-        new = (Int4Linear.from_kernel(kernel, group) if int4
-               else Int8Linear.from_kernel(kernel))
-        setattr(parent, name, new)
+        setattr(parent, name,
+                Int4Linear.from_kernel(kernel, group, act_quant=act_quant)
+                if bits == 4 and name != "lm_head"
+                else Int8Linear.from_kernel(kernel, act_quant=act_quant))
+    set_llama_cfg_(model.model, llama)
+    model.cfg = dataclasses.replace(model.cfg, llama=llama)
+    return model
 
-    for layer in model.model.layers:
-        for sub, names in LLAMA_PROJECTIONS:
-            for name in names:
-                swap(getattr(layer, sub), name, bits == 4)
-        layer.self_attn.cfg = llama
-    swap(model, "lm_head", False)
+
+@torch.no_grad()
+def set_llm_act_quant_(model: nn.Module, act_quant: bool) -> nn.Module:
+    """Switch a quantized GroveModel's LLM between W4A16 / W8A16 and W4A8 /
+    W8A8 IN PLACE: the flag on the config and on every LLM linear, and
+    each `Int8Linear.kernel_q` (lm_head, and the projections at bits=8)
+    laid out column-major with it on, row-major with it off, as
+    `Int8Linear` builds it. The int4 bytes do not change, only the
+    dispatch. The result equals `quantize_llama_(..., act_quant)` of the
+    float model."""
+    from ..models.layers import Int4Linear, Int8Linear
+    from ..models.llama import set_llama_cfg_
+    from .int8_matmul import column_major
+    if not model.cfg.llama.weight_quant:
+        raise ValueError("set_llm_act_quant_: the LLM is not quantized")
+    for parent, name in _llama_projections(model):
+        lin = getattr(parent, name)
+        if not isinstance(lin, (Int4Linear, Int8Linear)):
+            raise TypeError(f"set_llm_act_quant_: {name} is "
+                            f"{type(lin).__name__}")
+        lin.act_quant = act_quant
+        if isinstance(lin, Int8Linear):
+            kq = lin.kernel_q
+            lin.kernel_q = column_major(kq) if act_quant else kq.contiguous()
+    llama = dataclasses.replace(model.cfg.llama, act_quant=act_quant)
+    set_llama_cfg_(model.model, llama)
     model.cfg = dataclasses.replace(model.cfg, llama=llama)
     return model
 

@@ -120,7 +120,7 @@ def main() -> int:
         print("profile_towers: torch.cuda.is_available() is false; this "
               "script needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    from grove_tpu.config import GroveConfig
+    from grove_tpu_torch.config import GroveConfig
 
     from . import _kernels
     from .api import GroveForCausalLM

@@ -1,9 +1,12 @@
 """grove_tpu_torch: copied host code, import hygiene, small ops against the
 JAX package, and the parts of the slice that raise until they are ported."""
 
+import ast
 import dataclasses
+import inspect
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -13,9 +16,15 @@ torch.set_num_threads(1)
 
 import jax.numpy as jnp  # noqa: E402
 
-from grove_tpu.config import GroveConfig, LlamaConfig  # noqa: E402
+from grove_tpu import config as jconfig  # noqa: E402
+from grove_tpu_torch import config as tconfig  # noqa: E402
+from grove_tpu_torch.config import GroveConfig, LlamaConfig  # noqa: E402
 from grove_tpu_torch.models import layers as tlayers  # noqa: E402
 from grove_tpu_torch.models import llama as tllama  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+CONFIG_CLASSES = ("ClipVisionConfig", "SamEncoderConfig", "SamDecoderConfig",
+                  "LlamaConfig", "SpecialTokenIds", "GroveConfig")
 
 
 @pytest.mark.parametrize("n,seg", [(24, 8), (8, 8), (29, 8), (6, 2),
@@ -38,16 +47,133 @@ def test_normalization_constants_equal_originals():
 
 
 def test_import_leaves_jax_and_pil_out():
-    code = ("import sys, grove_tpu_torch, grove_tpu_torch.infer.sliding, "
-            "grove_tpu_torch.checkpoint.convert, grove_tpu_torch._kernels, "
-            "grove_tpu_torch.api, grove_tpu_torch.api.processor, "
-            "grove_tpu_torch.ops.quant, grove_tpu_torch.ops.fused_ln, "
-            "grove_tpu_torch.ops.int8_matmul, grove_tpu_torch.profile_towers; "
-            "print(sorted(m for m in ('jax', 'PIL', 'flax') "
-            "if m in sys.modules))")
+    """Importing every module of the port loads no jax, flax or PIL, and no
+    module of the JAX package `grove_tpu`."""
+    mods = sorted("grove_tpu_torch." + ".".join(
+        p.relative_to(ROOT / "grove_tpu_torch").with_suffix("").parts)
+        for p in (ROOT / "grove_tpu_torch").rglob("*.py")
+        if p.name != "__init__.py")
+    code = ("import sys, grove_tpu_torch, " + ", ".join(mods) + "; "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'PIL', 'flax', 'grove_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, timeout=120, check=True)
+                         text=True, timeout=120, check=True, cwd=ROOT)
+    assert "grove_tpu_torch.models.fuse" in mods
     assert out.stdout.strip() == "[]"
+
+
+def test_chip_smoke_up_to_its_exit_leaves_jax_package_out():
+    """chip_smoke.py run where there is no card, up to its exit, has loaded
+    no module of jax, flax, PIL or the JAX package."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    code = ("import runpy, sys\n"
+            "sys.argv = ['chip_smoke.py']\n"
+            "try:\n"
+            "    runpy.run_path('chip_smoke.py', run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    code = e.code\n"
+            "print('EXIT', code, sorted(m for m in sys.modules if "
+            "m.split('.')[0] in ('jax', 'PIL', 'flax', 'grove_tpu')))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, check=True, cwd=ROOT)
+    assert out.stdout.strip().splitlines()[-1] == "EXIT 1 []"
+
+
+def _imports(path: Path):
+    """Every module name an import statement of `path` names."""
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("where", ["chip_smoke.py", "grove_tpu_torch"])
+def test_port_imports_nothing_of_the_jax_package(where):
+    """No import statement of chip_smoke.py or of the port names
+    `grove_tpu` or one of its submodules."""
+    path = ROOT / where
+    files = [path] if path.is_file() else sorted(path.rglob("*.py"))
+    found = [(f.name, m) for f in files for m in _imports(f)
+             if m.split(".")[0] in ("grove_tpu", "jax", "flax", "PIL")]
+    assert files and not found
+
+
+def test_from_pretrained_defaults_to_the_card():
+    """The entry point builds on the card unless the caller asks for the
+    CPU (the tests always pass device="cpu")."""
+    from grove_tpu_torch.api import GroveForCausalLM
+    sig = inspect.signature(GroveForCausalLM.from_pretrained)
+    assert sig.parameters["device"].default == "cuda"
+
+
+@pytest.mark.parametrize("name", CONFIG_CLASSES)
+def test_config_copies_equal_originals(name):
+    """Every config class of the port's copy holds the JAX package's
+    fields and values at its defaults and at `tiny()` / `small()` where it
+    has them, and the JSON helpers round-trip the same dicts."""
+    jcls, tcls = getattr(jconfig, name), getattr(tconfig, name)
+    for ctor in ("__call__", "tiny", "small"):
+        if not hasattr(jcls, ctor):
+            assert not hasattr(tcls, ctor)
+            continue
+        make = (lambda c: c()) if ctor == "__call__" else (
+            lambda c: getattr(c, ctor)())
+        assert dataclasses.asdict(make(tcls)) == dataclasses.asdict(
+            make(jcls)), ctor
+    if name == "GroveConfig":
+        small = jcls.small()
+        assert tcls.from_dict(small.to_dict()).to_dict() == small.to_dict()
+        assert tcls.small().llama.head_dim == small.llama.head_dim
+        assert tcls.tiny().num_video_tokens == jcls.tiny().num_video_tokens
+
+
+def test_text_copies_equal_originals():
+    """The port's copies of the prompt, packing and tagging host code give
+    the JAX package's results on sample inputs."""
+    from grove_tpu.text import constants as jconst
+    from grove_tpu.text import conversation as jconv
+    from grove_tpu.text import packing as jpack
+    from grove_tpu.text import prompts as jprompts
+    from grove_tpu.text import tagging as jtag
+    from grove_tpu.text.mock_tokenizer import MockTokenizer as JTok
+    from grove_tpu_torch.text import constants as tconst
+    from grove_tpu_torch.text import conversation as tconv
+    from grove_tpu_torch.text import packing as tpack
+    from grove_tpu_torch.text import prompts as tprompts
+    from grove_tpu_torch.text import tagging as ttag
+    from grove_tpu_torch.text.mock_tokenizer import MockTokenizer as TTok
+    assert {k: v for k, v in vars(tconst).items() if k.isupper()} == \
+        {k: v for k, v in vars(jconst).items() if k.isupper()}
+    jt, tt = JTok(), TTok()
+    text = "a <p> man </p> [DET] slices <p> bread </p> [DET] ."
+    assert tt(text).input_ids == jt(text).input_ids
+    assert tt.decode(jt(text).input_ids) == jt.decode(jt(text).input_ids)
+    assert tt.token_id("[DET]") == jt.token_id("[DET]")
+    assert tconv.build_prompt("hi", "there") == jconv.build_prompt("hi",
+                                                                    "there")
+    for q in (None, "What happens?"):
+        prompt = tprompts.grounding_prompt(q, answer=text)
+        assert prompt == jprompts.grounding_prompt(q, answer=text)
+        ids = tprompts.tokenize_with_video(prompt, tt)
+        assert ids == jprompts.tokenize_with_video(prompt, jt)
+    kw = dict(num_video_tokens=6, max_spliced_len=128,
+              det_token_id=jt.token_id("[DET]"), max_phrases=4,
+              pad_id=jt.pad_token_id)
+    jp = jpack.pack_text(ids, prompt, jt, **kw)
+    tp = tpack.pack_text(ids, prompt, tt, **kw)
+    for field in dataclasses.fields(jp):
+        np.testing.assert_array_equal(getattr(tp, field.name),
+                                      getattr(jp, field.name))
+    np.testing.assert_array_equal(
+        tpack.det_gather_positions(jp.input_ids, kw["det_token_id"], 4),
+        jpack.det_gather_positions(jp.input_ids, kw["det_token_id"], 4))
+    for out in (text, "<p> a dog [DET] runs", "no tags at all", ""):
+        assert ttag.parse_generation(out) == jtag.parse_generation(out)
+        assert ttag.strip_tags(out) == jtag.strip_tags(out)
+    assert ttag.tag_caption("a man cuts bread", [(2, 5), (11, 16)]) == \
+        jtag.tag_caption("a man cuts bread", [(2, 5), (11, 16)])
 
 
 def test_adaptive_pool_matches_jax():
@@ -142,7 +268,7 @@ def test_decode_kwargs_rejects_like_original():
                 fn(*args, **kw)
 
 
-@pytest.mark.parametrize("field", ["act_quant", "fused_qkv", "lora_r"])
+@pytest.mark.parametrize("field", ["lora_r"])
 def test_unported_llama_options_raise(field):
     value = 8 if field == "lora_r" else True
     cfg = dataclasses.replace(LlamaConfig.tiny(), **{field: value})
@@ -188,7 +314,7 @@ def test_calibrate_requires_quantized_towers():
     (`api/model.py:150-151` asserts the same)."""
     from grove_tpu_torch.api import GroveForCausalLM
     lm = GroveForCausalLM.from_pretrained(None, "tiny", dtype=torch.float32,
-                                          seed=0)
+                                          seed=0, device="cpu")
     frames = torch.zeros(1, 2, 28, 28, 3, dtype=torch.uint8)
     sam = torch.zeros(1, 2, 32, 32, 3, dtype=torch.uint8)
     for step in (lambda: None, lambda: lm.quantize(bits=4)):

@@ -12,6 +12,8 @@ tests (`tests/test_parity_reference.py`). The slice: identical greedy ids,
 boxes and objectness within 2e-3.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -31,6 +33,18 @@ from grove_tpu_torch.checkpoint.convert import (  # noqa: E402
 from grove_tpu_torch.models.grove import GroveModel  # noqa: E402
 
 TOL = 2e-3
+
+
+def port_config(cfg):
+    """The port's copy of a JAX config dataclass (`grove_tpu_torch.config`),
+    built field by field, nested dataclasses included: the port is handed
+    its own config type, with the same values."""
+    import grove_tpu_torch.config as tconfig
+    cls = getattr(tconfig, type(cfg).__name__)
+    return cls(**{f.name: (port_config(v) if dataclasses.is_dataclass(v)
+                           else v)
+                  for f in dataclasses.fields(cfg)
+                  for v in (getattr(cfg, f.name),)})
 
 
 def _perturb_zeros(tree, rng):
@@ -53,7 +67,8 @@ def models():
     jmodel, variables = init_grove_params(cfg, jax.random.PRNGKey(0),
                                           dtype=jnp.float32)
     params = _perturb_zeros(variables["params"], np.random.default_rng(0))
-    tmodel = GroveModel(cfg, device="cpu", dtype=torch.float32).eval()
+    tmodel = GroveModel(port_config(cfg), device="cpu",
+                        dtype=torch.float32).eval()
     load_reference_state_dict(tmodel, to_torch_state_dict(params, cfg))
     return cfg, jmodel, {"params": params}, tmodel
 
@@ -83,7 +98,8 @@ def test_strict_load_names_every_parameter(models):
     del sd[next(iter(sd))]
     with pytest.raises(RuntimeError, match="Missing key"):
         load_reference_state_dict(
-            GroveModel(cfg, device="cpu", dtype=torch.float32), sd)
+            GroveModel(port_config(cfg), device="cpu", dtype=torch.float32),
+            sd)
 
 
 def test_strict_load_drops_reference_only_keys(models, tmp_path):
@@ -98,7 +114,7 @@ def test_strict_load_drops_reference_only_keys(models, tmp_path):
     sd[tower + "post_layernorm.bias"] = np.zeros(d, np.float32)
     sd["model.layers.0.self_attn.rotary_emb.inv_freq"] = np.ones(
         cfg.llama.head_dim // 2, np.float32)
-    model = GroveModel(cfg, device="cpu", dtype=torch.float32)
+    model = GroveModel(port_config(cfg), device="cpu", dtype=torch.float32)
     load_reference_state_dict(model, sd)
     # the same file through the API entry point
     from grove_tpu_torch.api import GroveForCausalLM
@@ -106,7 +122,7 @@ def test_strict_load_drops_reference_only_keys(models, tmp_path):
     torch.save({k: torch.from_numpy(np.array(v)) for k, v in sd.items()},
                path)
     lm = GroveForCausalLM.from_pretrained(str(path), "tiny",
-                                          dtype=torch.float32)
+                                          dtype=torch.float32, device="cpu")
     for k, v in model.state_dict().items():
         assert torch.equal(lm.model.state_dict()[k], v), k
     sd["model.layers.0.self_attn.unknown.weight"] = np.ones(2, np.float32)
@@ -179,7 +195,8 @@ def test_llama_prefill_decode_with_left_pad_matches(models):
     ids[1, 3] = cfg.tokens.bos
     ls = ids.shape[1]
     jc = jinit(cfg.llama, 2, ls + 2, dtype=jnp.float32)
-    tc = tinit(cfg.llama, 2, ls + 2, dtype=torch.float32, device="cpu")
+    tc = tinit(tmodel.cfg.llama, 2, ls + 2, dtype=torch.float32,
+               device="cpu")
     pad_t = torch.from_numpy(pad)
     wh, wl, jc = _jax(jmodel, variables, JaxGrove.prefill,
                       jnp.asarray(ids, jnp.int32), jnp.asarray(feats),
@@ -282,7 +299,7 @@ def test_generate_grounded_matches(models):
     want = jgen(jmodel, variables, cfg, tok, ids.astype(np.int32),
                 vs.astype(np.int32), jnp.asarray(fc), jnp.asarray(fs),
                 max_new_tokens=12)
-    got = tgen(tmodel, cfg, tok, ids, vs, torch.from_numpy(fc),
+    got = tgen(tmodel, tmodel.cfg, tok, ids, vs, torch.from_numpy(fc),
                torch.from_numpy(fs), max_new_tokens=12)
     np.testing.assert_array_equal(got["generated_ids"],
                                   want["generated_ids"])
@@ -301,7 +318,7 @@ def test_infer_clips_batched_matches(models):
     clips = _clips(cfg, 8)
     want = jsl.infer_clips_batched(jmodel, variables, cfg, tok, clips,
                                    max_new_tokens=12)
-    got = tsl.infer_clips_batched(tmodel, cfg, tok, clips,
+    got = tsl.infer_clips_batched(tmodel, tmodel.cfg, tok, clips,
                                   max_new_tokens=12)
     assert len(got) == len(want) == 2
     for g, w in zip(got, want):
@@ -322,18 +339,18 @@ def test_finish_clip_teacher_forced_windows_match(models):
     text = "<p> a man </p> [DET] cuts <p> bread </p> [DET] ."
     parsed = tagging.parse_generation(text)
 
-    def run(mod, *model_args):
+    def run(mod, mcfg, *model_args):
         # the center window's entries come from the caller: empty ones here
         center = [[np.zeros((0, 4), np.float32)] * cfg.num_frames,
                   [[]] * cfg.num_frames, [np.zeros(0)] * cfg.num_frames]
         return mod._finish_clip(
-            *model_args, cfg, tok, clip["frames_clip"], clip["frames_sam"],
+            *model_args, mcfg, tok, clip["frames_clip"], clip["frames_sam"],
             clip["original_size"], windows, masks, ci, windows[ci], text,
             parsed, parsed["phrases"], 2, 0.5, None, *center)
 
-    want = run(jsl, jmodel, variables)
+    want = run(jsl, cfg, jmodel, variables)
     with torch.inference_mode():
-        got = run(tsl, tmodel)
+        got = run(tsl, tmodel.cfg, tmodel)
     assert len(windows) == 4
     _assert_clip_outputs_match(got, want, set(want))
 
@@ -344,9 +361,9 @@ def test_ground_clip_with_caption_matches(models):
     cfg, jmodel, variables, tmodel = models
     tok = MockTokenizer()
     clip = _clips(cfg, 10, n=1)[0]
-    args = (cfg, tok, clip["frames_clip"], clip["frames_sam"],
+    args = (tok, clip["frames_clip"], clip["frames_sam"],
             clip["original_size"])
     kw = dict(caption="a dog runs", use_objectness=True, threshold=0.3)
-    want = jsl.ground_clip_with_caption(jmodel, variables, *args, **kw)
-    got = tsl.ground_clip_with_caption(tmodel, *args, **kw)
+    want = jsl.ground_clip_with_caption(jmodel, variables, cfg, *args, **kw)
+    got = tsl.ground_clip_with_caption(tmodel, tmodel.cfg, *args, **kw)
     _assert_clip_outputs_match(got, want, set(want))

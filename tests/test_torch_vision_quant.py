@@ -52,7 +52,7 @@ from grove_tpu_torch.ops import fused_ln as tfln  # noqa: E402
 from grove_tpu_torch.ops import quant as tquant  # noqa: E402
 from grove_tpu_torch.ops import sam_attention as tsam  # noqa: E402
 from test_torch_parity import (TOL, _frames, _perturb_zeros,  # noqa: E402
-                               _prompt)
+                               _prompt, port_config)
 
 LSB_SHARE = 1e-3         # int8 outputs: share of elements allowed |diff| 1
 TOWER_TOL = 1e-2         # static W8A8 tower outputs, of max-abs
@@ -305,7 +305,7 @@ def sam_tower():
         jax.random.PRNGKey(0), jnp.asarray(frames))["params"]
     params = _perturb_zeros(params, rng)
     sd = to_torch_state_dict({"grounding_encoder": params}, None)
-    enc = SamImageEncoder(cfg, dtype=torch.float32)
+    enc = SamImageEncoder(port_config(cfg), dtype=torch.float32)
     enc.load_state_dict({k[len(SAM_PREFIX):]: _t(v) for k, v in sd.items()})
     return cfg, params, enc.eval(), frames
 
@@ -320,7 +320,7 @@ def clip_tower():
         jax.random.PRNGKey(1), jnp.asarray(frames))["params"]
     params = _perturb_zeros(params, rng)
     sd = to_torch_state_dict({"vision_tower": params}, None)
-    tower = ClipVisionTransformer(cfg, kw["pool_thw"], 1,
+    tower = ClipVisionTransformer(port_config(cfg), kw["pool_thw"], 1,
                                   dtype=torch.float32)
     tower.load_state_dict({k[len(CLIP_PREFIX):]: _t(v)
                            for k, v in sd.items()})
@@ -458,16 +458,17 @@ def slice_lm():
     jlm = JaxLM(cfg, jmodel, {"params": params}).quantize(
         vision=True, bits=4).calibrate(jnp.asarray(fc), jnp.asarray(fs))
     from grove_tpu_torch.api import GroveForCausalLM
-    tm = GroveModel(cfg, device="cpu", dtype=torch.float32).eval()
+    tm = GroveModel(port_config(cfg), device="cpu",
+                    dtype=torch.float32).eval()
     load_reference_state_dict(tm, to_torch_state_dict(params, cfg))
-    lm = GroveForCausalLM(cfg, tm).quantize(bits=4, vision=True)
+    lm = GroveForCausalLM(tm.cfg, tm).quantize(bits=4, vision=True)
     lm.calibrate(_t(fc), _t(fs))
     return jlm.cfg, jlm, lm, params
 
 
 def test_slice_config_and_scales_match(slice_lm):
     cfg, jlm, lm, _ = slice_lm
-    assert lm.cfg == cfg
+    assert lm.cfg == port_config(cfg)
     assert lm.model.cfg is lm.cfg
     got = {}
     for key, tower in tquant.vision_towers(lm.model).items():
