@@ -50,6 +50,9 @@ Phases, each printing its own line; any failure exits non-zero:
      K7a (decode takes K7b, as the JAX dispatch does). Then a timed replay
      of the stages, peak device memory and weight bytes of each, and how
      many greedy tokens the quantized replays share with the bf16 one;
+     last, the flagship's `lm_forward` with its W8A8 lm_head (N = 32007,
+     2 x 634 and 9 rows, zero-padded for `torch._int_mm`): finite logits,
+     the int8 GEMM bit-equal to float64;
   4  parity: GroveConfig.small() in fp32, one set of weights, on the card
      with the kernels and on the CPU with the plain versions (TF32 off):
      teacher-forced boxes and objectness within 1e-3, greedy token
@@ -76,12 +79,39 @@ Phases, each printing its own line; any failure exits non-zero:
      launching K7b, K7c and K8c and no K7a; then `fuse()` on the card:
      fused and unfused hidden states of the prompt within 1e-5 of max-abs,
      and their greedy agreement printed.
+  5  training: a fresh bf16 GroveConfig() with max_seq_len=129 (S = 129 +
+     575 = 704 tokens, the JAX package's full-scale training shape) built
+     from a seed, one batch from `data.collate.build_batch` (one synthetic
+     clip of 8 frames, a three-phrase caption whose three [DET] tokens must
+     survive the text budget), the default freeze policy and
+     OptimizerConfig(warmup_steps=1); three `train.step.make_train_step`
+     steps with the launch counts zeroed before each: every loss term
+     finite, exactly 32 launches of K4 and of each K4b entry and 24 of
+     each K9 entry per step; step 1 (lr(0) = 0) leaves every parameter
+     bit-equal and gives every trainable group (TRAIN_GROUPS) a finite,
+     nonzero gradient; after step 3 the frozen parameters are bit-equal
+     and every trainable group moved. Prints the trainable parameter
+     count, the median of steps 2-3 and peak device memory. Then one step
+     at the default max_seq_len (S = 2111: K5 forward with the torch-ops
+     backward), which must end with finite losses;
+  6  training parity: GroveConfig.small() (max_seq_len=129) in fp32, one
+     set of weights and one batch, one step with warmup_steps=0 on the
+     card (kernels, TF32 off) and on the CPU (plain versions): every loss
+     term within 1e-4 relative, every trainable tensor's gradient within
+     1e-3 of its max-abs (or of 1e-3 of the largest gradient's max-abs,
+     for a tensor whose gradient is zero up to rounding).
+Phase 2 also holds the five training kernels (K4b dq and dkv at LLaMA's
+(1, 704, 32, 128) causal; K9's forward with its LSE, dq with d_rh and d_rw,
+and dkv at SAM's windowed (72, 196, 16, 80) and global (8, 1024, 16, 80)
+shapes, times summed) with SDPA's backward alone as their `library_ms` (its
+forward for K9's forward entry), and the zero-padded int8 GEMM at lm_head's
+(704 x 4096 x 32007) and at M = 2, bit-equal to a float64 product.
 
 The line before the last is a JSON object with each kernel's measurements
 (`launches`: K1-K4 from the bf16 run of phase 3, K5-K7a from the int4 one,
 K8b and K1q from the W8A8-static one, K7b, K7c and K8c from the flagship
-one, K8a from phase 4's W8A8-static model path); the last line is
-{"ok": true, "device": {...}}.
+one, K8a from phase 4's W8A8-static model path, K4b and K9 from step 3 of
+phase 5); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -90,6 +120,7 @@ import contextlib
 import copy
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -117,6 +148,36 @@ W8A8_KERNELS = ("add_layernorm_quant", "sam_window_attention_q8")
 FLAGSHIP_KERNELS = ("int4_matmul_a8", "int4_requant_int8", "rmsnorm_quant",
                     "add_rmsnorm_quant")
 LN_KERNEL = "layernorm_quant"             # phase 4's quant_ln_kernel path
+# the training kernels, launched per step of phase 5 exactly this often: K4
+# in the 32 LLaMA layers' forward, K4b in their backward, K9's three entries
+# in the backward of the 21 windowed and 3 global SAM blocks after the first
+# trainable adapter
+TRAIN_LAUNCHES = {"flash_forward_lse": 32, "flash_backward_dq": 32,
+                  "flash_backward_dkv": 32, "relpos_flash_fwd_lse": 24,
+                  "relpos_flash_dq": 24, "relpos_flash_dkv": 24}
+TRAIN_KERNELS = tuple(k for k in TRAIN_LAUNCHES if k != "flash_forward_lse")
+TRAIN_SEQ = 129          # max_seq_len: 129 + 575 spliced = 704 tokens
+TRAIN_LOSS_REL = 1e-4    # phase 6 loss terms card vs CPU, relative
+TRAIN_GRAD_TOL = 1e-3    # phase 6 gradients, of each tensor's max-abs
+# ... or of this share of the largest gradient's max-abs, where a tensor's
+# own gradient is zero up to rounding (the attention k_proj biases of the
+# box decoder: softmax ignores a shift shared by all keys)
+TRAIN_GRAD_FLOOR = 1e-3
+# the trainable groups of the default freeze policy that must get a
+# gradient (the CLIP adapters sit behind the tower's no-grad)
+TRAIN_GROUPS = {
+    "SAM adapters": r"image_encoder\.adapters\.",
+    "box head": r"mask_decoder\.bbox_prediction_head\.",
+    "objectness head": r"mask_decoder\.temporal_objectness_head\.",
+    "rest of the mask decoder":
+        r"mask_decoder\.(?!bbox_prediction_head|temporal_objectness_head)",
+    "text_hidden_fcs": r"text_hidden_fcs\.",
+    "mm_projector": r"mm_projector\.",
+    "lm_head": r"^lm_head\.",
+    "embed_tokens": r"embed_tokens\.",
+}
+TRAIN_CAPTION = "a man slices bread on a wooden board"
+TRAIN_SPANS = [(0, 5), (13, 18), (22, 36)]   # a man / bread / a wooden board
 # one H100 SXM (NVIDIA's data sheet, dense): device memory and peak rates
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
@@ -171,7 +232,7 @@ def _cases(torch):
     import torch.nn.functional as F
     from grove_tpu_torch.ops import (attention, decode_attention,
                                      flash_backward, fused_ln, int4_matmul,
-                                     sam_attention)
+                                     sam_attention, sam_attention_bwd)
 
     def randn(gen, shape, dtype):
         return torch.randn(shape, generator=gen, device="cuda",
@@ -219,6 +280,40 @@ def _cases(torch):
         q, k, v = a
         return flash_backward.flash_forward_lse_torch(
             q, k, v, causal=True, scale=q.shape[-1] ** -0.5)
+
+    def k4b_inputs(gen, dtype, shape):
+        # lse and D from the plain forward, as the backward receives them
+        q, k, v, g = (randn(gen, shape, dtype) for _ in range(4))
+        out, lse = flash_backward.flash_forward_lse_torch(
+            q, k, v, causal=True, scale=shape[-1] ** -0.5)
+        return (q, k, v, g, lse, flash_backward.row_dot(out, g))
+
+    def k4b_dq(q, k, v, g, lse, dc):
+        return flash_backward.flash_backward_dq(
+            q, k, v, g, lse, dc, causal=True, scale=q.shape[-1] ** -0.5)
+
+    def k4b_dq_plain(q, k, v, g, lse, dc):
+        return flash_backward.flash_backward_dq_torch(
+            q, k, v, g, lse, dc, causal=True, scale=q.shape[-1] ** -0.5)
+
+    def k4b_dkv(q, k, v, g, lse, dc):
+        return flash_backward.flash_backward_dkv(
+            q, k, v, g, lse, dc, causal=True, scale=q.shape[-1] ** -0.5)
+
+    def k4b_dkv_plain(q, k, v, g, lse, dc):
+        return flash_backward.flash_backward_dkv_torch(
+            q, k, v, g, lse, dc, causal=True, scale=q.shape[-1] ** -0.5)
+
+    def k9_inputs(gen, dtype, shape):
+        return (*k2_inputs(gen, dtype, shape), shape[-1] ** -0.5)
+
+    def k9_bwd_inputs(gen, dtype, shape):
+        q, k, v, rh, rw, hw, scale = k9_inputs(gen, dtype, shape)
+        g = randn(gen, q.shape, dtype)
+        out, lse = sam_attention_bwd.relpos_flash_fwd_lse_torch(
+            q, k, v, rh, rw, hw, scale)
+        return (q, k, v, rh, rw, g, lse, flash_backward.row_dot(out, g), hw,
+                scale)
 
     def k5_inputs(gen, dtype, shape):
         b, s, heads, d, pad = shape
@@ -317,6 +412,13 @@ def _cases(torch):
         return attn_ops(b, h, d, s * (s + 1) // 2 if causal else s * s), \
             "bf16"
 
+    def bwd_ops(a, matmuls, causal=False):
+        # as the TPU kernels count it: 3 matmuls in dq (q.k, dO.v, ds.k), 4
+        # in dkv (q.k, dO.v, p.dO, ds.q), each 2 * D flops per pair
+        b, s, h, d = a[0].shape
+        pairs = s * (s + 1) // 2 if causal else s * s
+        return 2 * matmuls * b * h * d * pairs, "bf16"
+
     def k5_ops(a):
         q, pads, heads = a[0], a[3], a[4]
         b, s, c = q.shape
@@ -356,6 +458,25 @@ def _cases(torch):
         bias = sam_attention._expand_bias(rh, rw)
         return sdpa(q, k, v, attn_mask=bias.to(q.dtype))
 
+    def sdpa_grad(q, k, v, g, **kw):
+        # SDPA's backward alone: one forward kept, autograd.grad timed
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qt, kt, vt, **kw)
+        gt = g.transpose(1, 2)
+        return lambda: torch.autograd.grad(out, (qt, kt, vt), gt,
+                                           retain_graph=True)
+
+    def k4b_library(q, k, v, g, lse, dc):
+        return sdpa_grad(q, k, v, g, is_causal=True)
+
+    def k9_library(q, k, v, rh, rw, hw, scale):
+        return k2_library(q, k, v, rh, rw, hw)
+
+    def k9_bwd_library(q, k, v, rh, rw, g, lse, dc, hw, scale):
+        bias = sam_attention._expand_bias(rh, rw)
+        return sdpa_grad(q, k, v, g, attn_mask=bias.to(q.dtype))
+
     def k5_library(q, k, v, pads, heads, scale):
         b, s, c = q.shape
         pos = torch.arange(s, device=q.device)
@@ -377,6 +498,12 @@ def _cases(torch):
                     cold=cold, int8=int8, ops=ops, library=library)
 
     proj_shapes = [(4096, 4096), (4096, 11008), (11008, 4096)]
+    # the training step's shapes: LLaMA-7B at S = 704 (batch 1); SAM's 21
+    # windowed blocks (8 frames x 9 windows of 14 x 14) and 3 global ones
+    # (8 frames of 32 x 32) after the first trainable adapter
+    k9_full = [(72, 14, 16, 80), (8, 32, 16, 80)]
+    k9_small = [(2, 4, 2, 8), (3, 14, 2, 64), (1, 8, 4, 80)]
+    k4b_small = [(2, 192, 4, 64), (1, 45, 4, 8), (2, 130, 2, 80)]
     return {
         "sam_window_attention": case(
             sam_attention.grouped_window_attention_relpos_v3,
@@ -460,6 +587,26 @@ def _cases(torch):
             [(1280, 4096)], [(300, 256), (37, 768), (70, 4096)], norm_ops,
             cold=True,
             int8={"full": (1, LSB_SHARE), "small": (1, LSB_SHARE)}),
+        "flash_backward_dq": case(
+            k4b_dq, k4b_dq_plain, k4b_inputs, [(1, 704, 32, 128)],
+            k4b_small, lambda a: bwd_ops(a, 3, causal=True),
+            library=k4b_library),
+        "flash_backward_dkv": case(
+            k4b_dkv, k4b_dkv_plain, k4b_inputs, [(1, 704, 32, 128)],
+            k4b_small, lambda a: bwd_ops(a, 4, causal=True),
+            library=k4b_library),
+        "relpos_flash_fwd_lse": case(
+            sam_attention_bwd.relpos_flash_fwd_lse,
+            sam_attention_bwd.relpos_flash_fwd_lse_torch, k9_inputs, k9_full,
+            k9_small, bshd_ops, library=k9_library),
+        "relpos_flash_dq": case(
+            sam_attention_bwd.relpos_flash_dq,
+            sam_attention_bwd.relpos_flash_dq_torch, k9_bwd_inputs, k9_full,
+            k9_small, lambda a: bwd_ops(a, 3), library=k9_bwd_library),
+        "relpos_flash_dkv": case(
+            sam_attention_bwd.relpos_flash_dkv,
+            sam_attention_bwd.relpos_flash_dkv_torch, k9_bwd_inputs, k9_full,
+            k9_small, lambda a: bwd_ops(a, 4), library=k9_bwd_library),
     }
 
 
@@ -673,7 +820,44 @@ def phase_kernels(torch, gpu):
                       "bound_ms": bound["bytes"] + bound["operations"],
                       "bound_by": max(bound, key=bound.get),
                       "library_ms": library_ms}
+    _int8_matmul_padded(torch, gpu)
     return rows
+
+
+def _int8_matmul_padded(torch, gpu):
+    """The W8A8 int8 GEMM at shapes `torch._int_mm` refuses, zero-padded by
+    `ops.int8_matmul`: lm_head's (704 x 4096) x (4096 x 32007) with the
+    weight padded once in its storage (`column_major`) and again with a
+    weight that has no room (padded per call), a decode row block (M = 2)
+    and a K that is no multiple of 8. Each product is bit-equal to a
+    float64 product on the card (exact: |sums| < 2^53)."""
+    from grove_tpu_torch.ops.int8_matmul import column_major, int8_matmul
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def int8s(shape):
+        return torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                             dtype=torch.int8)
+
+    lm = int8s((4096, 32007))
+    notes = []
+    for m, b, what in ((704, column_major(lm), "padded once"),
+                       (704, lm.t().contiguous().t(), "padded per call"),
+                       (2, column_major(lm), "M = 2"),
+                       (5, column_major(int8s((100, 37))), "K = 100")):
+        a = int8s((m, b.shape[0]))
+        got = int8_matmul(a, b)
+        want = torch.matmul(a.double(), b.double())
+        diff = int((got.double() - want).abs().max())
+        if got.dtype != torch.int32 or got.shape != want.shape or diff:
+            raise PhaseError(f"int8_matmul {what} {tuple(a.shape)} x "
+                             f"{tuple(b.shape)}: {got.dtype} "
+                             f"{tuple(got.shape)}, max diff {diff}")
+        t = _time_ms(torch, int8_matmul, [(a, b)])
+        notes.append(f"{what} ({m} x {b.shape[0]} x {b.shape[1]}) "
+                     f"{t:.4f} ms")
+        del a, got, want
+    say(2, "int8_matmul (torch._int_mm, zero-padded) bit-equal to a float64 "
+           f"product: {'; '.join(notes)} on {gpu}")
 
 
 # ---------------------------------------------------------------------------
@@ -824,7 +1008,7 @@ def phase_slice(torch, gpu):
     quant = set(QUANT_KERNELS)
     bf16 = [k for k in _kernels.KERNELS
             if k not in quant | set(W8A8_KERNELS) | set(FLAGSHIP_KERNELS)
-            | {LN_KERNEL}]
+            | {LN_KERNEL} | set(TRAIN_KERNELS)]
     launches = _run_path(torch, gpu, model, cfg, tok, clips, t_total,
                          "bf16", bf16)
     st_bf16, gen_bf16 = _replay(torch, gpu, model, cfg, tok, clips, "bf16",
@@ -860,7 +1044,7 @@ def phase_slice(torch, gpu):
            f"{_model_bytes(model) / 2**30:.2f} GiB")
     need = [k for k in _kernels.KERNELS
             if k not in ("sam_window_attention", LN_KERNEL)
-            + FLAGSHIP_KERNELS]
+            + FLAGSHIP_KERNELS + TRAIN_KERNELS]
     w_launches = _run_path(torch, gpu, model, cfg, tok, clips, t_total,
                            label, need, decode_kwargs=int8_kv)
     launches.update({k: w_launches[k] for k in W8A8_KERNELS})
@@ -882,7 +1066,8 @@ def phase_slice(torch, gpu):
            f"{time.perf_counter() - t0:.1f} s: weights "
            f"{_model_bytes(model) / 2**30:.2f} GiB")
     need = [k for k in _kernels.KERNELS
-            if k not in ("sam_window_attention", LN_KERNEL, "int4_matmul")]
+            if k not in ("sam_window_attention", LN_KERNEL, "int4_matmul")
+            + TRAIN_KERNELS]
     f_launches = _run_path(torch, gpu, model, cfg, tok, clips, t_total,
                            label, need, decode_kwargs=int8_kv)
     if f_launches["int4_matmul"]:
@@ -898,9 +1083,54 @@ def phase_slice(torch, gpu):
            f"{st_f['teacher_forced_2x8']:.1f} vs "
            f"{st_w['teacher_forced_2x8']:.1f} ms on {gpu}")
     _same_tokens(gen_f, gen_bf16, label)
+    _lm_forward_w8a8(torch, gpu, model, cfg, tok, clips)
     del model, lm
     torch.cuda.empty_cache()
     return launches
+
+
+def _lm_forward_w8a8(torch, gpu, model, cfg, tok, clips):
+    """`GroveModel.lm_forward` of the flagship, whose lm_head is W8A8
+    (`torch._int_mm` at N = 32007, zero-padded by `ops.int8_matmul`), on
+    the two center prompts (M = 2 x 634 rows) and on a 9-token prompt:
+    finite logits, and each call's int32 product bit-equal to a float64
+    product of the same int8 operands."""
+    from grove_tpu_torch.infer.sliding import center_prompts
+    from grove_tpu_torch.models.layers import quant_act
+    from grove_tpu_torch.ops.int8_matmul import int8_matmul
+    head = model.lm_head
+    seen = []
+    hook = head.register_forward_hook(lambda m, a, out: seen.append(a[0]))
+    nf = cfg.num_frames
+    fc = torch.from_numpy(np.stack([c["frames_clip"][:nf] for c in clips])
+                          ).to("cuda")
+    try:
+        with torch.inference_mode():
+            emb, _ = model.encode_video(fc)
+            ids, starts, _ = center_prompts(cfg, tok, [None, None])
+            ids_t = torch.from_numpy(ids).to("cuda")
+            outs = [model.lm_forward(ids_t, emb, starts)[1],
+                    model.lm_forward(ids_t[:1, :9], emb[:1], [-1])[1]]
+    finally:
+        hook.remove()
+    notes = []
+    for x, logits in zip(seen, outs):
+        if not bool(torch.isfinite(logits).all()):
+            raise PhaseError(f"lm_forward W8A8: non-finite logits "
+                             f"{tuple(logits.shape)}")
+        with torch.inference_mode():
+            xq = quant_act(x)[0].reshape(-1, head.in_features).contiguous()
+            acc = int8_matmul(xq, head.kernel_q)
+            want = torch.matmul(xq.double(), head.kernel_q.double())
+            diff = float((acc.double() - want).abs().max())
+        if diff:
+            raise PhaseError(f"lm_forward W8A8: lm_head's int8 GEMM at M = "
+                             f"{xq.shape[0]} differs from float64 by {diff}")
+        notes.append(f"M = {xq.shape[0]} -> logits {tuple(logits.shape)}")
+        del acc, want
+    say(3, "lm_forward with the W8A8 lm_head (N = "
+           f"{head.out_features}): {', '.join(notes)}, finite, int8 GEMM "
+           f"bit-equal to float64 on {gpu}")
 
 
 def _same_tokens(gen, gen_bf16, label):
@@ -1397,6 +1627,244 @@ def _w4a8_parity(torch, cfg, tok, clip, ap):
 
 
 # ---------------------------------------------------------------------------
+# phases 5 and 6: the training step
+# ---------------------------------------------------------------------------
+
+def _train_batch(cfg, tok, seed):
+    """One `data.collate.build_batch` batch: a synthetic clip of
+    cfg.num_frames uint8 frames, TRAIN_CAPTION with its three phrases, and
+    random boxes (cxcywh) and objectness for every phrase slot."""
+    from grove_tpu_torch.data.collate import build_batch
+    rng = np.random.default_rng(seed)
+    t, p = cfg.num_frames, cfg.max_phrases
+    c, s = cfg.clip.image_size, cfg.sam_enc.img_size
+    sample = {
+        "frames_clip": rng.integers(0, 256, (t, c, c, 3), np.uint8),
+        "frames_sam": rng.integers(0, 256, (t, s, s, 3), np.uint8),
+        "caption": TRAIN_CAPTION, "tokens_positive": TRAIN_SPANS,
+        "gt_boxes": rng.uniform(0.2, 0.6, (t, p, 4)).astype(np.float32),
+        "gt_objectness": (rng.uniform(size=(t, p)) < 0.7).astype(
+            np.float32)}
+    batch, _ = build_batch([sample], tok, cfg, rng)
+    phrases = int(batch["phrase_mask"].sum())
+    if phrases != len(TRAIN_SPANS):
+        raise PhaseError(f"build_batch kept {phrases} of the caption's "
+                         f"{len(TRAIN_SPANS)} [DET] tokens in "
+                         f"{cfg.max_seq_len} text tokens")
+    return batch
+
+
+def _train_setup(torch, model, warmup_steps):
+    """The default freeze policy on `model` and a train step over it;
+    returns (trainable parameters by name, step)."""
+    from grove_tpu_torch.train.step import (OptimizerConfig, make_optimizer,
+                                            make_train_step,
+                                            partition_params, trainable_mask)
+    oc = OptimizerConfig(warmup_steps=warmup_steps)
+    params = partition_params(model, trainable_mask(model, oc))
+    return params, make_train_step(model, make_optimizer(params, oc))
+
+
+def _check_losses(out, label):
+    losses = {k: float(v) for k, v in out.items()}
+    if not all(np.isfinite(v) for v in losses.values()):
+        raise PhaseError(f"{label}: non-finite loss terms {losses}")
+    return losses
+
+
+def _groups(params):
+    """TRAIN_GROUPS -> the trainable (name, parameter) pairs of each."""
+    out = {}
+    for group, rx in TRAIN_GROUPS.items():
+        out[group] = [(n, p) for n, p in params.items() if re.search(rx, n)]
+        if not out[group]:
+            raise PhaseError(f"no trainable parameter in the group {group}")
+    return out
+
+
+def _check_grads(torch, params):
+    """Every trainable group holds a finite gradient that is not all zero
+    (tensors the path does not use, as the mask decoder's mask heads, get
+    none); returns each group's gradient norm."""
+    norms = {}
+    for group, pairs in _groups(params).items():
+        grads = [p.grad for _, p in pairs if p.grad is not None]
+        sq = sum(float(g.float().pow(2).sum()) for g in grads)
+        if not grads or not np.isfinite(sq) or sq == 0.0:
+            raise PhaseError(f"{group}: gradient missing, zero or not "
+                             f"finite (norm^2 {sq})")
+        norms[group] = sq ** 0.5
+    return norms
+
+
+def _changed(torch, model, snap):
+    """Names of the parameters that differ from the host snapshot."""
+    return [n for n, p in model.named_parameters()
+            if not torch.equal(p.detach(), snap[n].to(p.device))]
+
+
+def phase_train(torch, gpu):
+    """Three steps of `train.step.make_train_step` on a fresh bf16
+    `GroveConfig()` at S = 704, then one at the default S = 2111."""
+    from grove_tpu_torch import _kernels
+    from grove_tpu_torch.config import GroveConfig
+    from grove_tpu_torch.models.grove import init_grove_params
+    from grove_tpu_torch.text.mock_tokenizer import MockTokenizer
+    from grove_tpu_torch.train.step import batch_to_device
+
+    base = GroveConfig()
+    cfg = dataclasses.replace(base, max_seq_len=TRAIN_SEQ)
+    t0 = time.perf_counter()
+    model = init_grove_params(cfg, device="cuda", dtype=torch.bfloat16,
+                              seed=5)
+    tok = MockTokenizer(base_vocab_size=cfg.llama.vocab_size)
+    batch = _train_batch(cfg, tok, seed=6)
+    seq = batch["input_ids"].shape[1]
+    params, step = _train_setup(torch, model, warmup_steps=1)
+    n_train = sum(p.numel() for p in params.values())
+    snap = {n: p.detach().to("cpu", copy=True)
+            for n, p in model.named_parameters()}
+    say(5, f"bf16 GroveConfig(max_seq_len={TRAIN_SEQ}) built in "
+           f"{time.perf_counter() - t0:.1f} s: {len(params)} trainable "
+           f"tensors, {n_train} trainable parameters of "
+           f"{sum(p.numel() for p in model.parameters())}; batch of 1 clip "
+           f"x {cfg.num_frames} frames, {seq} tokens, "
+           f"{len(TRAIN_SPANS)} phrases")
+    if seq != 704:
+        raise PhaseError(f"the training batch has {seq} tokens, not 704")
+
+    b = batch_to_device(batch, "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    times, launches = [], None
+    for i in range(3):
+        _kernels.reset_launch_counts()
+        out, ms = _timed(torch, lambda: step(b))
+        launches = {k: _kernels.KERNELS[k].launches for k in TRAIN_LAUNCHES}
+        losses = _check_losses(out, f"step {i + 1}")
+        times.append(ms)
+        say(5, f"step {i + 1}: {ms:.1f} ms, losses "
+               + ", ".join(f"{k} {v:.4f}" for k, v in losses.items())
+               + f", launches {launches} on {gpu}")
+        if launches != TRAIN_LAUNCHES:
+            raise PhaseError(f"step {i + 1} launched {launches}, not "
+                             f"{TRAIN_LAUNCHES}")
+        if i == 0:
+            changed = _changed(torch, model, snap)
+            if changed:
+                raise PhaseError(f"step 1 (lr(0) = 0) changed "
+                                 f"{len(changed)} parameters: {changed[:4]}")
+            norms = _check_grads(torch, params)
+            say(5, "step 1 left every parameter bit-equal; gradient norm by "
+                   "trainable group: " + ", ".join(
+                       f"{k} {v:.3e}" for k, v in norms.items()))
+    peak = torch.cuda.max_memory_allocated()
+    changed = set(_changed(torch, model, snap))
+    frozen = [n for n, p in model.named_parameters()
+              if not p.requires_grad and n in changed]
+    if frozen:
+        raise PhaseError(f"steps 2-3 changed {len(frozen)} frozen "
+                         f"parameters: {frozen[:4]}")
+    still = [g for g, pairs in _groups(params).items()
+             if not any(n in changed for n, _ in pairs)]
+    if still:
+        raise PhaseError(f"trainable groups unchanged after 3 steps: {still}")
+    say(5, f"after 3 steps the frozen parameters are bit-equal and every "
+           f"trainable group moved ({len(changed)} of {len(params)} "
+           "trainable tensors differ: a bf16 weight drops an update below "
+           "half its ULP); median step (steps 2-3) "
+           f"{statistics.median(times[1:]):.1f} ms, peak device memory "
+           f"{peak / 2**30:.2f} GiB, {n_train} trainable parameters on "
+           f"{gpu}")
+
+    # the driver's default length: 1536 + 575 = 2111 tokens, a ragged S,
+    # so each layer runs K5 forward with the torch-ops backward
+    batch = batch_to_device(_train_batch(base, tok, seed=6), "cuda")
+    _kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    out, ms = _timed(torch, lambda: step(batch))
+    used = {k: v.launches for k, v in _kernels.KERNELS.items() if v.launches}
+    losses = _check_losses(out, "S = 2111 step")
+    say(5, f"S = {batch['input_ids'].shape[1]} step: {ms:.1f} ms, peak "
+           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, losses "
+           + ", ".join(f"{k} {v:.4f}" for k, v in losses.items())
+           + f", launches {used} on {gpu}")
+    if used.get("prefill_attention") != 32 or used.get("flash_forward_lse"):
+        raise PhaseError(f"S = 2111 step: expected 32 K5 launches and no "
+                         f"K4, got {used}")
+    del model, step, params, snap, b, batch, out
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_parity(torch):
+    """One step at GroveConfig.small() (S = 704) in fp32, one set of
+    weights and one batch, on the card with the kernels and on the CPU with
+    the plain versions (TF32 off): loss terms within TRAIN_LOSS_REL
+    relative, each trainable tensor's gradient within TRAIN_GRAD_TOL of its
+    max-abs."""
+    from grove_tpu_torch import _kernels
+    from grove_tpu_torch.config import GroveConfig
+    from grove_tpu_torch.models.grove import init_grove_params
+    from grove_tpu_torch.text.mock_tokenizer import MockTokenizer
+    from grove_tpu_torch.train.step import batch_to_device
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(GroveConfig.small(), max_seq_len=TRAIN_SEQ)
+    tok = MockTokenizer(base_vocab_size=cfg.llama.vocab_size)
+    cpu = init_grove_params(cfg, device="cpu", dtype=torch.float32, seed=7)
+    card = copy.deepcopy(cpu).to("cuda")
+    batch = _train_batch(cfg, tok, seed=8)
+    runs = []
+    for model, dev in ((card, "cuda"), (cpu, "cpu")):
+        params, step = _train_setup(torch, model, warmup_steps=0)
+        _kernels.reset_launch_counts()
+        (out, ms) = _timed(torch, lambda: step(batch_to_device(batch, dev)))
+        runs.append((_check_losses(out, dev), params, ms))
+        if dev == "cuda":
+            launches = {k: v.launches for k, v in _kernels.KERNELS.items()
+                        if v.launches}
+    (l_card, p_card, ms_card), (l_cpu, p_cpu, ms_cpu) = runs
+    missing = [k for k in TRAIN_LAUNCHES if k not in launches]
+    if missing:
+        raise PhaseError(f"training parity: kernels never launched on the "
+                         f"card: {missing}")
+    rel = {k: abs(l_card[k] - l_cpu[k]) / max(abs(l_cpu[k]), 1e-30)
+           for k in l_cpu}
+    grads = {}
+    for name, p in p_cpu.items():
+        gc, gg = p.grad, p_card[name].grad
+        if (gc is None) != (gg is None):
+            raise PhaseError(f"training parity: {name} has a gradient on "
+                             "one device only")
+        if gc is not None:
+            grads[name] = (gg.cpu(), gc)
+    floor = TRAIN_GRAD_FLOOR * max(float(c.abs().max())
+                                   for _, c in grads.values())
+    worst, floored = 0.0, []
+    for name, (gg, gc) in grads.items():
+        own = float(gc.abs().max())
+        if own < floor:
+            floored.append(name)
+        scale = max(own, floor)
+        err = float((gg - gc).abs().max())
+        if not err <= TRAIN_GRAD_TOL * scale:
+            raise PhaseError(f"training parity: {name} gradient {err:.3e} "
+                             f"> {TRAIN_GRAD_TOL} x {scale:.3e}")
+        worst = max(worst, err / scale)
+    say(6, "GroveConfig.small() fp32 train step card vs CPU: loss terms "
+           "relative " + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+           + f"; {len(grads)} gradients, worst {worst:.2e} of its max-abs "
+           f"({len(floored)} under {TRAIN_GRAD_FLOOR} of the largest, held "
+           f"at that floor: {floored}); card {ms_card:.0f} ms, CPU "
+           f"{ms_cpu:.0f} ms; card kernel launches {launches}")
+    if not max(rel.values()) <= TRAIN_LOSS_REL:
+        raise PhaseError(f"training parity: loss terms {rel} > "
+                         f"{TRAIN_LOSS_REL} relative")
+    del cpu, card
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     try:
@@ -1410,6 +1878,9 @@ def main() -> int:
         rows = phase_kernels(torch, gpu)
         launches = phase_slice(torch, gpu)
         launches[LN_KERNEL] = phase_parity(torch)[LN_KERNEL]
+        train = phase_train(torch, gpu)
+        launches.update({k: train[k] for k in TRAIN_KERNELS})
+        phase_train_parity(torch)
     except Exception:                       # report, then fail the run
         traceback.print_exc()
         print("chip_smoke FAILED", file=sys.stderr, flush=True)

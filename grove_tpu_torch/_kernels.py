@@ -8,7 +8,9 @@ stream are `c_void_p`, and each entry point returns `cudaGetLastError()`,
 which `Kernel.__call__` turns into an exception.
 
 Nothing here runs at import, so a machine without nvcc or a card can import
-every module of the package (the CPU tests do).
+every module of the package (the CPU tests do). `on_cpu`, which every
+wrapper asks before it launches, also holds the grad guard
+(`check_no_grad`): a kernel's output has no `grad_fn`.
 """
 
 from __future__ import annotations
@@ -214,6 +216,31 @@ KERNELS: Dict[str, Kernel] = {
         [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
         "grove_tpu_torch/csrc/rmsnorm_quant.cu",
         "grove_tpu/ops/fused_ln.py:162"),
+    "flash_backward_dq": Kernel(
+        "grove_flash_backward_dq",
+        [_P] * 7 + [_I] * 5 + [_F, _I, _P],
+        "grove_tpu_torch/csrc/flash_backward.cu",
+        "grove_tpu/ops/flash_backward.py:253"),
+    "flash_backward_dkv": Kernel(
+        "grove_flash_backward_dkv",
+        [_P] * 8 + [_I] * 5 + [_F, _I, _P],
+        "grove_tpu_torch/csrc/flash_backward.cu",
+        "grove_tpu/ops/flash_backward.py:278"),
+    "relpos_flash_fwd_lse": Kernel(
+        "grove_relpos_flash_fwd_lse",
+        [_P] * 7 + [_I] * 6 + [_F, _I, _P],
+        "grove_tpu_torch/csrc/relpos_flash_attention.cu",
+        "grove_tpu/ops/sam_attention_bwd.py:243"),
+    "relpos_flash_dq": Kernel(
+        "grove_relpos_flash_dq",
+        [_P] * 11 + [_I] * 6 + [_F, _I, _P],
+        "grove_tpu_torch/csrc/relpos_flash_attention.cu",
+        "grove_tpu/ops/sam_attention_bwd.py:294"),
+    "relpos_flash_dkv": Kernel(
+        "grove_relpos_flash_dkv",
+        [_P] * 10 + [_I] * 6 + [_F, _I, _P],
+        "grove_tpu_torch/csrc/relpos_flash_attention.cu",
+        "grove_tpu/ops/sam_attention_bwd.py:333"),
 }
 
 
@@ -231,7 +258,9 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 def on_cpu(*tensors: torch.Tensor) -> bool:
     """True when the wrapper should take its plain version: the tensors lie
-    on the CPU. A CUDA tensor launches the kernel; any other device raises."""
+    on the CPU. A CUDA tensor launches the kernel, after `check_no_grad`;
+    any other device raises. Every wrapper asks this with all its tensor
+    inputs before it launches anything."""
     dev = tensors[0].device.type
     if dev not in ("cpu", "cuda"):
         raise ValueError(f"grove_tpu_torch kernels take CPU or CUDA tensors, "
@@ -239,7 +268,33 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
     if any(t.device != tensors[0].device for t in tensors):
         raise ValueError("kernel inputs lie on different devices: "
                          f"{[str(t.device) for t in tensors]}")
-    return dev == "cpu"
+    if dev == "cpu":
+        return True
+    check_no_grad(tensors)
+    return False
+
+
+def check_no_grad(tensors: Sequence[torch.Tensor]) -> None:
+    """The grad guard: a kernel writes its outputs through raw pointers, so
+    they carry no `grad_fn` and autograd would stop there without a word.
+    Raise when grad mode is on and an input requires grad. The kernels that
+    training needs are launched inside `torch.autograd.Function`s (forward
+    and backward run with grad mode off, so the guard passes); serving runs
+    under `torch.no_grad` / `torch.inference_mode`. On the CPU the plain
+    twins are differentiable and the guard is not asked."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            "a CUDA kernel of grove_tpu_torch was called with grad enabled "
+            "on an input that requires grad, and it has no backward: its "
+            "output would carry no gradient. Call it under torch.no_grad() "
+            "or torch.inference_mode(), or through the op's autograd "
+            "Function")
+
+
+def acc_dtype(t: torch.Tensor) -> torch.dtype:
+    """The plain twins' compute dtype: fp32, or float64 for float64 inputs
+    (so `torch.autograd.gradcheck` can hold the autograd Functions)."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
 
 
 def dtype_code(name: str, t) -> int:

@@ -1,5 +1,6 @@
 """GROVE top-level model: grounded video caption generation, inference in
-bf16 or with the quantized serving modules (`ops.quant`).
+bf16 or with the quantized serving modules (`ops.quant`), and the training
+forward (`forward_train`, driven by `train.step`).
 
 Counterpart of `grove_tpu/models/grove.py` (`GroveModel`), with the module
 tree of the reference `GROVEForCausalLM` so its state dict carries the
@@ -12,6 +13,7 @@ reference torch names (`model.*`, `lm_head.*`):
   ground              [DET] gather -> text projection -> prompt encoder ->
                       two-way transformer -> box/objectness heads
   forward_boxes       teacher-forced boxes for the sliding windows
+  forward_train       the loss dict of one batch (`ops.losses`)
 
 Static-shape contract as in the JAX package:
   frames_clip  (B, T, Hc, Wc, 3) uint8 at the CLIP size, or normalized
@@ -35,6 +37,7 @@ from torch import nn
 
 from ..config import GroveConfig
 from ..data.preprocess import CLIP_MEAN, CLIP_STD, SAM_MEAN, SAM_STD
+from ..ops.losses import grove_total_loss
 from .clip import ClipVisionTower
 from .llama import LlamaModel, _dense
 from .region import MLVLROIQueryModule
@@ -142,8 +145,18 @@ class GroveModel(nn.Module):
         return xf
 
     def encode_video(self, frames_clip):
-        """CLIP tower + mm_projector -> ((B, N_video, D), mlvl features)."""
-        tokens, mlvl = self.model.vision_tower(self._norm_clip(frames_clip))
+        """CLIP tower + mm_projector -> ((B, N_video, D), mlvl features).
+
+        The tower runs under `torch.no_grad()` unless
+        `cfg.train_clip_adapters` is set: the JAX package's `stop_gradient`
+        on its tokens (`grove.py:185-200`) and the reference's
+        `@torch.no_grad` (`clip_encoder.py:55`). Gradients then reach the
+        projector only, and the tower keeps no activations for a
+        backward."""
+        frames = self._norm_clip(frames_clip)
+        with torch.set_grad_enabled(torch.is_grad_enabled()
+                                    and self.cfg.train_clip_adapters):
+            tokens, mlvl = self.model.vision_tower(frames)
         proj = self.model.mm_projector
         x = F.gelu(proj[0](tokens))                      # exact erf GELU
         return proj[2](x), mlvl
@@ -269,6 +282,26 @@ class GroveModel(nn.Module):
         boxes, obj = self.ground(hidden, batch["det_positions"],
                                  image_embeddings)
         return {"pred_boxes": boxes, "objectness_logits": obj}
+
+    def forward_train(self, batch: Dict[str, torch.Tensor]):
+        """Training forward -> the loss dict of `ops.losses.
+        grove_total_loss` (`grove.py:352-368`, the reference's
+        model_forward train path)."""
+        cfg = self.cfg
+        video_embeds, _ = self.encode_video(batch["frames_clip"])
+        image_embeddings = self.encode_grounding(batch["frames_sam"],
+                                                 batch.get("sam_valid_hw"))
+        hidden, logits = self.lm_forward(batch["input_ids"], video_embeds,
+                                         batch["video_start"])
+        boxes, obj = self.ground(hidden, batch["det_positions"],
+                                 image_embeddings)
+        return grove_total_loss(
+            logits, batch["labels"], boxes, obj, batch["gt_boxes"],
+            batch["gt_objectness"], batch["phrase_mask"],
+            ce_weight=cfg.ce_loss_weight, giou_weight=cfg.giou_loss_weight,
+            objectness_weight=cfg.temp_objectness_loss_weight,
+            use_temp_objectness=cfg.use_temp_objectness,
+            ignore_index=cfg.tokens.ignore_index)
 
 
 # ---------------------------------------------------------------------------

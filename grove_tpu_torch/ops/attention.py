@@ -9,12 +9,16 @@ dtype.
   materialized fp32 logits, optional bias and mask. LLaMA prefill and decode
   over the bf16 cache use it directly, as the JAX package does.
 * `grouped_plain_attention` is K3, non-causal self-attention over a ragged
-  S (CLIP's 577), beside its plain twin `grouped_plain_attention_torch`.
+  S (CLIP's 577), beside its plain twin `grouped_plain_attention_torch`;
+  `grouped_plain_attention_trainable` gives it the JAX package's backward
+  (`attention.py:424-442`): a recompute through `xla_attention`, in torch
+  ops (XLA there). Only `train_clip_adapters=True` differentiates it.
 * `prefill_attention_raw` is K5, causal self-attention with a per-sample
   left pad in the raw (B, S, H*D) projection layout (the int8-cache
   prefill), beside `prefill_attention_raw_torch`;
-  `prefill_attention_trainable` is its pure-causal forward for the
-  cache-free pass at a ragged S.
+  `prefill_attention_trainable` is its pure-causal form for the cache-free
+  pass at a ragged S, with the recompute backward through causal
+  `xla_attention` (`attention.py:276-303`), in torch ops.
 * `multi_head_attention` dispatches by the tensors' device only: the
   wrappers below take their plain version for CPU tensors and launch the
   kernel for CUDA tensors. The TPU rules for VMEM size and lane alignment
@@ -41,13 +45,14 @@ def xla_attention(q, k, v, *, causal: bool = False,
 
     bias: broadcastable to (B, H, Sq, Sk), added before the softmax.
     mask: broadcastable to (B, H, Sq, Sk) bool; False = masked out.
-    Logits and softmax in fp32; P.V in the input dtype."""
+    Logits and softmax in fp32 (float64 for float64 inputs); P.V in the
+    input dtype."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    dtype = q.dtype
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    dtype, acc = q.dtype, _kernels.acc_dtype(q)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.to(acc), k.to(acc)) * scale
     if bias is not None:
-        logits = logits + bias.float()
+        logits = logits + bias.to(acc)
     if causal:
         sq, sk = q.shape[1], k.shape[1]
         qpos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
@@ -90,24 +95,58 @@ def grouped_plain_attention(q, k, v, *, scale: Optional[float] = None):
     return out
 
 
+def _xla_vjp(q, k, v, g, causal: bool, scale: float):
+    """Gradients of `xla_attention` at (q, k, v) for the cotangent g: the
+    recompute backward of K3 and K5, torch ops for the JAX package's XLA
+    `jax.vjp`."""
+    with torch.enable_grad():
+        q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+        out = xla_attention(q, k, v, causal=causal, scale=scale)
+        return torch.autograd.grad(out, (q, k, v), g)
+
+
+class _GroupedPlain(torch.autograd.Function):
+    """`_grouped_plain_with_vjp` (`attention.py:424-442`)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return grouped_plain_attention(q, k, v, scale=scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        return (*_xla_vjp(q, k, v, g, False, ctx.scale), None)
+
+
+def grouped_plain_attention_trainable(q, k, v, *,
+                                      scale: Optional[float] = None):
+    """K3 with the recompute backward through `xla_attention`."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return _GroupedPlain.apply(q, k, v, scale)
+
+
 def multi_head_attention(q, k, v, *, causal: bool = False,
                          bias: Optional[torch.Tensor] = None,
                          mask: Optional[torch.Tensor] = None,
                          scale: Optional[float] = None) -> torch.Tensor:
     """Dispatching attention entry point. Shapes (B, S, H, D).
 
-    With a bias or mask: `xla_attention`. Causal: the flash forward (K4,
-    `ops.flash_backward.flash_forward_lse`). Otherwise self-attention: K3.
-    K3 and K4 pick kernel or plain version by the tensors' device."""
+    With a bias or mask: `xla_attention`. Causal: flash attention (K4
+    forward, K4b backward, `ops.flash_backward.flash_attention_trainable`).
+    Otherwise self-attention: K3 with its recompute backward. The kernels
+    or their plain versions are picked by the tensors' device."""
     if bias is not None or mask is not None:
         return xla_attention(q, k, v, causal=causal, bias=bias, mask=mask,
                              scale=scale)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if causal:
-        from .flash_backward import flash_forward_lse
-        return flash_forward_lse(q, k, v, causal=True, scale=scale)[0]
-    return grouped_plain_attention(q, k, v, scale=scale)
+        from .flash_backward import flash_attention_trainable
+        return flash_attention_trainable(q, k, v, True, scale)
+    return grouped_plain_attention_trainable(q, k, v, scale=scale)
 
 
 def prefill_attention_raw_torch(q, k, v, pad_lens, num_heads: int,
@@ -120,7 +159,8 @@ def prefill_attention_raw_torch(q, k, v, pad_lens, num_heads: int,
     b, s, c = q.shape
     hd = c // num_heads
     qh, kh, vh = (t.reshape(b, s, num_heads, hd) for t in (q, k, v))
-    logits = torch.einsum("bqhd,bkhd->bhqk", qh.float(), kh.float()) * scale
+    acc = _kernels.acc_dtype(q)
+    logits = torch.einsum("bqhd,bkhd->bhqk", qh.to(acc), kh.to(acc)) * scale
     pos = torch.arange(s, device=q.device)
     qpos, kpos = pos[:, None], pos[None, :]
     pad = pad_lens.long()[:, None, None, None]
@@ -128,7 +168,7 @@ def prefill_attention_raw_torch(q, k, v, pad_lens, num_heads: int,
     logits = torch.where(valid, logits, NEG_INF)
     p = torch.exp(logits - logits.amax(-1, keepdim=True))
     denom = p.sum(-1, keepdim=True).clamp_min(1e-30)
-    out = torch.einsum("bhqk,bkhd->bqhd", p.to(q.dtype).float(), vh.float())
+    out = torch.einsum("bhqk,bkhd->bqhd", p.to(q.dtype).to(acc), vh.to(acc))
     out = out / denom.permute(0, 2, 1, 3)
     return out.to(q.dtype).reshape(b, s, c)
 
@@ -164,9 +204,28 @@ def prefill_attention_raw(q, k, v, pad_lens, num_heads: int, scale: float):
     return out
 
 
+class _PrefillTrainable(torch.autograd.Function):
+    """`prefill_attention_trainable` (`attention.py:276-303`)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads: int, scale: float):
+        ctx.save_for_backward(q, k, v)
+        ctx.num_heads, ctx.scale = num_heads, scale
+        pad = torch.zeros((q.shape[0],), dtype=torch.int32, device=q.device)
+        return prefill_attention_raw(q, k, v, pad, num_heads, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        b, s, c = q.shape
+        heads = [t.reshape(b, s, ctx.num_heads, c // ctx.num_heads)
+                 for t in (q, k, v, g)]
+        grads = _xla_vjp(*heads, True, ctx.scale)
+        return (*(t.reshape(b, s, c) for t in grads), None, None)
+
+
 def prefill_attention_trainable(q, k, v, num_heads: int, scale: float):
-    """Forward of the JAX package's `prefill_attention_trainable`: K5 with
-    no pad, for the cache-free pass at an S that is not a multiple of 64.
-    Its backward belongs to the training slice."""
-    pad = torch.zeros((q.shape[0],), dtype=torch.int32, device=q.device)
-    return prefill_attention_raw(q, k, v, pad, num_heads, scale)
+    """K5 with no pad, for the cache-free pass at an S that is not a
+    multiple of 64, with the recompute backward through causal
+    `xla_attention`. q/k/v (B, S, H*D) -> (B, S, H*D)."""
+    return _PrefillTrainable.apply(q, k, v, num_heads, scale)

@@ -15,6 +15,10 @@ from those tables, so the S x S bias never reaches device memory:
 * K2 `grouped_window_attention_relpos`: the 4 global blocks over the full
   grid; `sam_attention_with_relpos` is the model-facing entry.
 
+Both model-facing entries are autograd Functions whose backward is K9
+(`ops.sam_attention_bwd`), as the JAX package's custom VJPs delegate to
+`relpos_flash_attention`.
+
 Each has a plain twin (`*_torch`) that materializes the bias. Wrappers pick
 by device: CPU tensors take the plain version, CUDA tensors the kernel.
 """
@@ -70,7 +74,9 @@ def _expand_bias(rel_h_term, rel_w_term):
     """(B, H, S, gh), (B, H, S, gw) -> (B, H, S, gh*gw) additive bias."""
     b, nh, s, gh = rel_h_term.shape
     gw = rel_w_term.shape[-1]
-    bias = rel_h_term.float()[..., :, None] + rel_w_term.float()[..., None, :]
+    acc = _kernels.acc_dtype(rel_h_term)
+    bias = (rel_h_term.to(acc)[..., :, None]
+            + rel_w_term.to(acc)[..., None, :])
     return bias.reshape(b, nh, s, gh * gw)
 
 
@@ -119,16 +125,38 @@ def grouped_window_attention_relpos(q, k, v, rel_h_term, rel_w_term,
     return out
 
 
+class _GlobalRelpos(torch.autograd.Function):
+    """`_grouped_with_vjp` (`sam_attention.py:946-973`): forward K2 (rel
+    terms + kernel), saving q, k, v and the tables; backward K9 through
+    `ops.sam_attention_bwd.relpos_vjp`, which recomputes the forward with
+    its LSE."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, rel_pos_h, rel_pos_w, hw):
+        ctx.save_for_backward(q, k, v, rel_pos_h, rel_pos_w)
+        ctx.hw = hw
+        rh, rw = relpos_terms(q, rel_pos_h, rel_pos_w, hw)
+        return grouped_window_attention_relpos(q, k, v, rh.contiguous(),
+                                               rw.contiguous(), hw)
+
+    @staticmethod
+    def backward(ctx, g):
+        from .sam_attention_bwd import relpos_vjp
+        q, k, v, rel_pos_h, rel_pos_w = ctx.saved_tensors
+        grads = relpos_vjp(q, k, v, rel_pos_h, rel_pos_w, ctx.hw, g,
+                           ctx.needs_input_grad[3:5])
+        return (*grads, None)
+
+
 def sam_attention_with_relpos(q, k, v, rel_pos_h, rel_pos_w,
                               hw: Tuple[int, int]):
-    """Full SAM attention: q unscaled (B, S, H, D) -> (B, S, H, D).
+    """Full SAM attention: q unscaled (B, S, H, D) -> (B, S, H, D),
+    differentiable (forward K2, backward K9).
 
     The JAX package takes its Pallas kernel on a TPU and the XLA path
     elsewhere; here the device of the tensors picks kernel or plain version
-    inside K2's wrapper."""
-    rh, rw = relpos_terms(q, rel_pos_h, rel_pos_w, hw)
-    return grouped_window_attention_relpos(q, k, v, rh.contiguous(),
-                                           rw.contiguous(), hw)
+    inside the wrappers."""
+    return _GlobalRelpos.apply(q, k, v, rel_pos_h, rel_pos_w, hw)
 
 
 # ---------------------------------------------------------------------------
@@ -151,7 +179,8 @@ def _v3_probs(qkv, rel_packed, hw: Tuple[int, int], num_heads: int):
     q, k, v = _split_heads(qkv, num_heads)
     rel = rel_packed.reshape(b, s, num_heads, gh + gw).permute(0, 2, 1, 3)
     bias = _expand_bias(rel[..., :gh], rel[..., gh:])
-    logits = (torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    acc = _kernels.acc_dtype(qkv)
+    logits = (torch.einsum("bqhd,bkhd->bhqk", q.to(acc), k.to(acc))
               * (1.0 / math.sqrt(q.shape[-1])) + bias)
     underflow = (logits.amax(-1, keepdim=True) * LOG2E
                  < EXP2_SHIFT - 126.0)
@@ -235,13 +264,44 @@ def grouped_window_attention_relpos_v3(qkv, rel_packed, hw: Tuple[int, int],
     return out
 
 
+class _WindowFused(torch.autograd.Function):
+    """`sam_window_attention_fused`'s custom VJP (`sam_attention.py:
+    691-740`): forward K1 on the unsplit qkv, saving qkv and the tables
+    (never the S x S probabilities); backward splits qkv into head layout
+    and runs K9's forward and backward (`relpos_vjp`), as `_fused_qkv_bwd`
+    does, then joins dq, dk, dv back into d(qkv)."""
+
+    @staticmethod
+    def forward(ctx, qkv, rel_pos_h, rel_pos_w, hw, num_heads):
+        ctx.save_for_backward(qkv, rel_pos_h, rel_pos_w)
+        ctx.hw, ctx.num_heads = hw, num_heads
+        c = qkv.shape[-1] // 3
+        rel = relpos_terms_raw(qkv[..., :c], rel_pos_h, rel_pos_w, hw,
+                               num_heads)
+        return grouped_window_attention_relpos_v3(qkv, rel, hw, num_heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        from .sam_attention_bwd import relpos_vjp
+        qkv, rel_pos_h, rel_pos_w = ctx.saved_tensors
+        b, s, c3 = qkv.shape
+        nh = ctx.num_heads
+        q, k, v = (t.reshape(b, s, nh, -1).contiguous()
+                   for t in qkv.split(c3 // 3, dim=-1))
+        dq, dk, dv, d_rh, d_rw = relpos_vjp(
+            q, k, v, rel_pos_h, rel_pos_w, ctx.hw, g.reshape(q.shape),
+            ctx.needs_input_grad[1:3])
+        dqkv = torch.cat([t.reshape(b, s, c3 // 3) for t in (dq, dk, dv)],
+                         dim=-1)
+        return dqkv, d_rh, d_rw, None, None
+
+
 def sam_window_attention_fused(qkv, rel_pos_h, rel_pos_w,
                                hw: Tuple[int, int], num_heads: int):
     """Windowed SAM attention on the unsplit qkv output (nW, S, 3C) ->
-    (nW, S, C): rel terms from the q third, then K1."""
-    c = qkv.shape[-1] // 3
-    rel = relpos_terms_raw(qkv[..., :c], rel_pos_h, rel_pos_w, hw, num_heads)
-    return grouped_window_attention_relpos_v3(qkv, rel, hw, num_heads)
+    (nW, S, C), differentiable: rel terms from the q third, then K1; the
+    backward runs K9."""
+    return _WindowFused.apply(qkv, rel_pos_h, rel_pos_w, hw, num_heads)
 
 
 def sam_window_attention_fused_q8(qkv, rel_pos_h, rel_pos_w,

@@ -1,0 +1,215 @@
+"""Training step: freeze policy, AdamW, the step function.
+
+Counterpart of `grove_tpu/train/step.py`. The recipe is the reference's
+DeepSpeed config (`train.py:466-487`): AdamW, lr 5e-5, betas (0.9, 0.95),
+WarmupDecayLR (linear warmup over `warmup_steps`, linear decay to 0 at
+`total_steps`), gradient clipping at global norm 1.0.
+
+* Freeze policy (`prepare_model_for_training`, `train.py:234-334`):
+  everything frozen except both towers' video adapters, the box and
+  objectness heads (the whole mask decoder with `train_mask_decoder`),
+  `text_hidden_fcs`, `mm_projector`, `lm_head` and `embed_tokens`.
+  `trainable_mask` gives the JAX package's set over the port's (reference)
+  parameter names; `partition_params` sets `requires_grad` from it, which
+  is what the JAX package's trainable / frozen trees do there. Quantized
+  modules are never trainable.
+* `AdamW` is optax's `chain(clip_by_global_norm, adamw)`, written out:
+  the global norm over the trainable parameters only; moments
+  mu = (1 - b1) g + b1 mu and nu = (1 - b2) g^2 + b2 nu kept in the
+  parameter's dtype (optax with `mu_dtype=None`); bias correction with the
+  incremented count; eps added outside the square root; decoupled weight
+  decay, scaled by the learning rate; and the learning rate of the step
+  *before* the increment, so step 0 takes lr(0), which is 0 under warmup.
+  A trainable parameter that got no gradient (the CLIP adapters behind
+  the tower's no-grad) takes a zero one, as optax sees zeros there.
+  `torch.optim.AdamW` rounds differently, so it is not used.
+
+Not ported yet: LoRA (`_lora` parameters), bf16 moments with stochastic
+rounding (`train/lowmem.py`), remat, the pipelined step and the driver.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import re
+from typing import Callable, Dict, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+TRAINABLE_PATTERNS_FINETUNE = (
+    r"\.adapters\.\d+\.",                          # both towers' adapters
+    r"\.mask_decoder\.bbox_prediction_head\.",
+    r"\.mask_decoder\.temporal_objectness_head\.",
+    r"\.text_hidden_fcs\.",
+    r"\.mm_projector\.",
+    r"^lm_head\.",
+    r"\.embed_tokens\.",
+)
+EMBEDDINGS = (r"^lm_head\.", r"\.embed_tokens\.")
+MASK_DECODER = r"\.mask_decoder\."
+FULL_LLM = r"^model\.(layers|norm)\."            # the JAX tree's `llama/`
+QUANTIZED_BUFFERS = ("kernel_q", "kernel_q4p")
+
+
+@dataclasses.dataclass
+class OptimizerConfig:
+    lr: float = 5e-5
+    betas: Tuple[float, float] = (0.9, 0.95)
+    weight_decay: float = 0.0
+    warmup_steps: int = 100
+    total_steps: int = 7000
+    grad_clip: float = 1.0
+    train_mask_decoder: bool = True
+    full_llm: bool = False
+    freeze: bool = True
+    # the reference trains lm_head and embed_tokens (`train.py:300-311`)
+    train_embeddings: bool = True
+    # "f32" (optax's default: moments in the parameter's dtype) or "bf16"
+    # (`train.lowmem.adamw_bf16` in the JAX package, not ported yet)
+    moment_dtype: str = "f32"
+
+
+def _linear(init: float, end: float, steps: int, count: int) -> float:
+    """optax.linear_schedule at `count`."""
+    if steps <= 0:
+        return init
+    frac = 1.0 - min(max(count, 0), steps) / steps
+    return (init - end) * frac + end
+
+
+def warmup_decay_schedule(cfg: OptimizerConfig) -> Callable[[int], float]:
+    """DeepSpeed WarmupDecayLR as the JAX package builds it from optax:
+    linear 0 -> lr over `warmup_steps`, then lr -> 0 over the rest."""
+    decay = max(cfg.total_steps - cfg.warmup_steps, 1)
+
+    def lr(count: int) -> float:
+        if count < cfg.warmup_steps:
+            return _linear(0.0, cfg.lr, cfg.warmup_steps, count)
+        return _linear(cfg.lr, 0.0, decay, count - cfg.warmup_steps)
+    return lr
+
+
+def trainable_mask(model: nn.Module, cfg: OptimizerConfig) -> Dict[str,
+                                                                   bool]:
+    """name -> trainable for every parameter of a GroveModel: the set of
+    the JAX package's `trainable_mask` over the reference names."""
+    pats = list(TRAINABLE_PATTERNS_FINETUNE)
+    if not cfg.train_embeddings:
+        pats = [p for p in pats if p not in EMBEDDINGS]
+    if cfg.train_mask_decoder:
+        pats.append(MASK_DECODER)
+    if cfg.full_llm:
+        pats.append(FULL_LLM)
+    regex = re.compile("|".join(pats))
+    quantized = {name for name, mod in model.named_modules()
+                 if any(hasattr(mod, b) for b in QUANTIZED_BUFFERS)}
+    mask = {}
+    for name, p in model.named_parameters():
+        owner = name.rsplit(".", 1)[0] if "." in name else ""
+        mask[name] = (owner not in quantized and p.is_floating_point()
+                      and (not cfg.freeze or bool(regex.search(name))))
+    return mask
+
+
+def partition_params(model: nn.Module, mask: Dict[str, bool]
+                     ) -> Dict[str, nn.Parameter]:
+    """Set `requires_grad` from `mask`; return the trainable parameters by
+    name. Frozen parameters get no gradient and no optimizer state."""
+    trainable = {}
+    for name, p in model.named_parameters():
+        p.requires_grad_(mask[name])
+        if mask[name]:
+            trainable[name] = p
+    return trainable
+
+
+class AdamW:
+    """`optax.chain(clip_by_global_norm(grad_clip), adamw(schedule, b1, b2,
+    weight_decay=...))` over `params` (name -> parameter), written out
+    (see the module docstring). `step()` reads each parameter's `.grad`
+    and updates it in place."""
+
+    def __init__(self, params: Dict[str, nn.Parameter],
+                 cfg: OptimizerConfig):
+        if cfg.moment_dtype != "f32":
+            raise NotImplementedError(
+                f"OptimizerConfig.moment_dtype={cfg.moment_dtype!r}: bf16 "
+                "moments with stochastic rounding (train/lowmem.py) belong "
+                "to the next training slice, the QLoRA recipe (ROADMAP "
+                "Queue 2)")
+        self.params = dict(params)
+        self.cfg = cfg
+        self.schedule = warmup_decay_schedule(cfg)
+        self.count = 0
+        self.mu = {n: torch.zeros_like(p) for n, p in self.params.items()}
+        self.nu = {n: torch.zeros_like(p) for n, p in self.params.items()}
+
+    def zero_grad(self) -> None:
+        for p in self.params.values():
+            p.grad = None
+
+    @torch.no_grad()
+    def global_norm(self) -> torch.Tensor:
+        """fp32 global norm of the trainable gradients (0-dim, on the
+        parameters' device: no host sync)."""
+        sq = [p.grad.float().pow(2).sum() for p in self.params.values()
+              if p.grad is not None]
+        return torch.stack(sq).sum().sqrt() if sq else torch.zeros(())
+
+    @torch.no_grad()
+    def step(self) -> None:
+        cfg = self.cfg
+        b1, b2 = cfg.betas
+        norm = self.global_norm()
+        clip = norm >= cfg.grad_clip
+        count = self.count + 1
+        bc1, bc2 = 1 - b1 ** count, 1 - b2 ** count
+        lr = self.schedule(self.count)
+        for name, p in self.params.items():
+            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            g = torch.where(clip, (g / norm.to(g.dtype)) * cfg.grad_clip, g)
+            mu, nu = self.mu[name], self.nu[name]
+            mu.copy_((1 - b1) * g + b1 * mu)
+            nu.copy_((1 - b2) * (g * g) + b2 * nu)
+            u = (mu / bc1) / (torch.sqrt(nu / bc2) + 1e-8)
+            if cfg.weight_decay:
+                u = u + cfg.weight_decay * p
+            p.copy_(p + u * -lr)
+        self.count = count
+
+
+def make_optimizer(params: Dict[str, nn.Parameter],
+                   cfg: OptimizerConfig) -> AdamW:
+    """AdamW over the trainable parameters only (state is never allocated
+    for frozen ones)."""
+    return AdamW(params, cfg)
+
+
+def batch_to_device(batch: Dict[str, np.ndarray], device) -> Dict:
+    """A `data.collate.build_batch` batch as tensors on `device`
+    (`video_start` stays host-side: the splice reads it there)."""
+    return {k: v if k == "video_start" else torch.as_tensor(v).to(device)
+            for k, v in batch.items()}
+
+
+def make_train_step(model: nn.Module, optimizer: AdamW):
+    """train_step(batch) -> the loss dict (detached): forward_train,
+    backward, clip, update. Gradients exist only for the parameters that
+    `partition_params` left trainable."""
+
+    def train_step(batch):
+        optimizer.zero_grad()
+        out = model.forward_train(batch)
+        out["loss"].backward()
+        optimizer.step()
+        return {k: v.detach() for k, v in out.items()}
+    return train_step
+
+
+def make_eval_step(model: nn.Module):
+    @torch.no_grad()
+    def eval_step(batch):
+        return model.forward_train(batch)
+    return eval_step

@@ -38,6 +38,44 @@ def test_sampling_copies_equal_originals(n, seg):
             == jsamp.center_window_index(want[1]))
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_collate_copy_equals_original(seed):
+    """The port's `data/collate.py` gives the JAX package's conversations
+    and batches: the same random question per seed, a caption whose last
+    phrase falls past the text budget, and a sample without one."""
+    from grove_tpu.data import collate as jcol
+    from grove_tpu.text.mock_tokenizer import MockTokenizer as JTok
+    from grove_tpu_torch.data import collate as tcol
+    from grove_tpu_torch.text.mock_tokenizer import MockTokenizer as TTok
+    rng = np.random.default_rng(seed)
+    jcfg, tcfg = jconfig.GroveConfig.tiny(), tconfig.GroveConfig.tiny()
+    t, p = jcfg.num_frames, jcfg.max_phrases
+    caption = "a man slices bread " * 50 + "on a board"
+    samples = [{"frames_clip": rng.integers(0, 256, (t, 4, 4, 3)),
+                "frames_sam": rng.integers(0, 256, (t, 4, 4, 3)),
+                "caption": caption,
+                "tokens_positive": [(0, 5), (13, 18), (len(caption) - 7,
+                                                       len(caption))],
+                "gt_boxes": rng.uniform(size=(t, p, 4)),
+                "gt_objectness": np.ones((t, p), np.float32)},
+               {"frames_clip": np.zeros((t, 4, 4, 3)),
+                "frames_sam": np.zeros((t, 4, 4, 3)), "caption": "nothing",
+                "tokens_positive": [], "gt_boxes": np.zeros((t, p, 4)),
+                "gt_objectness": np.zeros((t, p), np.float32)}]
+    assert (tcol.conversation_for_sample(samples[0],
+                                         np.random.default_rng(seed))
+            == jcol.conversation_for_sample(samples[0],
+                                            np.random.default_rng(seed)))
+    want, wmeta = jcol.build_batch(samples, JTok(), jcfg,
+                                   np.random.default_rng(seed))
+    got, gmeta = tcol.build_batch(samples, TTok(), tcfg,
+                                  np.random.default_rng(seed))
+    assert set(got) == set(want) and gmeta == wmeta
+    for key in want:
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    assert want["phrase_mask"][0].sum() == 2
+
+
 def test_normalization_constants_equal_originals():
     from grove_tpu.data import preprocess as jpre
     from grove_tpu_torch.data import preprocess as tpre
@@ -59,6 +97,10 @@ def test_import_leaves_jax_and_pil_out():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, check=True, cwd=ROOT)
     assert "grove_tpu_torch.models.fuse" in mods
+    assert {"grove_tpu_torch.train.step", "grove_tpu_torch.ops.boxes",
+            "grove_tpu_torch.ops.losses",
+            "grove_tpu_torch.ops.sam_attention_bwd",
+            "grove_tpu_torch.data.collate"} <= set(mods)
     assert out.stdout.strip() == "[]"
 
 
