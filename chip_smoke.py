@@ -29,10 +29,19 @@ Phases, each printing its own line; any failure exits non-zero:
      time the card could take for the same work: the larger of its bytes
      (inputs read once, outputs written once) over 3.35 TB/s and its
      operations over the H100's peak for their type (989 TFLOP/s bf16,
-     1979 TOP/s int8, 67 TFLOP/s fp32 off the tensor cores), and, for K1-K5,
-     the time of the one PyTorch call that computes the same function
-     (`F.scaled_dot_product_attention`, rel-pos terms and pads as a mask),
-     which the port never calls;
+     1979 TOP/s int8, 67 TFLOP/s fp32 off the tensor cores), and, for K1-K5
+     and K10, the time of the one PyTorch call that computes the same
+     function (`F.scaled_dot_product_attention`, rel-pos terms and pads as a
+     mask), which the port never calls. K10 is held at the training
+     driver's (1, 2111, 32, 128) bf16 causal and at small fp32 cases with
+     Sq != Sk both ways (causal top-left), its bf16 output also row by
+     row (each query's head vector within 1e-2 of its own max-abs, since
+     the late causal rows are small beside the first); then one causal
+     attention call at that ragged S = 2111, forward and backward, is
+     timed by the three routes the port has for it: K5 + the torch-ops
+     recompute backward,
+     K10 + the same backward (the JAX route, taken), K4 + K4b; and SDPA's
+     forward and backward beside them;
   3  slice: GroveConfig() (CLIP ViT-L/336, SAM ViT-H/512, LLaMA-7B) built
      on the card from a seed (GroveForCausalLM.from_pretrained), first in
      bf16, then quantized in place (quantize(bits=4): int4 projections,
@@ -42,21 +51,29 @@ Phases, each printing its own line; any failure exits non-zero:
      flagship configuration of the JAX package's bench.py with the LLM's
      activations int8 as well (quantize(bits=4, act_quant=True), switched
      in place: W4A8). Each run drives infer_clips_batched on 2 synthetic
-     24-frame clips (64 new tokens) and ground_clip_with_caption with the
+     24-frame clips with two different questions (their prompts left-padded
+     to 640 tokens, which the int8-cache prefill runs through K5; 64 new
+     tokens) and ground_clip_with_caption with the
      launch counts zeroed just before and read just after; outputs must
      carry the JAX package's keys and be finite; the bf16 run must launch
      K1-K4, the int4 run K1-K7a, the W8A8-static run K2-K7a, K8b and K1q,
      the flagship K2-K6, K7b, K7c, K8b, K8c (both entries) and K1q and no
      K7a (decode takes K7b, as the JAX dispatch does). Then a timed replay
      of the stages, peak device memory and weight bytes of each, and how
-     many greedy tokens the quantized replays share with the bf16 one;
+     many greedy tokens the quantized replays share with the bf16 one; the
+     bf16 model also drives the [DET] branch of infer_clips_batched
+     (`infer.sliding._finish_clip`) with a caption tagged at two phrases,
+     which random weights never generate: pack_text, forward_boxes over the
+     non-center windows (K4), postprocess_window;
      last, the flagship's `lm_forward` with its W8A8 lm_head (N = 32007,
      2 x 634 and 9 rows, zero-padded for `torch._int_mm`): finite logits,
      the int8 GEMM bit-equal to float64;
   4  parity: GroveConfig.small() in fp32, one set of weights, on the card
      with the kernels and on the CPU with the plain versions (TF32 off):
      teacher-forced boxes and objectness within 1e-3, greedy token
-     agreement; then the same with the LLM quantized to int4: boxes within
+     agreement, the [DET] branch on a 24-frame clip (boxes over the frame
+     size and objectness probabilities within 1e-3); then the same with the
+     LLM quantized to int4: boxes within
      1e-3, and the CPU's greedy ids fed to both through prefill and 16
      decode steps over an int8 cache, each step's hidden states within
      1e-2 of their max-abs (one int8 LSB of K/V may flip between the two);
@@ -92,14 +109,28 @@ Phases, each printing its own line; any failure exits non-zero:
      nonzero gradient; after step 3 the frozen parameters are bit-equal
      and every trainable group moved. Prints the trainable parameter
      count, the median of steps 2-3 and peak device memory. Then one step
-     at the default max_seq_len (S = 2111: K5 forward with the torch-ops
-     backward), which must end with finite losses;
+     at the default max_seq_len (S = 2111, ragged: K10 forward with the
+     torch-ops recompute backward in every layer, exactly 32 K10 and no K5
+     or K4), finite losses, its ms and peak memory. Then, that model freed,
+     the QLoRA recipe of `benchmarks/train_finetune_scale.py`: a fresh
+     GroveConfig() with lora_r=8 built with remat, GroveForCausalLM.
+     quantize(bits=4), OptimizerConfig(moment_dtype="bf16",
+     warmup_steps=1), updates applied with stochastic rounding from a
+     seeded generator; two steps at S = 704 and one at S = 2111, each with
+     exact launches (`_step_launches`: remat runs each LLaMA layer's K4 or
+     K10 twice; no K5, K7a, K7b, K7c); 581,683,189 trainable parameters;
+     step 1 bit-equal, lora_B's gradients nonzero and lora_A's zero; every
+     trainable group moved by step 2, lora_A by step 3; every frozen
+     tensor, the int4 bytes and scales included, bit-equal at the end; ms
+     per step and peak memory printed;
   6  training parity: GroveConfig.small() (max_seq_len=129) in fp32, one
      set of weights and one batch, one step with warmup_steps=0 on the
      card (kernels, TF32 off) and on the CPU (plain versions): every loss
      term within 1e-4 relative, every trainable tensor's gradient within
      1e-3 of its max-abs (or of 1e-3 of the largest gradient's max-abs,
-     for a tensor whose gradient is zero up to rounding).
+     for a tensor whose gradient is zero up to rounding); then the same for
+     one QLoRA step (lora_r=8, remat, int4 LLM, bf16 moments) with the CPU
+     in the card's Int4Linear branch (`models.layers._on_card`).
 Phase 2 also holds the five training kernels (K4b dq and dkv at LLaMA's
 (1, 704, 32, 128) causal; K9's forward with its LSE, dq with d_rh and d_rw,
 and dkv at SAM's windowed (72, 196, 16, 80) and global (8, 1024, 16, 80)
@@ -111,7 +142,8 @@ The line before the last is a JSON object with each kernel's measurements
 (`launches`: K1-K4 from the bf16 run of phase 3, K5-K7a from the int4 one,
 K8b and K1q from the W8A8-static one, K7b, K7c and K8c from the flagship
 one, K8a from phase 4's W8A8-static model path, K4b and K9 from step 3 of
-phase 5); the last line is {"ok": true, "device": {...}}.
+phase 5, K10 from its bf16 S = 2111 step); the last line is {"ok": true,
+"device": {...}}.
 """
 
 from __future__ import annotations
@@ -132,7 +164,9 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 FULL_TOL = 2e-2          # bf16, relative to the plain output's max-abs
+ROW_TOL = 1e-2           # K10 bf16, each row relative to its own max-abs
 FP32_TOL = 1e-4          # fp32, absolute
+ROUTE_TOL = 5e-2         # phase 2's ragged-S routes vs SDPA, fwd and bwd
 PARITY_TOL = 1e-3        # phase 4 boxes / objectness
 STEP_TOL = 1e-2          # phase 4 int8-cache decode steps, of max-abs
 W8A8_TOL = 1e-2          # phase 4 W8A8-static towers: boxes / objectness
@@ -155,8 +189,35 @@ LN_KERNEL = "layernorm_quant"             # phase 4's quant_ln_kernel path
 TRAIN_LAUNCHES = {"flash_forward_lse": 32, "flash_backward_dq": 32,
                   "flash_backward_dkv": 32, "relpos_flash_fwd_lse": 24,
                   "relpos_flash_dq": 24, "relpos_flash_dkv": 24}
-TRAIN_KERNELS = tuple(k for k in TRAIN_LAUNCHES if k != "flash_forward_lse")
+# the training kernels whose launches the JSON line takes from phase 5: K4b
+# and K9 from its S = 704 steps, K10 from its S = 2111 step (no serving path
+# of phase 3 runs K10: their lengths are multiples of 64 or go to K5)
+TRAIN_KERNELS = tuple(k for k in TRAIN_LAUNCHES
+                      if k != "flash_forward_lse") + ("flash_attention",)
 TRAIN_SEQ = 129          # max_seq_len: 129 + 575 spliced = 704 tokens
+# the bf16 step at S = 2111 on the route the port took before K10 (K5
+# forward, torch-ops backward): ms and peak GiB on one H100 80GB HBM3 at
+# 700 W, printed beside this run's K10-route step
+K5_ROUTE_S2111 = (1044.6, 34.27)
+# the QLoRA recipe (`benchmarks/train_finetune_scale.py`): LoRA rank, and
+# the trainable parameters of GroveConfig() under it, 708,589,557 of the
+# default freeze policy - 131,100,672 (lm_head, int8 and frozen) +
+# 4,194,304 (LoRA: 32 layers x 2 x (4096 x 8 + 8 x 4096))
+QLORA_R = 8
+QLORA_TRAINABLE = 581_683_189
+# kernels a QLoRA step must not launch: K5 (the driver's ragged S takes
+# K10), and the int4 decode kernels K7a-K7c (the frozen LLM's backward
+# runs the recomputed bf16 view)
+QLORA_NEVER = ("prefill_attention", "int4_matmul", "int4_matmul_a8",
+               "int4_requant_int8")
+# phase 3's two clips ask different questions, so their prompts are
+# left-padded to 640 tokens: the int8-cache prefill then takes K5 (the JAX
+# rule: S % 8 == 0, 128 <= S <= 1100), with a left pad
+PROMPTS = (None, "describe what happens in the video please")
+# the [DET] branch of infer_clips_batched (`infer.sliding._finish_clip`)
+# is driven with this caption tagged at two phrases: a man / bread
+DET_CAPTION = "a man slices bread on a wooden board"
+DET_SPANS = [(0, 5), (13, 18)]
 TRAIN_LOSS_REL = 1e-4    # phase 6 loss terms card vs CPU, relative
 TRAIN_GRAD_TOL = 1e-3    # phase 6 gradients, of each tensor's max-abs
 # ... or of this share of the largest gradient's max-abs, where a tensor's
@@ -315,6 +376,21 @@ def _cases(torch):
         return (q, k, v, rh, rw, g, lse, flash_backward.row_dot(out, g), hw,
                 scale)
 
+    def k10_inputs(gen, dtype, shape):
+        b, sq, sk, heads, d, causal = shape
+        if not attention._flash_takes_kernel(sq, sk, causal,
+                                             attention.DEFAULT_BLOCK_K):
+            raise PhaseError(f"flash_attention {shape}: takes xla_attention")
+        q = randn(gen, (b, sq, heads, d), dtype)
+        k, v = (randn(gen, (b, sk, heads, d), dtype) for _ in range(2))
+        return (q, k, v, causal)
+
+    def k10(q, k, v, causal):
+        return attention.flash_attention(q, k, v, causal=causal)
+
+    def k10_plain(q, k, v, causal):
+        return attention.flash_attention_torch(q, k, v, causal=causal)
+
     def k5_inputs(gen, dtype, shape):
         b, s, heads, d, pad = shape
         q, k, v = (randn(gen, (b, s, heads * d), dtype) for _ in range(3))
@@ -427,6 +503,15 @@ def _cases(torch):
                     for p in pads.tolist())
         return attn_ops(1, heads, c // heads, pairs), "bf16"
 
+    def k10_ops(a):
+        # causal is top-left aligned: row i attends keys 0..min(i, Sk - 1)
+        q, k, causal = a[0], a[1], a[3]
+        b, sq, h, d = q.shape
+        sk = k.shape[1]
+        pairs = (sum(min(i + 1, sk) for i in range(sq)) if causal
+                 else sq * sk)
+        return attn_ops(b, h, d, pairs), "bf16"
+
     def k6_ops(a):
         b, h, d = a[0].shape
         return attn_ops(b, h, d, a[1].shape[2]), "int8"
@@ -491,11 +576,13 @@ def _cases(torch):
     # int8-cache prefill (2 x 640 tokens) and decode step of the quantized
     # runs (M = 2 rows, a 768-slot cache), and the W4A8 projections
     def case(fn, plain, make, full, small, ops, cold=False, int8=None,
-             library=None):
+             library=None, rows=False):
         """int8: (LSB, share) limits of an int8 output, full bf16 and small
-        fp32, instead of the float error limits."""
+        fp32, instead of the float error limits. rows: the full bf16 output
+        held row by row as well (`_check_rows`)."""
         return dict(fn=fn, plain=plain, make=make, full=full, small=small,
-                    cold=cold, int8=int8, ops=ops, library=library)
+                    cold=cold, int8=int8, ops=ops, library=library,
+                    rows=rows)
 
     proj_shapes = [(4096, 4096), (4096, 11008), (11008, 4096)]
     # the training step's shapes: LLaMA-7B at S = 704 (batch 1); SAM's 21
@@ -607,6 +694,17 @@ def _cases(torch):
             sam_attention_bwd.relpos_flash_dkv,
             sam_attention_bwd.relpos_flash_dkv_torch, k9_bwd_inputs, k9_full,
             k9_small, lambda a: bwd_ops(a, 4), library=k9_bwd_library),
+        # the training driver's S = 1536 + 575 = 2111 through LLaMA-7B;
+        # small: cross lengths both ways, causal Sq < Sk (top-left), a
+        # ragged tail over several tiles, head dims 8 / 64 / 80 / 128
+        "flash_attention": case(
+            k10, k10_plain, k10_inputs, [(1, 2111, 2111, 32, 128, True)],
+            [(1, 45, 130, 4, 64, False), (2, 200, 200, 4, 8, True),
+             (1, 64, 128, 2, 128, True), (1, 130, 64, 2, 80, False),
+             (1, 1030, 1030, 2, 64, True)],
+            k10_ops, library=lambda q, k, v, causal: sdpa(q, k, v,
+                                                          is_causal=causal),
+            rows=True),
     }
 
 
@@ -727,6 +825,23 @@ def _check_full(name, full, got, want):
     return out
 
 
+def _check_rows(name, full, got, want):
+    """A full-width bf16 attention output row by row: each row (one query
+    of one head, D values) within ROW_TOL of that row's own max-abs.
+    Causal rows far down average over thousands of keys and are small
+    beside the first rows, which set the output's max-abs, so FULL_TOL
+    alone would pass a kernel wrong there or in the ragged last key tile;
+    one bf16 rounding apart is at most 2^-7 of a row's max-abs. Returns
+    the worst row's share."""
+    g, w = got.float(), want.float()
+    rel = float(((g - w).abs().amax(-1)
+                 / w.abs().amax(-1).clamp_min(1e-30)).max())
+    if not rel <= ROW_TOL:
+        raise PhaseError(f"{name} bf16 {full}: a row differs by {rel:.3e} "
+                         f"of its own max-abs > {ROW_TOL}")
+    return rel
+
+
 def _bound(torch, c, args, out):
     """(ms, "bytes" or "operations") the card needs at least for one call:
     every input read once and every output written once at HBM_BYTES_PER_S,
@@ -788,6 +903,9 @@ def phase_kernels(torch, gpu):
                 what = (f"max-abs error "
                         f"{', '.join(f'{e:.3e}' for e, _ in new)} (relative "
                         f"{', '.join(f'{r:.2e}' for _, r in new)})")
+                if c["rows"]:
+                    row = _check_rows(name, full, got, want)
+                    what += f", worst row {row:.2e} of its own max-abs"
             errs += new
             del got, want
             sets, timer, how = [args], _time_ms, ""
@@ -821,7 +939,66 @@ def phase_kernels(torch, gpu):
                       "bound_by": max(bound, key=bound.get),
                       "library_ms": library_ms}
     _int8_matmul_padded(torch, gpu)
+    _ragged_routes(torch, gpu)
     return rows
+
+
+def _ragged_routes(torch, gpu):
+    """One causal attention call at the training driver's (1, 2111, 32,
+    128) bf16, forward and backward (`torch.autograd.grad` of q, k, v), by
+    the three routes the port has for a ragged S: K5 with the torch-ops
+    recompute backward (the port's route before K10), K10 with the same
+    backward (the JAX route, which the port takes now), K4 with K4b (its
+    kernels both ways); and SDPA's forward and backward, for comparison
+    only. Each route's output and gradients within ROUTE_TOL of SDPA's
+    max-abs (bf16 gradients through two different softmax backwards);
+    median CUDA-event ms of each printed."""
+    import torch.nn.functional as F
+    from grove_tpu_torch.ops import attention, flash_backward
+    b, s, h, d = 1, 2111, 32, 128
+    scale = d ** -0.5
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v, g = (torch.randn((b, s, h, d), generator=gen, device="cuda")
+                  .to(torch.bfloat16) for _ in range(4))
+
+    def raw(t):
+        return t.reshape(b, s, h * d)
+
+    routes = {
+        "K5 + torch backward": lambda q, k, v: attention.
+        prefill_attention_trainable(raw(q), raw(k), raw(v), h, scale)
+        .reshape(b, s, h, d),
+        "K10 + torch backward": lambda q, k, v: attention._flash_with_vjp(
+            q, k, v, True, scale),
+        "K4 + K4b": lambda q, k, v: flash_backward.flash_attention_trainable(
+            q, k, v, True, scale),
+        "SDPA (library)": lambda q, k, v: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True).transpose(1, 2),
+    }
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+
+    def fwd_bwd(route):
+        out = route(*leaves)
+        return (out, *torch.autograd.grad(out, leaves, g))
+
+    want = fwd_bwd(routes["SDPA (library)"])
+    notes = []
+    for name, route in routes.items():
+        got = fwd_bwd(route)
+        rel = max(_max_err(x.detach(), w.detach())
+                  / float(w.detach().float().abs().max())
+                  for x, w in zip(got, want))
+        if not rel <= ROUTE_TOL:
+            raise PhaseError(f"{name} at (1, 2111, 32, 128): output or "
+                             f"gradient {rel:.3e} of SDPA's max-abs > "
+                             f"{ROUTE_TOL}")
+        ms = _time_ms(torch, lambda: fwd_bwd(route), [()])
+        notes.append(f"{name} {ms:.4f} ms (out, dq, dk, dv within "
+                     f"{rel:.2e} of SDPA's max-abs)")
+        del got
+    say(2, "causal attention forward + backward at the ragged S = 2111 "
+           f"(1, 2111, 32, 128) bf16: {'; '.join(notes)} on {gpu}")
 
 
 def _int8_matmul_padded(torch, gpu):
@@ -914,7 +1091,7 @@ def _run_path(torch, gpu, model, cfg, tok, clips, t_total, label, need,
     torch.cuda.reset_peak_memory_stats()
     _kernels.reset_launch_counts()
     outs, ms_batched = _timed(torch, lambda: infer_clips_batched(
-        model, cfg, tok, clips, max_new_tokens=64,
+        model, cfg, tok, clips, instruction=list(PROMPTS), max_new_tokens=64,
         decode_kwargs=decode_kwargs))
     ground, ms_ground = _timed(torch, lambda: ground_clip_with_caption(
         model, cfg, tok, clips[0]["frames_clip"], clips[0]["frames_sam"],
@@ -937,6 +1114,44 @@ def _run_path(torch, gpu, model, cfg, tok, clips, t_total, label, need,
         raise PhaseError(f"{label}: kernels never launched on the main "
                          f"path: {missing}")
     return launches
+
+
+def _det_branch(torch, model, cfg, tok, clip, threshold):
+    """`infer.sliding._finish_clip`, the [DET] branch of
+    `infer_clips_batched`, on one clip with a caption that holds two
+    phrases and two [DET]s (`text.tagging.tag_caption`), as if the center
+    window had generated it: `pack_text` of the answer, `forward_boxes`
+    over the non-center windows, `postprocess_window`. The center window's
+    own boxes are zeros (the greedy path would hand its ground() output
+    there). Returns the output dict, checked for the JAX package's keys,
+    every frame, two phrases and finite values."""
+    from grove_tpu_torch.data.sampling import (center_window_index,
+                                               sliding_segment_with_mask)
+    from grove_tpu_torch.infer.sliding import _finish_clip, postprocess_window
+    from grove_tpu_torch.text import tagging
+    text = tagging.tag_caption(DET_CAPTION, DET_SPANS)
+    parsed = tagging.parse_generation(text)
+    phrases = parsed["phrases"]
+    t_total = clip["frames_clip"].shape[0]
+    windows, masks = sliding_segment_with_mask(t_total, cfg.num_frames)
+    ci = center_window_index(masks)
+    if len(phrases) != 2 or len(windows) < 2:
+        raise PhaseError(f"[DET] branch: {phrases}, {len(windows)} windows")
+    nf, p = cfg.num_frames, cfg.max_phrases
+    center = postprocess_window(np.zeros((nf, p, 4), np.float32),
+                                np.zeros((nf, p), np.float32), phrases, 2,
+                                clip["original_size"], threshold)
+    with torch.inference_mode():
+        out = _finish_clip(model, cfg, tok, clip["frames_clip"],
+                           clip["frames_sam"], clip["original_size"],
+                           windows, masks, ci, windows[ci], text, parsed,
+                           phrases, 2, threshold, None, *center)
+    _check_output(out, CLIP_KEYS, t_total, "[DET] branch")
+    if out["phrases"] != phrases or any(len(pr) != 2 for pr in
+                                        out["probs_temp_objectness"]):
+        raise PhaseError(f"[DET] branch: phrases {out['phrases']}, "
+                         "probabilities not two per frame")
+    return out
 
 
 def _replay(torch, gpu, model, cfg, tok, clips, label, cache_dtype,
@@ -1013,6 +1228,18 @@ def phase_slice(torch, gpu):
                          "bf16", bf16)
     st_bf16, gen_bf16 = _replay(torch, gpu, model, cfg, tok, clips, "bf16",
                                 torch.bfloat16, encoders=True)
+    _kernels.reset_launch_counts()
+    det, ms = _timed(torch, lambda: _det_branch(
+        torch, model, cfg, tok, clips[0], cfg.temp_objectness_threshold))
+    kept = sum(len(b) for b in det["bboxes"])
+    used = {k: v.launches for k, v in _kernels.KERNELS.items() if v.launches}
+    say(3, f"bf16 [DET] branch (`_finish_clip`, caption {DET_CAPTION!r} "
+           f"tagged at 2 phrases, {t_total} frames, the non-center windows "
+           f"teacher-forced): {ms:.1f} ms, {kept} boxes kept over "
+           f"{len(det['frame_indices'])} frames, kernel launches {used} on "
+           f"{gpu}")
+    if not used.get("flash_forward_lse"):
+        raise PhaseError("[DET] branch: the teacher-forced windows ran no K4")
 
     t0 = time.perf_counter()
     lm = lm.quantize(bits=4)
@@ -1397,6 +1624,7 @@ def phase_parity(torch):
                    pad_id=tok.pad_token_id, with_labels=False)
     _parity_pass(torch, cfg, tok, clip, ap, cpu, gpu,
                  "GroveConfig.small() fp32")
+    _det_branch_parity(torch, cfg, tok, cpu, gpu)
 
     # the same weights with the LLM quantized to int4, on both devices
     quantize_llama_(cpu, 4)
@@ -1454,6 +1682,28 @@ def phase_parity(torch):
     del cpu, gpu
     _w4a8_parity(torch, float_cfg, tok, clip, ap)
     return launches
+
+
+def _det_branch_parity(torch, cfg, tok, cpu, gpu):
+    """The [DET] branch (`_det_branch`) on a 24-frame clip at
+    GroveConfig.small() fp32, card vs CPU, every box kept (threshold 0):
+    boxes, normalized by the frame size, and objectness probabilities
+    within PARITY_TOL."""
+    clip = _synthetic_clips(cfg, 1, 24, seed=4)[0]
+    w, h = clip["original_size"]
+    outs = [_det_branch(torch, m, cfg, tok, clip, 0.0) for m in (gpu, cpu)]
+    norm = np.array([w, h, w, h], np.float32)
+    eb = max(float(np.abs((g - c) / norm).max())
+             for g, c in zip(outs[0]["bboxes"], outs[1]["bboxes"]))
+    ep = max(float(np.abs(g - c).max()) for g, c in
+             zip(outs[0]["probs_temp_objectness"],
+                 outs[1]["probs_temp_objectness"]))
+    say(4, f"GroveConfig.small() fp32 [DET] branch (`_finish_clip`, 2 "
+           f"phrases, 24 frames): boxes card vs CPU within {eb:.2e} of the "
+           f"frame size, objectness probabilities within {ep:.2e}")
+    if not (eb <= PARITY_TOL and ep <= PARITY_TOL):
+        raise PhaseError(f"[DET] branch card vs CPU {eb:.2e}/{ep:.2e} > "
+                         f"{PARITY_TOL}")
 
 
 @contextlib.contextmanager
@@ -1672,22 +1922,24 @@ def _check_losses(out, label):
     return losses
 
 
-def _groups(params):
-    """TRAIN_GROUPS -> the trainable (name, parameter) pairs of each."""
+def _groups(params, groups=None):
+    """TRAIN_GROUPS (or `groups`) -> the trainable (name, parameter) pairs
+    of each."""
     out = {}
-    for group, rx in TRAIN_GROUPS.items():
+    for group, rx in (groups or TRAIN_GROUPS).items():
         out[group] = [(n, p) for n, p in params.items() if re.search(rx, n)]
         if not out[group]:
             raise PhaseError(f"no trainable parameter in the group {group}")
     return out
 
 
-def _check_grads(torch, params):
-    """Every trainable group holds a finite gradient that is not all zero
-    (tensors the path does not use, as the mask decoder's mask heads, get
-    none); returns each group's gradient norm."""
+def _check_grads(torch, params, groups=None):
+    """Every trainable group (TRAIN_GROUPS, or `groups`) holds a finite
+    gradient that is not all zero (tensors the path does not use, as the
+    mask decoder's mask heads, get none); returns each group's gradient
+    norm."""
     norms = {}
-    for group, pairs in _groups(params).items():
+    for group, pairs in _groups(params, groups).items():
         grads = [p.grad for _, p in pairs if p.grad is not None]
         sq = sum(float(g.float().pow(2).sum()) for g in grads)
         if not grads or not np.isfinite(sq) or sq == 0.0:
@@ -1777,36 +2029,224 @@ def phase_train(torch, gpu):
            f"{gpu}")
 
     # the driver's default length: 1536 + 575 = 2111 tokens, a ragged S,
-    # so each layer runs K5 forward with the torch-ops backward
+    # so each layer runs K10 forward with the torch-ops recompute backward
     batch = batch_to_device(_train_batch(base, tok, seed=6), "cuda")
     _kernels.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     out, ms = _timed(torch, lambda: step(batch))
     used = {k: v.launches for k, v in _kernels.KERNELS.items() if v.launches}
     losses = _check_losses(out, "S = 2111 step")
-    say(5, f"S = {batch['input_ids'].shape[1]} step: {ms:.1f} ms, peak "
-           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, losses "
+    seq = batch["input_ids"].shape[1]
+    say(5, f"S = {seq} step: {ms:.1f} ms, peak "
+           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (the K5 "
+           f"route took {K5_ROUTE_S2111[0]} ms, {K5_ROUTE_S2111[1]} GiB on "
+           "an H100 80GB HBM3 at 700 W), losses "
            + ", ".join(f"{k} {v:.4f}" for k, v in losses.items())
            + f", launches {used} on {gpu}")
-    if used.get("prefill_attention") != 32 or used.get("flash_forward_lse"):
-        raise PhaseError(f"S = 2111 step: expected 32 K5 launches and no "
-                         f"K4, got {used}")
+    _check_launches(f"S = {seq} step", _step_launches(base, seq, False))
+    launches["flash_attention"] = _kernels.KERNELS["flash_attention"].launches
     del model, step, params, snap, b, batch, out
     torch.cuda.empty_cache()
+    phase_qlora(torch, gpu)
     return launches
+
+
+def _step_launches(cfg, s, remat):
+    """The exact launches of one training step of `cfg` at S tokens (the
+    default freeze policy, or the QLoRA recipe's, which trains the same
+    SAM adapters): the LLaMA layers' attention as the JAX package routes
+    it, stated here and not read from the port: at S = 704, a multiple of
+    64, K4 with K4b behind it; at the ragged S = 2111, K10; once a layer
+    forward (twice with remat: the checkpointed layer runs again in the
+    backward); K9's three entries once in the backward of every SAM block
+    after the first trainable adapter (K9's forward with LSE runs there,
+    after the recomputed K1 or K2 forward); no K5, K7a, K7b or K7c."""
+    n = cfg.llama.num_layers
+    route = {704: "flash_forward_lse", 2111: "flash_attention"}[s]
+    sam = cfg.sam_enc.depth - min(cfg.sam_enc.global_attn_indexes) - 1
+    out = {k: 0 for k in ("flash_forward_lse", "flash_backward_dq",
+                          "flash_backward_dkv", "flash_attention",
+                          *QLORA_NEVER)}
+    out.update({k: sam for k in ("relpos_flash_fwd_lse", "relpos_flash_dq",
+                                 "relpos_flash_dkv")})
+    out[route] = n * (2 if remat else 1)
+    if route == "flash_forward_lse":
+        out["flash_backward_dq"] = out["flash_backward_dkv"] = n
+    return out
+
+
+def _check_launches(label, want):
+    from grove_tpu_torch import _kernels
+    got = {k: _kernels.KERNELS[k].launches for k in want}
+    if got != want:
+        raise PhaseError(f"{label} launched {got}, not {want}")
+
+
+def _qlora_step(torch, model, params, optimizer, generator):
+    """The QLoRA step as `benchmarks/train_finetune_scale.py:200-211`
+    composes it: forward_train, backward, the bf16-moment AdamW's updates,
+    applied with stochastic rounding (`train.lowmem.apply_updates_sr`)."""
+    from grove_tpu_torch.train.lowmem import apply_updates_sr
+
+    def step(batch):
+        optimizer.zero_grad()
+        out = model.forward_train(batch)
+        out["loss"].backward()
+        apply_updates_sr(params, optimizer.update(), generator)
+        return {k: v.detach() for k, v in out.items()}
+    return step
+
+
+def _qlora_model(torch, cfg, device, dtype, seed):
+    """A fresh `cfg` with LoRA on q/v at QLORA_R, built from `seed` with
+    remat and quantized to int4 in place (`GroveForCausalLM.quantize(
+    bits=4)`); returns (its config, the model)."""
+    from grove_tpu_torch.api import GroveForCausalLM
+    from grove_tpu_torch.models.grove import init_grove_params
+    cfg = dataclasses.replace(cfg, llama=dataclasses.replace(
+        cfg.llama, lora_r=QLORA_R))
+    model = init_grove_params(cfg, device=device, dtype=dtype, seed=seed,
+                              remat=True)
+    lm = GroveForCausalLM(cfg, model).quantize(bits=4)
+    return lm.cfg, lm.model
+
+
+def _qlora_setup(torch, model, warmup_steps, generator):
+    """The recipe's trainable set and optimizer (bf16 moments) on `model`;
+    returns (trainable parameters by name, optimizer, step)."""
+    from grove_tpu_torch.train.step import (OptimizerConfig, make_optimizer,
+                                            partition_params, trainable_mask)
+    oc = OptimizerConfig(moment_dtype="bf16", warmup_steps=warmup_steps)
+    params = partition_params(model, trainable_mask(model, oc))
+    opt = make_optimizer(params, oc)
+    return params, opt, _qlora_step(torch, model, params, opt, generator)
+
+
+def _frozen_state(model):
+    """Host copies of every frozen tensor: the parameters that do not
+    train and the quantized modules' buffers (the int4 bytes and scales,
+    lm_head's int8)."""
+    out = {n: p.detach().to("cpu", copy=True)
+           for n, p in model.named_parameters() if not p.requires_grad}
+    out.update({n: b.to("cpu", copy=True) for n, b in model.named_buffers()
+                if n.rsplit(".", 1)[-1] in ("kernel_q4p", "kernel_q",
+                                            "scale")})
+    return out
+
+
+def phase_qlora(torch, gpu):
+    """The QLoRA recipe of `benchmarks/train_finetune_scale.py` at full
+    width: GroveConfig() with LoRA r = 8 on q/v, remat, the LLM quantized
+    to int4 (frozen, its views recomputed in the backward), bf16 moments,
+    stochastic rounding with a seeded generator; two steps at S = 704 and
+    one at S = 2111, each with exact launch counts. Checks: QLORA_TRAINABLE
+    trainable parameters; step 1 (lr(0) = 0) leaves every parameter
+    bit-equal, gives lora_B a nonzero gradient and lora_A a zero one (lora_B
+    starts at zero) and every trainable group a gradient; after step 2
+    every group moved; after step 3 lora_A moved too, and every frozen
+    tensor, the int4 bytes and scales included, is bit-equal."""
+    from grove_tpu_torch import _kernels
+    from grove_tpu_torch.config import GroveConfig
+    from grove_tpu_torch.text.mock_tokenizer import MockTokenizer
+    from grove_tpu_torch.train.step import batch_to_device
+    t0 = time.perf_counter()
+    cfg, model = _qlora_model(torch, GroveConfig(), "cuda", torch.bfloat16,
+                              seed=9)
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    params, opt, step = _qlora_setup(torch, model, 1, gen)
+    n_train = sum(p.numel() for p in params.values())
+    n_layers = cfg.llama.num_layers
+    tok = MockTokenizer(base_vocab_size=cfg.llama.vocab_size)
+    frozen = _frozen_state(model)
+    snap = {n: p.detach().to("cpu", copy=True) for n, p in params.items()}
+    say(5, f"QLoRA GroveConfig(lora_r={QLORA_R}), remat, quantize(bits=4) "
+           f"built in {time.perf_counter() - t0:.1f} s: weights "
+           f"{_model_bytes(model) / 2**30:.2f} GiB, {len(params)} trainable "
+           f"tensors, {n_train} trainable parameters on {gpu}")
+    if n_train != QLORA_TRAINABLE:
+        raise PhaseError(f"QLoRA: {n_train} trainable parameters, not "
+                         f"{QLORA_TRAINABLE}")
+    groups = {g: rx for g, rx in TRAIN_GROUPS.items() if g != "lm_head"}
+    groups["LoRA"] = r"_lora\."
+    short = dataclasses.replace(cfg, max_seq_len=TRAIN_SEQ)
+    runs = [(short, seed) for seed in (11, 12)] + [(cfg, 13)]
+    times = {}
+    for i, (c, seed) in enumerate(runs):
+        batch = batch_to_device(_train_batch(c, tok, seed=seed), "cuda")
+        seq = batch["input_ids"].shape[1]
+        if i != 1:
+            torch.cuda.reset_peak_memory_stats()
+        _kernels.reset_launch_counts()
+        out, ms = _timed(torch, lambda: step(batch))
+        losses = _check_losses(out, f"QLoRA step {i + 1}")
+        times.setdefault(seq, []).append(ms)
+        used = {k: v.launches for k, v in _kernels.KERNELS.items()
+                if v.launches}
+        say(5, f"QLoRA step {i + 1} at S = {seq}: {ms:.1f} ms, peak "
+               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB since "
+               f"S = {seq}'s first step, losses "
+               + ", ".join(f"{k} {v:.4f}" for k, v in losses.items())
+               + f", launches {used} on {gpu}")
+        _check_launches(f"QLoRA step {i + 1}", _step_launches(c, seq, True))
+        if i == 0:
+            moved = [n for n, p in params.items()
+                     if not torch.equal(p.detach().cpu(), snap[n])]
+            if moved:
+                raise PhaseError(f"QLoRA step 1 (lr(0) = 0) moved {moved[:4]}")
+            a_grads = [float(p.grad.abs().max()) for n, p in params.items()
+                       if "lora_A" in n]
+            b_zero = [n for n, p in params.items() if "lora_B" in n
+                      and not float(p.grad.abs().max()) > 0]
+            if any(a_grads) or b_zero or len(a_grads) != 2 * n_layers:
+                raise PhaseError(f"QLoRA step 1: lora_A gradients "
+                                 f"{max(a_grads)}, lora_B without one "
+                                 f"{b_zero[:4]}")
+            norms = _check_grads(torch, params, groups)
+            say(5, f"QLoRA step 1 left every parameter bit-equal; "
+                   f"{2 * n_layers} lora_B gradients nonzero, "
+                   f"{2 * n_layers} lora_A gradients exactly zero; "
+                   "gradient norm by group: " + ", ".join(
+                       f"{k} {v:.3e}" for k, v in norms.items()))
+        if i == 1:
+            moved = {n for n, p in params.items()
+                     if not torch.equal(p.detach().cpu(), snap[n])}
+            still = [g for g, rx in groups.items()
+                     if not any(re.search(rx, n) for n in moved)]
+            if still:
+                raise PhaseError(f"QLoRA: groups unchanged after step 2: "
+                                 f"{still}")
+            say(5, f"after QLoRA step 2 every trainable group moved "
+                   f"({len(moved)} of {len(params)} trainable tensors "
+                   "differ, stochastic rounding)")
+        del batch, out
+    moved_a = [n for n, p in params.items() if "lora_A" in n
+               and not torch.equal(p.detach().cpu(), snap[n])]
+    changed = [n for n, t in _frozen_state(model).items()
+               if not torch.equal(t, frozen[n])]
+    if not moved_a or changed:
+        raise PhaseError(f"QLoRA after step 3: {len(moved_a)} lora_A moved, "
+                         f"frozen tensors changed {changed[:4]}")
+    per = "; ".join(f"S = {k}: {', '.join(f'{t:.1f}' for t in v)}"
+                    for k, v in times.items())
+    say(5, f"after QLoRA step 3 {len(moved_a)} of {2 * n_layers} lora_A "
+           f"moved and all {len(frozen)} frozen tensors (int4 bytes and "
+           f"scales included) are bit-equal; ms per step: {per} on {gpu}")
+    del model, params, opt, step, frozen, snap
+    torch.cuda.empty_cache()
 
 
 def phase_train_parity(torch):
     """One step at GroveConfig.small() (S = 704) in fp32, one set of
     weights and one batch, on the card with the kernels and on the CPU with
-    the plain versions (TF32 off): loss terms within TRAIN_LOSS_REL
+    the plain versions (TF32 off), first with the default recipe, then with
+    the QLoRA recipe (LoRA r = 8, remat, the LLM int4, bf16 moments), the
+    CPU taking the card's `Int4Linear` branch (the recomputed view) through
+    the `models.layers._on_card` seam: loss terms within TRAIN_LOSS_REL
     relative, each trainable tensor's gradient within TRAIN_GRAD_TOL of its
-    max-abs."""
-    from grove_tpu_torch import _kernels
+    max-abs (`_step_parity`)."""
     from grove_tpu_torch.config import GroveConfig
     from grove_tpu_torch.models.grove import init_grove_params
     from grove_tpu_torch.text.mock_tokenizer import MockTokenizer
-    from grove_tpu_torch.train.step import batch_to_device
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1815,11 +2255,38 @@ def phase_train_parity(torch):
     cpu = init_grove_params(cfg, device="cpu", dtype=torch.float32, seed=7)
     card = copy.deepcopy(cpu).to("cuda")
     batch = _train_batch(cfg, tok, seed=8)
+    _step_parity(torch, "GroveConfig.small() fp32 train step", cpu, card,
+                 batch, lambda m, dev: _train_setup(torch, m, 0),
+                 contextlib.nullcontext)
+    del cpu, card
+    qcfg, cpu = _qlora_model(torch, cfg, "cpu", torch.float32, seed=14)
+    card = copy.deepcopy(cpu).to("cuda")
+    used = _step_parity(
+        torch, f"GroveConfig.small() fp32 QLoRA step (lora_r={QLORA_R}, "
+        "remat, int4 LLM, bf16 moments)", cpu, card, batch,
+        lambda m, dev: _qlora_setup(torch, m, 0, torch.Generator(
+            device=dev).manual_seed(15))[::2], _card_branches_on_cpu)
+    if any(used.get(k) for k in QLORA_NEVER):
+        raise PhaseError(f"QLoRA parity: the card launched {used}")
+    del cpu, card
+
+
+def _step_parity(torch, label, cpu, card, batch, setup, cpu_context):
+    """One step of `setup(model, device) -> (params, step)` on the card and
+    on the CPU (inside `cpu_context()`): loss terms within TRAIN_LOSS_REL
+    relative, each trainable tensor's gradient within TRAIN_GRAD_TOL of its
+    max-abs, or of TRAIN_GRAD_FLOOR of the largest gradient's max-abs for a
+    tensor whose gradient is zero up to rounding; the card must launch
+    every kernel of TRAIN_LAUNCHES. Returns the card's launches."""
+    from grove_tpu_torch import _kernels
+    from grove_tpu_torch.train.step import batch_to_device
     runs = []
     for model, dev in ((card, "cuda"), (cpu, "cpu")):
-        params, step = _train_setup(torch, model, warmup_steps=0)
+        params, step = setup(model, dev)
         _kernels.reset_launch_counts()
-        (out, ms) = _timed(torch, lambda: step(batch_to_device(batch, dev)))
+        with (cpu_context() if dev == "cpu" else contextlib.nullcontext()):
+            (out, ms) = _timed(torch, lambda: step(batch_to_device(batch,
+                                                                   dev)))
         runs.append((_check_losses(out, dev), params, ms))
         if dev == "cuda":
             launches = {k: v.launches for k, v in _kernels.KERNELS.items()
@@ -1827,16 +2294,16 @@ def phase_train_parity(torch):
     (l_card, p_card, ms_card), (l_cpu, p_cpu, ms_cpu) = runs
     missing = [k for k in TRAIN_LAUNCHES if k not in launches]
     if missing:
-        raise PhaseError(f"training parity: kernels never launched on the "
-                         f"card: {missing}")
+        raise PhaseError(f"{label}: kernels never launched on the card: "
+                         f"{missing}")
     rel = {k: abs(l_card[k] - l_cpu[k]) / max(abs(l_cpu[k]), 1e-30)
            for k in l_cpu}
     grads = {}
     for name, p in p_cpu.items():
         gc, gg = p.grad, p_card[name].grad
         if (gc is None) != (gg is None):
-            raise PhaseError(f"training parity: {name} has a gradient on "
-                             "one device only")
+            raise PhaseError(f"{label}: {name} has a gradient on one device "
+                             "only")
         if gc is not None:
             grads[name] = (gg.cpu(), gc)
     floor = TRAIN_GRAD_FLOOR * max(float(c.abs().max())
@@ -1849,19 +2316,19 @@ def phase_train_parity(torch):
         scale = max(own, floor)
         err = float((gg - gc).abs().max())
         if not err <= TRAIN_GRAD_TOL * scale:
-            raise PhaseError(f"training parity: {name} gradient {err:.3e} "
-                             f"> {TRAIN_GRAD_TOL} x {scale:.3e}")
+            raise PhaseError(f"{label}: {name} gradient {err:.3e} > "
+                             f"{TRAIN_GRAD_TOL} x {scale:.3e}")
         worst = max(worst, err / scale)
-    say(6, "GroveConfig.small() fp32 train step card vs CPU: loss terms "
-           "relative " + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+    say(6, f"{label} card vs CPU: loss terms relative "
+           + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
            + f"; {len(grads)} gradients, worst {worst:.2e} of its max-abs "
            f"({len(floored)} under {TRAIN_GRAD_FLOOR} of the largest, held "
            f"at that floor: {floored}); card {ms_card:.0f} ms, CPU "
            f"{ms_cpu:.0f} ms; card kernel launches {launches}")
     if not max(rel.values()) <= TRAIN_LOSS_REL:
-        raise PhaseError(f"training parity: loss terms {rel} > "
-                         f"{TRAIN_LOSS_REL} relative")
-    del cpu, card
+        raise PhaseError(f"{label}: loss terms {rel} > {TRAIN_LOSS_REL} "
+                         "relative")
+    return launches
 
 
 # ---------------------------------------------------------------------------

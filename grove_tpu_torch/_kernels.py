@@ -241,6 +241,11 @@ KERNELS: Dict[str, Kernel] = {
         [_P] * 10 + [_I] * 6 + [_F, _I, _P],
         "grove_tpu_torch/csrc/relpos_flash_attention.cu",
         "grove_tpu/ops/sam_attention_bwd.py:333"),
+    "flash_attention": Kernel(
+        "grove_flash_attention",
+        [_P] * 4 + [_I] * 6 + [_F, _I, _P],
+        "grove_tpu_torch/csrc/flash_attention.cu",
+        "grove_tpu/ops/attention.py:154"),
 }
 
 

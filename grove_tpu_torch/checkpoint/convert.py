@@ -65,6 +65,32 @@ def _flatten(tree, prefix=""):
             yield path, v
 
 
+_LORA_LEAF = re.compile(
+    r"^llama/layers_(\d+)/self_attn/((?:q|v)_proj_lora)/(lora_[AB])/kernel$")
+
+
+def jax_lora_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The LoRA leaves of a JAX GroveModel parameter tree (numpy or jax,
+    float or after a quantizing transform, which leaves them float) under
+    the port's names: the Dense kernel `llama/layers_N/self_attn/
+    q_proj_lora/lora_A/kernel`, (in, r), becomes the (r, in) weight
+    `model.layers.N.self_attn.q_proj_lora.lora_A.weight`; lora_B's (r, out)
+    kernel the (out, r) weight; v_proj_lora likewise. The JAX exporter
+    `to_torch_state_dict` writes no LoRA names, so a float model loads
+    `{**to_torch_state_dict(params), **jax_lora_state_dict(params)}`
+    strictly, and `load_jax_quantized_llama` carries these leaves too."""
+    out = {}
+    for path, leaf in _flatten(params):
+        m = _LORA_LEAF.match(path)
+        if m:
+            out[f"model.layers.{m[1]}.self_attn.{m[2]}.{m[3]}.weight"] = \
+                torch.from_numpy(np.array(leaf)).t().contiguous()
+        elif "_lora/" in path:
+            raise KeyError(f"jax_lora_state_dict: LoRA leaf {path} has no "
+                           "counterpart in the port")
+    return out
+
+
 @torch.no_grad()
 def load_jax_quantized_llama(model: nn.Module, params: Mapping) -> nn.Module:
     """Copy the quantized LLM leaves of a JAX GroveModel parameter tree
@@ -76,6 +102,8 @@ def load_jax_quantized_llama(model: nn.Module, params: Mapping) -> nn.Module:
     `model.layers.N.self_attn.q_proj`, `lm_head/lm_head` -> `lm_head`.
     Strict: every quantized leaf of the tree lands in a buffer of the same
     shape and dtype, and every quantized buffer of the model is written.
+    The tree's LoRA leaves (`jax_lora_state_dict`) land in the model's
+    LoRA weights, strictly both ways too.
     The copy keeps each buffer's layout (a W8A8 `kernel_q` stays
     column-major). Other leaves are left to `load_reference_state_dict`."""
     targets = {name: buf for name, buf in model.named_buffers()
@@ -109,6 +137,17 @@ def load_jax_quantized_llama(model: nn.Module, params: Mapping) -> nn.Module:
     if missing:
         raise KeyError(f"load_jax_quantized_llama: no leaf for {missing[:4]}"
                        f"{' ...' if len(missing) > 4 else ''}")
+    lora = jax_lora_state_dict(params)
+    mine = {n: p for n, p in model.named_parameters() if "_lora." in n}
+    if set(lora) != set(mine):
+        raise KeyError(f"load_jax_quantized_llama: LoRA leaves "
+                       f"{sorted(set(lora) ^ set(mine))[:4]} on one side only")
+    for name, src in lora.items():
+        if src.shape != mine[name].shape:
+            raise ValueError(f"load_jax_quantized_llama: {name} is "
+                             f"{tuple(src.shape)} in the tree, "
+                             f"{tuple(mine[name].shape)} in the model")
+        mine[name].copy_(src)
     return model
 
 

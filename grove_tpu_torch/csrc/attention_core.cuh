@@ -1,5 +1,5 @@
-// Shared body of the five hand-written attention kernels of grove_tpu_torch
-// (K1-K5).
+// Shared body of the hand-written attention forward kernels of
+// grove_tpu_torch (K1-K5, K9's forward, K10).
 //
 // One thread block owns kBQ = kWarps * kRows query rows of one
 // (batch, head) pair and streams the keys of that pair through shared memory
@@ -24,8 +24,11 @@
 //   * the TPU K1's all-underflow contract (see kExp2Shift);
 //   * an int8 output (K1q): clip(rint(out * *out_inv), -127, 127), with the
 //     reciprocal of the static activation scale read from device memory;
-//   * the ragged edge: keys at or past S are masked and rows past S are not
-//     written, so no caller pads.
+//   * the ragged edge: keys at or past Sk are masked and rows past S are not
+//     written, so no caller pads;
+//   * a key count Sk other than the query count S (K10's cross lengths; 0
+//     means Sk = S). The causal mask is then top-left aligned: row i sees
+//     keys 0..i, whatever Sk - S is.
 //
 // Bounds on an H100: the products run on the CUDA cores in fp32, with no
 // tensor-core instruction, so every kernel here is bounded by fp32 FMA
@@ -74,6 +77,7 @@ struct AttnArgs {
   const float* out_inv;  // K1q: o is int8, rint(out * *out_inv); or nullptr
   Strides qs, ks, vs, os, rhs, rws;
   int B, H, S, gh, gw;
+  int Sk;             // keys per (batch, head); 0 = S
   float scale;
   int causal;
   int zero_underflow; // rows with max logit < kExp2Shift - 126 (log2) -> 0
@@ -140,6 +144,7 @@ __device__ __forceinline__ void attention_block(const AttnArgs& a) {
   const bool bias = a.rh != nullptr;
   const int gs = a.gh + a.gw;
   const int pad = a.pad != nullptr ? a.pad[b] : 0;
+  const int Sk = a.Sk > 0 ? a.Sk : a.S;
 
   const T* q = static_cast<const T*>(a.q) + b * a.qs.b + h * a.qs.h;
   const T* k = static_cast<const T*>(a.k) + b * a.ks.b + h * a.ks.h;
@@ -177,14 +182,14 @@ __device__ __forceinline__ void attention_block(const AttnArgs& a) {
   }
 
   const int wrow = warp * kRows;          // this warp's first row in the tile
-  const int kend = a.causal ? min(a.S, q0 + kBQ) : a.S;
+  const int kend = a.causal ? min(Sk, q0 + kBQ) : Sk;
   for (int k0 = 0; k0 < kend; k0 += kBK) {
     __syncthreads();                      // previous tile consumed
     for (int i = tid; i < kBK * D; i += kThreads) {
       const int j = i / D;
       const int d = i - j * D;
       const int key = k0 + j;
-      const bool ok = key < a.S;
+      const bool ok = key < Sk;
       sK[j * KST + d] = ok ? to_f(k[key * a.ks.s + d]) : 0.f;
       sV[j * D + d] = ok ? to_f(v[key * a.vs.s + d]) : 0.f;
     }
@@ -212,10 +217,10 @@ __device__ __forceinline__ void attention_block(const AttnArgs& a) {
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       const int row = q0 + wrow + r;
-      const bool valid = key < a.S && (!a.causal || key <= row) &&
+      const bool valid = key < Sk && (!a.causal || key <= row) &&
                          (key >= pad || key == row);
       float x = s[r];
-      if (bias && key < a.S) {
+      if (bias && key < Sk) {
         const float* rr = sR + (wrow + r) * gs;
         x += rr[key / a.gw] + rr[a.gh + key % a.gw];
       }

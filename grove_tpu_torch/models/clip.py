@@ -12,7 +12,8 @@ reference's HF CLIP (`model.vision_tower.vision_tower.vision_model.*`):
 * AdaptiveAvgPool3d over (t, h, w) -> 576 video tokens.
 
 Self-attention goes through `ops.attention.multi_head_attention`, i.e. K3 on
-the card.
+the card at CLIP's S = 577. With `remat` each encoder layer runs under
+`torch.utils.checkpoint` when gradients are on (`clip.py:182`).
 
 With `cfg.quant_w8a8` (the W8A8 tower, `ops.quant.quantize_clip_` or a
 quantized config; `clip.py:41-137`): `layer_norm1` / `layer_norm2` are
@@ -32,7 +33,7 @@ from torch import nn
 from ..config import ClipVisionConfig
 from ..ops.attention import multi_head_attention
 from .layers import (Int8Linear, LayerNormQuant, SpatioTemporalConvAdapter,
-                     adaptive_avg_pool_3d)
+                     adaptive_avg_pool_3d, remat_call)
 
 
 def _linear(cfg: ClipVisionConfig, k: int, n: int, f, act_site=False):
@@ -148,10 +149,11 @@ class ClipVisionTransformer(nn.Module):
 
     def __init__(self, cfg: ClipVisionConfig,
                  pool_thw: Tuple[int, int, int], num_region_levels: int = 4,
-                 *, device=None, dtype=None):
+                 *, remat: bool = False, device=None, dtype=None):
         super().__init__()
         f = dict(device=device, dtype=dtype)
         self.cfg = cfg
+        self.remat = remat
         self.pool_thw = tuple(pool_thw)
         self.num_region_levels = num_region_levels
         self.embeddings = ClipEmbeddings(cfg, **f)
@@ -179,7 +181,7 @@ class ClipVisionTransformer(nn.Module):
         x = self.pre_layrnorm(self.embeddings(x))
         hidden_states: List[torch.Tensor] = [x]
         for i, layer in enumerate(self.encoder.layers):
-            x = layer(x)
+            x = remat_call(self.remat, layer, x)
             if i % cfg.adapter_every == 0:
                 adapter = self.encoder.adapters[i // cfg.adapter_every]
                 x = self._adapter(x, adapter)
@@ -200,10 +202,11 @@ class ClipVisionTransformer(nn.Module):
 class ClipVisionModel(nn.Module):
     """HF `CLIPVisionModel` container (`vision_model`)."""
 
-    def __init__(self, cfg, pool_thw, *, device=None, dtype=None):
+    def __init__(self, cfg, pool_thw, *, remat: bool = False, device=None,
+                 dtype=None):
         super().__init__()
-        self.vision_model = ClipVisionTransformer(cfg, pool_thw,
-                                                  device=device, dtype=dtype)
+        self.vision_model = ClipVisionTransformer(
+            cfg, pool_thw, remat=remat, device=device, dtype=dtype)
 
     def forward(self, frames):
         return self.vision_model(frames)
@@ -212,10 +215,11 @@ class ClipVisionModel(nn.Module):
 class ClipVisionTower(nn.Module):
     """The reference's `CLIPVisionTower` wrapper (`vision_tower`)."""
 
-    def __init__(self, cfg, pool_thw, *, device=None, dtype=None):
+    def __init__(self, cfg, pool_thw, *, remat: bool = False, device=None,
+                 dtype=None):
         super().__init__()
-        self.vision_tower = ClipVisionModel(cfg, pool_thw, device=device,
-                                            dtype=dtype)
+        self.vision_tower = ClipVisionModel(cfg, pool_thw, remat=remat,
+                                            device=device, dtype=dtype)
 
     def forward(self, frames):
         return self.vision_tower(frames)

@@ -52,10 +52,11 @@ _RAW_INPUT = ("raw-frame resize and packed YUV420 input are not ported yet: "
 class SamGrounding(nn.Module):
     """The reference's `Sam` container (`grounding_encoder`)."""
 
-    def __init__(self, cfg: GroveConfig, *, device=None, dtype=None):
+    def __init__(self, cfg: GroveConfig, *, remat: bool = False, device=None,
+                 dtype=None):
         super().__init__()
         f = dict(device=device, dtype=dtype)
-        self.image_encoder = SamImageEncoder(cfg.sam_enc, **f)
+        self.image_encoder = SamImageEncoder(cfg.sam_enc, remat=remat, **f)
         self.prompt_encoder = PromptEncoder(cfg.sam_dec, **f)
         self.mask_decoder = GroveBoxDecoder(cfg.sam_dec, **f)
 
@@ -64,16 +65,17 @@ class GroveBackbone(LlamaModel):
     """`model.*`: the LLaMA model plus the multimodal modules, as in the
     reference's LlavaLlamaModel subclass."""
 
-    def __init__(self, cfg: GroveConfig, *, device=None, dtype=None):
+    def __init__(self, cfg: GroveConfig, *, remat: bool = False, device=None,
+                 dtype=None):
         f = dict(device=device, dtype=dtype)
-        super().__init__(cfg.llama, **f)
+        super().__init__(cfg.llama, remat=remat, **f)
         d = cfg.llama.hidden_size
         self.vision_tower = ClipVisionTower(
-            cfg.clip, (cfg.pool_t, cfg.pool_h, cfg.pool_w), **f)
+            cfg.clip, (cfg.pool_t, cfg.pool_h, cfg.pool_w), remat=remat, **f)
         self.mm_projector = nn.Sequential(
             nn.Linear(cfg.clip.hidden_size, d, **f), nn.GELU(),
             nn.Linear(d, d, **f))
-        self.grounding_encoder = SamGrounding(cfg, **f)
+        self.grounding_encoder = SamGrounding(cfg, remat=remat, **f)
         self.text_hidden_fcs = nn.ModuleList([nn.Sequential(
             nn.Linear(d, d, **f), nn.ReLU(), nn.Linear(d, cfg.out_dim, **f))])
         if cfg.with_region:
@@ -86,11 +88,16 @@ class GroveBackbone(LlamaModel):
 
 
 class GroveModel(nn.Module):
-    def __init__(self, cfg: GroveConfig, *, device=None,
+    """`remat` (`grove.py:46`): the CLIP layers, the SAM blocks and, on the
+    cache-free pass, the LLaMA layers run under `torch.utils.checkpoint`
+    when gradients are on, recomputed in the backward instead of kept."""
+
+    def __init__(self, cfg: GroveConfig, *, remat: bool = False, device=None,
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         self.cfg = cfg
-        self.model = GroveBackbone(cfg, device=device, dtype=dtype)
+        self.model = GroveBackbone(cfg, remat=remat, device=device,
+                                   dtype=dtype)
         # int8 even in the int4 config, as `llama.py:459-466` pins it
         self.lm_head = _dense(cfg.llama, cfg.llama.hidden_size,
                               cfg.llama.padded_vocab_size, bits=8,
@@ -321,7 +328,8 @@ def init_params_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Fill every parameter from `generator`, in place: lecun-normal
     weights for linear and conv layers (the flax default), unit norm
     scales, zero biases, N(0, 0.02) position and token tables, N(0, 1)
-    prompt tokens. Adapter gates get alpha = 0.1 instead of the reference's
+    prompt tokens; LoRA's `lora_A` N(0, 0.01) and `lora_B` zero, the JAX
+    initializers. Adapter gates get alpha = 0.1 instead of the reference's
     zero so the random-weight model runs its Conv3d adapters. Values are
     drawn in fp32 on the parameter's device and cast. Quantized linears get
     the JAX init's placeholders (zero kernels, unit scales); random
@@ -339,7 +347,11 @@ def init_params_(model: nn.Module, generator: torch.Generator) -> nn.Module:
             mod.reset_placeholders_()
         for pname, p in mod.named_parameters(recurse=False):
             full = f"{mname}.{pname}" if mname else pname
-            if pname == "alpha":
+            if full.endswith("lora_A.weight"):
+                randn(p, 0.01)                  # `llama.py:108`
+            elif full.endswith("lora_B.weight"):
+                p.zero_()                       # `llama.py:111`
+            elif pname == "alpha":
                 p.fill_(0.1)
             elif pname == "bias":
                 p.zero_()
@@ -359,12 +371,13 @@ def init_params_(model: nn.Module, generator: torch.Generator) -> nn.Module:
 
 
 def init_grove_params(cfg: GroveConfig, *, device, dtype=torch.bfloat16,
-                      seed: int = 0) -> GroveModel:
+                      seed: int = 0, remat: bool = False) -> GroveModel:
     """Build a GroveModel with synthetic weights from `seed`, directly on
     `device` in `dtype`: the modules are made on the meta device, given
     uninitialized storage on `device`, then filled by `init_params_` with
-    a generator on that device (no fp32 copy of the model ever exists)."""
-    model = GroveModel(cfg, device="meta", dtype=dtype)
+    a generator on that device (no fp32 copy of the model ever exists).
+    `remat` as `GroveModel`'s (`grove.py:424-425`)."""
+    model = GroveModel(cfg, remat=remat, device="meta", dtype=dtype)
     model = model.to_empty(device=device)
     gen = torch.Generator(device=device).manual_seed(seed)
     init_params_(model, gen)

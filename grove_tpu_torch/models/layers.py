@@ -35,6 +35,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.fused_ln import (add_layernorm_quant, add_rmsnorm_quant_dyn,
                             layernorm_quant)
@@ -50,6 +51,16 @@ def _on_card(x: torch.Tensor) -> bool:
     branches: it lies on a CUDA device. The one seam for that question,
     monkeypatched by the tests."""
     return x.is_cuda
+
+
+def remat_call(remat: bool, fn, *args):
+    """fn(*args); with `remat` and gradients on, under
+    `torch.utils.checkpoint` (non-reentrant), the counterpart of flax
+    `nn.remat`: nothing inside is kept for the backward, which runs the
+    forward again."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def quant_act(x):
@@ -218,6 +229,36 @@ class Int8Linear(nn.Module):
                 f"bias={self.bias is not None}")
 
 
+def _int4_view(kernel_q4p, scale, group: int, dtype) -> torch.Tensor:
+    """The (K, N) weights of packed int4 bytes and group scales, in
+    `dtype`: each int4 times its group's fp32 scale, then cast."""
+    w = unpack_int4(kernel_q4p, group).float()
+    return (w * scale[:, None, :]).to(dtype).reshape(
+        kernel_q4p.shape[0] * 2, kernel_q4p.shape[1])
+
+
+class _Int4ViewMatmul(torch.autograd.Function):
+    """y = x @ view(kernel_q4p, scale) for a frozen int4 weight, the
+    counterpart of `jax.checkpoint(viewdot)` (`layers.py:238-256`): the
+    forward builds the (K, N) view, multiplies and drops it; the backward
+    rebuilds it for dx = dy @ view^T. Only x, the packed bytes and the
+    scales are saved, and there is no weight gradient (quantized weights
+    are frozen). At S = 704 the views autograd would otherwise keep for
+    the 224 projections of LLaMA-7B take about 12 GiB."""
+
+    @staticmethod
+    def forward(ctx, x, kernel_q4p, scale, group: int):
+        ctx.save_for_backward(kernel_q4p, scale)
+        ctx.group = group
+        return torch.matmul(x, _int4_view(kernel_q4p, scale, group, x.dtype))
+
+    @staticmethod
+    def backward(ctx, dy):
+        kernel_q4p, scale = ctx.saved_tensors
+        view = _int4_view(kernel_q4p, scale, ctx.group, dy.dtype)
+        return torch.matmul(dy, view.t()), None, None, None
+
+
 class Int4Linear(nn.Module):
     """int4-weight linear, group-wise scales, no bias: W4A16, or W4A8 with
     `act_quant`.
@@ -235,7 +276,9 @@ class Int4Linear(nn.Module):
       quantized per token unless `sx` came with them, the exact int8 GEMM
       (`ops.int8_matmul`) and `(acc * sx) * s8`;
     * card, 64 rows or more: a dequantized view in the compute dtype and
-      `torch.matmul` (`layers.py:238-256` takes a plain XLA dot there);
+      `torch.matmul` (`layers.py:238-256` takes a plain XLA dot there),
+      inside `_Int4ViewMatmul`, which keeps no view for the backward
+      (JAX's `jax.checkpoint(viewdot)`);
     * card, fewer rows, `act_quant` (decode): `quant_act`, then K7b
       (`ops.int4_matmul.int4_matmul_a8`);
     * otherwise K7a (`ops.int4_matmul.int4_matmul`), whose CPU twin is the
@@ -277,12 +320,6 @@ class Int4Linear(nn.Module):
     def group(self) -> int:
         return self.in_features // self.scale.shape[0]
 
-    def dequantized(self) -> torch.Tensor:
-        """(K, N) weights in the compute dtype."""
-        w = unpack_int4(self.kernel_q4p, self.group).float()
-        return (w * self.scale[:, None, :]).to(self.compute_dtype).reshape(
-            self.in_features, self.out_features)
-
     def forward(self, x, sx=None):
         dt = self.compute_dtype
         lead = x.shape[:-1]
@@ -304,7 +341,8 @@ class Int4Linear(nn.Module):
             acc = int8_matmul(xq.contiguous(), q8)
             y = acc.float() * sxt * s8
         elif card and tokens >= 64:
-            y = torch.matmul(x2.to(dt), self.dequantized())
+            y = _Int4ViewMatmul.apply(x2.to(dt), self.kernel_q4p, self.scale,
+                                      self.group)
         elif card and self.act_quant:
             xq, sxt = quant_act(x2)
             y = int4_matmul_a8(xq, sxt, self.kernel_q4p, self.scale,

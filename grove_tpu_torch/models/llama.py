@@ -22,19 +22,37 @@ tree (`model.embed_tokens`, `model.layers.N.*`, `model.norm`):
   with per-token scales, and each block returns its residual and its MLP
   branch un-added, for the next norm to add.
 
+LoRA (`llama.py:98-112`, `:160-166`): with `lora_r > 0` every attention
+has `q_proj_lora` and `v_proj_lora` (`LoraDelta`: `lora_A` (r, in), then
+`lora_B` (out, r), scaled by alpha / r), added to q and v after the
+projections and before RoPE; they stay in the float dtype when the
+projections are quantized.
+
+Remat (`llama.py:420-422`): `LlamaModel(remat=True)` runs each decoder
+layer of the cache-free pass under `torch.utils.checkpoint`
+(non-reentrant), the counterpart of `nn.remat`: its activations are
+recomputed in the backward, so its forward, attention kernels included,
+runs twice per training step.
+
 Attention:
-* no cache (teacher-forced pass): causal self-attention through
-  `ops.attention.multi_head_attention`, i.e. K4 on the card; at an S that
-  is not a multiple of 64, with as many kv heads as heads, K5
-  (`prefill_attention_trainable`), as `llama.py:187-197`;
+* no cache (teacher-forced and training pass), the JAX route
+  (`llama.py:176-200`): K5 (`prefill_attention_
+  trainable`) where `prefill_attention_ok` holds (as many kv heads as
+  heads, S % 8 == 0, 128 <= S <= 1100) and `_block_for(S)` finds no block;
+  otherwise `ops.attention.multi_head_attention`, i.e. K4 + K4b at an S
+  that is a multiple of 64, K10 with its recompute backward at any other S
+  >= 128 (the training driver's 2111 among them), the plain path below 128
+  or with a mask. As in the port's first slice, the tensors' device takes
+  the place of `default_backend() == "tpu"` (each kernel's wrapper runs its
+  plain twin on the CPU) and the lane term `head_dim % 128 == 0` is dropped;
 * the float cache (prefill, decode): plain fp32-softmax attention over the
   whole cache with a causal mask, and for left-padded prompts a mask that
   drops the pad slots but keeps each row's own slot (`llama.py:292-297`): a
   fully masked row would softmax to NaN and poison later layers through its
   k/v;
 * the int8 cache (`llama.py:201-273`): prefill attends over the fresh k/v
-  (K5 with as many kv heads as heads, else the masked plain path) while the
-  quantized slabs are written; decode runs K6 over the int8 slabs.
+  (K5 where `prefill_attention_ok` holds, else the masked plain path) while
+  the quantized slabs are written; decode runs K6 over the int8 slabs.
 
 A float cache is a list of {"k", "v"} (B, C, H_kv, D) tensors, one per
 layer; an int8 cache a list of {"k", "v"} (B, H_kv, Cpad, D) int8 and
@@ -51,19 +69,16 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import LlamaConfig
-from ..ops.attention import (multi_head_attention, prefill_attention_raw,
+from ..ops.attention import (_block_for, multi_head_attention,
+                             prefill_attention_ok, prefill_attention_raw,
                              prefill_attention_trainable, xla_attention)
 from ..ops.decode_attention import NEG_INF, int8_cache_decode_attention
 from . import layers
-from .layers import Int4Linear, Int8Linear, RMSNorm
+from .layers import Int4Linear, Int8Linear, RMSNorm, remat_call
 
 
 def check_llama_config(cfg: LlamaConfig) -> None:
-    """Raise for the LLaMA options the port does not run yet."""
-    if cfg.lora_r > 0:
-        raise NotImplementedError(
-            "LlamaConfig.lora_r > 0: LoRA belongs to the training slice "
-            "(ROADMAP Queue 1 item 14)")
+    """Raise for a LLaMA option value the port cannot build."""
     if cfg.weight_quant and cfg.weight_quant_bits not in (4, 8):
         raise ValueError(f"LlamaConfig.weight_quant_bits must be 4 or 8, "
                          f"got {cfg.weight_quant_bits}")
@@ -121,6 +136,31 @@ def _repeat_kv(x: torch.Tensor, reps: int) -> torch.Tensor:
     return x if reps == 1 else x.repeat_interleave(reps, dim=2)
 
 
+class LoraDelta(nn.Module):
+    """Zero-init LoRA adapter (`llama.py:98-112`): x A^T B^T * (alpha / r),
+    `lora_A` (r, in) and `lora_B` (out, r) bias-free linears."""
+
+    def __init__(self, in_features: int, out_features: int, r: int,
+                 alpha: float, *, device=None, dtype=None):
+        super().__init__()
+        f = dict(bias=False, device=device, dtype=dtype)
+        self.scaling = alpha / r
+        self.lora_A = nn.Linear(in_features, r, **f)
+        self.lora_B = nn.Linear(r, out_features, **f)
+
+    def forward(self, x):
+        return self.lora_B(self.lora_A(x)) * self.scaling
+
+
+def use_raw_prefill(cfg: LlamaConfig, s: int) -> bool:
+    """`use_raw` of `llama.py:176-179`: K5 can take this layer's q/k/v at S
+    tokens (the device test and the lane term are the port's, see the
+    module docstring)."""
+    return (cfg.num_kv_heads == cfg.num_heads
+            and prefill_attention_ok((1, s, cfg.num_heads * cfg.head_dim),
+                                     cfg.num_heads))
+
+
 def _project(mod: nn.Module, x, sx):
     """A projection of x, or of the int8 carry (x, sx): only `Int4Linear`
     takes the carry (`llama.py:137-147`)."""
@@ -146,6 +186,12 @@ class LlamaAttention(nn.Module):
             self.k_proj = _dense(cfg, d, nkv, **f)
             self.v_proj = _dense(cfg, d, nkv, **f)
         self.o_proj = _dense(cfg, nq, d, **f)
+        if cfg.lora_r > 0:
+            # the reference's LoRA targets q_proj and v_proj (`train.py:52`)
+            self.q_proj_lora = LoraDelta(d, nq, cfg.lora_r, cfg.lora_alpha,
+                                         **f)
+            self.v_proj_lora = LoraDelta(d, nkv, cfg.lora_r, cfg.lora_alpha,
+                                         **f)
 
     def forward(self, x, positions, kv_cache: Optional[Dict] = None,
                 cache_offset: int = 0, attn_mask=None, pad_lens=None,
@@ -164,6 +210,12 @@ class LlamaAttention(nn.Module):
         else:
             q, k, v = (_project(m, x, sx)
                        for m in (self.q_proj, self.k_proj, self.v_proj))
+        if cfg.lora_r > 0:
+            if sx is not None:
+                raise ValueError("the fused-norm int8 carry reached a LoRA "
+                                 "attention, which reads float activations")
+            q = q + self.q_proj_lora(x)
+            v = v + self.v_proj_lora(x)
         q = q.reshape(b, s, cfg.num_heads, hd)
         k = k.reshape(b, s, cfg.num_kv_heads, hd)
         v = v.reshape(b, s, cfg.num_kv_heads, hd)
@@ -172,8 +224,9 @@ class LlamaAttention(nn.Module):
         k = apply_rope(k, cos, sin)
 
         if kv_cache is None:
-            # pure self-attention (teacher-forced inference)
-            if attn_mask is None and reps == 1 and s % 64:
+            # pure self-attention (teacher-forced inference, training)
+            if (use_raw_prefill(cfg, s) and attn_mask is None
+                    and _block_for(s) is None):
                 out = prefill_attention_trainable(
                     q.reshape(b, s, -1), k.reshape(b, s, -1),
                     v.reshape(b, s, -1), cfg.num_heads,
@@ -229,7 +282,7 @@ class LlamaAttention(nn.Module):
                 q[:, 0].contiguous(), cache["k"], cache["v"], cache["k_s"],
                 cache["v_s"], bias)
             return out[:, None]
-        if reps == 1:
+        if use_raw_prefill(cfg, s):
             pad_eff = (pad_lens - offset if pad_lens is not None
                        else torch.zeros((b,), dtype=torch.long,
                                         device=q.device))
@@ -307,24 +360,28 @@ class LlamaModel(nn.Module):
     `forward` takes `inputs_embeds` and returns post-final-norm states.
     `llama_cfg` is the config its modules were built for; the in-place
     transforms of `ops.quant` and `models.fuse` update it through
-    `set_llama_cfg_`."""
+    `set_llama_cfg_`. With `remat`, the cache-free pass checkpoints each
+    decoder layer when gradients are on (`llama.py:420-422`)."""
 
-    def __init__(self, cfg: LlamaConfig, *, device=None, dtype=None):
+    def __init__(self, cfg: LlamaConfig, *, remat: bool = False, device=None,
+                 dtype=None):
         super().__init__()
         check_llama_config(cfg)
         f = dict(device=device, dtype=dtype)
         self.llama_cfg = cfg
+        self.remat = remat
         self.embed_tokens = nn.Embedding(cfg.padded_vocab_size,
                                          cfg.hidden_size, **f)
         self.layers = nn.ModuleList(LlamaDecoderLayer(cfg, **f)
                                     for _ in range(cfg.num_layers))
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, **f)
 
-    def _fuse_ln(self, x) -> bool:
+    def _fuse_ln(self, x, cache_free: bool) -> bool:
         """The gate of the fused-norm carry (`llama.py:408-419`): W4A8
         weights on the card, no LoRA, a multi-token shape of 64 tokens or
-        more, and every width the int8-view path takes. The port has no
-        `act_sharding` and no `remat`, the gate's other two terms."""
+        more, every width the int8-view path takes, and no remat of a
+        cache-free pass. The port has no `act_sharding`, the gate's last
+        term."""
         cfg = self.llama_cfg
         b, s = x.shape[:2]
         hd = cfg.head_dim
@@ -335,21 +392,23 @@ class LlamaModel(nn.Module):
                 and cfg.quant_group % 128 == 0
                 and cfg.intermediate_size % 128 == 0
                 and (cfg.num_heads * hd) % 128 == 0
-                and (cfg.num_kv_heads * hd) % 128 == 0)
+                and (cfg.num_kv_heads * hd) % 128 == 0
+                and not (self.remat and cache_free))
 
     def forward(self, inputs_embeds, positions,
                 kv_caches: Optional[List[Dict]] = None,
                 cache_offset: int = 0, attn_mask=None, pad_lens=None):
         x = inputs_embeds
-        fuse_ln = self._fuse_ln(x)
+        cache_free = kv_caches is None
+        fuse_ln = self._fuse_ln(x, cache_free)
         branch = None
         for i, layer in enumerate(self.layers):
-            args = (positions, kv_caches[i] if kv_caches is not None
-                    else None, cache_offset, attn_mask, pad_lens)
+            args = (positions, None if cache_free else kv_caches[i],
+                    cache_offset, attn_mask, pad_lens)
             if fuse_ln:
                 x, branch = layer.forward_fused_ln(x, branch, *args)
             else:
-                x = layer(x, *args)
+                x = remat_call(self.remat and cache_free, layer, x, *args)
         return self.norm(x, branch)
 
 

@@ -37,7 +37,7 @@ from ..ops.sam_attention import (sam_attention_with_relpos,
                                  sam_window_attention_fused_q8)
 from .layers import (Int8Linear, LayerNorm2d, LayerNormQuant, MLPBlock,
                      SpatioTemporalConvAdapter, quant_act, quant_act_static,
-                     record_absmax)
+                     record_absmax, remat_call)
 
 
 def window_partition(x, window: int):
@@ -209,12 +209,16 @@ class SamPatchEmbed(nn.Module):
 
 
 class SamImageEncoder(nn.Module):
-    """frames (B, T, H, W, 3) -> (B*T, g, g, out_chans), NHWC."""
+    """frames (B, T, H, W, 3) -> (B*T, g, g, out_chans), NHWC. With
+    `remat` each block runs under `torch.utils.checkpoint` when gradients
+    are on (`sam_encoder.py:337`)."""
 
-    def __init__(self, cfg: SamEncoderConfig, *, device=None, dtype=None):
+    def __init__(self, cfg: SamEncoderConfig, *, remat: bool = False,
+                 device=None, dtype=None):
         super().__init__()
         f = dict(device=device, dtype=dtype)
         self.cfg = cfg
+        self.remat = remat
         g, c = cfg.grid, cfg.embed_dim
         self.patch_embed = SamPatchEmbed(cfg, **f)
         self.pos_embed = nn.Parameter(torch.zeros(1, g, g, c, **f))
@@ -243,11 +247,11 @@ class SamImageEncoder(nn.Module):
         for i, blk in enumerate(self.blocks):
             is_global = i in cfg.global_attn_indexes
             if cfg.quant_w8a8:
-                x, branch = blk(x, branch)
+                x, branch = remat_call(self.remat, blk, x, branch)
                 if is_global:           # the adapter needs the sum
                     x, branch = x + branch, None
             else:
-                x = blk(x)
+                x = remat_call(self.remat, blk, x)
             if is_global:
                 g = cfg.grid
                 grid5 = x.reshape(b, t, g, g, cfg.embed_dim)

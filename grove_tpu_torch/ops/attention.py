@@ -1,5 +1,6 @@
-"""Attention ops: the plain fp32-softmax path, the CLIP kernel (K3) and
-the raw-layout causal prefill kernel (K5).
+"""Attention ops: the plain fp32-softmax path, the flash kernel (K10), the
+CLIP kernel (K3), the raw-layout causal prefill kernel (K5), and the
+dispatching entry point.
 
 Counterpart of `grove_tpu/ops/attention.py`. All shapes are
 (batch, seq, heads, head_dim); softmax runs in fp32 whatever the input
@@ -8,6 +9,12 @@ dtype.
 * `xla_attention` is the plain version (the name keeps the JAX package's):
   materialized fp32 logits, optional bias and mask. LLaMA prefill and decode
   over the bf16 cache use it directly, as the JAX package does.
+* `flash_attention` is K10, online-softmax attention of (B, Sq, H, D)
+  queries over (B, Sk, H, D) keys, causal (top-left aligned, as the TPU
+  kernel masks) or not, beside its plain twin `flash_attention_torch`; the
+  non-causal case with a ragged key tail takes `xla_attention`, as in JAX
+  (`attention.py:132-136`). `_flash_with_vjp` gives it the JAX package's
+  backward (`attention.py:306-325`): a recompute through `xla_attention`.
 * `grouped_plain_attention` is K3, non-causal self-attention over a ragged
   S (CLIP's 577), beside its plain twin `grouped_plain_attention_torch`;
   `grouped_plain_attention_trainable` gives it the JAX package's backward
@@ -19,10 +26,22 @@ dtype.
   `prefill_attention_trainable` is its pure-causal form for the cache-free
   pass at a ragged S, with the recompute backward through causal
   `xla_attention` (`attention.py:276-303`), in torch ops.
-* `multi_head_attention` dispatches by the tensors' device only: the
-  wrappers below take their plain version for CPU tensors and launch the
-  kernel for CUDA tensors. The TPU rules for VMEM size and lane alignment
-  (`_grouped_plain_ok`, `prefill_attention_ok`) have no counterpart here.
+* `multi_head_attention` takes the JAX package's `impl` ("auto",
+  "grouped", "pallas", "xla") with its meaning: "pallas" is K4 + K4b
+  (`ops.flash_backward.flash_attention_trainable`) where `_block_for(S)`
+  finds a block and Sq == Sk, else K10 with its recompute backward;
+  "grouped" is K3; `attention_route` names the kernel each call runs. No
+  caller of the port sets `impl`: the other values exist for parity with
+  the JAX package and for tests. "auto" picks as the JAX package does on
+  the TPU, with
+  the two choices the port made for the card from its first slice: the
+  route does not depend on the device, because each wrapper launches its
+  kernel for CUDA tensors and runs its plain twin for CPU ones (the
+  tensors' device takes the place of `default_backend() == "tpu"`), and
+  the lane-width term `head_dim % 128 == 0` is dropped, because the CUDA
+  kernels take head dims 8 to 128. `_block_for`, `_grouped_plain_ok` and
+  `prefill_attention_ok` are the port's copies of the JAX rules (the last
+  without its lane term), so the routes equal the JAX package's.
 """
 
 from __future__ import annotations
@@ -128,25 +147,236 @@ def grouped_plain_attention_trainable(q, k, v, *,
     return _GroupedPlain.apply(q, k, v, scale)
 
 
+# ---------------------------------------------------------------------------
+# K10: flash attention over ragged and cross lengths
+# ---------------------------------------------------------------------------
+
+DEFAULT_BLOCK_Q = 512    # grove_tpu/ops/attention.py:61-62
+DEFAULT_BLOCK_K = 512
+
+
+def _check_flash(q, k, v) -> None:
+    if (q.dim() != 4 or k.shape != v.shape or k.dim() != 4
+            or (q.shape[0], q.shape[2], q.shape[3])
+            != (k.shape[0], k.shape[2], k.shape[3]) or k.shape[1] < 1):
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} and k/v "
+                         f"{tuple(k.shape)}, {tuple(v.shape)} are not "
+                         "(B, Sq, H, D) and (B, Sk, H, D)")
+
+
+def _flash_takes_kernel(sq: int, sk: int, causal: bool, block_k: int) -> bool:
+    """Whether `flash_attention` runs the kernel at these lengths, as the
+    JAX wrapper decides (`attention.py:124-136`): it pads the keys to its
+    block, min(block_k, max(Sk, 16)), and a non-causal call with a key pad
+    takes `xla_attention` instead (False). A causal right pad lies in the
+    future of every row below Sk, but rows past Sk (Sq > Sk) see the zero
+    keys, which join their softmax: JAX's output then depends on its
+    padding, and this raises ValueError rather than copy it."""
+    block = min(block_k, max(sk, 16))
+    if not (-sk) % block:
+        return True
+    if not causal:
+        return False
+    if sq > sk:
+        raise ValueError(
+            f"flash_attention: causal with Sq = {sq} > Sk = {sk} and Sk no "
+            f"multiple of the key block {block}: the JAX kernel lets its "
+            "zero-padded keys into the softmax of rows past Sk, a result "
+            "that depends on its padding")
+    return True
+
+
+def _flash_plain(q, k, v, causal: bool, scale: float):
+    """K10's function with the TPU kernel's numerics (`attention.py:66-104`):
+    q scaled in fp32 (float64 for float64 inputs) before the dot, masked
+    logits set to NEG_INF (causal, top-left: row i sees keys 0..i), the
+    softmax in fp32 with its sum floored at 1e-30, the output in q's dtype.
+    One softmax over the row equals the kernel's online one up to
+    rounding."""
+    acc = _kernels.acc_dtype(q)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.to(acc) * scale, k.to(acc))
+    if causal:
+        sq, sk = q.shape[1], k.shape[1]
+        qpos = torch.arange(sq, device=q.device)[:, None]
+        kpos = torch.arange(sk, device=q.device)[None, :]
+        logits = logits.masked_fill(kpos > qpos, NEG_INF)
+    p = torch.exp(logits - logits.amax(-1, keepdim=True))
+    denom = p.sum(-1, keepdim=True).clamp_min(1e-30)
+    out = torch.einsum("bhqk,bkhd->bqhd", p / denom, v.to(acc))
+    return out.to(q.dtype)
+
+
+def flash_attention_torch(q, k, v, *, causal: bool = False,
+                          scale: Optional[float] = None,
+                          block_q: int = DEFAULT_BLOCK_Q,
+                          block_k: int = DEFAULT_BLOCK_K) -> torch.Tensor:
+    """Plain version of `flash_attention`, the same contract: the plain
+    twin of the kernel where it would run, `xla_attention` where JAX's
+    wrapper takes it, the same ValueError. `block_q` changes nothing (the
+    TPU wrapper drops its padded rows) and is kept for the signature."""
+    del block_q
+    _check_flash(q, k, v)
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if not _flash_takes_kernel(q.shape[1], k.shape[1], causal, block_k):
+        return xla_attention(q, k, v, scale=scale)
+    return _flash_plain(q, k, v, causal, scale)
+
+
+def flash_attention(q, k, v, *, causal: bool = False,
+                    scale: Optional[float] = None,
+                    block_q: int = DEFAULT_BLOCK_Q,
+                    block_k: int = DEFAULT_BLOCK_K) -> torch.Tensor:
+    """K10: q (B, Sq, H, D) over k, v (B, Sk, H, D) -> (B, Sq, H, D).
+
+    The JAX contract (`attention.py:109-172`): causal is top-left aligned
+    (row i sees keys 0..i for any Sk - Sq; `xla_attention` aligns bottom
+    right instead); a non-causal call whose keys would need a pad takes
+    `xla_attention`; a causal call with Sq > Sk and a key pad raises
+    ValueError (`_flash_takes_kernel`). CPU tensors take the plain twin;
+    CUDA tensors launch `csrc/flash_attention.cu`, which reads q, k and v
+    in place and masks the ragged key tail itself (no padded copies, no
+    head fold)."""
+    del block_q
+    _check_flash(q, k, v)
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    if not _flash_takes_kernel(sq, sk, causal, block_k):
+        return xla_attention(q, k, v, scale=scale)
+    if _kernels.on_cpu(q, k, v):
+        return _flash_plain(q, k, v, causal, scale)
+    dt = _kernels.check_cuda_inputs("flash_attention", (q, k, v), d, b * h)
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        _kernels.KERNELS["flash_attention"](
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
+            sk, h, d, int(bool(causal)), float(scale), dt,
+            _kernels.stream_ptr(q))
+    return out
+
+
+class _FlashWithVjp(torch.autograd.Function):
+    """`_flash_with_vjp` (`attention.py:306-325`): K10 forward, the
+    backward a recompute through `xla_attention`, in torch ops."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.scale = causal, scale
+        return flash_attention(q, k, v, causal=causal, scale=scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        return (*_xla_vjp(q, k, v, g, ctx.causal, ctx.scale), None, None)
+
+
+def _flash_with_vjp(q, k, v, causal: bool, scale: Optional[float] = None):
+    """Differentiable K10. Raises ValueError for causal Sq != Sk: the
+    forward's mask is top-left aligned and the recompute backward's
+    (`xla_attention`) bottom-right, so JAX's custom VJP there is not the
+    derivative of its forward."""
+    if causal and q.shape[1] != k.shape[1]:
+        raise ValueError(f"_flash_with_vjp: causal with Sq = {q.shape[1]} "
+                         f"!= Sk = {k.shape[1]}: the forward masks top-left, "
+                         "the recompute backward bottom-right")
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return _FlashWithVjp.apply(q, k, v, causal, scale)
+
+
+# ---------------------------------------------------------------------------
+# dispatch
+# ---------------------------------------------------------------------------
+
+def _block_for(s: int) -> Optional[int]:
+    """The largest flash block dividing S (`attention.py:328-332`)."""
+    for b in (512, 256, 128, 64):
+        if s % b == 0:
+            return b
+    return None
+
+
+def _grouped_plain_ok(sq: int, sk: int, d: int) -> bool:
+    """K3's eligibility (`attention.py:445-451`): self-attention with
+    D % 8 == 0 and an (S, S) tile within the TPU kernel's VMEM budget,
+    kept so that "auto" routes as the JAX package does."""
+    s_pad = sq + (-sq) % 8
+    return (sk == sq and d % 8 == 0
+            and 12 * s_pad * s_pad + 8 * 2 * s_pad * d <= 12 * 2 ** 20)
+
+
+def prefill_attention_ok(q_shape, num_heads: int) -> bool:
+    """K5's eligibility for a (B, S, H*D) projection (`attention.py:
+    267-273`) without the lane term `head_dim % 128 == 0` (the CUDA kernel
+    takes head dims 8 to 128): MHA layout, S % 8 == 0, 128 <= S <= 1100."""
+    _, s, c = q_shape
+    hd = c // num_heads
+    return c == num_heads * hd and s % 8 == 0 and 128 <= s <= 1100
+
+
+IMPLS = ("auto", "grouped", "pallas", "xla")
+
+
+def attention_route(sq: int, sk: int, d: int, causal: bool, simple: bool,
+                    impl: str = "auto") -> str:
+    """The kernel `multi_head_attention` runs, by its launch-count name:
+    "grouped_plain_attention" (K3), "flash_forward_lse" (K4, K4b behind it),
+    "flash_attention" (K10) or "xla" (the plain path). `impl` as JAX's
+    (`attention.py:454-484`): "pallas" is K4 where `_block_for(Sq)` finds a
+    block and Sq == Sk, else K10; "grouped" is K3; "auto" is JAX's pick on
+    the TPU (`:460-471`) without the lane term: K3 for non-causal
+    self-attention at S >= 128 that `_grouped_plain_ok` takes, else
+    "pallas" at S >= 128, else "xla"; "xla" whenever there is a bias or a
+    mask (`simple` false)."""
+    if impl not in IMPLS:
+        raise ValueError(f"multi_head_attention: impl {impl!r} not in "
+                         f"{IMPLS}")
+    if impl == "auto":
+        if simple and not causal and sq >= 128 and _grouped_plain_ok(sq, sk,
+                                                                     d):
+            impl = "grouped"
+        else:
+            impl = "pallas" if simple and sq >= 128 else "xla"
+    if impl == "xla":
+        return "xla"
+    if impl == "grouped":
+        return "grouped_plain_attention"
+    if _block_for(sq) is not None and sq == sk:
+        return "flash_forward_lse"
+    return "flash_attention"
+
+
 def multi_head_attention(q, k, v, *, causal: bool = False,
                          bias: Optional[torch.Tensor] = None,
                          mask: Optional[torch.Tensor] = None,
-                         scale: Optional[float] = None) -> torch.Tensor:
-    """Dispatching attention entry point. Shapes (B, S, H, D).
-
-    With a bias or mask: `xla_attention`. Causal: flash attention (K4
-    forward, K4b backward, `ops.flash_backward.flash_attention_trainable`).
-    Otherwise self-attention: K3 with its recompute backward. The kernels
-    or their plain versions are picked by the tensors' device."""
-    if bias is not None or mask is not None:
+                         scale: Optional[float] = None,
+                         impl: str = "auto") -> torch.Tensor:
+    """Dispatching attention entry point (`attention.py:454-484`). Shapes
+    (B, S, H, D). Runs the route `attention_route` names: K4 forward with
+    the K4b backward, K10 or K3 with the recompute backward, or
+    `xla_attention`. The port's callers leave `impl` at "auto"; the other
+    values are JAX's, for parity and tests. A bias or mask with a kernel
+    impl raises ValueError (the kernels take neither)."""
+    simple = bias is None and mask is None
+    route = attention_route(q.shape[1], k.shape[1], q.shape[-1], causal,
+                            simple, impl)
+    if route == "xla":
         return xla_attention(q, k, v, causal=causal, bias=bias, mask=mask,
                              scale=scale)
+    if not simple:
+        raise ValueError(f"multi_head_attention: impl {impl!r} takes no bias "
+                         "or mask")
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    if causal:
+    if route == "grouped_plain_attention":
+        return grouped_plain_attention_trainable(q, k, v, scale=scale)
+    if route == "flash_forward_lse":
         from .flash_backward import flash_attention_trainable
-        return flash_attention_trainable(q, k, v, True, scale)
-    return grouped_plain_attention_trainable(q, k, v, scale=scale)
+        return flash_attention_trainable(q, k, v, causal, scale)
+    return _flash_with_vjp(q, k, v, causal, scale)
 
 
 def prefill_attention_raw_torch(q, k, v, pad_lens, num_heads: int,

@@ -113,11 +113,14 @@ def quantize_kernel_int4(kernel: torch.Tensor, group: int = 128
 
 def _llama_projections(model: nn.Module):
     """(parent module, name) of every projection of a GroveModel's LLM,
-    unfused or fused, then lm_head."""
+    unfused or fused, then lm_head. LoRA adapters (`q_proj_lora`,
+    `v_proj_lora`) are not projections: they stay float, as the JAX
+    package quantizes only the base kernels (`quant.py:32-38`)."""
     for layer in model.model.layers:
         for sub in (layer.self_attn, layer.mlp):
             for name, _ in sub.named_children():
-                yield sub, name
+                if not name.endswith("_lora"):
+                    yield sub, name
     yield model, "lm_head"
 
 

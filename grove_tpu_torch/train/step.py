@@ -23,16 +23,20 @@ WarmupDecayLR (linear warmup over `warmup_steps`, linear decay to 0 at
   A trainable parameter that got no gradient (the CLIP adapters behind
   the tower's no-grad) takes a zero one, as optax sees zeros there.
   `torch.optim.AdamW` rounds differently, so it is not used.
+* `moment_dtype="bf16"` gives `train.lowmem.adamw_bf16` instead (the
+  QLoRA recipe: bf16 moments, and with `lowmem.apply_updates_sr`
+  stochastic rounding of bf16 parameters). LoRA adapters (`_lora`) are
+  trainable, as in JAX (`step.py:37`).
 
-Not ported yet: LoRA (`_lora` parameters), bf16 moments with stochastic
-rounding (`train/lowmem.py`), remat, the pipelined step and the driver.
+Not ported yet: the pipelined step and the training driver (ROADMAP
+Queue 1).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import re
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -46,11 +50,13 @@ TRAINABLE_PATTERNS_FINETUNE = (
     r"\.mm_projector\.",
     r"^lm_head\.",
     r"\.embed_tokens\.",
+    r"_lora",                                      # LoRA on q/v
 )
 EMBEDDINGS = (r"^lm_head\.", r"\.embed_tokens\.")
 MASK_DECODER = r"\.mask_decoder\."
 FULL_LLM = r"^model\.(layers|norm)\."            # the JAX tree's `llama/`
 QUANTIZED_BUFFERS = ("kernel_q", "kernel_q4p")
+EPS = 1e-8                  # Adam's eps, added outside the square root
 
 
 @dataclasses.dataclass
@@ -67,7 +73,8 @@ class OptimizerConfig:
     # the reference trains lm_head and embed_tokens (`train.py:300-311`)
     train_embeddings: bool = True
     # "f32" (optax's default: moments in the parameter's dtype) or "bf16"
-    # (`train.lowmem.adamw_bf16` in the JAX package, not ported yet)
+    # (`train.lowmem.adamw_bf16`: bf16 moments for the single-card
+    # fine-tune)
     moment_dtype: str = "f32"
 
 
@@ -128,23 +135,26 @@ def partition_params(model: nn.Module, mask: Dict[str, bool]
 class AdamW:
     """`optax.chain(clip_by_global_norm(grad_clip), adamw(schedule, b1, b2,
     weight_decay=...))` over `params` (name -> parameter), written out
-    (see the module docstring). `step()` reads each parameter's `.grad`
-    and updates it in place."""
+    (see the module docstring); `grad_clip=None` leaves out the clip.
+    `update()` returns the updates by name and leaves the parameters alone;
+    `step()` adds them in place (optax's `apply_updates`: the sum in the
+    parameter's dtype). `lowmem.AdamWBf16` changes only how the moments are
+    stored and updated and how the clipping norm is summed."""
 
-    def __init__(self, params: Dict[str, nn.Parameter],
-                 cfg: OptimizerConfig):
-        if cfg.moment_dtype != "f32":
-            raise NotImplementedError(
-                f"OptimizerConfig.moment_dtype={cfg.moment_dtype!r}: bf16 "
-                "moments with stochastic rounding (train/lowmem.py) belong "
-                "to the next training slice, the QLoRA recipe (ROADMAP "
-                "Queue 2)")
+    def __init__(self, params: Dict[str, nn.Parameter], schedule, *,
+                 b1: float = 0.9, b2: float = 0.999, weight_decay: float = 0.0,
+                 grad_clip: Optional[float] = None):
         self.params = dict(params)
-        self.cfg = cfg
-        self.schedule = warmup_decay_schedule(cfg)
+        self.schedule = schedule
+        self.b1, self.b2 = b1, b2
+        self.weight_decay, self.grad_clip = weight_decay, grad_clip
         self.count = 0
-        self.mu = {n: torch.zeros_like(p) for n, p in self.params.items()}
-        self.nu = {n: torch.zeros_like(p) for n, p in self.params.items()}
+        self.mu = {n: self._zeros(p) for n, p in self.params.items()}
+        self.nu = {n: self._zeros(p) for n, p in self.params.items()}
+
+    @staticmethod
+    def _zeros(p: torch.Tensor) -> torch.Tensor:
+        return torch.zeros_like(p)
 
     def zero_grad(self) -> None:
         for p in self.params.values():
@@ -158,33 +168,65 @@ class AdamW:
               if p.grad is not None]
         return torch.stack(sq).sum().sqrt() if sq else torch.zeros(())
 
-    @torch.no_grad()
-    def step(self) -> None:
-        cfg = self.cfg
-        b1, b2 = cfg.betas
-        norm = self.global_norm()
-        clip = norm >= cfg.grad_clip
+    def _bias_corrections(self, count: int) -> Tuple[float, float]:
+        return 1 - self.b1 ** count, 1 - self.b2 ** count
+
+    def _adam(self, name: str, g: torch.Tensor, bc1: float,
+              bc2: float) -> torch.Tensor:
+        """Advance `name`'s moments by g; its bias-corrected Adam step."""
+        mu, nu = self.mu[name], self.nu[name]
+        mu.copy_((1 - self.b1) * g + self.b1 * mu)
+        nu.copy_((1 - self.b2) * (g * g) + self.b2 * nu)
+        return (mu / bc1) / (torch.sqrt(nu / bc2) + EPS)
+
+    def _updates(self):
+        """(name, update) of one step, one parameter at a time; the count
+        advances once all are taken."""
+        clip_at = self.grad_clip
+        if clip_at is not None:
+            norm = self.global_norm()
+            clip = norm >= clip_at
         count = self.count + 1
-        bc1, bc2 = 1 - b1 ** count, 1 - b2 ** count
+        bc1, bc2 = self._bias_corrections(count)
         lr = self.schedule(self.count)
         for name, p in self.params.items():
             g = p.grad if p.grad is not None else torch.zeros_like(p)
-            g = torch.where(clip, (g / norm.to(g.dtype)) * cfg.grad_clip, g)
-            mu, nu = self.mu[name], self.nu[name]
-            mu.copy_((1 - b1) * g + b1 * mu)
-            nu.copy_((1 - b2) * (g * g) + b2 * nu)
-            u = (mu / bc1) / (torch.sqrt(nu / bc2) + 1e-8)
-            if cfg.weight_decay:
-                u = u + cfg.weight_decay * p
-            p.copy_(p + u * -lr)
+            if clip_at is not None:
+                g = torch.where(clip, (g / norm.to(g.dtype)) * clip_at, g)
+            u = self._adam(name, g, bc1, bc2)
+            if self.weight_decay:
+                u = u + self.weight_decay * p
+            yield name, u * -lr
         self.count = count
 
+    @torch.no_grad()
+    def update(self) -> Dict[str, torch.Tensor]:
+        """One step's updates by name; advances the moments and the
+        count."""
+        return dict(self._updates())
 
-def make_optimizer(params: Dict[str, nn.Parameter],
-                   cfg: OptimizerConfig) -> AdamW:
+    @torch.no_grad()
+    def step(self) -> None:
+        """`update()` and a plain add, p <- (p + u) in p's dtype, each
+        parameter as soon as its update is made."""
+        for name, u in self._updates():
+            p = self.params[name]
+            p.copy_(p + u)
+
+
+def make_optimizer(params: Dict[str, nn.Parameter], cfg: OptimizerConfig):
     """AdamW over the trainable parameters only (state is never allocated
-    for frozen ones)."""
-    return AdamW(params, cfg)
+    for frozen ones): `AdamW` for `moment_dtype="f32"`, `lowmem.adamw_bf16`
+    for "bf16" (`step.py:122-133`)."""
+    from .lowmem import adamw_bf16
+    kw = dict(b1=cfg.betas[0], b2=cfg.betas[1], weight_decay=cfg.weight_decay,
+              grad_clip=cfg.grad_clip)
+    if cfg.moment_dtype == "bf16":
+        return adamw_bf16(params, warmup_decay_schedule(cfg), **kw)
+    if cfg.moment_dtype != "f32":
+        raise ValueError(f"OptimizerConfig.moment_dtype "
+                         f"{cfg.moment_dtype!r}: expected 'f32' or 'bf16'")
+    return AdamW(params, warmup_decay_schedule(cfg), **kw)
 
 
 def batch_to_device(batch: Dict[str, np.ndarray], device) -> Dict:
@@ -194,7 +236,7 @@ def batch_to_device(batch: Dict[str, np.ndarray], device) -> Dict:
             for k, v in batch.items()}
 
 
-def make_train_step(model: nn.Module, optimizer: AdamW):
+def make_train_step(model: nn.Module, optimizer):
     """train_step(batch) -> the loss dict (detached): forward_train,
     backward, clip, update. Gradients exist only for the parameters that
     `partition_params` left trainable."""

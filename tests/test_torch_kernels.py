@@ -130,13 +130,14 @@ def test_k2_global_attention_matches_pallas(b, g, heads, d):
 @pytest.mark.parametrize("b,s,heads,d", [(2, 37, 2, 8), (1, 20, 3, 64)])
 def test_k3_grouped_plain_matches_pallas(b, s, heads, d):
     """K3 plain == `grouped_plain_attention` (Pallas, interpret mode) at a
-    ragged S, and `multi_head_attention` routes self-attention there."""
+    ragged S, and `multi_head_attention(impl="grouped")` routes there."""
     rng = np.random.default_rng(3)
     q, k, v = (_randn(rng, b, s, heads, d) for _ in range(3))
     want = jattn.grouped_plain_attention(jnp.asarray(q), jnp.asarray(k),
                                          jnp.asarray(v))
     _close(tattn.grouped_plain_attention(_t(q), _t(k), _t(v)), want)
-    _close(tattn.multi_head_attention(_t(q), _t(k), _t(v)), want)
+    _close(tattn.multi_head_attention(_t(q), _t(k), _t(v), impl="grouped"),
+           want)
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -158,8 +159,12 @@ def test_k4_flash_forward_lse_matches_pallas(causal):
 
 
 def test_k4_is_the_causal_multi_head_path():
+    """At S = 128, a multiple of 64 and at least 128, the causal "auto"
+    route is K4 with K4b behind it."""
+    assert tattn.attention_route(128, 128, 8, True, True) == \
+        "flash_forward_lse"
     rng = np.random.default_rng(5)
-    q, k, v = (_randn(rng, 1, 64, 2, 8) for _ in range(3))
+    q, k, v = (_randn(rng, 1, 128, 2, 8) for _ in range(3))
     want = jattn.xla_attention(jnp.asarray(q), jnp.asarray(k),
                                jnp.asarray(v), causal=True)
     _close(tattn.multi_head_attention(_t(q), _t(k), _t(v), causal=True),

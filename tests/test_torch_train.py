@@ -285,11 +285,6 @@ def test_adamw_matches_optax():
     assert min(norms) < 1.0 < max(norms)
 
 
-def test_moment_dtype_bf16_raises():
-    with pytest.raises(NotImplementedError, match="next training slice"):
-        tstep.make_optimizer({}, tstep.OptimizerConfig(moment_dtype="bf16"))
-
-
 # ---------------------------------------------------------------------------
 # the tiny slice
 # ---------------------------------------------------------------------------
@@ -424,8 +419,9 @@ def test_tiny_slice_train_steps_match_jax(tiny):
 @pytest.mark.parametrize("train_clip", [False, True])
 def test_encode_video_gradients(tiny, train_clip):
     """The projector always gets a gradient; the CLIP tower none, unless
-    `train_clip_adapters` is set: then every tower gradient (K3's recompute
-    backward among them) matches JAX's."""
+    `train_clip_adapters` is set: then every tower gradient matches JAX's
+    (the tiny tower's S = 5 takes the plain attention, as on the TPU;
+    K3's recompute backward has its own gradcheck)."""
     cfg = dataclasses.replace(tiny["cfg"], train_clip_adapters=train_clip)
     params = tiny["params"]
     frames = tiny["batch"]["frames_clip"]
