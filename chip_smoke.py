@@ -5,7 +5,11 @@
 
 Phases, each printing its own line; any failure exits non-zero:
   0  device: requires CUDA (there is no CPU path) and prints the card's
-     name and power limit as nvidia-smi reports them;
+     name and power limit as nvidia-smi reports them; then whether the
+     repo's native libav decoder (native/libgrove_video.so) loads, and if
+     not, which shared objects are missing: phases 3 and 4 then hand
+     GroveProcessor SyntheticVideo frames instead of the .y4m files, and
+     say so ("decoder" in the JSON line);
   1  build: compiles grove_tpu_torch/csrc with nvcc for sm_90a;
   2  kernels: each hand-written kernel against its plain torch twin on the
      card, at the full-width shapes of the main paths in bf16 (max-abs
@@ -41,7 +45,20 @@ Phases, each printing its own line; any failure exits non-zero:
      timed by the three routes the port has for it: K5 + the torch-ops
      recompute backward,
      K10 + the same backward (the JAX route, taken), K4 + K4b; and SDPA's
-     forward and backward beside them;
+     forward and backward beside them. K11-K14, which no model path runs,
+     at the shapes SAM ViT-H would give them (16 frames): K11 at the global
+     (16, 1024, 16, 80) on 32 x 32 and the windowed (144, 196, 16, 80) on
+     14 x 14 (times summed), K12 and K12q8 at (144, 196, 1280) x 3 (K12q8
+     in LSBs like K1q, fp32 cases with an all-underflow row like K1), K13
+     v1 and v2 at the windowed shape, K14 both ways at (16, 32, 32, 1280),
+     win 14 (padded to 42), bit-equal, also in int8 and bf16 at small
+     shapes; their library call is SDPA with the rel terms as a mask (K14:
+     torch's own pad + view + permute copy, labeled so). Last, the
+     trainable forms card vs CPU in fp32: `sam_window_attention_raw`
+     (forward K12, backward K9) within 1e-3 of max-abs, the K14 pair and
+     its backward bit-equal; then K14's time split at full width (the pad,
+     each copy kernel alone, a contiguous copy_ of the same bytes), each
+     with the bytes it moves (`copy_ms` in the JSON rows);
   3  slice: GroveConfig() (CLIP ViT-L/336, SAM ViT-H/512, LLaMA-7B) built
      on the card from a seed (GroveForCausalLM.from_pretrained), first in
      bf16, then quantized in place (quantize(bits=4): int4 projections,
@@ -65,6 +82,16 @@ Phases, each printing its own line; any failure exits non-zero:
      (`infer.sliding._finish_clip`) with a caption tagged at two phrases,
      which random weights never generate: pack_text, forward_boxes over the
      non-center windows (K4), postprocess_window;
+     the bf16 model then runs the main path's entry:
+     `GroveProcessor.generate_batch` on two 24-frame 640 x 360 .y4m clips
+     written at 5 fps (`y4m_clip`; where phase 0 found no libav, no file
+     and SyntheticVideo frames) with two questions, printing the decode
+     (or SyntheticVideo's frames) and host preprocessing ms and the
+     end-to-end ms per clip, K1-K3 required; the raw uint8 mode
+     (`infer_clips_batched` with one 640 x 360 stack per clip as both
+     towers' input, resized on the card) and the packed-YUV420 mode
+     (`encode_video` + `encode_grounding`); the bf16 run's launch counts
+     in the JSON line are those of the run before them;
      last, the flagship's `lm_forward` with its W8A8 lm_head (N = 32007,
      2 x 634 and 9 rows, zero-padded for `torch._int_mm`): finite logits,
      the int8 GEMM bit-equal to float64;
@@ -72,7 +99,13 @@ Phases, each printing its own line; any failure exits non-zero:
      with the kernels and on the CPU with the plain versions (TF32 off):
      teacher-forced boxes and objectness within 1e-3, greedy token
      agreement, the [DET] branch on a 24-frame clip (boxes over the frame
-     size and objectness probabilities within 1e-3); then the same with the
+     size and objectness probabilities within 1e-3), `GroveProcessor.
+     generate` on a 16-frame 640 x 360 clip (identical greedy ids; that
+     clip's decoded, preprocessed frames through the [DET] branch with a
+     tagged caption: boxes and objectness within 1e-3, and at least one
+     compared), the raw and YUV420 normalizers on 640 x
+     360 frames (the resize within 2e-3 levels before rounding, at most 1
+     level apart on at most 0.5% after); then the same with the
      LLM quantized to int4: boxes within
      1e-3, and the CPU's greedy ids fed to both through prefill and 16
      decode steps over an int8 cache, each step's hidden states within
@@ -142,8 +175,9 @@ The line before the last is a JSON object with each kernel's measurements
 (`launches`: K1-K4 from the bf16 run of phase 3, K5-K7a from the int4 one,
 K8b and K1q from the W8A8-static one, K7b, K7c and K8c from the flagship
 one, K8a from phase 4's W8A8-static model path, K4b and K9 from step 3 of
-phase 5, K10 from its bf16 S = 2111 step); the last line is {"ok": true,
-"device": {...}}.
+phase 5, K10 from its bf16 S = 2111 step; K11-K14 run on no model path and
+show 0) and `phase2_launches`, the launches of phase 2's checks and
+timings; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -156,6 +190,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from pathlib import Path
@@ -168,6 +203,8 @@ ROW_TOL = 1e-2           # K10 bf16, each row relative to its own max-abs
 FP32_TOL = 1e-4          # fp32, absolute
 ROUTE_TOL = 5e-2         # phase 2's ragged-S routes vs SDPA, fwd and bwd
 PARITY_TOL = 1e-3        # phase 4 boxes / objectness
+RESIZE_TOL = 2e-3        # phase 4 raw-frame resize card vs CPU, levels
+FLIP_SHARE = 5e-3        # phase 4 normalized values 1 level apart, share
 STEP_TOL = 1e-2          # phase 4 int8-cache decode steps, of max-abs
 W8A8_TOL = 1e-2          # phase 4 W8A8-static towers: boxes / objectness
 SITE_TOL = 1e-5          # phase 4 float outputs of a quant site, of max-abs
@@ -195,6 +232,12 @@ TRAIN_LAUNCHES = {"flash_forward_lse": 32, "flash_backward_dq": 32,
 TRAIN_KERNELS = tuple(k for k in TRAIN_LAUNCHES
                       if k != "flash_forward_lse") + ("flash_attention",)
 TRAIN_SEQ = 129          # max_seq_len: 129 + 575 spliced = 704 tokens
+# K11-K14: public ops of the JAX package that no model path runs (nor do
+# their JAX originals); held in phase 2, launched 0 times on every path
+OFF_PATH_KERNELS = ("flash_attention_relpos", "sam_window_attention_v2",
+                    "sam_window_attention_v2_q8", "folded_window_attention",
+                    "folded_window_attention_v2", "window_partition",
+                    "window_unpartition")
 # the bf16 step at S = 2111 on the route the port took before K10 (K5
 # forward, torch-ops backward): ms and peak GiB on one H100 80GB HBM3 at
 # 700 W, printed beside this run's K10-route step
@@ -249,6 +292,36 @@ class PhaseError(RuntimeError):
     pass
 
 
+def write_y4m(path, packed, fps: int):
+    """Write packed YUV420P frames, (T, 3H/2, W) uint8 (Y rows, then U and
+    V side by side, the layout of `VideoDecoder.decode_at_yuv`), as a
+    YUV4MPEG2 file at `fps`: a text header, then each frame's Y, U and V
+    planes after a FRAME line. libavformat demuxes it as raw yuv420p."""
+    t, h32, w = packed.shape
+    h = h32 * 2 // 3
+    with open(path, "wb") as f:
+        f.write(f"YUV4MPEG2 W{w} H{h} F{fps}:1 Ip A1:1 C420jpeg\n".encode())
+        for frame in packed:
+            f.write(b"FRAME\n")
+            f.write(frame[:h].tobytes())
+            f.write(frame[h:, :w // 2].tobytes())
+            f.write(frame[h:, w // 2:].tobytes())
+
+
+def y4m_clip(path, seed: int, frames: int = 24, width: int = 640,
+             height: int = 360, fps: int = 5):
+    """A seeded clip written with `write_y4m`: a random image rolled 3
+    pixels a frame (`SyntheticVideo`'s motion), in YUV420P. Returns the
+    packed frames."""
+    from grove_tpu_torch.data.preprocess import rgb_to_yuv420
+    base = np.random.default_rng(seed).integers(0, 256, (height, width, 3),
+                                                 dtype=np.uint8)
+    packed = rgb_to_yuv420(np.stack([np.roll(base, 3 * i, axis=1)
+                                     for i in range(frames)]))
+    write_y4m(path, packed, fps)
+    return packed
+
+
 def say(phase, msg):
     print(f"[phase {phase}] {msg}", flush=True)
 
@@ -273,6 +346,31 @@ def phase_device(torch):
     return gpu
 
 
+def phase_decoder():
+    """Whether the repo's native libav decoder (`native/libgrove_video.so`)
+    loads on this machine, and if not, why (the shared objects `ldd` does
+    not find). Returns "libav" or "synthetic": the decoder phase 3 and 4
+    give `GroveProcessor`."""
+    from grove_tpu_torch.data.video import LIB_PATH, probe_library
+    why = probe_library()
+    if why is None:
+        say(0, f"{LIB_PATH.relative_to(ROOT)} loads: GroveProcessor decodes "
+               "the .y4m clips with libav")
+        return "libav"
+    missing = ""
+    try:
+        ldd = subprocess.run(["ldd", str(LIB_PATH)], capture_output=True,
+                             text=True, timeout=60).stdout
+        missing = ", ".join(line.split()[0] for line in ldd.splitlines()
+                            if "not found" in line)
+    except (OSError, subprocess.SubprocessError):
+        pass
+    say(0, f"{LIB_PATH.relative_to(ROOT)} does not load ({why}; missing: "
+           f"{missing or 'not listed'}): GroveProcessor runs on "
+           "SyntheticVideo frames instead")
+    return "synthetic"
+
+
 def phase_build():
     from grove_tpu_torch import _kernels
     t0 = time.perf_counter()
@@ -293,7 +391,8 @@ def _cases(torch):
     import torch.nn.functional as F
     from grove_tpu_torch.ops import (attention, decode_attention,
                                      flash_backward, fused_ln, int4_matmul,
-                                     sam_attention, sam_attention_bwd)
+                                     sam_attention, sam_attention_bwd,
+                                     window_ops)
 
     def randn(gen, shape, dtype):
         return torch.randn(shape, generator=gen, device="cuda",
@@ -442,6 +541,55 @@ def _cases(torch):
         return sam_attention.grouped_window_attention_relpos_v3_q8_torch(
             qkv, rel, inv, hw, heads)
 
+    def k12_inputs(gen, dtype, shape):
+        # K1's inputs (the all-underflow row included), q / k / v split
+        qkv, rel, hw, heads = k1_inputs(gen, dtype, shape)
+        c = qkv.shape[-1] // 3
+        return (*(qkv[..., i * c:(i + 1) * c].contiguous()
+                  for i in range(3)), rel, hw, heads)
+
+    def k12q_inputs(gen, dtype, shape):
+        q, k, v, rel, hw, heads = k12_inputs(gen, dtype, shape)
+        return (q, k, v, rel, torch.full((1,), 64.0, device="cuda"), hw,
+                heads)
+
+    def k13v2_inputs(gen, dtype, shape):
+        q, k, v, rh, rw, hw = k2_inputs(gen, dtype, shape)
+        b, s, h, d = q.shape
+        return (*(t.view(b, s, h * d) for t in (q, k, v)), rh, rw, hw, h)
+
+    def k14_dtype(shape, dtype):
+        return getattr(torch, shape[5]) if len(shape) > 5 else dtype
+
+    def k14_grid(gen, dtype, shape):
+        b, h, w, c, win = shape[:5]
+        dt = k14_dtype(shape, dtype)
+        x = (int8s(gen, (b, h, w, c)) if dt == torch.int8
+             else randn(gen, (b, h, w, c), dt))
+        return (x, win)
+
+    def k14_windows(gen, dtype, shape):
+        b, h, w, c, win = shape[:5]
+        dt = k14_dtype(shape, dtype)
+        n = b * -(-h // win) * -(-w // win)
+        wins = (int8s(gen, (n, win, win, c)) if dt == torch.int8
+                else randn(gen, (n, win, win, c), dt))
+        return (wins, win, (h, w))
+
+    # K14's plain versions: torch's own pad + view + permute copy (also
+    # its library_ms, labeled so)
+    def k14_part_plain(x, win):
+        h, w = x.shape[1:3]
+        x = F.pad(x, (0, 0, 0, (-w) % win, 0, (-h) % win))
+        return window_ops.window_partition_torch(x, win)
+
+    def k14_unpart_plain(wins, win, hw):
+        h, w = hw
+        hp, wp = -(-h // win) * win, -(-w // win) * win
+        b = wins.shape[0] // ((hp // win) * (wp // win))
+        out = window_ops.window_unpartition_torch(wins, win, b, hp, wp)
+        return out[:, :h, :w]
+
     def ln_inputs(gen, dtype, shape, add=False):
         rows, c = shape
         x = (randn(gen, (rows, c), torch.float32) * 2 + 0.3).to(dtype)
@@ -495,6 +643,11 @@ def _cases(torch):
         pairs = s * (s + 1) // 2 if causal else s * s
         return 2 * matmuls * b * h * d * pairs, "bf16"
 
+    def raw_ops(a, heads):
+        # q (B, S, H*D) raw projection layout
+        b, s, c = a[0].shape
+        return attn_ops(b, heads, c // heads, s * s), "bf16"
+
     def k5_ops(a):
         q, pads, heads = a[0], a[3], a[4]
         b, s, c = q.shape
@@ -543,6 +696,15 @@ def _cases(torch):
         bias = sam_attention._expand_bias(rh, rw)
         return sdpa(q, k, v, attn_mask=bias.to(q.dtype))
 
+    def k12_library(q, k, v, rel, hw, heads, *inv):
+        nw, s, c = q.shape
+        return k1_library(torch.cat([q, k, v], dim=-1), rel, hw, heads)
+
+    def k13v2_library(q, k, v, rh, rw, hw, heads):
+        b, s, c = q.shape
+        return k2_library(*(t.view(b, s, heads, c // heads)
+                            for t in (q, k, v)), rh, rw, hw)
+
     def sdpa_grad(q, k, v, g, **kw):
         # SDPA's backward alone: one forward kept, autograd.grad timed
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
@@ -576,13 +738,15 @@ def _cases(torch):
     # int8-cache prefill (2 x 640 tokens) and decode step of the quantized
     # runs (M = 2 rows, a 768-slot cache), and the W4A8 projections
     def case(fn, plain, make, full, small, ops, cold=False, int8=None,
-             library=None, rows=False):
+             library=None, rows=False, exact=False, library_is=None):
         """int8: (LSB, share) limits of an int8 output, full bf16 and small
         fp32, instead of the float error limits. rows: the full bf16 output
-        held row by row as well (`_check_rows`)."""
+        held row by row as well (`_check_rows`). exact: every output
+        bit-equal to the plain version's (a copy). library_is: what the
+        library call is, where it is not SDPA."""
         return dict(fn=fn, plain=plain, make=make, full=full, small=small,
                     cold=cold, int8=int8, ops=ops, library=library,
-                    rows=rows)
+                    rows=rows, exact=exact, library_is=library_is)
 
     proj_shapes = [(4096, 4096), (4096, 11008), (11008, 4096)]
     # the training step's shapes: LLaMA-7B at S = 704 (batch 1); SAM's 21
@@ -705,6 +869,55 @@ def _cases(torch):
             k10_ops, library=lambda q, k, v, causal: sdpa(q, k, v,
                                                           is_causal=causal),
             rows=True),
+        # K11-K14: public ops of the JAX package that no model path runs,
+        # held at the shapes they would take in SAM ViT-H (16 frames)
+        "flash_attention_relpos": case(
+            sam_attention.flash_attention_relpos,
+            sam_attention.grouped_window_attention_relpos_torch, k2_inputs,
+            [(16, 32, 16, 80), (144, 14, 16, 80)],
+            [(2, 16, 6, 64), (2, 4, 4, 8)], bshd_ops, library=k2_library),
+        "sam_window_attention_v2": case(
+            sam_attention.grouped_window_attention_relpos_v2,
+            sam_attention.grouped_window_attention_relpos_v2_torch,
+            k12_inputs, [(144, 14, 16, 80)],
+            [(4, 8, 6, 64), (3, 2, 4, 8), (2, 4, 2, 64, "underflow")],
+            lambda a: raw_ops(a, a[5]), library=k12_library),
+        "sam_window_attention_v2_q8": case(
+            sam_attention.grouped_window_attention_relpos_v2_q8,
+            sam_attention.grouped_window_attention_relpos_v2_q8_torch,
+            k12q_inputs, [(144, 14, 16, 80)],
+            [(4, 8, 6, 64), (3, 2, 4, 8), (2, 4, 2, 64, "underflow")],
+            lambda a: raw_ops(a, a[6]),
+            int8={"full": (2, LSB_SHARE), "small": (1, FP32_LSB_SHARE)}),
+        "folded_window_attention": case(
+            sam_attention.folded_window_attention_relpos,
+            sam_attention.grouped_window_attention_relpos_torch, k2_inputs,
+            [(144, 14, 16, 80)], [(4, 8, 6, 64), (2, 4, 4, 8)], bshd_ops,
+            library=k2_library),
+        "folded_window_attention_v2": case(
+            sam_attention.folded_window_attention_relpos_v2,
+            sam_attention.folded_window_attention_relpos_v2_torch,
+            k13v2_inputs, [(144, 14, 16, 80)],
+            [(4, 8, 6, 64), (2, 4, 4, 8)], lambda a: raw_ops(a, a[6]),
+            library=k13v2_library),
+        # the SAM grid of 16 frames, padded 32 -> 42 for 9 windows of 14;
+        # small: int8, an exact divisor, pads on both axes, bf16
+        "window_partition": case(
+            window_ops.window_partition_fused, k14_part_plain, k14_grid,
+            [(16, 32, 32, 1280, 14)],
+            [(2, 10, 10, 8, 4, "int8"), (1, 8, 8, 16, 4),
+             (2, 7, 9, 3, 4, "int8"), (1, 30, 30, 20, 14, "bfloat16")],
+            lambda a: (0, "bf16"), exact=True,
+            library=lambda *a: (lambda: k14_part_plain(*a)),
+            library_is="torch pad + view + permute copy"),
+        "window_unpartition": case(
+            window_ops.window_unpartition_fused, k14_unpart_plain,
+            k14_windows, [(16, 32, 32, 1280, 14)],
+            [(2, 10, 10, 8, 4, "int8"), (1, 8, 8, 16, 4),
+             (2, 7, 9, 3, 4, "int8"), (1, 30, 30, 20, 14, "bfloat16")],
+            lambda a: (0, "bf16"), exact=True,
+            library=lambda *a: (lambda: k14_unpart_plain(*a)),
+            library_is="torch view + permute copy + slice"),
     }
 
 
@@ -856,7 +1069,19 @@ def _bound(torch, c, args, out):
         (t_ops * 1e3, "operations")
 
 
+def _check_exact(name, shape, got, want):
+    if got.dtype != want.dtype or got.shape != want.shape or not bool(
+            (got == want).all()):
+        raise PhaseError(f"{name} {shape}: {got.dtype} {tuple(got.shape)} "
+                         f"not bit-equal to the plain version's "
+                         f"{want.dtype} {tuple(want.shape)}")
+
+
 def phase_kernels(torch, gpu):
+    """Returns each kernel's row of the JSON line, with `phase2_launches`:
+    the launches this phase made (checks, timing, the trainable forms)."""
+    from grove_tpu_torch import _kernels
+    _kernels.reset_launch_counts()
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = {}
     for name, c in _cases(torch).items():
@@ -869,6 +1094,9 @@ def phase_kernels(torch, gpu):
                 lsb, share = _check_int8(name, f"fp32 {shape}", got, want,
                                          int8["small"])
                 note = f"{lsb} LSB on {share:.2e} of the int8 outputs"
+            elif c["exact"]:
+                _check_exact(name, shape, got, want)
+                note = f"bit-equal ({got.dtype})"
             else:
                 err = _max_err(got, want)
                 if not err <= FP32_TOL:
@@ -898,6 +1126,9 @@ def phase_kernels(torch, gpu):
                                          int8["full"])
                 new = [(float(lsb), share)]
                 what = f"int8 outputs {lsb} LSB apart on {share:.2e} of them"
+            elif c["exact"]:
+                _check_exact(name, full, got, want)
+                new, what = [(0.0, 0.0)], "bit-equal"
             else:
                 new = _check_full(name, full, got, want)
                 what = (f"max-abs error "
@@ -921,7 +1152,8 @@ def phase_kernels(torch, gpu):
                 call = c["library"](*args)
                 t_lib = _time_ms(torch, call, [()])
                 library_ms += t_lib
-                lib = f", one PyTorch call {t_lib:.4f} ms"
+                lib = (f", one PyTorch call "
+                       f"({c['library_is'] or 'SDPA'}) {t_lib:.4f} ms")
                 del call
             say(2, f"{name} bf16 {full}: {what}; kernel {t:.4f} ms, plain "
                    f"{tp:.4f} ms{lib}{how}; bound {b_ms:.4f} ms by {b_by} "
@@ -940,7 +1172,115 @@ def phase_kernels(torch, gpu):
                       "library_ms": library_ms}
     _int8_matmul_padded(torch, gpu)
     _ragged_routes(torch, gpu)
+    _trainable_forms(torch, gpu)
+    _k14_breakdown(torch, gpu, rows)
+    for name, row in rows.items():
+        row["phase2_launches"] = _kernels.KERNELS[name].launches
     return rows
+
+
+def _k14_breakdown(torch, gpu, rows):
+    """K14's wrapper time split at the full-width (16, 32, 32, 1280) bf16
+    grid, win 14: the zero pad (`F.pad`, 32 -> 42), the partition copy
+    kernel alone on the padded grid, the unpartition kernel alone, and a
+    contiguous device-to-device `copy_` of the padded grid's bytes (what
+    the card moves at this size with no relayout). Each with the bytes it
+    moves and the rate that gives. Adds `copy_ms` (the kernel alone) to
+    both K14 rows."""
+    import torch.nn.functional as F
+    from grove_tpu_torch.ops import window_ops
+    b, h, win, c, hp = 16, 32, 14, 1280, 42
+    x = torch.randn((b, h, h, c), device="cuda", dtype=torch.bfloat16)
+    xp = F.pad(x, (0, 0, 0, hp - h, 0, hp - h))
+    wins = window_ops.window_partition_fused(x, win)
+    grid = torch.empty_like(xp)
+    one = 2 * b * h * h * c                    # bytes of one (B, 32, 32, C)
+    pad = 2 * b * hp * hp * c                  # ... of the padded grid
+    parts = {
+        "F.pad 32 -> 42": (lambda: F.pad(x, (0, 0, 0, hp - h, 0, hp - h)),
+                           one + pad),
+        "partition kernel alone (padded input)": (
+            lambda: window_ops._copy("window_partition", xp,
+                                     torch.empty_like(wins), b, hp, hp, win),
+            2 * pad),
+        "window_partition_fused (pad + kernel)": (
+            lambda: window_ops.window_partition_fused(x, win),
+            one + 3 * pad),
+        "unpartition kernel alone": (
+            lambda: window_ops._copy("window_unpartition", wins,
+                                     torch.empty_like(xp), b, hp, hp, win),
+            2 * pad),
+        "window_unpartition_fused (kernel + slice view)": (
+            lambda: window_ops.window_unpartition_fused(wins, win, (h, h)),
+            2 * pad),
+        "contiguous copy_ of the padded grid": (lambda: grid.copy_(xp),
+                                                2 * pad),
+    }
+    notes, times = [], {}
+    for what, (fn, nbytes) in parts.items():
+        times[what] = t = _time_ms(torch, fn, [()])
+        notes.append(f"{what} {t:.4f} ms for {nbytes / 1e6:.1f} MB "
+                     f"({nbytes / t / 1e6:.0f} GB/s)")
+    rows["window_partition"]["copy_ms"] = times[
+        "partition kernel alone (padded input)"]
+    rows["window_unpartition"]["copy_ms"] = times["unpartition kernel alone"]
+    say(2, f"K14 split, bf16 ({b}, {h}, {h}, {c}), win {win}: "
+           f"{'; '.join(notes)} on {gpu}")
+
+
+def _trainable_forms(torch, gpu):
+    """The trainable forms of K12 and K14 on the card against the CPU at a
+    small fp32 shape: `sam_window_attention_raw` (forward K12, backward
+    K9) output and gradients of q, k, v and both tables within
+    TRAIN_GRAD_TOL of the CPU's max-abs; the K14 pair (each the other's
+    backward) bit-equal, forward and backward, on a grid that needs a
+    pad."""
+    from grove_tpu_torch import _kernels
+    from grove_tpu_torch.ops import sam_attention, window_ops
+    gen = torch.Generator().manual_seed(6)
+    nw, s, heads, d = 3, 196, 2, 64
+    raw = [torch.randn((nw, s, heads * d), generator=gen) for _ in range(4)]
+    tables = [0.5 * torch.randn((27, d), generator=gen) for _ in range(2)]
+
+    def attention(dev):
+        leaves = [t.to(dev).requires_grad_() for t in raw[:3] + tables]
+        out = sam_attention.sam_window_attention_raw(*leaves, (14, 14),
+                                                     heads)
+        grads = torch.autograd.grad(out, leaves, raw[3].to(dev))
+        return [t.detach().cpu() for t in (out, *grads)]
+
+    before = {k: v.launches for k, v in _kernels.KERNELS.items()}
+    card = attention("cuda")
+    used = {k: v.launches - before[k] for k, v in _kernels.KERNELS.items()
+            if v.launches > before[k]}
+    host = attention("cpu")
+    rel = max(_max_err(a, b) / float(b.abs().max())
+              for a, b in zip(card, host))
+    if not rel <= TRAIN_GRAD_TOL or not {"sam_window_attention_v2",
+                                         "relpos_flash_dq"} <= set(used):
+        raise PhaseError(f"sam_window_attention_raw card vs CPU {rel:.3e} "
+                         f"of max-abs (limit {TRAIN_GRAD_TOL}), kernels "
+                         f"{used}")
+    x = torch.randn((2, 30, 30, 16), generator=gen)
+    g_win = torch.randn((18, 14, 14, 16), generator=gen)
+
+    def pair(dev):
+        xa = x.to(dev).requires_grad_()
+        wa = g_win.to(dev).requires_grad_()
+        part = window_ops.window_partition_fused(xa, 14)
+        unpart = window_ops.window_unpartition_fused(wa, 14, (30, 30))
+        (dx,) = torch.autograd.grad(part, xa, g_win.to(dev))
+        (dw,) = torch.autograd.grad(unpart, wa, x.to(dev))
+        return [t.detach().cpu() for t in (part, unpart, dx, dw)]
+
+    for a, b in zip(pair("cuda"), pair("cpu")):
+        _check_exact("window_partition / unpartition (trainable)",
+                     tuple(a.shape), a, b)
+    say(2, f"trainable forms card vs CPU (fp32): sam_window_attention_raw "
+           f"({nw}, {s}, {heads * d}) out and 5 gradients within {rel:.2e} "
+           f"of max-abs (kernels {used}); window_partition_fused / "
+           "window_unpartition_fused (2, 30, 30, 16), win 14, and their "
+           f"backwards bit-equal on {gpu}")
 
 
 def _ragged_routes(torch, gpu):
@@ -1113,6 +1453,9 @@ def _run_path(torch, gpu, model, cfg, tok, clips, t_total, label, need,
     if missing:
         raise PhaseError(f"{label}: kernels never launched on the main "
                          f"path: {missing}")
+    off = {k: launches[k] for k in OFF_PATH_KERNELS if launches[k]}
+    if off:
+        raise PhaseError(f"{label}: kernels of no model path launched: {off}")
     return launches
 
 
@@ -1201,7 +1544,7 @@ def _replay(torch, gpu, model, cfg, tok, clips, label, cache_dtype,
     return stages, gen.cpu().numpy()
 
 
-def phase_slice(torch, gpu):
+def phase_slice(torch, gpu, decoder):
     from grove_tpu_torch import _kernels
     from grove_tpu_torch.api import GroveForCausalLM
     from grove_tpu_torch.ops.quant import quantize_vision_
@@ -1223,7 +1566,7 @@ def phase_slice(torch, gpu):
     quant = set(QUANT_KERNELS)
     bf16 = [k for k in _kernels.KERNELS
             if k not in quant | set(W8A8_KERNELS) | set(FLAGSHIP_KERNELS)
-            | {LN_KERNEL} | set(TRAIN_KERNELS)]
+            | {LN_KERNEL} | set(TRAIN_KERNELS) | set(OFF_PATH_KERNELS)]
     launches = _run_path(torch, gpu, model, cfg, tok, clips, t_total,
                          "bf16", bf16)
     st_bf16, gen_bf16 = _replay(torch, gpu, model, cfg, tok, clips, "bf16",
@@ -1240,6 +1583,7 @@ def phase_slice(torch, gpu):
            f"{gpu}")
     if not used.get("flash_forward_lse"):
         raise PhaseError("[DET] branch: the teacher-forced windows ran no K4")
+    _processor_path(torch, gpu, model, cfg, tok, decoder)
 
     t0 = time.perf_counter()
     lm = lm.quantize(bits=4)
@@ -1271,7 +1615,7 @@ def phase_slice(torch, gpu):
            f"{_model_bytes(model) / 2**30:.2f} GiB")
     need = [k for k in _kernels.KERNELS
             if k not in ("sam_window_attention", LN_KERNEL)
-            + FLAGSHIP_KERNELS + TRAIN_KERNELS]
+            + FLAGSHIP_KERNELS + TRAIN_KERNELS + OFF_PATH_KERNELS]
     w_launches = _run_path(torch, gpu, model, cfg, tok, clips, t_total,
                            label, need, decode_kwargs=int8_kv)
     launches.update({k: w_launches[k] for k in W8A8_KERNELS})
@@ -1294,7 +1638,7 @@ def phase_slice(torch, gpu):
            f"{_model_bytes(model) / 2**30:.2f} GiB")
     need = [k for k in _kernels.KERNELS
             if k not in ("sam_window_attention", LN_KERNEL, "int4_matmul")
-            + TRAIN_KERNELS]
+            + TRAIN_KERNELS + OFF_PATH_KERNELS]
     f_launches = _run_path(torch, gpu, model, cfg, tok, clips, t_total,
                            label, need, decode_kwargs=int8_kv)
     if f_launches["int4_matmul"]:
@@ -1314,6 +1658,114 @@ def phase_slice(torch, gpu):
     del model, lm
     torch.cuda.empty_cache()
     return launches
+
+
+def _clip_sources(decoder: str, tmp: str, seeds, frames: int = 24):
+    """(paths, decoder_factory) for GroveProcessor: where phase 0 found
+    libav, .y4m clips written under `tmp` (`y4m_clip`, one per seed) and
+    the native decoder; else no file at all and SyntheticVideo frames of the
+    same size, one seed per path name (GroveProcessor itself never
+    chooses)."""
+    from grove_tpu_torch.data.video import SyntheticVideo, VideoDecoder
+    paths = [str(Path(tmp) / f"clip{seed}.y4m") for seed in seeds]
+    if decoder == "libav":
+        for path, seed in zip(paths, seeds):
+            y4m_clip(path, seed=seed, frames=frames)
+        return paths, VideoDecoder
+    by_path = dict(zip(paths, seeds))
+    return paths, lambda path: SyntheticVideo(
+        num_frames=frames, width=640, height=360, seed=by_path[path])
+
+
+def _processor_path(torch, gpu, model, cfg, tok, decoder):
+    """The main path's entry on the bf16 model: two 24-frame 640 x 360
+    .y4m clips at 5 fps (written here, `y4m_clip`) through
+    `GroveProcessor.generate_batch` with two questions (decode, host
+    preprocessing bit-equal to the JAX package's PIL transforms, the
+    sliding windows); then the raw uint8 mode through
+    `infer_clips_batched` (the decoded 640 x 360 frames passed as both
+    towers' input, resized on the card) and the packed-YUV420 mode through
+    `encode_video` + `encode_grounding`. Launch counts are zeroed before
+    each and printed after; K1-K3 must run in the first two."""
+    from grove_tpu_torch import _kernels
+    from grove_tpu_torch.api import GroveProcessor
+    from grove_tpu_torch.data.preprocess import (preprocess_frames,
+                                                 rgb_to_yuv420)
+    from grove_tpu_torch.infer.sliding import infer_clips_batched
+    need = ("sam_window_attention", "sam_global_attention",
+            "grouped_plain_attention")
+    shown = need + ("flash_forward_lse",)
+
+    def counts(label):
+        used = {k: _kernels.KERNELS[k].launches for k in shown}
+        missing = [k for k in need if not used[k]]
+        if missing:
+            raise PhaseError(f"{label}: kernels never launched: {missing}")
+        return used
+
+    with tempfile.TemporaryDirectory() as tmp:
+        paths, factory = _clip_sources(decoder, tmp, (20, 21))
+        proc = GroveProcessor(tok, cfg, decoder_factory=factory)
+        ms_decode = ms_prep = 0.0
+        for path in paths:
+            t0 = time.perf_counter()
+            frames = proc.decode_video(path)
+            t1 = time.perf_counter()
+            fc, fs = preprocess_frames(frames, cfg.clip.image_size,
+                                       cfg.sam_enc.img_size)
+            ms_decode += (t1 - t0) * 1e3 / len(paths)
+            ms_prep += (time.perf_counter() - t1) * 1e3 / len(paths)
+        _kernels.reset_launch_counts()
+        outs, ms = _timed(torch, lambda: proc.generate_batch(
+            model, paths, instructions=list(PROMPTS), max_new_tokens=64))
+        used = counts("GroveProcessor.generate_batch")
+    for i, out in enumerate(outs):
+        _check_output(out, CLIP_KEYS, 24, f"GroveProcessor clip {i}")
+        if tuple(out["original_size"]) != (640, 360):
+            raise PhaseError(f"GroveProcessor clip {i}: original_size "
+                             f"{out['original_size']}")
+    shape = fc.shape, fs.shape
+    if decoder == "libav":
+        source, first = "2 .y4m clips", f"decode {ms_decode:.1f} ms"
+    else:
+        source = "2 SyntheticVideo clips (no libav, no file written)"
+        first = (f"SyntheticVideo's in-memory frames (no decode) "
+                 f"{ms_decode:.1f} ms")
+    say(3, f"GroveProcessor.generate_batch (decoder: {decoder}; {source} "
+           f"of 24 frames at 640 x 360, 5 fps, two questions, 64 new "
+           f"tokens): {ms:.1f} ms, {ms / 2:.1f} ms per clip end to end, of "
+           f"which per clip {first} + host preprocessing {ms_prep:.1f} ms "
+           f"(frames {shape[0]} / {shape[1]}); K1-K4 launches {used}; "
+           f"captions {[o['text'][:40] for o in outs]} on {gpu}")
+
+    raw = [{"frames_clip": frames, "frames_sam": frames,
+            "original_size": (640, 360)} for _ in range(2)]
+    _kernels.reset_launch_counts()
+    outs, ms = _timed(torch, lambda: infer_clips_batched(
+        model, cfg, tok, raw, instruction=list(PROMPTS), max_new_tokens=16))
+    used = counts("raw uint8 mode")
+    for i, out in enumerate(outs):
+        _check_output(out, CLIP_KEYS, len(frames), f"raw mode clip {i}")
+    nf = cfg.num_frames
+    packed = torch.from_numpy(np.stack([rgb_to_yuv420(frames[:nf])] * 2)
+                              ).to("cuda")
+    _kernels.reset_launch_counts()
+    with torch.inference_mode():
+        (emb, img), ms_yuv = _timed(torch, lambda: (
+            model.encode_video(packed)[0], model.encode_grounding(packed)))
+    yuv_used = {k: _kernels.KERNELS[k].launches for k in shown}
+    for what, t in (("video tokens", emb), ("SAM embeddings", img)):
+        if t.shape[0] != (2 if what == "video tokens" else 2 * nf) or \
+                not bool(torch.isfinite(t).all()):
+            raise PhaseError(f"YUV420 mode: {what} {tuple(t.shape)} or not "
+                             "finite")
+    say(3, f"raw uint8 mode (infer_clips_batched, one 640 x 360 stack per "
+           f"clip for both towers, uploaded once and resized on the card, "
+           f"16 new tokens): {ms:.1f} ms, launches {used}; packed YUV420 "
+           f"mode (2 x {nf} frames (540, 640) uint8 -> encode_video + "
+           f"encode_grounding): {ms_yuv:.1f} ms, video tokens "
+           f"{tuple(emb.shape)}, SAM {tuple(img.shape)}, launches "
+           f"{yuv_used} on {gpu}")
 
 
 def _lm_forward_w8a8(torch, gpu, model, cfg, tok, clips):
@@ -1590,7 +2042,7 @@ def _int8_steps(torch, cfg, clip, model, p_ids, starts, tokens, noise=0.0):
     return out
 
 
-def phase_parity(torch):
+def phase_parity(torch, decoder):
     from grove_tpu_torch import _kernels
     from grove_tpu_torch.config import GroveConfig
     from grove_tpu_torch.models.grove import init_grove_params
@@ -1625,6 +2077,7 @@ def phase_parity(torch):
     _parity_pass(torch, cfg, tok, clip, ap, cpu, gpu,
                  "GroveConfig.small() fp32")
     _det_branch_parity(torch, cfg, tok, cpu, gpu)
+    _entry_parity(torch, cfg, tok, cpu, gpu, decoder)
 
     # the same weights with the LLM quantized to int4, on both devices
     quantize_llama_(cpu, 4)
@@ -1704,6 +2157,121 @@ def _det_branch_parity(torch, cfg, tok, cpu, gpu):
     if not (eb <= PARITY_TOL and ep <= PARITY_TOL):
         raise PhaseError(f"[DET] branch card vs CPU {eb:.2e}/{ep:.2e} > "
                          f"{PARITY_TOL}")
+
+
+@contextlib.contextmanager
+def _recorded_ids():
+    """Record the greedy ids of every `generate_grounded` call that
+    `infer.sliding` makes (the output dict carries only the text)."""
+    from grove_tpu_torch.infer import sliding
+    seen, inner = [], sliding.generate_grounded
+
+    def record(*a, **kw):
+        out = inner(*a, **kw)
+        seen.append(out["generated_ids"])
+        return out
+    sliding.generate_grounded = record
+    try:
+        yield seen
+    finally:
+        sliding.generate_grounded = inner
+
+
+def _entry_parity(torch, cfg, tok, cpu, gpu, decoder):
+    """The main path's entry at GroveConfig.small() fp32, card vs CPU:
+    `GroveProcessor.generate` on one 16-frame 640 x 360 clip (identical
+    greedy ids and text); the same decoded, preprocessed clip through the
+    [DET] branch (`_det_branch`: random weights emit no [DET], so a caption
+    tagged at two phrases stands in for the generated one), boxes over the
+    frame size and objectness probabilities within PARITY_TOL, and it
+    fails if no box was compared; then the raw and YUV420 normalizers
+    on 640 x 360 frames: the card's resize within RESIZE_TOL levels of the
+    CPU's before rounding, the normalized values at most 1 level apart on
+    at most FLIP_SHARE of them."""
+    from grove_tpu_torch.api import GroveProcessor
+    from grove_tpu_torch.data.preprocess import (CLIP_MEAN, CLIP_STD,
+                                                 SAM_MEAN, SAM_STD,
+                                                 rgb_to_yuv420)
+    from grove_tpu_torch.models.grove import _resize_frames
+    with tempfile.TemporaryDirectory() as tmp:
+        (path,), factory = _clip_sources(decoder, tmp, (30,), frames=16)
+        proc = GroveProcessor(tok, cfg, decoder_factory=factory)
+        outs, ids = [], []
+        for model in (gpu, cpu):
+            with _recorded_ids() as seen:
+                outs.append(proc.generate(model, path, max_new_tokens=16,
+                                          temp_objectness_threshold=0.0))
+            ids.append(seen[0])
+        sample = proc._sample(path)        # generate's decode + preprocess
+    if not np.array_equal(ids[0], ids[1]):
+        raise PhaseError(f"GroveProcessor.generate card vs CPU: greedy ids "
+                         f"{ids[0].tolist()} != {ids[1].tolist()}")
+    dets = [_det_branch(torch, m, cfg, tok, sample, 0.0) for m in (gpu, cpu)]
+    w, h = outs[1]["original_size"]
+    norm = np.array([w, h, w, h], np.float32)
+    compared = {"bboxes": 0, "probs_temp_objectness": 0}
+
+    def worst(field, scale=1.0):
+        pairs = [p for pair in (outs, dets)
+                 for p in zip(pair[0][field], pair[1][field])]
+        if any(np.shape(g) != np.shape(c) for g, c in pairs):
+            raise PhaseError(f"GroveProcessor.generate card vs CPU: {field} "
+                             "of other shapes")
+        compared[field] = sum(int(np.size(c)) for _, c in pairs)
+        return max([float(np.abs((g - c) / scale).max())
+                    for g, c in pairs if np.size(c)] or [0.0])
+    eb, ep = worst("bboxes", norm), worst("probs_temp_objectness")
+    if not all(compared.values()):
+        raise PhaseError(f"GroveProcessor.generate card vs CPU: nothing "
+                         f"compared ({compared})")
+    if not (eb <= PARITY_TOL and ep <= PARITY_TOL
+            and outs[0]["text"] == outs[1]["text"]):
+        raise PhaseError(f"GroveProcessor.generate card vs CPU: boxes "
+                         f"{eb:.2e}, objectness {ep:.2e} (limit "
+                         f"{PARITY_TOL}), texts {outs[0]['text']!r} / "
+                         f"{outs[1]['text']!r}")
+
+    rng = np.random.default_rng(31)
+    rgb = rng.integers(0, 256, (1, 2, 360, 640, 3), dtype=np.uint8)
+    yuv = rgb_to_yuv420(rgb[0])[None]
+    notes = []
+    for size, method in ((cfg.clip.image_size, "bicubic"),
+                         (cfg.sam_enc.img_size, "bilinear")):
+        scale = size / (360 if method == "bicubic" else 640)
+        out_hw = (round(360 * scale), round(640 * scale))
+        got = _resize_frames(torch.from_numpy(rgb).cuda(), out_hw, method)
+        want = _resize_frames(torch.from_numpy(rgb), out_hw, method)
+        err = float((got.cpu() - want).abs().max())
+        if not err <= RESIZE_TOL:
+            raise PhaseError(f"{method} resize to {out_hw} card vs CPU: "
+                             f"{err:.3e} levels > {RESIZE_TOL}")
+        notes.append(f"{method} resize to {out_hw} within {err:.2e} levels")
+    for name, frames in (("raw", rgb), ("YUV420", yuv)):
+        for method, mean, std in (("_norm_clip", CLIP_MEAN * 255,
+                                   CLIP_STD * 255),
+                                  ("_norm_sam", SAM_MEAN, SAM_STD)):
+            levels = []
+            with torch.inference_mode():
+                for model in (gpu, cpu):
+                    x = getattr(model, method)(
+                        torch.from_numpy(frames).to(model.device))
+                    levels.append(np.round(x.float().cpu().numpy() * std
+                                           + mean))
+            diff = np.abs(levels[0] - levels[1])
+            share = float((diff > 0).mean())
+            if not (diff.max() <= 1 and share <= FLIP_SHARE):
+                raise PhaseError(f"{name} {method} card vs CPU: {diff.max()} "
+                                 f"levels apart on {share:.2e} of the values")
+            notes.append(f"{name} {method} {int(diff.max())} level apart on "
+                         f"{share:.2e}")
+    say(4, f"GroveConfig.small() fp32 GroveProcessor.generate (decoder: "
+           f"{decoder}, 16 frames of 640 x 360): greedy ids identical card "
+           f"vs CPU ({ids[0].shape[1]} steps); with the [DET] branch on its "
+           f"decoded clip ({compared['bboxes'] // 4} boxes, "
+           f"{compared['probs_temp_objectness']} objectness probabilities "
+           f"compared) boxes within {eb:.2e} of the frame size, objectness "
+           f"probabilities within {ep:.2e}; "
+           f"normalizers on 640 x 360 frames card vs CPU: {'; '.join(notes)}")
 
 
 @contextlib.contextmanager
@@ -2340,11 +2908,12 @@ def main() -> int:
         sys.path.insert(0, str(ROOT))
         import torch
         gpu = phase_device(torch)
+        decoder = phase_decoder()
         torch.backends.cuda.matmul.allow_tf32 = False
         phase_build()
         rows = phase_kernels(torch, gpu)
-        launches = phase_slice(torch, gpu)
-        launches[LN_KERNEL] = phase_parity(torch)[LN_KERNEL]
+        launches = phase_slice(torch, gpu, decoder)
+        launches[LN_KERNEL] = phase_parity(torch, decoder)[LN_KERNEL]
         train = phase_train(torch, gpu)
         launches.update({k: train[k] for k in TRAIN_KERNELS})
         phase_train_parity(torch)
@@ -2360,7 +2929,7 @@ def main() -> int:
                "replaces": k.replaces, "launches": launches[name]}
         row.update(rows[name])
         kernels.append(row)
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"kernels": kernels, "decoder": decoder}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

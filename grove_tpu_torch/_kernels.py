@@ -246,6 +246,42 @@ KERNELS: Dict[str, Kernel] = {
         [_P] * 4 + [_I] * 6 + [_F, _I, _P],
         "grove_tpu_torch/csrc/flash_attention.cu",
         "grove_tpu/ops/attention.py:154"),
+    # K11-K14: public ops of the JAX package that no model path dispatches
+    "flash_attention_relpos": Kernel(
+        "grove_relpos_flash_attention",
+        [_P] * 6 + [_I] * 6 + [_F, _I, _P],
+        "grove_tpu_torch/csrc/streamed_relpos_attention.cu",
+        "grove_tpu/ops/sam_attention.py:133"),
+    "sam_window_attention_v2": Kernel(
+        "grove_sam_window_attention_v2",
+        [_P] * 5 + [_I] * 6 + [_F, _I, _P],
+        "grove_tpu_torch/csrc/sam_window_attention_v2.cu",
+        "grove_tpu/ops/sam_attention.py:598"),
+    "sam_window_attention_v2_q8": Kernel(
+        "grove_sam_window_attention_v2_q8",
+        [_P] * 6 + [_I] * 6 + [_F, _I, _P],
+        "grove_tpu_torch/csrc/sam_window_attention_v2.cu",
+        "grove_tpu/ops/sam_attention.py:640"),
+    "folded_window_attention": Kernel(
+        "grove_folded_window_attention",
+        [_P] * 6 + [_I] * 6 + [_F, _I, _P],
+        "grove_tpu_torch/csrc/folded_window_attention.cu",
+        "grove_tpu/ops/sam_attention.py:327"),
+    "folded_window_attention_v2": Kernel(
+        "grove_folded_window_attention_v2",
+        [_P] * 6 + [_I] * 6 + [_F, _I, _P],
+        "grove_tpu_torch/csrc/folded_window_attention.cu",
+        "grove_tpu/ops/sam_attention.py:818"),
+    "window_partition": Kernel(
+        "grove_window_partition",
+        [_P] * 2 + [_I] * 6 + [_P],
+        "grove_tpu_torch/csrc/window_partition.cu",
+        "grove_tpu/ops/window_ops.py:59"),
+    "window_unpartition": Kernel(
+        "grove_window_unpartition",
+        [_P] * 2 + [_I] * 6 + [_P],
+        "grove_tpu_torch/csrc/window_partition.cu",
+        "grove_tpu/ops/window_ops.py:81"),
 }
 
 

@@ -10,7 +10,11 @@ quantized serving slices need:
     infer_clips_batched(lm.model, lm.cfg, tokenizer, clips,
                         decode_kwargs={"cache_dtype": torch.int8})
 
-`quantize`, `calibrate` and `fuse` work IN PLACE on the one model (a
+The reference's mode-multiplexed surface (`encode_images`,
+`get_grounding_encoder_embs`, `get_dense_pe`, `forward_train`,
+`forward_boxes`, `evaluate`, `generate_clip`) wraps the `GroveModel`
+methods, as `api/model.py:204-239` does. `quantize`, `calibrate` and
+`fuse` work IN PLACE on the one model (a
 full-width model quantizes on the card without a second copy of the
 weights), where the JAX methods return a new instance beside the old one.
 The HF-layout / Orbax directory loaders and `save_pretrained` raise,
@@ -20,8 +24,9 @@ naming their ROADMAP item.
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from ..config import GroveConfig
@@ -121,3 +126,57 @@ class GroveForCausalLM:
         raise NotImplementedError(
             "save_pretrained is not ported yet (ROADMAP Queue 1 item 14, "
             "checkpoint I/O)")
+
+    # ------------------------------------------------------------------
+    # mode-multiplexed surface (reference `model/GROVE.py:138-154`)
+    # ------------------------------------------------------------------
+
+    def _on_model(self, x):
+        """numpy arrays and tensors onto the model's device."""
+        if isinstance(x, np.ndarray):
+            x = torch.from_numpy(x)
+        return x.to(self.model.device)
+
+    @torch.inference_mode()
+    def encode_images(self, frames_clip):
+        """CLIP tower + projector -> (video tokens, mlvl features)."""
+        return self.model.encode_video(self._on_model(frames_clip))
+
+    @torch.inference_mode()
+    def get_grounding_encoder_embs(self, frames_sam):
+        """SAM encoder (chunked over frames) -> (B*T, HW, C)."""
+        return self.model.encode_grounding_auto(self._on_model(frames_sam))
+
+    @torch.inference_mode()
+    def get_dense_pe(self):
+        return self.model.dense_pe()
+
+    def _batch(self, batch: Dict):
+        return {k: (v if k == "video_start" else self._on_model(v))
+                for k, v in batch.items()}
+
+    def forward_train(self, batch: Dict):
+        """The loss dict of one batch (`GroveModel.forward_train`); runs
+        with the caller's grad mode, so a training step can differentiate
+        it."""
+        return self.model.forward_train(self._batch(batch))
+
+    @torch.inference_mode()
+    def forward_boxes(self, batch: Dict):
+        """Teacher-forced boxes and objectness logits."""
+        return self.model.forward_boxes(self._batch(batch))
+
+    def evaluate(self, tokenizer, spliced_ids, video_start, frames_clip,
+                 frames_sam, max_new_tokens: int = 64):
+        """Grounded generation on prepared ids and frames
+        (`infer.generate.generate_grounded`)."""
+        from ..infer.generate import generate_grounded
+        return generate_grounded(self.model, self.cfg, tokenizer,
+                                 spliced_ids, video_start, frames_clip,
+                                 frames_sam, max_new_tokens=max_new_tokens)
+
+    def generate_clip(self, tokenizer, video_path: str, **kw):
+        """One video file -> the output dict (`GroveProcessor.generate`)."""
+        from .processor import GroveProcessor
+        return GroveProcessor(tokenizer, self.cfg).generate(
+            self.model, video_path, **kw)

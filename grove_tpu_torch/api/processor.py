@@ -1,18 +1,35 @@
-"""The user-facing decode options of the inference API.
+"""Public inference API: one call, video in -> grounded caption out.
 
-Counterpart of `grove_tpu/api/processor.py:_decode_kwargs` (`:25-57`). The
-rest of that module (`GroveProcessor`: video decode and preprocessing) is
-not ported yet (ROADMAP Queue 1 item 8); the JAX module imports
-`grove_tpu.data.preprocess`, which needs PIL, so the table is copied here
-with torch dtypes, and `tests/test_torch_misc.py` holds it equal to the
-original.
+Counterpart of `grove_tpu/api/processor.py` (the reference's
+`grove_transformers.GroveProcessor`, `processing_grove.py:263-432`): decode
+the clip (the native libav decoder, `data.video.VideoDecoder`, at 5 fps),
+preprocess it for both towers on the host (`data.preprocess`, numpy,
+bit-equal to the JAX package's PIL transforms), and run the sliding-window
+pipeline (`infer.sliding`), returning the reference's output dict:
+
+  {text, text_tagged, phrases, center_frame_indices, frame_indices, bboxes,
+   labels_per_frame, probs_temp_objectness, original_size}
+
+    proc = GroveProcessor(tokenizer, lm.cfg)
+    out = proc.generate(lm.model, "clip.mp4")
+
+The model argument is the port's `GroveModel` (it holds its weights: there
+is no separate `variables`). `generate_with_backend` waits for the serving
+engine and raises.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Optional
 
+import numpy as np
 import torch
+
+from ..config import GroveConfig
+from ..data.preprocess import preprocess_frames
+from ..data.video import VideoDecoder
+from ..infer.sliding import infer_clip, infer_clips_batched
+from ..text.prompts import VIDEO_GROUNDING_QUESTIONS
 
 KV_CACHE_DTYPES = {None: torch.bfloat16, "bf16": torch.bfloat16,
                    "bfloat16": torch.bfloat16, "int8": torch.int8,
@@ -26,7 +43,8 @@ def _decode_kwargs(kv_cache_dtype: Optional[str], early_stop: bool,
                    length_penalty: float = 1.0) -> Dict:
     """Map user-facing strings to the decode kwargs of
     `infer.sliding.infer_clips_batched(..., decode_kwargs=...)`; the same
-    checks as the JAX function."""
+    checks as the JAX function (`processor.py:25-57`), whose table is
+    copied here with torch dtypes."""
     if kv_cache_dtype not in KV_CACHE_DTYPES:
         raise ValueError(f"kv_cache_dtype must be one of "
                          f"{sorted(k for k in KV_CACHE_DTYPES if k)}, "
@@ -56,3 +74,95 @@ def _decode_kwargs(kv_cache_dtype: Optional[str], early_stop: bool,
             "temperature": float(temperature), "top_k": int(top_k),
             "top_p": float(top_p), "num_beams": int(num_beams),
             "length_penalty": float(length_penalty)}
+
+
+DEFAULT_INSTRUCTION = VIDEO_GROUNDING_QUESTIONS[0]
+
+
+class GroveProcessor:
+    def __init__(self, tokenizer, cfg: GroveConfig, fps: float = 5.0,
+                 decoder_factory=VideoDecoder):
+        self.tokenizer = tokenizer
+        self.cfg = cfg
+        self.fps = fps
+        self.decoder_factory = decoder_factory
+
+    def decode_video(self, video_path: str,
+                     start_frame: Optional[int] = None,
+                     end_frame: Optional[int] = None,
+                     video_fps: Optional[float] = None,
+                     max_frames: int = 1024) -> np.ndarray:
+        """All frames at self.fps (the reference decodes the full clip at 5
+        fps, `processing_grove.py:195-261`); optional frame-range crop."""
+        with self.decoder_factory(video_path) as dec:
+            src_fps = video_fps or dec.fps or self.fps
+            if start_frame is not None and end_frame is not None:
+                rate = max(int(src_fps / self.fps), 1)
+                ts = [i / src_fps
+                      for i in range(start_frame, end_frame + 1, rate)]
+                return dec.decode_at(ts)
+            return dec.decode_fps(self.fps, max_frames=max_frames)
+
+    def _sample(self, video_path: str, *decode) -> Dict:
+        """Decode one clip and preprocess it for both towers (float32,
+        normalized) -> a sample of `infer_clips_batched`."""
+        frames = self.decode_video(video_path, *decode)
+        if frames.size == 0:
+            raise ValueError(f"No frames decoded from {video_path}")
+        fc, fs = preprocess_frames(frames, self.cfg.clip.image_size,
+                                   self.cfg.sam_enc.img_size)
+        return {"frames_clip": fc, "frames_sam": fs,
+                "original_size": (frames.shape[2], frames.shape[1])}
+
+    def generate(self, model, video_path: str,
+                 instruction: Optional[str] = None,
+                 max_new_tokens: int = 64,
+                 temp_objectness_threshold: Optional[float] = None,
+                 start_frame: Optional[int] = None,
+                 end_frame: Optional[int] = None,
+                 video_fps: Optional[float] = None,
+                 kv_cache_dtype: Optional[str] = None,
+                 early_stop: bool = True, temperature: float = 0.0,
+                 top_k: int = 0, top_p: float = 1.0,
+                 seed: Optional[int] = None, num_beams: int = 1,
+                 length_penalty: float = 1.0) -> Dict:
+        """One clip -> the reference's output dict. `kv_cache_dtype`:
+        None / 'bf16' (default), 'int8' or 'fp32'; `early_stop` ends the
+        decode once every sequence emitted EOS (identical ids). Sampling
+        and beam search are not ported yet (they raise)."""
+        s = self._sample(video_path, start_frame, end_frame, video_fps)
+        return infer_clip(
+            model, self.cfg, self.tokenizer, s["frames_clip"],
+            s["frames_sam"], s["original_size"], instruction=instruction,
+            max_new_tokens=max_new_tokens,
+            threshold=temp_objectness_threshold,
+            decode_kwargs=_decode_kwargs(kv_cache_dtype, early_stop,
+                                         temperature, top_k, top_p, seed,
+                                         num_beams, length_penalty))
+
+    def generate_with_backend(self, model, video_path: str, decode_backend,
+                              **kw) -> Dict:
+        raise NotImplementedError(
+            "generate_with_backend needs the continuous-batching serving "
+            "engine, which is not ported yet (ROADMAP Queue 1 item 13)")
+
+    def generate_batch(self, model, video_paths, instructions=None,
+                       max_new_tokens: int = 64,
+                       temp_objectness_threshold: Optional[float] = None,
+                       kv_cache_dtype: Optional[str] = None,
+                       early_stop: bool = True, temperature: float = 0.0,
+                       top_k: int = 0, top_p: float = 1.0,
+                       seed: Optional[int] = None, num_beams: int = 1,
+                       length_penalty: float = 1.0):
+        """`generate` over several clips, their center windows generated in
+        one batch. `instructions`: None (the default prompt), one string,
+        or one per clip (unequal prompts are left-padded and decoded in
+        lockstep). Returns one output dict per clip, in input order."""
+        samples = [self._sample(vp) for vp in video_paths]
+        return infer_clips_batched(
+            model, self.cfg, self.tokenizer, samples,
+            instruction=instructions, max_new_tokens=max_new_tokens,
+            threshold=temp_objectness_threshold,
+            decode_kwargs=_decode_kwargs(kv_cache_dtype, early_stop,
+                                         temperature, top_k, top_p, seed,
+                                         num_beams, length_penalty))

@@ -73,14 +73,21 @@ def postprocess_window(boxes: np.ndarray, obj_logits: Optional[np.ndarray],
 
 def _window_batch(model: GroveModel, frames_clip_all, frames_sam_all,
                   windows, ap, sam_valid=None) -> Dict[str, torch.Tensor]:
-    """Teacher-forced batch of `windows` sharing one packed answer `ap`."""
+    """Teacher-forced batch of `windows` sharing one packed answer `ap`.
+    Raw / YUV mode (`frames_clip_all is frames_sam_all`: one stack that
+    both towers resize on the device) uploads the windows once, for both
+    towers."""
     dev = model.device
     nw = len(windows)
+
+    def upload(frames_all):
+        return torch.from_numpy(np.stack([frames_all[w]
+                                          for w in windows])).to(dev)
+    clip = upload(frames_clip_all)
     batch = {
-        "frames_clip": torch.from_numpy(np.stack(
-            [frames_clip_all[w] for w in windows])).to(dev),
-        "frames_sam": torch.from_numpy(np.stack(
-            [frames_sam_all[w] for w in windows])).to(dev),
+        "frames_clip": clip,
+        "frames_sam": (clip if frames_sam_all is frames_clip_all
+                       else upload(frames_sam_all)),
         "input_ids": torch.from_numpy(np.tile(
             ap.input_ids[None], (nw, 1)).astype(np.int64)).to(dev),
         "video_start": np.full((nw,), int(ap.video_start), np.int64),
@@ -274,8 +281,10 @@ def infer_clips_batched(model: GroveModel, cfg: GroveConfig, tokenizer,
                         threshold: Optional[float] = None,
                         decode_kwargs: Optional[Dict] = None):
     """Batched `infer_clip` over several clips. `samples`: dicts with
-    frames_clip / frames_sam (T_total, H, W, 3) uint8 at the towers' sizes,
-    original_size (w, h) and optionally sam_valid_hw (2,). The center
+    frames_clip / frames_sam (T_total, H, W, 3) uint8 at the towers' sizes
+    (or one raw / packed-YUV420 stack passed as both, which the model
+    resizes on the device), original_size (w, h) and optionally
+    sam_valid_hw (2,). The center
     windows of all clips generate in one batch; each clip's teacher-forced
     windows then run per clip. `instruction` may be one string or one per
     clip (unequal prompts are left-padded). Returns one dict per clip."""
@@ -289,6 +298,9 @@ def infer_clips_batched(model: GroveModel, cfg: GroveConfig, tokenizer,
     if len(instructions) != b:
         raise ValueError(f"{len(instructions)} instructions for {b} clips")
 
+    # raw / YUV mode: one stack per clip that both towers resize on the
+    # device; the center windows go up once, for both
+    raw = all(s["frames_clip"] is s["frames_sam"] for s in samples)
     metas, fcs, fss, vals = [], [], [], []
     for s in samples:
         windows, masks = sliding_segment_with_mask(s["frames_clip"].shape[0],
@@ -296,17 +308,18 @@ def infer_clips_batched(model: GroveModel, cfg: GroveConfig, tokenizer,
         ci = center_window_index(masks)
         metas.append((windows, masks, ci, windows[ci]))
         fcs.append(s["frames_clip"][windows[ci]])
-        fss.append(s["frames_sam"][windows[ci]])
+        if not raw:
+            fss.append(s["frames_sam"][windows[ci]])
         if "sam_valid_hw" in s:
             vals.append(s["sam_valid_hw"])
     if vals and len(vals) != b:
         raise ValueError("samples mix sam_valid_hw presence")
 
     ids, starts, pad_lens = center_prompts(cfg, tokenizer, instructions)
+    fc = torch.from_numpy(np.stack(fcs)).to(dev)
     gen = generate_grounded(
-        model, cfg, tokenizer, ids, starts,
-        torch.from_numpy(np.stack(fcs)).to(dev),
-        torch.from_numpy(np.stack(fss)).to(dev),
+        model, cfg, tokenizer, ids, starts, fc,
+        fc if raw else torch.from_numpy(np.stack(fss)).to(dev),
         max_new_tokens=max_new_tokens, pad_lens=pad_lens,
         sam_valid_hw=(torch.from_numpy(np.stack(vals)).to(dev)
                       if vals else None),

@@ -21,10 +21,11 @@ Static-shape contract as in the JAX package:
   input_ids    (B, Ls) spliced ids; video_start (B,); det_positions (B, P)
   boxes out    (B, T, P, 4) cxcywh in [0, 1]; objectness logits (B, T, P)
 
-Not ported yet (they raise): the raw-frame resize and the packed YUV420
-input of `_norm_clip`/`_norm_sam` (`jax.image.resize` bicubic differs from
-`F.interpolate` in antialiasing and cubic coefficient: its own PR), the
-region encoder, and the legacy SAM mask path.
+Frames may also arrive raw (uint8 at the source size) or as packed YUV420P
+(B, T, 3H/2, W): `_norm_clip` / `_norm_sam` then convert and resize on the
+device as the JAX package does with `jax.image.resize` (`_resize_weights`).
+Not ported yet (they raise): the region encoder and the legacy SAM mask
+path.
 """
 
 from __future__ import annotations
@@ -36,7 +37,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import GroveConfig
-from ..data.preprocess import CLIP_MEAN, CLIP_STD, SAM_MEAN, SAM_STD
+from ..data.preprocess import (CLIP_MEAN, CLIP_STD, SAM_MEAN, SAM_STD,
+                               YUV_OFFSET, YUV_TO_RGB)
 from ..ops.losses import grove_total_loss
 from .clip import ClipVisionTower
 from .llama import LlamaModel, _dense
@@ -44,9 +46,54 @@ from .region import MLVLROIQueryModule
 from .sam_decoder import GroveBoxDecoder, PromptEncoder
 from .sam_encoder import SamImageEncoder, encode_frames_chunked
 
-_RAW_INPUT = ("raw-frame resize and packed YUV420 input are not ported yet: "
-              "pass uint8 frames already at the tower's size (ROADMAP "
-              "Queue 1 item 3)")
+
+def _keys_cubic(x):
+    """`jax.image.resize`'s cubic (Keys, a = -0.5) at |offsets| x."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return torch.where(x >= 2.0, torch.zeros_like(x), out)
+
+
+def _triangle(x):
+    return torch.clamp(1.0 - x.abs(), min=0.0)
+
+
+def _resize_weights(in_size: int, out_size: int, method: str, device):
+    """(in_size, out_size) fp32 weights of `jax.image.resize` along one
+    axis (`scale_and_translate`, `jax/_src/image/scale.py:
+    compute_weight_mat`): the kernel stretched by max(in/out, 1) (the
+    antialias of a downscale), each output column normalized by its sum,
+    and zero where the sample falls outside [-0.5, in - 0.5]. A dense
+    product, as XLA computes it (`F.interpolate` has neither the antialias
+    nor a = -0.5)."""
+    kernel = {"bicubic": _keys_cubic, "bilinear": _triangle}[method]
+    inv_scale = in_size / out_size
+    kernel_scale = max(inv_scale, 1.0)
+    f = dict(device=device, dtype=torch.float32)
+    sample = (torch.arange(out_size, **f) + 0.5) * inv_scale - 0.5
+    x = (sample[None, :] - torch.arange(in_size, **f)[:, None]).abs()
+    w = kernel(x / kernel_scale)
+    total = w.sum(0, keepdim=True)
+    eps = 1000.0 * torch.finfo(torch.float32).eps
+    w = torch.where(total.abs() > eps,
+                    w / torch.where(total != 0, total, torch.ones_like(total)),
+                    torch.zeros_like(w))
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return torch.where(inside[None, :], w, torch.zeros_like(w))
+
+
+def _resize_frames(frames, out_hw, method: str, crop=None):
+    """(B, T, H, W, 3) -> (B, T, h, w, 3) fp32, `jax.image.resize` to
+    `out_hw` by `method`; `crop` = (top, left, size) keeps only that square
+    of the resized frame (the output columns of the weights outside it are
+    dropped, which changes no kept value)."""
+    h, w = frames.shape[2:4]
+    wh = _resize_weights(h, out_hw[0], method, frames.device)
+    ww = _resize_weights(w, out_hw[1], method, frames.device)
+    if crop is not None:
+        top, left, size = crop
+        wh, ww = wh[:, top:top + size], ww[:, left:left + size]
+    return torch.einsum("bthwc,hy,wx->btyxc", frames.float(), wh, ww)
 
 
 class SamGrounding(nn.Module):
@@ -115,29 +162,74 @@ class GroveModel(nn.Module):
     # encoders
     # ------------------------------------------------------------------
 
+    def _yuv420_to_rgb(self, packed):
+        """Packed (B, T, 3H/2, W) uint8 YUV420P -> (B, T, H, W, 3) fp32 RGB
+        in [0, 255] (`grove.py:96-113`): BT.601 limited range,
+        nearest-neighbour chroma, the 3 x 3 product written out so that no
+        TF32 matmul rounds it."""
+        b, t, h32, w = packed.shape
+        h = h32 * 2 // 3
+        chroma = packed[:, :, h:].float().repeat_interleave(2, dim=2)
+        chroma = chroma.repeat_interleave(2, dim=3)
+        yuv = torch.stack([packed[:, :, :h].float(), chroma[..., :w],
+                           chroma[..., w:]], dim=-1)
+        yuv = yuv - torch.as_tensor(YUV_OFFSET, device=packed.device)
+        m = YUV_TO_RGB.tolist()
+        rgb = torch.stack([yuv[..., 0] * m[c][0] + yuv[..., 1] * m[c][1]
+                           + yuv[..., 2] * m[c][2] for c in range(3)], -1)
+        return torch.clamp(torch.round(rgb), 0.0, 255.0)
+
     def _norm_clip(self, frames):
-        """uint8 frames at the CLIP size -> normalized, in the model dtype.
-        Non-uint8 input is taken as already normalized."""
+        """uint8 frames -> normalized, in the model dtype. Frames at the
+        CLIP size are normalized as they are; raw frames of another size
+        are resized on the device first (shortest edge to the CLIP size,
+        bicubic as `jax.image.resize`, center crop, rounded and clamped to
+        [0, 255] as PIL's uint8 would be, `grove.py:115-146`); a 4-D uint8
+        input is packed YUV420P. Non-uint8 input is taken as already
+        normalized."""
         if frames.dtype != torch.uint8:
             return frames.to(self.dtype)
         size = self.cfg.clip.image_size
-        if frames.ndim != 5 or tuple(frames.shape[2:4]) != (size, size):
-            raise NotImplementedError(_RAW_INPUT)
+        if frames.ndim == 4:
+            frames = self._yuv420_to_rgb(frames).to(torch.uint8)
+        h, w = frames.shape[2:4]
+        if (h, w) != (size, size):
+            scale = size / min(h, w)
+            nh, nw = round(h * scale), round(w * scale)
+            xf = _resize_frames(frames, (nh, nw), "bicubic",
+                                crop=((nh - size) // 2, (nw - size) // 2,
+                                      size))
+            frames = torch.round(torch.clamp(xf, 0.0, 255.0))
         dt = self.dtype
         mean = torch.as_tensor(CLIP_MEAN, device=frames.device, dtype=dt)
         std = torch.as_tensor(CLIP_STD, device=frames.device, dtype=dt)
         return (frames.to(dt) / 255.0 - mean) / std
 
     def _norm_sam(self, frames, valid_hw=None):
-        """uint8 frames at the SAM size -> normalized; with `valid_hw`
-        (B, 2) the padding outside each clip's valid region is re-zeroed,
-        matching the reference's normalize-then-pad order."""
+        """uint8 frames -> normalized. Frames at the SAM size: with
+        `valid_hw` (B, 2) the padding outside each clip's valid region is
+        re-zeroed, matching the reference's normalize-then-pad order. Raw
+        frames of another size run ResizeLongestSide on the device
+        (bilinear as `jax.image.resize`, rounded, normalized in fp32, then
+        zero-padded bottom/right, `grove.py:148-183`); their valid region
+        follows from the shape, so `valid_hw` is not read. A 4-D uint8
+        input is packed YUV420P."""
         if frames.dtype != torch.uint8:
             return frames.to(self.dtype)
         size = self.cfg.sam_enc.img_size
-        if frames.ndim != 5 or tuple(frames.shape[2:4]) != (size, size):
-            raise NotImplementedError(_RAW_INPUT)
+        if frames.ndim == 4:
+            frames = self._yuv420_to_rgb(frames).to(torch.uint8)
         dt = self.dtype
+        h, w = frames.shape[2:4]
+        if (h, w) != (size, size):
+            scale = size / max(h, w)
+            nh, nw = int(h * scale + 0.5), int(w * scale + 0.5)
+            xf = _resize_frames(frames, (nh, nw), "bilinear")
+            xf = torch.round(torch.clamp(xf, 0.0, 255.0))
+            mean = torch.as_tensor(SAM_MEAN, device=frames.device)
+            std = torch.as_tensor(SAM_STD, device=frames.device)
+            xf = ((xf - mean) / std).to(dt)
+            return F.pad(xf, (0, 0, 0, size - nw, 0, size - nh))
         mean = torch.as_tensor(SAM_MEAN, device=frames.device, dtype=dt)
         std = torch.as_tensor(SAM_STD, device=frames.device, dtype=dt)
         xf = (frames.to(dt) - mean) / std

@@ -77,11 +77,29 @@ def test_collate_copy_equals_original(seed):
 
 
 def test_normalization_constants_equal_originals():
+    """The towers' pixel statistics and the BT.601 YUV matrices."""
     from grove_tpu.data import preprocess as jpre
     from grove_tpu_torch.data import preprocess as tpre
-    for name in ("CLIP_MEAN", "CLIP_STD", "SAM_MEAN", "SAM_STD"):
+    for name in ("CLIP_MEAN", "CLIP_STD", "SAM_MEAN", "SAM_STD",
+                 "YUV_OFFSET", "RGB_TO_YUV", "YUV_TO_RGB"):
         np.testing.assert_array_equal(getattr(tpre, name),
                                       getattr(jpre, name))
+
+
+def test_synthetic_video_copy_equals_original():
+    """The port's copy of `SyntheticVideo` gives the original's frames, RGB
+    and YUV420."""
+    from grove_tpu.data import video as jvideo
+    from grove_tpu_torch.data import video as tvideo
+    kw = dict(num_frames=7, width=40, height=30, fps=5.0, seed=3)
+    got, want = tvideo.SyntheticVideo(**kw), jvideo.SyntheticVideo(**kw)
+    ts = [0.0, 0.3, 1.1, 9.0]
+    np.testing.assert_array_equal(got.decode_at(ts), want.decode_at(ts))
+    np.testing.assert_array_equal(got.decode_at_yuv(ts),
+                                  want.decode_at_yuv(ts))
+    np.testing.assert_array_equal(got.decode_fps(2.5), want.decode_fps(2.5))
+    with got as same:
+        assert same is got
 
 
 def test_import_leaves_jax_and_pil_out():
@@ -101,7 +119,10 @@ def test_import_leaves_jax_and_pil_out():
             "grove_tpu_torch.ops.boxes",
             "grove_tpu_torch.ops.losses",
             "grove_tpu_torch.ops.sam_attention_bwd",
-            "grove_tpu_torch.data.collate"} <= set(mods)
+            "grove_tpu_torch.ops.window_ops",
+            "grove_tpu_torch.data.collate", "grove_tpu_torch.data.video",
+            "grove_tpu_torch.data.preprocess",
+            "grove_tpu_torch.api.processor"} <= set(mods)
     assert out.stdout.strip() == "[]"
 
 
@@ -321,11 +342,10 @@ def test_unported_paths_raise():
     from grove_tpu_torch.infer.generate import greedy_decode
     model = _tiny_model()
     cfg = model.cfg
-    raw = torch.zeros(1, 2, 40, 30, 3, dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match="raw-frame"):
-        model.encode_video(raw)
-    with pytest.raises(NotImplementedError, match="raw-frame"):
-        model.encode_grounding(torch.zeros(1, 2, 48, 40, dtype=torch.uint8))
+    from grove_tpu_torch.api import GroveProcessor
+    with pytest.raises(NotImplementedError, match="item 13"):
+        GroveProcessor(None, cfg).generate_with_backend(model, "clip.mp4",
+                                                        None)
     with pytest.raises(NotImplementedError, match="region encoder"):
         model.encode_regions((), torch.zeros(1, 4), torch.zeros(1))
     pe = model.model.grounding_encoder.prompt_encoder
