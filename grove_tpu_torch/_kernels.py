@@ -32,8 +32,10 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
-# head dims the kernels are instantiated for (attention_core.cuh)
+# head dims the kernels are instantiated for (attention_core.cuh), and the
+# ones the tensor-core body takes, in bf16 only (attention_tc.cuh)
 HEAD_DIMS = (8, 64, 80, 128)
+TC_HEAD_DIMS = (64, 128)
 MAX_BATCH_HEADS = 65535          # gridDim.y
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -161,6 +163,13 @@ KERNELS: Dict[str, Kernel] = {
         [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
         "grove_tpu_torch/csrc/grouped_plain_attention.cu",
         "grove_tpu/ops/attention.py:404"),
+    # K3 and K10 on the tensor-core body (attention_tc.cuh), which the
+    # wrappers take for bf16 at head dims 64 and 128 (`TC_HEAD_DIMS`)
+    "grouped_plain_attention_tc": Kernel(
+        "grove_grouped_plain_attention_tc",
+        [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+        "grove_tpu_torch/csrc/grouped_plain_attention.cu",
+        "grove_tpu/ops/attention.py:404"),
     "flash_forward_lse": Kernel(
         "grove_flash_forward_lse",
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
@@ -243,6 +252,11 @@ KERNELS: Dict[str, Kernel] = {
         "grove_tpu/ops/sam_attention_bwd.py:333"),
     "flash_attention": Kernel(
         "grove_flash_attention",
+        [_P] * 4 + [_I] * 6 + [_F, _I, _P],
+        "grove_tpu_torch/csrc/flash_attention.cu",
+        "grove_tpu/ops/attention.py:154"),
+    "flash_attention_tc": Kernel(
+        "grove_flash_attention_tc",
         [_P] * 4 + [_I] * 6 + [_F, _I, _P],
         "grove_tpu_torch/csrc/flash_attention.cu",
         "grove_tpu/ops/attention.py:154"),

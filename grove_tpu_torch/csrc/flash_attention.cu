@@ -17,26 +17,31 @@
 // exist nowhere here, and the ragged tail of the keys is masked in the
 // kernel (attention_core.cuh).
 //
-// Bound on the H100: the products run in fp32 on the CUDA cores (the shared
-// SIMT body), so the kernel is bounded by fp32 FMA issue and shared-memory
-// reads, far from the card's bf16 tensor rate; a causal block stops at the
-// key tile holding its last row, so the masked upper triangle costs nothing.
+// Two entries, chosen by the wrapper (ops/attention.py `_tc_takes`):
+// `grove_flash_attention_tc` runs bf16 at head dims 64 and 128 on the
+// tensor-core body (attention_tc.cuh: wgmma, bounded by the bf16 tensor
+// rate); `grove_flash_attention` runs fp32 and the head dims 8 and 80 on the
+// SIMT body (attention_core.cuh: fp32 FMA issue and shared-memory reads, far
+// from that rate). In both a causal block stops at the key tile holding its
+// last row, so the masked upper triangle costs nothing.
 //
 // Numerics against the TPU kernel: both scale q in fp32 before the dot and
 // keep an online softmax in fp32; the TPU kernel masks to -1e30 and floors
 // the denominator at 1e-30, this body masks to -inf and floors at 1e-30.
-// Every row sees key 0, so no row is fully masked and the two agree. This
-// body works in log2 units (exp2f), so results differ in the last bits.
+// Every row sees key 0, so no row is fully masked and the two agree. Both
+// bodies work in log2 units (exp2f), so results differ in the last bits;
+// the tensor-core body also rounds P to bf16 before P.V, where the TPU
+// kernel keeps it in fp32.
 
 #include "attention_core.cuh"
+#include "attention_tc.cuh"
 
 GROVE_ATTENTION_ENTRY(flash_attention)
+GROVE_ATTENTION_TC_ENTRY(flash_attention)
 
-extern "C" int grove_flash_attention(const void* q, const void* k,
-                                     const void* v, void* out, int b, int sq,
-                                     int sk, int heads, int head_dim,
-                                     int causal, float scale, int dtype,
-                                     void* stream) {
+static grove::AttnArgs flash_args(const void* q, const void* k, const void* v,
+                                  void* out, int b, int sq, int sk, int heads,
+                                  int head_dim, int causal, float scale) {
   const long long hd = (long long)heads * head_dim;
   grove::AttnArgs a{};
   a.q = q;
@@ -60,6 +65,27 @@ extern "C" int grove_flash_attention(const void* q, const void* k,
   a.scale = scale;
   a.causal = causal;
   a.zero_underflow = 0;
-  return flash_attention_dispatch(a, dtype, head_dim,
-                                  static_cast<cudaStream_t>(stream));
+  return a;
+}
+
+// The SIMT body: fp32 or bf16, head dims 8, 64, 80, 128.
+extern "C" int grove_flash_attention(const void* q, const void* k,
+                                     const void* v, void* out, int b, int sq,
+                                     int sk, int heads, int head_dim,
+                                     int causal, float scale, int dtype,
+                                     void* stream) {
+  return flash_attention_dispatch(
+      flash_args(q, k, v, out, b, sq, sk, heads, head_dim, causal, scale),
+      dtype, head_dim, static_cast<cudaStream_t>(stream));
+}
+
+// The tensor-core body (attention_tc.cuh): bf16, head dims 64 and 128.
+extern "C" int grove_flash_attention_tc(const void* q, const void* k,
+                                        const void* v, void* out, int b,
+                                        int sq, int sk, int heads,
+                                        int head_dim, int causal, float scale,
+                                        int dtype, void* stream) {
+  return flash_attention_tc_dispatch(
+      flash_args(q, k, v, out, b, sq, sk, heads, head_dim, causal, scale),
+      dtype, head_dim, static_cast<cudaStream_t>(stream));
 }

@@ -9,6 +9,10 @@ dtype.
 * `xla_attention` is the plain version (the name keeps the JAX package's):
   materialized fp32 logits, optional bias and mask. LLaMA prefill and decode
   over the bf16 cache use it directly, as the JAX package does.
+* K3 and K10 each have two CUDA entries: bf16 at head dim 64 or 128 runs
+  the tensor-core body (`csrc/attention_tc.cuh`, wgmma), fp32 and the
+  head dims 8 and 80 the SIMT body (`csrc/attention_core.cuh`);
+  `_tc_takes` decides, for CUDA tensors only.
 * `flash_attention` is K10, online-softmax attention of (B, Sq, H, D)
   queries over (B, Sk, H, D) keys, causal (top-left aligned, as the TPU
   kernel masks) or not, beside its plain twin `flash_attention_torch`; the
@@ -90,12 +94,22 @@ def grouped_plain_attention_torch(q, k, v, *,
     return xla_attention(q, k, v, scale=scale)
 
 
+def _tc_takes(dtype: torch.dtype, head_dim: int) -> bool:
+    """Whether a CUDA call of K3 or K10 runs the tensor-core body
+    (`csrc/attention_tc.cuh`, the `_tc` entries): bf16 at head dim 64 or
+    128. fp32, and the head dims 8 and 80, run the SIMT body
+    (`csrc/attention_core.cuh`). Two hand-written kernels chosen by dtype
+    and shape; a `_tc` launch that fails raises like any other."""
+    return dtype == torch.bfloat16 and head_dim in _kernels.TC_HEAD_DIMS
+
+
 def grouped_plain_attention(q, k, v, *, scale: Optional[float] = None):
     """K3: non-causal self-attention, (B, S, H, D) -> (B, S, H, D).
 
     CPU tensors take `grouped_plain_attention_torch`; CUDA tensors launch
-    `csrc/grouped_plain_attention.cu`, which masks the ragged edge in the
-    kernel (no padded copies)."""
+    `csrc/grouped_plain_attention.cu`, its tensor-core entry where
+    `_tc_takes` holds and its SIMT entry otherwise; both mask the ragged
+    edge in the kernel (no padded copies)."""
     b, s, h, d = q.shape
     if scale is None:
         scale = 1.0 / math.sqrt(d)
@@ -104,11 +118,18 @@ def grouped_plain_attention(q, k, v, *, scale: Optional[float] = None):
                          f"differ: {q.shape}, {k.shape}, {v.shape}")
     if _kernels.on_cpu(q, k, v):
         return grouped_plain_attention_torch(q, k, v, scale=scale)
-    dt = _kernels.check_cuda_inputs("grouped_plain_attention", (q, k, v),
-                                    d, b * h)
+    name = ("grouped_plain_attention_tc" if _tc_takes(q.dtype, d)
+            else "grouped_plain_attention")
+    return _grouped_plain_launch(name, q, k, v, scale)
+
+
+def _grouped_plain_launch(name: str, q, k, v, scale: float):
+    """Launch the K3 entry `name` on CUDA tensors."""
+    b, s, h, d = q.shape
+    dt = _kernels.check_cuda_inputs(name, (q, k, v), d, b * h)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
-        _kernels.KERNELS["grouped_plain_attention"](
+        _kernels.KERNELS[name](
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, s, h, d, float(scale), dt, _kernels.stream_ptr(q))
     return out
@@ -234,25 +255,32 @@ def flash_attention(q, k, v, *, causal: bool = False,
     right instead); a non-causal call whose keys would need a pad takes
     `xla_attention`; a causal call with Sq > Sk and a key pad raises
     ValueError (`_flash_takes_kernel`). CPU tensors take the plain twin;
-    CUDA tensors launch `csrc/flash_attention.cu`, which reads q, k and v
-    in place and masks the ragged key tail itself (no padded copies, no
-    head fold)."""
+    CUDA tensors launch `csrc/flash_attention.cu`, its tensor-core entry
+    where `_tc_takes` holds and its SIMT entry otherwise; both read q, k
+    and v in place and mask the ragged key tail themselves (no padded
+    copies, no head fold)."""
     del block_q
     _check_flash(q, k, v)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    b, sq, h, d = q.shape
-    sk = k.shape[1]
-    if not _flash_takes_kernel(sq, sk, causal, block_k):
+    if not _flash_takes_kernel(q.shape[1], k.shape[1], causal, block_k):
         return xla_attention(q, k, v, scale=scale)
     if _kernels.on_cpu(q, k, v):
         return _flash_plain(q, k, v, causal, scale)
-    dt = _kernels.check_cuda_inputs("flash_attention", (q, k, v), d, b * h)
+    name = ("flash_attention_tc" if _tc_takes(q.dtype, q.shape[-1])
+            else "flash_attention")
+    return _flash_launch(name, q, k, v, causal, scale)
+
+
+def _flash_launch(name: str, q, k, v, causal: bool, scale: float):
+    """Launch the K10 entry `name` on CUDA tensors."""
+    b, sq, h, d = q.shape
+    dt = _kernels.check_cuda_inputs(name, (q, k, v), d, b * h)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
-        _kernels.KERNELS["flash_attention"](
+        _kernels.KERNELS[name](
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
-            sk, h, d, int(bool(causal)), float(scale), dt,
+            k.shape[1], h, d, int(bool(causal)), float(scale), dt,
             _kernels.stream_ptr(q))
     return out
 

@@ -12,7 +12,11 @@ package's dispatch to it, on the CPU, fp32, small sizes.
   == the one read from the JAX rules (`prefill_attention_ok`, `_block_for`,
   the "auto" pick of `multi_head_attention`) with the lane term dropped,
   over S = 64..2200, MHA and GQA; the model takes that route;
-* `multi_head_attention`'s impl argument.
+* `multi_head_attention`'s impl argument;
+* the choice between K3's and K10's two CUDA entries (`_tc_takes`), and a
+  torch model of the tensor-core body's arithmetic (64-key tiles, online
+  fp32 softmax, scale after the product, P rounded to bf16 before P.V)
+  against the plain twins and the JAX kernels in interpret mode.
 """
 
 import numpy as np
@@ -235,3 +239,134 @@ def test_multi_head_attention_impls():
                                    impl="pallas")
     with pytest.raises(ValueError, match="impl"):
         tattn.multi_head_attention(q, q, q, impl="flash")
+
+
+# ---------------------------------------------------------------------------
+# K3 and K10: the tensor-core body (csrc/attention_tc.cuh) beside the SIMT
+# one
+# ---------------------------------------------------------------------------
+
+FULL_TOL = 2e-2          # chip_smoke.py's bf16 limit, of the output's max-abs
+ROW_TOL = 1e-2           # ... and K10's, of each row's own max-abs
+LOG2E = 1.4426950408889634
+
+
+@pytest.mark.parametrize("dtype,head_dim,tc", [
+    (torch.bfloat16, 64, True), (torch.bfloat16, 128, True),
+    (torch.float32, 64, False), (torch.float32, 128, False),
+    (torch.bfloat16, 8, False), (torch.bfloat16, 80, False)])
+def test_tc_takes_routes(monkeypatch, dtype, head_dim, tc):
+    """bf16 at head dim 64 or 128 launches the `_tc` entries of K3 and K10;
+    fp32, and the head dims 8 and 80, the SIMT entries. The wrappers are
+    driven past `on_cpu` with the launches recorded by name."""
+    assert tattn._tc_takes(dtype, head_dim) == tc
+    launched = []
+    monkeypatch.setattr(tattn._kernels, "on_cpu", lambda *t: False)
+    monkeypatch.setattr(tattn, "_flash_launch",
+                        lambda name, *a: launched.append(name))
+    monkeypatch.setattr(tattn, "_grouped_plain_launch",
+                        lambda name, *a: launched.append(name))
+    x = torch.zeros(1, 64, 2, head_dim, dtype=dtype)
+    tattn.flash_attention(x, x, x, causal=True)
+    tattn.grouped_plain_attention(x, x, x)
+    suffix = "_tc" if tc else ""
+    assert launched == ["flash_attention" + suffix,
+                        "grouped_plain_attention" + suffix]
+
+
+def _tc_model(q, k, v, causal: bool, scale: float):
+    """The tensor-core body's arithmetic in torch: keys in tiles of 64; per
+    tile the fp32 scores of Q.K^T scaled by scale * log2(e) after the
+    product, keys past Sk (none here: the tiles are cut at Sk) and, causal,
+    past the row masked to -inf (top-left), an online softmax in fp32 on
+    exp2 (running max, sum over the unrounded P), P rounded to bf16 before
+    P.V with an fp32 sum; the output divided by max(l, 1e-30). (B, S, H, D)
+    in and out, fp32."""
+    qf, kf, vf = (t.float().permute(0, 2, 1, 3) for t in (q, k, v))
+    b, h, sq, d = qf.shape
+    sk = kf.shape[2]
+    rows = torch.arange(sq)[:, None]
+    m = torch.full((b, h, sq, 1), float("-inf"))
+    l = torch.zeros((b, h, sq, 1))
+    o = torch.zeros((b, h, sq, d))
+    for k0 in range(0, sk, 64):
+        s = (qf @ kf[:, :, k0:k0 + 64].transpose(-1, -2)) * (scale * LOG2E)
+        if causal:
+            keys = torch.arange(k0, min(k0 + 64, sk))[None, :]
+            s = s.masked_fill(keys > rows, float("-inf"))
+        mx = torch.maximum(m, s.amax(-1, keepdim=True))
+        base = torch.where(mx == float("-inf"), torch.zeros_like(mx), mx)
+        corr = torch.exp2(m - base)
+        p = torch.exp2(s - base)
+        l = l * corr + p.sum(-1, keepdim=True)
+        o = o * corr + p.to(torch.bfloat16).float() @ vf[:, :, k0:k0 + 64]
+        m = mx
+    return (o / l.clamp_min(1e-30)).permute(0, 2, 1, 3)
+
+
+def _bf16_values(rng, *shape):
+    """Normal samples rounded to bf16, held as fp32: every path sees the
+    same values."""
+    x = torch.from_numpy(_randn(rng, *shape)).to(torch.bfloat16)
+    return x.float().numpy()
+
+
+def _within(got, want, rows: bool):
+    got, want = (torch.from_numpy(np.array(x, np.float32))
+                 for x in (got, want))
+    err = float((got - want).abs().max())
+    assert err <= FULL_TOL * float(want.abs().max()), err
+    if rows:
+        rel = ((got - want).abs().amax(-1)
+               / want.abs().amax(-1).clamp_min(1e-30)).max()
+        assert float(rel) <= ROW_TOL, float(rel)
+    return err
+
+
+# (b, sq, sk, heads, d, causal): causal over several tiles with a ragged
+# tail, causal Sq < Sk (top-left), causal Sq > Sk with no key pad,
+# non-causal cross lengths, one row
+TC_K10_CASES = {
+    "causal S=130": (1, 130, 130, 2, 64, True),
+    "causal Sq 64 < Sk 200": (2, 64, 200, 2, 128, True),
+    "causal Sq 200 > Sk 128": (1, 200, 128, 2, 64, True),
+    "non-causal Sq 70 < Sk 190": (1, 70, 190, 3, 64, False),
+    "causal S=1": (1, 1, 1, 2, 128, True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TC_K10_CASES))
+def test_tc_model_k10_matches_plain_and_pallas(name):
+    """The tensor-core body's arithmetic == `_flash_plain` (the K10 twin)
+    and the JAX `flash_attention` (Pallas, interpret mode) from the same
+    numpy inputs, within chip_smoke's bf16 limits: the bf16 P moves each
+    output by about 2^-9 of its row's max-abs."""
+    b, sq, sk, h, d, causal = TC_K10_CASES[name]
+    rng = np.random.default_rng(5)
+    q = _bf16_values(rng, b, sq, h, d)
+    k, v = _bf16_values(rng, b, sk, h, d), _bf16_values(rng, b, sk, h, d)
+    scale = d ** -0.5
+    got = _tc_model(_t(q), _t(k), _t(v), causal, scale)
+    plain = tattn._flash_plain(_t(q), _t(k), _t(v), causal, scale)
+    want = jattn.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v), causal=causal, scale=scale)
+    _close(plain, want)
+    _within(got, plain, rows=True)
+    _within(got, want, rows=True)
+
+
+@pytest.mark.parametrize("b,s,h,d", [(1, 1, 2, 64), (2, 63, 2, 128),
+                                     (1, 129, 3, 64), (1, 577, 2, 64)])
+def test_tc_model_k3_matches_plain_and_pallas(b, s, h, d):
+    """The tensor-core body's arithmetic, non-causal (K3) ==
+    `grouped_plain_attention_torch` and the JAX `grouped_plain_attention`
+    (Pallas, interpret mode) at ragged S, within FULL_TOL."""
+    rng = np.random.default_rng(6)
+    q, k, v = (_bf16_values(rng, b, s, h, d) for _ in range(3))
+    got = _tc_model(_t(q), _t(k), _t(v), False, d ** -0.5)
+    plain = tattn.grouped_plain_attention_torch(_t(q), _t(k), _t(v))
+    want = jattn.grouped_plain_attention(jnp.asarray(q), jnp.asarray(k),
+                                         jnp.asarray(v))
+    _close(plain, want)
+    _within(got, plain, rows=False)
+    _within(got, want, rows=False)

@@ -215,9 +215,25 @@ def test_launch_counts_untouched_by_plain_path():
     tint4.int4_matmul(torch.zeros(2, 64), torch.zeros(32, 8,
                                                       dtype=torch.int8),
                       torch.ones(2, 8))
+    tattn.flash_attention(x, x, x, causal=True)
     assert all(k.launches == 0 for k in _kernels.KERNELS.values())
     assert {k.source.split("/")[-1] for k in _kernels.KERNELS.values()} == {
         p.name for p in _kernels.sources() if p.name != "errors.cu"}
+    # K3 and K10 each have a tensor-core entry beside the SIMT one: the
+    # same source file, TPU kernel and arguments, the symbol `_tc`
+    tc = {n: k for n, k in _kernels.KERNELS.items() if n.endswith("_tc")}
+    assert sorted(tc) == ["flash_attention_tc", "grouped_plain_attention_tc"]
+    for name, k in tc.items():
+        simt = _kernels.KERNELS[name.removesuffix("_tc")]
+        assert (k.source, k.replaces, k.argtypes) == (
+            simt.source, simt.replaces, simt.argtypes)
+        assert k.symbol == simt.symbol + "_tc"
+        assert f"extern \"C\" int {k.symbol}(" in (
+            _kernels.CSRC.parent.parent / k.source).read_text()
+    assert tc["flash_attention_tc"].replaces == "grove_tpu/ops/attention.py:154"
+    assert tc["grouped_plain_attention_tc"].replaces == \
+        "grove_tpu/ops/attention.py:404"
+    assert (_kernels.CSRC / "attention_tc.cuh").is_file()
 
 
 def test_build_reports_missing_nvcc(monkeypatch, tmp_path):
