@@ -13,9 +13,10 @@ Phases, each printing its own line; any failure exits non-zero:
   1  build: compiles grove_tpu_torch/csrc with nvcc for sm_90a;
   2  kernels: each hand-written kernel against its plain torch twin on the
      card, at the full-width shapes of the main paths in bf16 (max-abs
-     error <= 2e-2 of the output's max-abs, for flash_forward_lse of the
-     LSE's too) and at small fp32 shapes (<= 1e-4), with median CUDA-event
-     times of both. One fp32 K1 case and one fp32 K1q case carry an
+     error <= 2e-2 of the output's max-abs; K4's LSE from its SIMT entry
+     too, from its tensor-core entry <= 1e-4, since K4b recomputes P from
+     it) and at small fp32 shapes (<= 1e-4), with median CUDA-event times
+     of both. One fp32 K1 case and one fp32 K1q case carry an
      all-underflow row, which must come out as exact zeros (the TPU
      kernel's EXP2_SHIFT contract). The int8 outputs are held in LSBs: K8a,
      K8b and K8c |diff| <= 1 on at most 0.1% of the elements (a residual
@@ -36,19 +37,22 @@ Phases, each printing its own line; any failure exits non-zero:
      1979 TOP/s int8, 67 TFLOP/s fp32 off the tensor cores), and, for K1-K5
      and K10, the time of the one PyTorch call that computes the same
      function (`F.scaled_dot_product_attention`, rel-pos terms and pads as a
-     mask), which the port never calls. K3 and K10 have two entries each:
-     the tensor-core one (`_tc`, attention_tc.cuh), which the wrappers take
-     for bf16 at head dim 64 or 128, held through the wrapper at full width
-     and at bf16 edge cases (S of 1, 63, 65, 129 and 577; causal Sq < Sk
-     and Sq > Sk; cross lengths; B.H > 1) within 2e-2 of max-abs; and the
-     SIMT one, held in fp32 at the small cases and called directly in bf16
-     at full width, so that both bodies, SDPA and the plain twin are timed
-     in the same call (each call alone between CUDA events, as every
-     kernel is, and the two bodies and SDPA also 20 calls back to back,
-     the device time without the host's launch gap). Each tensor-core
-     kernel's registers and spills
-     (nvcc -Xptxas -v) and its count of HGMMA instructions (cuobjdump -sass
-     of the built library; 0 fails) are printed. K10 is held at the
+     mask), which the port never calls. K2, K3, K4 and K10 have two
+     entries each: the tensor-core one (`_tc`, attention_tc.cuh), which the
+     wrappers take for bf16 at head dim 64, 80 or 128, held through the
+     wrapper at full width and at bf16 edge cases within 2e-2 of max-abs
+     (K3: S of 1, 63, 65, 129 and 577; K10: also causal Sq < Sk and Sq >
+     Sk and cross lengths; K4: S of 1, 63, 65, 129 and 704, causal and
+     not, its LSE within 1e-4; K2: grids of 2 x 2, 4 x 4, 12 x 12, 14 x 14
+     and 32 x 32; every head dim; B.H > 1); and the SIMT one, held in fp32
+     at the small cases and called directly in bf16 at full width, so that
+     both bodies, SDPA and the plain twin are timed in the same call (each
+     call alone between CUDA events, as every kernel is, and the two
+     bodies and SDPA also 20 calls back to back, the device time without
+     the host's launch gap). Each tensor-core kernel's registers and spills
+     (nvcc -Xptxas -v; a spill fails) and its count of HGMMA instructions
+     (cuobjdump -sass of the built library; 0 fails) are printed at D 64,
+     80 and 128. K10 is held at the
      training driver's (1, 2111, 32, 128) bf16 causal and at small fp32
      cases with Sq != Sk both ways (causal top-left), its bf16 outputs also
      row by row (each query's head vector within 1e-2 of its own max-abs,
@@ -85,7 +89,8 @@ Phases, each printing its own line; any failure exits non-zero:
      tokens) and ground_clip_with_caption with the
      launch counts zeroed just before and read just after; outputs must
      carry the JAX package's keys and be finite; no run may launch the SIMT
-     entries of K3 or K10 (bf16 takes K3's tensor-core entry); the bf16 run
+     entries of K2, K3, K4 or K10 (bf16 takes the tensor-core entries of
+     K2, K3 and K4); the bf16 run
      must launch K1-K4, the int4 run K1-K7a, the W8A8-static run K2-K7a,
      K8b and K1q,
      the flagship K2-K6, K7b, K7c, K8b, K8c (both entries) and K1q and no
@@ -105,7 +110,9 @@ Phases, each printing its own line; any failure exits non-zero:
      (`infer_clips_batched` with one 640 x 360 stack per clip as both
      towers' input, resized on the card) and the packed-YUV420 mode
      (`encode_video` + `encode_grounding`); the bf16 replay's CLIP
-     `encode_video` is printed beside its time with K3's SIMT body; the
+     `encode_video` is printed beside its time with K3's SIMT body, its SAM
+     `encode_grounding` and teacher-forced `forward_boxes` beside theirs
+     with K2's and K4's, the W8A8-static SAM beside its own; the
      bf16 run's launch counts
      in the JSON line are those of the run before them;
      last, the flagship's `lm_forward` with its W8A8 lm_head (N = 32007,
@@ -152,12 +159,14 @@ Phases, each printing its own line; any failure exits non-zero:
      survive the text budget), the default freeze policy and
      OptimizerConfig(warmup_steps=1); three `train.step.make_train_step`
      steps with the launch counts zeroed before each: every loss term
-     finite, exactly 32 launches of K4 and of each K4b entry and 24 of
-     each K9 entry per step; step 1 (lr(0) = 0) leaves every parameter
-     bit-equal and gives every trainable group (TRAIN_GROUPS) a finite,
-     nonzero gradient; after step 3 the frozen parameters are bit-equal
-     and every trainable group moved. Prints the trainable parameter
-     count, the median of steps 2-3 and peak device memory. Then one step
+     finite, exactly 32 launches of K4's tensor-core entry and of each K4b
+     entry, 24 of each K9 entry and 4 of K2's tensor-core entry per step,
+     none of a SIMT entry of K2, K3, K4 or K10; step 1 (lr(0) = 0)
+     leaves every parameter bit-equal and gives every trainable group
+     (TRAIN_GROUPS) a finite, nonzero gradient; after step 3 the frozen
+     parameters are bit-equal and every trainable group moved. Prints the
+     trainable parameter count, the median of steps 2-3 and peak device
+     memory. Then one step
      at the default max_seq_len (S = 2111, ragged: K10 forward with the
      torch-ops recompute backward in every layer, exactly 32 launches of
      K10's tensor-core entry and none of its SIMT entry, K5 or K4), finite
@@ -169,15 +178,17 @@ Phases, each printing its own line; any failure exits non-zero:
      warmup_steps=1), updates applied with stochastic rounding from a
      seeded generator; two steps at S = 704 and one at S = 2111, each with
      exact launches (`_step_launches`: remat runs each LLaMA layer's K4 or
-     K10's tensor-core entry twice, 64 a step at S = 2111; no K5, K7a, K7b,
-     K7c, nor K10's SIMT entry); 581,683,189 trainable parameters;
-     step 1 bit-equal, lora_B's gradients nonzero and lora_A's zero; every
-     trainable group moved by step 2, lora_A by step 3; every frozen
-     tensor, the int4 bytes and scales included, bit-equal at the end; ms
-     per step and peak memory printed;
+     K10 tensor-core entry twice, 64 a step, and K2's tensor-core entry 7
+     times; no K5, K7a, K7b, K7c, nor a SIMT entry of K2, K3, K4 or K10);
+     581,683,189 trainable parameters; step 1 bit-equal, lora_B's
+     gradients nonzero and lora_A's zero; every trainable group moved by
+     step 2, lora_A by step 3; every frozen tensor, the int4 bytes and
+     scales included, bit-equal at the end; ms per step and peak memory
+     printed;
   6  training parity: GroveConfig.small() (max_seq_len=129) in fp32, one
      set of weights and one batch, one step with warmup_steps=0 on the
-     card (kernels, TF32 off) and on the CPU (plain versions): every loss
+     card (kernels, TF32 off; K4's SIMT entry) and on the CPU (plain
+     versions): every loss
      term within 1e-4 relative, every trainable tensor's gradient within
      1e-3 of its max-abs (or of 1e-3 of the largest gradient's max-abs,
      for a tensor whose gradient is zero up to rounding); then the same for
@@ -191,12 +202,13 @@ forward for K9's forward entry), and the zero-padded int8 GEMM at lm_head's
 (704 x 4096 x 32007) and at M = 2, bit-equal to a float64 product.
 
 The line before the last is a JSON object with each kernel's measurements
-(`launches`: K1, K2, K4 and K3's tensor-core entry from the bf16 run of
-phase 3, K5-K7a from the int4 one, K8b and K1q from the W8A8-static one,
-K7b, K7c and K8c from the flagship one, K8a and K3's SIMT entry from phase
-4's fp32 W8A8-static model path, K4b and K9 from step 3 of phase 5, K10's
-tensor-core entry from its bf16 S = 2111 step; K10's SIMT entry, which no
-model path runs in fp32, and K11-K14, which run on no model path, show 0)
+(`launches`: K1 and the tensor-core entries of K2, K3 and K4 from the
+bf16 run of phase 3, K5-K7a from the int4 one, K8b and K1q from the
+W8A8-static one, K7b, K7c and K8c from the flagship one, K8a and the SIMT
+entries of K2, K3 and K4 from phase 4's fp32 W8A8-static model path, K4b
+and K9 from step 3 of phase 5, K10's tensor-core entry from its bf16
+S = 2111 step; K10's SIMT entry, which no model path runs in fp32, and
+K11-K14, which run on no model path, show 0)
 and `phase2_launches`, the launches of phase 2's checks and timings; the
 tensor-core rows also carry `simt_ms`, the SIMT entry's bf16 time at the
 same shape; the last line is {"ok": true, "device": {...}}.
@@ -223,6 +235,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 FULL_TOL = 2e-2          # bf16, relative to the plain output's max-abs
 ROW_TOL = 1e-2           # K10 bf16, each row relative to its own max-abs
+LSE_TOL = 1e-4           # K4's bf16 LSE, relative to its max-abs
 FP32_TOL = 1e-4          # fp32, absolute
 ROUTE_TOL = 5e-2         # phase 2's ragged-S routes vs SDPA, fwd and bwd
 PARITY_TOL = 1e-3        # phase 4 boxes / objectness
@@ -242,29 +255,37 @@ W8A8_KERNELS = ("add_layernorm_quant", "sam_window_attention_q8")
 FLAGSHIP_KERNELS = ("int4_matmul_a8", "int4_requant_int8", "rmsnorm_quant",
                     "add_rmsnorm_quant")
 LN_KERNEL = "layernorm_quant"             # phase 4's quant_ln_kernel path
-# the training kernels, launched per step of phase 5 exactly this often: K4
-# in the 32 LLaMA layers' forward, K4b in their backward, K9's three entries
-# in the backward of the 21 windowed and 3 global SAM blocks after the first
-# trainable adapter
-TRAIN_LAUNCHES = {"flash_forward_lse": 32, "flash_backward_dq": 32,
+# the training kernels, launched per bf16 step of phase 5 exactly this
+# often: K4 (its tensor-core entry) in the 32 LLaMA layers' forward, K4b in
+# their backward, K9's three entries in the backward of the 21 windowed and
+# 3 global SAM blocks after the first trainable adapter
+TRAIN_LAUNCHES = {"flash_forward_lse_tc": 32, "flash_backward_dq": 32,
                   "flash_backward_dkv": 32, "relpos_flash_fwd_lse": 24,
                   "relpos_flash_dq": 24, "relpos_flash_dkv": 24}
+# the fp32 steps of phase 6 launch the same kernels with K4's SIMT entry
+FP32_TRAIN_KERNELS = tuple("flash_forward_lse" if k == "flash_forward_lse_tc"
+                           else k for k in TRAIN_LAUNCHES)
 # the training kernels whose launches the JSON line takes from phase 5: K4b
 # and K9 from its S = 704 steps, K10 (its tensor-core entry) from its
 # S = 2111 step (no serving path of phase 3 runs K10: their lengths are
 # multiples of 64 or go to K5)
 TRAIN_KERNELS = tuple(k for k in TRAIN_LAUNCHES
-                      if k != "flash_forward_lse") + ("flash_attention_tc",)
-# the SIMT entries of K3 and K10: bf16 at head dim 64 or 128 takes their
-# tensor-core entries (`ops.attention._tc_takes`), so no bf16 path of
-# phases 3 and 5 may launch them; fp32 does (phase 2's small cases, and
-# K3 in phase 4, where the JSON line takes its launches from; no fp32
-# model path runs K10, so its SIMT entry shows 0 there)
-SIMT_ENTRIES = ("grouped_plain_attention", "flash_attention")
+                      if k != "flash_forward_lse_tc") + ("flash_attention_tc",)
+# the SIMT entries of K2, K3, K4 and K10: bf16 at head dim 64, 80 or 128
+# takes their tensor-core entries (`ops.attention._tc_takes`), so no bf16
+# path of phases 3 and 5 may launch them; fp32 does (phase 2's small cases;
+# K2, K3 and K4 in phase 4, where the JSON line takes their launches from;
+# no fp32 model path runs K10, so its SIMT entry shows 0 there)
+SIMT_ENTRIES = ("grouped_plain_attention", "flash_attention",
+                "flash_forward_lse", "sam_global_attention")
+FP32_SIMT = ("grouped_plain_attention", "flash_forward_lse",
+             "sam_global_attention")
 # the tensor-core entries: phase 2 prints their registers, spills and
 # HGMMA count (nvcc -Xptxas -v, cuobjdump -sass of the built library)
 TC_SOURCES = {"flash_attention_tc": "flash_attention.cu",
-              "grouped_plain_attention_tc": "grouped_plain_attention.cu"}
+              "grouped_plain_attention_tc": "grouped_plain_attention.cu",
+              "flash_forward_lse_tc": "flash_forward_lse.cu",
+              "sam_global_attention_tc": "sam_global_attention.cu"}
 TRAIN_SEQ = 129          # max_seq_len: 129 + 575 spliced = 704 tokens
 # K11-K14: public ops of the JAX package that no model path runs (nor do
 # their JAX originals); held in phase 2, launched 0 times on every path
@@ -282,6 +303,11 @@ K5_ROUTE_S2111 = (1044.6, 34.27)
 SIMT_S2111_MS = 1141.2
 SIMT_QLORA_S2111_MS = 2003.0
 SIMT_CLIP_MS = 67.4
+# the bf16 and W8A8-static SAM encode_grounding and the bf16 teacher-forced
+# forward_boxes (2 clips x 8 frames) with K2 and K4 on their SIMT bodies:
+# ms on one H100 80GB HBM3 at 700 W, printed beside this run's
+SIMT_SAM_MS = {"bf16": 179.5, "W8A8-static": 362.4}
+SIMT_TEACHER_MS = 305.3
 # the QLoRA recipe (`benchmarks/train_finetune_scale.py`): LoRA rank, and
 # the trainable parameters of GroveConfig() under it, 708,589,557 of the
 # default freeze policy - 131,100,672 (lm_head, int8 and frozen) +
@@ -473,15 +499,26 @@ def _cases(torch):
     def qkv_inputs(gen, dtype, shape):
         return tuple(randn(gen, shape, dtype) for _ in range(3))
 
-    def k4(*a):
-        q, k, v = a
-        return flash_backward.flash_forward_lse(
-            q, k, v, causal=True, scale=q.shape[-1] ** -0.5)
+    def k2_simt(q, k, v, rh, rw, hw):
+        return sam_attention._launch_grid(
+            "sam_global_attention", "sam_global_attention", q, k, v, rh, rw,
+            hw, q.shape[2], q.shape[3])
 
-    def k4_plain(*a):
-        q, k, v = a
+    def k4_inputs(gen, dtype, shape):
+        b, s, heads, d, causal = shape
+        return (*qkv_inputs(gen, dtype, (b, s, heads, d)), causal)
+
+    def k4(q, k, v, causal):
+        return flash_backward.flash_forward_lse(
+            q, k, v, causal=causal, scale=q.shape[-1] ** -0.5)
+
+    def k4_simt(q, k, v, causal):
+        return flash_backward._lse_launch("flash_forward_lse", q, k, v,
+                                          causal, q.shape[-1] ** -0.5)
+
+    def k4_plain(q, k, v, causal):
         return flash_backward.flash_forward_lse_torch(
-            q, k, v, causal=True, scale=q.shape[-1] ** -0.5)
+            q, k, v, causal=causal, scale=q.shape[-1] ** -0.5)
 
     def k4b_inputs(gen, dtype, shape):
         # lse and D from the plain forward, as the backward receives them
@@ -790,7 +827,7 @@ def _cases(torch):
     # runs (M = 2 rows, a 768-slot cache), and the W4A8 projections
     def case(fn, plain, make, full, small, ops, cold=False, int8=None,
              library=None, rows=False, exact=False, library_is=None,
-             edges=(), simt=None):
+             edges=(), simt=None, tols=None):
         """int8: (LSB, share) limits of an int8 output, full bf16 and small
         fp32, instead of the float error limits. rows: the full bf16 output
         (and each of `edges`) held row by row as well (`_check_rows`).
@@ -798,11 +835,12 @@ def _cases(torch):
         library_is: what the library call is, where it is not SDPA.
         edges: small bf16 shapes held within FULL_TOL, untimed. simt: the
         SIMT entry of a tensor-core case, timed beside it back to back
-        (`_queued_ms`) with the library call."""
+        (`_queued_ms`) with the library call. tols: each output's bf16
+        limit, of its max-abs, where not FULL_TOL for all."""
         return dict(fn=fn, plain=plain, make=make, full=full, small=small,
                     cold=cold, int8=int8, ops=ops, library=library,
                     rows=rows, exact=exact, library_is=library_is,
-                    edges=edges, simt=simt)
+                    edges=edges, simt=simt, tols=tols)
 
     proj_shapes = [(4096, 4096), (4096, 11008), (11008, 4096)]
     # the training step's shapes: LLaMA-7B at S = 704 (batch 1); SAM's 21
@@ -818,11 +856,25 @@ def _cases(torch):
             k1_inputs, [(144, 14, 16, 80)],
             [(4, 8, 6, 64), (3, 2, 4, 8), (2, 4, 2, 64, "underflow")],
             k1_ops, library=k1_library),
+        # K2's SIMT entry, called directly in bf16 at full width (for its
+        # time beside the tensor-core entry's) and in fp32 as the wrapper
+        # calls it
         "sam_global_attention": case(
-            sam_attention.grouped_window_attention_relpos,
-            sam_attention.grouped_window_attention_relpos_torch,
+            k2_simt, sam_attention.grouped_window_attention_relpos_torch,
             k2_inputs, [(16, 32, 16, 80)], [(2, 16, 6, 64), (2, 4, 4, 8)],
             bshd_ops, library=k2_library),
+        # K2's tensor-core entry, through the wrapper (bf16, D 64 / 80 /
+        # 128); edges: grids of 2 x 2 to 32 x 32 (12 x 12 and 14 x 14 cut
+        # grid rows anywhere in a 64-key tile and leave a ragged last tile),
+        # every head dim, B.H > 1
+        "sam_global_attention_tc": case(
+            sam_attention.grouped_window_attention_relpos,
+            sam_attention.grouped_window_attention_relpos_torch,
+            k2_inputs, [(16, 32, 16, 80)], [], bshd_ops, library=k2_library,
+            edges=[(b, g, 2, d) for g, b in ((2, 2), (4, 1), (12, 1),
+                                             (14, 2), (32, 1))
+                   for d in (64, 80, 128)],
+            simt=k2_simt),
         # K3's SIMT entry, called directly in bf16 at full width (for its
         # time beside the tensor-core entry's) and in fp32 as the wrapper
         # calls it
@@ -837,13 +889,30 @@ def _cases(torch):
             attention.grouped_plain_attention_torch,
             qkv_inputs, [(16, 577, 16, 64)], [], bshd_ops, library=sdpa,
             edges=[(1, 1, 2, 64), (2, 63, 2, 128), (1, 65, 3, 64),
-                   (2, 129, 2, 128), (1, 577, 2, 64), (1, 577, 2, 128)],
+                   (2, 129, 2, 128), (1, 577, 2, 64), (1, 577, 2, 128),
+                   (1, 65, 2, 80), (2, 577, 2, 80)],
             simt=k3_simt),
+        # K4's SIMT entry, called directly in bf16 at full width (for its
+        # time beside the tensor-core entry's) and in fp32 as the wrapper
+        # calls it
         "flash_forward_lse": case(
-            k4, k4_plain, qkv_inputs, [(2, 704, 32, 128)],
-            [(2, 192, 12, 64), (1, 45, 4, 8)],
-            lambda a: bshd_ops(a, causal=True),
-            library=lambda q, k, v: sdpa(q, k, v, is_causal=True)),
+            k4_simt, k4_plain, k4_inputs, [(2, 704, 32, 128, True)],
+            [(2, 192, 12, 64, True), (1, 45, 4, 8, True)],
+            lambda a: bshd_ops(a, causal=a[3]),
+            library=lambda q, k, v, causal: sdpa(q, k, v, is_causal=causal)),
+        # K4's tensor-core entry, through the wrapper (bf16, D 64 / 80 /
+        # 128): the output within FULL_TOL (and row by row), the LSE, which
+        # K4b's exp(s - lse) reads, within LSE_TOL; edges: one row, partial
+        # last tiles, several tiles, the full S, causal and not, B.H > 1
+        "flash_forward_lse_tc": case(
+            k4, k4_plain, k4_inputs, [(2, 704, 32, 128, True)], [],
+            lambda a: bshd_ops(a, causal=a[3]),
+            library=lambda q, k, v, causal: sdpa(q, k, v, is_causal=causal),
+            rows=True, tols=(FULL_TOL, LSE_TOL),
+            edges=[(b, s, 2, d, causal)
+                   for b, s in ((1, 1), (1, 63), (2, 65), (1, 129), (1, 704))
+                   for d in (64, 128) for causal in (True, False)],
+            simt=k4_simt),
         "prefill_attention": case(
             attention.prefill_attention_raw,
             attention.prefill_attention_raw_torch,
@@ -952,7 +1021,8 @@ def _cases(torch):
                    (2, 65, 65, 2, 64, True), (1, 129, 129, 4, 128, True),
                    (1, 100, 200, 2, 128, True), (1, 300, 130, 2, 64, True),
                    (2, 70, 190, 2, 64, False), (1, 129, 65, 3, 128, False),
-                   (1, 1, 64, 2, 128, False)],
+                   (1, 1, 64, 2, 128, False), (1, 129, 129, 2, 80, True),
+                   (1, 70, 190, 2, 80, False)],
             simt=k10_simt),
         # K11-K14: public ops of the JAX package that no model path runs,
         # held at the shapes they would take in SAM ViT-H (16 frames)
@@ -1129,19 +1199,20 @@ def _nbytes(torch, args):
                if isinstance(a, torch.Tensor))
 
 
-def _check_full(name, full, got, want):
+def _check_full(name, full, got, want, tols=None):
     """Every float output of a full-width bf16 call (flash_forward_lse:
-    out and LSE) within FULL_TOL of its own max-abs; returns
-    [(max-abs error, relative error)]."""
+    out and LSE) within its limit of its own max-abs: `tols`, one limit
+    per output, or FULL_TOL for all; returns [(max-abs error, relative
+    error)]."""
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     out = []
-    for g, w in zip(got, want):
+    for g, w, tol in zip(got, want, tols or (FULL_TOL,) * len(got)):
         err = _max_err(g, w)
         scale = float(w.float().abs().max())
-        if not (np.isfinite(err) and err <= FULL_TOL * scale):
+        if not (np.isfinite(err) and err <= tol * scale):
             raise PhaseError(f"{name} bf16 {full}: max-abs error "
-                             f"{err:.3e} > {FULL_TOL} x {scale:.3e}")
+                             f"{err:.3e} > {tol} x {scale:.3e}")
         out.append((err, err / scale))
     return out
 
@@ -1152,9 +1223,11 @@ def _check_rows(name, full, got, want):
     Causal rows far down average over thousands of keys and are small
     beside the first rows, which set the output's max-abs, so FULL_TOL
     alone would pass a kernel wrong there or in the ragged last key tile;
-    one bf16 rounding apart is at most 2^-7 of a row's max-abs. Returns
-    the worst row's share."""
-    g, w = got.float(), want.float()
+    one bf16 rounding apart is at most 2^-7 of a row's max-abs. Of a call
+    with several outputs (K4: out and LSE), the first. Returns the worst
+    row's share."""
+    g, w = (x[0] if isinstance(x, tuple) else x for x in (got, want))
+    g, w = g.float(), w.float()
     rel = float(((g - w).abs().amax(-1)
                  / w.abs().amax(-1).clamp_min(1e-30)).max())
     if not rel <= ROW_TOL:
@@ -1226,8 +1299,9 @@ def phase_kernels(torch, gpu, compiles):
             args = make(gen, torch.bfloat16, shape)
             got, want = fn(*args), plain(*args)
             torch.cuda.synchronize()
-            (err, rel), = _check_full(name, shape, got, want)
-            note = f"max-abs error {err:.3e} (relative {rel:.2e})"
+            errs = _check_full(name, shape, got, want, c["tols"])
+            note = (f"max-abs error {', '.join(f'{e:.3e}' for e, _ in errs)}"
+                    f" (relative {', '.join(f'{r:.2e}' for _, r in errs)})")
             if c["rows"]:
                 row = _check_rows(name, shape, got, want)
                 note += f", worst row {row:.2e} of its own max-abs"
@@ -1251,7 +1325,7 @@ def phase_kernels(torch, gpu, compiles):
                 _check_exact(name, full, got, want)
                 new, what = [(0.0, 0.0)], "bit-equal"
             else:
-                new = _check_full(name, full, got, want)
+                new = _check_full(name, full, got, want, c["tols"])
                 what = (f"max-abs error "
                         f"{', '.join(f'{e:.3e}' for e, _ in new)} (relative "
                         f"{', '.join(f'{r:.2e}' for _, r in new)})")
@@ -1333,12 +1407,13 @@ def _tc_compiles():
 
 
 def _tc_build_report(gpu, compiles):
-    """For each tensor-core entry's kernels (D 64 and 128): registers,
+    """For each tensor-core entry's kernels (D 64, 80 and 128): registers,
     stack frame and spills as ptxas reports them (`_tc_compiles`), dynamic
-    shared memory (attention_tc.cuh's Q tile and two K/V stages, plus 1 KB
-    of alignment), and the HGMMA instructions in `cuobjdump -sass` of the
-    built library. Fails where ptxas failed, a kernel spills, or a kernel
-    has no HGMMA (then it would not run on the tensor cores)."""
+    shared memory (attention_tc.cuh's Q tile and two K/V stages of 64-column
+    atoms, plus K2's term tables at SAM's 32 + 32, plus 1 KB of alignment),
+    and the HGMMA instructions in `cuobjdump -sass` of the built library.
+    Fails where ptxas failed, a kernel spills, or a kernel has no HGMMA
+    (then it would not run on the tensor cores)."""
     from grove_tpu_torch import _kernels
     ptxas = {}
     for src in set(TC_SOURCES.values()):
@@ -1373,7 +1448,10 @@ def _tc_build_report(gpu, compiles):
             fns = [f for f in hgmma if tag in f]
             lines = [x for f in ptxas if tag in f for x in ptxas[f]]
             n = sum(hgmma[f] for f in fns)
-            smem = 128 * d * 2 + 4 * 64 * d * 2 + 1024
+            width = -(-d // 64) * 64
+            smem = (128 + 4 * 64) * width * 2 + 1024
+            if name == "sam_global_attention_tc":
+                smem += 128 * 64 * 2
             say(2, f"{name} D = {d}: ptxas {'; '.join(lines) or 'no report'}"
                    f"; dynamic shared memory {smem} bytes; {n} HGMMA "
                    f"instructions in the library's SASS ({gpu})")
@@ -1382,6 +1460,8 @@ def _tc_build_report(gpu, compiles):
                                  f"the built library ({fns})")
             if not lines:
                 raise PhaseError(f"{name} D = {d}: no ptxas report")
+            if re.search(r"\b[1-9]\d* bytes spill", " ".join(lines)):
+                raise PhaseError(f"{name} D = {d} spills: {lines}")
     _stop_tc_compiles(compiles)
 
 
@@ -1675,7 +1755,8 @@ def _run_path(torch, gpu, model, cfg, tok, clips, t_total, label, need,
            if launches[k]}
     if off:
         raise PhaseError(f"{label}: kernels of no model path, or the SIMT "
-                         f"entries of K3 / K10 in bf16, launched: {off}")
+                         f"entries of K2 / K3 / K4 / K10 in bf16, launched: "
+                         f"{off}")
     return launches
 
 
@@ -1796,6 +1877,13 @@ def phase_slice(torch, gpu, decoder):
            f"K3's tensor-core entry): {st_bf16['clip']:.1f} ms; with K3 on "
            f"its SIMT body it took {SIMT_CLIP_MS} ms on an H100 80GB HBM3 "
            f"at 700 W (this run: {gpu})")
+    say(3, f"bf16 SAM encode_grounding (2 clips x 8 frames, 4 launches of "
+           f"K2's tensor-core entry): {st_bf16['sam']:.1f} ms; teacher-forced "
+           f"forward_boxes (32 launches of K4's tensor-core entry): "
+           f"{st_bf16['teacher_forced_2x8']:.1f} ms; with K2 and K4 on their "
+           f"SIMT bodies they took {SIMT_SAM_MS['bf16']} and "
+           f"{SIMT_TEACHER_MS} ms on an H100 80GB HBM3 at 700 W (this run: "
+           f"{gpu})")
     _kernels.reset_launch_counts()
     det, ms = _timed(torch, lambda: _det_branch(
         torch, model, cfg, tok, clips[0], cfg.temp_objectness_threshold))
@@ -1806,8 +1894,9 @@ def phase_slice(torch, gpu, decoder):
            f"teacher-forced): {ms:.1f} ms, {kept} boxes kept over "
            f"{len(det['frame_indices'])} frames, kernel launches {used} on "
            f"{gpu}")
-    if not used.get("flash_forward_lse"):
-        raise PhaseError("[DET] branch: the teacher-forced windows ran no K4")
+    if not used.get("flash_forward_lse_tc"):
+        raise PhaseError("[DET] branch: the teacher-forced windows ran no "
+                         "K4 tensor-core entry")
     _processor_path(torch, gpu, model, cfg, tok, decoder)
 
     t0 = time.perf_counter()
@@ -1849,7 +1938,9 @@ def phase_slice(torch, gpu, decoder):
                           torch.int8, encoders=True)
     say(3, f"encoder stages, W8A8-static vs bf16 (2 clips x 8 frames): "
            f"CLIP {st_w['clip']:.1f} vs {st_bf16['clip']:.1f} ms, SAM "
-           f"{st_w['sam']:.1f} vs {st_bf16['sam']:.1f} ms on {gpu}")
+           f"{st_w['sam']:.1f} vs {st_bf16['sam']:.1f} ms on {gpu}; the "
+           f"W8A8-static SAM with K2 on its SIMT body took "
+           f"{SIMT_SAM_MS['W8A8-static']} ms on an H100 80GB HBM3 at 700 W")
     _same_tokens(gen_w, gen_bf16, label)
 
     # the flagship of the JAX package's bench.py: the LLM's activations
@@ -1912,23 +2003,24 @@ def _processor_path(torch, gpu, model, cfg, tok, decoder):
     `infer_clips_batched` (the decoded 640 x 360 frames passed as both
     towers' input, resized on the card) and the packed-YUV420 mode through
     `encode_video` + `encode_grounding`. Launch counts are zeroed before
-    each and printed after; K1, K2 and K3's tensor-core entry must run
-    in the first two, and K3's SIMT entry in none."""
+    each and printed after; K1 and the tensor-core entries of K2 and K3
+    must run in the first two, and no SIMT entry of K2, K3, K4 or K10 in
+    any."""
     from grove_tpu_torch import _kernels
     from grove_tpu_torch.api import GroveProcessor
     from grove_tpu_torch.data.preprocess import (preprocess_frames,
                                                  rgb_to_yuv420)
     from grove_tpu_torch.infer.sliding import infer_clips_batched
-    need = ("sam_window_attention", "sam_global_attention",
+    need = ("sam_window_attention", "sam_global_attention_tc",
             "grouped_plain_attention_tc")
-    shown = need + ("flash_forward_lse", "grouped_plain_attention")
+    shown = need + ("flash_forward_lse_tc",) + SIMT_ENTRIES
 
     def counts(label):
         used = {k: _kernels.KERNELS[k].launches for k in shown}
         missing = [k for k in need if not used[k]]
-        if missing or used["grouped_plain_attention"]:
+        if missing or any(used[k] for k in SIMT_ENTRIES):
             raise PhaseError(f"{label}: kernels never launched: {missing}, "
-                             f"or K3's SIMT entry in bf16: {used}")
+                             f"or a SIMT entry in bf16: {used}")
         return used
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -2337,8 +2429,8 @@ def phase_parity(torch, decoder):
     _boxes_parity(torch, clip, ap, cpu, gpu, label, W8A8_TOL)
     outs = [_tower_outputs(torch, gpu, clip)]
     launches = {k: v.launches for k, v in _kernels.KERNELS.items()}
-    missing = [k for k in (LN_KERNEL, *W8A8_KERNELS,
-                           "grouped_plain_attention") if launches[k] <= 0]
+    missing = [k for k in (LN_KERNEL, *W8A8_KERNELS, *FP32_SIMT)
+               if launches[k] <= 0]
     if missing:
         raise PhaseError(f"{label}: kernels never launched: {missing}")
     outs.append(_tower_outputs(torch, cpu, clip))
@@ -2797,6 +2889,7 @@ def phase_train(torch, gpu):
         if launches != TRAIN_LAUNCHES:
             raise PhaseError(f"step {i + 1} launched {launches}, not "
                              f"{TRAIN_LAUNCHES}")
+        _check_launches(f"step {i + 1}", _step_launches(cfg, seq, False))
         if i == 0:
             changed = _changed(torch, model, snap)
             if changed:
@@ -2852,26 +2945,32 @@ def phase_train(torch, gpu):
 
 
 def _step_launches(cfg, s, remat):
-    """The exact launches of one training step of `cfg` at S tokens (the
-    default freeze policy, or the QLoRA recipe's, which trains the same
-    SAM adapters): the LLaMA layers' attention as the JAX package routes
-    it, stated here and not read from the port: at S = 704, a multiple of
-    64, K4 with K4b behind it; at the ragged S = 2111, K10's tensor-core
-    entry (bf16, D = 128) and never its SIMT one; once a layer forward
-    (twice with remat: the checkpointed layer runs again in the backward);
-    K9's three entries once in the backward of every SAM block after the
-    first trainable adapter (K9's forward with LSE runs there, after the
-    recomputed K1 or K2 forward); no K5, K7a, K7b or K7c."""
+    """The exact launches of one bf16 training step of `cfg` at S tokens
+    (the default freeze policy, or the QLoRA recipe's, which trains the
+    same SAM adapters): the LLaMA layers' attention as the JAX package
+    routes it, stated here and not read from the port: at S = 704, a
+    multiple of 64, K4's tensor-core entry (bf16, D = 128) with K4b behind
+    it; at the ragged S = 2111, K10's tensor-core entry; once a layer
+    forward (twice with remat: the checkpointed layer runs again in the
+    backward); K2's tensor-core entry (D = 80) once in each global SAM
+    block's forward, and with remat again in those after the first
+    trainable adapter; K9's three entries once in the backward of every
+    SAM block after that adapter (K9's forward with LSE runs there, after
+    the recomputed K1 or K2 forward); no SIMT entry of K2, K3, K4 or K10,
+    no K5, K7a, K7b or K7c."""
     n = cfg.llama.num_layers
-    route = {704: "flash_forward_lse", 2111: "flash_attention_tc"}[s]
-    sam = cfg.sam_enc.depth - min(cfg.sam_enc.global_attn_indexes) - 1
-    out = {k: 0 for k in ("flash_forward_lse", "flash_backward_dq",
-                          "flash_backward_dkv", "flash_attention",
-                          "flash_attention_tc", *QLORA_NEVER)}
+    route = {704: "flash_forward_lse_tc", 2111: "flash_attention_tc"}[s]
+    globs = cfg.sam_enc.global_attn_indexes
+    sam = cfg.sam_enc.depth - min(globs) - 1
+    out = {k: 0 for k in ("flash_forward_lse_tc", "flash_backward_dq",
+                          "flash_backward_dkv", "flash_attention_tc",
+                          *SIMT_ENTRIES, *QLORA_NEVER)}
     out.update({k: sam for k in ("relpos_flash_fwd_lse", "relpos_flash_dq",
                                  "relpos_flash_dkv")})
+    out["sam_global_attention_tc"] = len(globs) + (
+        sum(i > min(globs) for i in globs) if remat else 0)
     out[route] = n * (2 if remat else 1)
-    if route == "flash_forward_lse":
+    if route == "flash_forward_lse_tc":
         out["flash_backward_dq"] = out["flash_backward_dkv"] = n
     return out
 
@@ -3080,7 +3179,8 @@ def _step_parity(torch, label, cpu, card, batch, setup, cpu_context):
     relative, each trainable tensor's gradient within TRAIN_GRAD_TOL of its
     max-abs, or of TRAIN_GRAD_FLOOR of the largest gradient's max-abs for a
     tensor whose gradient is zero up to rounding; the card must launch
-    every kernel of TRAIN_LAUNCHES. Returns the card's launches."""
+    every kernel of FP32_TRAIN_KERNELS (K4's SIMT entry in place of its
+    tensor-core one). Returns the card's launches."""
     from grove_tpu_torch import _kernels
     from grove_tpu_torch.train.step import batch_to_device
     runs = []
@@ -3095,7 +3195,7 @@ def _step_parity(torch, label, cpu, card, batch, setup, cpu_context):
             launches = {k: v.launches for k, v in _kernels.KERNELS.items()
                         if v.launches}
     (l_card, p_card, ms_card), (l_cpu, p_cpu, ms_cpu) = runs
-    missing = [k for k in TRAIN_LAUNCHES if k not in launches]
+    missing = [k for k in FP32_TRAIN_KERNELS if k not in launches]
     if missing:
         raise PhaseError(f"{label}: kernels never launched on the card: "
                          f"{missing}")
@@ -3150,8 +3250,7 @@ def main() -> int:
         rows = phase_kernels(torch, gpu, compiles)
         launches = phase_slice(torch, gpu, decoder)
         fp32 = phase_parity(torch, decoder)
-        launches.update({k: fp32[k] for k in (LN_KERNEL,
-                                                "grouped_plain_attention")})
+        launches.update({k: fp32[k] for k in (LN_KERNEL, *FP32_SIMT)})
         train = phase_train(torch, gpu)
         launches.update({k: train[k] for k in TRAIN_KERNELS})
         phase_train_parity(torch)

@@ -33,9 +33,11 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 # head dims the kernels are instantiated for (attention_core.cuh), and the
-# ones the tensor-core body takes, in bf16 only (attention_tc.cuh)
+# ones the tensor-core body takes, in bf16 only (attention_tc.cuh: 64 and
+# 128, LLaMA's and CLIP's, and 80, SAM's, whose rows fill one 64-column
+# swizzle atom and 16 columns of a second)
 HEAD_DIMS = (8, 64, 80, 128)
-TC_HEAD_DIMS = (64, 128)
+TC_HEAD_DIMS = (64, 80, 128)
 MAX_BATCH_HEADS = 65535          # gridDim.y
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -158,13 +160,19 @@ KERNELS: Dict[str, Kernel] = {
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
         "grove_tpu_torch/csrc/sam_global_attention.cu",
         "grove_tpu/ops/sam_attention.py:235"),
+    # K2, K3, K4 and K10 on the tensor-core body (attention_tc.cuh), which
+    # the wrappers take for bf16 at head dims 64, 80 and 128
+    # (`TC_HEAD_DIMS`); fp32 and the head dim 8 take the SIMT entries
+    "sam_global_attention_tc": Kernel(
+        "grove_sam_global_attention_tc",
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+        "grove_tpu_torch/csrc/sam_global_attention.cu",
+        "grove_tpu/ops/sam_attention.py:235"),
     "grouped_plain_attention": Kernel(
         "grove_grouped_plain_attention",
         [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
         "grove_tpu_torch/csrc/grouped_plain_attention.cu",
         "grove_tpu/ops/attention.py:404"),
-    # K3 and K10 on the tensor-core body (attention_tc.cuh), which the
-    # wrappers take for bf16 at head dims 64 and 128 (`TC_HEAD_DIMS`)
     "grouped_plain_attention_tc": Kernel(
         "grove_grouped_plain_attention_tc",
         [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
@@ -172,6 +180,11 @@ KERNELS: Dict[str, Kernel] = {
         "grove_tpu/ops/attention.py:404"),
     "flash_forward_lse": Kernel(
         "grove_flash_forward_lse",
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
+        "grove_tpu_torch/csrc/flash_forward_lse.cu",
+        "grove_tpu/ops/flash_backward.py:210"),
+    "flash_forward_lse_tc": Kernel(
+        "grove_flash_forward_lse_tc",
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
         "grove_tpu_torch/csrc/flash_forward_lse.cu",
         "grove_tpu/ops/flash_backward.py:210"),

@@ -1,73 +1,107 @@
 // Tensor-core forward body of the hand-written attention kernels of
 // grove_tpu_torch, beside the SIMT body of attention_core.cuh.
 //
-// It serves two TPU kernels, for bf16 inputs at head dims 64 and 128:
+// It serves four TPU kernels, for bf16 inputs at head dims 64, 80 and 128:
 //   * K10, grove_tpu/ops/attention.py:66 `_flash_kernel` (flash_attention.cu,
 //     `grove_flash_attention_tc`): causal or not, Sq and Sk ragged;
 //   * K3, grove_tpu/ops/attention.py:350 `_grouped_plain_kernel`
 //     (grouped_plain_attention.cu, `grove_grouped_plain_attention_tc`):
-//     non-causal self-attention at CLIP's ragged S = 577.
-// fp32 inputs and the head dims 8 and 80 keep the SIMT body. Later work
-// moves K4, then K5, K1, K2 and K9's forward onto this body, adding the
-// options they need (rel-pos bias, left pad, LSE output, int8 output) as
-// they come; it has none of them yet.
+//     non-causal self-attention at CLIP's ragged S = 577;
+//   * K4, grove_tpu/ops/flash_backward.py:61 `_fwd_kernel`
+//     (flash_forward_lse.cu, `grove_flash_forward_lse_tc`): causal
+//     self-attention with the log-sum-exp output that K4b reads;
+//   * K2, grove_tpu/ops/sam_attention.py:156 `_grouped_kernel`
+//     (sam_global_attention.cu, `grove_sam_global_attention_tc`): SAM's
+//     global attention at D = 80 with the decomposed rel-pos bias.
+// fp32 inputs and the head dim 8 keep the SIMT body. Later work moves K9's
+// forward (bias and LSE together), then K1, K5 onto this body, adding the
+// options they still lack (left pad, the all-underflow contract, int8
+// output) as they come.
 //
-// Contract, the part of AttnArgs that K3 and K10 use:
+// Contract, the part of AttnArgs that these entries use:
 //   * q, k, v and out in the (B, S, H, D) layout with element strides, bf16,
 //     every row 16-byte aligned; fp32 accumulation;
 //   * a key count Sk that may differ from S (0 means Sk = S);
 //   * an optional causal mask, top-left aligned: row i sees keys 0..i,
 //     whatever Sk - S is (the TPU kernel's mask);
+//   * an optional LSE output (`lse`, natural log, (B, H, S) fp32):
+//     lse_i = (m_i + log2(max(l_i, 1e-30))) * ln 2, with m the running max
+//     in log2 units and l the row sum, as attention_core.cuh writes it;
+//   * an optional decomposed rel-pos bias (the BIAS instantiations only):
+//     bias_ij = rel_h[i, j / gw] + rel_w[i, j % gw] from (S, gh) and
+//     (S, gw) term tables of the input dtype, added in fp32 as
+//     (rel_h + rel_w) * log2(e) after the scale * log2(e) product, the
+//     order of the SIMT body and of the TPU K2 (fp32 bias terms on fp32
+//     scaled logits);
 //   * the ragged edge in the kernel: keys at or past Sk are masked, rows at
 //     or past S are not written, and no caller pads.
 //
 // Bound on an H100: operations. Each (batch, head) does 4 * S * Sk * D
-// flops (half of that for causal K10) on 2 bytes per element of q, k, v and
-// out, so at these shapes the work lies far above the card's balance point
-// and only the bf16 tensor cores (989 TFLOP/s dense, through wgmma) can
-// approach the bound. The design, for that:
+// flops (half of that for causal K4 and K10) on 2 bytes per element of q,
+// k, v and out, so at these shapes the work lies far above the card's
+// balance point and only the bf16 tensor cores (989 TFLOP/s dense, through
+// wgmma) can approach the bound. The design, for that:
 //   * a block is two consumer warpgroups (256 threads) over 128 query rows
 //     of one (batch, head), 64 rows each; the Q tile is staged in shared
 //     memory once;
 //   * K and V tiles of 64 keys stream through a two-stage ring in shared
 //     memory, filled by every thread with 16-byte cp.async copies (rows past
 //     Sk zero-filled) into the 128-byte-swizzled layout that the wgmma
-//     descriptors name; a D = 128 row is two 64-column swizzle atoms, and
-//     each buffer is 1024-byte aligned. A proxy fence after the copies
-//     makes them visible to the tensor cores, which read through the async
-//     proxy;
+//     descriptors name; a row is cut into 64-column swizzle atoms, one at
+//     D = 64 and two at D = 128 and at D = 80, whose second atom holds 16
+//     columns and 48 that are never written nor read (no instruction spans
+//     them: Q.K^T's fifth k16 step reads that atom's first 32 bytes, and
+//     P.V's m64n80k16 its first 16 columns); each buffer is 1024-byte
+//     aligned. A proxy fence after the copies makes them visible to the
+//     tensor cores, which read through the async proxy;
 //   * S = Q.K^T is wgmma m64n64k16 with both operands in shared memory,
 //     K-major (D contiguous), D / 16 instructions per tile. The scores are
 //     scaled in fp32 by scale * log2(e) after the product (a q pre-scaled
 //     in bf16 would add a rounding that neither the SIMT body nor the TPU
-//     kernel has), masked to -inf only on the tiles that cross Sk or the
-//     causal diagonal, and folded into an online softmax (running max and
-//     sum in registers, exp2f); a row's reductions run over the 4 threads
-//     that share it in the accumulator fragment;
+//     kernel has), biased (K2), masked to -inf only on the tiles that cross
+//     Sk or the causal diagonal, and folded into an online softmax (running
+//     max and sum in registers, exp2f); a row's reductions run over the 4
+//     threads that share it in the accumulator fragment;
+//   * the bias: the block's 128 rows of both term tables are staged once in
+//     shared memory, in the input dtype, with ordinary loads (a 14-wide grid
+//     row is 28 bytes, no 16-byte copy); a row of the table is (gh + gw)
+//     rounded up to 64 values, and value c of row r sits at c ^ 8 (r % 8),
+//     so the 8 rows of a fragment's row group fall on distinct banks. A
+//     thread's 16 keys of a tile are k0 + 2 t4 + 8 j + e; their grid row and
+//     column are stepped from one division per tile, not one per score;
 //   * O += P.V: P, rounded to bf16 in registers, is wgmma's A operand (the
 //     m64nNk16 fp32 accumulator fragment, packed pairwise to bf16x2, is the
 //     register A fragment of m64k16); V is the B operand, read from shared
 //     memory MN-major (D contiguous) with the transpose bit, m64n{D}k16, 4
 //     instructions per 64-key tile;
 //   * a causal block stops at the key tile that holds its last row, a
-//     warpgroup skips the tiles wholly above its diagonal, and the blocks
-//     are launched heaviest first (the q-block index reversed), so the long
-//     diagonal blocks do not form the tail of the grid;
+//     warpgroup skips the tiles wholly above its diagonal, and the grid
+//     puts the (batch, head) pairs on x and the query blocks on y, reversed
+//     when causal, so every pair's heaviest block is launched before any
+//     lighter one and the long diagonal blocks do not form the tail (K4's
+//     S = 704 gives 6 blocks over 64 pairs, 1.45 waves);
 //   * the epilogue divides by max(l, 1e-30) in fp32, converts to bf16 and
 //     writes whole rows with 16-byte stores, only rows < S, staged through
-//     the warpgroup's own rows of the Q buffer.
+//     the warpgroup's own rows of the Q buffer; the LSE, where asked, is
+//     written by one thread per row.
 // Two blocks share an SM, so one block's softmax overlaps the other's
-// products: shared memory is 128 x D x 2 bytes of Q plus 2 x 2 x 64 x D x 2
-// of K and V, 96 KB at D = 128 and 48 KB at D = 64, plus 1 KB to align, and
-// the launch bounds hold a thread to 128 registers, which D = 128 fits
-// without a spill (chip_smoke.py phase 2 prints ptxas's counts). Left for the
-// next redesign of this body: TMA with mbarriers, a producer warp,
-// setmaxnreg, a persistent grid, and a softmax that overlaps the next
-// tile's products within a block.
+// products: shared memory is 128 x W x 2 bytes of Q plus 2 x 2 x 64 x W x 2
+// of K and V, with W the row's atoms x 64 columns (64 at D = 64, 128 at
+// D = 80 and 128): 48 KB at D = 64 and 96 KB at D = 80 and 128; plus, with
+// the bias, 128 x 64 x 2 = 16 KB of term tables at gh + gw <= 64 (SAM's
+// 32 + 32); plus 1 KB to align. K2 at D = 80 thus takes 113 KB, which with
+// the 1 KB the card reserves a block is half of an SM's 228 KB, the
+// carve-out asked for at launch. The launch bounds hold a thread to 128
+// registers, which every instantiation fits without a spill but the biased
+// one at D = 128 (no model path): that one runs a block an SM with up to
+// 255 (chip_smoke.py phase 2 prints ptxas's counts). Left for the next
+// redesign of this body: TMA with mbarriers, a producer warp, setmaxnreg, a
+// persistent grid, and a softmax that overlaps the next tile's products
+// within a block.
 //
 // Numerics against the SIMT body: P is rounded to bf16 before P.V, as the
-// TPU K3 does (`p.astype(dt)`); the TPU K10 keeps P in fp32. The row sum l
-// is taken over the unrounded fp32 P.
+// TPU K3 and K2 do (`p.astype(dt)`); the TPU K10 and K4 keep P in fp32. The
+// row sum l, and so the LSE, is taken over the unrounded fp32 P.
 
 #pragma once
 
@@ -87,15 +121,37 @@ constexpr int kBQ = 64 * kWarpgroups;    // query rows per block
 constexpr int kBK = 64;                  // keys per tile
 constexpr int kAlign = 1024;             // swizzle-atom alignment of a buffer
 
-// bytes of a bf16 tile of `rows` rows by D columns
+// 64-column swizzle atoms in a row of D columns
+template <int D>
+__host__ __device__ constexpr int atoms() {
+  return (D + 63) / 64;
+}
+
+// bytes of a bf16 tile of `rows` rows by D columns: atoms<D>() atoms of
+// `rows` x 128 bytes
 template <int D>
 __host__ __device__ constexpr uint32_t tile_bytes(int rows) {
-  return (uint32_t)rows * D * 2;
+  return (uint32_t)rows * atoms<D>() * 128;
 }
 
 template <int D>
 constexpr size_t smem_bytes() {
   return (size_t)tile_bytes<D>(kBQ) + 4 * (size_t)tile_bytes<D>(kBK) + kAlign;
+}
+
+// values in a row of the staged rel-pos term tables: gh + gw rounded up to
+// 64, so the XOR of `bias_col` stays inside the row
+__host__ __device__ inline int bias_stride(int gh, int gw) {
+  return (gh + gw + 63) / 64 * 64;
+}
+
+// where value c of row r of the term tables sits within its row
+__device__ __forceinline__ int bias_col(int r, int c) {
+  return c ^ ((r & 7) << 3);
+}
+
+inline size_t bias_bytes(const AttnArgs& a) {
+  return a.rh != nullptr ? (size_t)kBQ * bias_stride(a.gh, a.gw) * 2 : 0;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -219,6 +275,35 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
           "r"(accumulate));
 }
 
+// D[64 x 80] += A[64 x 16] . B[16 x 80], A from registers, B from shared
+// memory MN-major (transposed): a full 64-column atom and the first 16
+// columns of the next
+__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(accumulate));
+}
+
 // D[64 x 128] += A[64 x 16] . B[16 x 128], A from registers, B from shared
 // memory MN-major (transposed)
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
@@ -261,6 +346,8 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[D / 2],
                                          const uint32_t (&a)[4], uint64_t db) {
   if constexpr (D == 64)
     wgmma_rs_n64(d, a, db, 1);
+  else if constexpr (D == 80)
+    wgmma_rs_n80(d, a, db, 1);
   else
     wgmma_rs_n128(d, a, db, 1);
 }
@@ -285,9 +372,69 @@ __device__ __forceinline__ void load_tile(uint32_t dst,
   }
 }
 
-template <int D>
+// Stage rows q0..q0+kBQ-1 of the (S, gh) and (S, gw) term tables of one
+// (batch, head) in shared memory: row r holds [rel_h | rel_w], value c at
+// r * stride + bias_col(r, c); rows at or past S hold zeros.
+__device__ __forceinline__ void load_bias(__nv_bfloat16* dst,
+                                          const AttnArgs& a, int b, int h,
+                                          int q0, int tid) {
+  const int gs = a.gh + a.gw;
+  const int stride = bias_stride(a.gh, a.gw);
+  const __nv_bfloat16* rh = static_cast<const __nv_bfloat16*>(a.rh) +
+                            b * a.rhs.b + h * a.rhs.h;
+  const __nv_bfloat16* rw = static_cast<const __nv_bfloat16*>(a.rw) +
+                            b * a.rws.b + h * a.rws.h;
+  for (int i = tid; i < kBQ * gs; i += kThreads) {
+    const int r = i / gs;
+    const int c = i - r * gs;
+    const int row = q0 + r;
+    __nv_bfloat16 x = __float2bfloat16(0.f);
+    if (row < a.S)
+      x = c < a.gh ? rh[row * a.rhs.s + c] : rw[row * a.rws.s + (c - a.gh)];
+    dst[r * stride + bias_col(r, c)] = x;
+  }
+}
+
+// s[4j + e]: row R0 (e < 2) or R0 + 8, key key0 + 8 j + (e & 1), with
+// key0 = k0 + 2 t4. Adds (rel_h[row, key / gw] + rel_w[row, key % gw]) *
+// log2(e) to each score, already scaled by scale * log2(e); `row0` and
+// `row1` are the two rows of the staged tables. R0 % 8 = g, so both rows
+// share the XOR of `bias_col`, `sw`. The two keys of a pair share their
+// rel_h value unless the first ends a grid row (never at an even gw).
+// Keys past the grid (masked after this) read its last row of rel_h.
+__device__ __forceinline__ void add_bias(float (&s)[32],
+                                         const __nv_bfloat16* row0,
+                                         const __nv_bfloat16* row1, int sw,
+                                         int gh, int gw, int key0) {
+  int kh = key0 / gw;                      // grid row and column of key0 + 8j
+  int kw = key0 - kh * gw;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const bool wrap = kw + 1 == gw;        // key0 + 8j + 1 starts a grid row
+    const int hA = min(kh, gh - 1) ^ sw;
+    const int hB = min(kh + 1, gh - 1) ^ sw;
+    const int wA = (gh + kw) ^ sw;
+    const int wB = (gh + (wrap ? 0 : kw + 1)) ^ sw;
+    const float a0 = __bfloat162float(row0[hA]);
+    const float a1 = __bfloat162float(row1[hA]);
+    const float b0 = wrap ? __bfloat162float(row0[hB]) : a0;
+    const float b1 = wrap ? __bfloat162float(row1[hB]) : a1;
+    s[4 * j + 0] += (a0 + __bfloat162float(row0[wA])) * kLog2e;
+    s[4 * j + 1] += (b0 + __bfloat162float(row0[wB])) * kLog2e;
+    s[4 * j + 2] += (a1 + __bfloat162float(row1[wA])) * kLog2e;
+    s[4 * j + 3] += (b1 + __bfloat162float(row1[wB])) * kLog2e;
+    kw += 8;
+    while (kw >= gw) {
+      kw -= gw;
+      ++kh;
+    }
+  }
+}
+
+template <int D, bool BIAS>
 __device__ __forceinline__ void attention_block_tc(const AttnArgs& a) {
-  static_assert(D == 64 || D == 128, "the tensor-core body takes D 64, 128");
+  static_assert(D == 64 || D == 80 || D == 128,
+                "the tensor-core body takes D 64, 80, 128");
   constexpr int KSTEPS = D / 16;           // k16 steps of Q.K^T
   constexpr int NO = D / 2;                // O accumulator floats a thread
   constexpr uint32_t T = tile_bytes<D>(kBK);
@@ -296,6 +443,8 @@ __device__ __forceinline__ void attention_block_tc(const AttnArgs& a) {
   const uint32_t sQ = (raw + kAlign - 1) & ~(uint32_t)(kAlign - 1);
   const uint32_t sKV = sQ + tile_bytes<D>(kBQ);   // stage s: K, then V
   uint8_t* stage = smem_raw + (sQ - raw);         // sQ as a generic pointer
+  __nv_bfloat16* sR = reinterpret_cast<__nv_bfloat16*>(
+      stage + tile_bytes<D>(kBQ) + 4 * T);        // the term tables (BIAS)
 
   const int tid = threadIdx.x;
   const int wg = tid >> 7;                 // warpgroup
@@ -305,10 +454,10 @@ __device__ __forceinline__ void attention_block_tc(const AttnArgs& a) {
   const int g = lane >> 2;                 // fragment row group
   const int t4 = lane & 3;                 // thread in the row group
 
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.x;
   const int b = bh / a.H;
   const int h = bh - b * a.H;
-  const int qb = a.causal ? (int)(gridDim.x - 1 - blockIdx.x) : blockIdx.x;
+  const int qb = a.causal ? (int)(gridDim.y - 1 - blockIdx.y) : blockIdx.y;
   const int q0 = qb * kBQ;
   const int qw = q0 + 64 * wg;             // this warpgroup's first row
   const int Sk = a.Sk > 0 ? a.Sk : a.S;
@@ -329,6 +478,7 @@ __device__ __forceinline__ void attention_block_tc(const AttnArgs& a) {
     load_tile<D>(sKV + T, v, a.vs.s, 0, kBK, Sk, tid);
   }
   cp_async_commit();
+  if constexpr (BIAS) load_bias(sR, a, b, h, q0, tid);  // read after a sync
 
   float o[NO];
 #pragma unroll
@@ -342,6 +492,8 @@ __device__ __forceinline__ void attention_block_tc(const AttnArgs& a) {
   const int r0 = qw + 16 * warp + g;       // this thread's two rows
   const int r1 = r0 + 8;
   const uint32_t qa = sQ + wg * 64 * 128;  // the warpgroup's A rows
+  const int R0 = 64 * wg + 16 * warp + g;  // the same rows in the block
+  const int R1 = R0 + 8;
 
   for (int t = 0; t < ntiles; ++t) {
     if (t + 1 < ntiles) {
@@ -377,11 +529,18 @@ __device__ __forceinline__ void attention_block_tc(const AttnArgs& a) {
       fence_operands(s);
 
       // s[4j + e]: row r0 (e < 2) or r1, key k0 + 8j + 2 t4 + (e & 1)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] *= sl2;
+      if constexpr (BIAS) {
+        const int stride = bias_stride(a.gh, a.gw);
+        add_bias(s, sR + R0 * stride, sR + R1 * stride, g << 3, a.gh, a.gw,
+                 k0 + 2 * t4);
+      }
       const bool edge = k0 + kBK > Sk || (a.causal && k0 + kBK - 1 > qw);
       float mx0 = m0, mx1 = m1;
 #pragma unroll
       for (int i = 0; i < 32; ++i) {
-        float x = s[i] * sl2;
+        float x = s[i];
         if (edge) {
           const int key = k0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
           const int row = (i & 2) ? r1 : r0;
@@ -447,14 +606,19 @@ __device__ __forceinline__ void attention_block_tc(const AttnArgs& a) {
   l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float inv0 = 1.f / fmaxf(l0, 1e-30f);
-  const float inv1 = 1.f / fmaxf(l1, 1e-30f);
+  const float safe0 = fmaxf(l0, 1e-30f);
+  const float safe1 = fmaxf(l1, 1e-30f);
+  if (a.lse != nullptr && t4 == 0) {       // one thread per row
+    float* lse = a.lse + (long long)bh * a.S;
+    if (r0 < a.S) lse[r0] = (m0 + log2f(safe0)) * kLn2;
+    if (r1 < a.S) lse[r1] = (m1 + log2f(safe1)) * kLn2;
+  }
+  const float inv0 = 1.f / safe0;
+  const float inv1 = 1.f / safe1;
 
   // stage the warpgroup's 64 rows in its own rows of the Q buffer, whose
   // last reader (this warpgroup's wgmma) has completed
   fence_proxy_async();
-  const int R0 = 64 * wg + 16 * warp + g;  // rows in the Q tile
-  const int R1 = R0 + 8;
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
     const int col = 8 * j + 2 * t4;
@@ -494,14 +658,20 @@ inline bool aligned16(const AttnArgs& a) {
 }
 
 // Launch one instantiation on `stream`, opted into its dynamic shared
-// memory; returns cudaGetLastError() so a refused launch is reported.
+// memory (with the term tables for a biased call) and into the largest
+// shared-memory carve-out; returns cudaGetLastError() so a refused launch
+// is reported. The grid: (batch, head) pairs on x, query blocks on y.
 template <int D, typename Kernel>
 inline int launch(Kernel kernel, const AttnArgs& a, cudaStream_t stream) {
-  const size_t bytes = smem_bytes<D>();
+  const size_t bytes = smem_bytes<D>() + bias_bytes(a);
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((a.S + kBQ - 1) / kBQ, a.B * a.H);
+  e = cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributePreferredSharedMemoryCarveout,
+                           (int)cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(a.B * a.H, (a.S + kBQ - 1) / kBQ);
   kernel<<<grid, kThreads, bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
@@ -511,19 +681,26 @@ inline int launch(Kernel kernel, const AttnArgs& a, cudaStream_t stream) {
 
 // Define the __global__ instantiations of one tensor-core entry point and a
 // host dispatcher `NAME_tc_dispatch` over (dtype, head_dim): bf16 (dtype 1)
-// at D 64 or 128, with 16-byte-aligned rows; anything else is refused with
-// cudaErrorInvalidValue.
-#define GROVE_ATTENTION_TC_ENTRY(NAME)                                        \
+// at D 64, 80 or 128, with 16-byte-aligned rows, and with the rel-pos term
+// tables exactly when BIAS is true; anything else is refused with
+// cudaErrorInvalidValue. The launch bounds ask for two blocks an SM (128
+// registers a thread), but one for the biased body at D = 128, whose
+// registers (O alone is 64 a thread) do not fit 128 beside the bias's; no
+// model path runs it.
+#define GROVE_ATTENTION_TC_ENTRY(NAME, BIAS)                                  \
   template <int D>                                                            \
-  __global__ void __launch_bounds__(grove::tc::kThreads, 2)                   \
+  __global__ void __launch_bounds__(grove::tc::kThreads,                      \
+                                    ((BIAS) && D == 128) ? 1 : 2)             \
       NAME##_tc_kernel(const grove::AttnArgs a) {                             \
-    grove::tc::attention_block_tc<D>(a);                                      \
+    grove::tc::attention_block_tc<D, BIAS>(a);                                \
   }                                                                           \
   static int NAME##_tc_dispatch(const grove::AttnArgs& a, int dtype, int d,   \
                                 cudaStream_t st) {                            \
-    if (dtype != 1 || !grove::tc::aligned16(a))                               \
+    if (dtype != 1 || !grove::tc::aligned16(a) ||                             \
+        (a.rh != nullptr) != (BIAS) || ((BIAS) && (a.gh < 1 || a.gw < 1)))    \
       return (int)cudaErrorInvalidValue;                                      \
     if (d == 64) return grove::tc::launch<64>(NAME##_tc_kernel<64>, a, st);   \
+    if (d == 80) return grove::tc::launch<80>(NAME##_tc_kernel<80>, a, st);   \
     if (d == 128) return grove::tc::launch<128>(NAME##_tc_kernel<128>, a, st);\
     return (int)cudaErrorInvalidValue;                                        \
   }

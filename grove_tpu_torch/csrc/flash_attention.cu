@@ -18,9 +18,9 @@
 // kernel (attention_core.cuh).
 //
 // Two entries, chosen by the wrapper (ops/attention.py `_tc_takes`):
-// `grove_flash_attention_tc` runs bf16 at head dims 64 and 128 on the
+// `grove_flash_attention_tc` runs bf16 at head dims 64, 80 and 128 on the
 // tensor-core body (attention_tc.cuh: wgmma, bounded by the bf16 tensor
-// rate); `grove_flash_attention` runs fp32 and the head dims 8 and 80 on the
+// rate); `grove_flash_attention` runs fp32 and the head dim 8 on the
 // SIMT body (attention_core.cuh: fp32 FMA issue and shared-memory reads, far
 // from that rate). In both a causal block stops at the key tile holding its
 // last row, so the masked upper triangle costs nothing.
@@ -37,7 +37,7 @@
 #include "attention_tc.cuh"
 
 GROVE_ATTENTION_ENTRY(flash_attention)
-GROVE_ATTENTION_TC_ENTRY(flash_attention)
+GROVE_ATTENTION_TC_ENTRY(flash_attention, false)
 
 static grove::AttnArgs flash_args(const void* q, const void* k, const void* v,
                                   void* out, int b, int sq, int sk, int heads,
@@ -79,7 +79,7 @@ extern "C" int grove_flash_attention(const void* q, const void* k,
       dtype, head_dim, static_cast<cudaStream_t>(stream));
 }
 
-// The tensor-core body (attention_tc.cuh): bf16, head dims 64 and 128.
+// The tensor-core body (attention_tc.cuh): bf16, head dims 64, 80, 128.
 extern "C" int grove_flash_attention_tc(const void* q, const void* k,
                                         const void* v, void* out, int b,
                                         int sq, int sk, int heads,

@@ -12,11 +12,11 @@
 // and the last row block skips rows past S, so no padded copy is made.
 //
 // Two entries, chosen by the wrapper (ops/attention.py `_tc_takes`):
-// `grove_grouped_plain_attention_tc` runs bf16 at head dims 64 and 128 on
-// the tensor-core body (attention_tc.cuh: wgmma, bounded by the bf16 tensor
+// `grove_grouped_plain_attention_tc` runs bf16 at head dims 64, 80 and 128
+// on the tensor-core body (attention_tc.cuh: wgmma, bounded by the bf16 tensor
 // rate; S = 577 is 4 x 128 + 65 rows and 9 x 64 + 1 keys, so about a tenth
 // of its tiles is padding); `grove_grouped_plain_attention` runs fp32 and
-// the head dims 8 and 80 on the SIMT body (attention_core.cuh: fp32 FMA
+// the head dim 8 on the SIMT body (attention_core.cuh: fp32 FMA
 // issue and shared-memory reads). Neither writes the (B, H, S, S) logits of
 // the plain version to device memory.
 //
@@ -29,7 +29,7 @@
 #include "attention_tc.cuh"
 
 GROVE_ATTENTION_ENTRY(grouped_plain_attention)
-GROVE_ATTENTION_TC_ENTRY(grouped_plain_attention)
+GROVE_ATTENTION_TC_ENTRY(grouped_plain_attention, false)
 
 static grove::AttnArgs grouped_args(const void* q, const void* k,
                                     const void* v, void* out, int b, int s,
@@ -68,7 +68,7 @@ extern "C" int grove_grouped_plain_attention(const void* q, const void* k,
       head_dim, static_cast<cudaStream_t>(stream));
 }
 
-// The tensor-core body (attention_tc.cuh): bf16, head dims 64 and 128.
+// The tensor-core body (attention_tc.cuh): bf16, head dims 64, 80, 128.
 extern "C" int grove_grouped_plain_attention_tc(const void* q, const void* k,
                                                 const void* v, void* out,
                                                 int b, int s, int heads,

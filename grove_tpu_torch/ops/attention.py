@@ -9,10 +9,10 @@ dtype.
 * `xla_attention` is the plain version (the name keeps the JAX package's):
   materialized fp32 logits, optional bias and mask. LLaMA prefill and decode
   over the bf16 cache use it directly, as the JAX package does.
-* K3 and K10 each have two CUDA entries: bf16 at head dim 64 or 128 runs
-  the tensor-core body (`csrc/attention_tc.cuh`, wgmma), fp32 and the
-  head dims 8 and 80 the SIMT body (`csrc/attention_core.cuh`);
-  `_tc_takes` decides, for CUDA tensors only.
+* K3 and K10 each have two CUDA entries: bf16 at head dim 64, 80 or 128
+  runs the tensor-core body (`csrc/attention_tc.cuh`, wgmma), fp32 and the
+  head dim 8 the SIMT body (`csrc/attention_core.cuh`); `_tc_takes`
+  decides, for CUDA tensors only, here and for K2 and K4.
 * `flash_attention` is K10, online-softmax attention of (B, Sq, H, D)
   queries over (B, Sk, H, D) keys, causal (top-left aligned, as the TPU
   kernel masks) or not, beside its plain twin `flash_attention_torch`; the
@@ -95,11 +95,11 @@ def grouped_plain_attention_torch(q, k, v, *,
 
 
 def _tc_takes(dtype: torch.dtype, head_dim: int) -> bool:
-    """Whether a CUDA call of K3 or K10 runs the tensor-core body
-    (`csrc/attention_tc.cuh`, the `_tc` entries): bf16 at head dim 64 or
-    128. fp32, and the head dims 8 and 80, run the SIMT body
-    (`csrc/attention_core.cuh`). Two hand-written kernels chosen by dtype
-    and shape; a `_tc` launch that fails raises like any other."""
+    """Whether a CUDA call of K2, K3, K4 or K10 runs the tensor-core body
+    (`csrc/attention_tc.cuh`, the `_tc` entries): bf16 at head dim 64, 80
+    or 128 (`_kernels.TC_HEAD_DIMS`). fp32, and the head dim 8, run the SIMT
+    body (`csrc/attention_core.cuh`). Two hand-written kernels chosen by
+    dtype and shape; a `_tc` launch that fails raises like any other."""
     return dtype == torch.bfloat16 and head_dim in _kernels.TC_HEAD_DIMS
 
 

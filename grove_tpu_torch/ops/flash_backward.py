@@ -3,7 +3,8 @@ the autograd Function that joins them.
 
 Counterpart of `grove_tpu/ops/flash_backward.py`:
 
-* `flash_forward_lse` is K4 (`_fwd_kernel`), out and LSE;
+* `flash_forward_lse` is K4 (`_fwd_kernel`), out and LSE, on the
+  tensor-core body for bf16 at D 64, 80, 128 and the SIMT body otherwise;
 * `flash_backward_dq` / `flash_backward_dkv` are K4b (`_dq_kernel`,
   `_dkv_kernel`); `flash_backward` computes D = rowsum(dO * O) in torch ops
   (XLA in the JAX package, `flash_backward.py:247`) and runs both;
@@ -22,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from .. import _kernels
+from .attention import _tc_takes
 
 
 def _causal_fill(logits, causal: bool):
@@ -55,19 +57,29 @@ def flash_forward_lse(q, k, v, *, causal: bool, scale: float):
     """K4: (B, S, H, D) -> (out (B, S, H, D), lse (B, H, S) fp32).
 
     CPU tensors take `flash_forward_lse_torch`; CUDA tensors launch
-    `csrc/flash_forward_lse.cu`. Any S is taken (the TPU kernel needed a
-    multiple of its block)."""
+    `csrc/flash_forward_lse.cu`, its tensor-core entry where
+    `ops.attention._tc_takes` holds (bf16 at D 64, 80, 128) and its SIMT
+    entry otherwise. Any S is taken (the TPU kernel needed a multiple of
+    its block)."""
     b, s, h, d = q.shape
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"flash_forward_lse: self-attention shapes differ: "
                          f"{q.shape}, {k.shape}, {v.shape}")
     if _kernels.on_cpu(q, k, v):
         return flash_forward_lse_torch(q, k, v, causal=causal, scale=scale)
-    dt = _kernels.check_cuda_inputs("flash_forward_lse", (q, k, v), d, b * h)
+    name = ("flash_forward_lse_tc" if _tc_takes(q.dtype, d)
+            else "flash_forward_lse")
+    return _lse_launch(name, q, k, v, causal, scale)
+
+
+def _lse_launch(name: str, q, k, v, causal: bool, scale: float):
+    """Launch the K4 entry `name` on CUDA tensors."""
+    b, s, h, d = q.shape
+    dt = _kernels.check_cuda_inputs(name, (q, k, v), d, b * h)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, s), device=q.device, dtype=torch.float32)
     with torch.cuda.device(q.device):
-        _kernels.KERNELS["flash_forward_lse"](
+        _kernels.KERNELS[name](
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), b, s, h, d, int(bool(causal)), float(scale), dt,
             _kernels.stream_ptr(q))

@@ -41,7 +41,7 @@ from typing import Tuple
 import torch
 
 from .. import _kernels
-from .attention import xla_attention
+from .attention import _tc_takes, xla_attention
 from .sam_encoder_tables import gather_rel_tables
 
 # The TPU K1 takes its softmax as exp2(logit - EXP2_SHIFT) in log2 units
@@ -141,15 +141,19 @@ def grouped_window_attention_relpos(q, k, v, rel_h_term, rel_w_term,
 
     CPU tensors take `grouped_window_attention_relpos_torch`; CUDA tensors
     launch `csrc/sam_global_attention.cu` (online softmax over key tiles,
-    bias rebuilt in the kernel)."""
+    bias rebuilt in the kernel), its tensor-core entry where
+    `ops.attention._tc_takes` holds (bf16 at D 64, 80, 128: SAM's global
+    blocks in bf16 and under W8A8) and its SIMT entry otherwise."""
     name = "grouped_window_attention_relpos"
     _, _, h, d = q.shape
     _check_grid(name, q, k, v, rel_h_term, rel_w_term, hw, h, d)
     if _kernels.on_cpu(q, k, v, rel_h_term, rel_w_term):
         return grouped_window_attention_relpos_torch(q, k, v, rel_h_term,
                                                      rel_w_term, hw)
-    return _launch_grid("sam_global_attention", name, q, k, v, rel_h_term,
-                        rel_w_term, hw, h, d)
+    kernel = ("sam_global_attention_tc" if _tc_takes(q.dtype, d)
+              else "sam_global_attention")
+    return _launch_grid(kernel, name, q, k, v, rel_h_term, rel_w_term, hw,
+                        h, d)
 
 
 class _GlobalRelpos(torch.autograd.Function):

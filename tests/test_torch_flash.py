@@ -13,10 +13,13 @@ package's dispatch to it, on the CPU, fp32, small sizes.
   the "auto" pick of `multi_head_attention`) with the lane term dropped,
   over S = 64..2200, MHA and GQA; the model takes that route;
 * `multi_head_attention`'s impl argument;
-* the choice between K3's and K10's two CUDA entries (`_tc_takes`), and a
-  torch model of the tensor-core body's arithmetic (64-key tiles, online
-  fp32 softmax, scale after the product, P rounded to bf16 before P.V)
-  against the plain twins and the JAX kernels in interpret mode.
+* the choice between the two CUDA entries of K2, K3, K4 and K10
+  (`_tc_takes`), and a torch model of the tensor-core body's arithmetic
+  (64-key tiles, online fp32 softmax, scale after the product, the
+  rel-pos bias after that in log2 units, P rounded to bf16 before P.V, the
+  LSE from the running max and sum) against the plain twins and the JAX
+  kernels in interpret mode: K10 and K3, K4 with its LSE, K2 with its
+  bias on grids whose rows a 64-key tile cuts anywhere.
 """
 
 import numpy as np
@@ -28,10 +31,13 @@ torch.set_num_threads(1)
 import jax.numpy as jnp  # noqa: E402
 
 from grove_tpu.ops import attention as jattn  # noqa: E402
+from grove_tpu.ops import flash_backward as jflash  # noqa: E402
+from grove_tpu.ops import sam_attention as jsam  # noqa: E402
 from grove_tpu_torch.config import LlamaConfig  # noqa: E402
 from grove_tpu_torch.models import llama as tllama  # noqa: E402
 from grove_tpu_torch.ops import attention as tattn  # noqa: E402
 from grove_tpu_torch.ops import flash_backward as tflash  # noqa: E402
+from grove_tpu_torch.ops import sam_attention as tsam  # noqa: E402
 
 TOL = 1e-4
 
@@ -251,14 +257,18 @@ ROW_TOL = 1e-2           # ... and K10's, of each row's own max-abs
 LOG2E = 1.4426950408889634
 
 
+LN2 = 0.6931471805599453
+
+
 @pytest.mark.parametrize("dtype,head_dim,tc", [
     (torch.bfloat16, 64, True), (torch.bfloat16, 128, True),
     (torch.float32, 64, False), (torch.float32, 128, False),
-    (torch.bfloat16, 8, False), (torch.bfloat16, 80, False)])
+    (torch.bfloat16, 8, False), (torch.bfloat16, 80, True),
+    (torch.float32, 80, False)])
 def test_tc_takes_routes(monkeypatch, dtype, head_dim, tc):
-    """bf16 at head dim 64 or 128 launches the `_tc` entries of K3 and K10;
-    fp32, and the head dims 8 and 80, the SIMT entries. The wrappers are
-    driven past `on_cpu` with the launches recorded by name."""
+    """bf16 at head dim 64, 80 or 128 launches the `_tc` entries of K10,
+    K3, K4 and K2; fp32, and the head dim 8, the SIMT entries. The wrappers
+    are driven past `on_cpu` with the launches recorded by name."""
     assert tattn._tc_takes(dtype, head_dim) == tc
     launched = []
     monkeypatch.setattr(tattn._kernels, "on_cpu", lambda *t: False)
@@ -266,22 +276,34 @@ def test_tc_takes_routes(monkeypatch, dtype, head_dim, tc):
                         lambda name, *a: launched.append(name))
     monkeypatch.setattr(tattn, "_grouped_plain_launch",
                         lambda name, *a: launched.append(name))
+    monkeypatch.setattr(tflash, "_lse_launch",
+                        lambda name, *a: launched.append(name))
+    monkeypatch.setattr(tsam, "_launch_grid",
+                        lambda name, *a: launched.append(name))
     x = torch.zeros(1, 64, 2, head_dim, dtype=dtype)
     tattn.flash_attention(x, x, x, causal=True)
     tattn.grouped_plain_attention(x, x, x)
+    tflash.flash_forward_lse(x, x, x, causal=True, scale=1.0)
+    rel = torch.zeros(1, 2, 64, 8, dtype=dtype)
+    tsam.grouped_window_attention_relpos(x, x, x, rel, rel, (8, 8))
     suffix = "_tc" if tc else ""
-    assert launched == ["flash_attention" + suffix,
-                        "grouped_plain_attention" + suffix]
+    assert launched == [n + suffix for n in (
+        "flash_attention", "grouped_plain_attention", "flash_forward_lse",
+        "sam_global_attention")]
 
 
-def _tc_model(q, k, v, causal: bool, scale: float):
+def _tc_model(q, k, v, causal: bool, scale: float, bias=None,
+              lse: bool = False):
     """The tensor-core body's arithmetic in torch: keys in tiles of 64; per
     tile the fp32 scores of Q.K^T scaled by scale * log2(e) after the
-    product, keys past Sk (none here: the tiles are cut at Sk) and, causal,
+    product, then with `bias` = (rel_h (B, H, Sq, gh), rel_w (B, H, Sq,
+    gw), gw) the term (rel_h[key / gw] + rel_w[key % gw]) * log2(e) added
+    in fp32, keys past Sk (none here: the tiles are cut at Sk) and, causal,
     past the row masked to -inf (top-left), an online softmax in fp32 on
     exp2 (running max, sum over the unrounded P), P rounded to bf16 before
     P.V with an fp32 sum; the output divided by max(l, 1e-30). (B, S, H, D)
-    in and out, fp32."""
+    in and out, fp32; with `lse`, also (m + log2(max(l, 1e-30))) * ln(2),
+    (B, H, Sq)."""
     qf, kf, vf = (t.float().permute(0, 2, 1, 3) for t in (q, k, v))
     b, h, sq, d = qf.shape
     sk = kf.shape[2]
@@ -290,10 +312,14 @@ def _tc_model(q, k, v, causal: bool, scale: float):
     l = torch.zeros((b, h, sq, 1))
     o = torch.zeros((b, h, sq, d))
     for k0 in range(0, sk, 64):
+        keys = torch.arange(k0, min(k0 + 64, sk))
         s = (qf @ kf[:, :, k0:k0 + 64].transpose(-1, -2)) * (scale * LOG2E)
+        if bias is not None:
+            rel_h, rel_w, gw = bias
+            s = s + (rel_h.float()[..., keys // gw]
+                     + rel_w.float()[..., keys % gw]) * LOG2E
         if causal:
-            keys = torch.arange(k0, min(k0 + 64, sk))[None, :]
-            s = s.masked_fill(keys > rows, float("-inf"))
+            s = s.masked_fill(keys[None, :] > rows, float("-inf"))
         mx = torch.maximum(m, s.amax(-1, keepdim=True))
         base = torch.where(mx == float("-inf"), torch.zeros_like(mx), mx)
         corr = torch.exp2(m - base)
@@ -301,7 +327,11 @@ def _tc_model(q, k, v, causal: bool, scale: float):
         l = l * corr + p.sum(-1, keepdim=True)
         o = o * corr + p.to(torch.bfloat16).float() @ vf[:, :, k0:k0 + 64]
         m = mx
-    return (o / l.clamp_min(1e-30)).permute(0, 2, 1, 3)
+    safe = l.clamp_min(1e-30)
+    out = (o / safe).permute(0, 2, 1, 3)
+    if not lse:
+        return out
+    return out, ((m + torch.log2(safe)) * LN2)[..., 0]
 
 
 def _bf16_values(rng, *shape):
@@ -367,6 +397,70 @@ def test_tc_model_k3_matches_plain_and_pallas(b, s, h, d):
     plain = tattn.grouped_plain_attention_torch(_t(q), _t(k), _t(v))
     want = jattn.grouped_plain_attention(jnp.asarray(q), jnp.asarray(k),
                                          jnp.asarray(v))
+    _close(plain, want)
+    _within(got, plain, rows=False)
+    _within(got, want, rows=False)
+
+
+def _lse_within(got, want):
+    """An LSE within 1e-4 of its max-abs: K4b recomputes P as
+    exp(s - lse), so the LSE is held far tighter than the bf16 output."""
+    got, want = (torch.from_numpy(np.array(x, np.float32))
+                 for x in (got, want))
+    err = float((got - want).abs().max())
+    assert err <= 1e-4 * float(want.abs().max()), err
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", [1, 63, 130, 192])
+@pytest.mark.parametrize("d", [64, 128])
+def test_tc_model_k4_matches_plain_and_pallas(causal, s, d):
+    """K4 on the tensor-core body: the model with its LSE output ==
+    `flash_forward_lse_torch` and the JAX `flash_forward_lse` (Pallas,
+    interpret mode; its (B*H, n_blk, block) LSE reshaped to (B, H, S)) from
+    the same bf16 values: the output within FULL_TOL and ROW_TOL, the LSE
+    within 1e-4 of its max-abs."""
+    b, h = 1, 2
+    rng = np.random.default_rng(7)
+    q, k, v = (_bf16_values(rng, b, s, h, d) for _ in range(3))
+    scale = d ** -0.5
+    got, got_lse = _tc_model(_t(q), _t(k), _t(v), causal, scale, lse=True)
+    plain, plain_lse = tflash.flash_forward_lse_torch(
+        _t(q), _t(k), _t(v), causal=causal, scale=scale)
+    want, want_lse = jflash.flash_forward_lse(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        scale=scale)
+    want_lse = np.asarray(want_lse).reshape(b, h, s)
+    _close(plain, want)
+    _close(plain_lse, want_lse)
+    for ref, ref_lse in ((plain, plain_lse), (want, want_lse)):
+        _within(got, ref, rows=True)
+        _lse_within(got_lse, ref_lse)
+
+
+@pytest.mark.parametrize("hw", [(4, 4), (8, 16), (12, 12), (14, 14)])
+@pytest.mark.parametrize("d", [80, 64])
+def test_tc_model_k2_matches_plain_and_pallas(hw, d):
+    """K2 on the tensor-core body: the model with the decomposed bias ==
+    `grouped_window_attention_relpos_torch` and the JAX
+    `grouped_window_attention_relpos` (Pallas, interpret mode) on bf16
+    values of `relpos_terms`' outputs, within FULL_TOL. 12 x 12 and 14 x 14
+    leave a ragged last tile and a gw that does not divide 64, so a tile
+    cuts grid rows anywhere."""
+    b, h = 1, 2
+    gh, gw = hw
+    s = gh * gw
+    rng = np.random.default_rng(8)
+    q, k, v = (_bf16_values(rng, b, s, h, d) for _ in range(3))
+    tables = [_t(_randn(rng, 2 * g - 1, d) * 0.3) for g in hw]
+    rh, rw = (t.to(torch.bfloat16).float().numpy()
+              for t in tsam.relpos_terms(_t(q), *tables, hw))
+    got = _tc_model(_t(q), _t(k), _t(v), False, d ** -0.5,
+                    bias=(_t(rh), _t(rw), gw))
+    plain = tsam.grouped_window_attention_relpos_torch(
+        _t(q), _t(k), _t(v), _t(rh), _t(rw), hw)
+    want = jsam.grouped_window_attention_relpos(
+        *(jnp.asarray(x) for x in (q, k, v, rh, rw)), hw)
     _close(plain, want)
     _within(got, plain, rows=False)
     _within(got, want, rows=False)

@@ -219,10 +219,12 @@ def test_launch_counts_untouched_by_plain_path():
     assert all(k.launches == 0 for k in _kernels.KERNELS.values())
     assert {k.source.split("/")[-1] for k in _kernels.KERNELS.values()} == {
         p.name for p in _kernels.sources() if p.name != "errors.cu"}
-    # K3 and K10 each have a tensor-core entry beside the SIMT one: the
-    # same source file, TPU kernel and arguments, the symbol `_tc`
+    # K2, K3, K4 and K10 each have a tensor-core entry beside the SIMT
+    # one: the same source file, TPU kernel and arguments, the symbol `_tc`
     tc = {n: k for n, k in _kernels.KERNELS.items() if n.endswith("_tc")}
-    assert sorted(tc) == ["flash_attention_tc", "grouped_plain_attention_tc"]
+    assert sorted(tc) == ["flash_attention_tc", "flash_forward_lse_tc",
+                          "grouped_plain_attention_tc",
+                          "sam_global_attention_tc"]
     for name, k in tc.items():
         simt = _kernels.KERNELS[name.removesuffix("_tc")]
         assert (k.source, k.replaces, k.argtypes) == (
@@ -233,6 +235,11 @@ def test_launch_counts_untouched_by_plain_path():
     assert tc["flash_attention_tc"].replaces == "grove_tpu/ops/attention.py:154"
     assert tc["grouped_plain_attention_tc"].replaces == \
         "grove_tpu/ops/attention.py:404"
+    assert tc["flash_forward_lse_tc"].replaces == \
+        "grove_tpu/ops/flash_backward.py:210"
+    assert tc["sam_global_attention_tc"].replaces == \
+        "grove_tpu/ops/sam_attention.py:235"
+    assert _kernels.TC_HEAD_DIMS == (64, 80, 128)
     assert (_kernels.CSRC / "attention_tc.cuh").is_file()
 
 
