@@ -13,16 +13,20 @@ Phases, each printing its own line; any failure exits non-zero:
   1  build: compiles grove_tpu_torch/csrc with nvcc for sm_90a;
   2  kernels: each hand-written kernel against its plain torch twin on the
      card, at the full-width shapes of the main paths in bf16 (max-abs
-     error <= 2e-2 of the output's max-abs; K4's LSE from its SIMT entry
-     too, from its tensor-core entry <= 1e-4, since K4b recomputes P from
-     it) and at small fp32 shapes (<= 1e-4), with median CUDA-event times
-     of both. One fp32 K1 case and one fp32 K1q case carry an
-     all-underflow row, which must come out as exact zeros (the TPU
-     kernel's EXP2_SHIFT contract). The int8 outputs are held in LSBs: K8a,
-     K8b and K8c |diff| <= 1 on at most 0.1% of the elements (a residual
-     sum of the int8's shape bit-equal, K8c's per-token scales within 1e-6
-     relative), K7c bit-equal, K1q <= 2 LSB on at most 0.1% in bf16 and
-     <= 1 LSB on at most 0.01% in fp32.
+     error <= 2e-2 of the output's max-abs; the LSE of K4 and K9's
+     forward from their SIMT entries too, from their tensor-core entries
+     <= 1e-4, since K4b and K9's backward recompute P from it) and at small
+     fp32 shapes (<= 1e-4), with median CUDA-event times of both. One fp32
+     K1 case and one fp32 K1q case, and two bf16 edges of each tensor-core
+     entry, carry an all-underflow row, which must come out as exact zeros
+     (the TPU kernel's EXP2_SHIFT contract). The int8 outputs are held in
+     LSBs: K8a, K8b and K8c |diff| <= 1 on at most 0.1% of the elements (a
+     residual sum of the int8's shape bit-equal, K8c's per-token scales
+     within 1e-6 relative), K7c bit-equal, K1q <= 2 LSB on at most 0.1% in
+     bf16 and <= 1 LSB on at most 0.01% in fp32: its SIMT entry against
+     the fp32 twin, its tensor-core entry against the twin with that
+     body's rounding points (P in bf16 before P.V; its distance from the
+     fp32 twin is printed).
      K6, K7a-K7c, K8a-K8c take microseconds and read inputs that are cold
      in the model (every layer has its own cache, weights or
      activations), so they are timed as CUDA-graph replays over copies of
@@ -37,14 +41,16 @@ Phases, each printing its own line; any failure exits non-zero:
      1979 TOP/s int8, 67 TFLOP/s fp32 off the tensor cores), and, for K1-K5
      and K10, the time of the one PyTorch call that computes the same
      function (`F.scaled_dot_product_attention`, rel-pos terms and pads as a
-     mask), which the port never calls. K2, K3, K4 and K10 have two
-     entries each: the tensor-core one (`_tc`, attention_tc.cuh), which the
-     wrappers take for bf16 at head dim 64, 80 or 128, held through the
-     wrapper at full width and at bf16 edge cases within 2e-2 of max-abs
-     (K3: S of 1, 63, 65, 129 and 577; K10: also causal Sq < Sk and Sq >
-     Sk and cross lengths; K4: S of 1, 63, 65, 129 and 704, causal and
-     not, its LSE within 1e-4; K2: grids of 2 x 2, 4 x 4, 12 x 12, 14 x 14
-     and 32 x 32; every head dim; B.H > 1); and the SIMT one, held in fp32
+     mask), which the port never calls. K1, K1q, K2, K3, K4, K9's forward
+     and K10 have two entries each: the tensor-core one (`_tc`,
+     attention_tc.cuh), which the wrappers take for bf16 at head dim 64, 80
+     or 128, held through the wrapper at full width and at bf16 edge cases
+     within 2e-2 of max-abs (K3: S of 1, 63, 65, 129 and 577; K10: also
+     causal Sq < Sk and Sq > Sk and cross lengths; K4: S of 1, 63, 65, 129
+     and 704, causal and not, its LSE within 1e-4; K2: grids of 2 x 2, 4 x
+     4, 12 x 12, 14 x 14 and 32 x 32; K1, K1q and K9's forward: grids of 2 x
+     2, 4 x 4, 7 x 7, 14 x 14, 16 x 16 and 32 x 32, K1q in LSBs, K9's LSE
+     within 1e-4; every head dim; B.H > 1); and the SIMT one, held in fp32
      at the small cases and called directly in bf16 at full width, so that
      both bodies, SDPA and the plain twin are timed in the same call (each
      call alone between CUDA events, as every kernel is, and the two
@@ -89,8 +95,8 @@ Phases, each printing its own line; any failure exits non-zero:
      tokens) and ground_clip_with_caption with the
      launch counts zeroed just before and read just after; outputs must
      carry the JAX package's keys and be finite; no run may launch the SIMT
-     entries of K2, K3, K4 or K10 (bf16 takes the tensor-core entries of
-     K2, K3 and K4); the bf16 run
+     entries of K1, K1q, K2, K3, K4, K9's forward or K10 (bf16 takes the
+     tensor-core entries of K1, K1q, K2, K3 and K4); the bf16 run
      must launch K1-K4, the int4 run K1-K7a, the W8A8-static run K2-K7a,
      K8b and K1q,
      the flagship K2-K6, K7b, K7c, K8b, K8c (both entries) and K1q and no
@@ -112,7 +118,7 @@ Phases, each printing its own line; any failure exits non-zero:
      (`encode_video` + `encode_grounding`); the bf16 replay's CLIP
      `encode_video` is printed beside its time with K3's SIMT body, its SAM
      `encode_grounding` and teacher-forced `forward_boxes` beside theirs
-     with K2's and K4's, the W8A8-static SAM beside its own; the
+     with K1's, the W8A8-static SAM beside its own with K1q's; the
      bf16 run's launch counts
      in the JSON line are those of the run before them;
      last, the flagship's `lm_forward` with its W8A8 lm_head (N = 32007,
@@ -160,12 +166,14 @@ Phases, each printing its own line; any failure exits non-zero:
      OptimizerConfig(warmup_steps=1); three `train.step.make_train_step`
      steps with the launch counts zeroed before each: every loss term
      finite, exactly 32 launches of K4's tensor-core entry and of each K4b
-     entry, 24 of each K9 entry and 4 of K2's tensor-core entry per step,
-     none of a SIMT entry of K2, K3, K4 or K10; step 1 (lr(0) = 0)
+     entry, 24 of each K9 entry (its forward's tensor-core one), 28 of
+     K1's tensor-core entry and 4 of K2's per step, none of a SIMT entry of
+     K1, K1q, K2, K3, K4, K9's forward or K10; step 1 (lr(0) = 0)
      leaves every parameter bit-equal and gives every trainable group
      (TRAIN_GROUPS) a finite, nonzero gradient; after step 3 the frozen
      parameters are bit-equal and every trainable group moved. Prints the
-     trainable parameter count, the median of steps 2-3 and peak device
+     trainable parameter count, the median of steps 2-3 (beside the step
+     with K1 and K9's forward on their SIMT bodies) and peak device
      memory. Then one step
      at the default max_seq_len (S = 2111, ragged: K10 forward with the
      torch-ops recompute backward in every layer, exactly 32 launches of
@@ -178,8 +186,8 @@ Phases, each printing its own line; any failure exits non-zero:
      warmup_steps=1), updates applied with stochastic rounding from a
      seeded generator; two steps at S = 704 and one at S = 2111, each with
      exact launches (`_step_launches`: remat runs each LLaMA layer's K4 or
-     K10 tensor-core entry twice, 64 a step, and K2's tensor-core entry 7
-     times; no K5, K7a, K7b, K7c, nor a SIMT entry of K2, K3, K4 or K10);
+     K10 tensor-core entry twice, 64 a step, K2's tensor-core entry 7
+     times and K1's 49; no K5, K7a, K7b, K7c, nor a SIMT entry);
      581,683,189 trainable parameters; step 1 bit-equal, lora_B's
      gradients nonzero and lora_A's zero; every trainable group moved by
      step 2, lora_A by step 3; every frozen tensor, the int4 bytes and
@@ -187,7 +195,8 @@ Phases, each printing its own line; any failure exits non-zero:
      printed;
   6  training parity: GroveConfig.small() (max_seq_len=129) in fp32, one
      set of weights and one batch, one step with warmup_steps=0 on the
-     card (kernels, TF32 off; K4's SIMT entry) and on the CPU (plain
+     card (kernels, TF32 off; the SIMT entries of K4 and K9's forward)
+     and on the CPU (plain
      versions): every loss
      term within 1e-4 relative, every trainable tensor's gradient within
      1e-3 of its max-abs (or of 1e-3 of the largest gradient's max-abs,
@@ -202,12 +211,14 @@ forward for K9's forward entry), and the zero-padded int8 GEMM at lm_head's
 (704 x 4096 x 32007) and at M = 2, bit-equal to a float64 product.
 
 The line before the last is a JSON object with each kernel's measurements
-(`launches`: K1 and the tensor-core entries of K2, K3 and K4 from the
-bf16 run of phase 3, K5-K7a from the int4 one, K8b and K1q from the
-W8A8-static one, K7b, K7c and K8c from the flagship one, K8a and the SIMT
-entries of K2, K3 and K4 from phase 4's fp32 W8A8-static model path, K4b
-and K9 from step 3 of phase 5, K10's tensor-core entry from its bf16
-S = 2111 step; K10's SIMT entry, which no model path runs in fp32, and
+(`launches`: the tensor-core entries of K1, K2, K3 and K4 from the bf16
+run of phase 3, K5-K7a from the int4 one, K8b and K1q's tensor-core entry
+from the W8A8-static one, K7b, K7c and K8c from the flagship one, K8a and
+the SIMT entries of K1q, K2, K3 and K4 from phase 4's fp32 W8A8-static
+model path, K1's SIMT entry from its fp32 float one, K4b and K9 (its
+forward's tensor-core entry) from step 3 of phase 5, K10's tensor-core
+entry from its bf16 S = 2111 step, K9's forward's SIMT entry from phase
+6's fp32 step; K10's SIMT entry, which no model path runs in fp32, and
 K11-K14, which run on no model path, show 0)
 and `phase2_launches`, the launches of phase 2's checks and timings; the
 tensor-core rows also carry `simt_ms`, the SIMT entry's bf16 time at the
@@ -251,41 +262,53 @@ FP32_LSB_SHARE = 1e-4    # the same for K1q in fp32
 SX_REL = 1e-6            # K8c's per-token scales, relative
 COLD_BYTES = 64 * 2**20  # inputs cycled past the L2 when timing cold kernels
 QUANT_KERNELS = ("prefill_attention", "int8_decode_attention", "int4_matmul")
-W8A8_KERNELS = ("add_layernorm_quant", "sam_window_attention_q8")
+W8A8_KERNELS = ("add_layernorm_quant", "sam_window_attention_q8_tc")
 FLAGSHIP_KERNELS = ("int4_matmul_a8", "int4_requant_int8", "rmsnorm_quant",
                     "add_rmsnorm_quant")
 LN_KERNEL = "layernorm_quant"             # phase 4's quant_ln_kernel path
 # the training kernels, launched per bf16 step of phase 5 exactly this
 # often: K4 (its tensor-core entry) in the 32 LLaMA layers' forward, K4b in
-# their backward, K9's three entries in the backward of the 21 windowed and
-# 3 global SAM blocks after the first trainable adapter
+# their backward, K9's three entries (its forward's tensor-core one) in the
+# backward of the 21 windowed and 3 global SAM blocks after the first
+# trainable adapter
 TRAIN_LAUNCHES = {"flash_forward_lse_tc": 32, "flash_backward_dq": 32,
-                  "flash_backward_dkv": 32, "relpos_flash_fwd_lse": 24,
+                  "flash_backward_dkv": 32, "relpos_flash_fwd_lse_tc": 24,
                   "relpos_flash_dq": 24, "relpos_flash_dkv": 24}
-# the fp32 steps of phase 6 launch the same kernels with K4's SIMT entry
-FP32_TRAIN_KERNELS = tuple("flash_forward_lse" if k == "flash_forward_lse_tc"
-                           else k for k in TRAIN_LAUNCHES)
+# the fp32 steps of phase 6 launch the same kernels with the SIMT entries
+# of K4 and K9's forward
+FP32_TRAIN_KERNELS = tuple(k.removesuffix("_tc") for k in TRAIN_LAUNCHES)
 # the training kernels whose launches the JSON line takes from phase 5: K4b
 # and K9 from its S = 704 steps, K10 (its tensor-core entry) from its
 # S = 2111 step (no serving path of phase 3 runs K10: their lengths are
 # multiples of 64 or go to K5)
 TRAIN_KERNELS = tuple(k for k in TRAIN_LAUNCHES
                       if k != "flash_forward_lse_tc") + ("flash_attention_tc",)
-# the SIMT entries of K2, K3, K4 and K10: bf16 at head dim 64, 80 or 128
-# takes their tensor-core entries (`ops.attention._tc_takes`), so no bf16
-# path of phases 3 and 5 may launch them; fp32 does (phase 2's small cases;
-# K2, K3 and K4 in phase 4, where the JSON line takes their launches from;
-# no fp32 model path runs K10, so its SIMT entry shows 0 there)
+# the SIMT entries of K1, K1q, K2, K3, K4, K9's forward and K10: bf16 at
+# head dim 64, 80 or 128 takes their tensor-core entries
+# (`ops.attention._tc_takes`), so no bf16 path of phases 3 and 5 may launch
+# them; fp32 does (phase 2's small cases; K1q, K2, K3 and K4 in phase 4's
+# W8A8-static path and K1 in its float one, where the JSON line takes their
+# launches from; K9's forward in phase 6's fp32 step; no fp32 model path
+# runs K10, so its SIMT entry shows 0 there)
 SIMT_ENTRIES = ("grouped_plain_attention", "flash_attention",
-                "flash_forward_lse", "sam_global_attention")
+                "flash_forward_lse", "sam_global_attention",
+                "sam_window_attention", "sam_window_attention_q8",
+                "relpos_flash_fwd_lse")
 FP32_SIMT = ("grouped_plain_attention", "flash_forward_lse",
-             "sam_global_attention")
+             "sam_global_attention", "sam_window_attention_q8")
 # the tensor-core entries: phase 2 prints their registers, spills and
 # HGMMA count (nvcc -Xptxas -v, cuobjdump -sass of the built library)
 TC_SOURCES = {"flash_attention_tc": "flash_attention.cu",
               "grouped_plain_attention_tc": "grouped_plain_attention.cu",
               "flash_forward_lse_tc": "flash_forward_lse.cu",
-              "sam_global_attention_tc": "sam_global_attention.cu"}
+              "sam_global_attention_tc": "sam_global_attention.cu",
+              "sam_window_attention_tc": "sam_window_attention.cu",
+              "sam_window_attention_q8_tc": "sam_window_attention.cu",
+              "relpos_flash_fwd_lse_tc": "relpos_flash_attention.cu"}
+# the tensor-core entries with the rel-pos term tables staged in shared
+# memory (16 KB more at gh + gw <= 64)
+TC_BIASED = ("sam_global_attention_tc", "sam_window_attention_tc",
+             "sam_window_attention_q8_tc", "relpos_flash_fwd_lse_tc")
 TRAIN_SEQ = 129          # max_seq_len: 129 + 575 spliced = 704 tokens
 # K11-K14: public ops of the JAX package that no model path runs (nor do
 # their JAX originals); held in phase 2, launched 0 times on every path
@@ -304,10 +327,17 @@ SIMT_S2111_MS = 1141.2
 SIMT_QLORA_S2111_MS = 2003.0
 SIMT_CLIP_MS = 67.4
 # the bf16 and W8A8-static SAM encode_grounding and the bf16 teacher-forced
-# forward_boxes (2 clips x 8 frames) with K2 and K4 on their SIMT bodies:
-# ms on one H100 80GB HBM3 at 700 W, printed beside this run's
-SIMT_SAM_MS = {"bf16": 179.5, "W8A8-static": 362.4}
-SIMT_TEACHER_MS = 305.3
+# forward_boxes (2 clips x 8 frames) with K1 and K1q on their SIMT bodies
+# (K2 and K4 on the tensor-core one): ms on one H100 80GB HBM3 at 700 W,
+# printed beside this run's
+SIMT_K1_SAM_MS = {"bf16": 165.3, "W8A8-static": 360.8}
+SIMT_K1_TEACHER_MS = 269.4
+# the training steps with K1 and K9's forward on their SIMT bodies: the
+# bf16 S = 704 step (median of steps 2-3) and S = 2111 step, the QLoRA
+# steps (S = 704 twice, then 2111), ms on one H100 80GB HBM3 at 700 W,
+# printed beside this run's
+SIMT_K1_STEP_MS = {"bf16 S = 704": 519.2, "bf16 S = 2111": 983.6,
+                   "QLoRA": (1315.5, 1093.7, 1674.1)}
 # the QLoRA recipe (`benchmarks/train_finetune_scale.py`): LoRA rank, and
 # the trainable parameters of GroveConfig() under it, 708,589,557 of the
 # default freeze policy - 131,100,672 (lm_head, int8 and frozen) +
@@ -629,6 +659,27 @@ def _cases(torch):
         return sam_attention.grouped_window_attention_relpos_v3_q8_torch(
             qkv, rel, inv, hw, heads)
 
+    # K1q's plain version with the tensor-core body's rounding points (P
+    # in bf16 before P.V): one rounding of P apart, the fp32 twin differs
+    # from it by an LSB on about 2% of the int8 outputs
+    def k1q_tc_plain(qkv, rel, hw, heads, inv):
+        return sam_attention.grouped_window_attention_relpos_v3_tc_torch(
+            qkv, rel, hw, heads, inv_scale=inv)
+
+    # the SIMT entries of K1, K1q and K9's forward, called directly, so
+    # that bf16 reaches them too
+    def k1_simt(qkv, rel, hw, heads):
+        return sam_attention._window_launch("sam_window_attention", qkv,
+                                            rel, hw, heads)
+
+    def k1q_simt(qkv, rel, hw, heads, inv):
+        return sam_attention._window_launch("sam_window_attention_q8", qkv,
+                                            rel, hw, heads, inv)
+
+    def k9_simt(q, k, v, rh, rw, hw, scale):
+        return sam_attention_bwd._fwd_launch("relpos_flash_fwd_lse", q, k, v,
+                                             rh, rw, hw, scale)
+
     def k12_inputs(gen, dtype, shape):
         # K1's inputs (the all-underflow row included), q / k / v split
         qkv, rel, hw, heads = k1_inputs(gen, dtype, shape)
@@ -827,7 +878,7 @@ def _cases(torch):
     # runs (M = 2 rows, a 768-slot cache), and the W4A8 projections
     def case(fn, plain, make, full, small, ops, cold=False, int8=None,
              library=None, rows=False, exact=False, library_is=None,
-             edges=(), simt=None, tols=None):
+             edges=(), simt=None, tols=None, against=None):
         """int8: (LSB, share) limits of an int8 output, full bf16 and small
         fp32, instead of the float error limits. rows: the full bf16 output
         (and each of `edges`) held row by row as well (`_check_rows`).
@@ -836,11 +887,15 @@ def _cases(torch):
         edges: small bf16 shapes held within FULL_TOL, untimed. simt: the
         SIMT entry of a tensor-core case, timed beside it back to back
         (`_queued_ms`) with the library call. tols: each output's bf16
-        limit, of its max-abs, where not FULL_TOL for all."""
+        limit, of its max-abs, where not FULL_TOL for all. against: a
+        second plain version whose distance at full width is printed, not
+        held. An int8 case holds its edges in LSBs at its full limits; an
+        edge or small shape ending in "underflow" carries an all-underflow
+        row (row 0 of window 0), which must be exactly 0."""
         return dict(fn=fn, plain=plain, make=make, full=full, small=small,
                     cold=cold, int8=int8, ops=ops, library=library,
                     rows=rows, exact=exact, library_is=library_is,
-                    edges=edges, simt=simt, tols=tols)
+                    edges=edges, simt=simt, tols=tols, against=against)
 
     proj_shapes = [(4096, 4096), (4096, 11008), (11008, 4096)]
     # the training step's shapes: LLaMA-7B at S = 704 (batch 1); SAM's 21
@@ -849,13 +904,31 @@ def _cases(torch):
     k9_full = [(72, 14, 16, 80), (8, 32, 16, 80)]
     k9_small = [(2, 4, 2, 8), (3, 14, 2, 64), (1, 8, 4, 80)]
     k4b_small = [(2, 192, 4, 64), (1, 45, 4, 8), (2, 130, 2, 80)]
+    # the bf16 edges of K1, K1q and K9's forward on the tensor-core body:
+    # grids of 2 x 2 (one partial key tile) to 32 x 32 (16 tiles), 7 x 7
+    # and 14 x 14 ragged, 16 x 16 whole tiles; every head dim; B.H > 1; K1
+    # and K1q also with an all-underflow row (exact zeros)
+    window_edges = [(b, g, 2, d) for g, b in ((2, 4), (4, 2), (7, 1),
+                                              (14, 2), (16, 1), (32, 1))
+                    for d in (64, 80, 128)]
+    window_edges += [(2, g, 2, d, "underflow") for g, d in ((14, 80),
+                                                            (7, 64))]
     return {
+        # K1's SIMT entry, called directly in bf16 at full width (for its
+        # time beside the tensor-core entry's) and in fp32 as the wrapper
+        # calls it
         "sam_window_attention": case(
-            sam_attention.grouped_window_attention_relpos_v3,
-            sam_attention.grouped_window_attention_relpos_v3_torch,
+            k1_simt, sam_attention.grouped_window_attention_relpos_v3_torch,
             k1_inputs, [(144, 14, 16, 80)],
             [(4, 8, 6, 64), (3, 2, 4, 8), (2, 4, 2, 64, "underflow")],
             k1_ops, library=k1_library),
+        # K1's tensor-core entry, through the wrapper (bf16, D 64 / 80 /
+        # 128)
+        "sam_window_attention_tc": case(
+            sam_attention.grouped_window_attention_relpos_v3,
+            sam_attention.grouped_window_attention_relpos_v3_torch,
+            k1_inputs, [(144, 14, 16, 80)], [], k1_ops, library=k1_library,
+            edges=window_edges, simt=k1_simt),
         # K2's SIMT entry, called directly in bf16 at full width (for its
         # time beside the tensor-core entry's) and in fp32 as the wrapper
         # calls it
@@ -945,11 +1018,21 @@ def _cases(torch):
             [(16 * 1024, 1280)], [(300, 256), (37, 512)], norm_ops,
             cold=True,
             int8={"full": (1, LSB_SHARE), "small": (1, LSB_SHARE)}),
+        # K1q's SIMT entry, called directly in bf16 at full width and in
+        # fp32 as the wrapper calls it, held to the fp32 twin
         "sam_window_attention_q8": case(
-            k1q, k1q_plain, k1q_inputs, [(144, 14, 16, 80)],
+            k1q_simt, k1q_plain, k1q_inputs, [(144, 14, 16, 80)],
             [(4, 8, 6, 64), (3, 2, 4, 8), (2, 4, 2, 64, "underflow")],
             k1_ops,
             int8={"full": (2, LSB_SHARE), "small": (1, FP32_LSB_SHARE)}),
+        # K1q's tensor-core entry, through the wrapper, held to the plain
+        # version with its rounding points (`k1q_tc_plain`) at the same
+        # limit; its distance from the fp32 twin is printed. No PyTorch
+        # call quantizes (K1's row has SDPA's time at this shape).
+        "sam_window_attention_q8_tc": case(
+            k1q, k1q_tc_plain, k1q_inputs, [(144, 14, 16, 80)], [], k1_ops,
+            int8={"full": (2, LSB_SHARE), "small": (1, FP32_LSB_SHARE)},
+            edges=window_edges, simt=k1q_simt, against=k1q_plain),
         "int4_matmul_a8": case(
             int4_matmul.int4_matmul_a8, int4_matmul.int4_matmul_a8_torch,
             k7b_inputs, [(2, k, n, 128) for k, n in proj_shapes],
@@ -982,10 +1065,22 @@ def _cases(torch):
             k4b_dkv, k4b_dkv_plain, k4b_inputs, [(1, 704, 32, 128)],
             k4b_small, lambda a: bwd_ops(a, 4, causal=True),
             library=k4b_library),
+        # K9's forward, its SIMT entry called directly in bf16 at full
+        # width and in fp32 as the wrapper calls it
         "relpos_flash_fwd_lse": case(
+            k9_simt, sam_attention_bwd.relpos_flash_fwd_lse_torch, k9_inputs,
+            k9_full, k9_small, bshd_ops, library=k9_library),
+        # its tensor-core entry, through the wrapper (bf16, D 64 / 80 / 128):
+        # out within FULL_TOL, the LSE, which K9's dq and dkv read back as
+        # exp(s - lse), within LSE_TOL
+        "relpos_flash_fwd_lse_tc": case(
             sam_attention_bwd.relpos_flash_fwd_lse,
             sam_attention_bwd.relpos_flash_fwd_lse_torch, k9_inputs, k9_full,
-            k9_small, bshd_ops, library=k9_library),
+            [], bshd_ops, library=k9_library, tols=(FULL_TOL, LSE_TOL),
+            edges=[(b, g, 2, d) for g, b in ((2, 4), (4, 2), (7, 1),
+                                             (14, 2), (16, 1), (32, 1))
+                   for d in (64, 80, 128)],
+            simt=k9_simt),
         "relpos_flash_dq": case(
             sam_attention_bwd.relpos_flash_dq,
             sam_attention_bwd.relpos_flash_dq_torch, k9_bwd_inputs, k9_full,
@@ -1236,6 +1331,20 @@ def _check_rows(name, full, got, want):
     return rel
 
 
+def _check_underflow(name, shape, got, want):
+    """Where `shape` carries an all-underflow row (K1's and K1q's cases:
+    row 0 of window 0), raise unless the kernel and the plain version both
+    give exact zeros there; returns a note for the phase's line."""
+    if "underflow" not in shape:
+        return ""
+    row_k = float(got[0, 0].float().abs().max())
+    row_p = float(want[0, 0].float().abs().max())
+    if row_k != 0.0 or row_p != 0.0:
+        raise PhaseError(f"{name} {shape}: all-underflow row gives "
+                         f"{row_k:.3e} (kernel), {row_p:.3e} (plain), not 0")
+    return "; the all-underflow row is exactly 0 in both"
+
+
 def _bound(torch, c, args, out):
     """(ms, "bytes" or "operations") the card needs at least for one call:
     every input read once and every output written once at HBM_BYTES_PER_S,
@@ -1286,25 +1395,25 @@ def phase_kernels(torch, gpu, compiles):
                     raise PhaseError(f"{name} fp32 {shape}: max-abs error "
                                      f"{err:.3e} > {FP32_TOL}")
                 note = f"max-abs error {err:.3e}"
-            if "underflow" in shape:
-                row_k = float(got[0, 0].abs().max())
-                row_p = float(want[0, 0].abs().max())
-                if row_k != 0.0 or row_p != 0.0:
-                    raise PhaseError(f"{name}: all-underflow row gives "
-                                     f"{row_k:.3e} (kernel), {row_p:.3e} "
-                                     "(plain), not 0")
-                note += "; the all-underflow row is exactly 0 in both"
+            note += _check_underflow(name, shape, got, want)
             say(2, f"{name} fp32 {shape}: {note}")
         for shape in c["edges"]:
             args = make(gen, torch.bfloat16, shape)
             got, want = fn(*args), plain(*args)
             torch.cuda.synchronize()
-            errs = _check_full(name, shape, got, want, c["tols"])
-            note = (f"max-abs error {', '.join(f'{e:.3e}' for e, _ in errs)}"
-                    f" (relative {', '.join(f'{r:.2e}' for _, r in errs)})")
+            if int8:
+                lsb, share = _check_int8(name, f"bf16 edge {shape}", got,
+                                         want, int8["full"])
+                note = f"{lsb} LSB on {share:.2e} of the int8 outputs"
+            else:
+                errs = _check_full(name, shape, got, want, c["tols"])
+                note = (f"max-abs error "
+                        f"{', '.join(f'{e:.3e}' for e, _ in errs)} (relative "
+                        f"{', '.join(f'{r:.2e}' for _, r in errs)})")
             if c["rows"]:
                 row = _check_rows(name, shape, got, want)
                 note += f", worst row {row:.2e} of its own max-abs"
+            note += _check_underflow(name, shape, got, want)
             say(2, f"{name} bf16 edge {shape}: {note}")
         errs, ms, plain_ms, bound = [], 0.0, 0.0, {"bytes": 0.0,
                                                     "operations": 0.0}
@@ -1321,6 +1430,10 @@ def phase_kernels(torch, gpu, compiles):
                                          int8["full"])
                 new = [(float(lsb), share)]
                 what = f"int8 outputs {lsb} LSB apart on {share:.2e} of them"
+                if c["against"]:
+                    lsb, share = _int8_diff(got, c["against"](*args))
+                    what += (f" (from the fp32 twin, printed, not held: "
+                             f"{lsb} LSB on {share:.2e})")
             elif c["exact"]:
                 _check_exact(name, full, got, want)
                 new, what = [(0.0, 0.0)], "bit-equal"
@@ -1342,22 +1455,28 @@ def phase_kernels(torch, gpu, compiles):
                 timer = _graph_ms
                 how = f" (CUDA graph over {len(sets)} cold copies)"
             t, tp = timer(torch, fn, sets), timer(torch, plain, sets)
-            lib = ""
+            lib, call = "", None
             if c["library"]:
                 call = c["library"](*args)
                 t_lib = _time_ms(torch, call, [()])
                 library_ms += t_lib
                 lib = (f", one PyTorch call "
                        f"({c['library_is'] or 'SDPA'}) {t_lib:.4f} ms")
-                if c["simt"]:
-                    queued = {k: _queued_ms(torch, f, args) for k, f in (
-                        ("queued_ms", fn), ("simt_queued_ms", c["simt"]),
-                        ("library_queued_ms", lambda *a: call()))}
-                    lib += ("; back to back (device time, no host gap): "
-                            f"tensor-core {queued['queued_ms']:.4f} ms, "
-                            f"SIMT {queued['simt_queued_ms']:.4f} ms, "
-                            f"SDPA {queued['library_queued_ms']:.4f} ms")
-                del call
+            if c["simt"]:
+                # back to back, summed over the full shapes
+                timed = {"queued_ms": fn, "simt_queued_ms": c["simt"]}
+                if call:
+                    timed["library_queued_ms"] = lambda *a: call()
+                here = {k: _queued_ms(torch, f, args)
+                        for k, f in timed.items()}
+                for k, t_q in here.items():
+                    queued[k] = queued.get(k, 0.0) + t_q
+                lib += ("; back to back (device time, no host gap): "
+                        f"tensor-core {here['queued_ms']:.4f} ms, "
+                        f"SIMT {here['simt_queued_ms']:.4f} ms"
+                        + (f", SDPA {here['library_queued_ms']:.4f} ms"
+                           if call else ""))
+            del call
             say(2, f"{name} bf16 {full}: {what}; kernel {t:.4f} ms, plain "
                    f"{tp:.4f} ms{lib}{how}; bound {b_ms:.4f} ms by {b_by} "
                    f"on {gpu}")
@@ -1378,9 +1497,11 @@ def phase_kernels(torch, gpu, compiles):
         simt = name.removesuffix("_tc")
         if simt != name:
             rows[name]["simt_ms"] = rows[simt]["ms"]
+            sdpa = (f"SDPA {library_ms:.4f} ms, " if library_ms is not None
+                    else "")
             say(2, f"{name}: tensor-core body {ms:.4f} ms, SIMT body (bf16) "
-                   f"{rows[simt]['ms']:.4f} ms, SDPA {library_ms:.4f} ms, "
-                   f"bound {rows[name]['bound_ms']:.4f} ms on {gpu}")
+                   f"{rows[simt]['ms']:.4f} ms, {sdpa}bound "
+                   f"{rows[name]['bound_ms']:.4f} ms on {gpu}")
     _tc_build_report(gpu, compiles)
     _int8_matmul_padded(torch, gpu)
     _ragged_routes(torch, gpu)
@@ -1410,7 +1531,8 @@ def _tc_build_report(gpu, compiles):
     """For each tensor-core entry's kernels (D 64, 80 and 128): registers,
     stack frame and spills as ptxas reports them (`_tc_compiles`), dynamic
     shared memory (attention_tc.cuh's Q tile and two K/V stages of 64-column
-    atoms, plus K2's term tables at SAM's 32 + 32, plus 1 KB of alignment),
+    atoms, plus the term tables of K1, K2 and K9's forward at SAM's
+    gh + gw <= 64, plus 1 KB of alignment),
     and the HGMMA instructions in `cuobjdump -sass` of the built library.
     Fails where ptxas failed, a kernel spills, or a kernel has no HGMMA
     (then it would not run on the tensor cores)."""
@@ -1450,7 +1572,7 @@ def _tc_build_report(gpu, compiles):
             n = sum(hgmma[f] for f in fns)
             width = -(-d // 64) * 64
             smem = (128 + 4 * 64) * width * 2 + 1024
-            if name == "sam_global_attention_tc":
+            if name in TC_BIASED:
                 smem += 128 * 64 * 2
             say(2, f"{name} D = {d}: ptxas {'; '.join(lines) or 'no report'}"
                    f"; dynamic shared memory {smem} bytes; {n} HGMMA "
@@ -1877,13 +1999,13 @@ def phase_slice(torch, gpu, decoder):
            f"K3's tensor-core entry): {st_bf16['clip']:.1f} ms; with K3 on "
            f"its SIMT body it took {SIMT_CLIP_MS} ms on an H100 80GB HBM3 "
            f"at 700 W (this run: {gpu})")
-    say(3, f"bf16 SAM encode_grounding (2 clips x 8 frames, 4 launches of "
-           f"K2's tensor-core entry): {st_bf16['sam']:.1f} ms; teacher-forced "
-           f"forward_boxes (32 launches of K4's tensor-core entry): "
-           f"{st_bf16['teacher_forced_2x8']:.1f} ms; with K2 and K4 on their "
-           f"SIMT bodies they took {SIMT_SAM_MS['bf16']} and "
-           f"{SIMT_TEACHER_MS} ms on an H100 80GB HBM3 at 700 W (this run: "
-           f"{gpu})")
+    say(3, f"bf16 SAM encode_grounding (2 clips x 8 frames, 28 launches of "
+           f"K1's and 4 of K2's tensor-core entries): {st_bf16['sam']:.1f} "
+           f"ms; teacher-forced forward_boxes (the same SAM, 32 launches of "
+           f"K4's tensor-core entry): {st_bf16['teacher_forced_2x8']:.1f} "
+           f"ms; with K1 on its SIMT body they took {SIMT_K1_SAM_MS['bf16']} "
+           f"and {SIMT_K1_TEACHER_MS} ms on an H100 80GB HBM3 at 700 W (this "
+           f"run: {gpu})")
     _kernels.reset_launch_counts()
     det, ms = _timed(torch, lambda: _det_branch(
         torch, model, cfg, tok, clips[0], cfg.temp_objectness_threshold))
@@ -1928,7 +2050,7 @@ def phase_slice(torch, gpu, decoder):
            f"{time.perf_counter() - t0:.1f} s: weights "
            f"{_model_bytes(model) / 2**30:.2f} GiB")
     need = [k for k in _kernels.KERNELS
-            if k not in ("sam_window_attention", LN_KERNEL)
+            if k not in ("sam_window_attention_tc", LN_KERNEL)
             + FLAGSHIP_KERNELS + TRAIN_KERNELS + OFF_PATH_KERNELS
             + SIMT_ENTRIES]
     w_launches = _run_path(torch, gpu, model, cfg, tok, clips, t_total,
@@ -1939,8 +2061,9 @@ def phase_slice(torch, gpu, decoder):
     say(3, f"encoder stages, W8A8-static vs bf16 (2 clips x 8 frames): "
            f"CLIP {st_w['clip']:.1f} vs {st_bf16['clip']:.1f} ms, SAM "
            f"{st_w['sam']:.1f} vs {st_bf16['sam']:.1f} ms on {gpu}; the "
-           f"W8A8-static SAM with K2 on its SIMT body took "
-           f"{SIMT_SAM_MS['W8A8-static']} ms on an H100 80GB HBM3 at 700 W")
+           f"W8A8-static SAM with K1q on its SIMT body took "
+           f"{SIMT_K1_SAM_MS['W8A8-static']} ms on an H100 80GB HBM3 at "
+           f"700 W")
     _same_tokens(gen_w, gen_bf16, label)
 
     # the flagship of the JAX package's bench.py: the LLM's activations
@@ -1954,7 +2077,8 @@ def phase_slice(torch, gpu, decoder):
            f"{time.perf_counter() - t0:.1f} s: weights "
            f"{_model_bytes(model) / 2**30:.2f} GiB")
     need = [k for k in _kernels.KERNELS
-            if k not in ("sam_window_attention", LN_KERNEL, "int4_matmul")
+            if k not in ("sam_window_attention_tc", LN_KERNEL,
+                         "int4_matmul")
             + TRAIN_KERNELS + OFF_PATH_KERNELS + SIMT_ENTRIES]
     f_launches = _run_path(torch, gpu, model, cfg, tok, clips, t_total,
                            label, need, decode_kwargs=int8_kv)
@@ -2003,7 +2127,7 @@ def _processor_path(torch, gpu, model, cfg, tok, decoder):
     `infer_clips_batched` (the decoded 640 x 360 frames passed as both
     towers' input, resized on the card) and the packed-YUV420 mode through
     `encode_video` + `encode_grounding`. Launch counts are zeroed before
-    each and printed after; K1 and the tensor-core entries of K2 and K3
+    each and printed after; the tensor-core entries of K1, K2 and K3
     must run in the first two, and no SIMT entry of K2, K3, K4 or K10 in
     any."""
     from grove_tpu_torch import _kernels
@@ -2011,7 +2135,7 @@ def _processor_path(torch, gpu, model, cfg, tok, decoder):
     from grove_tpu_torch.data.preprocess import (preprocess_frames,
                                                  rgb_to_yuv420)
     from grove_tpu_torch.infer.sliding import infer_clips_batched
-    need = ("sam_window_attention", "sam_global_attention_tc",
+    need = ("sam_window_attention_tc", "sam_global_attention_tc",
             "grouped_plain_attention_tc")
     shown = need + ("flash_forward_lse_tc",) + SIMT_ENTRIES
 
@@ -2394,8 +2518,14 @@ def phase_parity(torch, decoder):
                    max_spliced_len=-(-spliced // 64) * 64,
                    det_token_id=cfg.tokens.det, max_phrases=cfg.max_phrases,
                    pad_id=tok.pad_token_id, with_labels=False)
+    _kernels.reset_launch_counts()
     _parity_pass(torch, cfg, tok, clip, ap, cpu, gpu,
                  "GroveConfig.small() fp32")
+    # K1's SIMT entry: the float towers' windowed blocks in fp32
+    k1_fp32 = _kernels.KERNELS["sam_window_attention"].launches
+    if not k1_fp32:
+        raise PhaseError("GroveConfig.small() fp32: K1's SIMT entry never "
+                         "launched")
     _det_branch_parity(torch, cfg, tok, cpu, gpu)
     _entry_parity(torch, cfg, tok, cpu, gpu, decoder)
 
@@ -2429,7 +2559,7 @@ def phase_parity(torch, decoder):
     _boxes_parity(torch, clip, ap, cpu, gpu, label, W8A8_TOL)
     outs = [_tower_outputs(torch, gpu, clip)]
     launches = {k: v.launches for k, v in _kernels.KERNELS.items()}
-    missing = [k for k in (LN_KERNEL, *W8A8_KERNELS, *FP32_SIMT)
+    missing = [k for k in (LN_KERNEL, "add_layernorm_quant", *FP32_SIMT)
                if launches[k] <= 0]
     if missing:
         raise PhaseError(f"{label}: kernels never launched: {missing}")
@@ -2455,6 +2585,7 @@ def phase_parity(torch, decoder):
     _site_parity(torch, cpu, gpu, clip, label)
     del cpu, gpu
     _w4a8_parity(torch, float_cfg, tok, clip, ap)
+    launches["sam_window_attention"] = k1_fp32
     return launches
 
 
@@ -2914,9 +3045,11 @@ def phase_train(torch, gpu):
            f"trainable group moved ({len(changed)} of {len(params)} "
            "trainable tensors differ: a bf16 weight drops an update below "
            "half its ULP); median step (steps 2-3) "
-           f"{statistics.median(times[1:]):.1f} ms, peak device memory "
-           f"{peak / 2**30:.2f} GiB, {n_train} trainable parameters on "
-           f"{gpu}")
+           f"{statistics.median(times[1:]):.1f} ms (with K1 and K9's "
+           f"forward on their SIMT bodies "
+           f"{SIMT_K1_STEP_MS['bf16 S = 704']} ms on an H100 80GB HBM3 at "
+           f"700 W), peak device memory {peak / 2**30:.2f} GiB, {n_train} "
+           f"trainable parameters on {gpu}")
 
     # the driver's default length: 1536 + 575 = 2111 tokens, a ragged S,
     # so each layer runs K10 forward (its tensor-core entry, bf16 at
@@ -2931,8 +3064,9 @@ def phase_train(torch, gpu):
     say(5, f"S = {seq} step: {ms:.1f} ms, peak "
            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (the K5 "
            f"route took {K5_ROUTE_S2111[0]} ms, {K5_ROUTE_S2111[1]} GiB, "
-           f"K10 on its SIMT body {SIMT_S2111_MS} ms, on an H100 80GB HBM3 "
-           "at 700 W), losses "
+           f"K10 on its SIMT body {SIMT_S2111_MS} ms, K1 and K9's forward "
+           f"on theirs {SIMT_K1_STEP_MS['bf16 S = 2111']} ms, on an H100 "
+           "80GB HBM3 at 700 W), losses "
            + ", ".join(f"{k} {v:.4f}" for k, v in losses.items())
            + f", launches {used} on {gpu}")
     _check_launches(f"S = {seq} step", _step_launches(base, seq, False))
@@ -2953,22 +3087,28 @@ def _step_launches(cfg, s, remat):
     it; at the ragged S = 2111, K10's tensor-core entry; once a layer
     forward (twice with remat: the checkpointed layer runs again in the
     backward); K2's tensor-core entry (D = 80) once in each global SAM
-    block's forward, and with remat again in those after the first
-    trainable adapter; K9's three entries once in the backward of every
-    SAM block after that adapter (K9's forward with LSE runs there, after
-    the recomputed K1 or K2 forward); no SIMT entry of K2, K3, K4 or K10,
-    no K5, K7a, K7b or K7c."""
+    block's forward and K1's in each windowed one, each with remat again in
+    the blocks after the first trainable adapter; K9's three entries (its
+    forward's tensor-core one) once in the backward of every SAM block
+    after that adapter (K9's forward with LSE runs there, after the
+    recomputed K1 or K2 forward); no SIMT entry of K1, K1q, K2, K3, K4, K9's
+    forward or K10, no K1q, K5, K7a, K7b or K7c."""
     n = cfg.llama.num_layers
     route = {704: "flash_forward_lse_tc", 2111: "flash_attention_tc"}[s]
-    globs = cfg.sam_enc.global_attn_indexes
-    sam = cfg.sam_enc.depth - min(globs) - 1
+    sam_cfg = cfg.sam_enc
+    globs = sam_cfg.global_attn_indexes
+    after = range(min(globs) + 1, sam_cfg.depth)   # behind the first adapter
     out = {k: 0 for k in ("flash_forward_lse_tc", "flash_backward_dq",
                           "flash_backward_dkv", "flash_attention_tc",
-                          *SIMT_ENTRIES, *QLORA_NEVER)}
-    out.update({k: sam for k in ("relpos_flash_fwd_lse", "relpos_flash_dq",
-                                 "relpos_flash_dkv")})
+                          "sam_window_attention_q8_tc", *SIMT_ENTRIES,
+                          *QLORA_NEVER)}
+    out.update({k: len(after) for k in ("relpos_flash_fwd_lse_tc",
+                                        "relpos_flash_dq",
+                                        "relpos_flash_dkv")})
     out["sam_global_attention_tc"] = len(globs) + (
-        sum(i > min(globs) for i in globs) if remat else 0)
+        sum(i in globs for i in after) if remat else 0)
+    out["sam_window_attention_tc"] = sam_cfg.depth - len(globs) + (
+        sum(i not in globs for i in after) if remat else 0)
     out[route] = n * (2 if remat else 1)
     if route == "flash_forward_lse_tc":
         out["flash_backward_dq"] = out["flash_backward_dkv"] = n
@@ -3131,8 +3271,10 @@ def phase_qlora(torch, gpu):
     say(5, f"after QLoRA step 3 {len(moved_a)} of {2 * n_layers} lora_A "
            f"moved and all {len(frozen)} frozen tensors (int4 bytes and "
            f"scales included) are bit-equal; ms per step: {per} (at "
-           f"S = 2111 with K10 on its SIMT body: {SIMT_QLORA_S2111_MS} ms on "
-           f"an H100 80GB HBM3 at 700 W) on {gpu}")
+           f"S = 2111 with K10 on its SIMT body: {SIMT_QLORA_S2111_MS} ms; "
+           f"steps 1-3 with K1 and K9's forward on theirs: "
+           f"{', '.join(map(str, SIMT_K1_STEP_MS['QLoRA']))} ms; on an H100 "
+           f"80GB HBM3 at 700 W) on {gpu}")
     del model, params, opt, step, frozen, snap
     torch.cuda.empty_cache()
 
@@ -3145,7 +3287,8 @@ def phase_train_parity(torch):
     CPU taking the card's `Int4Linear` branch (the recomputed view) through
     the `models.layers._on_card` seam: loss terms within TRAIN_LOSS_REL
     relative, each trainable tensor's gradient within TRAIN_GRAD_TOL of its
-    max-abs (`_step_parity`)."""
+    max-abs (`_step_parity`). Returns the card's launches in the default
+    recipe's step."""
     from grove_tpu_torch.config import GroveConfig
     from grove_tpu_torch.models.grove import init_grove_params
     from grove_tpu_torch.text.mock_tokenizer import MockTokenizer
@@ -3157,9 +3300,9 @@ def phase_train_parity(torch):
     cpu = init_grove_params(cfg, device="cpu", dtype=torch.float32, seed=7)
     card = copy.deepcopy(cpu).to("cuda")
     batch = _train_batch(cfg, tok, seed=8)
-    _step_parity(torch, "GroveConfig.small() fp32 train step", cpu, card,
-                 batch, lambda m, dev: _train_setup(torch, m, 0),
-                 contextlib.nullcontext)
+    launches = _step_parity(
+        torch, "GroveConfig.small() fp32 train step", cpu, card, batch,
+        lambda m, dev: _train_setup(torch, m, 0), contextlib.nullcontext)
     del cpu, card
     qcfg, cpu = _qlora_model(torch, cfg, "cpu", torch.float32, seed=14)
     card = copy.deepcopy(cpu).to("cuda")
@@ -3171,6 +3314,7 @@ def phase_train_parity(torch):
     if any(used.get(k) for k in QLORA_NEVER):
         raise PhaseError(f"QLoRA parity: the card launched {used}")
     del cpu, card
+    return launches
 
 
 def _step_parity(torch, label, cpu, card, batch, setup, cpu_context):
@@ -3179,8 +3323,9 @@ def _step_parity(torch, label, cpu, card, batch, setup, cpu_context):
     relative, each trainable tensor's gradient within TRAIN_GRAD_TOL of its
     max-abs, or of TRAIN_GRAD_FLOOR of the largest gradient's max-abs for a
     tensor whose gradient is zero up to rounding; the card must launch
-    every kernel of FP32_TRAIN_KERNELS (K4's SIMT entry in place of its
-    tensor-core one). Returns the card's launches."""
+    every kernel of FP32_TRAIN_KERNELS (the SIMT entries of K4 and K9's
+    forward in place of their tensor-core ones). Returns the card's
+    launches."""
     from grove_tpu_torch import _kernels
     from grove_tpu_torch.train.step import batch_to_device
     runs = []
@@ -3250,10 +3395,12 @@ def main() -> int:
         rows = phase_kernels(torch, gpu, compiles)
         launches = phase_slice(torch, gpu, decoder)
         fp32 = phase_parity(torch, decoder)
-        launches.update({k: fp32[k] for k in (LN_KERNEL, *FP32_SIMT)})
+        launches.update({k: fp32[k] for k in (LN_KERNEL, *FP32_SIMT,
+                                              "sam_window_attention")})
         train = phase_train(torch, gpu)
         launches.update({k: train[k] for k in TRAIN_KERNELS})
-        phase_train_parity(torch)
+        fp32_train = phase_train_parity(torch)
+        launches["relpos_flash_fwd_lse"] = fp32_train["relpos_flash_fwd_lse"]
     except Exception:                       # report, then fail the run
         traceback.print_exc()
         print("chip_smoke FAILED", file=sys.stderr, flush=True)

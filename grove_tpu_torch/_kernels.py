@@ -160,9 +160,15 @@ KERNELS: Dict[str, Kernel] = {
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
         "grove_tpu_torch/csrc/sam_global_attention.cu",
         "grove_tpu/ops/sam_attention.py:235"),
-    # K2, K3, K4 and K10 on the tensor-core body (attention_tc.cuh), which
-    # the wrappers take for bf16 at head dims 64, 80 and 128
-    # (`TC_HEAD_DIMS`); fp32 and the head dim 8 take the SIMT entries
+    # K1, K1q, K2, K3, K4, K9's forward and K10 on the tensor-core body
+    # (attention_tc.cuh), which the wrappers take for bf16 at head dims 64,
+    # 80 and 128 (`TC_HEAD_DIMS`); fp32 and the head dim 8 take the SIMT
+    # entries
+    "sam_window_attention_tc": Kernel(
+        "grove_sam_window_attention_tc",
+        [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+        "grove_tpu_torch/csrc/sam_window_attention.cu",
+        "grove_tpu/ops/sam_attention.py:537"),
     "sam_global_attention_tc": Kernel(
         "grove_sam_global_attention_tc",
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
@@ -218,6 +224,11 @@ KERNELS: Dict[str, Kernel] = {
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
         "grove_tpu_torch/csrc/sam_window_attention.cu",
         "grove_tpu/ops/sam_attention.py:537"),
+    "sam_window_attention_q8_tc": Kernel(
+        "grove_sam_window_attention_q8_tc",
+        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+        "grove_tpu_torch/csrc/sam_window_attention.cu",
+        "grove_tpu/ops/sam_attention.py:537"),
     "int4_matmul_a8": Kernel(
         "grove_int4_matmul_a8",
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
@@ -250,6 +261,11 @@ KERNELS: Dict[str, Kernel] = {
         "grove_tpu/ops/flash_backward.py:278"),
     "relpos_flash_fwd_lse": Kernel(
         "grove_relpos_flash_fwd_lse",
+        [_P] * 7 + [_I] * 6 + [_F, _I, _P],
+        "grove_tpu_torch/csrc/relpos_flash_attention.cu",
+        "grove_tpu/ops/sam_attention_bwd.py:243"),
+    "relpos_flash_fwd_lse_tc": Kernel(
+        "grove_relpos_flash_fwd_lse_tc",
         [_P] * 7 + [_I] * 6 + [_F, _I, _P],
         "grove_tpu_torch/csrc/relpos_flash_attention.cu",
         "grove_tpu/ops/sam_attention_bwd.py:243"),

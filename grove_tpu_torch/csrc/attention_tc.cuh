@@ -1,7 +1,7 @@
 // Tensor-core forward body of the hand-written attention kernels of
 // grove_tpu_torch, beside the SIMT body of attention_core.cuh.
 //
-// It serves four TPU kernels, for bf16 inputs at head dims 64, 80 and 128:
+// It serves six TPU kernels, for bf16 inputs at head dims 64, 80 and 128:
 //   * K10, grove_tpu/ops/attention.py:66 `_flash_kernel` (flash_attention.cu,
 //     `grove_flash_attention_tc`): causal or not, Sq and Sk ragged;
 //   * K3, grove_tpu/ops/attention.py:350 `_grouped_plain_kernel`
@@ -12,15 +12,23 @@
 //     self-attention with the log-sum-exp output that K4b reads;
 //   * K2, grove_tpu/ops/sam_attention.py:156 `_grouped_kernel`
 //     (sam_global_attention.cu, `grove_sam_global_attention_tc`): SAM's
-//     global attention at D = 80 with the decomposed rel-pos bias.
-// fp32 inputs and the head dim 8 keep the SIMT body. Later work moves K9's
-// forward (bias and LSE together), then K1, K5 onto this body, adding the
-// options they still lack (left pad, the all-underflow contract, int8
-// output) as they come.
+//     global attention at D = 80 with the decomposed rel-pos bias;
+//   * K9's forward, grove_tpu/ops/sam_attention_bwd.py:243 `_fwd_kernel`
+//     (relpos_flash_attention.cu, `grove_relpos_flash_fwd_lse_tc`): K2's
+//     contract with K4's LSE, which K9's dq and dkv read;
+//   * K1 and K1q, grove_tpu/ops/sam_attention.py:537 `_grouped_kernel_v3`
+//     (sam_window_attention.cu, `grove_sam_window_attention_tc` and
+//     `grove_sam_window_attention_q8_tc`): SAM's windowed attention on the
+//     unsplit qkv, with the packed term table, the all-underflow contract
+//     and, for K1q, the int8 output.
+// fp32 inputs and the head dim 8 keep the SIMT body, and so do K5 (a left
+// pad) and K11-K13 (no model path).
 //
 // Contract, the part of AttnArgs that these entries use:
 //   * q, k, v and out in the (B, S, H, D) layout with element strides, bf16,
-//     every row 16-byte aligned; fp32 accumulation;
+//     every row 16-byte aligned; fp32 accumulation. The strides let K1 read
+//     q, k and v in place from the unsplit (nW, S, 3C) qkv: (S 3C, 3C, D),
+//     k at lane offset C and v at 2C (sam_window_attention.cu);
 //   * a key count Sk that may differ from S (0 means Sk = S);
 //   * an optional causal mask, top-left aligned: row i sees keys 0..i,
 //     whatever Sk - S is (the TPU kernel's mask);
@@ -29,12 +37,23 @@
 //     in log2 units and l the row sum, as attention_core.cuh writes it;
 //   * an optional decomposed rel-pos bias (the BIAS instantiations only):
 //     bias_ij = rel_h[i, j / gw] + rel_w[i, j % gw] from (S, gh) and
-//     (S, gw) term tables of the input dtype, added in fp32 as
+//     (S, gw) term tables of the input dtype, read through generic strides
+//     (K2's and K9's (B, H, S, g) tables, or K1's packed (nW, S, H (gh + gw))
+//     one, per head [rel_h | rel_w]), added in fp32 as
 //     (rel_h + rel_w) * log2(e) after the scale * log2(e) product, the
 //     order of the SIMT body and of the TPU K2 (fp32 bias terms on fp32
 //     scaled logits);
 //   * the ragged edge in the kernel: keys at or past Sk are masked, rows at
-//     or past S are not written, and no caller pads.
+//     or past S are not written, and no caller pads;
+//   * with `zero_underflow` (K1, K1q) the TPU K1's all-underflow contract:
+//     a row whose running max m (log2 units, after the scale and the bias)
+//     lies below kExp2Shift - 126 is written as exact zeros, as the TPU
+//     kernel's EXP2_SHIFT softmax gives there (attention_core.cuh);
+//   * an int8 output (the Q8 instantiations, K1q): clip(rint(out *
+//     *out_inv), -127, 127), out_inv a (1,) fp32 the kernel reads on the
+//     card, so the host never waits for it; out's strides count bytes, and
+//     every head row (D bytes) must start 16-byte aligned, as it does for D
+//     64, 80 and 128 in a contiguous (nW, S, C) output.
 //
 // Bound on an H100: operations. Each (batch, head) does 4 * S * Sk * D
 // flops (half of that for causal K4 and K10) on 2 bytes per element of q,
@@ -80,21 +99,29 @@
 //     when causal, so every pair's heaviest block is launched before any
 //     lighter one and the long diagonal blocks do not form the tail (K4's
 //     S = 704 gives 6 blocks over 64 pairs, 1.45 waves);
-//   * the epilogue divides by max(l, 1e-30) in fp32, converts to bf16 and
+//   * the epilogue multiplies by 1 / max(l, 1e-30) in fp32 (0 for an
+//     all-underflow row), converts to bf16, or to int8 after the scale, and
 //     writes whole rows with 16-byte stores, only rows < S, staged through
-//     the warpgroup's own rows of the Q buffer; the LSE, where asked, is
-//     written by one thread per row.
+//     the warpgroup's own rows of the Q buffer (an int8 row of D bytes in
+//     its first atom, 16 columns to a chunk, under the same swizzle); the
+//     LSE, where asked, is written by one thread per row.
 // Two blocks share an SM, so one block's softmax overlaps the other's
 // products: shared memory is 128 x W x 2 bytes of Q plus 2 x 2 x 64 x W x 2
 // of K and V, with W the row's atoms x 64 columns (64 at D = 64, 128 at
 // D = 80 and 128): 48 KB at D = 64 and 96 KB at D = 80 and 128; plus, with
 // the bias, 128 x 64 x 2 = 16 KB of term tables at gh + gw <= 64 (SAM's
-// 32 + 32); plus 1 KB to align. K2 at D = 80 thus takes 113 KB, which with
-// the 1 KB the card reserves a block is half of an SM's 228 KB, the
-// carve-out asked for at launch. The launch bounds hold a thread to 128
-// registers, which every instantiation fits without a spill but the biased
-// one at D = 128 (no model path): that one runs a block an SM with up to
-// 255 (chip_smoke.py phase 2 prints ptxas's counts). Left for the next
+// 32 + 32, K1's 14 + 14 rounded up to 64 too); plus 1 KB to align. K1, K2
+// and K9 at D = 80 thus take 113 KB, which with the 1 KB the card reserves
+// a block is half of an SM's 228 KB, the carve-out asked for at launch.
+// The launch bounds hold a thread to 128 registers, which every
+// instantiation fits without a spill but the biased one at D = 128 (no
+// model path): that one runs a block an SM with up to 255 (chip_smoke.py
+// phase 2 prints ptxas's counts). A ragged last key tile runs the full
+// 64-key products: at SAM's windowed S = 196 (2 query blocks, 4 key tiles,
+// the last holding 4 keys; 1.71x the useful work) a last tile cut to
+// m64n16k16 and one k16 step of P.V left K1 and K9's windowed forward
+// within 1%, cost K4 and K10 5-11% in registers (K10 at D = 128 spilled),
+// so it is not taken (PERF.md §6). Left for the next
 // redesign of this body: TMA with mbarriers, a producer warp, setmaxnreg, a
 // persistent grid, and a softmax that overlaps the next tile's products
 // within a block.
@@ -224,6 +251,14 @@ __device__ __forceinline__ void warpgroup_barrier(int wg) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// clip(rint(x), -127, 127) of two values as two int8 in one 16-bit word,
+// `lo` in the low byte (the lower address)
+__device__ __forceinline__ uint16_t pack_int8(float lo, float hi) {
+  const int a = (int)fminf(fmaxf(rintf(lo), -127.f), 127.f);
+  const int b = (int)fminf(fmaxf(rintf(hi), -127.f), 127.f);
+  return (uint16_t)((a & 0xFF) | ((b & 0xFF) << 8));
 }
 
 // D[64 x 64] (+)= A[64 x 16] . B[16 x 64], A and B from shared memory
@@ -431,7 +466,7 @@ __device__ __forceinline__ void add_bias(float (&s)[32],
   }
 }
 
-template <int D, bool BIAS>
+template <int D, bool BIAS, bool Q8>
 __device__ __forceinline__ void attention_block_tc(const AttnArgs& a) {
   static_assert(D == 64 || D == 80 || D == 128,
                 "the tensor-core body takes D 64, 80, 128");
@@ -613,48 +648,83 @@ __device__ __forceinline__ void attention_block_tc(const AttnArgs& a) {
     if (r0 < a.S) lse[r0] = (m0 + log2f(safe0)) * kLn2;
     if (r1 < a.S) lse[r1] = (m1 + log2f(safe1)) * kLn2;
   }
-  const float inv0 = 1.f / safe0;
-  const float inv1 = 1.f / safe1;
+  // the TPU K1's all-underflow rows (zero_underflow) come out as zeros
+  const float floor2 = kExp2Shift - 126.f;
+  const float inv0 = a.zero_underflow && m0 < floor2 ? 0.f : 1.f / safe0;
+  const float inv1 = a.zero_underflow && m1 < floor2 ? 0.f : 1.f / safe1;
 
   // stage the warpgroup's 64 rows in its own rows of the Q buffer, whose
   // last reader (this warpgroup's wgmma) has completed
   fence_proxy_async();
+  const long long obase = b * a.os.b + h * a.os.h;
+  if constexpr (Q8) {
+    // int8 rows of D bytes in the first atom: chunk j holds columns
+    // 16j..16j+15, under the swizzle of `swizzled`
+    const float qs = *a.out_inv;
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    const int col = 8 * j + 2 * t4;
-    const uint32_t within = (col & 7) * 2;
-    *reinterpret_cast<uint32_t*>(stage + swizzled(kBQ, R0, col >> 3) +
-                                 within) =
-        pack_bf16(o[4 * j] * inv0, o[4 * j + 1] * inv0);
-    *reinterpret_cast<uint32_t*>(stage + swizzled(kBQ, R1, col >> 3) +
-                                 within) =
-        pack_bf16(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
-  }
-  warpgroup_barrier(wg);
-  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.o) + b * a.os.b +
-                       h * a.os.h;
-  constexpr int C = D / 8;
-  for (int i = tw; i < 64 * C; i += 128) {
-    const int rl = i / C;
-    const int j = i - rl * C;
-    const int row = qw + rl;
-    if (row < a.S)
-      *reinterpret_cast<uint4*>(out + row * a.os.s + j * 8) =
-          *reinterpret_cast<const uint4*>(stage +
-                                          swizzled(kBQ, 64 * wg + rl, j));
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = 8 * j + 2 * t4;
+      const uint32_t within = col & 15;
+      *reinterpret_cast<uint16_t*>(stage + swizzled(kBQ, R0, col >> 4) +
+                                   within) =
+          pack_int8(o[4 * j] * inv0 * qs, o[4 * j + 1] * inv0 * qs);
+      *reinterpret_cast<uint16_t*>(stage + swizzled(kBQ, R1, col >> 4) +
+                                   within) =
+          pack_int8(o[4 * j + 2] * inv1 * qs, o[4 * j + 3] * inv1 * qs);
+    }
+    warpgroup_barrier(wg);
+    int8_t* out = static_cast<int8_t*>(a.o) + obase;
+    constexpr int C = D / 16;
+    for (int i = tw; i < 64 * C; i += 128) {
+      const int rl = i / C;
+      const int j = i - rl * C;
+      const int row = qw + rl;
+      if (row < a.S)
+        *reinterpret_cast<uint4*>(out + row * a.os.s + j * 16) =
+            *reinterpret_cast<const uint4*>(stage +
+                                            swizzled(kBQ, 64 * wg + rl, j));
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = 8 * j + 2 * t4;
+      const uint32_t within = (col & 7) * 2;
+      *reinterpret_cast<uint32_t*>(stage + swizzled(kBQ, R0, col >> 3) +
+                                   within) =
+          pack_bf16(o[4 * j] * inv0, o[4 * j + 1] * inv0);
+      *reinterpret_cast<uint32_t*>(stage + swizzled(kBQ, R1, col >> 3) +
+                                   within) =
+          pack_bf16(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
+    }
+    warpgroup_barrier(wg);
+    __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.o) + obase;
+    constexpr int C = D / 8;
+    for (int i = tw; i < 64 * C; i += 128) {
+      const int rl = i / C;
+      const int j = i - rl * C;
+      const int row = qw + rl;
+      if (row < a.S)
+        *reinterpret_cast<uint4*>(out + row * a.os.s + j * 8) =
+            *reinterpret_cast<const uint4*>(stage +
+                                            swizzled(kBQ, 64 * wg + rl, j));
+    }
   }
 }
 
 // Whether every base pointer and row stride keeps the rows 16-byte aligned,
-// as the 16-byte copies and stores need.
-inline bool aligned16(const AttnArgs& a) {
+// as the 16-byte copies and stores need: bf16 inputs, and an output of
+// `out_bytes` bytes an element (2, or 1 for int8), its strides counted in
+// bytes.
+inline bool aligned16(const AttnArgs& a, int out_bytes) {
   const void* p[] = {a.q, a.k, a.v, a.o};
   for (const void* x : p)
     if (reinterpret_cast<uintptr_t>(x) % 16) return false;
-  const Strides st[] = {a.qs, a.ks, a.vs, a.os};
+  const Strides st[] = {a.qs, a.ks, a.vs};
   for (const Strides& s : st)
     if (s.b % 8 || s.s % 8 || s.h % 8) return false;
-  return true;
+  const Strides& o = a.os;
+  return (o.b * out_bytes) % 16 == 0 && (o.s * out_bytes) % 16 == 0 &&
+         (o.h * out_bytes) % 16 == 0;
 }
 
 // Launch one instantiation on `stream`, opted into its dynamic shared
@@ -681,26 +751,28 @@ inline int launch(Kernel kernel, const AttnArgs& a, cudaStream_t stream) {
 
 // Define the __global__ instantiations of one tensor-core entry point and a
 // host dispatcher `NAME_tc_dispatch` over (dtype, head_dim): bf16 (dtype 1)
-// at D 64, 80 or 128, with 16-byte-aligned rows, and with the rel-pos term
-// tables exactly when BIAS is true; anything else is refused with
-// cudaErrorInvalidValue. The launch bounds ask for two blocks an SM (128
-// registers a thread), but one for the biased body at D = 128, whose
-// registers (O alone is 64 a thread) do not fit 128 beside the bias's; no
-// model path runs it.
-#define GROVE_ATTENTION_TC_ENTRY(NAME, BIAS)                                  \
+// at D 64, 80 or 128, with 16-byte-aligned rows, with the rel-pos term
+// tables exactly when BIAS is true and an int8 output (`out_inv` set)
+// exactly when Q8 is; anything else is refused with cudaErrorInvalidValue.
+// The launch bounds ask for two blocks an SM (128 registers a thread), but
+// one for the biased body at D = 128, whose registers (O alone is 64 a
+// thread) do not fit 128 beside the bias's; no model path runs it.
+#define GROVE_ATTENTION_TC_ENTRY(NAME, BIAS, Q8)                              \
   template <int D>                                                            \
   __global__ void __launch_bounds__(grove::tc::kThreads,                      \
                                     ((BIAS) && D == 128) ? 1 : 2)             \
       NAME##_tc_kernel(const grove::AttnArgs a) {                             \
-    grove::tc::attention_block_tc<D, BIAS>(a);                                \
+    grove::tc::attention_block_tc<D, BIAS, Q8>(a);                            \
   }                                                                           \
   static int NAME##_tc_dispatch(const grove::AttnArgs& a, int dtype, int d,   \
                                 cudaStream_t st) {                            \
-    if (dtype != 1 || !grove::tc::aligned16(a) ||                             \
-        (a.rh != nullptr) != (BIAS) || ((BIAS) && (a.gh < 1 || a.gw < 1)))    \
+    if (dtype != 1 || !grove::tc::aligned16(a, (Q8) ? 1 : 2) ||               \
+        (a.rh != nullptr) != (BIAS) || ((BIAS) && (a.gh < 1 || a.gw < 1)) ||  \
+        (a.out_inv != nullptr) != (Q8))                                       \
       return (int)cudaErrorInvalidValue;                                      \
     if (d == 64) return grove::tc::launch<64>(NAME##_tc_kernel<64>, a, st);   \
     if (d == 80) return grove::tc::launch<80>(NAME##_tc_kernel<80>, a, st);   \
     if (d == 128) return grove::tc::launch<128>(NAME##_tc_kernel<128>, a, st);\
     return (int)cudaErrorInvalidValue;                                        \
   }
+

@@ -37,7 +37,7 @@
 #include "attention_tc.cuh"
 
 GROVE_ATTENTION_ENTRY(flash_attention)
-GROVE_ATTENTION_TC_ENTRY(flash_attention, false)
+GROVE_ATTENTION_TC_ENTRY(flash_attention, false, false)
 
 static grove::AttnArgs flash_args(const void* q, const void* k, const void* v,
                                   void* out, int b, int sq, int sk, int heads,

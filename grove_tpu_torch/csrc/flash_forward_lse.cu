@@ -35,7 +35,7 @@
 #include "attention_tc.cuh"
 
 GROVE_ATTENTION_ENTRY(flash_forward_lse)
-GROVE_ATTENTION_TC_ENTRY(flash_forward_lse, false)
+GROVE_ATTENTION_TC_ENTRY(flash_forward_lse, false, false)
 
 static grove::AttnArgs lse_args(const void* q, const void* k, const void* v,
                                 void* out, float* lse, int b, int s,

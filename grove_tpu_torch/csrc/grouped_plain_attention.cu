@@ -29,7 +29,7 @@
 #include "attention_tc.cuh"
 
 GROVE_ATTENTION_ENTRY(grouped_plain_attention)
-GROVE_ATTENTION_TC_ENTRY(grouped_plain_attention, false)
+GROVE_ATTENTION_TC_ENTRY(grouped_plain_attention, false, false)
 
 static grove::AttnArgs grouped_args(const void* q, const void* k,
                                     const void* v, void* out, int b, int s,

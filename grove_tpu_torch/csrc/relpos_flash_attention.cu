@@ -18,20 +18,36 @@
 //
 // q, k, v, dO and the outputs are (B, S, H, D); the term tables rel_h
 // (B, H, S, gh), rel_w (B, H, S, gw) as K2 takes them; lse, D (B, H, S) and
-// d_rh, d_rw (B, H, S, gh | gw) fp32. The forward is the shared forward body
-// (attention_core.cuh) with K2's contract and K4's LSE output; the backward
-// bodies are attention_bwd_core.cuh's, with the bias rebuilt per (row, key)
-// from the term tables as K1 and K2 rebuild it. The TPU kernels multiplied
-// the tables by 0/1 expansion matrices instead (sam_attention_bwd.py:42-52).
-// The host-side contractions (dq += d_rh . Rh + d_rw . Rw, the table
-// gradients) stay torch ops, as they are XLA in the JAX package.
+// d_rh, d_rw (B, H, S, gh | gw) fp32.
 //
-// Bound on the H100: fp32 FMA issue and shared-memory reads (see
-// attention_bwd_core.cuh).
+// The forward has two entries, chosen by the wrapper
+// (ops/sam_attention_bwd.py through ops/attention.py `_tc_takes`, by dtype
+// and head dim only):
+//   * `grove_relpos_flash_fwd_lse_tc` runs bf16 at head dims 64, 80 and 128
+//     on the tensor-core body (attention_tc.cuh), K2's contract with K4's
+//     LSE output: the LSE over the unrounded fp32 P, which dq and dkv read
+//     back as p = exp(s - lse). Bound on the H100, at the two full-width
+//     shapes: (72, 196, 16, 80) moves q, k, v (108.4 MB), the tables (12.6
+//     MB), out (36.1 MB) and the LSE (0.9 MB) once, 0.0470 ms at 3.35 TB/s
+//     (bytes; 14.2 GFLOP take 0.0143 ms at 989 TFLOP/s bf16), padded in the
+//     kernel to 2 query blocks of 128 and 4 key tiles of 64 (1.71x the
+//     useful work); (8, 1024, 16, 80) does 42.9 GFLOP, 0.0434 ms
+//     (operations; its 101.2 MB take 0.0302 ms);
+//   * `grove_relpos_flash_fwd_lse` runs fp32 and the head dim 8 on the SIMT
+//     body (attention_core.cuh), far from either bound.
+// The backward bodies are attention_bwd_core.cuh's, with the bias rebuilt
+// per (row, key) from the term tables as K1 and K2 rebuild it (fp32 FMA
+// issue and shared-memory reads, see attention_bwd_core.cuh). The TPU
+// kernels multiplied the tables by 0/1 expansion matrices instead
+// (sam_attention_bwd.py:42-52). The host-side contractions (dq += d_rh . Rh
+// + d_rw . Rw, the table gradients) stay torch ops, as they are XLA in the
+// JAX package.
 
 #include "attention_bwd_core.cuh"
+#include "attention_tc.cuh"
 
 GROVE_ATTENTION_ENTRY(relpos_flash_fwd_lse)
+GROVE_ATTENTION_TC_ENTRY(relpos_flash_fwd_lse, true, false)
 GROVE_BWD_ENTRY(relpos_flash_dq, dq)
 GROVE_BWD_ENTRY(relpos_flash_dkv, dkv)
 
@@ -69,15 +85,10 @@ grove::BwdArgs relpos_args(const void* q, const void* k, const void* v,
   return a;
 }
 
-}  // namespace
-
-extern "C" int grove_relpos_flash_fwd_lse(const void* q, const void* k,
-                                          const void* v, const void* rel_h,
-                                          const void* rel_w, void* out,
-                                          float* lse, int b, int s, int heads,
-                                          int head_dim, int gh, int gw,
-                                          float scale, int dtype,
-                                          void* stream) {
+grove::AttnArgs fwd_args(const void* q, const void* k, const void* v,
+                         const void* rel_h, const void* rel_w, void* out,
+                         float* lse, int b, int s, int heads, int head_dim,
+                         int gh, int gw, float scale) {
   const long long hd = (long long)heads * head_dim;
   grove::AttnArgs a{};
   a.q = q;
@@ -100,8 +111,34 @@ extern "C" int grove_relpos_flash_fwd_lse(const void* q, const void* k,
   a.gw = gw;
   a.scale = scale;
   a.causal = 0;
-  return relpos_flash_fwd_lse_dispatch(a, dtype, head_dim,
-                                       static_cast<cudaStream_t>(stream));
+  return a;
+}
+
+}  // namespace
+
+// The SIMT body: fp32 or bf16, head dims 8, 64, 80, 128.
+extern "C" int grove_relpos_flash_fwd_lse(const void* q, const void* k,
+                                          const void* v, const void* rel_h,
+                                          const void* rel_w, void* out,
+                                          float* lse, int b, int s, int heads,
+                                          int head_dim, int gh, int gw,
+                                          float scale, int dtype,
+                                          void* stream) {
+  return relpos_flash_fwd_lse_dispatch(
+      fwd_args(q, k, v, rel_h, rel_w, out, lse, b, s, heads, head_dim, gh,
+               gw, scale),
+      dtype, head_dim, static_cast<cudaStream_t>(stream));
+}
+
+// The tensor-core body (attention_tc.cuh): bf16, head dims 64, 80, 128.
+extern "C" int grove_relpos_flash_fwd_lse_tc(
+    const void* q, const void* k, const void* v, const void* rel_h,
+    const void* rel_w, void* out, float* lse, int b, int s, int heads,
+    int head_dim, int gh, int gw, float scale, int dtype, void* stream) {
+  return relpos_flash_fwd_lse_tc_dispatch(
+      fwd_args(q, k, v, rel_h, rel_w, out, lse, b, s, heads, head_dim, gh,
+               gw, scale),
+      dtype, head_dim, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int grove_relpos_flash_dq(const void* q, const void* k,

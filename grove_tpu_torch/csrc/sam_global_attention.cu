@@ -39,7 +39,7 @@
 #include "attention_tc.cuh"
 
 GROVE_ATTENTION_ENTRY(sam_global_attention)
-GROVE_ATTENTION_TC_ENTRY(sam_global_attention, true)
+GROVE_ATTENTION_TC_ENTRY(sam_global_attention, true, false)
 
 static grove::AttnArgs global_args(const void* q, const void* k,
                                    const void* v, const void* rel_h,

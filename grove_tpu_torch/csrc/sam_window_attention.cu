@@ -24,24 +24,42 @@
 // [rel_h | rel_w], as grove_tpu_torch.ops.sam_attention.relpos_terms_raw
 // packs it. out is (nW, S, C), in qkv's dtype (K1) or int8 (K1q).
 //
-// Bound on the H100: fp32 FMA issue and shared-memory reads (see
-// attention_core.cuh). At the full-width shape (nW = 9 per frame, S = 196,
-// 16 heads, D = 80) each (window, head) runs 7 blocks of 32 rows; the S x S
-// logits never leave registers.
+// Two entries each, chosen by the wrapper (ops/sam_attention.py through
+// ops/attention.py `_tc_takes`, by dtype and head dim only):
+//   * `grove_sam_window_attention_tc` and `grove_sam_window_attention_q8_tc`
+//     run bf16 at head dims 64, 80 and 128 on the tensor-core body
+//     (attention_tc.cuh: wgmma, the packed term table staged in shared
+//     memory, the all-underflow rows, K1q's int8 rows written with 16-byte
+//     stores). At the full-width shape (nW = 144 for 16 frames, S = 196, 16
+//     heads, D = 80) each (window, head) runs 2 blocks of 128 rows over 4
+//     key tiles of 64, the last holding 4 keys: (256 x 256) / (196 x 196) =
+//     1.71x the useful work of Q.K^T and P.V. Bound on the H100: bytes. The
+//     call moves qkv (216.8 MB), the term table (25.3 MB) and out (72.3 MB
+//     in bf16, 36.1 MB in int8) once, 0.0938 ms (K1q 0.0830) at 3.35 TB/s,
+//     against 28.3 GFLOP, 0.0286 ms at 989 TFLOP/s bf16;
+//   * `grove_sam_window_attention` and `grove_sam_window_attention_q8` run
+//     fp32 and the head dim 8 on the SIMT body (attention_core.cuh: fp32
+//     FMA issue and shared-memory reads, far from either bound; blocks of
+//     32 rows, the S x S logits never leave registers).
 //
 // Numerics against the TPU kernel: the TPU kernel uses exp2 with a constant
 // shift (EXP2_SHIFT = 32) instead of subtracting the row max, rounds
 // q * scale * log2(e), rel * log2(e) and the probabilities to the input
-// dtype, and takes the denominator from the rounded probabilities. This
-// kernel subtracts a running max and keeps every intermediate in fp32. The
-// results agree to bf16 rounding. A row whose largest logit (log2 units)
-// lies below EXP2_SHIFT - 126 underflows everywhere on the TPU and comes out
-// as 0 there; this kernel returns 0 for it too (zero_underflow, see
-// kExp2Shift in attention_core.cuh).
+// dtype, and takes the denominator from the rounded probabilities. Both
+// bodies subtract a running max and take the denominator from the fp32
+// probabilities; the tensor-core body rounds them to bf16 before P.V, as
+// the TPU kernel does, the SIMT body keeps them in fp32. The results agree
+// to bf16 rounding. A row whose largest logit (log2 units) lies below
+// EXP2_SHIFT - 126 underflows everywhere on the TPU and comes out as 0
+// there; both bodies return 0 for it too (zero_underflow, see kExp2Shift in
+// attention_core.cuh).
 
 #include "attention_core.cuh"
+#include "attention_tc.cuh"
 
 GROVE_ATTENTION_ENTRY(sam_window_attention)
+GROVE_ATTENTION_TC_ENTRY(sam_window_attention, true, false)
+GROVE_ATTENTION_TC_ENTRY(sam_window_attention_q8, true, true)
 
 namespace {
 
@@ -79,6 +97,7 @@ grove::AttnArgs window_args(const void* qkv, const void* rel, void* out,
 
 }  // namespace
 
+// The SIMT body: fp32 or bf16, head dims 8, 64, 80, 128.
 extern "C" int grove_sam_window_attention(const void* qkv, const void* rel,
                                           void* out, int nw, int s,
                                           int heads, int head_dim, int gh,
@@ -99,4 +118,27 @@ extern "C" int grove_sam_window_attention_q8(
   a.out_inv = static_cast<const float*>(inv_scale);
   return sam_window_attention_dispatch(a, dtype, head_dim,
                                        static_cast<cudaStream_t>(stream));
+}
+
+// The tensor-core body (attention_tc.cuh): bf16, head dims 64, 80, 128.
+extern "C" int grove_sam_window_attention_tc(const void* qkv, const void* rel,
+                                             void* out, int nw, int s,
+                                             int heads, int head_dim, int gh,
+                                             int gw, float scale, int dtype,
+                                             void* stream) {
+  return sam_window_attention_tc_dispatch(
+      window_args(qkv, rel, out, nw, s, heads, head_dim, gh, gw, scale,
+                  dtype),
+      dtype, head_dim, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int grove_sam_window_attention_q8_tc(
+    const void* qkv, const void* rel, const void* inv_scale, void* out,
+    int nw, int s, int heads, int head_dim, int gh, int gw, float scale,
+    int dtype, void* stream) {
+  grove::AttnArgs a = window_args(qkv, rel, out, nw, s, heads, head_dim, gh,
+                                  gw, scale, dtype);
+  a.out_inv = static_cast<const float*>(inv_scale);
+  return sam_window_attention_q8_tc_dispatch(
+      a, dtype, head_dim, static_cast<cudaStream_t>(stream));
 }

@@ -95,12 +95,82 @@ def grouped_plain_attention_torch(q, k, v, *,
 
 
 def _tc_takes(dtype: torch.dtype, head_dim: int) -> bool:
-    """Whether a CUDA call of K2, K3, K4 or K10 runs the tensor-core body
-    (`csrc/attention_tc.cuh`, the `_tc` entries): bf16 at head dim 64, 80
-    or 128 (`_kernels.TC_HEAD_DIMS`). fp32, and the head dim 8, run the SIMT
-    body (`csrc/attention_core.cuh`). Two hand-written kernels chosen by
-    dtype and shape; a `_tc` launch that fails raises like any other."""
+    """Whether a CUDA call of K1, K1q, K2, K3, K4, K9's forward or K10 runs
+    the tensor-core body (`csrc/attention_tc.cuh`, the `_tc` entries):
+    bf16 at head dim 64, 80 or 128 (`_kernels.TC_HEAD_DIMS`). fp32, and the
+    head dim 8, run the SIMT body (`csrc/attention_core.cuh`). Two
+    hand-written kernels chosen by dtype and shape; a `_tc` launch that
+    fails raises like any other."""
     return dtype == torch.bfloat16 and head_dim in _kernels.TC_HEAD_DIMS
+
+
+LOG2E = 1.4426950408889634
+LN2 = 0.6931471805599453
+# The TPU K1 takes its softmax as exp2(logit - EXP2_SHIFT) in log2 units
+# (grove_tpu/ops/sam_attention.py:29-39), so a row whose largest logit lies
+# below EXP2_SHIFT - 126 underflows everywhere and comes out as 0. K1 and its
+# plain twins keep that contract; the overflow of terms above
+# EXP2_SHIFT + 127 on the TPU is a fault they do not copy.
+EXP2_SHIFT = 32.0
+
+
+def tc_attention_torch(q, k, v, *, scale: float, causal: bool = False,
+                       bias=None, lse: bool = False,
+                       zero_underflow: bool = False, out_inv=None):
+    """The tensor-core body's arithmetic (`csrc/attention_tc.cuh`) in torch
+    ops, step by step: keys in tiles of 64; per tile the fp32 scores of
+    Q.K^T times scale * log2(e) (an fp32 product) after the product; with
+    `bias` = (rel_h (B, H, Sq, gh), rel_w (B, H, Sq, gw), gw) the term
+    (rel_h[key / gw] + rel_w[key % gw]) * log2(e) added in fp32; causal,
+    keys past the row masked to -inf (top-left); an online softmax in fp32
+    on exp2 (running max, sum over the unrounded P); P rounded to bf16
+    before P.V with an fp32 sum; the output times 1 / max(l, 1e-30), or 0
+    with `zero_underflow` on a row whose max m lies below EXP2_SHIFT - 126
+    (K1's contract). q (B, Sq, H, D), k and v (B, Sk, H, D) -> fp32 (B, Sq,
+    H, D); with `out_inv` ((1,) fp32, K1q) int8 clip(rint(out * out_inv),
+    -127, 127); with `lse`, also (m + log2(max(l, 1e-30))) * ln(2), (B, H,
+    Sq). No path of the port calls it: it is the plain version with the
+    kernel's rounding points, for int8 checks where one rounding of P
+    flips outputs."""
+    qf, kf, vf = (t.float().permute(0, 2, 1, 3) for t in (q, k, v))
+    b, h, sq, d = qf.shape
+    sk = kf.shape[2]
+    dev = qf.device
+    f32 = torch.float32
+    sl2 = torch.tensor(scale, dtype=f32) * torch.tensor(LOG2E, dtype=f32)
+    log2e = torch.tensor(LOG2E, dtype=f32, device=dev)
+    rows = torch.arange(sq, device=dev)[:, None]
+    m = torch.full((b, h, sq, 1), float("-inf"), device=dev)
+    l = torch.zeros((b, h, sq, 1), device=dev)
+    o = torch.zeros((b, h, sq, d), device=dev)
+    for k0 in range(0, sk, 64):
+        keys = torch.arange(k0, min(k0 + 64, sk), device=dev)
+        s = (qf @ kf[:, :, k0:k0 + 64].transpose(-1, -2)) * sl2.to(dev)
+        if bias is not None:
+            rel_h, rel_w, gw = bias
+            s = s + (rel_h.float()[..., keys // gw]
+                     + rel_w.float()[..., keys % gw]) * log2e
+        if causal:
+            s = s.masked_fill(keys[None, :] > rows, float("-inf"))
+        mx = torch.maximum(m, s.amax(-1, keepdim=True))
+        base = torch.where(mx == float("-inf"), torch.zeros_like(mx), mx)
+        corr = torch.exp2(m - base)
+        p = torch.exp2(s - base)
+        l = l * corr + p.sum(-1, keepdim=True)
+        o = o * corr + p.to(torch.bfloat16).float() @ vf[:, :, k0:k0 + 64]
+        m = mx
+    safe = l.clamp_min(1e-30)
+    inv = 1.0 / safe
+    if zero_underflow:
+        inv = inv.masked_fill(m < EXP2_SHIFT - 126.0, 0.0)
+    out = o * inv
+    if out_inv is not None:
+        out = torch.clamp(torch.round(out * out_inv.float().to(dev)), -127,
+                          127).to(torch.int8)
+    out = out.permute(0, 2, 1, 3)
+    if not lse:
+        return out
+    return out, ((m + torch.log2(safe)) * LN2)[..., 0]
 
 
 def grouped_plain_attention(q, k, v, *, scale: Optional[float] = None):

@@ -41,16 +41,9 @@ from typing import Tuple
 import torch
 
 from .. import _kernels
-from .attention import _tc_takes, xla_attention
+from .attention import (EXP2_SHIFT, LOG2E, _tc_takes, tc_attention_torch,
+                        xla_attention)
 from .sam_encoder_tables import gather_rel_tables
-
-# The TPU K1 takes its softmax as exp2(logit - EXP2_SHIFT) in log2 units
-# (grove_tpu/ops/sam_attention.py:29-39), so a row whose largest logit lies
-# below EXP2_SHIFT - 126 underflows everywhere and comes out as 0. K1 and its
-# plain twin keep that contract; the overflow of terms above
-# EXP2_SHIFT + 127 on the TPU is a fault they do not copy.
-EXP2_SHIFT = 32.0
-LOG2E = 1.4426950408889634
 
 
 def relpos_terms(q, rel_pos_h, rel_pos_w, hw: Tuple[int, int]):
@@ -248,6 +241,72 @@ def grouped_window_attention_relpos_v3_q8_torch(qkv, rel_packed,
                                    hw, num_heads, inv_scale)
 
 
+def grouped_window_attention_relpos_v3_tc_torch(qkv, rel_packed,
+                                                hw: Tuple[int, int],
+                                                num_heads: int,
+                                                inv_scale=None):
+    """K1 and K1q with the tensor-core body's rounding points
+    (`ops.attention.tc_attention_torch`: 64-key tiles, P rounded to bf16
+    before P.V, the sum over the fp32 P, the output times 1 / l), the
+    all-underflow rows as zeros, then qkv's dtype or, with `inv_scale`, the
+    int8 epilogue clip(rint(out * inv_scale), -127, 127) -> (nW, S, C).
+    The plain version that `chip_smoke.py` holds the `_tc` entries' int8
+    output to; no model path calls it."""
+    gh, gw = hw
+    q, k, v = _split_heads(qkv, num_heads)
+    b, s = q.shape[:2]
+    rel = rel_packed.reshape(b, s, num_heads, gh + gw).permute(0, 2, 1, 3)
+    out = tc_attention_torch(
+        q, k, v, scale=1.0 / math.sqrt(q.shape[-1]),
+        bias=(rel[..., :gh], rel[..., gh:], gw), zero_underflow=True,
+        out_inv=None if inv_scale is None else inv_scale.reshape(1))
+    return out.to(qkv.dtype if inv_scale is None else torch.int8).reshape(
+        b, s, -1)
+
+
+def _check_v3(qkv, rel_packed, hw: Tuple[int, int], num_heads: int) -> int:
+    """Raise ValueError unless qkv (nW, S, 3C) and the packed table fit the
+    window and the heads; return the head dim."""
+    gh, gw = hw
+    b, s, c3 = qkv.shape
+    hd = c3 // 3 // num_heads
+    if s != gh * gw or c3 != 3 * num_heads * hd:
+        raise ValueError(f"grouped_window_attention_relpos_v3: qkv "
+                         f"{tuple(qkv.shape)} does not match window {hw} "
+                         f"and {num_heads} heads")
+    if rel_packed.shape != (b, s, num_heads * (gh + gw)):
+        raise ValueError(f"grouped_window_attention_relpos_v3: rel "
+                         f"{tuple(rel_packed.shape)}")
+    return hd
+
+
+def _window_launch(name: str, qkv, rel_packed, hw: Tuple[int, int],
+                   num_heads: int, inv_scale=None):
+    """Launch the K1 entry `name` on CUDA tensors (K1q's, an int8 output,
+    with `inv_scale`, a (1,) fp32 tensor)."""
+    gh, gw = hw
+    b, s, c3 = qkv.shape
+    hd = _check_v3(qkv, rel_packed, hw, num_heads)
+    dt = _kernels.check_cuda_inputs(name, (qkv, rel_packed), hd,
+                                    b * num_heads)
+    args = (b, s, num_heads, hd, gh, gw, 1.0 / math.sqrt(hd), dt,
+            _kernels.stream_ptr(qkv))
+    with torch.cuda.device(qkv.device):
+        if inv_scale is not None:
+            _kernels.check_typed(name, [(inv_scale, torch.float32)])
+            out = torch.empty((b, s, c3 // 3), device=qkv.device,
+                              dtype=torch.int8)
+            _kernels.KERNELS[name](
+                qkv.data_ptr(), rel_packed.data_ptr(), inv_scale.data_ptr(),
+                out.data_ptr(), *args)
+        else:
+            out = torch.empty((b, s, c3 // 3), device=qkv.device,
+                              dtype=qkv.dtype)
+            _kernels.KERNELS[name](
+                qkv.data_ptr(), rel_packed.data_ptr(), out.data_ptr(), *args)
+    return out
+
+
 def grouped_window_attention_relpos_v3(qkv, rel_packed, hw: Tuple[int, int],
                                        num_heads: int, inv_scale=None):
     """K1: qkv (nW, S, 3*H*D) fused projection output, rel_packed as from
@@ -257,19 +316,11 @@ def grouped_window_attention_relpos_v3(qkv, rel_packed, hw: Tuple[int, int],
 
     CPU tensors take the plain twins; CUDA tensors launch
     `csrc/sam_window_attention.cu`, which reads q, k and v at lane offsets
-    of the unsplit qkv. All return 0 for an all-underflow row (see
-    EXP2_SHIFT)."""
-    gh, gw = hw
-    b, s, c3 = qkv.shape
-    c = c3 // 3
-    hd = c // num_heads
-    if s != gh * gw or c3 != 3 * num_heads * hd:
-        raise ValueError(f"grouped_window_attention_relpos_v3: qkv "
-                         f"{tuple(qkv.shape)} does not match window {hw} "
-                         f"and {num_heads} heads")
-    if rel_packed.shape != (b, s, num_heads * (gh + gw)):
-        raise ValueError(f"grouped_window_attention_relpos_v3: rel "
-                         f"{tuple(rel_packed.shape)}")
+    of the unsplit qkv: its tensor-core entries where
+    `ops.attention._tc_takes` holds (bf16 at D 64, 80, 128: SAM's windowed
+    blocks in bf16 and under W8A8) and its SIMT entries otherwise. All
+    return 0 for an all-underflow row (see EXP2_SHIFT)."""
+    hd = _check_v3(qkv, rel_packed, hw, num_heads)
     quantize = inv_scale is not None
     if quantize:
         inv_scale = inv_scale.reshape(1)
@@ -279,24 +330,10 @@ def grouped_window_attention_relpos_v3(qkv, rel_packed, hw: Tuple[int, int],
                 qkv, rel_packed, inv_scale, hw, num_heads)
         return grouped_window_attention_relpos_v3_torch(qkv, rel_packed, hw,
                                                         num_heads)
-    dt = _kernels.check_cuda_inputs("grouped_window_attention_relpos_v3",
-                                    (qkv, rel_packed), hd, b * num_heads)
-    args = (b, s, num_heads, hd, gh, gw, 1.0 / math.sqrt(hd), dt,
-            _kernels.stream_ptr(qkv))
-    with torch.cuda.device(qkv.device):
-        if quantize:
-            _kernels.check_typed("grouped_window_attention_relpos_v3",
-                                 [(inv_scale, torch.float32)])
-            out = torch.empty((b, s, c), device=qkv.device,
-                              dtype=torch.int8)
-            _kernels.KERNELS["sam_window_attention_q8"](
-                qkv.data_ptr(), rel_packed.data_ptr(), inv_scale.data_ptr(),
-                out.data_ptr(), *args)
-        else:
-            out = torch.empty((b, s, c), device=qkv.device, dtype=qkv.dtype)
-            _kernels.KERNELS["sam_window_attention"](
-                qkv.data_ptr(), rel_packed.data_ptr(), out.data_ptr(), *args)
-    return out
+    name = "sam_window_attention_q8" if quantize else "sam_window_attention"
+    if _tc_takes(qkv.dtype, hd):
+        name += "_tc"
+    return _window_launch(name, qkv, rel_packed, hw, num_heads, inv_scale)
 
 
 class _WindowFused(torch.autograd.Function):

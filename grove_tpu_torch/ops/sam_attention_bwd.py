@@ -16,7 +16,9 @@ and, with ds = p * (dO . v - D):
 Three kernels (`csrc/relpos_flash_attention.cu`), each with a plain twin
 that spells out the formula:
 
-* `relpos_flash_fwd_lse`: out and the (B, H, S) fp32 LSE;
+* `relpos_flash_fwd_lse`: out and the (B, H, S) fp32 LSE, on the
+  tensor-core body for bf16 at head dims 64, 80, 128, the SIMT body
+  otherwise;
 * `relpos_flash_dq`: dq's attention part and the per-row term gradients
   d_rh (B, H, S, gh), d_rw (B, H, S, gw), fp32;
 * `relpos_flash_dkv`: dk, dv.
@@ -40,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _kernels
+from .attention import _tc_takes
 from .flash_backward import _ds, row_dot
 from .sam_attention import _expand_bias, relpos_terms
 from .sam_encoder_tables import gather_rel_tables, rel_pos_index
@@ -81,21 +84,32 @@ def relpos_flash_fwd_lse(q, k, v, rel_h_term, rel_w_term,
     """K9 forward (`relpos_flash_fwd_lse`, `sam_attention_bwd.py:229-272`):
     q/k/v (B, S, H, D), terms as from `relpos_terms` -> (out, lse (B, H, S)
     fp32). CPU tensors take the twin; CUDA tensors launch
-    `grove_relpos_flash_fwd_lse`. Any grid is taken (the TPU kernel picked
-    a key block that divides S, `_pick_block`)."""
+    `grove_relpos_flash_fwd_lse_tc` (the tensor-core body) where
+    `ops.attention._tc_takes` holds (bf16 at D 64, 80, 128: every bf16
+    training step) and `grove_relpos_flash_fwd_lse` (the SIMT body)
+    otherwise; both keep the LSE over the fp32 probabilities, which dq and
+    dkv read back. Any grid is taken (the TPU kernel picked a key block
+    that divides S, `_pick_block`)."""
     _check("relpos_flash_fwd_lse", q, k, v, rel_h_term, rel_w_term, hw)
     if _kernels.on_cpu(q, k, v, rel_h_term, rel_w_term):
         return relpos_flash_fwd_lse_torch(q, k, v, rel_h_term, rel_w_term,
                                           hw, scale)
+    name = ("relpos_flash_fwd_lse_tc" if _tc_takes(q.dtype, q.shape[-1])
+            else "relpos_flash_fwd_lse")
+    return _fwd_launch(name, q, k, v, rel_h_term, rel_w_term, hw, scale)
+
+
+def _fwd_launch(name: str, q, k, v, rel_h_term, rel_w_term,
+                hw: Tuple[int, int], scale: float):
+    """Launch the K9 forward entry `name` on CUDA tensors."""
     gh, gw = hw
     b, s, h, d = q.shape
-    dt = _kernels.check_cuda_inputs("relpos_flash_fwd_lse",
-                                    (q, k, v, rel_h_term, rel_w_term), d,
-                                    b * h)
+    dt = _kernels.check_cuda_inputs(name, (q, k, v, rel_h_term, rel_w_term),
+                                    d, b * h)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, s), device=q.device, dtype=torch.float32)
     with torch.cuda.device(q.device):
-        _kernels.KERNELS["relpos_flash_fwd_lse"](
+        _kernels.KERNELS[name](
             q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_h_term.data_ptr(),
             rel_w_term.data_ptr(), out.data_ptr(), lse.data_ptr(), b, s, h,
             d, gh, gw, float(scale), dt, _kernels.stream_ptr(q))

@@ -13,13 +13,16 @@ package's dispatch to it, on the CPU, fp32, small sizes.
   the "auto" pick of `multi_head_attention`) with the lane term dropped,
   over S = 64..2200, MHA and GQA; the model takes that route;
 * `multi_head_attention`'s impl argument;
-* the choice between the two CUDA entries of K2, K3, K4 and K10
-  (`_tc_takes`), and a torch model of the tensor-core body's arithmetic
-  (64-key tiles, online fp32 softmax, scale after the product, the
-  rel-pos bias after that in log2 units, P rounded to bf16 before P.V, the
-  LSE from the running max and sum) against the plain twins and the JAX
-  kernels in interpret mode: K10 and K3, K4 with its LSE, K2 with its
-  bias on grids whose rows a 64-key tile cuts anywhere.
+* the choice between the two CUDA entries of K1, K1q, K2, K3, K4, K9's
+  forward and K10 (`_tc_takes`), and the torch model of the tensor-core
+  body's arithmetic (`ops.attention.tc_attention_torch`: 64-key tiles,
+  online fp32 softmax, scale after the product, the rel-pos bias after
+  that in log2 units, P rounded to bf16 before P.V, the LSE from the
+  running max and sum, K1's all-underflow rows, K1q's int8 epilogue)
+  against the plain twins and the JAX kernels in interpret mode: K10 and
+  K3, K4 with its LSE, K2 with its bias on grids whose rows a 64-key tile
+  cuts anywhere, K1 and K1q on the unsplit qkv with an all-underflow row
+  (K1q in LSBs, at a share measured here), K9's forward with its LSE.
 """
 
 import numpy as np
@@ -33,11 +36,13 @@ import jax.numpy as jnp  # noqa: E402
 from grove_tpu.ops import attention as jattn  # noqa: E402
 from grove_tpu.ops import flash_backward as jflash  # noqa: E402
 from grove_tpu.ops import sam_attention as jsam  # noqa: E402
+from grove_tpu.ops import sam_attention_bwd as jrel  # noqa: E402
 from grove_tpu_torch.config import LlamaConfig  # noqa: E402
 from grove_tpu_torch.models import llama as tllama  # noqa: E402
 from grove_tpu_torch.ops import attention as tattn  # noqa: E402
 from grove_tpu_torch.ops import flash_backward as tflash  # noqa: E402
 from grove_tpu_torch.ops import sam_attention as tsam  # noqa: E402
+from grove_tpu_torch.ops import sam_attention_bwd as trel  # noqa: E402
 
 TOL = 1e-4
 
@@ -254,12 +259,6 @@ def test_multi_head_attention_impls():
 
 FULL_TOL = 2e-2          # chip_smoke.py's bf16 limit, of the output's max-abs
 ROW_TOL = 1e-2           # ... and K10's, of each row's own max-abs
-LOG2E = 1.4426950408889634
-
-
-LN2 = 0.6931471805599453
-
-
 @pytest.mark.parametrize("dtype,head_dim,tc", [
     (torch.bfloat16, 64, True), (torch.bfloat16, 128, True),
     (torch.float32, 64, False), (torch.float32, 128, False),
@@ -267,8 +266,9 @@ LN2 = 0.6931471805599453
     (torch.float32, 80, False)])
 def test_tc_takes_routes(monkeypatch, dtype, head_dim, tc):
     """bf16 at head dim 64, 80 or 128 launches the `_tc` entries of K10,
-    K3, K4 and K2; fp32, and the head dim 8, the SIMT entries. The wrappers
-    are driven past `on_cpu` with the launches recorded by name."""
+    K3, K4, K2, K1, K1q and K9's forward; fp32, and the head dim 8, the
+    SIMT entries. The wrappers are driven past `on_cpu` with the launches
+    recorded by name."""
     assert tattn._tc_takes(dtype, head_dim) == tc
     launched = []
     monkeypatch.setattr(tattn._kernels, "on_cpu", lambda *t: False)
@@ -280,58 +280,27 @@ def test_tc_takes_routes(monkeypatch, dtype, head_dim, tc):
                         lambda name, *a: launched.append(name))
     monkeypatch.setattr(tsam, "_launch_grid",
                         lambda name, *a: launched.append(name))
+    monkeypatch.setattr(tsam, "_window_launch",
+                        lambda name, *a: launched.append(name))
+    monkeypatch.setattr(trel, "_fwd_launch",
+                        lambda name, *a: launched.append(name))
     x = torch.zeros(1, 64, 2, head_dim, dtype=dtype)
     tattn.flash_attention(x, x, x, causal=True)
     tattn.grouped_plain_attention(x, x, x)
     tflash.flash_forward_lse(x, x, x, causal=True, scale=1.0)
     rel = torch.zeros(1, 2, 64, 8, dtype=dtype)
     tsam.grouped_window_attention_relpos(x, x, x, rel, rel, (8, 8))
+    qkv = torch.zeros(1, 64, 3 * 2 * head_dim, dtype=dtype)
+    packed = torch.zeros(1, 64, 2 * 16, dtype=dtype)
+    tsam.grouped_window_attention_relpos_v3(qkv, packed, (8, 8), 2)
+    tsam.grouped_window_attention_relpos_v3(qkv, packed, (8, 8), 2,
+                                            inv_scale=torch.ones(1))
+    trel.relpos_flash_fwd_lse(x, x, x, rel, rel, (8, 8), 1.0)
     suffix = "_tc" if tc else ""
     assert launched == [n + suffix for n in (
         "flash_attention", "grouped_plain_attention", "flash_forward_lse",
-        "sam_global_attention")]
-
-
-def _tc_model(q, k, v, causal: bool, scale: float, bias=None,
-              lse: bool = False):
-    """The tensor-core body's arithmetic in torch: keys in tiles of 64; per
-    tile the fp32 scores of Q.K^T scaled by scale * log2(e) after the
-    product, then with `bias` = (rel_h (B, H, Sq, gh), rel_w (B, H, Sq,
-    gw), gw) the term (rel_h[key / gw] + rel_w[key % gw]) * log2(e) added
-    in fp32, keys past Sk (none here: the tiles are cut at Sk) and, causal,
-    past the row masked to -inf (top-left), an online softmax in fp32 on
-    exp2 (running max, sum over the unrounded P), P rounded to bf16 before
-    P.V with an fp32 sum; the output divided by max(l, 1e-30). (B, S, H, D)
-    in and out, fp32; with `lse`, also (m + log2(max(l, 1e-30))) * ln(2),
-    (B, H, Sq)."""
-    qf, kf, vf = (t.float().permute(0, 2, 1, 3) for t in (q, k, v))
-    b, h, sq, d = qf.shape
-    sk = kf.shape[2]
-    rows = torch.arange(sq)[:, None]
-    m = torch.full((b, h, sq, 1), float("-inf"))
-    l = torch.zeros((b, h, sq, 1))
-    o = torch.zeros((b, h, sq, d))
-    for k0 in range(0, sk, 64):
-        keys = torch.arange(k0, min(k0 + 64, sk))
-        s = (qf @ kf[:, :, k0:k0 + 64].transpose(-1, -2)) * (scale * LOG2E)
-        if bias is not None:
-            rel_h, rel_w, gw = bias
-            s = s + (rel_h.float()[..., keys // gw]
-                     + rel_w.float()[..., keys % gw]) * LOG2E
-        if causal:
-            s = s.masked_fill(keys[None, :] > rows, float("-inf"))
-        mx = torch.maximum(m, s.amax(-1, keepdim=True))
-        base = torch.where(mx == float("-inf"), torch.zeros_like(mx), mx)
-        corr = torch.exp2(m - base)
-        p = torch.exp2(s - base)
-        l = l * corr + p.sum(-1, keepdim=True)
-        o = o * corr + p.to(torch.bfloat16).float() @ vf[:, :, k0:k0 + 64]
-        m = mx
-    safe = l.clamp_min(1e-30)
-    out = (o / safe).permute(0, 2, 1, 3)
-    if not lse:
-        return out
-    return out, ((m + torch.log2(safe)) * LN2)[..., 0]
+        "sam_global_attention", "sam_window_attention",
+        "sam_window_attention_q8", "relpos_flash_fwd_lse")]
 
 
 def _bf16_values(rng, *shape):
@@ -376,7 +345,8 @@ def test_tc_model_k10_matches_plain_and_pallas(name):
     q = _bf16_values(rng, b, sq, h, d)
     k, v = _bf16_values(rng, b, sk, h, d), _bf16_values(rng, b, sk, h, d)
     scale = d ** -0.5
-    got = _tc_model(_t(q), _t(k), _t(v), causal, scale)
+    got = tattn.tc_attention_torch(_t(q), _t(k), _t(v), scale=scale,
+                                   causal=causal)
     plain = tattn._flash_plain(_t(q), _t(k), _t(v), causal, scale)
     want = jattn.flash_attention(jnp.asarray(q), jnp.asarray(k),
                                  jnp.asarray(v), causal=causal, scale=scale)
@@ -393,7 +363,7 @@ def test_tc_model_k3_matches_plain_and_pallas(b, s, h, d):
     (Pallas, interpret mode) at ragged S, within FULL_TOL."""
     rng = np.random.default_rng(6)
     q, k, v = (_bf16_values(rng, b, s, h, d) for _ in range(3))
-    got = _tc_model(_t(q), _t(k), _t(v), False, d ** -0.5)
+    got = tattn.tc_attention_torch(_t(q), _t(k), _t(v), scale=d ** -0.5)
     plain = tattn.grouped_plain_attention_torch(_t(q), _t(k), _t(v))
     want = jattn.grouped_plain_attention(jnp.asarray(q), jnp.asarray(k),
                                          jnp.asarray(v))
@@ -424,7 +394,8 @@ def test_tc_model_k4_matches_plain_and_pallas(causal, s, d):
     rng = np.random.default_rng(7)
     q, k, v = (_bf16_values(rng, b, s, h, d) for _ in range(3))
     scale = d ** -0.5
-    got, got_lse = _tc_model(_t(q), _t(k), _t(v), causal, scale, lse=True)
+    got, got_lse = tattn.tc_attention_torch(
+        _t(q), _t(k), _t(v), scale=scale, causal=causal, lse=True)
     plain, plain_lse = tflash.flash_forward_lse_torch(
         _t(q), _t(k), _t(v), causal=causal, scale=scale)
     want, want_lse = jflash.flash_forward_lse(
@@ -455,8 +426,8 @@ def test_tc_model_k2_matches_plain_and_pallas(hw, d):
     tables = [_t(_randn(rng, 2 * g - 1, d) * 0.3) for g in hw]
     rh, rw = (t.to(torch.bfloat16).float().numpy()
               for t in tsam.relpos_terms(_t(q), *tables, hw))
-    got = _tc_model(_t(q), _t(k), _t(v), False, d ** -0.5,
-                    bias=(_t(rh), _t(rw), gw))
+    got = tattn.tc_attention_torch(_t(q), _t(k), _t(v), scale=d ** -0.5,
+                                   bias=(_t(rh), _t(rw), gw))
     plain = tsam.grouped_window_attention_relpos_torch(
         _t(q), _t(k), _t(v), _t(rh), _t(rw), hw)
     want = jsam.grouped_window_attention_relpos(
@@ -464,3 +435,137 @@ def test_tc_model_k2_matches_plain_and_pallas(hw, d):
     _close(plain, want)
     _within(got, plain, rows=False)
     _within(got, want, rows=False)
+
+
+# ---------------------------------------------------------------------------
+# K1, K1q and K9's forward on the tensor-core body
+# ---------------------------------------------------------------------------
+
+def _k1_inputs(rng, nw, win, heads, d):
+    """bf16 values of an unsplit qkv (nW, S, 3C) and of its packed term
+    table (`relpos_terms_raw` on the q third, tables of scale 0.1). Row 0 of
+    window 0 is an all-underflow row: its q is -73 and every k near 1, so
+    its logits lie near -73 sqrt(d) log2(e), far below EXP2_SHIFT - 126
+    (its rel terms, 73 times a sum of table entries, cannot lift them)."""
+    s, c = win * win, heads * d
+    qkv = _randn(rng, nw, s, 3 * c)
+    kq = qkv[0].reshape(s, 3, heads, d)
+    kq[:, 1] = 1.0 + 0.3 * _randn(rng, s, heads, d)
+    kq[0, 0] = -73.0
+    qkv = _t(qkv).to(torch.bfloat16).float()
+    tables = [_t(_randn(rng, 2 * win - 1, d) * 0.1) for _ in range(2)]
+    rel = tsam.relpos_terms_raw(qkv[..., :c], *tables, (win, win), heads)
+    return qkv.numpy(), rel.to(torch.bfloat16).float().numpy()
+
+
+@pytest.mark.parametrize("win", [14, 5])
+@pytest.mark.parametrize("d", [64, 80])
+def test_tc_model_k1_matches_plain_and_pallas(win, d):
+    """K1 on the tensor-core body (`grouped_window_attention_relpos_v3_
+    tc_torch`, the model with K1's packed table and the all-underflow
+    rule) == the plain twin `grouped_window_attention_relpos_v3_torch` and
+    the JAX `grouped_window_attention_relpos_v3` (Pallas, interpret mode,
+    its EXP2_SHIFT softmax) on the same bf16 values, within FULL_TOL; the
+    all-underflow row is exactly 0 in all three. 14 x 14 is SAM's window
+    (4 key tiles, the last holding 4 keys), 5 x 5 one partial tile."""
+    nw, heads, hw = 2, 2, (win, win)
+    qkv, rel = _k1_inputs(np.random.default_rng(9), nw, win, heads, d)
+    got = tsam.grouped_window_attention_relpos_v3_tc_torch(
+        _t(qkv), _t(rel), hw, heads)
+    plain = tsam.grouped_window_attention_relpos_v3_torch(_t(qkv), _t(rel),
+                                                          hw, heads)
+    want = np.asarray(jsam.grouped_window_attention_relpos_v3(
+        jnp.asarray(qkv), jnp.asarray(rel), jnp.ones(1), hw, heads))
+    _close(plain, want)
+    for out in (got.numpy(), plain.numpy(), want):
+        assert np.all(out[0, 0] == 0)
+        assert np.all(np.abs(out[0, 1:]).max(-1) > 0)
+    _within(got, plain, rows=False)
+    _within(got, want, rows=False)
+
+
+# K1q's int8 outputs, the model with the tensor-core body's rounding points
+# against the fp32 twin and the TPU kernel (in interpret mode, on fp32
+# values, so its P stays fp32): at most 1 LSB apart, on at most this share
+# of the outputs. Measured on these inputs: 1.1-2.2% against either, the
+# same outputs (the bf16 P moves an output by ~1e-2 LSB); the fp32 twin
+# and the TPU kernel differ on at most 2e-5 of them.
+K1Q_SHARE = 3e-2
+# ... and against the TPU kernel on bf16 arrays of the same values, where
+# it rounds q * scale * log2(e), the bias terms and P = exp2(s - EXP2_SHIFT)
+# to bf16: measured 3.7-6.0% for the model and 3.4-5.7% for the fp32 twin.
+# The body's bf16 P, rounded after the running max, is not the TPU
+# kernel's rounding (P at a fixed offset, after a bf16 q): the model is no
+# closer to that kernel than the fp32 twin is, and both stay within 1 LSB.
+K1Q_BF16_SHARE = 8e-2
+
+
+@pytest.mark.parametrize("win", [14, 5])
+@pytest.mark.parametrize("d", [64, 80])
+def test_tc_model_k1q_int8_within_lsb_of_twin_and_pallas(win, d):
+    """K1q on the tensor-core body (the model with the int8 epilogue
+    clip(rint(out * inv), -127, 127) after the all-underflow rule) against
+    `grouped_window_attention_relpos_v3_q8_torch` (the fp32 twin) and the
+    JAX kernel with quantize=True (Pallas, interpret mode) on fp32 arrays:
+    the outputs span the int8 range, at most 1 LSB apart on at most
+    K1Q_SHARE of them; against that kernel on bf16 arrays of the same
+    values, the model and the twin at most 1 LSB apart on at most
+    K1Q_BF16_SHARE; the all-underflow row is exactly 0 in all four."""
+    nw, heads, hw = 2, 2, (win, win)
+    qkv, rel = _k1_inputs(np.random.default_rng(11), nw, win, heads, d)
+    inv = np.full((1,), 80.0, np.float32)
+    got = tsam.grouped_window_attention_relpos_v3_tc_torch(
+        _t(qkv), _t(rel), hw, heads, inv_scale=_t(inv))
+    plain = tsam.grouped_window_attention_relpos_v3_q8_torch(
+        _t(qkv), _t(rel), _t(inv), hw, heads)
+    want, want_bf16 = (np.asarray(jsam.grouped_window_attention_relpos_v3(
+        jnp.asarray(qkv, dt), jnp.asarray(rel, dt), jnp.asarray(inv), hw,
+        heads, quantize=True)) for dt in (jnp.float32, jnp.bfloat16))
+    assert got.dtype == torch.int8 and got.shape == plain.shape
+    assert np.abs(want).max() == 127
+    for out in (got.numpy(), plain.numpy(), want, want_bf16):
+        assert np.all(out[0, 0] == 0)
+
+    def lsb(a, b):
+        diff = np.abs(a.astype(np.int32) - b.astype(np.int32))
+        return diff.max(), (diff > 0).mean()
+
+    for ref in (plain.numpy(), want):
+        most, share = lsb(got.numpy(), ref)
+        assert most <= 1 and share <= K1Q_SHARE, (most, share)
+    for out in (got.numpy(), plain.numpy()):
+        most, share = lsb(out, want_bf16)
+        assert most <= 1 and share <= K1Q_BF16_SHARE, (most, share)
+
+
+@pytest.mark.parametrize("grid", [14, 18])
+@pytest.mark.parametrize("d", [64, 80])
+def test_tc_model_k9_forward_matches_plain_and_pallas(grid, d):
+    """K9's forward on the tensor-core body: the model with the bias and
+    its LSE == `relpos_flash_fwd_lse_torch` and the JAX
+    `relpos_flash_fwd_lse` (Pallas, interpret mode; its (B*H, n_blk,
+    block) LSE reshaped to (B, H, S)) on bf16 values of `relpos_terms`'
+    outputs: out within FULL_TOL, the LSE, which K9's dq and dkv read back
+    as exp(s - lse), within 1e-4 of its max-abs. 14 x 14 (4 key tiles, a
+    ragged last) and 18 x 18 (6, ragged)."""
+    b, h = 1, 2
+    s, hw = grid * grid, (grid, grid)
+    rng = np.random.default_rng(10)
+    q, k, v = (_bf16_values(rng, b, s, h, d) for _ in range(3))
+    tables = [_t(_randn(rng, 2 * grid - 1, d) * 0.3) for _ in range(2)]
+    rh, rw = (t.to(torch.bfloat16).float().numpy()
+              for t in tsam.relpos_terms(_t(q), *tables, hw))
+    scale = d ** -0.5
+    got, got_lse = tattn.tc_attention_torch(
+        _t(q), _t(k), _t(v), scale=scale, bias=(_t(rh), _t(rw), grid),
+        lse=True)
+    plain, plain_lse = trel.relpos_flash_fwd_lse_torch(
+        _t(q), _t(k), _t(v), _t(rh), _t(rw), hw, scale)
+    want, want_lse = jrel.relpos_flash_fwd_lse(
+        *(jnp.asarray(x) for x in (q, k, v, rh, rw)), hw, scale)
+    want_lse = np.asarray(want_lse).reshape(b, h, s)
+    _close(plain, want)
+    _close(plain_lse, want_lse)
+    for ref, ref_lse in ((plain, plain_lse), (want, want_lse)):
+        _within(got, ref, rows=False)
+        _lse_within(got_lse, ref_lse)

@@ -7,6 +7,7 @@ the CPU; the CUDA kernels themselves are checked on the card by
 `chip_smoke.py` (this file imports jax, which the card's machine lacks).
 """
 
+import ctypes
 import math
 
 import numpy as np
@@ -219,12 +220,16 @@ def test_launch_counts_untouched_by_plain_path():
     assert all(k.launches == 0 for k in _kernels.KERNELS.values())
     assert {k.source.split("/")[-1] for k in _kernels.KERNELS.values()} == {
         p.name for p in _kernels.sources() if p.name != "errors.cu"}
-    # K2, K3, K4 and K10 each have a tensor-core entry beside the SIMT
-    # one: the same source file, TPU kernel and arguments, the symbol `_tc`
+    # K1, K1q, K2, K3, K4, K9's forward and K10 each have a tensor-core
+    # entry beside the SIMT one: the same source file, TPU kernel and
+    # arguments, the symbol `_tc`
     tc = {n: k for n, k in _kernels.KERNELS.items() if n.endswith("_tc")}
     assert sorted(tc) == ["flash_attention_tc", "flash_forward_lse_tc",
                           "grouped_plain_attention_tc",
-                          "sam_global_attention_tc"]
+                          "relpos_flash_fwd_lse_tc",
+                          "sam_global_attention_tc",
+                          "sam_window_attention_q8_tc",
+                          "sam_window_attention_tc"]
     for name, k in tc.items():
         simt = _kernels.KERNELS[name.removesuffix("_tc")]
         assert (k.source, k.replaces, k.argtypes) == (
@@ -239,6 +244,18 @@ def test_launch_counts_untouched_by_plain_path():
         "grove_tpu/ops/flash_backward.py:210"
     assert tc["sam_global_attention_tc"].replaces == \
         "grove_tpu/ops/sam_attention.py:235"
+    for name in ("sam_window_attention_tc", "sam_window_attention_q8_tc"):
+        assert tc[name].replaces == "grove_tpu/ops/sam_attention.py:537"
+        assert tc[name].source == \
+            "grove_tpu_torch/csrc/sam_window_attention.cu"
+    assert tc["relpos_flash_fwd_lse_tc"].replaces == \
+        "grove_tpu/ops/sam_attention_bwd.py:243"
+    assert tc["relpos_flash_fwd_lse_tc"].source == \
+        "grove_tpu_torch/csrc/relpos_flash_attention.cu"
+    # the int8 entry takes the inverse scale before the output, as K1q's
+    # SIMT one does
+    assert tc["sam_window_attention_q8_tc"].argtypes[:4] == (
+        ctypes.c_void_p,) * 4
     assert _kernels.TC_HEAD_DIMS == (64, 80, 128)
     assert (_kernels.CSRC / "attention_tc.cuh").is_file()
 
