@@ -41,11 +41,17 @@ Phases, each printing its own line; any failure exits non-zero:
      1979 TOP/s int8, 67 TFLOP/s fp32 off the tensor cores), and, for K1-K5
      and K10, the time of the one PyTorch call that computes the same
      function (`F.scaled_dot_product_attention`, rel-pos terms and pads as a
-     mask), which the port never calls. K1, K1q, K2, K3, K4, K9's forward
-     and K10 have two entries each: the tensor-core one (`_tc`,
-     attention_tc.cuh), which the wrappers take for bf16 at head dim 64, 80
-     or 128, held through the wrapper at full width and at bf16 edge cases
-     within 2e-2 of max-abs (K3: S of 1, 63, 65, 129 and 577; K10: also
+     mask), which the port never calls. K1, K1q, K2, K3, K4, K5, K9's
+     forward, K9's dkv and K10 have two entries each: the tensor-core one
+     (`_tc`, attention_tc.cuh, for K9's dkv attention_bwd_tc.cuh), which
+     the wrappers take for bf16 at head dim 64, 80 or 128, held through the
+     wrapper at full width and at bf16 edge cases within 2e-2 of max-abs
+     (K5: pads of 0, 5, 37, 64, 100 and 150, whole key tiles inside the
+     pad, S of 1 to 640, every row inside a pad equal to its own v row and
+     every output finite, as for its SIMT entry; K9's dkv: grids of 2 x 2
+     to 32 x 32 against the twin with the body's rounding points, P and dS
+     in bf16 as the TPU kernel rounds them; K3: S of 1, 63, 65, 129 and
+     577; K10: also
      causal Sq < Sk and Sq > Sk and cross lengths; K4: S of 1, 63, 65, 129
      and 704, causal and not, its LSE within 1e-4; K2: grids of 2 x 2, 4 x
      4, 12 x 12, 14 x 14 and 32 x 32; K1, K1q and K9's forward: grids of 2 x
@@ -95,8 +101,10 @@ Phases, each printing its own line; any failure exits non-zero:
      tokens) and ground_clip_with_caption with the
      launch counts zeroed just before and read just after; outputs must
      carry the JAX package's keys and be finite; no run may launch the SIMT
-     entries of K1, K1q, K2, K3, K4, K9's forward or K10 (bf16 takes the
-     tensor-core entries of K1, K1q, K2, K3 and K4); the bf16 run
+     entries of K1, K1q, K2, K3, K4, K5, K9's forward, K9's dkv or K10
+     (bf16 takes the tensor-core entries of K1, K1q, K2, K3, K4 and K5; the
+     int4 and the flagship runs launch K5's exactly 32 times, once a layer
+     of the one prefill); the bf16 run
      must launch K1-K4, the int4 run K1-K7a, the W8A8-static run K2-K7a,
      K8b and K1q,
      the flagship K2-K6, K7b, K7c, K8b, K8c (both entries) and K1q and no
@@ -166,9 +174,10 @@ Phases, each printing its own line; any failure exits non-zero:
      OptimizerConfig(warmup_steps=1); three `train.step.make_train_step`
      steps with the launch counts zeroed before each: every loss term
      finite, exactly 32 launches of K4's tensor-core entry and of each K4b
-     entry, 24 of each K9 entry (its forward's tensor-core one), 28 of
-     K1's tensor-core entry and 4 of K2's per step, none of a SIMT entry of
-     K1, K1q, K2, K3, K4, K9's forward or K10; step 1 (lr(0) = 0)
+     entry, 24 of each K9 entry (the tensor-core ones of its forward and
+     its dkv), 28 of K1's tensor-core entry and 4 of K2's per step, none of
+     a SIMT entry of K1, K1q, K2, K3, K4, K5, K9's forward, K9's dkv or
+     K10; step 1 (lr(0) = 0)
      leaves every parameter bit-equal and gives every trainable group
      (TRAIN_GROUPS) a finite, nonzero gradient; after step 3 the frozen
      parameters are bit-equal and every trainable group moved. Prints the
@@ -195,14 +204,23 @@ Phases, each printing its own line; any failure exits non-zero:
      printed;
   6  training parity: GroveConfig.small() (max_seq_len=129) in fp32, one
      set of weights and one batch, one step with warmup_steps=0 on the
-     card (kernels, TF32 off; the SIMT entries of K4 and K9's forward)
+     card (kernels, TF32 off; the SIMT entries of K4, K9's forward and K9's
+     dkv)
      and on the CPU (plain
      versions): every loss
      term within 1e-4 relative, every trainable tensor's gradient within
      1e-3 of its max-abs (or of 1e-3 of the largest gradient's max-abs,
      for a tensor whose gradient is zero up to rounding); then the same for
      one QLoRA step (lora_r=8, remat, int4 LLM, bf16 moments) with the CPU
-     in the card's Int4Linear branch (`models.layers._on_card`).
+     in the card's Int4Linear branch (`models.layers._on_card`);
+  7  loader: GroveForCausalLM.from_pretrained(tokenizer=) on a .bin of
+     GroveConfig.small() with PEFT names and LoRA pairs on every layer's
+     q_proj and v_proj, and SAM's pos_embed and global rel_pos tables on
+     twice the grid, with a SentencePiece tokenizer written by the port's
+     pure-Python writer: the config's special ids are the tokenizer's, the
+     load onto the card is bit-equal to the same load onto the CPU (the
+     pairs merged, the tables resized), and the loaded SAM's embeddings on
+     the card are within 1e-3 of the CPU's max-abs (fp32).
 Phase 2 also holds the five training kernels (K4b dq and dkv at LLaMA's
 (1, 704, 32, 128) causal; K9's forward with its LSE, dq with d_rh and d_rw,
 and dkv at SAM's windowed (72, 196, 16, 80) and global (8, 1024, 16, 80)
@@ -212,13 +230,14 @@ forward for K9's forward entry), and the zero-padded int8 GEMM at lm_head's
 
 The line before the last is a JSON object with each kernel's measurements
 (`launches`: the tensor-core entries of K1, K2, K3 and K4 from the bf16
-run of phase 3, K5-K7a from the int4 one, K8b and K1q's tensor-core entry
-from the W8A8-static one, K7b, K7c and K8c from the flagship one, K8a and
-the SIMT entries of K1q, K2, K3 and K4 from phase 4's fp32 W8A8-static
-model path, K1's SIMT entry from its fp32 float one, K4b and K9 (its
-forward's tensor-core entry) from step 3 of phase 5, K10's tensor-core
-entry from its bf16 S = 2111 step, K9's forward's SIMT entry from phase
-6's fp32 step; K10's SIMT entry, which no model path runs in fp32, and
+run of phase 3, K5's tensor-core entry, K6 and K7a from the int4 one, K8b
+and K1q's tensor-core entry from the W8A8-static one, K7b, K7c and K8c
+from the flagship one, K8a and the SIMT entries of K1q, K2, K3 and K4
+from phase 4's fp32 W8A8-static model path, K1's SIMT entry from its fp32
+float one, K4b and K9 (the tensor-core entries of its forward and dkv)
+from step 3 of phase 5, K10's tensor-core entry from its bf16 S = 2111
+step, the SIMT entries of K9's forward and dkv from phase 6's fp32 step;
+the SIMT entries of K5 and K10, which no model path runs in fp32, and
 K11-K14, which run on no model path, show 0)
 and `phase2_launches`, the launches of phase 2's checks and timings; the
 tensor-core rows also carry `simt_ms`, the SIMT entry's bf16 time at the
@@ -261,21 +280,24 @@ LSB_SHARE = 1e-3         # share of int8 outputs allowed off (K8a-c, K1q)
 FP32_LSB_SHARE = 1e-4    # the same for K1q in fp32
 SX_REL = 1e-6            # K8c's per-token scales, relative
 COLD_BYTES = 64 * 2**20  # inputs cycled past the L2 when timing cold kernels
-QUANT_KERNELS = ("prefill_attention", "int8_decode_attention", "int4_matmul")
+# the int8-cache prefill's K5 runs its tensor-core entry (bf16, D = 128),
+# once in each of the 32 LLaMA layers of a prefill
+QUANT_KERNELS = ("prefill_attention_tc", "int8_decode_attention",
+                 "int4_matmul")
 W8A8_KERNELS = ("add_layernorm_quant", "sam_window_attention_q8_tc")
 FLAGSHIP_KERNELS = ("int4_matmul_a8", "int4_requant_int8", "rmsnorm_quant",
                     "add_rmsnorm_quant")
 LN_KERNEL = "layernorm_quant"             # phase 4's quant_ln_kernel path
 # the training kernels, launched per bf16 step of phase 5 exactly this
 # often: K4 (its tensor-core entry) in the 32 LLaMA layers' forward, K4b in
-# their backward, K9's three entries (its forward's tensor-core one) in the
-# backward of the 21 windowed and 3 global SAM blocks after the first
-# trainable adapter
+# their backward, K9's three entries (the tensor-core ones of its forward
+# and its dkv) in the backward of the 21 windowed and 3 global SAM blocks
+# after the first trainable adapter
 TRAIN_LAUNCHES = {"flash_forward_lse_tc": 32, "flash_backward_dq": 32,
                   "flash_backward_dkv": 32, "relpos_flash_fwd_lse_tc": 24,
-                  "relpos_flash_dq": 24, "relpos_flash_dkv": 24}
+                  "relpos_flash_dq": 24, "relpos_flash_dkv_tc": 24}
 # the fp32 steps of phase 6 launch the same kernels with the SIMT entries
-# of K4 and K9's forward
+# of K4, K9's forward and K9's dkv
 FP32_TRAIN_KERNELS = tuple(k.removesuffix("_tc") for k in TRAIN_LAUNCHES)
 # the training kernels whose launches the JSON line takes from phase 5: K4b
 # and K9 from its S = 704 steps, K10 (its tensor-core entry) from its
@@ -283,17 +305,19 @@ FP32_TRAIN_KERNELS = tuple(k.removesuffix("_tc") for k in TRAIN_LAUNCHES)
 # multiples of 64 or go to K5)
 TRAIN_KERNELS = tuple(k for k in TRAIN_LAUNCHES
                       if k != "flash_forward_lse_tc") + ("flash_attention_tc",)
-# the SIMT entries of K1, K1q, K2, K3, K4, K9's forward and K10: bf16 at
-# head dim 64, 80 or 128 takes their tensor-core entries
+# the SIMT entries of K1, K1q, K2, K3, K4, K5, K9's forward, K9's dkv and
+# K10: bf16 at head dim 64, 80 or 128 takes their tensor-core entries
 # (`ops.attention._tc_takes`), so no bf16 path of phases 3 and 5 may launch
 # them; fp32 does (phase 2's small cases; K1q, K2, K3 and K4 in phase 4's
 # W8A8-static path and K1 in its float one, where the JSON line takes their
-# launches from; K9's forward in phase 6's fp32 step; no fp32 model path
-# runs K10, so its SIMT entry shows 0 there)
+# launches from; K9's forward and dkv in phase 6's fp32 step; no fp32 model
+# path runs K5 or K10 (phase 4's prompts are too short for K5), so their
+# SIMT entries show 0 there)
 SIMT_ENTRIES = ("grouped_plain_attention", "flash_attention",
                 "flash_forward_lse", "sam_global_attention",
                 "sam_window_attention", "sam_window_attention_q8",
-                "relpos_flash_fwd_lse")
+                "relpos_flash_fwd_lse", "prefill_attention",
+                "relpos_flash_dkv")
 FP32_SIMT = ("grouped_plain_attention", "flash_forward_lse",
              "sam_global_attention", "sam_window_attention_q8")
 # the tensor-core entries: phase 2 prints their registers, spills and
@@ -304,7 +328,15 @@ TC_SOURCES = {"flash_attention_tc": "flash_attention.cu",
               "sam_global_attention_tc": "sam_global_attention.cu",
               "sam_window_attention_tc": "sam_window_attention.cu",
               "sam_window_attention_q8_tc": "sam_window_attention.cu",
-              "relpos_flash_fwd_lse_tc": "relpos_flash_attention.cu"}
+              "relpos_flash_fwd_lse_tc": "relpos_flash_attention.cu",
+              "prefill_attention_tc": "prefill_attention.cu",
+              "relpos_flash_dkv_tc": "relpos_flash_attention.cu"}
+# the entries on the tensor-core backward body (attention_bwd_tc.cuh), whose
+# shared memory is its own: K and V of 128 keys, two stages of Q and dO of
+# 64 queries, their LSE and D, two stages of raw term tables and one of
+# their fp32 columns (65 floats a column, gh + gw <= 64 columns at SAM's
+# widths) and 1 KB to align
+TC_BACKWARD = ("relpos_flash_dkv_tc",)
 # the tensor-core entries with the rel-pos term tables staged in shared
 # memory (16 KB more at gh + gw <= 64)
 TC_BIASED = ("sam_global_attention_tc", "sam_window_attention_tc",
@@ -347,8 +379,8 @@ QLORA_TRAINABLE = 581_683_189
 # kernels a QLoRA step must not launch: K5 (the driver's ragged S takes
 # K10), and the int4 decode kernels K7a-K7c (the frozen LLM's backward
 # runs the recomputed bf16 view)
-QLORA_NEVER = ("prefill_attention", "int4_matmul", "int4_matmul_a8",
-               "int4_requant_int8")
+QLORA_NEVER = ("prefill_attention", "prefill_attention_tc", "int4_matmul",
+               "int4_matmul_a8", "int4_requant_int8")
 # phase 3's two clips ask different questions, so their prompts are
 # left-padded to 640 tokens: the int8-cache prefill then takes K5 (the JAX
 # rule: S % 8 == 0, 128 <= S <= 1100), with a left pad
@@ -614,6 +646,36 @@ def _cases(torch):
         pads = torch.tensor([0, pad][:b], device="cuda", dtype=torch.int32)
         return (q, k, v, pads, heads, d ** -0.5)
 
+    # K5's SIMT entry, called directly, so that bf16 reaches it too
+    def k5_simt(q, k, v, pads, heads, scale):
+        return attention._prefill_launch("prefill_attention", q, k, v, pads,
+                                         heads, scale)
+
+    # the tensor-core body's arithmetic with K5's pad (P to bf16 before
+    # P.V, the TPU kernel's rounding point), in the raw layout
+    def k5_tc_plain(q, k, v, pads, heads, scale):
+        b, s, c = q.shape
+        q, k, v = (t.view(b, s, heads, c // heads) for t in (q, k, v))
+        out = attention.tc_attention_torch(q, k, v, scale=scale, causal=True,
+                                           pad=pads)
+        return out.reshape(b, s, c)
+
+    def k5_pad_rows(args, got):
+        # a row inside its batch's pad attends to itself only: its output
+        # is its own v row, exactly; no value is NaN or inf
+        q, v, pads = args[0], args[2], args[3]
+        if not bool(torch.isfinite(got).all()):
+            raise PhaseError(f"prefill_attention {tuple(q.shape)}: an "
+                             "output is not finite")
+        rows = 0
+        for i, p in enumerate(pads.tolist()):
+            if not torch.equal(got[i, :p], v[i, :p]):
+                raise PhaseError(f"prefill_attention {tuple(q.shape)}: a "
+                                 f"row inside batch {i}'s pad of {p} is "
+                                 "not its own v row")
+            rows += p
+        return f"; the {rows} rows inside the pads equal their v rows"
+
     def k6_inputs(gen, dtype, shape):
         b, h, hkv, c, d = shape
         q = randn(gen, (b, h, d), dtype)
@@ -679,6 +741,9 @@ def _cases(torch):
     def k9_simt(q, k, v, rh, rw, hw, scale):
         return sam_attention_bwd._fwd_launch("relpos_flash_fwd_lse", q, k, v,
                                              rh, rw, hw, scale)
+
+    def k9_dkv_simt(*args):
+        return sam_attention_bwd._dkv_launch("relpos_flash_dkv", *args)
 
     def k12_inputs(gen, dtype, shape):
         # K1's inputs (the all-underflow row included), q / k / v split
@@ -878,7 +943,7 @@ def _cases(torch):
     # runs (M = 2 rows, a 768-slot cache), and the W4A8 projections
     def case(fn, plain, make, full, small, ops, cold=False, int8=None,
              library=None, rows=False, exact=False, library_is=None,
-             edges=(), simt=None, tols=None, against=None):
+             edges=(), simt=None, tols=None, against=None, check=None):
         """int8: (LSB, share) limits of an int8 output, full bf16 and small
         fp32, instead of the float error limits. rows: the full bf16 output
         (and each of `edges`) held row by row as well (`_check_rows`).
@@ -889,13 +954,16 @@ def _cases(torch):
         (`_queued_ms`) with the library call. tols: each output's bf16
         limit, of its max-abs, where not FULL_TOL for all. against: a
         second plain version whose distance at full width is printed, not
-        held. An int8 case holds its edges in LSBs at its full limits; an
-        edge or small shape ending in "underflow" carries an all-underflow
-        row (row 0 of window 0), which must be exactly 0."""
+        held. check(args, got) -> note: a further check of the kernel's
+        output at every shape, raising PhaseError where it fails. An int8
+        case holds its edges in LSBs at its full limits; an edge or small
+        shape ending in "underflow" carries an all-underflow row (row 0 of
+        window 0), which must be exactly 0."""
         return dict(fn=fn, plain=plain, make=make, full=full, small=small,
                     cold=cold, int8=int8, ops=ops, library=library,
                     rows=rows, exact=exact, library_is=library_is,
-                    edges=edges, simt=simt, tols=tols, against=against)
+                    edges=edges, simt=simt, tols=tols, against=against,
+                    check=check)
 
     proj_shapes = [(4096, 4096), (4096, 11008), (11008, 4096)]
     # the training step's shapes: LLaMA-7B at S = 704 (batch 1); SAM's 21
@@ -986,12 +1054,31 @@ def _cases(torch):
                    for b, s in ((1, 1), (1, 63), (2, 65), (1, 129), (1, 704))
                    for d in (64, 128) for causal in (True, False)],
             simt=k4_simt),
+        # K5's SIMT entry, called directly in bf16 at full width (for its
+        # time beside the tensor-core entry's) and in fp32 as the wrapper
+        # calls it
         "prefill_attention": case(
-            attention.prefill_attention_raw,
-            attention.prefill_attention_raw_torch,
+            k5_simt, attention.prefill_attention_raw_torch,
             k5_inputs, [(2, 640, 32, 128, 37)],
             [(2, 130, 4, 64, 5), (1, 45, 2, 128, 3), (2, 24, 4, 8, 5)],
-            k5_ops, library=k5_library),
+            k5_ops, library=k5_library, check=k5_pad_rows),
+        # K5's tensor-core entry, through the wrapper (bf16, D 64 / 80 /
+        # 128), held to the body's arithmetic with the pad (the TPU
+        # kernel's rounding points: P to bf16 before P.V), within FULL_TOL
+        # and row by row, since the late causal rows are small beside the
+        # pad rows and row 0, which set the max-abs; the fp32 twin's
+        # distance printed; edges: a pad covering whole key tiles, a pad
+        # past the last row's tile start, ragged last tiles, one row, every
+        # head dim
+        "prefill_attention_tc": case(
+            attention.prefill_attention_raw, k5_tc_plain,
+            k5_inputs, [(2, 640, 32, 128, 37)], [], k5_ops,
+            library=k5_library, check=k5_pad_rows, simt=k5_simt, rows=True,
+            against=attention.prefill_attention_raw_torch,
+            edges=[(2, 130, 4, 64, 100), (2, 200, 2, 80, 150),
+                   (2, 128, 2, 128, 64), (2, 24, 2, 64, 5),
+                   (1, 1, 2, 64, 0), (2, 640, 2, 128, 37),
+                   (2, 333, 3, 80, 0)]),
         "int8_decode_attention": case(
             decode_attention.int8_cache_decode_attention,
             decode_attention.int8_cache_decode_attention_torch,
@@ -1085,10 +1172,27 @@ def _cases(torch):
             sam_attention_bwd.relpos_flash_dq,
             sam_attention_bwd.relpos_flash_dq_torch, k9_bwd_inputs, k9_full,
             k9_small, lambda a: bwd_ops(a, 3), library=k9_bwd_library),
+        # K9's dkv, its SIMT entry called directly in bf16 at full width
+        # and in fp32 as the wrapper calls it
         "relpos_flash_dkv": case(
+            k9_dkv_simt, sam_attention_bwd.relpos_flash_dkv_torch,
+            k9_bwd_inputs, k9_full, k9_small, lambda a: bwd_ops(a, 4),
+            library=k9_bwd_library),
+        # its tensor-core entry (attention_bwd_tc.cuh), through the wrapper
+        # (bf16, D 64 / 80 / 128), held to the plain version with the
+        # body's rounding points, which are the TPU kernel's (P and dS to
+        # bf16 before the products); edges: grids of 2 x 2 (one partial
+        # query tile) to 32 x 32, ragged 12 x 12 and 14 x 14, every head
+        # dim, B.H > 1 (an odd grid takes the SIMT entry:
+        # `_dkv_odd_grid_route`)
+        "relpos_flash_dkv_tc": case(
             sam_attention_bwd.relpos_flash_dkv,
-            sam_attention_bwd.relpos_flash_dkv_torch, k9_bwd_inputs, k9_full,
-            k9_small, lambda a: bwd_ops(a, 4), library=k9_bwd_library),
+            sam_attention_bwd.relpos_flash_dkv_tc_torch, k9_bwd_inputs,
+            k9_full, [], lambda a: bwd_ops(a, 4), library=k9_bwd_library,
+            edges=[(b, g, 2, d) for g, b in ((2, 4), (12, 1),
+                                             (14, 2), (16, 1), (32, 1))
+                   for d in (64, 80, 128)],
+            simt=k9_dkv_simt),
         # the training driver's S = 1536 + 575 = 2111 through LLaMA-7B,
         # K10's SIMT entry called directly in bf16 (its time beside the
         # tensor-core entry's); small fp32, as the wrapper calls it: cross
@@ -1312,6 +1416,16 @@ def _check_full(name, full, got, want, tols=None):
     return out
 
 
+def _row_share(got, want):
+    """The largest distance of a row (the last axis) of `got` from `want`,
+    of that row's max-abs in `want`; of a call with several outputs, the
+    first."""
+    g, w = (x[0] if isinstance(x, tuple) else x for x in (got, want))
+    g, w = g.float(), w.float()
+    return float(((g - w).abs().amax(-1)
+                  / w.abs().amax(-1).clamp_min(1e-30)).max())
+
+
 def _check_rows(name, full, got, want):
     """A full-width bf16 attention output row by row: each row (one query
     of one head, D values) within ROW_TOL of that row's own max-abs.
@@ -1321,10 +1435,7 @@ def _check_rows(name, full, got, want):
     one bf16 rounding apart is at most 2^-7 of a row's max-abs. Of a call
     with several outputs (K4: out and LSE), the first. Returns the worst
     row's share."""
-    g, w = (x[0] if isinstance(x, tuple) else x for x in (got, want))
-    g, w = g.float(), w.float()
-    rel = float(((g - w).abs().amax(-1)
-                 / w.abs().amax(-1).clamp_min(1e-30)).max())
+    rel = _row_share(got, want)
     if not rel <= ROW_TOL:
         raise PhaseError(f"{name} bf16 {full}: a row differs by {rel:.3e} "
                          f"of its own max-abs > {ROW_TOL}")
@@ -1396,6 +1507,8 @@ def phase_kernels(torch, gpu, compiles):
                                      f"{err:.3e} > {FP32_TOL}")
                 note = f"max-abs error {err:.3e}"
             note += _check_underflow(name, shape, got, want)
+            if c["check"]:
+                note += c["check"](args, got)
             say(2, f"{name} fp32 {shape}: {note}")
         for shape in c["edges"]:
             args = make(gen, torch.bfloat16, shape)
@@ -1414,6 +1527,8 @@ def phase_kernels(torch, gpu, compiles):
                 row = _check_rows(name, shape, got, want)
                 note += f", worst row {row:.2e} of its own max-abs"
             note += _check_underflow(name, shape, got, want)
+            if c["check"]:
+                note += c["check"](args, got)
             say(2, f"{name} bf16 edge {shape}: {note}")
         errs, ms, plain_ms, bound = [], 0.0, 0.0, {"bytes": 0.0,
                                                     "operations": 0.0}
@@ -1445,6 +1560,14 @@ def phase_kernels(torch, gpu, compiles):
                 if c["rows"]:
                     row = _check_rows(name, full, got, want)
                     what += f", worst row {row:.2e} of its own max-abs"
+                if c["against"]:
+                    other = c["against"](*args)
+                    what += (f" (from the fp32 twin, printed, not held: "
+                             f"{_max_err(got, other):.3e}, worst row "
+                             f"{_row_share(got, other):.2e})")
+                    del other
+            if c["check"]:
+                what += c["check"](args, got)
             errs += new
             del got, want
             sets, timer, how = [args], _time_ms, ""
@@ -1505,6 +1628,7 @@ def phase_kernels(torch, gpu, compiles):
     _tc_build_report(gpu, compiles)
     _int8_matmul_padded(torch, gpu)
     _ragged_routes(torch, gpu)
+    _dkv_odd_grid_route(torch, gpu)
     _trainable_forms(torch, gpu)
     _k14_breakdown(torch, gpu, rows)
     for name, row in rows.items():
@@ -1532,7 +1656,8 @@ def _tc_build_report(gpu, compiles):
     stack frame and spills as ptxas reports them (`_tc_compiles`), dynamic
     shared memory (attention_tc.cuh's Q tile and two K/V stages of 64-column
     atoms, plus the term tables of K1, K2 and K9's forward at SAM's
-    gh + gw <= 64, plus 1 KB of alignment),
+    gh + gw <= 64, plus 1 KB of alignment; attention_bwd_tc.cuh's as
+    TC_BACKWARD says),
     and the HGMMA instructions in `cuobjdump -sass` of the built library.
     Fails where ptxas failed, a kernel spills, or a kernel has no HGMMA
     (then it would not run on the tensor cores)."""
@@ -1574,6 +1699,9 @@ def _tc_build_report(gpu, compiles):
             smem = (128 + 4 * 64) * width * 2 + 1024
             if name in TC_BIASED:
                 smem += 128 * 64 * 2
+            if name in TC_BACKWARD:
+                smem = ((2 * 128 + 4 * 64) * width * 2 + 4 * 64 * 4
+                        + 2 * 64 * 64 * 2 + 64 * 65 * 4 + 2 * 1024)
             say(2, f"{name} D = {d}: ptxas {'; '.join(lines) or 'no report'}"
                    f"; dynamic shared memory {smem} bytes; {n} HGMMA "
                    f"instructions in the library's SASS ({gpu})")
@@ -1725,7 +1853,7 @@ def _ragged_routes(torch, gpu):
         return t.reshape(b, s, h * d)
 
     routes = {
-        "K5 + torch backward": lambda q, k, v: attention.
+        "K5 (tensor-core body) + torch backward": lambda q, k, v: attention.
         prefill_attention_trainable(raw(q), raw(k), raw(v), h, scale)
         .reshape(b, s, h, d),
         "K10 (tensor-core body) + torch backward": lambda q, k, v:
@@ -1759,6 +1887,43 @@ def _ragged_routes(torch, gpu):
         del got
     say(2, "causal attention forward + backward at the ragged S = 2111 "
            f"(1, 2111, 32, 128) bf16: {'; '.join(notes)} on {gpu}")
+
+
+def _dkv_odd_grid_route(torch, gpu):
+    """K9's dkv in bf16 at D = 64 on a 7 x 7 grid, whose term tables'
+    (batch, head) blocks of 49 x 7 values are not 16-byte aligned: the
+    wrapper launches the SIMT entry once and the tensor-core one never,
+    and dk, dv lie within FULL_TOL of the plain twin's max-abs."""
+    from grove_tpu_torch import _kernels
+    from grove_tpu_torch.ops import flash_backward, sam_attention_bwd
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    hw, scale = (7, 7), 64 ** -0.5
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    q, k, v, g = (randn(2, 49, 2, 64) for _ in range(4))
+    rh, rw = randn(2, 2, 49, 7), randn(2, 2, 49, 7)
+    out, lse = sam_attention_bwd.relpos_flash_fwd_lse_torch(q, k, v, rh, rw,
+                                                            hw, scale)
+    args = (q, k, v, rh, rw, g, lse, flash_backward.row_dot(out, g), hw,
+            scale)
+    names = ("relpos_flash_dkv", "relpos_flash_dkv_tc")
+    before = [_kernels.KERNELS[n].launches for n in names]
+    got = sam_attention_bwd.relpos_flash_dkv(*args)
+    torch.cuda.synchronize()
+    ran = tuple(_kernels.KERNELS[n].launches - b
+                for n, b in zip(names, before))
+    if ran != (1, 0):
+        raise PhaseError(f"relpos_flash_dkv bf16 on a 7 x 7 grid launched "
+                         f"(SIMT, tensor-core) {ran} times, not (1, 0)")
+    errs = _check_full("relpos_flash_dkv", "7 x 7 route", got,
+                       sam_attention_bwd.relpos_flash_dkv_torch(*args))
+    say(2, f"relpos_flash_dkv bf16 on a 7 x 7 grid (unaligned term tables): "
+           f"the SIMT entry, dk, dv within "
+           f"{', '.join(f'{r:.2e}' for _, r in errs)} of the plain twin's "
+           f"max-abs on {gpu}")
 
 
 def _int8_matmul_padded(torch, gpu):
@@ -1923,7 +2088,13 @@ def _det_branch(torch, model, cfg, tok, clip, threshold):
 def _replay(torch, gpu, model, cfg, tok, clips, label, cache_dtype,
             encoders: bool):
     """Timed replay of the stages on the first call's inputs; returns the
-    stage times and the greedy ids of the 64-step decode."""
+    stage times and the greedy ids of the 64-step decode. The prefill
+    stage is the path's: the two PROMPTS left-padded to 2 x 640 tokens,
+    which an int8 cache sends through K5 in every layer (checked); the
+    64-step decode follows the two unpadded default prompts (2 x 634
+    tokens, whose prefill takes the plain attention) and is timed net of
+    their prefill."""
+    from grove_tpu_torch import _kernels
     from grove_tpu_torch.infer.generate import greedy_decode
     from grove_tpu_torch.infer.sliding import center_prompts
     from grove_tpu_torch.models.llama import init_kv_caches
@@ -1938,17 +2109,33 @@ def _replay(torch, gpu, model, cfg, tok, clips, label, cache_dtype,
         img, t_sam = _timed(torch, lambda: model.encode_grounding_auto(fs))
         if encoders:
             stages.update(clip=t_clip, sam=t_sam)
+        pids, pstarts, pads = center_prompts(cfg, tok, list(PROMPTS))
+        pids_t = torch.from_numpy(pids).to(dev)
+        pads_t = torch.from_numpy(pads).to(dev)
+        caches = init_kv_caches(cfg.llama, 2, pids.shape[1],
+                                dtype=cache_dtype, device=dev)
+        k5 = ("prefill_attention_tc", "prefill_attention")
+        before = [_kernels.KERNELS[k].launches for k in k5]
+        _, stages["prefill"] = _timed(torch, lambda: model.prefill(
+            pids_t, emb, pstarts, caches, pad_lens=pads_t))
+        ran = sum(_kernels.KERNELS[k].launches - b
+                  for k, b in zip(k5, before))
+        if cache_dtype == torch.int8 and ran != cfg.llama.num_layers:
+            raise PhaseError(f"{label} replay: the prefill of "
+                             f"{tuple(pids.shape)} tokens launched K5 {ran} "
+                             f"times, not {cfg.llama.num_layers}")
+        del caches
         ids, starts, _ = center_prompts(cfg, tok, [None, None])
         ids_t = torch.from_numpy(ids).to(dev)
         caches = init_kv_caches(cfg.llama, 2, ids.shape[1] + 64,
                                 dtype=cache_dtype, device=dev)
-        _, stages["prefill"] = _timed(
+        _, t_pre = _timed(
             torch, lambda: model.prefill(ids_t, emb, starts, caches))
         (gen, hidden), ms_gen = _timed(torch, lambda: greedy_decode(
             model, ids_t, emb, starts, max_new_tokens=64,
             eos_id=cfg.tokens.eos, cache_dtype=cache_dtype,
             early_exit=False))
-        stages["decode_64"] = ms_gen - stages["prefill"]
+        stages["decode_64"] = ms_gen - t_pre
         det = torch.arange(cfg.max_phrases, device=dev)[None].expand(2, -1)
         if encoders:
             _, stages["ground"] = _timed(
@@ -2032,8 +2219,9 @@ def phase_slice(torch, gpu, decoder):
     q_launches = _run_path(torch, gpu, model, cfg, tok, clips, t_total,
                            "int4 + int8 KV", bf16 + list(quant),
                            decode_kwargs=int8_kv)
+    _check_prefill(q_launches, cfg, "int4 + int8 KV")
     launches.update({k: q_launches[k] for k in quant})
-    _, gen_q = _replay(torch, gpu, model, cfg, tok, clips,
+    st_q, gen_q = _replay(torch, gpu, model, cfg, tok, clips,
                        "int4 + int8 KV", torch.int8, encoders=False)
     _same_tokens(gen_q, gen_bf16, "int4 + int8 KV")
 
@@ -2085,6 +2273,7 @@ def phase_slice(torch, gpu, decoder):
     if f_launches["int4_matmul"]:
         raise PhaseError(f"{label}: K7a launched {f_launches['int4_matmul']}"
                          " times; W4A8 decode takes K7b")
+    _check_prefill(f_launches, cfg, label)
     launches.update({k: f_launches[k] for k in FLAGSHIP_KERNELS})
     st_f, gen_f = _replay(torch, gpu, model, cfg, tok, clips, label,
                           torch.int8, encoders=True)
@@ -2095,10 +2284,24 @@ def phase_slice(torch, gpu, decoder):
            f"{st_f['teacher_forced_2x8']:.1f} vs "
            f"{st_w['teacher_forced_2x8']:.1f} ms on {gpu}")
     _same_tokens(gen_f, gen_bf16, label)
+    say(3, f"int8-cache prefill (2 x 640 tokens, 32 launches of K5's "
+           f"tensor-core entry): int4 + int8 KV {st_q['prefill']:.1f} ms, "
+           f"flagship {st_f['prefill']:.1f} ms on {gpu}")
     _lm_forward_w8a8(torch, gpu, model, cfg, tok, clips)
     del model, lm
     torch.cuda.empty_cache()
     return launches
+
+
+def _check_prefill(launches, cfg, label):
+    """One int8-cache prefill of the two left-padded prompts per run: K5's
+    tensor-core entry exactly once in each LLaMA layer, its SIMT entry
+    never (bf16 at D = 128)."""
+    want = cfg.llama.num_layers
+    got = (launches["prefill_attention_tc"], launches["prefill_attention"])
+    if got != (want, 0):
+        raise PhaseError(f"{label}: K5 launched {got} times (tensor-core, "
+                         f"SIMT), not ({want}, 0)")
 
 
 def _clip_sources(decoder: str, tmp: str, seeds, frames: int = 24):
@@ -3104,7 +3307,7 @@ def _step_launches(cfg, s, remat):
                           *QLORA_NEVER)}
     out.update({k: len(after) for k in ("relpos_flash_fwd_lse_tc",
                                         "relpos_flash_dq",
-                                        "relpos_flash_dkv")})
+                                        "relpos_flash_dkv_tc")})
     out["sam_global_attention_tc"] = len(globs) + (
         sum(i in globs for i in after) if remat else 0)
     out["sam_window_attention_tc"] = sam_cfg.depth - len(globs) + (
@@ -3273,7 +3476,7 @@ def phase_qlora(torch, gpu):
            f"scales included) are bit-equal; ms per step: {per} (at "
            f"S = 2111 with K10 on its SIMT body: {SIMT_QLORA_S2111_MS} ms; "
            f"steps 1-3 with K1 and K9's forward on theirs: "
-           f"{', '.join(map(str, SIMT_K1_STEP_MS['QLoRA']))} ms; on an H100 "
+           f"{', '.join(map(str, SIMT_K1_STEP_MS['QLoRA']))} ms on an H100 "
            f"80GB HBM3 at 700 W) on {gpu}")
     del model, params, opt, step, frozen, snap
     torch.cuda.empty_cache()
@@ -3380,6 +3583,225 @@ def _step_parity(torch, label, cpu, card, batch, setup, cpu_context):
 
 
 # ---------------------------------------------------------------------------
+# phase 7: the loader
+# ---------------------------------------------------------------------------
+
+def _sp_tokenizer(path):
+    """A unigram SentencePiece model with byte fallback written to `path`
+    by the port's pure-Python writer, read back by `load_grove_tokenizer`
+    (the GROVE tokens appended after its 263 pieces, so their ids differ
+    from the config's defaults)."""
+    from grove_tpu_torch.text import sentencepiece as sp
+    from grove_tpu_torch.text.tokenizer import load_grove_tokenizer
+    pieces = ([("<unk>", 0.0, sp.UNKNOWN), ("<s>", 0.0, sp.CONTROL),
+               ("</s>", 0.0, sp.CONTROL)]
+              + [(f"<0x{b:02X}>", 0.0, sp.BYTE) for b in range(256)]
+              + [("\u2581a", -1.0, sp.NORMAL), ("\u2581man", -2.0, sp.NORMAL),
+                 ("\u2581video", -2.0, sp.NORMAL), ("s", -4.0, sp.NORMAL)])
+    path.write_bytes(sp.serialize_model(sp.SpModel(
+        pieces, model_type=sp.UNIGRAM, byte_fallback=True)))
+    return load_grove_tokenizer(str(path))
+
+
+def _reference_checkpoint(torch, cfg, seed):
+    """A reference-named state dict of GroveConfig.small() as the reference
+    exports it after LoRA training at another SAM size: SAM built on twice
+    the grid (pos_embed and the global blocks' rel_pos tables on it, the
+    windowed blocks' at the same window), every key under PEFT's
+    `base_model.model.`, each LLaMA layer's q_proj and v_proj as a
+    `.base_layer.` weight beside a rank-8 LoRA pair. Returns (the dict, the
+    float model it came from)."""
+    from grove_tpu_torch.models.grove import init_grove_params
+    src = init_grove_params(cfg, device="cpu", dtype=torch.float32, seed=seed)
+    gen = torch.Generator().manual_seed(seed + 1)
+    enc = cfg.sam_enc
+    sam = "model.grounding_encoder.image_encoder."
+    sd = dict(src.state_dict())
+    sd[sam + "pos_embed"] = 0.02 * torch.randn(
+        (1, 2 * enc.grid, 2 * enc.grid, enc.embed_dim), generator=gen)
+    for i in enc.global_attn_indexes:
+        for t in "hw":
+            key = f"{sam}blocks.{i}.attn.rel_pos_{t}"
+            sd[key] = 0.02 * torch.randn((4 * enc.grid - 1,
+                                          sd[key].shape[1]), generator=gen)
+    out = {}
+    for k, v in sd.items():
+        base = k.removesuffix(".weight")
+        if k.startswith("model.layers.") and base.endswith(("q_proj",
+                                                            "v_proj")):
+            out[f"base_model.model.{base}.base_layer.weight"] = v
+            out[f"base_model.model.{base}.lora_A.default.weight"] = (
+                0.01 * torch.randn((8, v.shape[1]), generator=gen))
+            out[f"base_model.model.{base}.lora_B.default.weight"] = (
+                0.01 * torch.randn((v.shape[0], 8), generator=gen))
+        else:
+            out[f"base_model.model.{k}"] = v
+    return out, src
+
+
+def phase_loader(torch, gpu):
+    """`GroveForCausalLM.from_pretrained` with a tokenizer and a PEFT-named
+    `.bin` whose SAM is on another grid, onto the card and onto the CPU:
+    the config's special-token ids are the tokenizer's; the card's state
+    dict is bit-equal to the CPU's (the LoRA pairs merged, pos_embed resized
+    bicubic and the global tables linearly); the loaded SAM runs on the
+    card within PARITY_TOL of the CPU's max-abs (fp32, TF32 off)."""
+    from grove_tpu_torch.api import GroveForCausalLM
+    from grove_tpu_torch.config import GroveConfig
+    from grove_tpu_torch.text.tokenizer import special_token_ids_from
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = GroveConfig.small()
+    with tempfile.TemporaryDirectory() as tmp:
+        tok = _sp_tokenizer(Path(tmp) / "tokenizer.model")
+        sd, src = _reference_checkpoint(torch, cfg, seed=16)
+        path = Path(tmp) / "grove.bin"
+        torch.save(sd, path)
+        t0 = time.perf_counter()
+        card = GroveForCausalLM.from_pretrained(
+            str(path), "small", tokenizer=tok, dtype=torch.float32,
+            device="cuda")
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        host = GroveForCausalLM.from_pretrained(
+            str(path), "small", tokenizer=tok, dtype=torch.float32,
+            device="cpu")
+    tokens = special_token_ids_from(tok)
+    if card.cfg.tokens != tokens or tokens.det == cfg.tokens.det:
+        raise PhaseError(f"from_pretrained(tokenizer=): tokens "
+                         f"{card.cfg.tokens}, the tokenizer's {tokens}, the "
+                         f"defaults' {cfg.tokens}")
+    want = host.model.state_dict()
+    for key, val in card.model.state_dict().items():
+        if not torch.equal(val.cpu(), want[key]):
+            raise PhaseError(f"loader: {key} on the card differs from the "
+                             "CPU's load")
+    sam = "model.grounding_encoder.image_encoder."
+    old = src.state_dict()
+    moved = [k for k in (sam + "pos_embed",
+                         f"{sam}blocks.{cfg.sam_enc.global_attn_indexes[0]}"
+                         ".attn.rel_pos_h",
+                         "model.layers.0.self_attn.q_proj.weight")
+             if want[k].shape == old[k].shape and torch.equal(want[k], old[k])]
+    if moved:
+        raise PhaseError(f"loader: {moved} not resized or merged")
+    clip = _synthetic_clips(cfg, 1, cfg.num_frames, seed=17)[0]
+    frames = torch.from_numpy(clip["frames_sam"][None])
+    got = card.get_grounding_encoder_embs(frames).float().cpu()
+    ref = host.get_grounding_encoder_embs(frames).float()
+    rel = _max_err(got, ref) / float(ref.abs().max())
+    if not (bool(torch.isfinite(got).all()) and rel <= PARITY_TOL):
+        raise PhaseError(f"loader: SAM embeddings of the resized tables card "
+                         f"vs CPU {rel:.3e} of max-abs > {PARITY_TOL}")
+    say(7, f"from_pretrained of a PEFT-named .bin ({len(sd)} keys, LoRA "
+           f"pairs on {cfg.llama.num_layers} x 2 projections, SAM pos_embed "
+           f"{2 * cfg.sam_enc.grid}^2 -> {cfg.sam_enc.grid}^2 and global "
+           f"tables {4 * cfg.sam_enc.grid - 1} -> {2 * cfg.sam_enc.grid - 1} "
+           f"rows) with a SentencePiece tokenizer ([DET] = {tokens.det}, "
+           f"default {cfg.tokens.det}) onto the card in {load_ms:.0f} ms: "
+           f"bit-equal to the CPU's load; SAM embeddings card vs CPU "
+           f"{rel:.2e} of max-abs on {gpu}")
+    del card, host
+    torch.cuda.empty_cache()
+    _full_sam_load(torch, gpu)
+
+
+def _full_sam_load(torch, gpu, cfg=None, device="cuda"):
+    """The main path's SAM at full width (`GroveConfig()`: 32 blocks of
+    1280 channels, 16 heads of 80) exported as the reference trains it, at
+    1024 pixels: pos_embed on a 64 x 64 grid, the global blocks' rel_pos
+    tables at 127 rows, the windowed blocks' at 27, every tensor bf16 in a
+    `.bin`. Read the loader's way (`api.model.read_checkpoint`: fp32 numpy)
+    and copied strictly (`checkpoint.convert.load_reference_state_dict`:
+    pos_embed bicubic to 32 x 32, the global tables linearly to 63 rows)
+    into the image encoder in fp32, on the card and on the CPU: the card's
+    tensors bit-equal to the CPU's; one frame through each within
+    PARITY_TOL of the CPU's max-abs (TF32 off). The whole model's `.bin`
+    (16 GB in bf16, 32 GB as fp32 numpy) is not written here: this is the
+    part of it that the grid changes."""
+    from grove_tpu_torch.api.model import read_checkpoint
+    from grove_tpu_torch.checkpoint.convert import load_reference_state_dict
+    from grove_tpu_torch.config import GroveConfig
+    from grove_tpu_torch.models.grove import init_params_
+    from grove_tpu_torch.models.sam_encoder import SamImageEncoder
+
+    cfg = cfg or GroveConfig()
+    enc = cfg.sam_enc
+    pre = "model.grounding_encoder.image_encoder."
+
+    def holder(dev):
+        # the encoder under the model's names, with the config the loader
+        # reads the grid from
+        m = torch.nn.Module()
+        m.cfg = cfg
+        m.model = torch.nn.Module()
+        m.model.grounding_encoder = torch.nn.Module()
+        m.model.grounding_encoder.image_encoder = SamImageEncoder(
+            enc, device="meta", dtype=torch.float32)
+        return m.to_empty(device=dev)
+
+    src = holder(device)
+    gen = torch.Generator(device=device).manual_seed(18)
+    init_params_(src, gen)
+    sd = {k: v.to(torch.bfloat16).cpu() for k, v in src.state_dict().items()}
+    del src
+    big = 2 * enc.grid
+    sd[pre + "pos_embed"] = (0.02 * torch.randn(
+        (1, big, big, enc.embed_dim), generator=gen, device=device)
+        ).to(torch.bfloat16).cpu()
+    for i in enc.global_attn_indexes:
+        for t in "hw":
+            key = f"{pre}blocks.{i}.attn.rel_pos_{t}"
+            sd[key] = (0.02 * torch.randn(
+                (2 * big - 1, sd[key].shape[1]), generator=gen,
+                device=device)).to(torch.bfloat16).cpu()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "sam.bin"
+        torch.save(sd, path)
+        mib = path.stat().st_size / 2**20
+        del sd
+        t0 = time.perf_counter()
+        arrays = read_checkpoint(str(path))
+    card = load_reference_state_dict(holder(device), arrays)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    host = load_reference_state_dict(holder("cpu"), arrays)
+    del arrays
+    want = host.state_dict()
+    for key, val in card.state_dict().items():
+        if not torch.equal(val.cpu(), want[key]):
+            raise PhaseError(f"full-width SAM load: {key} on the card "
+                             "differs from the CPU's load")
+    glob = f"{pre}blocks.{enc.global_attn_indexes[0]}.attn.rel_pos_h"
+    shapes = (tuple(want[pre + "pos_embed"].shape), tuple(want[glob].shape))
+    if shapes != ((1, enc.grid, enc.grid, enc.embed_dim),
+                  (2 * enc.grid - 1, enc.embed_dim // enc.num_heads)):
+        raise PhaseError(f"full-width SAM load: pos_embed, global rel_pos_h "
+                         f"{shapes}")
+    gen = torch.Generator().manual_seed(19)
+    frames = torch.randn((1, 1, enc.img_size, enc.img_size, 3),
+                         generator=gen)
+    with torch.inference_mode():
+        got = card.model.grounding_encoder.image_encoder(
+            frames.to(device)).cpu()
+        ref = host.model.grounding_encoder.image_encoder(frames)
+    rel = _max_err(got, ref) / float(ref.abs().max())
+    if not (bool(torch.isfinite(got).all()) and rel <= PARITY_TOL):
+        raise PhaseError(f"full-width SAM load: one frame card vs CPU "
+                         f"{rel:.3e} of max-abs > {PARITY_TOL}")
+    say(7, f"full-width SAM image encoder ({enc.depth} blocks of "
+           f"{enc.embed_dim}) exported at a {big} x {big} grid ({mib:.0f} "
+           f"MiB bf16 .bin): read and loaded onto the card in {load_s:.1f} s "
+           f"(pos_embed {big}^2 -> {enc.grid}^2, global tables "
+           f"{2 * big - 1} -> {2 * enc.grid - 1} rows), bit-equal to the "
+           f"CPU's load; one {enc.img_size} x {enc.img_size} frame card vs "
+           f"CPU {rel:.2e} of max-abs (fp32) on {gpu}")
+    del card, host
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     compiles = {}
@@ -3400,7 +3822,9 @@ def main() -> int:
         train = phase_train(torch, gpu)
         launches.update({k: train[k] for k in TRAIN_KERNELS})
         fp32_train = phase_train_parity(torch)
-        launches["relpos_flash_fwd_lse"] = fp32_train["relpos_flash_fwd_lse"]
+        launches.update({k: fp32_train[k] for k in ("relpos_flash_fwd_lse",
+                                                    "relpos_flash_dkv")})
+        phase_loader(torch, gpu)
     except Exception:                       # report, then fail the run
         traceback.print_exc()
         print("chip_smoke FAILED", file=sys.stderr, flush=True)

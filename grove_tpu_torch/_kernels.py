@@ -33,9 +33,9 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 # head dims the kernels are instantiated for (attention_core.cuh), and the
-# ones the tensor-core body takes, in bf16 only (attention_tc.cuh: 64 and
-# 128, LLaMA's and CLIP's, and 80, SAM's, whose rows fill one 64-column
-# swizzle atom and 16 columns of a second)
+# ones the tensor-core bodies take, in bf16 only (attention_tc.cuh and
+# attention_bwd_tc.cuh: 64 and 128, LLaMA's and CLIP's, and 80, SAM's, whose
+# rows fill one 64-column swizzle atom and 16 columns of a second)
 HEAD_DIMS = (8, 64, 80, 128)
 TC_HEAD_DIMS = (64, 80, 128)
 MAX_BATCH_HEADS = 65535          # gridDim.y
@@ -160,7 +160,7 @@ KERNELS: Dict[str, Kernel] = {
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
         "grove_tpu_torch/csrc/sam_global_attention.cu",
         "grove_tpu/ops/sam_attention.py:235"),
-    # K1, K1q, K2, K3, K4, K9's forward and K10 on the tensor-core body
+    # K1, K1q, K2, K3, K4, K5, K9's forward and K10 on the tensor-core body
     # (attention_tc.cuh), which the wrappers take for bf16 at head dims 64,
     # 80 and 128 (`TC_HEAD_DIMS`); fp32 and the head dim 8 take the SIMT
     # entries
@@ -196,6 +196,11 @@ KERNELS: Dict[str, Kernel] = {
         "grove_tpu/ops/flash_backward.py:210"),
     "prefill_attention": Kernel(
         "grove_prefill_attention",
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+        "grove_tpu_torch/csrc/prefill_attention.cu",
+        "grove_tpu/ops/attention.py:248"),
+    "prefill_attention_tc": Kernel(
+        "grove_prefill_attention_tc",
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
         "grove_tpu_torch/csrc/prefill_attention.cu",
         "grove_tpu/ops/attention.py:248"),
@@ -276,6 +281,13 @@ KERNELS: Dict[str, Kernel] = {
         "grove_tpu/ops/sam_attention_bwd.py:294"),
     "relpos_flash_dkv": Kernel(
         "grove_relpos_flash_dkv",
+        [_P] * 10 + [_I] * 6 + [_F, _I, _P],
+        "grove_tpu_torch/csrc/relpos_flash_attention.cu",
+        "grove_tpu/ops/sam_attention_bwd.py:333"),
+    # K9's dkv on the tensor-core backward body (attention_bwd_tc.cuh),
+    # taken where `TC_HEAD_DIMS` holds, as the forward entries
+    "relpos_flash_dkv_tc": Kernel(
+        "grove_relpos_flash_dkv_tc",
         [_P] * 10 + [_I] * 6 + [_F, _I, _P],
         "grove_tpu_torch/csrc/relpos_flash_attention.cu",
         "grove_tpu/ops/sam_attention_bwd.py:333"),

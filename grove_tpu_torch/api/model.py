@@ -23,6 +23,7 @@ naming their ROADMAP item.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Dict, Optional
 
@@ -31,13 +32,25 @@ import torch
 
 from ..config import GroveConfig
 from ..checkpoint.convert import load_reference_state_dict
+from ..checkpoint.peft import normalize_peft_state_dict
 from ..models.grove import GroveModel, init_grove_params
 from ..models.fuse import fuse_llama_
 from ..ops.quant import (calibrate_vision_, quantize_llama_,
                          quantize_vision_, set_llm_act_quant_)
+from ..text.tokenizer import special_token_ids_from
 
 _SIZES = {"tiny": GroveConfig.tiny, "small": GroveConfig.small,
           "full": GroveConfig}
+
+
+def read_checkpoint(path: str) -> Dict[str, np.ndarray]:
+    """A reference torch state dict file as `from_pretrained` reads it, the
+    JAX package's way (`grove_tpu/api/model.py:76-86`): every tensor as
+    fp32 numpy, PEFT names stripped and LoRA pairs merged
+    (`checkpoint.peft.normalize_peft_state_dict`)."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    return normalize_peft_state_dict(
+        {k: v.float().numpy() for k, v in sd.items() if hasattr(v, "numpy")})
 
 
 class GroveForCausalLM:
@@ -47,29 +60,37 @@ class GroveForCausalLM:
 
     @classmethod
     def from_pretrained(cls, checkpoint: Optional[str] = None,
-                        model_size: str = "full",
+                        model_size: str = "full", tokenizer=None,
                         dtype: torch.dtype = torch.bfloat16, seed: int = 0,
                         device="cuda") -> "GroveForCausalLM":
         """Fresh weights from `seed` (checkpoint=None), or a strict load
-        of a reference torch state dict file (reference names; the key
-        families in `checkpoint.convert.SKIP_PATTERNS` are dropped), built
-        directly on `device` (the card unless the caller asks for another)
-        in `dtype`."""
+        of a reference torch state dict file, built directly on `device`
+        (the card unless the caller asks for another) in `dtype`. The file
+        goes the JAX package's way (`grove_tpu/api/model.py:76-86`): its
+        tensors as fp32 numpy, PEFT names stripped and LoRA pairs merged
+        (`read_checkpoint`), the key families in
+        `checkpoint.convert.SKIP_PATTERNS` dropped, SAM's tables on another
+        grid resized; then a missing or unknown key raises. With a
+        `tokenizer`, the special-token ids of the config come from it
+        (`text.tokenizer.special_token_ids_from`), as JAX's do
+        (`api/model.py:48-52`)."""
         if checkpoint is not None and os.path.isdir(checkpoint):
             raise NotImplementedError(
                 "HF-layout (flax_model.msgpack) and Orbax checkpoint "
                 "directories are not ported yet (ROADMAP Queue 1 item 14, "
                 "checkpoint I/O)")
         cfg = _SIZES[model_size]()
+        if tokenizer is not None:
+            cfg = dataclasses.replace(
+                cfg, tokens=special_token_ids_from(tokenizer))
         if checkpoint is None:
             model = init_grove_params(cfg, device=device, dtype=dtype,
                                       seed=seed)
         else:
-            sd = torch.load(checkpoint, map_location="cpu",
-                            weights_only=True)
             model = GroveModel(cfg, device="meta", dtype=dtype)
             model = load_reference_state_dict(
-                model.to_empty(device=device), sd).eval()
+                model.to_empty(device=device),
+                read_checkpoint(checkpoint)).eval()
         return cls(cfg, model)
 
     def quantize(self, vision: bool = False, bits: int = 8,

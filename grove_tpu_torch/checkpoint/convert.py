@@ -9,7 +9,12 @@ namespace loads with `strict=True` and no key mapping: the dict that
 JAX parameter tree, or a reference checkpoint. Reference checkpoints also
 carry two key families no module of the model uses; they are dropped by the
 JAX converter's own patterns (`SKIP_PATTERNS`) and the load stays strict
-for every other key.
+for every other key. A SAM built on another grid (the reference trains SAM
+at 1024, a 64 x 64 grid) is resized to the model's, as the JAX converter
+resizes it (`torch_convert.py:56-73`, `:359-363`): `pos_embed` bicubic,
+the `rel_pos_*` tables linearly, with `jax.image.resize`'s weights
+(`models.grove._resize_weights`, the antialias of a downscale included).
+Every other shape mismatch raises.
 """
 
 from __future__ import annotations
@@ -20,6 +25,8 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 from torch import nn
+
+from ..models.grove import _resize_weights
 
 # copy of grove_tpu/checkpoint/torch_convert.py:330-333 (that module imports
 # jax); tests/test_torch_misc.py holds the two equal
@@ -35,14 +42,66 @@ def _tensor(v) -> torch.Tensor:
             else torch.from_numpy(np.ascontiguousarray(v)))
 
 
+_POS_EMBED = re.compile(r"^model\.grounding_encoder\.image_encoder\."
+                        r"pos_embed$")
+_REL_POS = re.compile(r"^model\.grounding_encoder\.image_encoder\.blocks\."
+                      r"(\d+)\.attn\.rel_pos_[hw]$")
+
+
+def _resize_axes(x: torch.Tensor, sizes, method: str) -> torch.Tensor:
+    """`jax.image.resize(x, sizes, method)` in fp32 for a resize along the
+    leading axes (the trailing one kept): one weight matrix per axis whose
+    size changes, applied as a dense product, as XLA computes it."""
+    out = x.float()
+    for axis, size in enumerate(sizes):
+        if out.shape[axis] == size:
+            continue
+        w = _resize_weights(out.shape[axis], size, method, out.device)
+        out = torch.tensordot(out.movedim(axis, -1), w, dims=1).movedim(
+            -1, axis)
+    return out
+
+
+def resize_sam_grids(tensors: Mapping[str, torch.Tensor],
+                     cfg) -> Dict[str, torch.Tensor]:
+    """The SAM tables of a checkpoint on another grid, resized to `cfg`'s
+    as the JAX converter does (`torch_convert.py:56-73`, `:359-363`):
+    `pos_embed` (1, g0, g0, C) or (g0, g0, C) bicubic to (1, g, g, C) where
+    g0 != g = `cfg.sam_enc.grid`; a block's `rel_pos_h` / `rel_pos_w`
+    (L0, hd) linearly to L = 2 span - 1 rows where L0 != L, span the grid
+    in the global blocks and `window_size` in the others. Other keys pass
+    unchanged."""
+    enc = cfg.sam_enc
+    out = dict(tensors)
+    for key, val in tensors.items():
+        if _POS_EMBED.match(key):
+            pos = val[0] if val.dim() == 4 else val
+            if pos.shape[0] != enc.grid:
+                out[key] = _resize_axes(pos, (enc.grid, enc.grid),
+                                        "bicubic")[None]
+            continue
+        m = _REL_POS.match(key)
+        if m:
+            span = (enc.grid if int(m[1]) in enc.global_attn_indexes
+                    else enc.window_size)
+            if val.shape[0] != 2 * span - 1:
+                out[key] = _resize_axes(val, (2 * span - 1,), "bilinear")
+    return out
+
+
 def load_reference_state_dict(model: nn.Module,
                               sd: Mapping[str, np.ndarray]) -> nn.Module:
     """Copy `sd` (reference torch names -> numpy arrays or tensors) into
-    `model`, strictly: keys matching `SKIP_PATTERNS` are dropped, and then
-    a missing key, an unexpected key or a shape mismatch raises. Values are
-    cast to each parameter's dtype and device by the copy."""
+    `model`, strictly: keys matching `SKIP_PATTERNS` are dropped, SAM's
+    tables on another grid are resized to the model's (`resize_sam_grids`,
+    for a model with a `cfg`), and then a missing key, an unexpected key or
+    a shape mismatch raises. Values are cast to each parameter's dtype and
+    device by the copy."""
     tensors: Dict[str, torch.Tensor] = {
         k: _tensor(v) for k, v in sd.items() if not _SKIP.search(k)}
+    cfg = getattr(model, "cfg", None)
+    if cfg is not None:
+        tensors = resize_sam_grids(tensors, cfg)
     model.load_state_dict(tensors, strict=True)
     return model
 

@@ -39,7 +39,11 @@
 // difference in bf16, none in fp32).
 //
 // Bound on an H100: fp32 FMA issue and shared-memory reads on the CUDA
-// cores, as the forward body; the tensor-core rewrite is later work.
+// cores, as the forward body. K9's dkv in bf16 at head dims 64, 80 and 128
+// runs the tensor-core backward body instead (attention_bwd_tc.cuh, with
+// the TPU kernel's rounding points); this body keeps K9's dkv in fp32 and
+// at D 8, K9's dq and K4b at every dtype, which come to the tensor-core
+// body next.
 
 #pragma once
 

@@ -1,7 +1,7 @@
 // Tensor-core forward body of the hand-written attention kernels of
 // grove_tpu_torch, beside the SIMT body of attention_core.cuh.
 //
-// It serves six TPU kernels, for bf16 inputs at head dims 64, 80 and 128:
+// It serves seven TPU kernels, for bf16 inputs at head dims 64, 80 and 128:
 //   * K10, grove_tpu/ops/attention.py:66 `_flash_kernel` (flash_attention.cu,
 //     `grove_flash_attention_tc`): causal or not, Sq and Sk ragged;
 //   * K3, grove_tpu/ops/attention.py:350 `_grouped_plain_kernel`
@@ -20,9 +20,14 @@
 //     (sam_window_attention.cu, `grove_sam_window_attention_tc` and
 //     `grove_sam_window_attention_q8_tc`): SAM's windowed attention on the
 //     unsplit qkv, with the packed term table, the all-underflow contract
-//     and, for K1q, the int8 output.
-// fp32 inputs and the head dim 8 keep the SIMT body, and so do K5 (a left
-// pad) and K11-K13 (no model path).
+//     and, for K1q, the int8 output;
+//   * K5, grove_tpu/ops/attention.py:197 `_prefill_kernel`
+//     (prefill_attention.cu, `grove_prefill_attention_tc`): causal
+//     self-attention in the raw (B, S, H D) projection layout with a
+//     per-batch left pad (LLaMA's int8-cache prefill).
+// fp32 inputs and the head dim 8 keep the SIMT body, and so do K11-K13 (no
+// model path). The backward of K9 has its own tensor-core body
+// (attention_bwd_tc.cuh).
 //
 // Contract, the part of AttnArgs that these entries use:
 //   * q, k, v and out in the (B, S, H, D) layout with element strides, bf16,
@@ -32,6 +37,12 @@
 //   * a key count Sk that may differ from S (0 means Sk = S);
 //   * an optional causal mask, top-left aligned: row i sees keys 0..i,
 //     whatever Sk - S is (the TPU kernel's mask);
+//   * an optional per-batch left pad (`pad`, (B,) int32 on the card, K5):
+//     keys below pad[b] are masked except each row's own key, so a row
+//     inside the pad attends to itself only. A tile that starts below the
+//     pad takes the per-element mask; a tile wholly inside the pad that
+//     holds none of a warpgroup's own keys is skipped by that warpgroup,
+//     and the tiles past the pad keep the unmasked fast path;
 //   * an optional LSE output (`lse`, natural log, (B, H, S) fp32):
 //     lse_i = (m_i + log2(max(l_i, 1e-30))) * ln 2, with m the running max
 //     in log2 units and l the row sum, as attention_core.cuh writes it;
@@ -78,7 +89,7 @@
 //     scaled in fp32 by scale * log2(e) after the product (a q pre-scaled
 //     in bf16 would add a rounding that neither the SIMT body nor the TPU
 //     kernel has), biased (K2), masked to -inf only on the tiles that cross
-//     Sk or the causal diagonal, and folded into an online softmax (running
+//     Sk, the causal diagonal or the pad, and folded into an online softmax (running
 //     max and sum in registers, exp2f); a row's reductions run over the 4
 //     threads that share it in the accumulator fragment;
 //   * the bias: the block's 128 rows of both term tables are staged once in
@@ -127,8 +138,9 @@
 // within a block.
 //
 // Numerics against the SIMT body: P is rounded to bf16 before P.V, as the
-// TPU K3 and K2 do (`p.astype(dt)`); the TPU K10 and K4 keep P in fp32. The
-// row sum l, and so the LSE, is taken over the unrounded fp32 P.
+// TPU K3, K2 and K5 do (`p.astype(dt)`); the TPU K10 and K4 keep P in fp32.
+// The row sum l, and so the LSE, is taken over the unrounded fp32 P, as the
+// TPU K5 takes its denominator.
 
 #pragma once
 
@@ -496,6 +508,7 @@ __device__ __forceinline__ void attention_block_tc(const AttnArgs& a) {
   const int q0 = qb * kBQ;
   const int qw = q0 + 64 * wg;             // this warpgroup's first row
   const int Sk = a.Sk > 0 ? a.Sk : a.S;
+  const int pad = a.pad != nullptr ? a.pad[b] : 0;  // K5's left pad
   const int kend = a.causal ? min(Sk, min(a.S, q0 + kBQ)) : Sk;
   const int ntiles = (kend + kBK - 1) / kBK;
   const bool active = qw < a.S;            // warpgroup-uniform
@@ -544,7 +557,10 @@ __device__ __forceinline__ void attention_block_tc(const AttnArgs& a) {
     __syncthreads();
 
     const int k0 = t * kBK;
-    if (active && !(a.causal && k0 > qw + 63)) {
+    // a warpgroup skips the tiles wholly above its diagonal, and those
+    // wholly inside the pad that hold none of its rows' own keys
+    if (active && !(a.causal && k0 > qw + 63) &&
+        !(k0 + kBK <= pad && qw >= k0 + kBK)) {
       const uint32_t sK = sKV + (t & 1) * 2 * T;
       const uint32_t sV = sK + T;
       fence_operands(s);
@@ -571,7 +587,8 @@ __device__ __forceinline__ void attention_block_tc(const AttnArgs& a) {
         add_bias(s, sR + R0 * stride, sR + R1 * stride, g << 3, a.gh, a.gw,
                  k0 + 2 * t4);
       }
-      const bool edge = k0 + kBK > Sk || (a.causal && k0 + kBK - 1 > qw);
+      const bool edge = k0 + kBK > Sk || (a.causal && k0 + kBK - 1 > qw) ||
+                        k0 < pad;
       float mx0 = m0, mx1 = m1;
 #pragma unroll
       for (int i = 0; i < 32; ++i) {
@@ -579,7 +596,9 @@ __device__ __forceinline__ void attention_block_tc(const AttnArgs& a) {
         if (edge) {
           const int key = k0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
           const int row = (i & 2) ? r1 : r0;
-          if (key >= Sk || (a.causal && key > row)) x = -INFINITY;
+          if (key >= Sk || (a.causal && key > row) ||
+              (key < pad && key != row))
+            x = -INFINITY;
         }
         s[i] = x;
         if (i & 2)

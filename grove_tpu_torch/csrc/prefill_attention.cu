@@ -16,26 +16,37 @@
 // attends to itself only, as on the TPU (a fully masked row would give NaN
 // and poison later layers through its k/v).
 //
-// Bound on the H100: fp32 FMA issue and shared-memory reads (see
-// attention_core.cuh); a causal block stops at the key tile holding its last
-// row, so the masked upper triangle costs nothing, where the TPU kernel took
-// one full-S softmax per (batch, head group).
+// Two entries, chosen by the wrapper (ops/attention.py `_tc_takes`):
+//   * `grove_prefill_attention_tc` runs bf16 at head dims 64, 80 and 128 on
+//     the tensor-core body (attention_tc.cuh: wgmma, the pad as a
+//     per-element mask on the key tiles that start below it, the tiles past
+//     it unmasked). Bound on the H100 at (2, 640, 4096), 32 heads, pads
+//     (0, 37): bytes, its 41.9 MB of q, k, v and out in 0.0125 ms at 3.35
+//     TB/s (4 D flops for each of the 12.4 M valid (row, key) pairs, 6.3
+//     GFLOP, take 0.0064 ms at 989 TFLOP/s bf16); a causal block stops at
+//     the key tile holding its last row and the heaviest blocks launch
+//     first, as for K4;
+//   * `grove_prefill_attention` runs fp32 and the head dim 8 on the SIMT
+//     body (attention_core.cuh: fp32 FMA issue and shared-memory reads, far
+//     from either bound).
 //
 // Numerics against the TPU kernel: the TPU kernel masks to -1e30, takes one
 // softmax over the whole row, rounds the probabilities to the input dtype
-// before P.V and divides by the fp32 sum of the unrounded ones. This kernel
-// takes an online softmax over key tiles in fp32 (exp2 in log2 units) and
-// keeps the probabilities in fp32; the two agree to bf16 rounding.
+// before P.V and divides by the fp32 sum of the unrounded ones. The
+// tensor-core body takes an online softmax over 64-key tiles (exp2 in log2
+// units) with those same two rounding points; the SIMT body keeps the
+// probabilities in fp32. Both agree with the TPU kernel to bf16 rounding.
 
 #include "attention_core.cuh"
+#include "attention_tc.cuh"
 
 GROVE_ATTENTION_ENTRY(prefill_attention)
+GROVE_ATTENTION_TC_ENTRY(prefill_attention, false, false)
 
-extern "C" int grove_prefill_attention(const void* q, const void* k,
-                                       const void* v, const int* pad,
-                                       void* out, int b, int s, int heads,
-                                       int head_dim, float scale, int dtype,
-                                       void* stream) {
+static grove::AttnArgs prefill_args(const void* q, const void* k,
+                                    const void* v, const int* pad, void* out,
+                                    int b, int s, int heads, int head_dim,
+                                    float scale) {
   const long long hd = (long long)heads * head_dim;
   grove::AttnArgs a{};
   a.q = q;
@@ -58,6 +69,27 @@ extern "C" int grove_prefill_attention(const void* q, const void* k,
   a.scale = scale;
   a.causal = 1;
   a.zero_underflow = 0;
-  return prefill_attention_dispatch(a, dtype, head_dim,
-                                    static_cast<cudaStream_t>(stream));
+  return a;
+}
+
+// The SIMT body: fp32 or bf16, head dims 8, 64, 80, 128.
+extern "C" int grove_prefill_attention(const void* q, const void* k,
+                                       const void* v, const int* pad,
+                                       void* out, int b, int s, int heads,
+                                       int head_dim, float scale, int dtype,
+                                       void* stream) {
+  return prefill_attention_dispatch(
+      prefill_args(q, k, v, pad, out, b, s, heads, head_dim, scale), dtype,
+      head_dim, static_cast<cudaStream_t>(stream));
+}
+
+// The tensor-core body (attention_tc.cuh): bf16, head dims 64, 80, 128.
+extern "C" int grove_prefill_attention_tc(const void* q, const void* k,
+                                          const void* v, const int* pad,
+                                          void* out, int b, int s, int heads,
+                                          int head_dim, float scale,
+                                          int dtype, void* stream) {
+  return prefill_attention_tc_dispatch(
+      prefill_args(q, k, v, pad, out, b, s, heads, head_dim, scale), dtype,
+      head_dim, static_cast<cudaStream_t>(stream));
 }

@@ -35,21 +35,36 @@
 //     (operations; its 101.2 MB take 0.0302 ms);
 //   * `grove_relpos_flash_fwd_lse` runs fp32 and the head dim 8 on the SIMT
 //     body (attention_core.cuh), far from either bound.
-// The backward bodies are attention_bwd_core.cuh's, with the bias rebuilt
-// per (row, key) from the term tables as K1 and K2 rebuild it (fp32 FMA
-// issue and shared-memory reads, see attention_bwd_core.cuh). The TPU
-// kernels multiplied the tables by 0/1 expansion matrices instead
-// (sam_attention_bwd.py:42-52). The host-side contractions (dq += d_rh . Rh
-// + d_rw . Rw, the table gradients) stay torch ops, as they are XLA in the
-// JAX package.
+// dkv has two entries too, chosen the same way:
+//   * `grove_relpos_flash_dkv_tc` runs bf16 at head dims 64, 80 and 128 on
+//     the tensor-core backward body (attention_bwd_tc.cuh): S^T = K.Q^T and
+//     dP^T = V.dO^T on wgmma from shared memory, P^T and dS^T rounded to
+//     bf16 in registers (the TPU kernel's rounding points, `:186`, `:191`)
+//     and fed as wgmma's register A operand to dv += P^T.dO and dk +=
+//     dS^T.Q. Bound on the H100, at the two full-width shapes: operations,
+//     4 matmuls of 2 S^2 D flops: (72, 196, 16, 80) does 28.3 GFLOP, 0.0286
+//     ms at 989 TFLOP/s bf16 (its q, k, v, dO, dk, dv, tables, LSE and D,
+//     231.2 MB, take 0.0690 ms at 3.35 TB/s, so bytes bound that shape);
+//     (8, 1024, 16, 80) does 85.9 GFLOP, 0.0869 ms (its 143.7 MB take
+//     0.0429 ms);
+//   * `grove_relpos_flash_dkv` runs fp32 and the head dim 8 on the SIMT
+//     body (attention_bwd_core.cuh).
+// dq runs the SIMT body (attention_bwd_core.cuh) at every dtype, with the
+// bias rebuilt per (row, key) from the term tables as K1 and K2 rebuild it
+// (fp32 FMA issue and shared-memory reads). The TPU kernels multiplied the
+// tables by 0/1 expansion matrices instead (sam_attention_bwd.py:42-52).
+// The host-side contractions (dq += d_rh . Rh + d_rw . Rw, the table
+// gradients) stay torch ops, as they are XLA in the JAX package.
 
 #include "attention_bwd_core.cuh"
+#include "attention_bwd_tc.cuh"
 #include "attention_tc.cuh"
 
 GROVE_ATTENTION_ENTRY(relpos_flash_fwd_lse)
 GROVE_ATTENTION_TC_ENTRY(relpos_flash_fwd_lse, true, false)
 GROVE_BWD_ENTRY(relpos_flash_dq, dq)
 GROVE_BWD_ENTRY(relpos_flash_dkv, dkv)
+GROVE_DKV_TC_ENTRY(relpos_flash_dkv)
 
 namespace {
 
@@ -172,4 +187,18 @@ extern "C" int grove_relpos_flash_dkv(const void* q, const void* k,
   a.dv = dv;
   return relpos_flash_dkv_dispatch(a, dtype, head_dim,
                                    static_cast<cudaStream_t>(stream));
+}
+
+// The tensor-core body (attention_bwd_tc.cuh): bf16, head dims 64, 80, 128.
+extern "C" int grove_relpos_flash_dkv_tc(
+    const void* q, const void* k, const void* v, const void* rel_h,
+    const void* rel_w, const void* g, const float* lse, const float* dcap,
+    void* dk, void* dv, int b, int s, int heads, int head_dim, int gh, int gw,
+    float scale, int dtype, void* stream) {
+  grove::BwdArgs a = relpos_args(q, k, v, rel_h, rel_w, g, lse, dcap, b, s,
+                                 heads, head_dim, gh, gw, scale);
+  a.dk = dk;
+  a.dv = dv;
+  return relpos_flash_dkv_tc_dispatch(a, dtype, head_dim,
+                                      static_cast<cudaStream_t>(stream));
 }

@@ -26,7 +26,8 @@ dtype.
   ops (XLA there). Only `train_clip_adapters=True` differentiates it.
 * `prefill_attention_raw` is K5, causal self-attention with a per-sample
   left pad in the raw (B, S, H*D) projection layout (the int8-cache
-  prefill), beside `prefill_attention_raw_torch`;
+  prefill), beside `prefill_attention_raw_torch`; like K3 and K10 it has a
+  tensor-core entry (bf16 at head dim 64, 80 or 128) and a SIMT one;
   `prefill_attention_trainable` is its pure-causal form for the cache-free
   pass at a ragged S, with the recompute backward through causal
   `xla_attention` (`attention.py:276-303`), in torch ops.
@@ -95,12 +96,13 @@ def grouped_plain_attention_torch(q, k, v, *,
 
 
 def _tc_takes(dtype: torch.dtype, head_dim: int) -> bool:
-    """Whether a CUDA call of K1, K1q, K2, K3, K4, K9's forward or K10 runs
-    the tensor-core body (`csrc/attention_tc.cuh`, the `_tc` entries):
+    """Whether a CUDA call of K1, K1q, K2, K3, K4, K5, K9's forward or K10
+    runs the tensor-core body (`csrc/attention_tc.cuh`, the `_tc` entries),
+    and K9's dkv the tensor-core backward body (`csrc/attention_bwd_tc.cuh`):
     bf16 at head dim 64, 80 or 128 (`_kernels.TC_HEAD_DIMS`). fp32, and the
-    head dim 8, run the SIMT body (`csrc/attention_core.cuh`). Two
-    hand-written kernels chosen by dtype and shape; a `_tc` launch that
-    fails raises like any other."""
+    head dim 8, run the SIMT bodies (`csrc/attention_core.cuh`,
+    `csrc/attention_bwd_core.cuh`). Two hand-written kernels chosen by
+    dtype and shape; a `_tc` launch that fails raises like any other."""
     return dtype == torch.bfloat16 and head_dim in _kernels.TC_HEAD_DIMS
 
 
@@ -116,22 +118,25 @@ EXP2_SHIFT = 32.0
 
 def tc_attention_torch(q, k, v, *, scale: float, causal: bool = False,
                        bias=None, lse: bool = False,
-                       zero_underflow: bool = False, out_inv=None):
+                       zero_underflow: bool = False, out_inv=None,
+                       pad=None):
     """The tensor-core body's arithmetic (`csrc/attention_tc.cuh`) in torch
     ops, step by step: keys in tiles of 64; per tile the fp32 scores of
     Q.K^T times scale * log2(e) (an fp32 product) after the product; with
     `bias` = (rel_h (B, H, Sq, gh), rel_w (B, H, Sq, gw), gw) the term
     (rel_h[key / gw] + rel_w[key % gw]) * log2(e) added in fp32; causal,
-    keys past the row masked to -inf (top-left); an online softmax in fp32
-    on exp2 (running max, sum over the unrounded P); P rounded to bf16
-    before P.V with an fp32 sum; the output times 1 / max(l, 1e-30), or 0
-    with `zero_underflow` on a row whose max m lies below EXP2_SHIFT - 126
-    (K1's contract). q (B, Sq, H, D), k and v (B, Sk, H, D) -> fp32 (B, Sq,
+    keys past the row masked to -inf (top-left); with `pad` ((B,) ints,
+    K5), keys below pad[b] masked too except each row's own key; an online
+    softmax in fp32 on exp2 (running max, sum over the unrounded P); P
+    rounded to bf16 before P.V with an fp32 sum; the output times
+    1 / max(l, 1e-30), or 0 with `zero_underflow` on a row whose max m lies
+    below EXP2_SHIFT - 126 (K1's contract). q (B, Sq, H, D), k and v (B, Sk, H, D) -> fp32 (B, Sq,
     H, D); with `out_inv` ((1,) fp32, K1q) int8 clip(rint(out * out_inv),
     -127, 127); with `lse`, also (m + log2(max(l, 1e-30))) * ln(2), (B, H,
     Sq). No path of the port calls it: it is the plain version with the
     kernel's rounding points, for int8 checks where one rounding of P
-    flips outputs."""
+    flips outputs, and K5's (whose TPU kernel rounds P to bf16 where this
+    body does)."""
     qf, kf, vf = (t.float().permute(0, 2, 1, 3) for t in (q, k, v))
     b, h, sq, d = qf.shape
     sk = kf.shape[2]
@@ -152,6 +157,11 @@ def tc_attention_torch(q, k, v, *, scale: float, causal: bool = False,
                      + rel_w.float()[..., keys % gw]) * log2e
         if causal:
             s = s.masked_fill(keys[None, :] > rows, float("-inf"))
+        if pad is not None:
+            inside = ((keys[None, None, None, :]
+                       < pad.to(dev).long()[:, None, None, None])
+                      & (keys[None, :] != rows))
+            s = s.masked_fill(inside, float("-inf"))
         mx = torch.maximum(m, s.amax(-1, keepdim=True))
         base = torch.where(mx == float("-inf"), torch.zeros_like(mx), mx)
         corr = torch.exp2(m - base)
@@ -507,7 +517,9 @@ def prefill_attention_raw(q, k, v, pad_lens, num_heads: int, scale: float):
     (0 = pure causal). Returns (B, S, H*D).
 
     CPU tensors take `prefill_attention_raw_torch`; CUDA tensors launch
-    `csrc/prefill_attention.cu`, which reads the heads in place."""
+    `csrc/prefill_attention.cu`, which reads the heads in place: its
+    tensor-core entry where `_tc_takes` holds (every bf16 prefill of
+    LLaMA-7B), its SIMT entry otherwise."""
     b, s, c = q.shape
     if k.shape != q.shape or v.shape != q.shape or c % num_heads:
         raise ValueError(f"prefill_attention_raw: q/k/v {tuple(q.shape)}, "
@@ -519,13 +531,21 @@ def prefill_attention_raw(q, k, v, pad_lens, num_heads: int, scale: float):
     if _kernels.on_cpu(q, k, v, pad_lens):
         return prefill_attention_raw_torch(q, k, v, pad_lens, num_heads,
                                            scale)
+    name = ("prefill_attention_tc" if _tc_takes(q.dtype, c // num_heads)
+            else "prefill_attention")
+    return _prefill_launch(name, q, k, v, pad_lens, num_heads, scale)
+
+
+def _prefill_launch(name: str, q, k, v, pad_lens, num_heads: int,
+                    scale: float):
+    """Launch the K5 entry `name` on CUDA tensors."""
+    b, s, c = q.shape
     hd = c // num_heads
-    dt = _kernels.check_cuda_inputs("prefill_attention_raw", (q, k, v), hd,
-                                    b * num_heads)
+    dt = _kernels.check_cuda_inputs(name, (q, k, v), hd, b * num_heads)
     pad = pad_lens.to(torch.int32).contiguous()
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
-        _kernels.KERNELS["prefill_attention"](
+        _kernels.KERNELS[name](
             q.data_ptr(), k.data_ptr(), v.data_ptr(), pad.data_ptr(),
             out.data_ptr(), b, s, num_heads, hd, float(scale), dt,
             _kernels.stream_ptr(q))

@@ -21,7 +21,10 @@ that spells out the formula:
   otherwise;
 * `relpos_flash_dq`: dq's attention part and the per-row term gradients
   d_rh (B, H, S, gh), d_rw (B, H, S, gw), fp32;
-* `relpos_flash_dkv`: dk, dv.
+* `relpos_flash_dkv`: dk, dv, on the tensor-core backward body for bf16
+  at head dims 64, 80, 128 (`relpos_flash_dkv_tc_torch` is its arithmetic,
+  P and dS rounded to bf16 where the TPU kernel rounds them), the SIMT body
+  otherwise.
 
 `relpos_flash_bwd` adds what the JAX package computes in XLA, here in torch
 ops: D = rowsum(dO * O), the rel terms, dq's bias part and the table
@@ -42,7 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _kernels
-from .attention import _tc_takes
+from .attention import LOG2E, _tc_takes
 from .flash_backward import _ds, row_dot
 from .sam_attention import _expand_bias, relpos_terms
 from .sam_encoder_tables import gather_rel_tables, rel_pos_index
@@ -146,6 +149,39 @@ def relpos_flash_dkv_torch(q, k, v, rel_h_term, rel_w_term, g, lse, dcap,
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
+def relpos_flash_dkv_tc_torch(q, k, v, rel_h_term, rel_w_term, g, lse,
+                              dcap, hw: Tuple[int, int], scale: float):
+    """The tensor-core dkv body's arithmetic (`csrc/attention_bwd_tc.cuh`)
+    in torch ops: fp32 S^T = K.Q^T and dP^T = V.dO^T from the input values;
+    x = S^T * (scale * log2(e)) + (rel_h + rel_w) * log2(e) - lse * log2(e)
+    in fp32, P^T = exp2(x), dS^T = P^T (dP^T - D) from the unrounded P;
+    then P^T and dS^T rounded to bf16 (the TPU kernel's `p.astype(dt)` and
+    `ds.astype(dt)`, `sam_attention_bwd.py:186`, `:191`) before the fp32
+    products dv = P^T.dO and dk = dS^T.Q, dk times scale; both in k's
+    dtype. No path of the port calls it: the plain version the card holds
+    the `_tc` entry to."""
+    gw = hw[1]
+    f32 = torch.float32
+    qf, kf, vf, gf = (t.to(f32).permute(0, 2, 1, 3) for t in (q, k, v, g))
+    dev = qf.device
+    sl2 = torch.tensor(scale, dtype=f32) * torch.tensor(LOG2E, dtype=f32)
+    log2e = torch.tensor(LOG2E, dtype=f32, device=dev)
+    keys = torch.arange(kf.shape[2], device=dev)
+    bias = (rel_h_term.to(f32)[..., keys // gw]
+            + rel_w_term.to(f32)[..., keys % gw])       # (B, H, Sq, Sk)
+    st = kf @ qf.transpose(-1, -2)                      # (B, H, Sk, Sq)
+    x = (st * sl2.to(dev) + bias.transpose(-1, -2) * log2e
+         - lse.to(f32)[:, :, None, :] * log2e)
+    p = torch.exp2(x)
+    dp = vf @ gf.transpose(-1, -2)
+    ds = p * (dp - dcap.to(f32)[:, :, None, :])
+    bf = torch.bfloat16
+    dv = p.to(bf).to(f32) @ gf
+    dk = (ds.to(bf).to(f32) @ qf) * torch.tensor(scale, dtype=f32)
+    return (dk.permute(0, 2, 1, 3).to(k.dtype),
+            dv.permute(0, 2, 1, 3).to(v.dtype))
+
+
 def _check_bwd(name, q, k, v, rel_h_term, rel_w_term, g, lse, dcap, hw):
     _check(name, q, k, v, rel_h_term, rel_w_term, hw)
     b, s, h, _ = q.shape
@@ -196,19 +232,42 @@ def relpos_flash_dq(q, k, v, rel_h_term, rel_w_term, g, lse, dcap,
 def relpos_flash_dkv(q, k, v, rel_h_term, rel_w_term, g, lse, dcap,
                      hw: Tuple[int, int], scale: float):
     """K9 dk, dv (`_dkv_kernel`). CPU tensors take the twin; CUDA tensors
-    launch `grove_relpos_flash_dkv`."""
+    launch `grove_relpos_flash_dkv_tc` (the tensor-core backward body)
+    where `ops.attention._tc_takes` holds (bf16 at D 64, 80, 128: every
+    bf16 training step) and the term tables suit its copies
+    (`_tables_aligned`), and `grove_relpos_flash_dkv` (the SIMT body)
+    otherwise."""
     _check_bwd("relpos_flash_dkv", q, k, v, rel_h_term, rel_w_term, g, lse,
                dcap, hw)
     if _kernels.on_cpu(q, k, v, rel_h_term, rel_w_term, g, lse, dcap):
         return relpos_flash_dkv_torch(q, k, v, rel_h_term, rel_w_term, g,
                                       lse, dcap, hw, scale)
+    tc = (_tc_takes(q.dtype, q.shape[-1])
+          and _tables_aligned(rel_h_term, rel_w_term))
+    name = "relpos_flash_dkv_tc" if tc else "relpos_flash_dkv"
+    return _dkv_launch(name, q, k, v, rel_h_term, rel_w_term, g, lse, dcap,
+                       hw, scale)
+
+
+def _tables_aligned(*tables) -> bool:
+    """Whether each (batch, head) block of the contiguous (B, H, S, g) term
+    tables starts 16-byte aligned, as the tensor-core dkv body's 16-byte
+    copies need: S g a multiple of 8 bf16 values. Every grid of SAM's
+    configurations (2, 8, 14, 16, 32) gives it; an odd one (7 x 7) does
+    not and takes the SIMT body."""
+    return all(t.data_ptr() % 16 == 0 and t[0, 0].numel() % 8 == 0
+               for t in tables)
+
+
+def _dkv_launch(name: str, q, k, v, rel_h_term, rel_w_term, g, lse, dcap,
+                hw: Tuple[int, int], scale: float):
+    """Launch the K9 dkv entry `name` on CUDA tensors."""
     gh, gw = hw
     b, s, h, d = q.shape
-    dt = _cuda_check("relpos_flash_dkv", q, k, v, rel_h_term, rel_w_term, g,
-                     lse, dcap)
+    dt = _cuda_check(name, q, k, v, rel_h_term, rel_w_term, g, lse, dcap)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
-        _kernels.KERNELS["relpos_flash_dkv"](
+        _kernels.KERNELS[name](
             q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_h_term.data_ptr(),
             rel_w_term.data_ptr(), g.data_ptr(), lse.data_ptr(),
             dcap.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, h, d, gh,

@@ -220,12 +220,14 @@ def test_launch_counts_untouched_by_plain_path():
     assert all(k.launches == 0 for k in _kernels.KERNELS.values())
     assert {k.source.split("/")[-1] for k in _kernels.KERNELS.values()} == {
         p.name for p in _kernels.sources() if p.name != "errors.cu"}
-    # K1, K1q, K2, K3, K4, K9's forward and K10 each have a tensor-core
-    # entry beside the SIMT one: the same source file, TPU kernel and
-    # arguments, the symbol `_tc`
+    # K1, K1q, K2, K3, K4, K5, K9's forward, K9's dkv and K10 each have a
+    # tensor-core entry beside the SIMT one: the same source file, TPU
+    # kernel and arguments, the symbol `_tc`
     tc = {n: k for n, k in _kernels.KERNELS.items() if n.endswith("_tc")}
     assert sorted(tc) == ["flash_attention_tc", "flash_forward_lse_tc",
                           "grouped_plain_attention_tc",
+                          "prefill_attention_tc",
+                          "relpos_flash_dkv_tc",
                           "relpos_flash_fwd_lse_tc",
                           "sam_global_attention_tc",
                           "sam_window_attention_q8_tc",

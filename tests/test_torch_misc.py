@@ -240,6 +240,66 @@ def test_text_copies_equal_originals():
         jtag.tag_caption("a man cuts bread", [(2, 5), (11, 16)])
 
 
+@pytest.mark.parametrize("name", ["tokenizer.py", "sentencepiece.py"])
+def test_tokenizer_copies_equal_originals(name):
+    """The port's tokenizer loaders are the JAX package's files byte for
+    byte: their imports are relative (`..config`, `.constants`,
+    `.sentencepiece`) and resolve inside the port."""
+    assert ((ROOT / "grove_tpu_torch" / "text" / name).read_bytes()
+            == (ROOT / "grove_tpu" / "text" / name).read_bytes())
+
+
+def test_tokenizer_copies_give_the_originals_ids():
+    """The copied SentencePiece reader, writer and HF-protocol wrapper give
+    the original's model, ids and special-token ids."""
+    from grove_tpu.text import sentencepiece as jsp
+    from grove_tpu.text.tokenizer import special_token_ids_from as jids
+    from grove_tpu_torch.text import sentencepiece as tsp
+    from grove_tpu_torch.text.constants import GROVE_EXTRA_TOKENS
+    from grove_tpu_torch.text.tokenizer import special_token_ids_from as tids
+    pieces = ([("<unk>", 0.0, tsp.UNKNOWN), ("<s>", 0.0, tsp.CONTROL),
+               ("</s>", 0.0, tsp.CONTROL)]
+              + [(f"<0x{b:02X}>", 0.0, tsp.BYTE) for b in range(256)]
+              + [("▁the", -1.0, tsp.NORMAL), ("▁cat", -2.0, tsp.NORMAL),
+                 ("▁ca", -3.5, tsp.NORMAL), ("t", -5.0, tsp.NORMAL)])
+    data = tsp.serialize_model(tsp.SpModel(pieces, model_type=tsp.UNIGRAM,
+                                           byte_fallback=True))
+    assert data == jsp.serialize_model(jsp.SpModel(
+        pieces, model_type=jsp.UNIGRAM, byte_fallback=True))
+    toks = [m.SentencePieceTokenizer(m.parse_model(data)) for m in (tsp, jsp)]
+    for tok in toks:
+        tok.add_tokens(list(GROVE_EXTRA_TOKENS), special_tokens=True)
+    text = "<vid_start>the cat [DET] caté<vid_end>"
+    assert toks[0](text).input_ids == toks[1](text).input_ids
+    assert dataclasses.asdict(tids(toks[0])) == dataclasses.asdict(
+        jids(toks[1]))
+
+
+def test_peft_copy_equals_original():
+    """`checkpoint.peft.normalize_peft_state_dict` is the JAX tool's
+    function, source and results: prefixes stripped, a LoRA pair merged
+    into its `.base_layer.` base as W + B A alpha / r, and unmerged when
+    asked."""
+    from grove_tpu.tools import merge_lora
+    from grove_tpu_torch.checkpoint import peft
+    assert (inspect.getsource(peft.normalize_peft_state_dict)
+            == inspect.getsource(merge_lora.normalize_peft_state_dict))
+    rng = np.random.default_rng(0)
+    sd = {"base_model.model.a.q_proj.base_layer.weight": rng.normal(
+              size=(6, 4)),
+          "base_model.model.a.q_proj.lora_A.default.weight": rng.normal(
+              size=(8, 4)),
+          "base_model.model.a.q_proj.lora_B.default.weight": rng.normal(
+              size=(6, 8)),
+          "base_model.model.b.default.bias": rng.normal(size=3)}
+    for kw in ({}, {"merge": False}, {"alpha": 32.0, "r": 4}):
+        got = peft.normalize_peft_state_dict(sd, **kw)
+        want = merge_lora.normalize_peft_state_dict(sd, **kw)
+        assert set(got) == set(want) == {"a.q_proj.weight", "b.bias"}
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k])
+
+
 def test_adaptive_pool_matches_jax():
     from grove_tpu.models.layers import adaptive_avg_pool_3d as jpool
     x = np.random.default_rng(0).normal(size=(2, 8, 24, 24, 5)).astype(
