@@ -41,17 +41,25 @@ Phases, each printing its own line; any failure exits non-zero:
      1979 TOP/s int8, 67 TFLOP/s fp32 off the tensor cores), and, for K1-K5
      and K10, the time of the one PyTorch call that computes the same
      function (`F.scaled_dot_product_attention`, rel-pos terms and pads as a
-     mask), which the port never calls. K1, K1q, K2, K3, K4, K5, K9's
-     forward, K9's dkv and K10 have two entries each: the tensor-core one
-     (`_tc`, attention_tc.cuh, for K9's dkv attention_bwd_tc.cuh), which
+     mask), which the port never calls. K1, K1q, K2, K3, K4, K4b's dkv,
+     K5, K9 (forward, dq, dkv) and K10 have two entries each: the
+     tensor-core one (`_tc`, attention_tc.cuh; for K9's dq and dkv and
+     K4b's dkv attention_bwd_tc.cuh), which
      the wrappers take for bf16 at head dim 64, 80 or 128, held through the
      wrapper at full width and at bf16 edge cases within 2e-2 of max-abs
      (K5: pads of 0, 5, 37, 64, 100 and 150, whole key tiles inside the
      pad, S of 1 to 640, every row inside a pad equal to its own v row and
-     every output finite, as for its SIMT entry; K9's dkv: grids of 2 x 2
-     to 32 x 32 against the twin with the body's rounding points, P and dS
-     in bf16 as the TPU kernel rounds them; K3: S of 1, 63, 65, 129 and
-     577; K10: also
+     every output finite, as for its SIMT entry, and at full width within
+     2e-2 of the fp32 twin; K9's dq and dkv: grids of
+     2 x 2 to 32 x 32 against the twins with the body's rounding points, P
+     and dS in bf16 as the TPU kernel rounds them, and at full width within
+     2e-2 of the fp32 twins too (dq, d_rh and d_rw each of its own
+     max-abs); K4b's dkv: S of 3 to 704, causal and not, against the twin
+     with the body's rounding points (P and dS in bf16, where the TPU K4b
+     keeps fp32), dk and dv each also row by row (each key's row within
+     1e-2 of its own max-abs: late keys see few queries), and at full
+     width within 2e-2 of the fp32 twin; K3: S of 1, 63, 65, 129 and 577;
+     K10: also
      causal Sq < Sk and Sq > Sk and cross lengths; K4: S of 1, 63, 65, 129
      and 704, causal and not, its LSE within 1e-4; K2: grids of 2 x 2, 4 x
      4, 12 x 12, 14 x 14 and 32 x 32; K1, K1q and K9's forward: grids of 2 x
@@ -101,8 +109,8 @@ Phases, each printing its own line; any failure exits non-zero:
      tokens) and ground_clip_with_caption with the
      launch counts zeroed just before and read just after; outputs must
      carry the JAX package's keys and be finite; no run may launch the SIMT
-     entries of K1, K1q, K2, K3, K4, K5, K9's forward, K9's dkv or K10
-     (bf16 takes the tensor-core entries of K1, K1q, K2, K3, K4 and K5; the
+     entries of K1, K1q, K2, K3, K4, K4b's dkv, K5, K9 or K10 (bf16
+     takes the tensor-core entries of K1, K1q, K2, K3, K4 and K5; the
      int4 and the flagship runs launch K5's exactly 32 times, once a layer
      of the one prefill); the bf16 run
      must launch K1-K4, the int4 run K1-K7a, the W8A8-static run K2-K7a,
@@ -173,11 +181,11 @@ Phases, each printing its own line; any failure exits non-zero:
      survive the text budget), the default freeze policy and
      OptimizerConfig(warmup_steps=1); three `train.step.make_train_step`
      steps with the launch counts zeroed before each: every loss term
-     finite, exactly 32 launches of K4's tensor-core entry and of each K4b
-     entry, 24 of each K9 entry (the tensor-core ones of its forward and
-     its dkv), 28 of K1's tensor-core entry and 4 of K2's per step, none of
-     a SIMT entry of K1, K1q, K2, K3, K4, K5, K9's forward, K9's dkv or
-     K10; step 1 (lr(0) = 0)
+     finite, exactly 32 launches of K4's tensor-core entry, of K4b's dq
+     (its SIMT entry) and of K4b's dkv (its tensor-core entry), 24 of each
+     of K9's three tensor-core entries (forward, dq, dkv), 28 of K1's
+     tensor-core entry and 4 of K2's per step, none of a SIMT entry of K1,
+     K1q, K2, K3, K4, K4b's dkv, K5, K9 or K10; step 1 (lr(0) = 0)
      leaves every parameter bit-equal and gives every trainable group
      (TRAIN_GROUPS) a finite, nonzero gradient; after step 3 the frozen
      parameters are bit-equal and every trainable group moved. Prints the
@@ -204,8 +212,7 @@ Phases, each printing its own line; any failure exits non-zero:
      printed;
   6  training parity: GroveConfig.small() (max_seq_len=129) in fp32, one
      set of weights and one batch, one step with warmup_steps=0 on the
-     card (kernels, TF32 off; the SIMT entries of K4, K9's forward and K9's
-     dkv)
+     card (kernels, TF32 off; the SIMT entries of K4, K4b and K9)
      and on the CPU (plain
      versions): every loss
      term within 1e-4 relative, every trainable tensor's gradient within
@@ -234,9 +241,10 @@ run of phase 3, K5's tensor-core entry, K6 and K7a from the int4 one, K8b
 and K1q's tensor-core entry from the W8A8-static one, K7b, K7c and K8c
 from the flagship one, K8a and the SIMT entries of K1q, K2, K3 and K4
 from phase 4's fp32 W8A8-static model path, K1's SIMT entry from its fp32
-float one, K4b and K9 (the tensor-core entries of its forward and dkv)
-from step 3 of phase 5, K10's tensor-core entry from its bf16 S = 2111
-step, the SIMT entries of K9's forward and dkv from phase 6's fp32 step;
+float one, K4b's dq and the tensor-core entries of K4b's dkv and K9's
+three from step 3 of phase 5, K10's tensor-core entry from its bf16 S =
+2111 step, the SIMT entries of K4b's dkv and K9's three from phase 6's
+fp32 step;
 the SIMT entries of K5 and K10, which no model path runs in fp32, and
 K11-K14, which run on no model path, show 0)
 and `phase2_launches`, the launches of phase 2's checks and timings; the
@@ -264,7 +272,7 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 FULL_TOL = 2e-2          # bf16, relative to the plain output's max-abs
-ROW_TOL = 1e-2           # K10 bf16, each row relative to its own max-abs
+ROW_TOL = 1e-2           # bf16, each row relative to its own max-abs
 LSE_TOL = 1e-4           # K4's bf16 LSE, relative to its max-abs
 FP32_TOL = 1e-4          # fp32, absolute
 ROUTE_TOL = 5e-2         # phase 2's ragged-S routes vs SDPA, fwd and bwd
@@ -289,15 +297,15 @@ FLAGSHIP_KERNELS = ("int4_matmul_a8", "int4_requant_int8", "rmsnorm_quant",
                     "add_rmsnorm_quant")
 LN_KERNEL = "layernorm_quant"             # phase 4's quant_ln_kernel path
 # the training kernels, launched per bf16 step of phase 5 exactly this
-# often: K4 (its tensor-core entry) in the 32 LLaMA layers' forward, K4b in
-# their backward, K9's three entries (the tensor-core ones of its forward
-# and its dkv) in the backward of the 21 windowed and 3 global SAM blocks
-# after the first trainable adapter
+# often: K4 (its tensor-core entry) in the 32 LLaMA layers' forward, K4b
+# (the tensor-core entry of its dkv) in their backward, K9's three entries
+# (their tensor-core ones) in the backward of the 21 windowed and 3 global
+# SAM blocks after the first trainable adapter
 TRAIN_LAUNCHES = {"flash_forward_lse_tc": 32, "flash_backward_dq": 32,
-                  "flash_backward_dkv": 32, "relpos_flash_fwd_lse_tc": 24,
-                  "relpos_flash_dq": 24, "relpos_flash_dkv_tc": 24}
+                  "flash_backward_dkv_tc": 32, "relpos_flash_fwd_lse_tc": 24,
+                  "relpos_flash_dq_tc": 24, "relpos_flash_dkv_tc": 24}
 # the fp32 steps of phase 6 launch the same kernels with the SIMT entries
-# of K4, K9's forward and K9's dkv
+# of K4, K4b's dkv and K9's three
 FP32_TRAIN_KERNELS = tuple(k.removesuffix("_tc") for k in TRAIN_LAUNCHES)
 # the training kernels whose launches the JSON line takes from phase 5: K4b
 # and K9 from its S = 704 steps, K10 (its tensor-core entry) from its
@@ -305,19 +313,22 @@ FP32_TRAIN_KERNELS = tuple(k.removesuffix("_tc") for k in TRAIN_LAUNCHES)
 # multiples of 64 or go to K5)
 TRAIN_KERNELS = tuple(k for k in TRAIN_LAUNCHES
                       if k != "flash_forward_lse_tc") + ("flash_attention_tc",)
-# the SIMT entries of K1, K1q, K2, K3, K4, K5, K9's forward, K9's dkv and
+# the SIMT entries of K1, K1q, K2, K3, K4, K4b's dkv, K5, K9's three and
 # K10: bf16 at head dim 64, 80 or 128 takes their tensor-core entries
 # (`ops.attention._tc_takes`), so no bf16 path of phases 3 and 5 may launch
 # them; fp32 does (phase 2's small cases; K1q, K2, K3 and K4 in phase 4's
 # W8A8-static path and K1 in its float one, where the JSON line takes their
-# launches from; K9's forward and dkv in phase 6's fp32 step; no fp32 model
-# path runs K5 or K10 (phase 4's prompts are too short for K5), so their
-# SIMT entries show 0 there)
+# launches from; K4b's dkv and K9's three in phase 6's fp32 step; no fp32
+# model path runs K5 or K10 (phase 4's prompts are too short for K5), so
+# their SIMT entries show 0 there)
 SIMT_ENTRIES = ("grouped_plain_attention", "flash_attention",
                 "flash_forward_lse", "sam_global_attention",
                 "sam_window_attention", "sam_window_attention_q8",
                 "relpos_flash_fwd_lse", "prefill_attention",
-                "relpos_flash_dkv")
+                "relpos_flash_dq", "relpos_flash_dkv", "flash_backward_dkv")
+# the SIMT entries whose JSON launches come from phase 6's fp32 step
+FP32_STEP_SIMT = ("relpos_flash_fwd_lse", "relpos_flash_dq",
+                  "relpos_flash_dkv", "flash_backward_dkv")
 FP32_SIMT = ("grouped_plain_attention", "flash_forward_lse",
              "sam_global_attention", "sam_window_attention_q8")
 # the tensor-core entries: phase 2 prints their registers, spills and
@@ -330,17 +341,9 @@ TC_SOURCES = {"flash_attention_tc": "flash_attention.cu",
               "sam_window_attention_q8_tc": "sam_window_attention.cu",
               "relpos_flash_fwd_lse_tc": "relpos_flash_attention.cu",
               "prefill_attention_tc": "prefill_attention.cu",
-              "relpos_flash_dkv_tc": "relpos_flash_attention.cu"}
-# the entries on the tensor-core backward body (attention_bwd_tc.cuh), whose
-# shared memory is its own: K and V of 128 keys, two stages of Q and dO of
-# 64 queries, their LSE and D, two stages of raw term tables and one of
-# their fp32 columns (65 floats a column, gh + gw <= 64 columns at SAM's
-# widths) and 1 KB to align
-TC_BACKWARD = ("relpos_flash_dkv_tc",)
-# the tensor-core entries with the rel-pos term tables staged in shared
-# memory (16 KB more at gh + gw <= 64)
-TC_BIASED = ("sam_global_attention_tc", "sam_window_attention_tc",
-             "sam_window_attention_q8_tc", "relpos_flash_fwd_lse_tc")
+              "relpos_flash_dkv_tc": "relpos_flash_attention.cu",
+              "relpos_flash_dq_tc": "relpos_flash_attention.cu",
+              "flash_backward_dkv_tc": "flash_backward.cu"}
 TRAIN_SEQ = 129          # max_seq_len: 129 + 575 spliced = 704 tokens
 # K11-K14: public ops of the JAX package that no model path runs (nor do
 # their JAX originals); held in phase 2, launched 0 times on every path
@@ -582,28 +585,42 @@ def _cases(torch):
         return flash_backward.flash_forward_lse_torch(
             q, k, v, causal=causal, scale=q.shape[-1] ** -0.5)
 
+    # K4b's cases: (b, s, h, d) causal, (b, s, h, d, False) not; lse and D
+    # from the plain forward, as the backward receives them
     def k4b_inputs(gen, dtype, shape):
-        # lse and D from the plain forward, as the backward receives them
-        q, k, v, g = (randn(gen, shape, dtype) for _ in range(4))
+        causal = shape[4] if len(shape) > 4 else True
+        q, k, v, g = (randn(gen, shape[:4], dtype) for _ in range(4))
         out, lse = flash_backward.flash_forward_lse_torch(
-            q, k, v, causal=True, scale=shape[-1] ** -0.5)
-        return (q, k, v, g, lse, flash_backward.row_dot(out, g))
+            q, k, v, causal=causal, scale=shape[3] ** -0.5)
+        return (q, k, v, g, lse, flash_backward.row_dot(out, g), causal)
 
-    def k4b_dq(q, k, v, g, lse, dc):
+    def k4b_dq(q, k, v, g, lse, dc, causal):
         return flash_backward.flash_backward_dq(
-            q, k, v, g, lse, dc, causal=True, scale=q.shape[-1] ** -0.5)
+            q, k, v, g, lse, dc, causal=causal, scale=q.shape[-1] ** -0.5)
 
-    def k4b_dq_plain(q, k, v, g, lse, dc):
+    def k4b_dq_plain(q, k, v, g, lse, dc, causal):
         return flash_backward.flash_backward_dq_torch(
-            q, k, v, g, lse, dc, causal=True, scale=q.shape[-1] ** -0.5)
+            q, k, v, g, lse, dc, causal=causal, scale=q.shape[-1] ** -0.5)
 
-    def k4b_dkv(q, k, v, g, lse, dc):
-        return flash_backward.flash_backward_dkv(
-            q, k, v, g, lse, dc, causal=True, scale=q.shape[-1] ** -0.5)
-
-    def k4b_dkv_plain(q, k, v, g, lse, dc):
+    def k4b_dkv_plain(q, k, v, g, lse, dc, causal):
         return flash_backward.flash_backward_dkv_torch(
-            q, k, v, g, lse, dc, causal=True, scale=q.shape[-1] ** -0.5)
+            q, k, v, g, lse, dc, causal=causal, scale=q.shape[-1] ** -0.5)
+
+    # K4b's dkv SIMT entry, called directly, so that bf16 reaches it too
+    def k4b_dkv_simt(q, k, v, g, lse, dc, causal):
+        return flash_backward._dkv_launch("flash_backward_dkv", q, k, v, g,
+                                          lse, dc, causal,
+                                          q.shape[-1] ** -0.5)
+
+    def k4b_dkv_tc(q, k, v, g, lse, dc, causal):
+        return flash_backward.flash_backward_dkv(
+            q, k, v, g, lse, dc, causal=causal, scale=q.shape[-1] ** -0.5)
+
+    # the tensor-core body's arithmetic (P and dS to bf16 before the
+    # products, where the TPU K4b keeps them in fp32)
+    def k4b_dkv_tc_plain(q, k, v, g, lse, dc, causal):
+        return flash_backward.flash_backward_dkv_tc_torch(
+            q, k, v, g, lse, dc, causal=causal, scale=q.shape[-1] ** -0.5)
 
     def k9_inputs(gen, dtype, shape):
         return (*k2_inputs(gen, dtype, shape), shape[-1] ** -0.5)
@@ -744,6 +761,9 @@ def _cases(torch):
 
     def k9_dkv_simt(*args):
         return sam_attention_bwd._dkv_launch("relpos_flash_dkv", *args)
+
+    def k9_dq_simt(*args):
+        return sam_attention_bwd._dq_launch("relpos_flash_dq", *args)
 
     def k12_inputs(gen, dtype, shape):
         # K1's inputs (the all-underflow row included), q / k / v split
@@ -918,8 +938,8 @@ def _cases(torch):
         return lambda: torch.autograd.grad(out, (qt, kt, vt), gt,
                                            retain_graph=True)
 
-    def k4b_library(q, k, v, g, lse, dc):
-        return sdpa_grad(q, k, v, g, is_causal=True)
+    def k4b_library(q, k, v, g, lse, dc, causal):
+        return sdpa_grad(q, k, v, g, is_causal=causal)
 
     def k9_library(q, k, v, rh, rw, hw, scale):
         return k2_library(q, k, v, rh, rw, hw)
@@ -945,16 +965,20 @@ def _cases(torch):
              library=None, rows=False, exact=False, library_is=None,
              edges=(), simt=None, tols=None, against=None, check=None):
         """int8: (LSB, share) limits of an int8 output, full bf16 and small
-        fp32, instead of the float error limits. rows: the full bf16 output
-        (and each of `edges`) held row by row as well (`_check_rows`).
+        fp32, instead of the float error limits. rows: every full bf16
+        output (and each of `edges`') held row by row as well
+        (`_check_rows`).
         exact: every output bit-equal to the plain version's (a copy).
         library_is: what the library call is, where it is not SDPA.
         edges: small bf16 shapes held within FULL_TOL, untimed. simt: the
         SIMT entry of a tensor-core case, timed beside it back to back
         (`_queued_ms`) with the library call. tols: each output's bf16
-        limit, of its max-abs, where not FULL_TOL for all. against: a
-        second plain version whose distance at full width is printed, not
-        held. check(args, got) -> note: a further check of the kernel's
+        limit, of its max-abs, where not FULL_TOL for all. against: the
+        fp32 twin of a tensor-core case whose plain version has the body's
+        rounding points; it holds each full-width float output within
+        FULL_TOL of its own max-abs, and of an int8 output prints how many
+        LSB apart on what share.
+        check(args, got) -> note: a further check of the kernel's
         output at every shape, raising PhaseError where it fails. An int8
         case holds its edges in LSBs at its full limits; an edge or small
         shape ending in "underflow" carries an all-underflow row (row 0 of
@@ -1066,8 +1090,8 @@ def _cases(torch):
         # 128), held to the body's arithmetic with the pad (the TPU
         # kernel's rounding points: P to bf16 before P.V), within FULL_TOL
         # and row by row, since the late causal rows are small beside the
-        # pad rows and row 0, which set the max-abs; the fp32 twin's
-        # distance printed; edges: a pad covering whole key tiles, a pad
+        # pad rows and row 0, which set the max-abs, and to the fp32 twin
+        # within FULL_TOL; edges: a pad covering whole key tiles, a pad
         # past the last row's tile start, ragged last tiles, one row, every
         # head dim
         "prefill_attention_tc": case(
@@ -1146,12 +1170,29 @@ def _cases(torch):
             int8={"full": (1, LSB_SHARE), "small": (1, LSB_SHARE)}),
         "flash_backward_dq": case(
             k4b_dq, k4b_dq_plain, k4b_inputs, [(1, 704, 32, 128)],
-            k4b_small, lambda a: bwd_ops(a, 3, causal=True),
+            k4b_small, lambda a: bwd_ops(a, 3, causal=a[6]),
             library=k4b_library),
+        # K4b's dkv, its SIMT entry called directly in bf16 at full width
+        # and in fp32 as the wrapper calls it
         "flash_backward_dkv": case(
-            k4b_dkv, k4b_dkv_plain, k4b_inputs, [(1, 704, 32, 128)],
-            k4b_small, lambda a: bwd_ops(a, 4, causal=True),
+            k4b_dkv_simt, k4b_dkv_plain, k4b_inputs, [(1, 704, 32, 128)],
+            k4b_small, lambda a: bwd_ops(a, 4, causal=a[6]),
             library=k4b_library),
+        # its tensor-core entry (attention_bwd_tc.cuh without the bias),
+        # through the wrapper (bf16, D 64 / 80 / 128), held to the plain
+        # version with the body's rounding points (P and dS to bf16), dk
+        # and dv each also row by row (a late key sees few queries, so its
+        # row is small beside key 0's, which sets the max-abs), and to the
+        # fp32 twin; edges: S of 3 to 704, ragged last tiles, causal and
+        # not, every head dim, B.H > 1
+        "flash_backward_dkv_tc": case(
+            k4b_dkv_tc, k4b_dkv_tc_plain, k4b_inputs, [(1, 704, 32, 128)],
+            [], lambda a: bwd_ops(a, 4, causal=a[6]), library=k4b_library,
+            edges=[(2, 3, 2, 64), (1, 63, 2, 128), (2, 65, 2, 64),
+                   (1, 129, 4, 128), (1, 200, 2, 80), (1, 704, 2, 128),
+                   (1, 100, 2, 64, False), (2, 257, 2, 128, False),
+                   (1, 130, 2, 80, False)],
+            simt=k4b_dkv_simt, against=k4b_dkv_plain, rows=True),
         # K9's forward, its SIMT entry called directly in bf16 at full
         # width and in fp32 as the wrapper calls it
         "relpos_flash_fwd_lse": case(
@@ -1168,10 +1209,25 @@ def _cases(torch):
                                              (14, 2), (16, 1), (32, 1))
                    for d in (64, 80, 128)],
             simt=k9_simt),
+        # K9's dq, its SIMT entry called directly in bf16 at full width and
+        # in fp32 as the wrapper calls it
         "relpos_flash_dq": case(
+            k9_dq_simt, sam_attention_bwd.relpos_flash_dq_torch,
+            k9_bwd_inputs, k9_full, k9_small, lambda a: bwd_ops(a, 3),
+            library=k9_bwd_library),
+        # its tensor-core entry (attention_bwd_tc.cuh, `dq_block_tc`),
+        # through the wrapper (bf16, D 64 / 80 / 128), held to the plain
+        # version with the body's rounding points (dS to bf16 before dS.K
+        # and the bucket sums, the TPU kernel's) and to the fp32 twin: dq,
+        # d_rh and d_rw each of its own max-abs; edges as K9's dkv
+        "relpos_flash_dq_tc": case(
             sam_attention_bwd.relpos_flash_dq,
-            sam_attention_bwd.relpos_flash_dq_torch, k9_bwd_inputs, k9_full,
-            k9_small, lambda a: bwd_ops(a, 3), library=k9_bwd_library),
+            sam_attention_bwd.relpos_flash_dq_tc_torch, k9_bwd_inputs,
+            k9_full, [], lambda a: bwd_ops(a, 3), library=k9_bwd_library,
+            edges=[(b, g, 2, d) for g, b in ((2, 4), (12, 1),
+                                             (14, 2), (16, 1), (32, 1))
+                   for d in (64, 80, 128)],
+            simt=k9_dq_simt, against=sam_attention_bwd.relpos_flash_dq_torch),
         # K9's dkv, its SIMT entry called directly in bf16 at full width
         # and in fp32 as the wrapper calls it
         "relpos_flash_dkv": case(
@@ -1184,7 +1240,7 @@ def _cases(torch):
         # bf16 before the products); edges: grids of 2 x 2 (one partial
         # query tile) to 32 x 32, ragged 12 x 12 and 14 x 14, every head
         # dim, B.H > 1 (an odd grid takes the SIMT entry:
-        # `_dkv_odd_grid_route`)
+        # `_odd_grid_routes`)
         "relpos_flash_dkv_tc": case(
             sam_attention_bwd.relpos_flash_dkv,
             sam_attention_bwd.relpos_flash_dkv_tc_torch, k9_bwd_inputs,
@@ -1417,29 +1473,38 @@ def _check_full(name, full, got, want, tols=None):
 
 
 def _row_share(got, want):
-    """The largest distance of a row (the last axis) of `got` from `want`,
-    of that row's max-abs in `want`; of a call with several outputs, the
-    first."""
-    g, w = (x[0] if isinstance(x, tuple) else x for x in (got, want))
-    g, w = g.float(), w.float()
-    return float(((g - w).abs().amax(-1)
-                  / w.abs().amax(-1).clamp_min(1e-30)).max())
+    """For each output of a call: the largest distance of a row (the last
+    axis) of `got` from `want`, of that row's max-abs in `want`."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    return [float(((g.float() - w.float()).abs().amax(-1)
+                   / w.float().abs().amax(-1).clamp_min(1e-30)).max())
+            for g, w in zip(got, want)]
 
 
 def _check_rows(name, full, got, want):
-    """A full-width bf16 attention output row by row: each row (one query
-    of one head, D values) within ROW_TOL of that row's own max-abs.
-    Causal rows far down average over thousands of keys and are small
-    beside the first rows, which set the output's max-abs, so FULL_TOL
-    alone would pass a kernel wrong there or in the ragged last key tile;
-    one bf16 rounding apart is at most 2^-7 of a row's max-abs. Of a call
-    with several outputs (K4: out and LSE), the first. Returns the worst
-    row's share."""
+    """Every output of a full-width bf16 attention call row by row: each
+    row (one query, or one key of K4b's dk and dv, of one head: D values;
+    of K4's LSE, one head's S values) within ROW_TOL of that row's own
+    max-abs. Causal rows far down average over thousands of keys, and in
+    causal dk and dv the late keys see few queries, so they are small
+    beside the first rows, which set the output's max-abs; FULL_TOL alone
+    would pass a kernel wrong there or in the ragged last key tile. One
+    bf16 rounding apart is at most 2^-7 of a row's max-abs. Returns the
+    worst row's share of each output."""
     rel = _row_share(got, want)
-    if not rel <= ROW_TOL:
-        raise PhaseError(f"{name} bf16 {full}: a row differs by {rel:.3e} "
-                         f"of its own max-abs > {ROW_TOL}")
+    for i, r in enumerate(rel):
+        if not r <= ROW_TOL:
+            raise PhaseError(f"{name} bf16 {full}: a row of output {i} "
+                             f"differs by {r:.3e} of its own max-abs > "
+                             f"{ROW_TOL}")
     return rel
+
+
+def _rows_note(rel):
+    """The phase's note on `_row_share`'s list."""
+    return (f", worst row {', '.join(f'{r:.2e}' for r in rel)} of its own "
+            f"max-abs")
 
 
 def _check_underflow(name, shape, got, want):
@@ -1524,8 +1589,7 @@ def phase_kernels(torch, gpu, compiles):
                         f"{', '.join(f'{e:.3e}' for e, _ in errs)} (relative "
                         f"{', '.join(f'{r:.2e}' for _, r in errs)})")
             if c["rows"]:
-                row = _check_rows(name, shape, got, want)
-                note += f", worst row {row:.2e} of its own max-abs"
+                note += _rows_note(_check_rows(name, shape, got, want))
             note += _check_underflow(name, shape, got, want)
             if c["check"]:
                 note += c["check"](args, got)
@@ -1558,13 +1622,15 @@ def phase_kernels(torch, gpu, compiles):
                         f"{', '.join(f'{e:.3e}' for e, _ in new)} (relative "
                         f"{', '.join(f'{r:.2e}' for _, r in new)})")
                 if c["rows"]:
-                    row = _check_rows(name, full, got, want)
-                    what += f", worst row {row:.2e} of its own max-abs"
+                    what += _rows_note(_check_rows(name, full, got, want))
                 if c["against"]:
                     other = c["against"](*args)
-                    what += (f" (from the fp32 twin, printed, not held: "
-                             f"{_max_err(got, other):.3e}, worst row "
-                             f"{_row_share(got, other):.2e})")
+                    held = _check_full(f"{name} (fp32 twin)", full, got,
+                                       other)
+                    what += (f"; from the fp32 twin "
+                             f"{', '.join(f'{r:.2e}' for _, r in held)} of "
+                             f"its max-abs (held within {FULL_TOL})"
+                             + _rows_note(_row_share(got, other)))
                     del other
             if c["check"]:
                 what += c["check"](args, got)
@@ -1628,7 +1694,7 @@ def phase_kernels(torch, gpu, compiles):
     _tc_build_report(gpu, compiles)
     _int8_matmul_padded(torch, gpu)
     _ragged_routes(torch, gpu)
-    _dkv_odd_grid_route(torch, gpu)
+    _odd_grid_routes(torch, gpu)
     _trainable_forms(torch, gpu)
     _k14_breakdown(torch, gpu, rows)
     for name, row in rows.items():
@@ -1653,12 +1719,9 @@ def _tc_compiles():
 
 def _tc_build_report(gpu, compiles):
     """For each tensor-core entry's kernels (D 64, 80 and 128): registers,
-    stack frame and spills as ptxas reports them (`_tc_compiles`), dynamic
-    shared memory (attention_tc.cuh's Q tile and two K/V stages of 64-column
-    atoms, plus the term tables of K1, K2 and K9's forward at SAM's
-    gh + gw <= 64, plus 1 KB of alignment; attention_bwd_tc.cuh's as
-    TC_BACKWARD says),
-    and the HGMMA instructions in `cuobjdump -sass` of the built library.
+    stack frame and spills as ptxas reports them (`_tc_compiles`), the
+    dynamic shared memory its launch asks for (`_tc_smem`, from the built
+    library) and the HGMMA instructions in `cuobjdump -sass` of it.
     Fails where ptxas failed, a kernel spills, or a kernel has no HGMMA
     (then it would not run on the tensor cores)."""
     from grove_tpu_torch import _kernels
@@ -1695,15 +1758,9 @@ def _tc_build_report(gpu, compiles):
             fns = [f for f in hgmma if tag in f]
             lines = [x for f in ptxas if tag in f for x in ptxas[f]]
             n = sum(hgmma[f] for f in fns)
-            width = -(-d // 64) * 64
-            smem = (128 + 4 * 64) * width * 2 + 1024
-            if name in TC_BIASED:
-                smem += 128 * 64 * 2
-            if name in TC_BACKWARD:
-                smem = ((2 * 128 + 4 * 64) * width * 2 + 4 * 64 * 4
-                        + 2 * 64 * 64 * 2 + 64 * 65 * 4 + 2 * 1024)
             say(2, f"{name} D = {d}: ptxas {'; '.join(lines) or 'no report'}"
-                   f"; dynamic shared memory {smem} bytes; {n} HGMMA "
+                   f"; its launch asks for {_tc_smem(name, d)} bytes of "
+                   f"dynamic shared memory (tables of 32 x 32); {n} HGMMA "
                    f"instructions in the library's SASS ({gpu})")
             if not fns or not n:
                 raise PhaseError(f"{name} D = {d}: no HGMMA instruction in "
@@ -1713,6 +1770,21 @@ def _tc_build_report(gpu, compiles):
             if re.search(r"\b[1-9]\d* bytes spill", " ".join(lines)):
                 raise PhaseError(f"{name} D = {d} spills: {lines}")
     _stop_tc_compiles(compiles)
+
+
+def _tc_smem(name, d):
+    """The dynamic shared memory a tensor-core entry's launch asks for at
+    head dim d, in bytes, as the library's `grove_<name>_smem` returns it
+    (the function its dispatcher sizes the launch with), with the term
+    tables of SAM's 32 x 32 grid (gh + gw = 64, the widest) where it takes
+    them."""
+    import ctypes
+
+    from grove_tpu_torch import _kernels
+    fn = getattr(_kernels.load(), _kernels.KERNELS[name].symbol + "_smem")
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_longlong
+    return fn(d, 32, 32)
 
 
 def _stop_tc_compiles(compiles):
@@ -1889,11 +1961,12 @@ def _ragged_routes(torch, gpu):
            f"(1, 2111, 32, 128) bf16: {'; '.join(notes)} on {gpu}")
 
 
-def _dkv_odd_grid_route(torch, gpu):
-    """K9's dkv in bf16 at D = 64 on a 7 x 7 grid, whose term tables'
-    (batch, head) blocks of 49 x 7 values are not 16-byte aligned: the
-    wrapper launches the SIMT entry once and the tensor-core one never,
-    and dk, dv lie within FULL_TOL of the plain twin's max-abs."""
+def _odd_grid_routes(torch, gpu):
+    """K9's dq and dkv in bf16 at D = 64 on a 7 x 7 grid, whose term
+    tables' (batch, head) blocks of 49 x 7 values are not 16-byte aligned:
+    each wrapper launches its SIMT entry once and its tensor-core one
+    never, and dq, d_rh, d_rw, dk, dv lie within FULL_TOL of the plain
+    twins' max-abs."""
     from grove_tpu_torch import _kernels
     from grove_tpu_torch.ops import flash_backward, sam_attention_bwd
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -1909,21 +1982,26 @@ def _dkv_odd_grid_route(torch, gpu):
                                                             hw, scale)
     args = (q, k, v, rh, rw, g, lse, flash_backward.row_dot(out, g), hw,
             scale)
-    names = ("relpos_flash_dkv", "relpos_flash_dkv_tc")
-    before = [_kernels.KERNELS[n].launches for n in names]
-    got = sam_attention_bwd.relpos_flash_dkv(*args)
-    torch.cuda.synchronize()
-    ran = tuple(_kernels.KERNELS[n].launches - b
-                for n, b in zip(names, before))
-    if ran != (1, 0):
-        raise PhaseError(f"relpos_flash_dkv bf16 on a 7 x 7 grid launched "
-                         f"(SIMT, tensor-core) {ran} times, not (1, 0)")
-    errs = _check_full("relpos_flash_dkv", "7 x 7 route", got,
-                       sam_attention_bwd.relpos_flash_dkv_torch(*args))
-    say(2, f"relpos_flash_dkv bf16 on a 7 x 7 grid (unaligned term tables): "
-           f"the SIMT entry, dk, dv within "
-           f"{', '.join(f'{r:.2e}' for _, r in errs)} of the plain twin's "
-           f"max-abs on {gpu}")
+    notes = []
+    for name, fn, plain in (
+            ("relpos_flash_dq", sam_attention_bwd.relpos_flash_dq,
+             sam_attention_bwd.relpos_flash_dq_torch),
+            ("relpos_flash_dkv", sam_attention_bwd.relpos_flash_dkv,
+             sam_attention_bwd.relpos_flash_dkv_torch)):
+        names = (name, name + "_tc")
+        before = [_kernels.KERNELS[n].launches for n in names]
+        got = fn(*args)
+        torch.cuda.synchronize()
+        ran = tuple(_kernels.KERNELS[n].launches - b
+                    for n, b in zip(names, before))
+        if ran != (1, 0):
+            raise PhaseError(f"{name} bf16 on a 7 x 7 grid launched (SIMT, "
+                             f"tensor-core) {ran} times, not (1, 0)")
+        errs = _check_full(name, "7 x 7 route", got, plain(*args))
+        notes.append(f"{name} the SIMT entry, within "
+                     f"{', '.join(f'{r:.2e}' for _, r in errs)}")
+    say(2, f"K9 bf16 on a 7 x 7 grid (unaligned term tables): "
+           f"{'; '.join(notes)} of the plain twins' max-abs on {gpu}")
 
 
 def _int8_matmul_padded(torch, gpu):
@@ -3287,26 +3365,27 @@ def _step_launches(cfg, s, remat):
     same SAM adapters): the LLaMA layers' attention as the JAX package
     routes it, stated here and not read from the port: at S = 704, a
     multiple of 64, K4's tensor-core entry (bf16, D = 128) with K4b behind
-    it; at the ragged S = 2111, K10's tensor-core entry; once a layer
-    forward (twice with remat: the checkpointed layer runs again in the
-    backward); K2's tensor-core entry (D = 80) once in each global SAM
-    block's forward and K1's in each windowed one, each with remat again in
-    the blocks after the first trainable adapter; K9's three entries (its
-    forward's tensor-core one) once in the backward of every SAM block
-    after that adapter (K9's forward with LSE runs there, after the
-    recomputed K1 or K2 forward); no SIMT entry of K1, K1q, K2, K3, K4, K9's
-    forward or K10, no K1q, K5, K7a, K7b or K7c."""
+    it (its dq's SIMT entry, its dkv's tensor-core one); at the ragged
+    S = 2111, K10's tensor-core entry; once a layer forward (twice with
+    remat: the checkpointed layer runs again in the backward); K2's
+    tensor-core entry (D = 80) once in each global SAM block's forward and
+    K1's in each windowed one, each with remat again in the blocks after
+    the first trainable adapter; K9's three tensor-core entries once in the
+    backward of every SAM block after that adapter (K9's forward with LSE
+    runs there, after the recomputed K1 or K2 forward); no SIMT entry of
+    K1, K1q, K2, K3, K4, K4b's dkv, K9 or K10, no K1q, K5, K7a, K7b or
+    K7c."""
     n = cfg.llama.num_layers
     route = {704: "flash_forward_lse_tc", 2111: "flash_attention_tc"}[s]
     sam_cfg = cfg.sam_enc
     globs = sam_cfg.global_attn_indexes
     after = range(min(globs) + 1, sam_cfg.depth)   # behind the first adapter
     out = {k: 0 for k in ("flash_forward_lse_tc", "flash_backward_dq",
-                          "flash_backward_dkv", "flash_attention_tc",
+                          "flash_backward_dkv_tc", "flash_attention_tc",
                           "sam_window_attention_q8_tc", *SIMT_ENTRIES,
                           *QLORA_NEVER)}
     out.update({k: len(after) for k in ("relpos_flash_fwd_lse_tc",
-                                        "relpos_flash_dq",
+                                        "relpos_flash_dq_tc",
                                         "relpos_flash_dkv_tc")})
     out["sam_global_attention_tc"] = len(globs) + (
         sum(i in globs for i in after) if remat else 0)
@@ -3314,7 +3393,7 @@ def _step_launches(cfg, s, remat):
         sum(i not in globs for i in after) if remat else 0)
     out[route] = n * (2 if remat else 1)
     if route == "flash_forward_lse_tc":
-        out["flash_backward_dq"] = out["flash_backward_dkv"] = n
+        out["flash_backward_dq"] = out["flash_backward_dkv_tc"] = n
     return out
 
 
@@ -3822,8 +3901,7 @@ def main() -> int:
         train = phase_train(torch, gpu)
         launches.update({k: train[k] for k in TRAIN_KERNELS})
         fp32_train = phase_train_parity(torch)
-        launches.update({k: fp32_train[k] for k in ("relpos_flash_fwd_lse",
-                                                    "relpos_flash_dkv")})
+        launches.update({k: fp32_train[k] for k in FP32_STEP_SIMT})
         phase_loader(torch, gpu)
     except Exception:                       # report, then fail the run
         traceback.print_exc()

@@ -264,6 +264,13 @@ KERNELS: Dict[str, Kernel] = {
         [_P] * 8 + [_I] * 5 + [_F, _I, _P],
         "grove_tpu_torch/csrc/flash_backward.cu",
         "grove_tpu/ops/flash_backward.py:278"),
+    # K4b's dkv on the tensor-core backward body (attention_bwd_tc.cuh),
+    # taken where `TC_HEAD_DIMS` holds, as the forward entries
+    "flash_backward_dkv_tc": Kernel(
+        "grove_flash_backward_dkv_tc",
+        [_P] * 8 + [_I] * 5 + [_F, _I, _P],
+        "grove_tpu_torch/csrc/flash_backward.cu",
+        "grove_tpu/ops/flash_backward.py:278"),
     "relpos_flash_fwd_lse": Kernel(
         "grove_relpos_flash_fwd_lse",
         [_P] * 7 + [_I] * 6 + [_F, _I, _P],
@@ -279,13 +286,19 @@ KERNELS: Dict[str, Kernel] = {
         [_P] * 11 + [_I] * 6 + [_F, _I, _P],
         "grove_tpu_torch/csrc/relpos_flash_attention.cu",
         "grove_tpu/ops/sam_attention_bwd.py:294"),
+    # K9's dq on the tensor-core backward body, taken where `TC_HEAD_DIMS`
+    # holds and the term tables suit its copies
+    "relpos_flash_dq_tc": Kernel(
+        "grove_relpos_flash_dq_tc",
+        [_P] * 11 + [_I] * 6 + [_F, _I, _P],
+        "grove_tpu_torch/csrc/relpos_flash_attention.cu",
+        "grove_tpu/ops/sam_attention_bwd.py:294"),
     "relpos_flash_dkv": Kernel(
         "grove_relpos_flash_dkv",
         [_P] * 10 + [_I] * 6 + [_F, _I, _P],
         "grove_tpu_torch/csrc/relpos_flash_attention.cu",
         "grove_tpu/ops/sam_attention_bwd.py:333"),
-    # K9's dkv on the tensor-core backward body (attention_bwd_tc.cuh),
-    # taken where `TC_HEAD_DIMS` holds, as the forward entries
+    # K9's dkv on the tensor-core backward body, taken as its dq's
     "relpos_flash_dkv_tc": Kernel(
         "grove_relpos_flash_dkv_tc",
         [_P] * 10 + [_I] * 6 + [_F, _I, _P],

@@ -189,8 +189,17 @@ __device__ __forceinline__ int bias_col(int r, int c) {
   return c ^ ((r & 7) << 3);
 }
 
-inline size_t bias_bytes(const AttnArgs& a) {
-  return a.rh != nullptr ? (size_t)kBQ * bias_stride(a.gh, a.gw) * 2 : 0;
+// The dynamic shared memory an entry's launch asks for at head dim d (64,
+// 80 or 128; 0 for another), with the bf16 term tables of a gh x gw grid
+// where `bias`.
+inline size_t entry_bytes(int d, bool bias, int gh, int gw) {
+  const size_t tables = bias ? (size_t)kBQ * bias_stride(gh, gw) * 2 : 0;
+  switch (d) {
+    case 64: return smem_bytes<64>() + tables;
+    case 80: return smem_bytes<80>() + tables;
+    case 128: return smem_bytes<128>() + tables;
+  }
+  return 0;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -746,13 +755,13 @@ inline bool aligned16(const AttnArgs& a, int out_bytes) {
          (o.h * out_bytes) % 16 == 0;
 }
 
-// Launch one instantiation on `stream`, opted into its dynamic shared
-// memory (with the term tables for a biased call) and into the largest
-// shared-memory carve-out; returns cudaGetLastError() so a refused launch
-// is reported. The grid: (batch, head) pairs on x, query blocks on y.
-template <int D, typename Kernel>
-inline int launch(Kernel kernel, const AttnArgs& a, cudaStream_t stream) {
-  const size_t bytes = smem_bytes<D>() + bias_bytes(a);
+// Launch one instantiation on `stream`, opted into `bytes` of dynamic
+// shared memory (`entry_bytes`) and into the largest shared-memory
+// carve-out; returns cudaGetLastError() so a refused launch is reported.
+// The grid: (batch, head) pairs on x, query blocks on y.
+template <typename Kernel>
+inline int launch(Kernel kernel, const AttnArgs& a, size_t bytes,
+                  cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return (int)e;
@@ -773,9 +782,11 @@ inline int launch(Kernel kernel, const AttnArgs& a, cudaStream_t stream) {
 // at D 64, 80 or 128, with 16-byte-aligned rows, with the rel-pos term
 // tables exactly when BIAS is true and an int8 output (`out_inv` set)
 // exactly when Q8 is; anything else is refused with cudaErrorInvalidValue.
-// The launch bounds ask for two blocks an SM (128 registers a thread), but
-// one for the biased body at D = 128, whose registers (O alone is 64 a
-// thread) do not fit 128 beside the bias's; no model path runs it.
+// `grove_NAME_tc_smem(d, gh, gw)` returns the dynamic shared memory the
+// dispatcher asks for (chip_smoke.py prints it). The launch bounds ask for
+// two blocks an SM (128 registers a thread), but one for the biased body at
+// D = 128, whose registers (O alone is 64 a thread) do not fit 128 beside
+// the bias's; no model path runs it.
 #define GROVE_ATTENTION_TC_ENTRY(NAME, BIAS, Q8)                              \
   template <int D>                                                            \
   __global__ void __launch_bounds__(grove::tc::kThreads,                      \
@@ -783,15 +794,20 @@ inline int launch(Kernel kernel, const AttnArgs& a, cudaStream_t stream) {
       NAME##_tc_kernel(const grove::AttnArgs a) {                             \
     grove::tc::attention_block_tc<D, BIAS, Q8>(a);                            \
   }                                                                           \
+  extern "C" long long grove_##NAME##_tc_smem(int d, int gh, int gw) {       \
+    return (long long)grove::tc::entry_bytes(d, (BIAS), gh, gw);              \
+  }                                                                           \
   static int NAME##_tc_dispatch(const grove::AttnArgs& a, int dtype, int d,   \
                                 cudaStream_t st) {                            \
     if (dtype != 1 || !grove::tc::aligned16(a, (Q8) ? 1 : 2) ||               \
         (a.rh != nullptr) != (BIAS) || ((BIAS) && (a.gh < 1 || a.gw < 1)) ||  \
         (a.out_inv != nullptr) != (Q8))                                       \
       return (int)cudaErrorInvalidValue;                                      \
-    if (d == 64) return grove::tc::launch<64>(NAME##_tc_kernel<64>, a, st);   \
-    if (d == 80) return grove::tc::launch<80>(NAME##_tc_kernel<80>, a, st);   \
-    if (d == 128) return grove::tc::launch<128>(NAME##_tc_kernel<128>, a, st);\
+    const size_t bytes = grove::tc::entry_bytes(d, (BIAS), a.gh, a.gw);       \
+    if (d == 64) return grove::tc::launch(NAME##_tc_kernel<64>, a, bytes, st);\
+    if (d == 80) return grove::tc::launch(NAME##_tc_kernel<80>, a, bytes, st);\
+    if (d == 128)                                                             \
+      return grove::tc::launch(NAME##_tc_kernel<128>, a, bytes, st);          \
     return (int)cudaErrorInvalidValue;                                        \
   }
 

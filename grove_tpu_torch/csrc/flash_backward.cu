@@ -16,14 +16,32 @@
 // are (B, H, S) fp32 (the wrapper computes D in torch ops, as the JAX
 // package computes it in XLA, flash_backward.py:247). Any S is taken.
 //
-// Bound on the H100: fp32 FMA issue and shared-memory reads (see
-// attention_bwd_core.cuh); the S x S probabilities are recomputed per tile
-// from the LSE and never reach device memory.
+// The S x S probabilities are recomputed per tile from the LSE and never
+// reach device memory. dkv has two entries, chosen by the wrapper
+// (ops/flash_backward.py through ops/attention.py `_tc_takes`, by dtype and
+// head dim only):
+//   * `grove_flash_backward_dkv_tc` runs bf16 at head dims 64, 80 and 128
+//     on the tensor-core backward body (attention_bwd_tc.cuh,
+//     `dkv_block_tc` without the bias, causal or not): a block owns 128 keys
+//     and streams the query tiles from the one that holds its first key;
+//     P^T and dS^T are rounded to bf16 as wgmma's register A operand, where
+//     the TPU kernel keeps them in fp32 (a recorded difference). Bound on
+//     the H100 at (1, 704, 32, 128) causal: bytes, q, k, v, dO, dk and dv
+//     (34.6 MB) and LSE and D once, 0.0104 ms at 3.35 TB/s (its 4 matmuls
+//     over the 248,160 causal pairs, 8.1 GFLOP, take 0.0082 ms at 989
+//     TFLOP/s bf16);
+//   * `grove_flash_backward_dkv` runs fp32 and the head dim 8 on the SIMT
+//     body (attention_bwd_core.cuh).
+// dq runs the SIMT body at every dtype (fp32 FMA issue and shared-memory
+// reads, see attention_bwd_core.cuh); it comes to the tensor-core dq body
+// next.
 
 #include "attention_bwd_core.cuh"
+#include "attention_bwd_tc.cuh"
 
 GROVE_BWD_ENTRY(flash_backward_dq, dq)
 GROVE_BWD_ENTRY(flash_backward_dkv, dkv)
+GROVE_DKV_TC_ENTRY(flash_backward_dkv, false)
 
 namespace {
 
@@ -80,4 +98,22 @@ extern "C" int grove_flash_backward_dkv(const void* q, const void* k,
   a.dv = dv;
   return flash_backward_dkv_dispatch(a, dtype, head_dim,
                                      static_cast<cudaStream_t>(stream));
+}
+
+// The tensor-core backward body (attention_bwd_tc.cuh): bf16, head dims 64,
+// 80, 128.
+extern "C" int grove_flash_backward_dkv_tc(const void* q, const void* k,
+                                           const void* v, const void* g,
+                                           const float* lse,
+                                           const float* dcap, void* dk,
+                                           void* dv, int b, int s, int heads,
+                                           int head_dim, int causal,
+                                           float scale, int dtype,
+                                           void* stream) {
+  grove::BwdArgs a = causal_args(q, k, v, g, lse, dcap, b, s, heads,
+                                 head_dim, causal, scale);
+  a.dk = dk;
+  a.dv = dv;
+  return flash_backward_dkv_tc_dispatch(a, dtype, head_dim,
+                                        static_cast<cudaStream_t>(stream));
 }

@@ -47,12 +47,29 @@
 //     231.2 MB, take 0.0690 ms at 3.35 TB/s, so bytes bound that shape);
 //     (8, 1024, 16, 80) does 85.9 GFLOP, 0.0869 ms (its 143.7 MB take
 //     0.0429 ms);
-//   * `grove_relpos_flash_dkv` runs fp32 and the head dim 8 on the SIMT
-//     body (attention_bwd_core.cuh).
-// dq runs the SIMT body (attention_bwd_core.cuh) at every dtype, with the
-// bias rebuilt per (row, key) from the term tables as K1 and K2 rebuild it
-// (fp32 FMA issue and shared-memory reads). The TPU kernels multiplied the
-// tables by 0/1 expansion matrices instead (sam_attention_bwd.py:42-52).
+//   * `grove_relpos_flash_dkv` runs fp32, the head dim 8 and an odd grid on
+//     the SIMT body (attention_bwd_core.cuh).
+// dq has two entries too, chosen the same way:
+//   * `grove_relpos_flash_dq_tc` runs bf16 at head dims 64, 80 and 128 on
+//     the tensor-core backward body (attention_bwd_tc.cuh, `dq_block_tc`):
+//     a block owns 128 query rows and streams K and V, S = Q.K^T and dP =
+//     dO.V^T on wgmma from shared memory, dS rounded to bf16 in registers
+//     (the TPU kernel's rounding point, `:132`) and fed as the register A
+//     operand to dq += dS.K and to the bucket sums [d_rh | d_rw] += dS.E,
+//     with the bias T.E^T gathered on the tensor cores too: E is the key
+//     tile's 0/1 selector, as the TPU kernel's `_selectors_full` (`:42`).
+//     Bound on the H100, at the two full-width shapes: (72, 196, 16, 80)
+//     moves q, k, v, dO, the tables, LSE, D, dq and the fp32 d_rh, d_rw
+//     (220.4 MB) once, 0.0658 ms at 3.35 TB/s (bytes; its 3 matmuls of 2
+//     S^2 D flops, 21.2 GFLOP, take 0.0215 ms at 989 TFLOP/s bf16);
+//     (8, 1024, 16, 80) does 64.4 GFLOP, 0.0651 ms (operations; its 156.2
+//     MB take 0.0466 ms). It takes gh + gw <= 64 and the term tables'
+//     (batch, head) blocks 16-byte aligned, as every SAM grid of the
+//     configurations gives;
+//   * `grove_relpos_flash_dq` runs fp32, the head dim 8 and an odd grid on
+//     the SIMT body (attention_bwd_core.cuh), the bias rebuilt per (row,
+//     key) from the term tables as K1 and K2 rebuild it, the buckets summed
+//     in registers (fp32 FMA issue and shared-memory reads).
 // The host-side contractions (dq += d_rh . Rh + d_rw . Rw, the table
 // gradients) stay torch ops, as they are XLA in the JAX package.
 
@@ -63,8 +80,9 @@
 GROVE_ATTENTION_ENTRY(relpos_flash_fwd_lse)
 GROVE_ATTENTION_TC_ENTRY(relpos_flash_fwd_lse, true, false)
 GROVE_BWD_ENTRY(relpos_flash_dq, dq)
+GROVE_DQ_TC_ENTRY(relpos_flash_dq)
 GROVE_BWD_ENTRY(relpos_flash_dkv, dkv)
-GROVE_DKV_TC_ENTRY(relpos_flash_dkv)
+GROVE_DKV_TC_ENTRY(relpos_flash_dkv, true)
 
 namespace {
 
@@ -172,6 +190,22 @@ extern "C" int grove_relpos_flash_dq(const void* q, const void* k,
   a.drw = d_rw;
   return relpos_flash_dq_dispatch(a, dtype, head_dim,
                                   static_cast<cudaStream_t>(stream));
+}
+
+// The tensor-core backward body (attention_bwd_tc.cuh): bf16, head dims 64,
+// 80, 128.
+extern "C" int grove_relpos_flash_dq_tc(
+    const void* q, const void* k, const void* v, const void* rel_h,
+    const void* rel_w, const void* g, const float* lse, const float* dcap,
+    void* dq, float* d_rh, float* d_rw, int b, int s, int heads,
+    int head_dim, int gh, int gw, float scale, int dtype, void* stream) {
+  grove::BwdArgs a = relpos_args(q, k, v, rel_h, rel_w, g, lse, dcap, b, s,
+                                 heads, head_dim, gh, gw, scale);
+  a.dq = dq;
+  a.drh = d_rh;
+  a.drw = d_rw;
+  return relpos_flash_dq_tc_dispatch(a, dtype, head_dim,
+                                     static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int grove_relpos_flash_dkv(const void* q, const void* k,

@@ -6,8 +6,12 @@ Counterpart of `grove_tpu/ops/flash_backward.py`:
 * `flash_forward_lse` is K4 (`_fwd_kernel`), out and LSE, on the
   tensor-core body for bf16 at D 64, 80, 128 and the SIMT body otherwise;
 * `flash_backward_dq` / `flash_backward_dkv` are K4b (`_dq_kernel`,
-  `_dkv_kernel`); `flash_backward` computes D = rowsum(dO * O) in torch ops
-  (XLA in the JAX package, `flash_backward.py:247`) and runs both;
+  `_dkv_kernel`), dkv on the tensor-core backward body for bf16 at D 64,
+  80, 128 (`flash_backward_dkv_tc_torch` is its arithmetic, P and dS
+  rounded to bf16 where the TPU kernel keeps them in fp32) and the SIMT
+  body otherwise, dq on the SIMT body; `flash_backward` computes D =
+  rowsum(dO * O) in torch ops (XLA in the JAX package,
+  `flash_backward.py:247`) and runs both;
 * `flash_attention_trainable` is the `jax.custom_vjp` of the JAX package
   as a `torch.autograd.Function`: forward K4, saving q, k, v, out and the
   LSE (never the S x S probabilities); backward K4b.
@@ -23,7 +27,7 @@ from __future__ import annotations
 import torch
 
 from .. import _kernels
-from .attention import _tc_takes
+from .attention import LOG2E, _tc_takes
 
 
 def _causal_fill(logits, causal: bool):
@@ -129,6 +133,51 @@ def flash_backward_dkv_torch(q, k, v, g, lse, dcap, *, causal: bool,
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
+def tc_probs(q, k, v, g, lse, dcap, scale: float, bias=None,
+             causal: bool = False):
+    """The scores of the tensor-core backward body
+    (`csrc/attention_bwd_tc.cuh`) in torch ops, from q, k, v, g (B, S, H,
+    D): fp32 S = Q.K^T and dP = dO.V^T from the input values; x = S *
+    (scale * log2(e)) [+ bias * log2(e)] - lse * log2(e) in fp32, P =
+    exp2(x), zero above the diagonal when causal (top-left); dS = P (dP - D)
+    from the unrounded P. Returns q, k, g as fp32 (B, H, S, D), then P and
+    dS (B, H, Sq, Sk)."""
+    f32 = torch.float32
+    qf, kf, vf, gf = (t.to(f32).permute(0, 2, 1, 3) for t in (q, k, v, g))
+    dev = qf.device
+    sl2 = torch.tensor(scale, dtype=f32) * torch.tensor(LOG2E, dtype=f32)
+    log2e = torch.tensor(LOG2E, dtype=f32, device=dev)
+    x = (qf @ kf.transpose(-1, -2)) * sl2.to(dev)
+    if bias is not None:
+        x = x + bias.to(f32) * log2e
+    x = x - lse.to(f32)[..., None] * log2e
+    p = torch.exp2(x)
+    if causal:
+        sq, sk = p.shape[-2:]
+        pos = torch.arange(max(sq, sk), device=dev)
+        p = p.masked_fill(pos[None, :sk] > pos[:sq, None], 0.0)
+    dp = gf @ vf.transpose(-1, -2)
+    return qf, kf, gf, p, p * (dp - dcap.to(f32)[..., None])
+
+
+def flash_backward_dkv_tc_torch(q, k, v, g, lse, dcap, *, causal: bool,
+                                scale: float):
+    """The tensor-core dkv body's arithmetic without the bias
+    (`csrc/attention_bwd_tc.cuh`, K4b's `_tc` entry) in torch ops: P and
+    dS from `tc_probs`, rounded to bf16 (wgmma's operands; the TPU K4b
+    keeps them in fp32, `flash_backward.py:138-170`) before the fp32
+    products dv = P^T.dO and dk = dS^T.Q, dk times scale; both in k's
+    dtype. No path of the port calls it: the plain version the card holds
+    the `_tc` entry to."""
+    qf, _, gf, p, ds = tc_probs(q, k, v, g, lse, dcap, scale, causal=causal)
+    f32, bf = torch.float32, torch.bfloat16
+    dv = p.to(bf).to(f32).transpose(-1, -2) @ gf
+    dk = ((ds.to(bf).to(f32).transpose(-1, -2) @ qf)
+          * torch.tensor(scale, dtype=f32))
+    return (dk.permute(0, 2, 1, 3).to(k.dtype),
+            dv.permute(0, 2, 1, 3).to(v.dtype))
+
+
 def _check_bwd(name, q, k, v, g, lse, dcap):
     b, s, h, d = q.shape
     if any(t.shape != q.shape for t in (k, v, g)):
@@ -171,17 +220,28 @@ def flash_backward_dq(q, k, v, g, lse, dcap, *, causal: bool, scale: float):
 def flash_backward_dkv(q, k, v, g, lse, dcap, *, causal: bool,
                        scale: float):
     """K4b dk, dv: (B, S, H, D) each. CPU tensors take
-    `flash_backward_dkv_torch`; CUDA tensors launch
-    `csrc/flash_backward.cu` (`grove_flash_backward_dkv`)."""
+    `flash_backward_dkv_torch`; CUDA tensors launch `csrc/flash_backward.cu`:
+    `grove_flash_backward_dkv_tc` (the tensor-core backward body) where
+    `ops.attention._tc_takes` holds (bf16 at D 64, 80, 128: every bf16
+    training step) and `grove_flash_backward_dkv` (the SIMT body)
+    otherwise."""
     _check_bwd("flash_backward_dkv", q, k, v, g, lse, dcap)
     if _kernels.on_cpu(q, k, v, g, lse, dcap):
         return flash_backward_dkv_torch(q, k, v, g, lse, dcap,
                                         causal=causal, scale=scale)
+    name = ("flash_backward_dkv_tc" if _tc_takes(q.dtype, q.shape[-1])
+            else "flash_backward_dkv")
+    return _dkv_launch(name, q, k, v, g, lse, dcap, causal, scale)
+
+
+def _dkv_launch(name: str, q, k, v, g, lse, dcap, causal: bool,
+                scale: float):
+    """Launch the K4b dkv entry `name` on CUDA tensors."""
     b, s, h, d = q.shape
-    dt = _cuda_stats("flash_backward_dkv", q, k, v, g, lse, dcap)
+    dt = _cuda_stats(name, q, k, v, g, lse, dcap)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
-        _kernels.KERNELS["flash_backward_dkv"](
+        _kernels.KERNELS[name](
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             lse.data_ptr(), dcap.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             b, s, h, d, int(bool(causal)), float(scale), dt,

@@ -21,10 +21,12 @@ that spells out the formula:
   otherwise;
 * `relpos_flash_dq`: dq's attention part and the per-row term gradients
   d_rh (B, H, S, gh), d_rw (B, H, S, gw), fp32;
-* `relpos_flash_dkv`: dk, dv, on the tensor-core backward body for bf16
-  at head dims 64, 80, 128 (`relpos_flash_dkv_tc_torch` is its arithmetic,
-  P and dS rounded to bf16 where the TPU kernel rounds them), the SIMT body
-  otherwise.
+* `relpos_flash_dkv`: dk, dv.
+
+dq and dkv run the tensor-core backward body for bf16 at head dims 64, 80,
+128 (`relpos_flash_dq_tc_torch` and `relpos_flash_dkv_tc_torch` are its
+arithmetic, P and dS rounded to bf16 where the TPU kernel rounds them) and
+the SIMT body otherwise.
 
 `relpos_flash_bwd` adds what the JAX package computes in XLA, here in torch
 ops: D = rowsum(dO * O), the rel terms, dq's bias part and the table
@@ -45,12 +47,12 @@ import torch
 import torch.nn.functional as F
 
 from .. import _kernels
-from .attention import LOG2E, _tc_takes
-from .flash_backward import _ds, row_dot
+from .attention import _tc_takes
+from .flash_backward import _ds, row_dot, tc_probs
 from .sam_attention import _expand_bias, relpos_terms
 from .sam_encoder_tables import gather_rel_tables, rel_pos_index
 
-MAX_REL = 64          # gh + gw the dq kernel takes: two buckets per lane
+MAX_REL = 64          # gh + gw the dq kernels take
 
 
 def _relpos_logits(q, k, rel_h_term, rel_w_term, scale: float):
@@ -149,35 +151,49 @@ def relpos_flash_dkv_torch(q, k, v, rel_h_term, rel_w_term, g, lse, dcap,
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _tc_relpos(q, k, v, rel_h_term, rel_w_term, g, lse, dcap, gw: int,
+               scale: float):
+    """`tc_probs` with the rel-pos bias rel_h[i, j / gw] + rel_w[i, j % gw],
+    an fp32 sum of the two terms."""
+    keys = torch.arange(k.shape[1], device=q.device)
+    bias = (rel_h_term.to(torch.float32)[..., keys // gw]
+            + rel_w_term.to(torch.float32)[..., keys % gw])
+    return tc_probs(q, k, v, g, lse, dcap, scale, bias=bias)
+
+
+def relpos_flash_dq_tc_torch(q, k, v, rel_h_term, rel_w_term, g, lse, dcap,
+                             hw: Tuple[int, int], scale: float):
+    """The tensor-core dq body's arithmetic (`csrc/attention_bwd_tc.cuh`) in
+    torch ops: P and dS from `tc_probs` with the bias; dS rounded to bf16
+    (the TPU kernel's `ds.astype(dt)`, `sam_attention_bwd.py:132`) before
+    the fp32 product dq = dS.K, times scale, in q's dtype, and the exact
+    fp32 bucket sums d_rh, d_rw of the rounded dS (the TPU's 0/1 selector
+    products, `:134-139`). No path of the port calls it: the plain version
+    the card holds the `_tc` entry to."""
+    gh, gw = hw
+    _, kf, _, _, ds = _tc_relpos(q, k, v, rel_h_term, rel_w_term, g, lse,
+                                 dcap, gw, scale)
+    ds = ds.to(torch.bfloat16).to(torch.float32)
+    dq = (ds @ kf) * torch.tensor(scale, dtype=torch.float32)
+    grid = ds.reshape(*ds.shape[:3], gh, gw)
+    return dq.permute(0, 2, 1, 3).to(q.dtype), grid.sum(-1), grid.sum(-2)
+
+
 def relpos_flash_dkv_tc_torch(q, k, v, rel_h_term, rel_w_term, g, lse,
                               dcap, hw: Tuple[int, int], scale: float):
     """The tensor-core dkv body's arithmetic (`csrc/attention_bwd_tc.cuh`)
-    in torch ops: fp32 S^T = K.Q^T and dP^T = V.dO^T from the input values;
-    x = S^T * (scale * log2(e)) + (rel_h + rel_w) * log2(e) - lse * log2(e)
-    in fp32, P^T = exp2(x), dS^T = P^T (dP^T - D) from the unrounded P;
-    then P^T and dS^T rounded to bf16 (the TPU kernel's `p.astype(dt)` and
-    `ds.astype(dt)`, `sam_attention_bwd.py:186`, `:191`) before the fp32
-    products dv = P^T.dO and dk = dS^T.Q, dk times scale; both in k's
-    dtype. No path of the port calls it: the plain version the card holds
-    the `_tc` entry to."""
-    gw = hw[1]
-    f32 = torch.float32
-    qf, kf, vf, gf = (t.to(f32).permute(0, 2, 1, 3) for t in (q, k, v, g))
-    dev = qf.device
-    sl2 = torch.tensor(scale, dtype=f32) * torch.tensor(LOG2E, dtype=f32)
-    log2e = torch.tensor(LOG2E, dtype=f32, device=dev)
-    keys = torch.arange(kf.shape[2], device=dev)
-    bias = (rel_h_term.to(f32)[..., keys // gw]
-            + rel_w_term.to(f32)[..., keys % gw])       # (B, H, Sq, Sk)
-    st = kf @ qf.transpose(-1, -2)                      # (B, H, Sk, Sq)
-    x = (st * sl2.to(dev) + bias.transpose(-1, -2) * log2e
-         - lse.to(f32)[:, :, None, :] * log2e)
-    p = torch.exp2(x)
-    dp = vf @ gf.transpose(-1, -2)
-    ds = p * (dp - dcap.to(f32)[:, :, None, :])
-    bf = torch.bfloat16
-    dv = p.to(bf).to(f32) @ gf
-    dk = (ds.to(bf).to(f32) @ qf) * torch.tensor(scale, dtype=f32)
+    in torch ops: P and dS from `tc_probs` with the bias; P and dS rounded
+    to bf16 (the TPU kernel's `p.astype(dt)` and `ds.astype(dt)`,
+    `sam_attention_bwd.py:186`, `:191`) before the fp32 products dv =
+    P^T.dO and dk = dS^T.Q, dk times scale; both in k's dtype. No path of
+    the port calls it: the plain version the card holds the `_tc` entry
+    to."""
+    qf, _, gf, p, ds = _tc_relpos(q, k, v, rel_h_term, rel_w_term, g, lse,
+                                  dcap, hw[1], scale)
+    f32, bf = torch.float32, torch.bfloat16
+    dv = p.to(bf).to(f32).transpose(-1, -2) @ gf
+    dk = ((ds.to(bf).to(f32).transpose(-1, -2) @ qf)
+          * torch.tensor(scale, dtype=f32))
     return (dk.permute(0, 2, 1, 3).to(k.dtype),
             dv.permute(0, 2, 1, 3).to(v.dtype))
 
@@ -202,26 +218,39 @@ def _cuda_check(name, q, k, v, rel_h_term, rel_w_term, g, lse, dcap):
 def relpos_flash_dq(q, k, v, rel_h_term, rel_w_term, g, lse, dcap,
                     hw: Tuple[int, int], scale: float):
     """K9 dq (`_dq_kernel`): -> (dq (B, S, H, D) in q's dtype, d_rh, d_rw
-    fp32). CPU tensors take the twin; CUDA tensors launch
-    `grove_relpos_flash_dq`, which takes gh + gw <= MAX_REL."""
+    fp32), gh + gw <= MAX_REL on the card. CPU tensors take the twin; CUDA
+    tensors launch `grove_relpos_flash_dq_tc` (the tensor-core backward
+    body) where `ops.attention._tc_takes` holds (bf16 at D 64, 80, 128:
+    every bf16 training step) and the term tables suit its copies
+    (`_tables_aligned`), and `grove_relpos_flash_dq` (the SIMT body)
+    otherwise."""
     _check_bwd("relpos_flash_dq", q, k, v, rel_h_term, rel_w_term, g, lse,
                dcap, hw)
     if _kernels.on_cpu(q, k, v, rel_h_term, rel_w_term, g, lse, dcap):
         return relpos_flash_dq_torch(q, k, v, rel_h_term, rel_w_term, g, lse,
                                      dcap, hw, scale)
-    gh, gw = hw
-    if gh + gw > MAX_REL:
+    if hw[0] + hw[1] > MAX_REL:
         raise ValueError(f"relpos_flash_dq: grid {hw}: the kernel takes "
                          f"gh + gw <= {MAX_REL}")
+    tc = (_tc_takes(q.dtype, q.shape[-1])
+          and _tables_aligned(rel_h_term, rel_w_term))
+    name = "relpos_flash_dq_tc" if tc else "relpos_flash_dq"
+    return _dq_launch(name, q, k, v, rel_h_term, rel_w_term, g, lse, dcap,
+                      hw, scale)
+
+
+def _dq_launch(name: str, q, k, v, rel_h_term, rel_w_term, g, lse, dcap,
+               hw: Tuple[int, int], scale: float):
+    """Launch the K9 dq entry `name` on CUDA tensors."""
+    gh, gw = hw
     b, s, h, d = q.shape
-    dt = _cuda_check("relpos_flash_dq", q, k, v, rel_h_term, rel_w_term, g,
-                     lse, dcap)
+    dt = _cuda_check(name, q, k, v, rel_h_term, rel_w_term, g, lse, dcap)
     dq = torch.empty_like(q)
     f32 = dict(device=q.device, dtype=torch.float32)
     d_rh, d_rw = torch.empty((b, h, s, gh), **f32), torch.empty((b, h, s, gw),
                                                                **f32)
     with torch.cuda.device(q.device):
-        _kernels.KERNELS["relpos_flash_dq"](
+        _kernels.KERNELS[name](
             q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_h_term.data_ptr(),
             rel_w_term.data_ptr(), g.data_ptr(), lse.data_ptr(),
             dcap.data_ptr(), dq.data_ptr(), d_rh.data_ptr(), d_rw.data_ptr(),
@@ -251,10 +280,10 @@ def relpos_flash_dkv(q, k, v, rel_h_term, rel_w_term, g, lse, dcap,
 
 def _tables_aligned(*tables) -> bool:
     """Whether each (batch, head) block of the contiguous (B, H, S, g) term
-    tables starts 16-byte aligned, as the tensor-core dkv body's 16-byte
-    copies need: S g a multiple of 8 bf16 values. Every grid of SAM's
-    configurations (2, 8, 14, 16, 32) gives it; an odd one (7 x 7) does
-    not and takes the SIMT body."""
+    tables starts 16-byte aligned, as the tensor-core backward body's
+    16-byte copies need: S g a multiple of 8 bf16 values. Every grid of
+    SAM's configurations (2, 8, 14, 16, 32) gives it; an odd one (7 x 7)
+    does not and takes the SIMT body."""
     return all(t.data_ptr() % 16 == 0 and t[0, 0].numel() % 8 == 0
                for t in tables)
 
@@ -294,16 +323,27 @@ def relpos_flash_bwd(q, k, v, rel_pos_h, rel_pos_w, out, lse, g,
                      tables: Sequence[bool] = (True, True)):
     """`relpos_flash_bwd` (`sam_attention_bwd.py:275-393`) -> (dq, dk, dv,
     dRh, dRw); a table gradient is None unless `tables` asks for it."""
-    b, s, h, d = q.shape
-    gh, gw = hw
-    acc = _kernels.acc_dtype(q)
     g = g.contiguous()
     dcap = row_dot(out, g)
     rh, rw = relpos_terms_contiguous(q, rel_pos_h, rel_pos_w, hw)
     dq, d_rh, d_rw = relpos_flash_dq(q, k, v, rh, rw, g, lse, dcap, hw,
                                      scale)
     dk, dv = relpos_flash_dkv(q, k, v, rh, rw, g, lse, dcap, hw, scale)
+    dq, *d_tables = relpos_bias_grads(q, dq, d_rh, d_rw, rel_pos_h,
+                                      rel_pos_w, hw, tables)
+    return (dq, dk, dv, *d_tables)
 
+
+def relpos_bias_grads(q, dq, d_rh, d_rw, rel_pos_h, rel_pos_w,
+                      hw: Tuple[int, int],
+                      tables: Sequence[bool] = (True, True)):
+    """What follows K9's dq in XLA (`sam_attention_bwd.py:369-390`): dq's
+    bias part added to the kernel's dq, and the table gradients -> (dq in
+    q's dtype, dRh, dRw); a table gradient is None unless `tables` asks for
+    it."""
+    b, s, h, d = q.shape
+    gh, gw = hw
+    acc = _kernels.acc_dtype(q)
     # q also feeds the bias: dq += einsum(d_rh, Rh) + einsum(d_rw, Rw)
     Rh, Rw = gather_rel_tables(rel_pos_h, rel_pos_w, gh, gw)
     r_drh = d_rh.to(acc).reshape(b, h, gh, gw, gh)
@@ -321,7 +361,7 @@ def relpos_flash_bwd(q, k, v, rel_pos_h, rel_pos_w, out, lse, g,
         if tables[1]:
             d_tables[1] = _table_grad(
                 torch.einsum("bnhwk,bhwnc->wkc", r_drw, r_q), gw, rel_pos_w)
-    return (dq, dk, dv, *d_tables)
+    return (dq, *d_tables)
 
 
 def relpos_vjp(q, k, v, rel_pos_h, rel_pos_w, hw: Tuple[int, int], g,

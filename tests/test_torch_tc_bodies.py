@@ -1,12 +1,13 @@
-"""K5 on the tensor-core forward body and K9's dkv on the tensor-core
-backward body, on the CPU, small sizes.
+"""K5 on the tensor-core forward body, and K9's dq and dkv and K4b's dkv
+on the tensor-core backward body, on the CPU, small sizes.
 
 * The routes: a CUDA call of K5 (`prefill_attention_raw`, and through it
-  `prefill_attention_trainable`) and of K9's dkv (`relpos_flash_dkv`) takes
-  the `_tc` entry for bf16 at head dim 64, 80 or 128 and the SIMT entry
-  for fp32 and the head dim 8 (`ops.attention._tc_takes`); K9's dkv on
-  an odd grid (term tables not 16-byte aligned per (batch, head)) the SIMT
-  entry too.
+  `prefill_attention_trainable`), of K9's dq and dkv (`relpos_flash_dq`,
+  `relpos_flash_dkv`) and of K4b's dkv (`flash_backward_dkv`, causal or
+  not) takes the `_tc` entry for bf16 at head dim 64, 80 or 128 and the
+  SIMT entry for fp32 and the head dim 8 (`ops.attention._tc_takes`); K9's
+  dq and dkv on an odd grid (term tables not 16-byte aligned per (batch,
+  head)) the SIMT entries too.
 * K5: the tensor-core body's arithmetic with the left pad
   (`ops.attention.tc_attention_torch(pad=)`) against the JAX
   `prefill_attention_raw` (Pallas, interpret mode) on bf16 arrays, within
@@ -24,8 +25,23 @@ backward body, on the CPU, small sizes.
   bf16 before the products). The SIMT twin (`relpos_flash_dkv_torch`, P
   and dS in fp32) lies beyond DKV_EXCESS, which the test also checks, so
   the tighter tolerance is the rounding points' and not slack.
+* K9's dq: the same for `relpos_flash_dq_tc_torch` against the JAX
+  `relpos_flash_bwd`'s dq and table gradients, the port's XLA part
+  (`relpos_bias_grads`) on the twin's dq rounded to bf16 as the kernel
+  writes it and its exact fp32 bucket sums d_rh, d_rw: within half a bf16
+  ULP plus DQ_EXCESS of max-abs; the SIMT twin (dS in fp32) beyond it.
+* K4b's dkv: here the rounding points part the other way. The TPU K4b
+  keeps P and dS in fp32, which the SIMT twin (`flash_backward_dkv_torch`)
+  does too, so it lies within half a bf16 ULP plus K4B_EXCESS of max-abs of
+  the JAX `flash_backward`'s dk and dv (Pallas, interpret mode, bf16
+  arrays, causal and not, S = 100: not a multiple of 64); the tensor-core
+  model (`flash_backward_dkv_tc_torch`, P and dS in bf16 as wgmma takes
+  them) lies beyond K4B_EXCESS, the recorded difference, and within
+  FULL_TOL after the bf16 output rounding, each key's row within ROW_TOL
+  of its own max-abs.
 """
 
+import functools
 import math
 
 import numpy as np
@@ -37,13 +53,18 @@ torch.set_num_threads(1)
 import jax.numpy as jnp  # noqa: E402
 
 from grove_tpu.ops import attention as jattn  # noqa: E402
+from grove_tpu.ops import flash_backward as jflash  # noqa: E402
 from grove_tpu.ops import sam_attention_bwd as jrel  # noqa: E402
 from grove_tpu_torch.ops import attention as tattn  # noqa: E402
+from grove_tpu_torch.ops import flash_backward as tflash  # noqa: E402
 from grove_tpu_torch.ops import sam_attention_bwd as trel  # noqa: E402
 
 FULL_TOL = 2e-2          # chip_smoke.py's bf16 limit, of the output's max-abs
+ROW_TOL = 1e-2           # chip_smoke.py's row limit, of each row's max-abs
 K5_TOL = 2e-3            # K5's model vs the Pallas K5 in bf16, of max-abs
 DKV_EXCESS = 5e-4        # K9 dkv's model beyond half a bf16 ULP, of max-abs
+DQ_EXCESS = 5e-4         # K9 dq's model, the same
+K4B_EXCESS = 5e-4        # K4b dkv's SIMT twin, the same
 
 
 def _bf16(rng, *shape):
@@ -64,6 +85,15 @@ def _rel(got, want):
     got, want = (torch.from_numpy(np.array(x, np.float32))
                  for x in (got, want))
     return float((got - want).abs().max() / want.abs().max())
+
+
+def _row_share(got, want):
+    """The largest distance of a row (the last axis) of `got` from `want`,
+    of that row's own max-abs in `want`."""
+    got, want = (torch.from_numpy(np.array(x, np.float32))
+                 for x in (got, want))
+    return float(((got - want).abs().amax(-1)
+                  / want.abs().amax(-1).clamp_min(1e-30)).max())
 
 
 def _excess(got, want):
@@ -167,12 +197,14 @@ def test_tc_model_k5_matches_pallas_and_plain(name):
         assert p < s and bool(torch.isfinite(got32).all())
 
 
+@functools.lru_cache(maxsize=None)
 def _k9_case(grid, d, seed):
     """bf16 inputs of K9's backward on a grid x grid grid, the JAX forward
     and `relpos_flash_bwd` on them (Pallas, interpret mode), and the
-    arguments of the port's dkv twins as fp32 tensors holding the same
-    bf16 values: the terms of `relpos_terms`, the forward's LSE and D =
-    rowsum(out * dO) from its bf16 out. Returns (args, (dk, dv) of JAX)."""
+    arguments of the port's dq and dkv twins as fp32 tensors holding the
+    same bf16 values: the terms of `relpos_terms`, the forward's LSE and D
+    = rowsum(out * dO) from its bf16 out. Returns (args, the rel-pos
+    tables as fp32 tensors, (dq, dk, dv, dRh, dRw) of JAX)."""
     b, h = 2, 2
     s, hw = grid * grid, (grid, grid)
     rng = np.random.default_rng(seed)
@@ -190,7 +222,7 @@ def _k9_case(grid, d, seed):
     dcap = (out * g.float()).sum(-1).permute(0, 2, 1).contiguous()
     args = (q.float(), k.float(), v.float(), rh, rw, g.float(), lse, dcap,
             hw, scale)
-    return args, (_np(want[1]), _np(want[2]))
+    return args, tuple(t.float() for t in tables), tuple(_np(w) for w in want)
 
 
 @pytest.mark.parametrize("grid,d", [(14, 80), (14, 128), (16, 64),
@@ -201,7 +233,8 @@ def test_tc_model_k9_dkv_matches_pallas(grid, d):
     bf16 values, within half a bf16 ULP plus DKV_EXCESS of max-abs
     unrounded and within FULL_TOL after the bf16 output rounding; the SIMT
     twin, whose P and dS stay fp32, lies further off than DKV_EXCESS."""
-    args, want = _k9_case(grid, d, seed=30 + grid + d)
+    args, _, want = _k9_case(grid, d, seed=30 + grid + d)
+    want = want[1:3]
     got = trel.relpos_flash_dkv_tc_torch(*args)
     simt = trel.relpos_flash_dkv_torch(*args)
     as_bf16 = trel.relpos_flash_dkv_tc_torch(
@@ -211,3 +244,109 @@ def test_tc_model_k9_dkv_matches_pallas(grid, d):
         assert _excess(x, w) <= DKV_EXCESS
         assert _excess(y, w) > DKV_EXCESS
         assert z.dtype == torch.bfloat16 and _rel(z.float(), w) <= FULL_TOL
+
+
+@pytest.mark.parametrize("grid,d", [(14, 80), (14, 128), (16, 64),
+                                    (16, 80)])
+def test_tc_model_k9_dq_matches_pallas(grid, d):
+    """K9's dq on the tensor-core backward body: its model's dq (rounded
+    to bf16, as the kernel writes it) and exact bucket sums, through the
+    port's XLA part (`relpos_bias_grads`), == `relpos_flash_bwd`'s dq, dRh
+    and dRw (Pallas, interpret mode) on the same bf16 values, within half a
+    bf16 ULP plus DQ_EXCESS of max-abs; the SIMT twin, whose dS stays fp32,
+    lies further off than DQ_EXCESS in each."""
+    args, tables, want = _k9_case(grid, d, seed=30 + grid + d)
+    q, hw = args[0], args[8]
+
+    def through_xla(twin):
+        dq, d_rh, d_rw = twin(*args)
+        dq = dq.to(torch.bfloat16).float()
+        return trel.relpos_bias_grads(q, dq, d_rh, d_rw, *tables, hw)
+
+    got = through_xla(trel.relpos_flash_dq_tc_torch)
+    simt = through_xla(trel.relpos_flash_dq_torch)
+    for x, y, w in zip(got, simt, (want[0], want[3], want[4])):
+        assert _excess(x, w) <= DQ_EXCESS
+        assert _excess(y, w) > DQ_EXCESS
+
+
+@pytest.mark.parametrize("causal,d", [(True, 64), (True, 128),
+                                      (False, 80), (False, 128)])
+def test_tc_model_k4b_dkv_against_pallas(causal, d):
+    """K4b's dkv at S = 100 (a ragged last 64-row tile) on bf16 arrays: the
+    JAX `flash_backward`'s dk and dv (Pallas, interpret mode, P and dS in
+    fp32) == the SIMT twin within half a bf16 ULP plus K4B_EXCESS of
+    max-abs; the tensor-core model (P and dS to bf16 before the products)
+    lies further off than K4B_EXCESS, and within FULL_TOL once its outputs
+    are rounded to bf16, each key's row also within ROW_TOL of its own
+    max-abs (a late key sees few queries, so its row is small beside key
+    0's, which sets the max-abs)."""
+    b, s, h = 1, 100, 2
+    rng = np.random.default_rng(40 + d + causal)
+    q, k, v, g = (_bf16(rng, b, s, h, d) for _ in range(4))
+    scale = 1.0 / math.sqrt(d)
+    jx = [_jax(t) for t in (q, k, v, g)]
+    jout, jlse = jflash.flash_forward_lse(*jx[:3], causal=causal,
+                                          scale=scale)
+    want = jflash.flash_backward(*jx[:3], jout, jlse, jx[3], causal=causal,
+                                 scale=scale)
+    out = torch.from_numpy(_np(jout))
+    lse = torch.from_numpy(np.asarray(jlse)).reshape(b, h, s)
+    dcap = tflash.row_dot(out, g.float())
+    args = (q.float(), k.float(), v.float(), g.float(), lse, dcap)
+    kw = dict(causal=causal, scale=scale)
+    tc = tflash.flash_backward_dkv_tc_torch(*args, **kw)
+    simt = tflash.flash_backward_dkv_torch(*args, **kw)
+    as_bf16 = tflash.flash_backward_dkv_tc_torch(
+        *(t.to(torch.bfloat16) for t in args[:4]), *args[4:], **kw)
+    for x, y, z, w in zip(tc, simt, as_bf16, (_np(want[1]), _np(want[2]))):
+        assert _excess(y, w) <= K4B_EXCESS
+        assert _excess(x, w) > K4B_EXCESS
+        assert z.dtype == torch.bfloat16 and _rel(z.float(), w) <= FULL_TOL
+        assert _row_share(z.float(), w) <= ROW_TOL
+
+
+@pytest.mark.parametrize("dtype,head_dim,tc", [
+    (torch.bfloat16, 64, True), (torch.bfloat16, 80, True),
+    (torch.bfloat16, 128, True), (torch.float32, 64, False),
+    (torch.float32, 128, False), (torch.bfloat16, 8, False)])
+def test_k9_dq_and_k4b_dkv_route_by_dtype_and_head_dim(monkeypatch, dtype,
+                                                      head_dim, tc):
+    """bf16 at head dim 64, 80 or 128 launches the `_tc` entries of K9's dq
+    and of K4b's dkv (causal and not); fp32 and the head dim 8 their SIMT
+    entries. The wrappers are driven past `on_cpu` with the launches
+    recorded by name."""
+    launched = []
+    monkeypatch.setattr(tattn._kernels, "on_cpu", lambda *t: False)
+    monkeypatch.setattr(trel, "_dq_launch",
+                        lambda name, *a: launched.append(name))
+    monkeypatch.setattr(tflash, "_dkv_launch",
+                        lambda name, *a: launched.append(name))
+    x = torch.zeros(1, 64, 2, head_dim, dtype=dtype)
+    rel = torch.zeros(1, 2, 64, 8, dtype=dtype)
+    stat = torch.zeros(1, 2, 64)
+    trel.relpos_flash_dq(x, x, x, rel, rel, x, stat, stat, (8, 8), 1.0)
+    for causal in (True, False):
+        tflash.flash_backward_dkv(x, x, x, x, stat, stat, causal=causal,
+                                  scale=1.0)
+    suffix = "_tc" if tc else ""
+    assert launched == [n + suffix for n in (
+        "relpos_flash_dq", "flash_backward_dkv", "flash_backward_dkv")]
+
+
+@pytest.mark.parametrize("grid,tc", [(2, True), (7, False), (8, True),
+                                     (14, True), (16, True), (32, True)])
+def test_k9_dq_routes_by_term_table_alignment(monkeypatch, grid, tc):
+    """bf16 K9 dq takes the `_tc` entry only where each (batch, head) block
+    of the term tables starts 16-byte aligned, as K9's dkv does (its copies
+    are the same): every grid of SAM's configurations, not 7 x 7."""
+    launched = []
+    monkeypatch.setattr(tattn._kernels, "on_cpu", lambda *t: False)
+    monkeypatch.setattr(trel, "_dq_launch",
+                        lambda name, *a: launched.append(name))
+    s = grid * grid
+    x = torch.zeros(1, s, 2, 64, dtype=torch.bfloat16)
+    rel = torch.zeros(1, 2, s, grid, dtype=torch.bfloat16)
+    stat = torch.zeros(1, 2, s)
+    trel.relpos_flash_dq(x, x, x, rel, rel, x, stat, stat, (grid, grid), 1.0)
+    assert launched == ["relpos_flash_dq" + ("_tc" if tc else "")]
