@@ -41,10 +41,10 @@ Phases, each printing its own line; any failure exits non-zero:
      1979 TOP/s int8, 67 TFLOP/s fp32 off the tensor cores), and, for K1-K5
      and K10, the time of the one PyTorch call that computes the same
      function (`F.scaled_dot_product_attention`, rel-pos terms and pads as a
-     mask), which the port never calls. K1, K1q, K2, K3, K4, K4b's dkv,
-     K5, K9 (forward, dq, dkv) and K10 have two entries each: the
-     tensor-core one (`_tc`, attention_tc.cuh; for K9's dq and dkv and
-     K4b's dkv attention_bwd_tc.cuh), which
+     mask), which the port never calls. K1, K1q, K2, K3, K4, K4b (dq,
+     dkv), K5, K9 (forward, dq, dkv), K10 and K11 have two entries each:
+     the tensor-core one (`_tc`, attention_tc.cuh; for K9's and K4b's dq
+     and dkv attention_bwd_tc.cuh), which
      the wrappers take for bf16 at head dim 64, 80 or 128, held through the
      wrapper at full width and at bf16 edge cases within 2e-2 of max-abs
      (K5: pads of 0, 5, 37, 64, 100 and 150, whole key tiles inside the
@@ -54,15 +54,20 @@ Phases, each printing its own line; any failure exits non-zero:
      2 x 2 to 32 x 32 against the twins with the body's rounding points, P
      and dS in bf16 as the TPU kernel rounds them, and at full width within
      2e-2 of the fp32 twins too (dq, d_rh and d_rw each of its own
-     max-abs); K4b's dkv: S of 3 to 704, causal and not, against the twin
-     with the body's rounding points (P and dS in bf16, where the TPU K4b
-     keeps fp32), dk and dv each also row by row (each key's row within
-     1e-2 of its own max-abs: late keys see few queries), and at full
-     width within 2e-2 of the fp32 twin; K3: S of 1, 63, 65, 129 and 577;
+     max-abs); K4b's dq and dkv: S of 3 to 704, causal and not, against
+     the twin with the body's rounding points (dS, and for dkv P, in bf16,
+     where the TPU K4b keeps fp32), dq, dk and dv each also row by row
+     (each query's or key's row within 1e-2 of its own max-abs: late
+     causal rows average over many keys, late keys see few queries; a row
+     zero in exact arithmetic, the first of a causal dq, below 1e-5 of the
+     output's max-abs), and at full width within 2e-2 of the fp32 twin;
+     K3: S of 1, 63, 65, 129 and 577;
      K10: also
      causal Sq < Sk and Sq > Sk and cross lengths; K4: S of 1, 63, 65, 129
-     and 704, causal and not, its LSE within 1e-4; K2: grids of 2 x 2, 4 x
-     4, 12 x 12, 14 x 14 and 32 x 32; K1, K1q and K9's forward: grids of 2 x
+     and 704, causal and not, its LSE within 1e-4; K2 and K11: grids of 2
+     x 2, 4 x 4, 12 x 12, 14 x 14 and 32 x 32, K11 (no model path) at full
+     width against K2's body's arithmetic and within 2e-2 of the fp32
+     twin; K1, K1q and K9's forward: grids of 2 x
      2, 4 x 4, 7 x 7, 14 x 14, 16 x 16 and 32 x 32, K1q in LSBs, K9's LSE
      within 1e-4; every head dim; B.H > 1); and the SIMT one, held in fp32
      at the small cases and called directly in bf16 at full width, so that
@@ -109,7 +114,7 @@ Phases, each printing its own line; any failure exits non-zero:
      tokens) and ground_clip_with_caption with the
      launch counts zeroed just before and read just after; outputs must
      carry the JAX package's keys and be finite; no run may launch the SIMT
-     entries of K1, K1q, K2, K3, K4, K4b's dkv, K5, K9 or K10 (bf16
+     entries of K1, K1q, K2, K3, K4, K4b, K5, K9 or K10 (bf16
      takes the tensor-core entries of K1, K1q, K2, K3, K4 and K5; the
      int4 and the flagship runs launch K5's exactly 32 times, once a layer
      of the one prefill); the bf16 run
@@ -181,11 +186,11 @@ Phases, each printing its own line; any failure exits non-zero:
      survive the text budget), the default freeze policy and
      OptimizerConfig(warmup_steps=1); three `train.step.make_train_step`
      steps with the launch counts zeroed before each: every loss term
-     finite, exactly 32 launches of K4's tensor-core entry, of K4b's dq
-     (its SIMT entry) and of K4b's dkv (its tensor-core entry), 24 of each
-     of K9's three tensor-core entries (forward, dq, dkv), 28 of K1's
-     tensor-core entry and 4 of K2's per step, none of a SIMT entry of K1,
-     K1q, K2, K3, K4, K4b's dkv, K5, K9 or K10; step 1 (lr(0) = 0)
+     finite, exactly 32 launches of K4's tensor-core entry and of K4b's
+     two (dq, dkv), 24 of each of K9's three tensor-core entries
+     (forward, dq, dkv), 28 of K1's tensor-core entry and 4 of K2's per
+     step, none of a SIMT entry of K1, K1q, K2, K3, K4, K4b, K5, K9 or
+     K10; step 1 (lr(0) = 0)
      leaves every parameter bit-equal and gives every trainable group
      (TRAIN_GROUPS) a finite, nonzero gradient; after step 3 the frozen
      parameters are bit-equal and every trainable group moved. Prints the
@@ -241,12 +246,11 @@ run of phase 3, K5's tensor-core entry, K6 and K7a from the int4 one, K8b
 and K1q's tensor-core entry from the W8A8-static one, K7b, K7c and K8c
 from the flagship one, K8a and the SIMT entries of K1q, K2, K3 and K4
 from phase 4's fp32 W8A8-static model path, K1's SIMT entry from its fp32
-float one, K4b's dq and the tensor-core entries of K4b's dkv and K9's
-three from step 3 of phase 5, K10's tensor-core entry from its bf16 S =
-2111 step, the SIMT entries of K4b's dkv and K9's three from phase 6's
-fp32 step;
+float one, the tensor-core entries of K4b's two and K9's three from step 3
+of phase 5, K10's tensor-core entry from its bf16 S = 2111 step, the SIMT
+entries of K4b's two and K9's three from phase 6's fp32 step;
 the SIMT entries of K5 and K10, which no model path runs in fp32, and
-K11-K14, which run on no model path, show 0)
+K11-K14 (both entries of K11), which run on no model path, show 0)
 and `phase2_launches`, the launches of phase 2's checks and timings; the
 tensor-core rows also carry `simt_ms`, the SIMT entry's bf16 time at the
 same shape; the last line is {"ok": true, "device": {...}}.
@@ -273,6 +277,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 FULL_TOL = 2e-2          # bf16, relative to the plain output's max-abs
 ROW_TOL = 1e-2           # bf16, each row relative to its own max-abs
+ZERO_ROW = 1e-5          # a row zero in exact arithmetic, of max-abs
 LSE_TOL = 1e-4           # K4's bf16 LSE, relative to its max-abs
 FP32_TOL = 1e-4          # fp32, absolute
 ROUTE_TOL = 5e-2         # phase 2's ragged-S routes vs SDPA, fwd and bwd
@@ -298,14 +303,14 @@ FLAGSHIP_KERNELS = ("int4_matmul_a8", "int4_requant_int8", "rmsnorm_quant",
 LN_KERNEL = "layernorm_quant"             # phase 4's quant_ln_kernel path
 # the training kernels, launched per bf16 step of phase 5 exactly this
 # often: K4 (its tensor-core entry) in the 32 LLaMA layers' forward, K4b
-# (the tensor-core entry of its dkv) in their backward, K9's three entries
-# (their tensor-core ones) in the backward of the 21 windowed and 3 global
-# SAM blocks after the first trainable adapter
-TRAIN_LAUNCHES = {"flash_forward_lse_tc": 32, "flash_backward_dq": 32,
+# (the tensor-core entries of its dq and dkv) in their backward, K9's three
+# entries (their tensor-core ones) in the backward of the 21 windowed and 3
+# global SAM blocks after the first trainable adapter
+TRAIN_LAUNCHES = {"flash_forward_lse_tc": 32, "flash_backward_dq_tc": 32,
                   "flash_backward_dkv_tc": 32, "relpos_flash_fwd_lse_tc": 24,
                   "relpos_flash_dq_tc": 24, "relpos_flash_dkv_tc": 24}
 # the fp32 steps of phase 6 launch the same kernels with the SIMT entries
-# of K4, K4b's dkv and K9's three
+# of K4, K4b's two and K9's three
 FP32_TRAIN_KERNELS = tuple(k.removesuffix("_tc") for k in TRAIN_LAUNCHES)
 # the training kernels whose launches the JSON line takes from phase 5: K4b
 # and K9 from its S = 704 steps, K10 (its tensor-core entry) from its
@@ -313,22 +318,24 @@ FP32_TRAIN_KERNELS = tuple(k.removesuffix("_tc") for k in TRAIN_LAUNCHES)
 # multiples of 64 or go to K5)
 TRAIN_KERNELS = tuple(k for k in TRAIN_LAUNCHES
                       if k != "flash_forward_lse_tc") + ("flash_attention_tc",)
-# the SIMT entries of K1, K1q, K2, K3, K4, K4b's dkv, K5, K9's three and
+# the SIMT entries of K1, K1q, K2, K3, K4, K4b's two, K5, K9's three and
 # K10: bf16 at head dim 64, 80 or 128 takes their tensor-core entries
 # (`ops.attention._tc_takes`), so no bf16 path of phases 3 and 5 may launch
 # them; fp32 does (phase 2's small cases; K1q, K2, K3 and K4 in phase 4's
 # W8A8-static path and K1 in its float one, where the JSON line takes their
-# launches from; K4b's dkv and K9's three in phase 6's fp32 step; no fp32
+# launches from; K4b's two and K9's three in phase 6's fp32 step; no fp32
 # model path runs K5 or K10 (phase 4's prompts are too short for K5), so
 # their SIMT entries show 0 there)
 SIMT_ENTRIES = ("grouped_plain_attention", "flash_attention",
                 "flash_forward_lse", "sam_global_attention",
                 "sam_window_attention", "sam_window_attention_q8",
                 "relpos_flash_fwd_lse", "prefill_attention",
-                "relpos_flash_dq", "relpos_flash_dkv", "flash_backward_dkv")
+                "relpos_flash_dq", "relpos_flash_dkv", "flash_backward_dq",
+                "flash_backward_dkv")
 # the SIMT entries whose JSON launches come from phase 6's fp32 step
 FP32_STEP_SIMT = ("relpos_flash_fwd_lse", "relpos_flash_dq",
-                  "relpos_flash_dkv", "flash_backward_dkv")
+                  "relpos_flash_dkv", "flash_backward_dq",
+                  "flash_backward_dkv")
 FP32_SIMT = ("grouped_plain_attention", "flash_forward_lse",
              "sam_global_attention", "sam_window_attention_q8")
 # the tensor-core entries: phase 2 prints their registers, spills and
@@ -343,11 +350,14 @@ TC_SOURCES = {"flash_attention_tc": "flash_attention.cu",
               "prefill_attention_tc": "prefill_attention.cu",
               "relpos_flash_dkv_tc": "relpos_flash_attention.cu",
               "relpos_flash_dq_tc": "relpos_flash_attention.cu",
-              "flash_backward_dkv_tc": "flash_backward.cu"}
+              "flash_backward_dkv_tc": "flash_backward.cu",
+              "flash_backward_dq_tc": "flash_backward.cu",
+              "flash_attention_relpos_tc": "streamed_relpos_attention.cu"}
 TRAIN_SEQ = 129          # max_seq_len: 129 + 575 spliced = 704 tokens
 # K11-K14: public ops of the JAX package that no model path runs (nor do
 # their JAX originals); held in phase 2, launched 0 times on every path
-OFF_PATH_KERNELS = ("flash_attention_relpos", "sam_window_attention_v2",
+OFF_PATH_KERNELS = ("flash_attention_relpos", "flash_attention_relpos_tc",
+                    "sam_window_attention_v2",
                     "sam_window_attention_v2_q8", "folded_window_attention",
                     "folded_window_attention_v2", "window_partition",
                     "window_unpartition")
@@ -569,6 +579,18 @@ def _cases(torch):
             "sam_global_attention", "sam_global_attention", q, k, v, rh, rw,
             hw, q.shape[2], q.shape[3])
 
+    # K11's SIMT entry, called directly, so that bf16 reaches it too
+    def k11_simt(q, k, v, rh, rw, hw):
+        return sam_attention._launch_grid(
+            "flash_attention_relpos", "flash_attention_relpos", q, k, v, rh,
+            rw, hw, q.shape[2], q.shape[3])
+
+    # K2's tensor-core body's arithmetic, which K11 runs (P to bf16 before
+    # P.V, the TPU kernel's rounding point)
+    def k11_tc_plain(q, k, v, rh, rw, hw):
+        return attention.tc_attention_torch(
+            q, k, v, scale=q.shape[-1] ** -0.5, bias=(rh, rw, hw[1]))
+
     def k4_inputs(gen, dtype, shape):
         b, s, heads, d, causal = shape
         return (*qkv_inputs(gen, dtype, (b, s, heads, d)), causal)
@@ -600,6 +622,18 @@ def _cases(torch):
 
     def k4b_dq_plain(q, k, v, g, lse, dc, causal):
         return flash_backward.flash_backward_dq_torch(
+            q, k, v, g, lse, dc, causal=causal, scale=q.shape[-1] ** -0.5)
+
+    # K4b's dq SIMT entry, called directly, so that bf16 reaches it too
+    def k4b_dq_simt(q, k, v, g, lse, dc, causal):
+        return flash_backward._dq_launch("flash_backward_dq", q, k, v, g,
+                                         lse, dc, causal,
+                                         q.shape[-1] ** -0.5)
+
+    # the tensor-core dq body's arithmetic (dS to bf16 before dS.K, where
+    # the TPU K4b keeps it in fp32)
+    def k4b_dq_tc_plain(q, k, v, g, lse, dc, causal):
+        return flash_backward.flash_backward_dq_tc_torch(
             q, k, v, g, lse, dc, causal=causal, scale=q.shape[-1] ** -0.5)
 
     def k4b_dkv_plain(q, k, v, g, lse, dc, causal):
@@ -996,6 +1030,12 @@ def _cases(torch):
     k9_full = [(72, 14, 16, 80), (8, 32, 16, 80)]
     k9_small = [(2, 4, 2, 8), (3, 14, 2, 64), (1, 8, 4, 80)]
     k4b_small = [(2, 192, 4, 64), (1, 45, 4, 8), (2, 130, 2, 80)]
+    # the bf16 edges of K4b's dq and dkv on the tensor-core body: S of 3 to
+    # 704, ragged last tiles, causal and not, every head dim, B.H > 1
+    k4b_edges = [(2, 3, 2, 64), (1, 63, 2, 128), (2, 65, 2, 64),
+                 (1, 129, 4, 128), (1, 200, 2, 80), (1, 704, 2, 128),
+                 (1, 100, 2, 64, False), (2, 257, 2, 128, False),
+                 (1, 130, 2, 80, False)]
     # the bf16 edges of K1, K1q and K9's forward on the tensor-core body:
     # grids of 2 x 2 (one partial key tile) to 32 x 32 (16 tiles), 7 x 7
     # and 14 x 14 ragged, 16 x 16 whole tiles; every head dim; B.H > 1; K1
@@ -1005,6 +1045,12 @@ def _cases(torch):
                     for d in (64, 80, 128)]
     window_edges += [(2, g, 2, d, "underflow") for g, d in ((14, 80),
                                                             (7, 64))]
+    # the bf16 edges of K2 and K11: grids of 2 x 2 to 32 x 32 (12 x 12 and
+    # 14 x 14 cut grid rows anywhere in a 64-key tile and leave a ragged
+    # last tile), every head dim, B.H > 1
+    k2_edges = [(b, g, 2, d) for g, b in ((2, 2), (4, 1), (12, 1), (14, 2),
+                                          (32, 1))
+                for d in (64, 80, 128)]
     return {
         # K1's SIMT entry, called directly in bf16 at full width (for its
         # time beside the tensor-core entry's) and in fp32 as the wrapper
@@ -1029,17 +1075,12 @@ def _cases(torch):
             k2_inputs, [(16, 32, 16, 80)], [(2, 16, 6, 64), (2, 4, 4, 8)],
             bshd_ops, library=k2_library),
         # K2's tensor-core entry, through the wrapper (bf16, D 64 / 80 /
-        # 128); edges: grids of 2 x 2 to 32 x 32 (12 x 12 and 14 x 14 cut
-        # grid rows anywhere in a 64-key tile and leave a ragged last tile),
-        # every head dim, B.H > 1
+        # 128)
         "sam_global_attention_tc": case(
             sam_attention.grouped_window_attention_relpos,
             sam_attention.grouped_window_attention_relpos_torch,
             k2_inputs, [(16, 32, 16, 80)], [], bshd_ops, library=k2_library,
-            edges=[(b, g, 2, d) for g, b in ((2, 2), (4, 1), (12, 1),
-                                             (14, 2), (32, 1))
-                   for d in (64, 80, 128)],
-            simt=k2_simt),
+            edges=k2_edges, simt=k2_simt),
         # K3's SIMT entry, called directly in bf16 at full width (for its
         # time beside the tensor-core entry's) and in fp32 as the wrapper
         # calls it
@@ -1168,10 +1209,23 @@ def _cases(torch):
             [(1280, 4096)], [(300, 256), (37, 768), (70, 4096)], norm_ops,
             cold=True,
             int8={"full": (1, LSB_SHARE), "small": (1, LSB_SHARE)}),
+        # K4b's dq, its SIMT entry called directly in bf16 at full width
+        # and in fp32 as the wrapper calls it
         "flash_backward_dq": case(
-            k4b_dq, k4b_dq_plain, k4b_inputs, [(1, 704, 32, 128)],
+            k4b_dq_simt, k4b_dq_plain, k4b_inputs, [(1, 704, 32, 128)],
             k4b_small, lambda a: bwd_ops(a, 3, causal=a[6]),
             library=k4b_library),
+        # its tensor-core entry (attention_bwd_tc.cuh's dq body without the
+        # bias), through the wrapper (bf16, D 64 / 80 / 128), held to the
+        # plain version with the body's rounding points (dS to bf16), each
+        # query's row also on its own (late causal rows average over many
+        # keys and are small beside the first ones), and to the fp32 twin;
+        # edges as K4b's dkv
+        "flash_backward_dq_tc": case(
+            k4b_dq, k4b_dq_tc_plain, k4b_inputs, [(1, 704, 32, 128)],
+            [], lambda a: bwd_ops(a, 3, causal=a[6]), library=k4b_library,
+            edges=k4b_edges, simt=k4b_dq_simt, against=k4b_dq_plain,
+            rows=True),
         # K4b's dkv, its SIMT entry called directly in bf16 at full width
         # and in fp32 as the wrapper calls it
         "flash_backward_dkv": case(
@@ -1188,11 +1242,8 @@ def _cases(torch):
         "flash_backward_dkv_tc": case(
             k4b_dkv_tc, k4b_dkv_tc_plain, k4b_inputs, [(1, 704, 32, 128)],
             [], lambda a: bwd_ops(a, 4, causal=a[6]), library=k4b_library,
-            edges=[(2, 3, 2, 64), (1, 63, 2, 128), (2, 65, 2, 64),
-                   (1, 129, 4, 128), (1, 200, 2, 80), (1, 704, 2, 128),
-                   (1, 100, 2, 64, False), (2, 257, 2, 128, False),
-                   (1, 130, 2, 80, False)],
-            simt=k4b_dkv_simt, against=k4b_dkv_plain, rows=True),
+            edges=k4b_edges, simt=k4b_dkv_simt, against=k4b_dkv_plain,
+            rows=True),
         # K9's forward, its SIMT entry called directly in bf16 at full
         # width and in fp32 as the wrapper calls it
         "relpos_flash_fwd_lse": case(
@@ -1281,11 +1332,20 @@ def _cases(torch):
             simt=k10_simt),
         # K11-K14: public ops of the JAX package that no model path runs,
         # held at the shapes they would take in SAM ViT-H (16 frames)
+        # K11, its SIMT entry called directly in bf16 at full width and in
+        # fp32 as the wrapper calls it
         "flash_attention_relpos": case(
-            sam_attention.flash_attention_relpos,
-            sam_attention.grouped_window_attention_relpos_torch, k2_inputs,
-            [(16, 32, 16, 80), (144, 14, 16, 80)],
+            k11_simt, sam_attention.grouped_window_attention_relpos_torch,
+            k2_inputs, [(16, 32, 16, 80), (144, 14, 16, 80)],
             [(2, 16, 6, 64), (2, 4, 4, 8)], bshd_ops, library=k2_library),
+        # its tensor-core entry (K2's body), through the wrapper (bf16, D 64
+        # / 80 / 128), held to K2's body's arithmetic and to the fp32 twin;
+        # edges as K2's
+        "flash_attention_relpos_tc": case(
+            sam_attention.flash_attention_relpos, k11_tc_plain, k2_inputs,
+            [(16, 32, 16, 80), (144, 14, 16, 80)], [], bshd_ops,
+            library=k2_library, edges=k2_edges, simt=k11_simt,
+            against=sam_attention.grouped_window_attention_relpos_torch),
         "sam_window_attention_v2": case(
             sam_attention.grouped_window_attention_relpos_v2,
             sam_attention.grouped_window_attention_relpos_v2_torch,
@@ -1472,14 +1532,27 @@ def _check_full(name, full, got, want, tols=None):
     return out
 
 
+def _zero_rows(w):
+    """The rows (the last axis) of `w` whose max-abs lies below ZERO_ROW of
+    w's: zero in exact arithmetic (the first row of a causal dq, where
+    dS_00 = P_00 (dP_00 - D_0) = 0), so they carry only rounding noise."""
+    return w.abs().amax(-1) < ZERO_ROW * w.abs().max()
+
+
 def _row_share(got, want):
     """For each output of a call: the largest distance of a row (the last
-    axis) of `got` from `want`, of that row's max-abs in `want`."""
+    axis) of `got` from `want`, of that row's max-abs in `want`; rows zero
+    in exact arithmetic (`_zero_rows`) left out."""
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
-    return [float(((g.float() - w.float()).abs().amax(-1)
-                   / w.float().abs().amax(-1).clamp_min(1e-30)).max())
-            for g, w in zip(got, want)]
+    out = []
+    for g, w in zip(got, want):
+        g, w = g.float(), w.float()
+        live = ~_zero_rows(w)
+        share = ((g - w).abs().amax(-1)[live]
+                 / w.abs().amax(-1)[live].clamp_min(1e-30))
+        out.append(float(share.max()) if share.numel() else 0.0)
+    return out
 
 
 def _check_rows(name, full, got, want):
@@ -1490,14 +1563,25 @@ def _check_rows(name, full, got, want):
     causal dk and dv the late keys see few queries, so they are small
     beside the first rows, which set the output's max-abs; FULL_TOL alone
     would pass a kernel wrong there or in the ragged last key tile. One
-    bf16 rounding apart is at most 2^-7 of a row's max-abs. Returns the
-    worst row's share of each output."""
+    bf16 rounding apart is at most 2^-7 of a row's max-abs. A row zero in
+    exact arithmetic (`_zero_rows` of the plain output) is held below
+    ZERO_ROW of the output's max-abs instead, in the kernel's output too.
+    Returns the worst row's share of each output."""
     rel = _row_share(got, want)
-    for i, r in enumerate(rel):
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for i, (r, g, w) in enumerate(zip(rel, got, want)):
         if not r <= ROW_TOL:
             raise PhaseError(f"{name} bf16 {full}: a row of output {i} "
                              f"differs by {r:.3e} of its own max-abs > "
                              f"{ROW_TOL}")
+        zero = _zero_rows(w.float())
+        noise = g.float().abs().amax(-1)[zero]
+        limit = ZERO_ROW * float(w.float().abs().max())
+        if noise.numel() and not float(noise.max()) < limit:
+            raise PhaseError(f"{name} bf16 {full}: a row of output {i} "
+                             f"that is zero in exact arithmetic reaches "
+                             f"{float(noise.max()):.3e} >= {limit:.3e}")
     return rel
 
 
@@ -1718,7 +1802,9 @@ def _tc_compiles():
 
 
 def _tc_build_report(gpu, compiles):
-    """For each tensor-core entry's kernels (D 64, 80 and 128): registers,
+    """For each tensor-core entry's kernels (D 64, 80 and 128; the entry
+    macros name them after the C symbol, `grove_X_tc` -> `X_tc_kernel`):
+    registers,
     stack frame and spills as ptxas reports them (`_tc_compiles`), the
     dynamic shared memory its launch asks for (`_tc_smem`, from the built
     library) and the HGMMA instructions in `cuobjdump -sass` of it.
@@ -1753,8 +1839,9 @@ def _tc_build_report(gpu, compiles):
         elif fn in hgmma and "HGMMA" in line:
             hgmma[fn] += 1
     for name in TC_SOURCES:
+        stem = _kernels.KERNELS[name].symbol.removeprefix("grove_")
         for d in _kernels.TC_HEAD_DIMS:
-            tag = f"{name}_kernelILi{d}E"
+            tag = f"{stem}_kernelILi{d}E"
             fns = [f for f in hgmma if tag in f]
             lines = [x for f in ptxas if tag in f for x in ptxas[f]]
             n = sum(hgmma[f] for f in fns)
@@ -3365,7 +3452,7 @@ def _step_launches(cfg, s, remat):
     same SAM adapters): the LLaMA layers' attention as the JAX package
     routes it, stated here and not read from the port: at S = 704, a
     multiple of 64, K4's tensor-core entry (bf16, D = 128) with K4b behind
-    it (its dq's SIMT entry, its dkv's tensor-core one); at the ragged
+    it (the tensor-core entries of its dq and dkv); at the ragged
     S = 2111, K10's tensor-core entry; once a layer forward (twice with
     remat: the checkpointed layer runs again in the backward); K2's
     tensor-core entry (D = 80) once in each global SAM block's forward and
@@ -3373,14 +3460,13 @@ def _step_launches(cfg, s, remat):
     the first trainable adapter; K9's three tensor-core entries once in the
     backward of every SAM block after that adapter (K9's forward with LSE
     runs there, after the recomputed K1 or K2 forward); no SIMT entry of
-    K1, K1q, K2, K3, K4, K4b's dkv, K9 or K10, no K1q, K5, K7a, K7b or
-    K7c."""
+    K1, K1q, K2, K3, K4, K4b, K9 or K10, no K1q, K5, K7a, K7b or K7c."""
     n = cfg.llama.num_layers
     route = {704: "flash_forward_lse_tc", 2111: "flash_attention_tc"}[s]
     sam_cfg = cfg.sam_enc
     globs = sam_cfg.global_attn_indexes
     after = range(min(globs) + 1, sam_cfg.depth)   # behind the first adapter
-    out = {k: 0 for k in ("flash_forward_lse_tc", "flash_backward_dq",
+    out = {k: 0 for k in ("flash_forward_lse_tc", "flash_backward_dq_tc",
                           "flash_backward_dkv_tc", "flash_attention_tc",
                           "sam_window_attention_q8_tc", *SIMT_ENTRIES,
                           *QLORA_NEVER)}
@@ -3393,7 +3479,7 @@ def _step_launches(cfg, s, remat):
         sum(i not in globs for i in after) if remat else 0)
     out[route] = n * (2 if remat else 1)
     if route == "flash_forward_lse_tc":
-        out["flash_backward_dq"] = out["flash_backward_dkv_tc"] = n
+        out["flash_backward_dq_tc"] = out["flash_backward_dkv_tc"] = n
     return out
 
 

@@ -160,9 +160,9 @@ KERNELS: Dict[str, Kernel] = {
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
         "grove_tpu_torch/csrc/sam_global_attention.cu",
         "grove_tpu/ops/sam_attention.py:235"),
-    # K1, K1q, K2, K3, K4, K5, K9's forward and K10 on the tensor-core body
-    # (attention_tc.cuh), which the wrappers take for bf16 at head dims 64,
-    # 80 and 128 (`TC_HEAD_DIMS`); fp32 and the head dim 8 take the SIMT
+    # K1, K1q, K2, K3, K4, K5, K9's forward, K10 and K11 on the tensor-core
+    # body (attention_tc.cuh), which the wrappers take for bf16 at head dims
+    # 64, 80 and 128 (`TC_HEAD_DIMS`); fp32 and the head dim 8 take the SIMT
     # entries
     "sam_window_attention_tc": Kernel(
         "grove_sam_window_attention_tc",
@@ -264,8 +264,14 @@ KERNELS: Dict[str, Kernel] = {
         [_P] * 8 + [_I] * 5 + [_F, _I, _P],
         "grove_tpu_torch/csrc/flash_backward.cu",
         "grove_tpu/ops/flash_backward.py:278"),
-    # K4b's dkv on the tensor-core backward body (attention_bwd_tc.cuh),
-    # taken where `TC_HEAD_DIMS` holds, as the forward entries
+    # K4b's dq and dkv on the tensor-core backward body
+    # (attention_bwd_tc.cuh), taken where `TC_HEAD_DIMS` holds, as the
+    # forward entries
+    "flash_backward_dq_tc": Kernel(
+        "grove_flash_backward_dq_tc",
+        [_P] * 7 + [_I] * 5 + [_F, _I, _P],
+        "grove_tpu_torch/csrc/flash_backward.cu",
+        "grove_tpu/ops/flash_backward.py:253"),
     "flash_backward_dkv_tc": Kernel(
         "grove_flash_backward_dkv_tc",
         [_P] * 8 + [_I] * 5 + [_F, _I, _P],
@@ -317,6 +323,12 @@ KERNELS: Dict[str, Kernel] = {
     # K11-K14: public ops of the JAX package that no model path dispatches
     "flash_attention_relpos": Kernel(
         "grove_relpos_flash_attention",
+        [_P] * 6 + [_I] * 6 + [_F, _I, _P],
+        "grove_tpu_torch/csrc/streamed_relpos_attention.cu",
+        "grove_tpu/ops/sam_attention.py:133"),
+    # K11 on the tensor-core forward body (K2's), taken as K2's
+    "flash_attention_relpos_tc": Kernel(
+        "grove_relpos_flash_attention_tc",
         [_P] * 6 + [_I] * 6 + [_F, _I, _P],
         "grove_tpu_torch/csrc/streamed_relpos_attention.cu",
         "grove_tpu/ops/sam_attention.py:133"),

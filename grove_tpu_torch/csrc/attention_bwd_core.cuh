@@ -39,11 +39,10 @@
 // difference in bf16, none in fp32).
 //
 // Bound on an H100: fp32 FMA issue and shared-memory reads on the CUDA
-// cores, as the forward body. In bf16 at head dims 64, 80 and 128, K9's dq
-// and dkv and K4b's dkv run the tensor-core backward body instead
+// cores, as the forward body. In bf16 at head dims 64, 80 and 128, K9's and
+// K4b's dq and dkv run the tensor-core backward body instead
 // (attention_bwd_tc.cuh, with K9's rounding points); this body keeps them
-// in fp32, at D 8 and (K9) on an odd grid, and K4b's dq at every dtype,
-// which comes to the tensor-core dq body next.
+// in fp32, at D 8 and (K9) on an odd grid.
 
 #pragma once
 

@@ -1,16 +1,19 @@
 // Tensor-core backward body of the hand-written attention kernels of
 // grove_tpu_torch, beside the SIMT body of attention_bwd_core.cuh.
 //
-// It serves three TPU kernels, for bf16 inputs at head dims 64, 80 and 128:
+// It serves four TPU kernels, for bf16 inputs at head dims 64, 80 and 128:
 //   * K9's dkv, grove_tpu/ops/sam_attention_bwd.py:152 `_dkv_kernel`
 //     (relpos_flash_attention.cu, `grove_relpos_flash_dkv_tc`): dk and dv of
 //     SAM's decomposed rel-pos attention (`dkv_block_tc`, BIAS);
 //   * K9's dq, `sam_attention_bwd.py:98` `_dq_kernel`
 //     (relpos_flash_attention.cu, `grove_relpos_flash_dq_tc`): dq and the
-//     per-row term gradients d_rh, d_rw (`dq_block_tc`);
+//     per-row term gradients d_rh, d_rw (`dq_block_tc`, BIAS);
 //   * K4b's dkv, grove_tpu/ops/flash_backward.py:137 `_dkv_kernel`
 //     (flash_backward.cu, `grove_flash_backward_dkv_tc`): dk and dv of
-//     LLaMA's causal attention, no bias (`dkv_block_tc`, CAUSAL or not).
+//     LLaMA's causal attention, no bias (`dkv_block_tc`, CAUSAL or not);
+//   * K4b's dq, `flash_backward.py:101` `_dq_kernel` (flash_backward.cu,
+//     `grove_flash_backward_dq_tc`): dq of the same, no bias
+//     (`dq_block_tc`, CAUSAL or not).
 // All with P recomputed from the forward's LSE,
 //
 //   s_ij  = scale * q_i . k_j [+ rel_h[i, j / gw] + rel_w[i, j % gw]]
@@ -23,9 +26,9 @@
 // (`sam_attention_bwd.py:186`) and dS, computed from the unrounded P, before
 // dS^T.Q (`:191`), dS.K and the bucket sums (`:132-139`); every product
 // accumulates in fp32. The TPU K4b keeps P and dS in fp32
-// (`flash_backward.py:138-170`); wgmma takes bf16 operands, so K4b's dkv
-// rounds them here too (a recorded difference, ROADMAP Queue 3). fp32
-// inputs and the head dim 8 keep the SIMT entries, and so does K4b's dq.
+// (`flash_backward.py:103-170`); wgmma takes bf16 operands, so K4b's dkv
+// and dq round them here too (a recorded difference, ROADMAP Queue 3).
+// fp32 inputs and the head dim 8 keep the SIMT entries.
 //
 // Contract (BwdArgs): q, k, v, dO, dq, dk, dv in the (B, S, H, D) layout
 // with element strides, bf16, every row 16-byte aligned; lse and D =
@@ -88,26 +91,40 @@
 //     [d_rh | d_rw] += dS.E (E as the MN-major B operand, dS the same
 //     register fragment as dS.K). Since E is 0/1, the sums are exact fp32
 //     sums of the bf16 dS, as the TPU's `eh.astype(dt)` product gives them.
-// K4b's causal contract: a dkv block starts at the query tile that holds its
-// first key (`flash_backward.py:145`); a warpgroup skips the query tiles
-// wholly before its 64 keys; the diagonal tile takes the per-element mask
-// query >= key. Block y owns keys 128 y.., so the grid's launch order puts
-// the blocks with the most query tiles first (at S = 704, 6 key blocks x 32
-// heads = 192 blocks on 132 SMs: the second wave holds the short ones).
+// K4b's causal contract (`flash_backward.py:114-125`, `:145`):
+//   * a dkv block starts at the query tile that holds its first key; a
+//     warpgroup skips the query tiles wholly before its 64 keys; the
+//     diagonal tile takes the per-element mask query >= key. Block y owns
+//     keys 128 y.., so the grid's launch order already puts the blocks with
+//     the most query tiles first;
+//   * a dq block streams the key tiles up to the one that holds its last
+//     row, ceil(min(S, q0 + 128) / 64) of them; a warpgroup skips the key
+//     tiles wholly past its 64 rows; the diagonal tile takes the mask
+//     key <= query. Block y owns rows 128 y.. and has the most key tiles
+//     last, so the kernel reverses y (heaviest first, as attention_tc.cuh's
+//     causal forward does).
+// At S = 704 either grid is 6 blocks x 32 heads = 192 blocks on 132 SMs,
+// and the second wave holds the short ones. Query and key tiles both start
+// at multiples of 64, so a warpgroup's diagonal tile starts at its own first
+// row (or key), and the mask compares a compile-time offset in the fragment
+// with one register per thread: a comparison of each score's query with its
+// key spilled the causal dkv at D = 128 (PERF.md §6).
 // Registers: dkv keeps dk and dv, D fp32 a thread, beside the 64 of S^T and
-// dP^T; dq keeps dq (D / 2), the bucket sums (32), S, the bias and dP
-// (96). So a block runs alone on its SM (launch bounds 256 threads, one
-// block: up to 255 registers); chip_smoke.py phase 2 prints ptxas's counts
-// and fails on a spill. Shared memory, W the row's atoms x 64 columns (64 at
-// D = 64, 128 at D = 80 and 128):
+// dP^T; dq keeps dq (D / 2) and S and dP (64), and with the bias the bucket
+// sums (32) and the bias scores (32). So a block runs alone on its SM
+// (launch bounds 256 threads, one block: up to 255 registers);
+// chip_smoke.py phase 2 prints ptxas's counts and fails on a spill. Shared
+// memory, W the row's atoms x 64 columns (64 at D = 64, 128 at D = 80 and
+// 128):
 //   * dkv: 2 x 128 x W x 2 bytes of K and V, 2 stages x 2 x 64 x W x 2 of Q
 //     and dO, 1 KB of LSE and D, with the bias 2 stages x 64 x (gh + gw) x
 //     2 of raw term tables and (gh + gw) x 65 x 4 of their fp32 columns, and
 //     1 KB to align: 162.3 KB at D = 80 on SAM's 32 x 32 grid, 144.1 KB on
 //     14 x 14; 130 KB for K4b at D = 128;
-//   * dq: 2 x 128 x W x 2 of Q and dO, 16 KB of T, 2 stages x (2 x 64 x W
-//     x 2 + 8 KB) of K, V and E, 128 x (gh + gw) x 2 of raw term rows, and
-//     1 KB to align: 177 KB at D = 80 on 32 x 32, 168 KB on 14 x 14.
+//   * dq: 2 x 128 x W x 2 of Q and dO, 2 stages x 2 x 64 x W x 2 of K and
+//     V, and 1 KB to align: 129 KB for K4b at D = 128; with the bias also
+//     16 KB of T, 8 KB of E a stage and 128 x (gh + gw) x 2 of raw term
+//     rows: 177 KB at D = 80 on 32 x 32, 168 KB on 14 x 14.
 // Left for a later redesign: a producer warp with TMA and mbarriers, the
 // next tile's scores over this tile's softmax, and two blocks an SM.
 
@@ -158,26 +175,32 @@ inline size_t dkv_bytes(int d, bool bias, int gh, int gw) {
   return 0;
 }
 
-// dq: Q and dO of the block's rows, the bias tile T, two stages of K, V and
-// the selector E, and the raw term rows (one run per table)
-template <int D>
+// dq: Q and dO of the block's rows and two stages of K and V; with the
+// bias also the tile T, a selector E in each stage and the raw term rows
+// (one run per table)
+template <int D, bool BIAS>
 __host__ __device__ constexpr uint32_t dq_stage_bytes() {
-  return 2 * tc::tile_bytes<D>(kBQ) + tc::tile_bytes<64>(kBQ);
+  return 2 * tc::tile_bytes<D>(kBQ) + (BIAS ? tc::tile_bytes<64>(kBQ) : 0);
 }
 
-template <int D>
+template <int D, bool BIAS>
 inline size_t dq_fixed_bytes() {
-  return 2 * (size_t)tc::tile_bytes<D>(kRows) + tc::tile_bytes<64>(kRows) +
-         2 * (size_t)dq_stage_bytes<D>() + tc::kAlign;
+  return 2 * (size_t)tc::tile_bytes<D>(kRows) +
+         (BIAS ? tc::tile_bytes<64>(kRows) : 0) +
+         2 * (size_t)dq_stage_bytes<D, BIAS>() + tc::kAlign;
 }
 
-// The same for the dq entry, which always carries the term rows.
-inline size_t dq_bytes(int d, int gh, int gw) {
-  const size_t rows = (size_t)kRows * (gh + gw) * 2;
+// The same for a dq entry, with the term rows of a gh x gw grid where
+// `bias`.
+inline size_t dq_bytes(int d, bool bias, int gh, int gw) {
+  const size_t rows = bias ? (size_t)kRows * (gh + gw) * 2 : 0;
   switch (d) {
-    case 64: return dq_fixed_bytes<64>() + rows;
-    case 80: return dq_fixed_bytes<80>() + rows;
-    case 128: return dq_fixed_bytes<128>() + rows;
+    case 64: return rows + (bias ? dq_fixed_bytes<64, true>()
+                                 : dq_fixed_bytes<64, false>());
+    case 80: return rows + (bias ? dq_fixed_bytes<80, true>()
+                                 : dq_fixed_bytes<80, false>());
+    case 128: return rows + (bias ? dq_fixed_bytes<128, true>()
+                                  : dq_fixed_bytes<128, false>());
   }
   return 0;
 }
@@ -563,22 +586,24 @@ __device__ __forceinline__ void dkv_block_tc(const BwdArgs& a) {
   }
 }
 
-template <int D>
+template <int D, bool BIAS, bool CAUSAL>
 __device__ __forceinline__ void dq_block_tc(const BwdArgs& a) {
   static_assert(D == 64 || D == 80 || D == 128,
                 "the tensor-core body takes D 64, 80, 128");
+  static_assert(!(BIAS && CAUSAL), "K9 is not causal");
   constexpr int KSTEPS = D / 16;           // k16 steps of Q.K^T and dO.V^T
   constexpr int NO = D / 2;                // dq accumulator floats
+  constexpr int NB = BIAS ? 32 : 1;        // bias and bucket-sum floats
   constexpr uint32_t TQ = tc::tile_bytes<D>(kRows);   // Q, dO
   constexpr uint32_t TK = tc::tile_bytes<D>(kBQ);     // K, V of a stage
-  constexpr uint32_t TT = tc::tile_bytes<64>(kRows);  // the bias tile T
-  constexpr uint32_t ST = dq_stage_bytes<D>();
+  constexpr uint32_t TT = BIAS ? tc::tile_bytes<64>(kRows) : 0;  // T
+  constexpr uint32_t ST = dq_stage_bytes<D, BIAS>();
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = tc::smem_u32(smem_raw);
   const uint32_t sQ = (raw + tc::kAlign - 1) & ~(uint32_t)(tc::kAlign - 1);
   const uint32_t sG = sQ + TQ;             // dO
-  const uint32_t sT = sG + TQ;
-  const uint32_t sRing = sT + TT;          // stage st: K, V, then E
+  const uint32_t sT = sG + TQ;             // the bias tile T
+  const uint32_t sRing = sT + TT;          // stage st: K, V[, then E]
   const uint32_t sRaw = sRing + 2 * ST;    // the raw term rows
   uint8_t* stage = smem_raw + (sQ - raw);  // sQ as a generic pointer
 
@@ -593,10 +618,13 @@ __device__ __forceinline__ void dq_block_tc(const BwdArgs& a) {
   const int bh = blockIdx.x;
   const int b = bh / a.H;
   const int h = bh - b * a.H;
-  const int q0 = blockIdx.y * kRows;
+  // causal: the last rows stream the most key tiles, so they launch first
+  const int qb = CAUSAL ? (int)(gridDim.y - 1 - blockIdx.y) : blockIdx.y;
+  const int q0 = qb * kRows;
   const int qw = q0 + 64 * wg;             // this warpgroup's first row
   const bool active = qw < a.S;            // warpgroup-uniform
-  const int nk = (a.S + kBQ - 1) / kBQ;
+  // causal: the key tiles up to the one that holds the block's last row
+  const int nk = ((CAUSAL ? min(a.S, q0 + kRows) : a.S) + kBQ - 1) / kBQ;
 
   const long long xb = b * a.xs.b + h * a.xs.h;
   const long long sb = ((long long)b * a.H + h) * a.S;
@@ -605,18 +633,21 @@ __device__ __forceinline__ void dq_block_tc(const BwdArgs& a) {
   const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(a.v) + xb;
   const __nv_bfloat16* dout =
       static_cast<const __nv_bfloat16*>(a.dout) + xb;
-  const uint16_t* rh = static_cast<const uint16_t*>(a.rh) + b * a.rhs.b +
-                       h * a.rhs.h;
-  const uint16_t* rw = static_cast<const uint16_t*>(a.rw) + b * a.rws.b +
-                       h * a.rws.h;
+  const uint16_t* rh = nullptr;
+  const uint16_t* rw = nullptr;
+  if constexpr (BIAS) {
+    rh = static_cast<const uint16_t*>(a.rh) + b * a.rhs.b + h * a.rhs.h;
+    rw = static_cast<const uint16_t*>(a.rw) + b * a.rws.b + h * a.rws.h;
+  }
 
   tc::load_tile<D>(sQ, q, a.xs.s, q0, kRows, a.S, tid);
   tc::load_tile<D>(sG, dout, a.xs.s, q0, kRows, a.S, tid);
-  load_rel_raw<kRows>(sRaw, a, rh, rw, q0, tid);  // converted after a sync
+  if constexpr (BIAS)
+    load_rel_raw<kRows>(sRaw, a, rh, rw, q0, tid);  // converted after a sync
   tc::load_tile<D>(sRing, k, a.xs.s, 0, kBQ, a.S, tid);
   tc::load_tile<D>(sRing + TK, v, a.xs.s, 0, kBQ, a.S, tid);
   tc::cp_async_commit();
-  build_selector(stage + (sRing + 2 * TK - sQ), 0, a, tid);
+  if constexpr (BIAS) build_selector(stage + (sRing + 2 * TK - sQ), 0, a, tid);
 
   // this thread's two rows (fragment rows R0 and R0 + 8 of the block):
   // their LSE in log2 units and D
@@ -627,13 +658,20 @@ __device__ __forceinline__ void dq_block_tc(const BwdArgs& a) {
   const float l1 = r1 < a.S ? a.lse[sb + r1] * kLog2e : 0.f;
   const float d0 = r0 < a.S ? a.dcap[sb + r0] : 0.f;
   const float d1 = r1 < a.S ? a.dcap[sb + r1] : 0.f;
+  // causal: row r0 less qw, less 2 t4, to compare with key offsets
+  const int diag_lim = 16 * warp + g - 2 * t4;
 
-  float dq[NO], drel[32];
+  float dq[NO], drel[NB];
 #pragma unroll
   for (int i = 0; i < NO; ++i) dq[i] = 0.f;
-  float s[32], bias[32], dp[32];
+  float s[32], bias[NB], dp[32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) drel[i] = s[i] = bias[i] = dp[i] = 0.f;
+  for (int i = 0; i < 32; ++i) {
+    if constexpr (BIAS)
+      drel[i] = s[i] = bias[i] = dp[i] = 0.f;
+    else
+      s[i] = dp[i] = 0.f;
+  }
   const float sl2 = a.scale * kLog2e;
   const uint32_t qa = sQ + wg * 64 * 128;  // the warpgroup's A rows
   const uint32_t ga = sG + wg * 64 * 128;
@@ -648,27 +686,32 @@ __device__ __forceinline__ void dq_block_tc(const BwdArgs& a) {
       tc::load_tile<D>(next + TK, v, a.xs.s, k1, kBQ, a.S, tid);
       tc::cp_async_commit();
       // the other stage's E was last read before the last sync
-      build_selector(stage + (next + 2 * TK - sQ), k1, a, tid);
+      if constexpr (BIAS)
+        build_selector(stage + (next + 2 * TK - sQ), k1, a, tid);
       tc::cp_async_wait<1>();
     } else {
       tc::cp_async_wait<0>();
     }
     tc::fence_proxy_async();
     __syncthreads();
-    if (t == 0) {                          // T, once the raw rows landed
-      convert_rel_tile(stage + (sT - sQ),
-                       reinterpret_cast<const uint16_t*>(stage + (sRaw - sQ)),
-                       a, q0, tid);
-      tc::fence_proxy_async();
-      __syncthreads();
+    if constexpr (BIAS) {
+      if (t == 0) {                        // T, once the raw rows landed
+        convert_rel_tile(
+            stage + (sT - sQ),
+            reinterpret_cast<const uint16_t*>(stage + (sRaw - sQ)), a, q0,
+            tid);
+        tc::fence_proxy_async();
+        __syncthreads();
+      }
     }
 
-    if (active) {
+    // causal: a warpgroup skips the key tiles wholly past its rows
+    if (active && !(CAUSAL && t * kBQ > qw)) {
       const uint32_t sK = sRing + st * ST;
       const uint32_t sV = sK + TK;
       const uint32_t sE = sV + TK;
       tc::fence_operands(s);
-      tc::fence_operands(bias);
+      if constexpr (BIAS) tc::fence_operands(bias);
       tc::fence_operands(dp);
       tc::wgmma_fence();
 #pragma unroll
@@ -682,10 +725,12 @@ __device__ __forceinline__ void dq_block_tc(const BwdArgs& a) {
                            16, 1024),
             kk > 0);
       }
+      if constexpr (BIAS) {
 #pragma unroll
-      for (int kk = 0; kk < kSel / 16; ++kk)
-        tc::wgmma_ss_n64(bias, tc::descriptor(ta + kk * 32, 16, 1024),
-                         tc::descriptor(sE + kk * 32, 16, 1024), kk > 0);
+        for (int kk = 0; kk < kSel / 16; ++kk)
+          tc::wgmma_ss_n64(bias, tc::descriptor(ta + kk * 32, 16, 1024),
+                           tc::descriptor(sE + kk * 32, 16, 1024), kk > 0);
+      }
 #pragma unroll
       for (int kk = 0; kk < KSTEPS; ++kk) {
         const uint32_t col = (kk & 3) * 32;
@@ -700,12 +745,18 @@ __device__ __forceinline__ void dq_block_tc(const BwdArgs& a) {
       tc::wgmma_commit();
       tc::wgmma_wait_all();
       tc::fence_operands(s);
-      tc::fence_operands(bias);
+      if constexpr (BIAS) tc::fence_operands(bias);
       tc::fence_operands(dp);
 
       // s[4j + e]: row r0 (e < 2) or r1, key k0 + 8j + 2 t4 + (e & 1)
       const int k0 = t * kBQ;
-      const bool edge = k0 + kBQ > a.S;    // the ragged last tile
+      // the ragged last tile masks the keys at or past S, and causal the
+      // diagonal tile (k0 == qw: both are 64-aligned) those past the row;
+      // without the bias each a compile-time key offset c = kc - 2 t4
+      // against one register (`lim`, and `diag_lim` + 8 for r1)
+      const int lim = a.S - k0 - 2 * t4;
+      const bool diag = CAUSAL && k0 == qw;
+      const bool edge = k0 + kBQ > a.S || diag;
       uint32_t da[4][4];
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
@@ -713,11 +764,20 @@ __device__ __forceinline__ void dq_block_tc(const BwdArgs& a) {
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
           const int idx = 8 * kk + i;
-          const float x = s[idx] * sl2 + bias[idx] * kLog2e -
-                          ((i & 2) ? l1 : l0);
+          float x;
+          if constexpr (BIAS)
+            x = s[idx] * sl2 + bias[idx] * kLog2e - ((i & 2) ? l1 : l0);
+          else
+            x = s[idx] * sl2 - ((i & 2) ? l1 : l0);
           float p = exp2f(x);
-          if (edge && k0 + 16 * kk + 8 * (i >> 2) + 2 * t4 + (i & 1) >= a.S)
-            p = 0.f;
+          if constexpr (BIAS) {
+            if (edge && k0 + 16 * kk + 8 * (i >> 2) + 2 * t4 + (i & 1) >= a.S)
+              p = 0.f;
+          } else if (edge) {
+            const int c = 16 * kk + 8 * (i >> 2) + (i & 1);
+            if (c >= lim || (diag && c > diag_lim + ((i & 2) ? 8 : 0)))
+              p = 0.f;
+          }
           f[i] = p * (dp[idx] - ((i & 2) ? d1 : d0));
         }
         da[kk][0] = tc::pack_bf16(f[0], f[1]);  // row r0, keys 16kk + 2t4
@@ -726,40 +786,44 @@ __device__ __forceinline__ void dq_block_tc(const BwdArgs& a) {
         da[kk][3] = tc::pack_bf16(f[6], f[7]);  // row r1
       }
       tc::fence_operands(dq);
-      tc::fence_operands(drel);
+      if constexpr (BIAS) tc::fence_operands(drel);
       tc::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
         tc::wgmma_rs<D>(dq, da[kk],
                         tc::descriptor(sK + kk * 16 * 128,
                                        tc::tile_bytes<64>(kBQ), 1024));
+      if constexpr (BIAS) {
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        tc::wgmma_rs_n64(drel, da[kk],
-                         tc::descriptor(sE + kk * 16 * 128,
-                                        tc::tile_bytes<64>(kBQ), 1024),
-                         1);
+        for (int kk = 0; kk < 4; ++kk)
+          tc::wgmma_rs_n64(drel, da[kk],
+                           tc::descriptor(sE + kk * 16 * 128,
+                                          tc::tile_bytes<64>(kBQ), 1024),
+                           1);
+      }
       tc::wgmma_commit();
       tc::wgmma_wait_all();
       tc::fence_operands(dq);
-      tc::fence_operands(drel);
+      if constexpr (BIAS) tc::fence_operands(drel);
     }
     __syncthreads();                       // the stage may be refilled
   }
   if (!active) return;
 
-  // the bucket sums: drel[4j + e] is row r0 (e < 2) or r1, column
-  // 8j + 2 t4 + (e & 1) of [d_rh | d_rw]
-  const int gs = a.gh + a.gw;
+  if constexpr (BIAS) {
+    // the bucket sums: drel[4j + e] is row r0 (e < 2) or r1, column
+    // 8j + 2 t4 + (e & 1) of [d_rh | d_rw]
+    const int gs = a.gh + a.gw;
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    const int row = (i & 2) ? r1 : r0;
-    const int c = 8 * (i >> 2) + 2 * t4 + (i & 1);
-    if (row < a.S && c < gs) {
-      if (c < a.gh)
-        a.drh[(sb + row) * a.gh + c] = drel[i];
-      else
-        a.drw[(sb + row) * a.gw + (c - a.gh)] = drel[i];
+    for (int i = 0; i < 32; ++i) {
+      const int row = (i & 2) ? r1 : r0;
+      const int c = 8 * (i >> 2) + 2 * t4 + (i & 1);
+      if (row < a.S && c < gs) {
+        if (c < a.gh)
+          a.drh[(sb + row) * a.gh + c] = drel[i];
+        else
+          a.drw[(sb + row) * a.gw + (c - a.gh)] = drel[i];
+      }
     }
   }
 
@@ -879,31 +943,40 @@ inline dim3 grid_of(const BwdArgs& a) {
     return (int)cudaErrorInvalidValue;                                        \
   }
 
-// The same for the tensor-core dq entry of K9: bf16 at D 64, 80 or 128,
-// 16-byte-aligned rows, the term tables (`tables16`) with gh + gw <= 64 on a
-// grid of S = gh gw keys, no causal mask.
-#define GROVE_DQ_TC_ENTRY(NAME)                                               \
-  template <int D>                                                            \
+// The same for a tensor-core dq entry: bf16 at D 64, 80 or 128,
+// 16-byte-aligned rows; with BIAS (K9) the term tables (`tables16`) with
+// gh + gw <= 64 on a grid of S = gh gw keys and no causal mask, without it
+// (K4b) no tables and a causal mask or none, any S.
+#define GROVE_DQ_TC_ENTRY(NAME, BIAS)                                         \
+  template <int D, bool CAUSAL>                                               \
   __global__ void __launch_bounds__(grove::tcb::kThreads, 1)                  \
       NAME##_tc_kernel(const grove::BwdArgs a) {                              \
-    grove::tcb::dq_block_tc<D>(a);                                            \
+    grove::tcb::dq_block_tc<D, BIAS, CAUSAL>(a);                              \
+  }                                                                           \
+  template <int D, bool B = (BIAS)>                                           \
+  static int NAME##_tc_launch(const grove::BwdArgs& a, cudaStream_t st) {     \
+    const size_t bytes = grove::tcb::dq_bytes(D, B, a.gh, a.gw);              \
+    if constexpr (!B) {                                                       \
+      if (a.causal)                                                           \
+        return grove::tcb::launch(NAME##_tc_kernel<D, true>,                  \
+                                  grove::tcb::grid_of(a), bytes, a, st);      \
+    }                                                                         \
+    return grove::tcb::launch(NAME##_tc_kernel<D, false>,                     \
+                              grove::tcb::grid_of(a), bytes, a, st);          \
   }                                                                           \
   extern "C" long long grove_##NAME##_tc_smem(int d, int gh, int gw) {       \
-    return (long long)grove::tcb::dq_bytes(d, gh, gw);                        \
+    return (long long)grove::tcb::dq_bytes(d, (BIAS), gh, gw);                \
   }                                                                           \
   static int NAME##_tc_dispatch(const grove::BwdArgs& a, int dtype, int d,    \
                                 cudaStream_t st) {                            \
-    if (dtype != 1 || !grove::tcb::rows16(a) || !grove::tcb::tables16(a) ||   \
-        a.gh < 1 || a.gw < 1 || a.gh + a.gw > grove::tcb::kSel ||             \
-        a.S != a.gh * a.gw || a.causal)                                       \
+    if (dtype != 1 || !grove::tcb::rows16(a) || a.S < 1 ||                    \
+        ((BIAS) ? !grove::tcb::tables16(a) || a.gh < 1 || a.gw < 1 ||         \
+                      a.gh + a.gw > grove::tcb::kSel ||                       \
+                      a.S != a.gh * a.gw || a.causal                          \
+                : a.rh != nullptr))                                           \
       return (int)cudaErrorInvalidValue;                                      \
-    const dim3 grid = grove::tcb::grid_of(a);                                 \
-    const size_t bytes = grove::tcb::dq_bytes(d, a.gh, a.gw);                 \
-    if (d == 64)                                                              \
-      return grove::tcb::launch(NAME##_tc_kernel<64>, grid, bytes, a, st);    \
-    if (d == 80)                                                              \
-      return grove::tcb::launch(NAME##_tc_kernel<80>, grid, bytes, a, st);    \
-    if (d == 128)                                                             \
-      return grove::tcb::launch(NAME##_tc_kernel<128>, grid, bytes, a, st);   \
+    if (d == 64) return NAME##_tc_launch<64>(a, st);                          \
+    if (d == 80) return NAME##_tc_launch<80>(a, st);                          \
+    if (d == 128) return NAME##_tc_launch<128>(a, st);                        \
     return (int)cudaErrorInvalidValue;                                        \
   }

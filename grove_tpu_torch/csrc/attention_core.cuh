@@ -1,5 +1,5 @@
 // Shared body of the hand-written attention forward kernels of
-// grove_tpu_torch (K1-K5, K9's forward, K10).
+// grove_tpu_torch (K1-K5, K9's forward, K10-K13).
 //
 // One thread block owns kBQ = kWarps * kRows query rows of one
 // (batch, head) pair and streams the keys of that pair through shared memory
@@ -82,6 +82,37 @@ struct AttnArgs {
   int causal;
   int zero_underflow; // rows with max logit < kExp2Shift - 126 (log2) -> 0
 };
+
+// The arguments of an entry over a full gh x gw grid with the decomposed
+// rel-pos bias and no mask (K2, K11, K13): q, k, v and out (B, S, H, D), or
+// raw (B, S, H * D), which has the same strides; the term tables rel_h
+// (B, H, S, gh) and rel_w (B, H, S, gw).
+inline AttnArgs grid_args(const void* q, const void* k, const void* v,
+                          const void* rel_h, const void* rel_w, void* out,
+                          int b, int s, int heads, int head_dim, int gh,
+                          int gw, float scale) {
+  const long long hd = (long long)heads * head_dim;
+  AttnArgs a{};
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.o = out;
+  a.rh = rel_h;
+  a.rw = rel_w;
+  a.qs = {s * hd, hd, head_dim};
+  a.ks = a.qs;
+  a.vs = a.qs;
+  a.os = a.qs;
+  a.rhs = {(long long)heads * s * gh, gh, (long long)s * gh};
+  a.rws = {(long long)heads * s * gw, gw, (long long)s * gw};
+  a.B = b;
+  a.H = heads;
+  a.S = s;
+  a.gh = gh;
+  a.gw = gw;
+  a.scale = scale;
+  return a;
+}
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {

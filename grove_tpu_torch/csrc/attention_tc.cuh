@@ -1,7 +1,7 @@
 // Tensor-core forward body of the hand-written attention kernels of
 // grove_tpu_torch, beside the SIMT body of attention_core.cuh.
 //
-// It serves seven TPU kernels, for bf16 inputs at head dims 64, 80 and 128:
+// It serves eight TPU kernels, for bf16 inputs at head dims 64, 80 and 128:
 //   * K10, grove_tpu/ops/attention.py:66 `_flash_kernel` (flash_attention.cu,
 //     `grove_flash_attention_tc`): causal or not, Sq and Sk ragged;
 //   * K3, grove_tpu/ops/attention.py:350 `_grouped_plain_kernel`
@@ -24,10 +24,14 @@
 //   * K5, grove_tpu/ops/attention.py:197 `_prefill_kernel`
 //     (prefill_attention.cu, `grove_prefill_attention_tc`): causal
 //     self-attention in the raw (B, S, H D) projection layout with a
-//     per-batch left pad (LLaMA's int8-cache prefill).
-// fp32 inputs and the head dim 8 keep the SIMT body, and so do K11-K13 (no
-// model path). The backward of K9 has its own tensor-core body
-// (attention_bwd_tc.cuh).
+//     per-batch left pad (LLaMA's int8-cache prefill);
+//   * K11, grove_tpu/ops/sam_attention.py:54 `_kernel`
+//     (streamed_relpos_attention.cu, `grove_relpos_flash_attention_tc`):
+//     K2's function and contract, the streamed form that no model path
+//     runs.
+// fp32 inputs and the head dim 8 keep the SIMT body, and so do K12 and K13
+// (no model path). The backwards of K4 and K9 have their own tensor-core
+// body (attention_bwd_tc.cuh).
 //
 // Contract, the part of AttnArgs that these entries use:
 //   * q, k, v and out in the (B, S, H, D) layout with element strides, bf16,

@@ -17,9 +17,9 @@
 // package computes it in XLA, flash_backward.py:247). Any S is taken.
 //
 // The S x S probabilities are recomputed per tile from the LSE and never
-// reach device memory. dkv has two entries, chosen by the wrapper
-// (ops/flash_backward.py through ops/attention.py `_tc_takes`, by dtype and
-// head dim only):
+// reach device memory. dq and dkv have two entries each, chosen by the
+// wrapper (ops/flash_backward.py through ops/attention.py `_tc_takes`, by
+// dtype and head dim only):
 //   * `grove_flash_backward_dkv_tc` runs bf16 at head dims 64, 80 and 128
 //     on the tensor-core backward body (attention_bwd_tc.cuh,
 //     `dkv_block_tc` without the bias, causal or not): a block owns 128 keys
@@ -30,17 +30,26 @@
 //     (34.6 MB) and LSE and D once, 0.0104 ms at 3.35 TB/s (its 4 matmuls
 //     over the 248,160 causal pairs, 8.1 GFLOP, take 0.0082 ms at 989
 //     TFLOP/s bf16);
-//   * `grove_flash_backward_dkv` runs fp32 and the head dim 8 on the SIMT
-//     body (attention_bwd_core.cuh).
-// dq runs the SIMT body at every dtype (fp32 FMA issue and shared-memory
-// reads, see attention_bwd_core.cuh); it comes to the tensor-core dq body
-// next.
+//   * `grove_flash_backward_dq_tc` runs the same cases on the same body
+//     (`dq_block_tc` without the bias, causal or not): a block owns 128
+//     query rows and streams the key tiles up to the one that holds its
+//     last row, heaviest block first; S = Q.K^T and dP = dO.V^T on wgmma
+//     from shared memory, dS rounded to bf16 as the register A operand of
+//     dq += dS.K, where the TPU kernel keeps it in fp32 (the same recorded
+//     difference). Bound on the H100 at (1, 704, 32, 128) causal: bytes,
+//     q, k, v, dO and dq (28.8 MB) and LSE and D once, 0.0087 ms at 3.35
+//     TB/s (its 3 matmuls over the causal pairs, 6.1 GFLOP, take 0.0062
+//     ms);
+//   * `grove_flash_backward_dq` and `grove_flash_backward_dkv` run fp32
+//     and the head dim 8 on the SIMT body (attention_bwd_core.cuh: fp32 FMA
+//     issue and shared-memory reads, far from either bound).
 
 #include "attention_bwd_core.cuh"
 #include "attention_bwd_tc.cuh"
 
 GROVE_BWD_ENTRY(flash_backward_dq, dq)
 GROVE_BWD_ENTRY(flash_backward_dkv, dkv)
+GROVE_DQ_TC_ENTRY(flash_backward_dq, false)
 GROVE_DKV_TC_ENTRY(flash_backward_dkv, false)
 
 namespace {
@@ -102,6 +111,20 @@ extern "C" int grove_flash_backward_dkv(const void* q, const void* k,
 
 // The tensor-core backward body (attention_bwd_tc.cuh): bf16, head dims 64,
 // 80, 128.
+extern "C" int grove_flash_backward_dq_tc(const void* q, const void* k,
+                                          const void* v, const void* g,
+                                          const float* lse, const float* dcap,
+                                          void* dq, int b, int s, int heads,
+                                          int head_dim, int causal,
+                                          float scale, int dtype,
+                                          void* stream) {
+  grove::BwdArgs a = causal_args(q, k, v, g, lse, dcap, b, s, heads,
+                                 head_dim, causal, scale);
+  a.dq = dq;
+  return flash_backward_dq_tc_dispatch(a, dtype, head_dim,
+                                       static_cast<cudaStream_t>(stream));
+}
+
 extern "C" int grove_flash_backward_dkv_tc(const void* q, const void* k,
                                            const void* v, const void* g,
                                            const float* lse,

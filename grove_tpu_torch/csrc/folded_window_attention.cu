@@ -37,44 +37,13 @@
 
 GROVE_ATTENTION_ENTRY(folded_window_attention)
 
-namespace {
-
-grove::AttnArgs folded_args(const void* q, const void* k, const void* v,
-                            const void* rel_h, const void* rel_w, void* out,
-                            int b, int s, int heads, int head_dim, int gh,
-                            int gw, float scale) {
-  const long long hd = (long long)heads * head_dim;
-  grove::AttnArgs a{};
-  a.q = q;
-  a.k = k;
-  a.v = v;
-  a.o = out;
-  a.rh = rel_h;
-  a.rw = rel_w;
-  // (B, S, H, D) and (B, S, H * D) have the same strides
-  a.qs = {s * hd, hd, head_dim};
-  a.ks = a.qs;
-  a.vs = a.qs;
-  a.os = a.qs;
-  a.rhs = {(long long)heads * s * gh, gh, (long long)s * gh};
-  a.rws = {(long long)heads * s * gw, gw, (long long)s * gw};
-  a.B = b;
-  a.H = heads;
-  a.S = s;
-  a.gh = gh;
-  a.gw = gw;
-  a.scale = scale;
-  return a;
-}
-
-}  // namespace
-
 extern "C" int grove_folded_window_attention(
     const void* q, const void* k, const void* v, const void* rel_h,
     const void* rel_w, void* out, int b, int s, int heads, int head_dim,
     int gh, int gw, float scale, int dtype, void* stream) {
-  const grove::AttnArgs a = folded_args(q, k, v, rel_h, rel_w, out, b, s,
-                                        heads, head_dim, gh, gw, scale);
+  const grove::AttnArgs a = grove::grid_args(q, k, v, rel_h, rel_w, out, b,
+                                             s, heads, head_dim, gh, gw,
+                                             scale);
   return folded_window_attention_dispatch(a, dtype, head_dim,
                                           static_cast<cudaStream_t>(stream));
 }
@@ -83,8 +52,9 @@ extern "C" int grove_folded_window_attention_v2(
     const void* q, const void* k, const void* v, const void* rel_h,
     const void* rel_w, void* out, int b, int s, int heads, int head_dim,
     int gh, int gw, float scale, int dtype, void* stream) {
-  const grove::AttnArgs a = folded_args(q, k, v, rel_h, rel_w, out, b, s,
-                                        heads, head_dim, gh, gw, scale);
+  const grove::AttnArgs a = grove::grid_args(q, k, v, rel_h, rel_w, out, b,
+                                             s, heads, head_dim, gh, gw,
+                                             scale);
   return folded_window_attention_dispatch(a, dtype, head_dim,
                                           static_cast<cudaStream_t>(stream));
 }

@@ -80,7 +80,7 @@
 GROVE_ATTENTION_ENTRY(relpos_flash_fwd_lse)
 GROVE_ATTENTION_TC_ENTRY(relpos_flash_fwd_lse, true, false)
 GROVE_BWD_ENTRY(relpos_flash_dq, dq)
-GROVE_DQ_TC_ENTRY(relpos_flash_dq)
+GROVE_DQ_TC_ENTRY(relpos_flash_dq, true)
 GROVE_BWD_ENTRY(relpos_flash_dkv, dkv)
 GROVE_DKV_TC_ENTRY(relpos_flash_dkv, true)
 

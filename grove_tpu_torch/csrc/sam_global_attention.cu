@@ -41,36 +41,6 @@
 GROVE_ATTENTION_ENTRY(sam_global_attention)
 GROVE_ATTENTION_TC_ENTRY(sam_global_attention, true, false)
 
-static grove::AttnArgs global_args(const void* q, const void* k,
-                                   const void* v, const void* rel_h,
-                                   const void* rel_w, void* out, int b,
-                                   int s, int heads, int head_dim, int gh,
-                                   int gw, float scale) {
-  const long long hd = (long long)heads * head_dim;
-  grove::AttnArgs a{};
-  a.q = q;
-  a.k = k;
-  a.v = v;
-  a.o = out;
-  a.lse = nullptr;
-  a.rh = rel_h;
-  a.rw = rel_w;
-  a.qs = {s * hd, hd, head_dim};
-  a.ks = a.qs;
-  a.vs = a.qs;
-  a.os = a.qs;
-  a.rhs = {(long long)heads * s * gh, gh, (long long)s * gh};
-  a.rws = {(long long)heads * s * gw, gw, (long long)s * gw};
-  a.B = b;
-  a.H = heads;
-  a.S = s;
-  a.gh = gh;
-  a.gw = gw;
-  a.scale = scale;
-  a.causal = 0;
-  return a;
-}
-
 // The SIMT body: fp32 or bf16, head dims 8, 64, 80, 128.
 extern "C" int grove_sam_global_attention(const void* q, const void* k,
                                           const void* v, const void* rel_h,
@@ -79,8 +49,8 @@ extern "C" int grove_sam_global_attention(const void* q, const void* k,
                                           int gh, int gw, float scale,
                                           int dtype, void* stream) {
   return sam_global_attention_dispatch(
-      global_args(q, k, v, rel_h, rel_w, out, b, s, heads, head_dim, gh, gw,
-                  scale),
+      grove::grid_args(q, k, v, rel_h, rel_w, out, b, s, heads, head_dim, gh,
+                       gw, scale),
       dtype, head_dim, static_cast<cudaStream_t>(stream));
 }
 
@@ -90,7 +60,7 @@ extern "C" int grove_sam_global_attention_tc(
     const void* rel_w, void* out, int b, int s, int heads, int head_dim,
     int gh, int gw, float scale, int dtype, void* stream) {
   return sam_global_attention_tc_dispatch(
-      global_args(q, k, v, rel_h, rel_w, out, b, s, heads, head_dim, gh, gw,
-                  scale),
+      grove::grid_args(q, k, v, rel_h, rel_w, out, b, s, heads, head_dim, gh,
+                       gw, scale),
       dtype, head_dim, static_cast<cudaStream_t>(stream));
 }

@@ -6,11 +6,11 @@ Counterpart of `grove_tpu/ops/flash_backward.py`:
 * `flash_forward_lse` is K4 (`_fwd_kernel`), out and LSE, on the
   tensor-core body for bf16 at D 64, 80, 128 and the SIMT body otherwise;
 * `flash_backward_dq` / `flash_backward_dkv` are K4b (`_dq_kernel`,
-  `_dkv_kernel`), dkv on the tensor-core backward body for bf16 at D 64,
-  80, 128 (`flash_backward_dkv_tc_torch` is its arithmetic, P and dS
-  rounded to bf16 where the TPU kernel keeps them in fp32) and the SIMT
-  body otherwise, dq on the SIMT body; `flash_backward` computes D =
-  rowsum(dO * O) in torch ops (XLA in the JAX package,
+  `_dkv_kernel`), both on the tensor-core backward body for bf16 at D 64,
+  80, 128 (`flash_backward_dq_tc_torch` and `flash_backward_dkv_tc_torch`
+  are its arithmetic, dS and P rounded to bf16 where the TPU kernel keeps
+  them in fp32) and on the SIMT body otherwise; `flash_backward` computes
+  D = rowsum(dO * O) in torch ops (XLA in the JAX package,
   `flash_backward.py:247`) and runs both;
 * `flash_attention_trainable` is the `jax.custom_vjp` of the JAX package
   as a `torch.autograd.Function`: forward K4, saving q, k, v, out and the
@@ -178,6 +178,21 @@ def flash_backward_dkv_tc_torch(q, k, v, g, lse, dcap, *, causal: bool,
             dv.permute(0, 2, 1, 3).to(v.dtype))
 
 
+def flash_backward_dq_tc_torch(q, k, v, g, lse, dcap, *, causal: bool,
+                               scale: float):
+    """The tensor-core dq body's arithmetic without the bias
+    (`csrc/attention_bwd_tc.cuh`, K4b's `_tc` entry) in torch ops: dS from
+    `tc_probs`, rounded to bf16 (wgmma's operand; the TPU K4b keeps it in
+    fp32, `flash_backward.py:103-133`) before the fp32 product dq = dS.K,
+    times scale; in q's dtype. No path of the port calls it: the plain
+    version the card holds the `_tc` entry to."""
+    _, kf, _, _, ds = tc_probs(q, k, v, g, lse, dcap, scale, causal=causal)
+    f32 = torch.float32
+    dq = ((ds.to(torch.bfloat16).to(f32) @ kf)
+          * torch.tensor(scale, dtype=f32))
+    return dq.permute(0, 2, 1, 3).to(q.dtype)
+
+
 def _check_bwd(name, q, k, v, g, lse, dcap):
     b, s, h, d = q.shape
     if any(t.shape != q.shape for t in (k, v, g)):
@@ -200,17 +215,28 @@ def _cuda_stats(name, q, k, v, g, lse, dcap):
 
 def flash_backward_dq(q, k, v, g, lse, dcap, *, causal: bool, scale: float):
     """K4b dq: (B, S, H, D) in q's dtype. CPU tensors take
-    `flash_backward_dq_torch`; CUDA tensors launch `csrc/flash_backward.cu`
-    (`grove_flash_backward_dq`)."""
+    `flash_backward_dq_torch`; CUDA tensors launch `csrc/flash_backward.cu`:
+    `grove_flash_backward_dq_tc` (the tensor-core backward body) where
+    `ops.attention._tc_takes` holds (bf16 at D 64, 80, 128: every bf16
+    training step) and `grove_flash_backward_dq` (the SIMT body)
+    otherwise."""
     _check_bwd("flash_backward_dq", q, k, v, g, lse, dcap)
     if _kernels.on_cpu(q, k, v, g, lse, dcap):
         return flash_backward_dq_torch(q, k, v, g, lse, dcap, causal=causal,
                                        scale=scale)
+    name = ("flash_backward_dq_tc" if _tc_takes(q.dtype, q.shape[-1])
+            else "flash_backward_dq")
+    return _dq_launch(name, q, k, v, g, lse, dcap, causal, scale)
+
+
+def _dq_launch(name: str, q, k, v, g, lse, dcap, causal: bool,
+               scale: float):
+    """Launch the K4b dq entry `name` on CUDA tensors."""
     b, s, h, d = q.shape
-    dt = _cuda_stats("flash_backward_dq", q, k, v, g, lse, dcap)
+    dt = _cuda_stats(name, q, k, v, g, lse, dcap)
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
-        _kernels.KERNELS["flash_backward_dq"](
+        _kernels.KERNELS[name](
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             lse.data_ptr(), dcap.data_ptr(), dq.data_ptr(), b, s, h, d,
             int(bool(causal)), float(scale), dt, _kernels.stream_ptr(q))

@@ -113,7 +113,7 @@ def _check_grid(name: str, q, k, v, rel_h_term, rel_w_term,
 
 def _launch_grid(kernel: str, name: str, q, k, v, rel_h_term, rel_w_term,
                  hw: Tuple[int, int], heads: int, head_dim: int):
-    """Launch a grid entry of the shared body (K2, K11, K13): q/k/v and out
+    """Launch a grid entry of K2, K11 or K13, on either body: q/k/v and out
     with rows of H*D (head h at lane offset h*D), (B, H, S, g) terms."""
     gh, gw = hw
     b, s = q.shape[:2]
@@ -587,7 +587,9 @@ def flash_attention_relpos(q, k, v, rel_h_term, rel_w_term,
     and block_k must be a multiple of gw (JAX asserts it, `:120`; here a
     ValueError), and they do not change the result. Its plain version is
     K2's (the same function). CUDA tensors launch
-    `csrc/streamed_relpos_attention.cu`."""
+    `csrc/streamed_relpos_attention.cu`: its tensor-core entry (K2's body)
+    where `ops.attention._tc_takes` holds (bf16 at D 64, 80, 128) and its
+    SIMT entry otherwise."""
     name = "flash_attention_relpos"
     _, s, h, d = q.shape
     gw = hw[1]
@@ -599,8 +601,10 @@ def flash_attention_relpos(q, k, v, rel_h_term, rel_w_term,
     if _kernels.on_cpu(q, k, v, rel_h_term, rel_w_term):
         return grouped_window_attention_relpos_torch(q, k, v, rel_h_term,
                                                      rel_w_term, hw)
-    return _launch_grid("flash_attention_relpos", name, q, k, v, rel_h_term,
-                        rel_w_term, hw, h, d)
+    kernel = ("flash_attention_relpos_tc" if _tc_takes(q.dtype, d)
+              else "flash_attention_relpos")
+    return _launch_grid(kernel, name, q, k, v, rel_h_term, rel_w_term, hw,
+                        h, d)
 
 
 def _fused_relpos_attention(q, k, v, rel_pos_h, rel_pos_w,

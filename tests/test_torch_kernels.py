@@ -220,11 +220,12 @@ def test_launch_counts_untouched_by_plain_path():
     assert all(k.launches == 0 for k in _kernels.KERNELS.values())
     assert {k.source.split("/")[-1] for k in _kernels.KERNELS.values()} == {
         p.name for p in _kernels.sources() if p.name != "errors.cu"}
-    # K1, K1q, K2, K3, K4, K4b's dkv, K5, K9's forward, dq and dkv and K10
-    # each have a tensor-core entry beside the SIMT one: the same source
-    # file, TPU kernel and arguments, the symbol `_tc`
+    # K1, K1q, K2, K3, K4, K4b's dq and dkv, K5, K9's forward, dq and dkv,
+    # K10 and K11 each have a tensor-core entry beside the SIMT one: the
+    # same source file, TPU kernel and arguments, the symbol `_tc`
     tc = {n: k for n, k in _kernels.KERNELS.items() if n.endswith("_tc")}
-    assert sorted(tc) == ["flash_attention_tc", "flash_backward_dkv_tc",
+    assert sorted(tc) == ["flash_attention_relpos_tc", "flash_attention_tc",
+                          "flash_backward_dkv_tc", "flash_backward_dq_tc",
                           "flash_forward_lse_tc",
                           "grouped_plain_attention_tc",
                           "prefill_attention_tc",

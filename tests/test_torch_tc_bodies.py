@@ -1,5 +1,5 @@
-"""K5 on the tensor-core forward body, and K9's dq and dkv and K4b's dkv
-on the tensor-core backward body, on the CPU, small sizes.
+"""K5 and K11 on the tensor-core forward body, and K9's and K4b's dq and
+dkv on the tensor-core backward body, on the CPU, small sizes.
 
 * The routes: a CUDA call of K5 (`prefill_attention_raw`, and through it
   `prefill_attention_trainable`), of K9's dq and dkv (`relpos_flash_dq`,
@@ -39,6 +39,21 @@ on the tensor-core backward body, on the CPU, small sizes.
   them) lies beyond K4B_EXCESS, the recorded difference, and within
   FULL_TOL after the bf16 output rounding, each key's row within ROW_TOL
   of its own max-abs.
+* K4b's dq: the same for `flash_backward_dq_tc_torch` (dS in bf16 before
+  dS.K, where the TPU K4b keeps fp32) against the JAX `flash_backward`'s
+  dq, each query's row within ROW_TOL of its own max-abs; a causal dq's
+  first row is zero in exact arithmetic (dS_00 = P_00 (dP_00 - D_0) = 0),
+  so there both carry only rounding noise, held below ZERO_ROW of the
+  output's max-abs.
+* K11: the forward body's arithmetic with the rel-pos bias
+  (`tc_attention_torch(bias=)`, K2's) against the JAX
+  `flash_attention_relpos` (Pallas, interpret mode) on bf16 arrays at a
+  14 x 14 and a 4 x 8 grid, within K11_TOL of max-abs; both round P to
+  bf16 before P.V, so fewer of its bf16 outputs differ from the Pallas
+  ones than of the fp32 twin's (P in fp32), and where the Pallas key block
+  is the body's one 64-key tile (4 x 8) all but SAME_TILE_SHARE of them
+  are equal.
+* The routes of K4b's dq and of K11 by dtype and head dim, as above.
 """
 
 import functools
@@ -54,9 +69,11 @@ import jax.numpy as jnp  # noqa: E402
 
 from grove_tpu.ops import attention as jattn  # noqa: E402
 from grove_tpu.ops import flash_backward as jflash  # noqa: E402
+from grove_tpu.ops import sam_attention as jsam  # noqa: E402
 from grove_tpu.ops import sam_attention_bwd as jrel  # noqa: E402
 from grove_tpu_torch.ops import attention as tattn  # noqa: E402
 from grove_tpu_torch.ops import flash_backward as tflash  # noqa: E402
+from grove_tpu_torch.ops import sam_attention as tsam  # noqa: E402
 from grove_tpu_torch.ops import sam_attention_bwd as trel  # noqa: E402
 
 FULL_TOL = 2e-2          # chip_smoke.py's bf16 limit, of the output's max-abs
@@ -64,7 +81,11 @@ ROW_TOL = 1e-2           # chip_smoke.py's row limit, of each row's max-abs
 K5_TOL = 2e-3            # K5's model vs the Pallas K5 in bf16, of max-abs
 DKV_EXCESS = 5e-4        # K9 dkv's model beyond half a bf16 ULP, of max-abs
 DQ_EXCESS = 5e-4         # K9 dq's model, the same
-K4B_EXCESS = 5e-4        # K4b dkv's SIMT twin, the same
+K4B_EXCESS = 5e-4        # K4b dkv's and dq's SIMT twins, the same
+ZERO_ROW = 1e-5          # a row zero in exact arithmetic, of max-abs
+K11_TOL = 2.0 ** -7      # K11's model vs the Pallas K11 in bf16, of max-abs:
+                         # one bf16 ULP at the max-abs, P rounded at other maxima
+SAME_TILE_SHARE = 1e-2   # K11's bf16 outputs off the Pallas ones, one tile
 
 
 def _bf16(rng, *shape):
@@ -270,19 +291,14 @@ def test_tc_model_k9_dq_matches_pallas(grid, d):
         assert _excess(y, w) > DQ_EXCESS
 
 
-@pytest.mark.parametrize("causal,d", [(True, 64), (True, 128),
-                                      (False, 80), (False, 128)])
-def test_tc_model_k4b_dkv_against_pallas(causal, d):
-    """K4b's dkv at S = 100 (a ragged last 64-row tile) on bf16 arrays: the
-    JAX `flash_backward`'s dk and dv (Pallas, interpret mode, P and dS in
-    fp32) == the SIMT twin within half a bf16 ULP plus K4B_EXCESS of
-    max-abs; the tensor-core model (P and dS to bf16 before the products)
-    lies further off than K4B_EXCESS, and within FULL_TOL once its outputs
-    are rounded to bf16, each key's row also within ROW_TOL of its own
-    max-abs (a late key sees few queries, so its row is small beside key
-    0's, which sets the max-abs)."""
+def _k4b_case(causal, d, seed):
+    """bf16 inputs of K4b's backward at S = 100 (a ragged last 64-row
+    tile), the JAX `flash_backward` on them (Pallas, interpret mode, P and
+    dS in fp32), and the arguments of the port's twins as fp32 tensors
+    holding the same bf16 values, with the forward's LSE and D from its
+    bf16 out. Returns (args, (dq, dk, dv) of JAX as numpy)."""
     b, s, h = 1, 100, 2
-    rng = np.random.default_rng(40 + d + causal)
+    rng = np.random.default_rng(seed)
     q, k, v, g = (_bf16(rng, b, s, h, d) for _ in range(4))
     scale = 1.0 / math.sqrt(d)
     jx = [_jax(t) for t in (q, k, v, g)]
@@ -294,12 +310,27 @@ def test_tc_model_k4b_dkv_against_pallas(causal, d):
     lse = torch.from_numpy(np.asarray(jlse)).reshape(b, h, s)
     dcap = tflash.row_dot(out, g.float())
     args = (q.float(), k.float(), v.float(), g.float(), lse, dcap)
-    kw = dict(causal=causal, scale=scale)
+    return args, tuple(_np(w) for w in want)
+
+
+@pytest.mark.parametrize("causal,d", [(True, 64), (True, 128),
+                                      (False, 80), (False, 128)])
+def test_tc_model_k4b_dkv_against_pallas(causal, d):
+    """K4b's dkv at S = 100 (a ragged last 64-row tile) on bf16 arrays: the
+    JAX `flash_backward`'s dk and dv (Pallas, interpret mode, P and dS in
+    fp32) == the SIMT twin within half a bf16 ULP plus K4B_EXCESS of
+    max-abs; the tensor-core model (P and dS to bf16 before the products)
+    lies further off than K4B_EXCESS, and within FULL_TOL once its outputs
+    are rounded to bf16, each key's row also within ROW_TOL of its own
+    max-abs (a late key sees few queries, so its row is small beside key
+    0's, which sets the max-abs)."""
+    args, want = _k4b_case(causal, d, seed=40 + d + causal)
+    kw = dict(causal=causal, scale=1.0 / math.sqrt(d))
     tc = tflash.flash_backward_dkv_tc_torch(*args, **kw)
     simt = tflash.flash_backward_dkv_torch(*args, **kw)
     as_bf16 = tflash.flash_backward_dkv_tc_torch(
         *(t.to(torch.bfloat16) for t in args[:4]), *args[4:], **kw)
-    for x, y, z, w in zip(tc, simt, as_bf16, (_np(want[1]), _np(want[2]))):
+    for x, y, z, w in zip(tc, simt, as_bf16, want[1:]):
         assert _excess(y, w) <= K4B_EXCESS
         assert _excess(x, w) > K4B_EXCESS
         assert z.dtype == torch.bfloat16 and _rel(z.float(), w) <= FULL_TOL
@@ -350,3 +381,94 @@ def test_k9_dq_routes_by_term_table_alignment(monkeypatch, grid, tc):
     stat = torch.zeros(1, 2, s)
     trel.relpos_flash_dq(x, x, x, rel, rel, x, stat, stat, (grid, grid), 1.0)
     assert launched == ["relpos_flash_dq" + ("_tc" if tc else "")]
+
+
+@pytest.mark.parametrize("causal,d", [(True, 64), (True, 128),
+                                      (False, 64), (False, 128)])
+def test_tc_model_k4b_dq_against_pallas(causal, d):
+    """K4b's dq at S = 100 on bf16 arrays: the JAX `flash_backward`'s dq
+    (Pallas, interpret mode, dS in fp32) == the SIMT twin within half a
+    bf16 ULP plus K4B_EXCESS of max-abs; the tensor-core model (dS to bf16
+    before dS.K) lies further off than K4B_EXCESS, and within FULL_TOL
+    once its output is rounded to bf16, each query's row within ROW_TOL of
+    its own max-abs. A row whose Pallas max-abs lies below ZERO_ROW of the
+    output's (causal: row 0, where dS_00 = P_00 (dP_00 - D_0) is zero in
+    exact arithmetic) carries only rounding noise in both and is held below
+    ZERO_ROW of the output's max-abs instead."""
+    args, want = _k4b_case(causal, d, seed=50 + d + causal)
+    want = want[0]
+    kw = dict(causal=causal, scale=1.0 / math.sqrt(d))
+    tc = tflash.flash_backward_dq_tc_torch(*args, **kw)
+    simt = tflash.flash_backward_dq_torch(*args, **kw)
+    as_bf16 = tflash.flash_backward_dq_tc_torch(
+        *(t.to(torch.bfloat16) for t in args[:4]), *args[4:], **kw)
+    assert _excess(simt, want) <= K4B_EXCESS
+    assert _excess(tc, want) > K4B_EXCESS
+    got = as_bf16.float()
+    assert as_bf16.dtype == torch.bfloat16 and _rel(got, want) <= FULL_TOL
+    w = torch.from_numpy(want)
+    floor = ZERO_ROW * float(w.abs().max())
+    zero = w.abs().amax(-1) < floor
+    assert bool(zero[:, 0].all()) == causal and int(zero.sum()) == (
+        2 if causal else 0)
+    assert bool((got[zero].abs() < floor).all())
+    assert _row_share(got[~zero], w[~zero]) <= ROW_TOL
+
+
+@pytest.mark.parametrize("grid,d", [((14, 14), 80), ((14, 14), 128),
+                                    ((4, 8), 64), ((4, 8), 80)])
+def test_tc_model_k11_matches_pallas(grid, d):
+    """K11 on the tensor-core forward body: its model (K2's arithmetic,
+    `tc_attention_torch(bias=)`) == the JAX `flash_attention_relpos`
+    (Pallas, interpret mode, its default blocks) on the same bf16 arrays
+    within K11_TOL of max-abs after the bf16 output rounding; both round P
+    to bf16 before P.V, so fewer of the model's bf16 outputs differ from
+    the Pallas ones than of the fp32 twin's (on 14 x 14 the Pallas kernel
+    takes all 196 keys as one block and the body 64-key tiles, so P is
+    rounded at other maxima); on 4 x 8 (S = 32, one key tile on both
+    sides) at most SAME_TILE_SHARE of them."""
+    (gh, gw), b, h = grid, 2, 2
+    s = gh * gw
+    rng = np.random.default_rng(60 + s + d)
+    q, k, v = (_bf16(rng, b, s, h, d) for _ in range(3))
+    rh, rw = _bf16(rng, b, h, s, gh), _bf16(rng, b, h, s, gw)
+    want = torch.from_numpy(_np(jsam.flash_attention_relpos(
+        *(_jax(t) for t in (q, k, v, rh, rw)), grid)))
+    got = tattn.tc_attention_torch(q, k, v, scale=d ** -0.5,
+                                   bias=(rh, rw, gw)).to(torch.bfloat16)
+    plain = tsam.grouped_window_attention_relpos_torch(
+        *(t.float() for t in (q, k, v, rh, rw)), grid).to(torch.bfloat16)
+    assert _rel(got.float(), want) <= K11_TOL
+    share, share32 = ((x.float() != want).float().mean().item()
+                      for x in (got, plain))
+    assert share < share32
+    if s <= 64:
+        assert share <= SAME_TILE_SHARE < share32
+
+
+@pytest.mark.parametrize("dtype,head_dim,tc", [
+    (torch.bfloat16, 64, True), (torch.bfloat16, 80, True),
+    (torch.bfloat16, 128, True), (torch.float32, 64, False),
+    (torch.float32, 128, False), (torch.bfloat16, 8, False)])
+def test_k4b_dq_and_k11_route_by_dtype_and_head_dim(monkeypatch, dtype,
+                                                    head_dim, tc):
+    """bf16 at head dim 64, 80 or 128 launches the `_tc` entries of K4b's
+    dq (causal and not) and of K11; fp32 and the head dim 8 their SIMT
+    entries. The wrappers are driven past `on_cpu` with the launches
+    recorded by name."""
+    launched = []
+    monkeypatch.setattr(tattn._kernels, "on_cpu", lambda *t: False)
+    monkeypatch.setattr(tflash, "_dq_launch",
+                        lambda name, *a: launched.append(name))
+    monkeypatch.setattr(tsam, "_launch_grid",
+                        lambda name, *a: launched.append(name))
+    x = torch.zeros(1, 64, 2, head_dim, dtype=dtype)
+    rel = torch.zeros(1, 2, 64, 8, dtype=dtype)
+    stat = torch.zeros(1, 2, 64)
+    for causal in (True, False):
+        tflash.flash_backward_dq(x, x, x, x, stat, stat, causal=causal,
+                                 scale=1.0)
+    tsam.flash_attention_relpos(x, x, x, rel, rel, (8, 8))
+    suffix = "_tc" if tc else ""
+    assert launched == [n + suffix for n in (
+        "flash_backward_dq", "flash_backward_dq", "flash_attention_relpos")]
