@@ -42,7 +42,8 @@ Phases, each printing its own line; any failure exits non-zero:
      and K10, the time of the one PyTorch call that computes the same
      function (`F.scaled_dot_product_attention`, rel-pos terms and pads as a
      mask), which the port never calls. K1, K1q, K2, K3, K4, K4b (dq,
-     dkv), K5, K9 (forward, dq, dkv), K10 and K11 have two entries each:
+     dkv), K5, K9 (forward, dq, dkv), K10, K11, K12 and K13 v2 have two
+     entries each:
      the tensor-core one (`_tc`, attention_tc.cuh; for K9's and K4b's dq
      and dkv attention_bwd_tc.cuh), which
      the wrappers take for bf16 at head dim 64, 80 or 128, held through the
@@ -65,11 +66,14 @@ Phases, each printing its own line; any failure exits non-zero:
      K10: also
      causal Sq < Sk and Sq > Sk and cross lengths; K4: S of 1, 63, 65, 129
      and 704, causal and not, its LSE within 1e-4; K2 and K11: grids of 2
-     x 2, 4 x 4, 12 x 12, 14 x 14 and 32 x 32, K11 (no model path) at full
-     width against K2's body's arithmetic and within 2e-2 of the fp32
-     twin; K1, K1q and K9's forward: grids of 2 x
-     2, 4 x 4, 7 x 7, 14 x 14, 16 x 16 and 32 x 32, K1q in LSBs, K9's LSE
-     within 1e-4; every head dim; B.H > 1); and the SIMT one, held in fp32
+     x 2, 4 x 4, 12 x 12, 14 x 14 and 32 x 32, K11 and K13 v2 (no model
+     path; K13 v2 in the raw (B, S, H D) layout) at full width against
+     K2's body's arithmetic and within 2e-2 of the fp32 twin; K1, K1q, K12
+     (no model path, split q, k, v) and K9's forward: grids of 2 x 2,
+     4 x 4, 7 x 7, 14 x 14, 16 x 16 and 32 x 32, K1q in LSBs, K1, K1q and
+     K12 also with an all-underflow row (exact zeros), K12 at full width
+     within 2e-2 of the fp32 twin, K9's LSE within 1e-4; every head dim;
+     B.H > 1); and the SIMT one, held in fp32
      at the small cases and called directly in bf16 at full width, so that
      both bodies, SDPA and the plain twin are timed in the same call (each
      call alone between CUDA events, as every kernel is, and the two
@@ -250,7 +254,8 @@ float one, the tensor-core entries of K4b's two and K9's three from step 3
 of phase 5, K10's tensor-core entry from its bf16 S = 2111 step, the SIMT
 entries of K4b's two and K9's three from phase 6's fp32 step;
 the SIMT entries of K5 and K10, which no model path runs in fp32, and
-K11-K14 (both entries of K11), which run on no model path, show 0)
+K11-K14 (both entries of K11, K12 and K13 v2), which run on no model
+path, show 0)
 and `phase2_launches`, the launches of phase 2's checks and timings; the
 tensor-core rows also carry `simt_ms`, the SIMT entry's bf16 time at the
 same shape; the last line is {"ok": true, "device": {...}}.
@@ -339,7 +344,8 @@ FP32_STEP_SIMT = ("relpos_flash_fwd_lse", "relpos_flash_dq",
 FP32_SIMT = ("grouped_plain_attention", "flash_forward_lse",
              "sam_global_attention", "sam_window_attention_q8")
 # the tensor-core entries: phase 2 prints their registers, spills and
-# HGMMA count (nvcc -Xptxas -v, cuobjdump -sass of the built library)
+# HGMMA count (nvcc -Xptxas -v, cuobjdump -sass of the built library); K12's
+# and K13 v2's are K1's and K2's instantiations under other names
 TC_SOURCES = {"flash_attention_tc": "flash_attention.cu",
               "grouped_plain_attention_tc": "grouped_plain_attention.cu",
               "flash_forward_lse_tc": "flash_forward_lse.cu",
@@ -352,14 +358,24 @@ TC_SOURCES = {"flash_attention_tc": "flash_attention.cu",
               "relpos_flash_dq_tc": "relpos_flash_attention.cu",
               "flash_backward_dkv_tc": "flash_backward.cu",
               "flash_backward_dq_tc": "flash_backward.cu",
-              "flash_attention_relpos_tc": "streamed_relpos_attention.cu"}
+              "flash_attention_relpos_tc": "streamed_relpos_attention.cu",
+              "sam_window_attention_v2_tc": "sam_window_attention_v2.cu",
+              "folded_window_attention_v2_tc": "folded_window_attention.cu"}
+# the entry macro names a kernel and its `_smem` export after its first
+# argument, not after the extern entry: K13 v2's `_tc` entry runs the
+# instantiation named for K13's file (`folded_window_attention_tc_kernel`)
+TC_INSTANCES = {"folded_window_attention_v2_tc": "folded_window_attention_tc"}
 TRAIN_SEQ = 129          # max_seq_len: 129 + 575 spliced = 704 tokens
 # K11-K14: public ops of the JAX package that no model path runs (nor do
-# their JAX originals); held in phase 2, launched 0 times on every path
+# their JAX originals), each entry on both bodies where it has two; held in
+# phase 2, launched 0 times on every path of phases 3-6 (phase 3's
+# `_run_path`, `_check_off_path` in phases 4 and 6, `_step_launches` in
+# phase 5)
 OFF_PATH_KERNELS = ("flash_attention_relpos", "flash_attention_relpos_tc",
-                    "sam_window_attention_v2",
+                    "sam_window_attention_v2", "sam_window_attention_v2_tc",
                     "sam_window_attention_v2_q8", "folded_window_attention",
-                    "folded_window_attention_v2", "window_partition",
+                    "folded_window_attention_v2",
+                    "folded_window_attention_v2_tc", "window_partition",
                     "window_unpartition")
 # the bf16 step at S = 2111 on the route the port took before K10 (K5
 # forward, torch-ops backward): ms and peak GiB on one H100 80GB HBM3 at
@@ -798,6 +814,17 @@ def _cases(torch):
 
     def k9_dq_simt(*args):
         return sam_attention_bwd._dq_launch("relpos_flash_dq", *args)
+
+    # the SIMT entries of K12 and K13 v2, called directly, so that bf16
+    # reaches them too
+    def k12_simt(q, k, v, rel, hw, heads):
+        return sam_attention._split_launch("sam_window_attention_v2", q, k, v,
+                                           rel, hw, heads)
+
+    def k13v2_simt(q, k, v, rh, rw, hw, heads):
+        return sam_attention._launch_grid(
+            "folded_window_attention_v2", "folded_window_attention_relpos_v2",
+            q, k, v, rh, rw, hw, heads, q.shape[2] // heads)
 
     def k12_inputs(gen, dtype, shape):
         # K1's inputs (the all-underflow row included), q / k / v split
@@ -1346,12 +1373,23 @@ def _cases(torch):
             [(16, 32, 16, 80), (144, 14, 16, 80)], [], bshd_ops,
             library=k2_library, edges=k2_edges, simt=k11_simt,
             against=sam_attention.grouped_window_attention_relpos_torch),
+        # K12, its SIMT entry called directly in bf16 at full width and in
+        # fp32 as the wrapper calls it
         "sam_window_attention_v2": case(
-            sam_attention.grouped_window_attention_relpos_v2,
-            sam_attention.grouped_window_attention_relpos_v2_torch,
+            k12_simt, sam_attention.grouped_window_attention_relpos_v2_torch,
             k12_inputs, [(144, 14, 16, 80)],
             [(4, 8, 6, 64), (3, 2, 4, 8), (2, 4, 2, 64, "underflow")],
             lambda a: raw_ops(a, a[5]), library=k12_library),
+        # its tensor-core entry (K1's body), through the wrapper (bf16, D 64
+        # / 80 / 128), held to K1's body's arithmetic on split inputs and to
+        # the fp32 twin; edges as K1's, all-underflow rows included
+        "sam_window_attention_v2_tc": case(
+            sam_attention.grouped_window_attention_relpos_v2,
+            sam_attention.grouped_window_attention_relpos_v2_tc_torch,
+            k12_inputs, [(144, 14, 16, 80)], [],
+            lambda a: raw_ops(a, a[5]), library=k12_library,
+            edges=window_edges, simt=k12_simt,
+            against=sam_attention.grouped_window_attention_relpos_v2_torch),
         "sam_window_attention_v2_q8": case(
             sam_attention.grouped_window_attention_relpos_v2_q8,
             sam_attention.grouped_window_attention_relpos_v2_q8_torch,
@@ -1364,12 +1402,23 @@ def _cases(torch):
             sam_attention.grouped_window_attention_relpos_torch, k2_inputs,
             [(144, 14, 16, 80)], [(4, 8, 6, 64), (2, 4, 4, 8)], bshd_ops,
             library=k2_library),
+        # K13 v2, its SIMT entry called directly in bf16 at full width and
+        # in fp32 as the wrapper calls it
         "folded_window_attention_v2": case(
-            sam_attention.folded_window_attention_relpos_v2,
-            sam_attention.folded_window_attention_relpos_v2_torch,
+            k13v2_simt, sam_attention.folded_window_attention_relpos_v2_torch,
             k13v2_inputs, [(144, 14, 16, 80)],
             [(4, 8, 6, 64), (2, 4, 4, 8)], lambda a: raw_ops(a, a[6]),
             library=k13v2_library),
+        # its tensor-core entry (K2's body), through the wrapper (bf16, D 64
+        # / 80 / 128), held to K2's body's arithmetic on the raw layout and
+        # to the fp32 twin; edges as K2's, in the raw layout
+        "folded_window_attention_v2_tc": case(
+            sam_attention.folded_window_attention_relpos_v2,
+            sam_attention.folded_window_attention_relpos_v2_tc_torch,
+            k13v2_inputs, [(144, 14, 16, 80)], [],
+            lambda a: raw_ops(a, a[6]), library=k13v2_library,
+            edges=k2_edges, simt=k13v2_simt,
+            against=sam_attention.folded_window_attention_relpos_v2_torch),
         # the SAM grid of 16 frames, padded 32 -> 42 for 9 windows of 14;
         # small: int8, an exact divisor, pads on both axes, bf16
         "window_partition": case(
@@ -1803,7 +1852,8 @@ def _tc_compiles():
 
 def _tc_build_report(gpu, compiles):
     """For each tensor-core entry's kernels (D 64, 80 and 128; the entry
-    macros name them after the C symbol, `grove_X_tc` -> `X_tc_kernel`):
+    macros name them after the C symbol, `grove_X_tc` -> `X_tc_kernel`,
+    or as TC_INSTANCES says):
     registers,
     stack frame and spills as ptxas reports them (`_tc_compiles`), the
     dynamic shared memory its launch asks for (`_tc_smem`, from the built
@@ -1839,7 +1889,7 @@ def _tc_build_report(gpu, compiles):
         elif fn in hgmma and "HGMMA" in line:
             hgmma[fn] += 1
     for name in TC_SOURCES:
-        stem = _kernels.KERNELS[name].symbol.removeprefix("grove_")
+        stem = _tc_instance(name)
         for d in _kernels.TC_HEAD_DIMS:
             tag = f"{stem}_kernelILi{d}E"
             fns = [f for f in hgmma if tag in f]
@@ -1859,6 +1909,15 @@ def _tc_build_report(gpu, compiles):
     _stop_tc_compiles(compiles)
 
 
+def _tc_instance(name):
+    """The name of a tensor-core entry's instantiation (`X_tc` for its
+    `X_tc_kernel` and `grove_X_tc_smem`): its symbol's, unless
+    TC_INSTANCES names another."""
+    from grove_tpu_torch import _kernels
+    return TC_INSTANCES.get(
+        name, _kernels.KERNELS[name].symbol.removeprefix("grove_"))
+
+
 def _tc_smem(name, d):
     """The dynamic shared memory a tensor-core entry's launch asks for at
     head dim d, in bytes, as the library's `grove_<name>_smem` returns it
@@ -1868,7 +1927,7 @@ def _tc_smem(name, d):
     import ctypes
 
     from grove_tpu_torch import _kernels
-    fn = getattr(_kernels.load(), _kernels.KERNELS[name].symbol + "_smem")
+    fn = getattr(_kernels.load(), f"grove_{_tc_instance(name)}_smem")
     fn.argtypes = [ctypes.c_int] * 3
     fn.restype = ctypes.c_longlong
     return fn(d, 32, 32)
@@ -2496,8 +2555,8 @@ def _processor_path(torch, gpu, model, cfg, tok, decoder):
     towers' input, resized on the card) and the packed-YUV420 mode through
     `encode_video` + `encode_grounding`. Launch counts are zeroed before
     each and printed after; the tensor-core entries of K1, K2 and K3
-    must run in the first two, and no SIMT entry of K2, K3, K4 or K10 in
-    any."""
+    must run in the first two, and no SIMT entry of K2, K3, K4 or K10 nor
+    any of OFF_PATH_KERNELS in any."""
     from grove_tpu_torch import _kernels
     from grove_tpu_torch.api import GroveProcessor
     from grove_tpu_torch.data.preprocess import (preprocess_frames,
@@ -2513,6 +2572,7 @@ def _processor_path(torch, gpu, model, cfg, tok, decoder):
         if missing or any(used[k] for k in SIMT_ENTRIES):
             raise PhaseError(f"{label}: kernels never launched: {missing}, "
                              f"or a SIMT entry in bf16: {used}")
+        _check_off_path(label)
         return used
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -2922,6 +2982,7 @@ def phase_parity(torch, decoder):
     quantize_vision_(cpu)
     calibrate_vision_(cpu, clip["frames_clip"][None], clip["frames_sam"][None])
     gpu = copy.deepcopy(cpu).to("cuda")
+    _check_off_path("GroveConfig.small() fp32, float and int4 LLM")
     label = "GroveConfig.small() fp32, W8A8-static towers (quant_ln_kernel)"
     _kernels.reset_launch_counts()
     _boxes_parity(torch, clip, ap, cpu, gpu, label, W8A8_TOL)
@@ -2951,8 +3012,10 @@ def phase_parity(torch, decoder):
                        for n, g, c in zip(names, outs[2], outs[1]))
            + f" (informational); kernel launches {launches}")
     _site_parity(torch, cpu, gpu, clip, label)
+    _check_off_path(label)
     del cpu, gpu
     _w4a8_parity(torch, float_cfg, tok, clip, ap)
+    _check_off_path("GroveConfig.small() fp32, W4A8 LLM")
     launches["sam_window_attention"] = k1_fp32
     return launches
 
@@ -3460,7 +3523,8 @@ def _step_launches(cfg, s, remat):
     the first trainable adapter; K9's three tensor-core entries once in the
     backward of every SAM block after that adapter (K9's forward with LSE
     runs there, after the recomputed K1 or K2 forward); no SIMT entry of
-    K1, K1q, K2, K3, K4, K4b, K9 or K10, no K1q, K5, K7a, K7b or K7c."""
+    K1, K1q, K2, K3, K4, K4b, K9 or K10, no K1q, K5, K7a, K7b or K7c, and
+    none of OFF_PATH_KERNELS."""
     n = cfg.llama.num_layers
     route = {704: "flash_forward_lse_tc", 2111: "flash_attention_tc"}[s]
     sam_cfg = cfg.sam_enc
@@ -3469,7 +3533,7 @@ def _step_launches(cfg, s, remat):
     out = {k: 0 for k in ("flash_forward_lse_tc", "flash_backward_dq_tc",
                           "flash_backward_dkv_tc", "flash_attention_tc",
                           "sam_window_attention_q8_tc", *SIMT_ENTRIES,
-                          *QLORA_NEVER)}
+                          *QLORA_NEVER, *OFF_PATH_KERNELS)}
     out.update({k: len(after) for k in ("relpos_flash_fwd_lse_tc",
                                         "relpos_flash_dq_tc",
                                         "relpos_flash_dkv_tc")})
@@ -3481,6 +3545,17 @@ def _step_launches(cfg, s, remat):
     if route == "flash_forward_lse_tc":
         out["flash_backward_dq_tc"] = out["flash_backward_dkv_tc"] = n
     return out
+
+
+def _check_off_path(label):
+    """Raise if a kernel of OFF_PATH_KERNELS was launched since the counts
+    were last set to 0."""
+    from grove_tpu_torch import _kernels
+    off = {k: _kernels.KERNELS[k].launches for k in OFF_PATH_KERNELS
+           if _kernels.KERNELS[k].launches}
+    if off:
+        raise PhaseError(f"{label}: kernels of no model path launched: "
+                         f"{off}")
 
 
 def _check_launches(label, want):
@@ -3707,6 +3782,7 @@ def _step_parity(torch, label, cpu, card, batch, setup, cpu_context):
         if dev == "cuda":
             launches = {k: v.launches for k, v in _kernels.KERNELS.items()
                         if v.launches}
+            _check_off_path(label)
     (l_card, p_card, ms_card), (l_cpu, p_cpu, ms_cpu) = runs
     missing = [k for k in FP32_TRAIN_KERNELS if k not in launches]
     if missing:

@@ -160,10 +160,10 @@ KERNELS: Dict[str, Kernel] = {
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
         "grove_tpu_torch/csrc/sam_global_attention.cu",
         "grove_tpu/ops/sam_attention.py:235"),
-    # K1, K1q, K2, K3, K4, K5, K9's forward, K10 and K11 on the tensor-core
-    # body (attention_tc.cuh), which the wrappers take for bf16 at head dims
-    # 64, 80 and 128 (`TC_HEAD_DIMS`); fp32 and the head dim 8 take the SIMT
-    # entries
+    # K1, K1q, K2, K3, K4, K5, K9's forward, K10, K11, K12 and K13 v2 on the
+    # tensor-core body (attention_tc.cuh), which the wrappers take for bf16
+    # at head dims 64, 80 and 128 (`TC_HEAD_DIMS`); fp32 and the head dim 8
+    # take the SIMT entries
     "sam_window_attention_tc": Kernel(
         "grove_sam_window_attention_tc",
         [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
@@ -337,6 +337,13 @@ KERNELS: Dict[str, Kernel] = {
         [_P] * 5 + [_I] * 6 + [_F, _I, _P],
         "grove_tpu_torch/csrc/sam_window_attention_v2.cu",
         "grove_tpu/ops/sam_attention.py:598"),
+    # K12 on the tensor-core forward body (K1's packed-table
+    # instantiation), taken as K1's
+    "sam_window_attention_v2_tc": Kernel(
+        "grove_sam_window_attention_v2_tc",
+        [_P] * 5 + [_I] * 6 + [_F, _I, _P],
+        "grove_tpu_torch/csrc/sam_window_attention_v2.cu",
+        "grove_tpu/ops/sam_attention.py:598"),
     "sam_window_attention_v2_q8": Kernel(
         "grove_sam_window_attention_v2_q8",
         [_P] * 6 + [_I] * 6 + [_F, _I, _P],
@@ -349,6 +356,13 @@ KERNELS: Dict[str, Kernel] = {
         "grove_tpu/ops/sam_attention.py:327"),
     "folded_window_attention_v2": Kernel(
         "grove_folded_window_attention_v2",
+        [_P] * 6 + [_I] * 6 + [_F, _I, _P],
+        "grove_tpu_torch/csrc/folded_window_attention.cu",
+        "grove_tpu/ops/sam_attention.py:818"),
+    # K13 v2 on the tensor-core forward body (K2's biased instantiation),
+    # taken as K2's
+    "folded_window_attention_v2_tc": Kernel(
+        "grove_folded_window_attention_v2_tc",
         [_P] * 6 + [_I] * 6 + [_F, _I, _P],
         "grove_tpu_torch/csrc/folded_window_attention.cu",
         "grove_tpu/ops/sam_attention.py:818"),

@@ -1,7 +1,7 @@
 // Tensor-core forward body of the hand-written attention kernels of
 // grove_tpu_torch, beside the SIMT body of attention_core.cuh.
 //
-// It serves eight TPU kernels, for bf16 inputs at head dims 64, 80 and 128:
+// It serves ten TPU kernels, for bf16 inputs at head dims 64, 80 and 128:
 //   * K10, grove_tpu/ops/attention.py:66 `_flash_kernel` (flash_attention.cu,
 //     `grove_flash_attention_tc`): causal or not, Sq and Sk ragged;
 //   * K3, grove_tpu/ops/attention.py:350 `_grouped_plain_kernel`
@@ -28,10 +28,17 @@
 //   * K11, grove_tpu/ops/sam_attention.py:54 `_kernel`
 //     (streamed_relpos_attention.cu, `grove_relpos_flash_attention_tc`):
 //     K2's function and contract, the streamed form that no model path
-//     runs.
-// fp32 inputs and the head dim 8 keep the SIMT body, and so do K12 and K13
-// (no model path). The backwards of K4 and K9 have their own tensor-core
-// body (attention_bwd_tc.cuh).
+//     runs;
+//   * K12, grove_tpu/ops/sam_attention.py:350 `_grouped_kernel_v2`
+//     (sam_window_attention_v2.cu, `grove_sam_window_attention_v2_tc`):
+//     K1's function and contract on split raw q, k and v, on no model path;
+//   * K13 v2, grove_tpu/ops/sam_attention.py:743 `_folded_kernel_v2`
+//     (folded_window_attention.cu, `grove_folded_window_attention_v2_tc`):
+//     K2's function and contract in the raw (B, S, H D) layout, on no model
+//     path.
+// fp32 inputs and the head dim 8 keep the SIMT body, and so do K12q8 and
+// K13 v1 (no model path). The backwards of K4 and K9 have their own
+// tensor-core body (attention_bwd_tc.cuh).
 //
 // Contract, the part of AttnArgs that these entries use:
 //   * q, k, v and out in the (B, S, H, D) layout with element strides, bf16,

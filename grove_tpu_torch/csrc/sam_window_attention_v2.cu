@@ -21,20 +21,41 @@
 //
 // inv_scale a (1,) fp32 tensor on the card, as K1q reads it.
 //
-// This is K1's body and contract (EXP2_SHIFT all-underflow rows are 0,
-// zero_underflow) with the row stride C instead of 3C: the TPU kernel
-// folded scale * log2(e) into q and log2(e) into rel in its wrapper
-// (:590-593) and ran exp2 with a constant shift; the shared body takes
-// scale * log2(e) and log2(e) in fp32 and subtracts a running max (see
-// kExp2Shift in attention_core.cuh and sam_window_attention.cu's note).
+// This is K1's function and contract (the all-underflow rows are 0,
+// zero_underflow) with the row stride C instead of 3C. Two entries each,
+// chosen by the wrapper (ops/sam_attention.py through ops/attention.py
+// `_tc_takes`, by dtype and head dim only):
+//   * `grove_sam_window_attention_v2_tc` runs K12 in bf16 at head dims 64,
+//     80 and 128 on the tensor-core body (attention_tc.cuh, K1's
+//     packed-table instantiation, which reads q, k and v through strides:
+//     wgmma, 64-key tiles, the packed term table staged in shared memory,
+//     P rounded to bf16 before P.V). At the full-width shape (nW = 144,
+//     S = 196, 16 heads, D = 80) each (window, head) runs 2 blocks of 128
+//     rows over 4 key tiles, the last holding 4 keys, as K1;
+//   * `grove_sam_window_attention_v2` (fp32 and the head dim 8) and
+//     `grove_sam_window_attention_v2_q8` (K12q8, every dtype) run on the
+//     SIMT body (attention_core.cuh: fp32 FMA issue and shared-memory
+//     reads, far from either bound).
+//
+// Numerics against the TPU kernel, K1's recorded differences: the TPU
+// kernel folds scale * log2(e) into a bf16 q and log2(e) into the bf16
+// terms in its wrapper (:590-593), runs exp2 at a fixed EXP2_SHIFT instead
+// of subtracting the row max, and takes its denominator from the rounded
+// probabilities through a dot (:418-429). Both bodies take scale * log2(e)
+// and log2(e) in fp32, subtract a running max and sum the fp32
+// probabilities; the tensor-core body rounds them to bf16 before P.V, as
+// the TPU kernel does, the SIMT body keeps them in fp32 (see kExp2Shift in
+// attention_core.cuh and sam_window_attention.cu's note).
 //
 // Bound on the H100: bytes (q, k, v 217 MB, rel 25 MB, out 72 MB in bf16 at
-// the full-width (144, 196, 1280) on 14 x 14) over 3.35 TB/s, as K1; the
-// kernel runs on the fp32 CUDA cores (see attention_core.cuh).
+// the full-width (144, 196, 1280) on 14 x 14, 0.0938 ms over 3.35 TB/s,
+// against 28.3 GFLOP, 0.0286 ms at 989 TFLOP/s bf16), as K1.
 
 #include "attention_core.cuh"
+#include "attention_tc.cuh"
 
 GROVE_ATTENTION_ENTRY(sam_window_attention_v2)
+GROVE_ATTENTION_TC_ENTRY(sam_window_attention_v2, true, false)
 
 namespace {
 
@@ -50,6 +71,7 @@ grove::AttnArgs split_args(const void* q, const void* k, const void* v,
   a.k = k;
   a.v = v;
   a.o = out;
+  a.lse = nullptr;
   a.rh = rel;
   a.rw = static_cast<const char*>(rel) + gh * esize;
   a.qs = {s * c, c, head_dim};
@@ -64,12 +86,14 @@ grove::AttnArgs split_args(const void* q, const void* k, const void* v,
   a.gh = gh;
   a.gw = gw;
   a.scale = scale;
+  a.causal = 0;
   a.zero_underflow = 1;
   return a;
 }
 
 }  // namespace
 
+// The SIMT body: fp32 or bf16, head dims 8, 64, 80, 128.
 extern "C" int grove_sam_window_attention_v2(const void* q, const void* k,
                                              const void* v, const void* rel,
                                              void* out, int nw, int s,
@@ -91,4 +115,15 @@ extern "C" int grove_sam_window_attention_v2_q8(
   a.out_inv = static_cast<const float*>(inv_scale);
   return sam_window_attention_v2_dispatch(a, dtype, head_dim,
                                           static_cast<cudaStream_t>(stream));
+}
+
+// The tensor-core body (attention_tc.cuh): bf16, head dims 64, 80, 128.
+extern "C" int grove_sam_window_attention_v2_tc(
+    const void* q, const void* k, const void* v, const void* rel, void* out,
+    int nw, int s, int heads, int head_dim, int gh, int gw, float scale,
+    int dtype, void* stream) {
+  return sam_window_attention_v2_tc_dispatch(
+      split_args(q, k, v, rel, out, nw, s, heads, head_dim, gh, gw, scale,
+                 dtype),
+      dtype, head_dim, static_cast<cudaStream_t>(stream));
 }

@@ -30,7 +30,11 @@ dispatches, have their kernels too:
   `_fused_relpos_attention` / `_fused_with_vjp` (a torch-ops backward).
 
 Each has a plain twin (`*_torch`) that materializes the bias. Wrappers pick
-by device: CPU tensors take the plain version, CUDA tensors the kernel.
+by device: CPU tensors take the plain version, CUDA tensors the kernel. In
+bf16 at head dim 64, 80 or 128 (`ops.attention._tc_takes`) K1, K1q, K2,
+K11, K12 and K13 v2 launch their tensor-core entries, whose plain versions
+with the body's rounding points are the `*_tc_torch` functions; K12q8 and
+K13 v1 launch their SIMT entries at every dtype.
 """
 
 from __future__ import annotations
@@ -241,27 +245,36 @@ def grouped_window_attention_relpos_v3_q8_torch(qkv, rel_packed,
                                    hw, num_heads, inv_scale)
 
 
-def grouped_window_attention_relpos_v3_tc_torch(qkv, rel_packed,
-                                                hw: Tuple[int, int],
-                                                num_heads: int,
-                                                inv_scale=None):
-    """K1 and K1q with the tensor-core body's rounding points
-    (`ops.attention.tc_attention_torch`: 64-key tiles, P rounded to bf16
-    before P.V, the sum over the fp32 P, the output times 1 / l), the
-    all-underflow rows as zeros, then qkv's dtype or, with `inv_scale`, the
-    int8 epilogue clip(rint(out * inv_scale), -127, 127) -> (nW, S, C).
-    The plain version that `chip_smoke.py` holds the `_tc` entries' int8
-    output to; no model path calls it."""
+def _window_attention_tc_torch(q, k, v, rel_packed, hw: Tuple[int, int],
+                               num_heads: int, inv_scale=None):
+    """K1's, K1q's and K12's arithmetic on the tensor-core body, on
+    (B, S, H, D) views (`ops.attention.tc_attention_torch`: 64-key tiles, P
+    rounded to bf16 before P.V, the sum over the fp32 P, the output times
+    1 / l), the all-underflow rows as zeros, then q's dtype or, with
+    `inv_scale`, the int8 epilogue clip(rint(out * inv_scale), -127, 127)
+    -> (B, S, H*D)."""
     gh, gw = hw
-    q, k, v = _split_heads(qkv, num_heads)
     b, s = q.shape[:2]
     rel = rel_packed.reshape(b, s, num_heads, gh + gw).permute(0, 2, 1, 3)
     out = tc_attention_torch(
         q, k, v, scale=1.0 / math.sqrt(q.shape[-1]),
         bias=(rel[..., :gh], rel[..., gh:], gw), zero_underflow=True,
         out_inv=None if inv_scale is None else inv_scale.reshape(1))
-    return out.to(qkv.dtype if inv_scale is None else torch.int8).reshape(
+    return out.to(q.dtype if inv_scale is None else torch.int8).reshape(
         b, s, -1)
+
+
+def grouped_window_attention_relpos_v3_tc_torch(qkv, rel_packed,
+                                                hw: Tuple[int, int],
+                                                num_heads: int,
+                                                inv_scale=None):
+    """K1 and K1q with the tensor-core body's rounding points
+    (`_window_attention_tc_torch` on the split views of qkv) -> (nW, S, C)
+    in qkv's dtype, or int8 with `inv_scale`. The plain version that
+    `chip_smoke.py` holds the `_tc` entries' int8 output to; no model path
+    calls it."""
+    return _window_attention_tc_torch(*_split_heads(qkv, num_heads),
+                                      rel_packed, hw, num_heads, inv_scale)
 
 
 def _check_v3(qkv, rel_packed, hw: Tuple[int, int], num_heads: int) -> int:
@@ -404,6 +417,19 @@ def grouped_window_attention_relpos_v2_torch(q, k, v, rel_packed,
         rel_packed, hw, num_heads)
 
 
+def grouped_window_attention_relpos_v2_tc_torch(q, k, v, rel_packed,
+                                                hw: Tuple[int, int],
+                                                num_heads: int):
+    """K12 with the tensor-core body's rounding points: K1's
+    (`_window_attention_tc_torch`) on three raw (nW, S, C) projections ->
+    (nW, S, C) in q's dtype. The plain version that `chip_smoke.py` holds
+    K12's `_tc` entry to; no model path calls it."""
+    b, s, c = q.shape
+    return _window_attention_tc_torch(
+        *(t.reshape(b, s, num_heads, c // num_heads) for t in (q, k, v)),
+        rel_packed, hw, num_heads)
+
+
 def grouped_window_attention_relpos_v2_q8_torch(q, k, v, rel_packed,
                                                 inv_scale,
                                                 hw: Tuple[int, int],
@@ -416,8 +442,10 @@ def grouped_window_attention_relpos_v2_q8_torch(q, k, v, rel_packed,
         rel_packed, hw, num_heads, inv_scale.reshape(1))
 
 
-def _window_v2(q, k, v, rel_packed, hw: Tuple[int, int], num_heads: int,
-               inv_scale=None):
+def _check_v2(q, k, v, rel_packed, hw: Tuple[int, int],
+              num_heads: int) -> int:
+    """Raise ValueError unless q, k, v (nW, S, C) and the packed table fit
+    the window and the heads; return the head dim."""
     name = "grouped_window_attention_relpos_v2"
     gh, gw = hw
     b, s, c = q.shape
@@ -429,6 +457,36 @@ def _window_v2(q, k, v, rel_packed, hw: Tuple[int, int], num_heads: int,
                          f"{num_heads} heads")
     if rel_packed.shape != (b, s, num_heads * (gh + gw)):
         raise ValueError(f"{name}: rel {tuple(rel_packed.shape)}")
+    return hd
+
+
+def _split_launch(name: str, q, k, v, rel_packed, hw: Tuple[int, int],
+                  num_heads: int, inv_scale=None):
+    """Launch the K12 entry `name` on CUDA tensors (K12q8's, an int8
+    output, with `inv_scale`, a (1,) fp32 tensor)."""
+    gh, gw = hw
+    b, s, c = q.shape
+    hd = _check_v2(q, k, v, rel_packed, hw, num_heads)
+    dt = _kernels.check_cuda_inputs(name, (q, k, v, rel_packed), hd,
+                                    b * num_heads)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_packed.data_ptr())
+    args = (b, s, num_heads, hd, gh, gw, 1.0 / math.sqrt(hd), dt,
+            _kernels.stream_ptr(q))
+    with torch.cuda.device(q.device):
+        if inv_scale is not None:
+            _kernels.check_typed(name, [(inv_scale, torch.float32)])
+            out = torch.empty((b, s, c), device=q.device, dtype=torch.int8)
+            _kernels.KERNELS[name](*ptrs, inv_scale.data_ptr(),
+                                   out.data_ptr(), *args)
+        else:
+            out = torch.empty_like(q)
+            _kernels.KERNELS[name](*ptrs, out.data_ptr(), *args)
+    return out
+
+
+def _window_v2(q, k, v, rel_packed, hw: Tuple[int, int], num_heads: int,
+               inv_scale=None):
+    hd = _check_v2(q, k, v, rel_packed, hw, num_heads)
     quantize = inv_scale is not None
     if quantize:
         inv_scale = inv_scale.reshape(1)
@@ -439,22 +497,13 @@ def _window_v2(q, k, v, rel_packed, hw: Tuple[int, int], num_heads: int,
                 q, k, v, rel_packed, inv_scale, hw, num_heads)
         return grouped_window_attention_relpos_v2_torch(q, k, v, rel_packed,
                                                         hw, num_heads)
-    dt = _kernels.check_cuda_inputs(name, (q, k, v, rel_packed), hd,
-                                    b * num_heads)
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_packed.data_ptr())
-    args = (b, s, num_heads, hd, gh, gw, 1.0 / math.sqrt(hd), dt,
-            _kernels.stream_ptr(q))
-    with torch.cuda.device(q.device):
-        if quantize:
-            _kernels.check_typed(name, [(inv_scale, torch.float32)])
-            out = torch.empty((b, s, c), device=q.device, dtype=torch.int8)
-            _kernels.KERNELS["sam_window_attention_v2_q8"](
-                *ptrs, inv_scale.data_ptr(), out.data_ptr(), *args)
-        else:
-            out = torch.empty_like(q)
-            _kernels.KERNELS["sam_window_attention_v2"](
-                *ptrs, out.data_ptr(), *args)
-    return out
+    if quantize:
+        name = "sam_window_attention_v2_q8"
+    elif _tc_takes(q.dtype, hd):
+        name = "sam_window_attention_v2_tc"
+    else:
+        name = "sam_window_attention_v2"
+    return _split_launch(name, q, k, v, rel_packed, hw, num_heads, inv_scale)
 
 
 def grouped_window_attention_relpos_v2(q, k, v, rel_packed,
@@ -464,7 +513,9 @@ def grouped_window_attention_relpos_v2(q, k, v, rel_packed,
     all-underflow contract (see EXP2_SHIFT) on split inputs.
 
     CPU tensors take `grouped_window_attention_relpos_v2_torch`; CUDA
-    tensors launch `csrc/sam_window_attention_v2.cu`."""
+    tensors launch `csrc/sam_window_attention_v2.cu`: its tensor-core entry
+    (K1's body) where `ops.attention._tc_takes` holds (bf16 at D 64, 80,
+    128) and its SIMT entry otherwise."""
     return _window_v2(q, k, v, rel_packed, hw, num_heads)
 
 
@@ -472,7 +523,8 @@ def grouped_window_attention_relpos_v2_q8(q, k, v, rel_packed, inv_scale,
                                           hw: Tuple[int, int],
                                           num_heads: int):
     """K12q8: K12 with the int8 epilogue, `inv_scale` a (1,) fp32 tensor
-    1 / act_scale -> int8 (nW, S, H*D)."""
+    1 / act_scale -> int8 (nW, S, H*D). CUDA tensors launch its SIMT entry
+    at every dtype."""
     return _window_v2(q, k, v, rel_packed, hw, num_heads,
                       inv_scale.float())
 
@@ -537,7 +589,7 @@ def folded_window_attention_relpos(q, k, v, rel_h_term, rel_w_term,
     `grouped_window_attention_relpos`: the TPU kernel's one-hot fold
     computes the decomposed rel-pos attention exactly, so its plain version
     is K2's. CUDA tensors launch `csrc/folded_window_attention.cu`
-    (`grove_folded_window_attention`)."""
+    (`grove_folded_window_attention`, the SIMT body, at every dtype)."""
     name = "folded_window_attention_relpos"
     _, _, h, d = q.shape
     _check_grid(name, q, k, v, rel_h_term, rel_w_term, hw, h, d)
@@ -559,11 +611,30 @@ def folded_window_attention_relpos_v2_torch(q, k, v, rel_h_term,
     return out.reshape(b, s, c)
 
 
+def folded_window_attention_relpos_v2_tc_torch(q, k, v, rel_h_term,
+                                               rel_w_term,
+                                               hw: Tuple[int, int],
+                                               num_heads: int):
+    """K13 v2 with the tensor-core body's rounding points: K2's
+    (`ops.attention.tc_attention_torch` with the bias) on the (B, S, H, D)
+    views of the raw (B, S, H*D) q, k, v -> (B, S, H*D) in q's dtype. The
+    plain version that `chip_smoke.py` holds K13 v2's `_tc` entry to; no
+    model path calls it."""
+    b, s, c = q.shape
+    hd = c // num_heads
+    out = tc_attention_torch(
+        *(t.reshape(b, s, num_heads, hd) for t in (q, k, v)),
+        scale=1.0 / math.sqrt(hd), bias=(rel_h_term, rel_w_term, hw[1]))
+    return out.to(q.dtype).reshape(b, s, c)
+
+
 def folded_window_attention_relpos_v2(q, k, v, rel_h_term, rel_w_term,
                                       hw: Tuple[int, int], num_heads: int):
     """K13 v2: q/k/v raw (B, S, H*D), rel terms (B, H, S, gh/gw) ->
-    (B, S, H*D). CUDA tensors launch `csrc/folded_window_attention.cu`
-    (`grove_folded_window_attention_v2`)."""
+    (B, S, H*D). CPU tensors take `folded_window_attention_relpos_v2_torch`;
+    CUDA tensors launch `csrc/folded_window_attention.cu`: its tensor-core
+    entry (K2's body) where `ops.attention._tc_takes` holds (bf16 at D 64,
+    80, 128) and its SIMT entry otherwise."""
     name = "folded_window_attention_relpos_v2"
     b, s, c = q.shape
     hd = c // num_heads
@@ -571,8 +642,10 @@ def folded_window_attention_relpos_v2(q, k, v, rel_h_term, rel_w_term,
     if _kernels.on_cpu(q, k, v, rel_h_term, rel_w_term):
         return folded_window_attention_relpos_v2_torch(
             q, k, v, rel_h_term, rel_w_term, hw, num_heads)
-    return _launch_grid("folded_window_attention_v2", name, q, k, v,
-                        rel_h_term, rel_w_term, hw, num_heads, hd)
+    kernel = ("folded_window_attention_v2_tc" if _tc_takes(q.dtype, hd)
+              else "folded_window_attention_v2")
+    return _launch_grid(kernel, name, q, k, v, rel_h_term, rel_w_term, hw,
+                        num_heads, hd)
 
 
 # ---------------------------------------------------------------------------

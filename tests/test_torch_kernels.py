@@ -221,19 +221,21 @@ def test_launch_counts_untouched_by_plain_path():
     assert {k.source.split("/")[-1] for k in _kernels.KERNELS.values()} == {
         p.name for p in _kernels.sources() if p.name != "errors.cu"}
     # K1, K1q, K2, K3, K4, K4b's dq and dkv, K5, K9's forward, dq and dkv,
-    # K10 and K11 each have a tensor-core entry beside the SIMT one: the
-    # same source file, TPU kernel and arguments, the symbol `_tc`
+    # K10, K11, K12 and K13 v2 each have a tensor-core entry beside the SIMT
+    # one: the same source file, TPU kernel and arguments, the symbol `_tc`
     tc = {n: k for n, k in _kernels.KERNELS.items() if n.endswith("_tc")}
     assert sorted(tc) == ["flash_attention_relpos_tc", "flash_attention_tc",
                           "flash_backward_dkv_tc", "flash_backward_dq_tc",
                           "flash_forward_lse_tc",
+                          "folded_window_attention_v2_tc",
                           "grouped_plain_attention_tc",
                           "prefill_attention_tc",
                           "relpos_flash_dkv_tc", "relpos_flash_dq_tc",
                           "relpos_flash_fwd_lse_tc",
                           "sam_global_attention_tc",
                           "sam_window_attention_q8_tc",
-                          "sam_window_attention_tc"]
+                          "sam_window_attention_tc",
+                          "sam_window_attention_v2_tc"]
     for name, k in tc.items():
         simt = _kernels.KERNELS[name.removesuffix("_tc")]
         assert (k.source, k.replaces, k.argtypes) == (
@@ -256,6 +258,10 @@ def test_launch_counts_untouched_by_plain_path():
         "grove_tpu/ops/sam_attention_bwd.py:243"
     assert tc["relpos_flash_fwd_lse_tc"].source == \
         "grove_tpu_torch/csrc/relpos_flash_attention.cu"
+    assert tc["sam_window_attention_v2_tc"].replaces == \
+        "grove_tpu/ops/sam_attention.py:598"
+    assert tc["folded_window_attention_v2_tc"].replaces == \
+        "grove_tpu/ops/sam_attention.py:818"
     # the int8 entry takes the inverse scale before the output, as K1q's
     # SIMT one does
     assert tc["sam_window_attention_q8_tc"].argtypes[:4] == (

@@ -1,5 +1,5 @@
-"""K5 and K11 on the tensor-core forward body, and K9's and K4b's dq and
-dkv on the tensor-core backward body, on the CPU, small sizes.
+"""K5, K11, K12 and K13 v2 on the tensor-core forward body, and K9's and
+K4b's dq and dkv on the tensor-core backward body, on the CPU, small sizes.
 
 * The routes: a CUDA call of K5 (`prefill_attention_raw`, and through it
   `prefill_attention_trainable`), of K9's dq and dkv (`relpos_flash_dq`,
@@ -54,6 +54,19 @@ dkv on the tensor-core backward body, on the CPU, small sizes.
   is the body's one 64-key tile (4 x 8) all but SAME_TILE_SHARE of them
   are equal.
 * The routes of K4b's dq and of K11 by dtype and head dim, as above.
+* K13 v2: its model (K2's arithmetic on the raw layout) against the JAX
+  `folded_window_attention_relpos_v2` (Pallas, interpret mode) on bf16
+  arrays within FULL_TOL. The TPU kernel rounds q * scale to bf16 before
+  its contraction, the body does not (a recorded difference), so it is
+  the model with that rounding added that sits closer to the Pallas
+  output than the fp32 twin (at D 64, where the scale is a power of two,
+  the two models are one).
+* K12: its model (K1's on split q, k, v) against the plain twin and the
+  JAX `grouped_window_attention_relpos_v2` within FULL_TOL, the
+  all-underflow row exactly 0 in all three, and bit-equal to K1's model on
+  the concatenated qkv.
+* The routes of K13 v2 and K12 by dtype and head dim; K12q8 and K13 v1
+  keep their SIMT entries at every dtype.
 """
 
 import functools
@@ -75,6 +88,7 @@ from grove_tpu_torch.ops import attention as tattn  # noqa: E402
 from grove_tpu_torch.ops import flash_backward as tflash  # noqa: E402
 from grove_tpu_torch.ops import sam_attention as tsam  # noqa: E402
 from grove_tpu_torch.ops import sam_attention_bwd as trel  # noqa: E402
+from test_torch_flash import _k1_inputs, _t, _within  # noqa: E402
 
 FULL_TOL = 2e-2          # chip_smoke.py's bf16 limit, of the output's max-abs
 ROW_TOL = 1e-2           # chip_smoke.py's row limit, of each row's max-abs
@@ -472,3 +486,142 @@ def test_k4b_dq_and_k11_route_by_dtype_and_head_dim(monkeypatch, dtype,
     suffix = "_tc" if tc else ""
     assert launched == [n + suffix for n in (
         "flash_backward_dq", "flash_backward_dq", "flash_attention_relpos")]
+
+
+# ---------------------------------------------------------------------------
+# K13 v2 and K12 on the tensor-core forward body
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("grid", [(14, 14), (4, 8)])
+@pytest.mark.parametrize("d", [64, 80, 128])
+def test_tc_model_k13v2_matches_pallas(grid, d):
+    """K13 v2 on the tensor-core forward body: its model
+    (`folded_window_attention_relpos_v2_tc_torch`, K2's arithmetic on the
+    raw (B, S, H*D) layout) == the JAX `folded_window_attention_relpos_v2`
+    (Pallas, interpret mode: all keys in one block) on the same bf16 arrays
+    within FULL_TOL of max-abs.
+
+    The TPU kernel rounds q * scale to bf16 before its folded contraction
+    and P to bf16 before P.V; the body scales the fp32 product (a recorded
+    difference) and rounds P as the TPU does. So the model with q * scale
+    rounded to bf16 first (scale 1 in the body) is closer to the Pallas
+    output than the fp32 twin (`folded_window_attention_relpos_v2_torch`,
+    P in fp32), counting the bf16 outputs that differ, and on 4 x 8 (one
+    key tile on both sides) all but SAME_TILE_SHARE of them are equal. At
+    D = 64 the scale 1/8 is a power of two, that rounding exact, and the
+    model itself the prescaled one, bit for bit. At D = 80 and 128 the
+    rounding of q * scale alone moves 38-49% of the bf16 outputs of either
+    twin, and the model is then no closer than the fp32 twin."""
+    (gh, gw), b, h = grid, 2, 2
+    s = gh * gw
+    rng = np.random.default_rng(70 + s + d)
+    q, k, v = (_bf16(rng, b, s, h * d) for _ in range(3))
+    rh, rw = _bf16(rng, b, h, s, gh), _bf16(rng, b, h, s, gw)
+    want = torch.from_numpy(_np(jsam.folded_window_attention_relpos_v2(
+        *(_jax(t) for t in (q, k, v, rh, rw)), grid, num_heads=h)))
+    got = tsam.folded_window_attention_relpos_v2_tc_torch(q, k, v, rh, rw,
+                                                          grid, h)
+    plain = tsam.folded_window_attention_relpos_v2_torch(
+        *(t.float() for t in (q, k, v, rh, rw)), grid, h).to(torch.bfloat16)
+    q_scaled = q * torch.tensor(d ** -0.5, dtype=torch.bfloat16)
+    prescaled = tattn.tc_attention_torch(
+        *(t.reshape(b, s, h, d) for t in (q_scaled, k, v)), scale=1.0,
+        bias=(rh, rw, gw)).to(torch.bfloat16).reshape(b, s, h * d)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert _rel(got.float(), want) <= FULL_TOL
+    assert torch.equal(got, prescaled) == (d == 64)
+    share, share32 = ((x.float() != want).float().mean().item()
+                      for x in (prescaled, plain))
+    assert share < share32, (share, share32)
+    if s <= 64:
+        assert share <= SAME_TILE_SHARE < share32
+
+
+def _k12_inputs(win, d, heads=2, nw=2):
+    """K1's inputs of `test_tc_model_k1_matches_plain_and_pallas` (bf16
+    values of an unsplit qkv with an all-underflow row 0 in window 0, and
+    its packed term table) with q, k and v split -> (q, k, v, rel)."""
+    qkv, rel = _k1_inputs(np.random.default_rng(9), nw, win, heads, d)
+    c = heads * d
+    return (*(np.ascontiguousarray(qkv[..., i * c:(i + 1) * c])
+              for i in range(3)), rel)
+
+
+@pytest.mark.parametrize("win", [14, 5])
+@pytest.mark.parametrize("d", [64, 80])
+def test_tc_model_k12_matches_plain_and_pallas(win, d):
+    """K12 on the tensor-core body (`grouped_window_attention_relpos_v2_
+    tc_torch`, K1's model on split q, k, v) == the plain twin
+    `grouped_window_attention_relpos_v2_torch` and the JAX
+    `grouped_window_attention_relpos_v2` (Pallas, interpret mode, its
+    EXP2_SHIFT softmax) on the same bf16 values, within FULL_TOL of max-abs;
+    the all-underflow row is exactly 0 in all three. 14 x 14 is SAM's
+    window (4 key tiles, the last holding 4 keys), 5 x 5 one partial
+    tile."""
+    heads, hw = 2, (win, win)
+    q, k, v, rel = _k12_inputs(win, d, heads)
+    got = tsam.grouped_window_attention_relpos_v2_tc_torch(
+        *(_t(x) for x in (q, k, v, rel)), hw, heads)
+    plain = tsam.grouped_window_attention_relpos_v2_torch(
+        *(_t(x) for x in (q, k, v, rel)), hw, heads)
+    want = np.asarray(jsam.grouped_window_attention_relpos_v2(
+        *(jnp.asarray(x) for x in (q, k, v, rel)), hw, num_heads=heads))
+    for out in (got.numpy(), plain.numpy(), want):
+        assert np.all(out[0, 0] == 0)
+        assert np.all(np.abs(out[0, 1:]).max(-1) > 0)
+    _within(got, plain, rows=False)
+    _within(got, want, rows=False)
+    _within(plain, want, rows=False)
+
+
+@pytest.mark.parametrize("win", [14, 5])
+@pytest.mark.parametrize("d", [64, 80])
+def test_tc_model_k12_is_k1_on_split_inputs(win, d):
+    """K12's and K1's models are one function: on the same values,
+    `grouped_window_attention_relpos_v2_tc_torch(q, k, v, ...)` equals
+    `grouped_window_attention_relpos_v3_tc_torch(cat([q, k, v], -1), ...)`
+    bit for bit, in fp32 values and on bf16 tensors."""
+    heads, hw = 2, (win, win)
+    q, k, v, rel = (_t(x) for x in _k12_inputs(win, d, heads))
+    for dt in (torch.float32, torch.bfloat16):
+        args = [x.to(dt) for x in (q, k, v, rel)]
+        split = tsam.grouped_window_attention_relpos_v2_tc_torch(
+            *args, hw, heads)
+        fused = tsam.grouped_window_attention_relpos_v3_tc_torch(
+            torch.cat(args[:3], -1), args[3], hw, heads)
+        assert split.dtype == fused.dtype == dt
+        assert torch.equal(split, fused)
+
+
+@pytest.mark.parametrize("dtype,head_dim,tc", [
+    (torch.bfloat16, 64, True), (torch.bfloat16, 80, True),
+    (torch.bfloat16, 128, True), (torch.float32, 64, False),
+    (torch.float32, 128, False), (torch.bfloat16, 8, False)])
+def test_k12_and_k13_route_by_dtype_and_head_dim(monkeypatch, dtype,
+                                                 head_dim, tc):
+    """bf16 at head dim 64, 80 or 128 launches the `_tc` entries of K13 v2
+    and K12; fp32 and the head dim 8 their SIMT entries; K12q8
+    (`sam_window_attention_v2_q8`) and K13 v1 (`folded_window_attention`)
+    launch their SIMT entries at every dtype. The wrappers are driven past
+    `on_cpu` with the launches recorded by name."""
+    launched = []
+    monkeypatch.setattr(tattn._kernels, "on_cpu", lambda *t: False)
+    monkeypatch.setattr(tsam, "_launch_grid",
+                        lambda name, *a: launched.append(name))
+    monkeypatch.setattr(tsam, "_split_launch",
+                        lambda name, *a: launched.append(name))
+    heads, hw = 2, (8, 8)
+    x = torch.zeros(1, 64, heads, head_dim, dtype=dtype)
+    raw = x.reshape(1, 64, heads * head_dim)
+    rel = torch.zeros(1, heads, 64, 8, dtype=dtype)
+    packed = torch.zeros(1, 64, heads * 16, dtype=dtype)
+    tsam.folded_window_attention_relpos_v2(raw, raw, raw, rel, rel, hw, heads)
+    tsam.grouped_window_attention_relpos_v2(raw, raw, raw, packed, hw, heads)
+    tsam.grouped_window_attention_relpos_v2_q8(raw, raw, raw, packed,
+                                               torch.ones(1), hw, heads)
+    tsam.folded_window_attention_relpos(x, x, x, rel, rel, hw)
+    suffix = "_tc" if tc else ""
+    assert launched == ["folded_window_attention_v2" + suffix,
+                        "sam_window_attention_v2" + suffix,
+                        "sam_window_attention_v2_q8",
+                        "folded_window_attention"]
