@@ -34,7 +34,17 @@ Phases, each printing its own line; any failure exits non-zero:
      would time the host's launch overhead). K7a, K7b and K7c have three
      full-width shapes each (the q/k/v/o, gate/up and down projections of
      LLaMA-7B), K8a two (the CLIP and SAM norm sites); their JSON times are
-     the sums. Beside each kernel the phase prints its bound, the least
+     the sums. K7a's shapes are also timed one call alone, with its launch
+     plan (`ops.int4_matmul._plan`: cluster, CTAs an SM, copy width, shared
+     memory); its edges, fp32 and bf16, reach every instantiation's kind
+     (1 to 37 rows, 4-byte copies, a cluster of 1, x read from global
+     memory); its yardstick is `torch.matmul` on
+     the bf16 dequantized (K, N) weight built outside the timed call (four
+     times K7a's bytes), both ways too; and K7a at the fused widths (2,
+     4096, 12288) and (2, 4096, 22016), fp32 and bf16, must be bit-equal to
+     its unfused parts on the same column slices. Its kernels' registers
+     and spills are printed from nvcc -Xptxas -v (a spill fails). Beside
+     each kernel the phase prints its bound, the least
      time the card could take for the same work: the larger of its bytes
      (inputs read once, outputs written once) over 3.35 TB/s and its
      operations over the H100's peak for their type (989 TFLOP/s bf16,
@@ -42,8 +52,8 @@ Phases, each printing its own line; any failure exits non-zero:
      and K10, the time of the one PyTorch call that computes the same
      function (`F.scaled_dot_product_attention`, rel-pos terms and pads as a
      mask), which the port never calls. K1, K1q, K2, K3, K4, K4b (dq,
-     dkv), K5, K9 (forward, dq, dkv), K10, K11, K12 and K13 v2 have two
-     entries each:
+     dkv), K5, K9 (forward, dq, dkv), K10, K11, K12 and K13 (v1, v2) have
+     two entries each:
      the tensor-core one (`_tc`, attention_tc.cuh; for K9's and K4b's dq
      and dkv attention_bwd_tc.cuh), which
      the wrappers take for bf16 at head dim 64, 80 or 128, held through the
@@ -66,8 +76,8 @@ Phases, each printing its own line; any failure exits non-zero:
      K10: also
      causal Sq < Sk and Sq > Sk and cross lengths; K4: S of 1, 63, 65, 129
      and 704, causal and not, its LSE within 1e-4; K2 and K11: grids of 2
-     x 2, 4 x 4, 12 x 12, 14 x 14 and 32 x 32, K11 and K13 v2 (no model
-     path; K13 v2 in the raw (B, S, H D) layout) at full width against
+     x 2, 4 x 4, 12 x 12, 14 x 14 and 32 x 32, K11, K13 v1 and K13 v2 (no
+     model path; K13 v2 in the raw (B, S, H D) layout) at full width against
      K2's body's arithmetic and within 2e-2 of the fp32 twin; K1, K1q, K12
      (no model path, split q, k, v) and K9's forward: grids of 2 x 2,
      4 x 4, 7 x 7, 14 x 14, 16 x 16 and 32 x 32, K1q in LSBs, K1, K1q and
@@ -254,7 +264,7 @@ float one, the tensor-core entries of K4b's two and K9's three from step 3
 of phase 5, K10's tensor-core entry from its bf16 S = 2111 step, the SIMT
 entries of K4b's two and K9's three from phase 6's fp32 step;
 the SIMT entries of K5 and K10, which no model path runs in fp32, and
-K11-K14 (both entries of K11, K12 and K13 v2), which run on no model
+K11-K14 (both entries of K11, K12 and K13), which run on no model
 path, show 0)
 and `phase2_launches`, the launches of phase 2's checks and timings; the
 tensor-core rows also carry `simt_ms`, the SIMT entry's bf16 time at the
@@ -345,7 +355,7 @@ FP32_SIMT = ("grouped_plain_attention", "flash_forward_lse",
              "sam_global_attention", "sam_window_attention_q8")
 # the tensor-core entries: phase 2 prints their registers, spills and
 # HGMMA count (nvcc -Xptxas -v, cuobjdump -sass of the built library); K12's
-# and K13 v2's are K1's and K2's instantiations under other names
+# and K13's are K1's and K2's instantiations under other names
 TC_SOURCES = {"flash_attention_tc": "flash_attention.cu",
               "grouped_plain_attention_tc": "grouped_plain_attention.cu",
               "flash_forward_lse_tc": "flash_forward_lse.cu",
@@ -360,11 +370,16 @@ TC_SOURCES = {"flash_attention_tc": "flash_attention.cu",
               "flash_backward_dq_tc": "flash_backward.cu",
               "flash_attention_relpos_tc": "streamed_relpos_attention.cu",
               "sam_window_attention_v2_tc": "sam_window_attention_v2.cu",
+              "folded_window_attention_tc": "folded_window_attention.cu",
               "folded_window_attention_v2_tc": "folded_window_attention.cu"}
 # the entry macro names a kernel and its `_smem` export after its first
 # argument, not after the extern entry: K13 v2's `_tc` entry runs the
-# instantiation named for K13's file (`folded_window_attention_tc_kernel`)
+# instantiation named for K13's file (`folded_window_attention_tc_kernel`),
+# whose name K13 v1's `_tc` entry has
 TC_INSTANCES = {"folded_window_attention_v2_tc": "folded_window_attention_tc"}
+# K7a's source, whose instantiations phase 2 prints ptxas's report of too
+K7A_SOURCE = "int4_matmul.cu"
+PTXAS_SOURCES = sorted(set(TC_SOURCES.values()) | {K7A_SOURCE})
 TRAIN_SEQ = 129          # max_seq_len: 129 + 575 spliced = 704 tokens
 # K11-K14: public ops of the JAX package that no model path runs (nor do
 # their JAX originals), each entry on both bodies where it has two; held in
@@ -374,7 +389,7 @@ TRAIN_SEQ = 129          # max_seq_len: 129 + 575 spliced = 704 tokens
 OFF_PATH_KERNELS = ("flash_attention_relpos", "flash_attention_relpos_tc",
                     "sam_window_attention_v2", "sam_window_attention_v2_tc",
                     "sam_window_attention_v2_q8", "folded_window_attention",
-                    "folded_window_attention_v2",
+                    "folded_window_attention_tc", "folded_window_attention_v2",
                     "folded_window_attention_v2_tc", "window_partition",
                     "window_unpartition")
 # the bf16 step at S = 2111 on the route the port took before K10 (K5
@@ -548,6 +563,7 @@ def _cases(torch):
     shapes, small fp32 shapes, cold, int8 limits, ops(args) -> (count,
     peak key), library(args) -> a call of PyTorch's own, or None)."""
     import torch.nn.functional as F
+    from grove_tpu_torch.models import layers
     from grove_tpu_torch.ops import (attention, decode_attention,
                                      flash_backward, fused_ln, int4_matmul,
                                      sam_attention, sam_attention_bwd,
@@ -815,11 +831,16 @@ def _cases(torch):
     def k9_dq_simt(*args):
         return sam_attention_bwd._dq_launch("relpos_flash_dq", *args)
 
-    # the SIMT entries of K12 and K13 v2, called directly, so that bf16
+    # the SIMT entries of K12 and K13, called directly, so that bf16
     # reaches them too
     def k12_simt(q, k, v, rel, hw, heads):
         return sam_attention._split_launch("sam_window_attention_v2", q, k, v,
                                            rel, hw, heads)
+
+    def k13_simt(q, k, v, rh, rw, hw):
+        return sam_attention._launch_grid(
+            "folded_window_attention", "folded_window_attention_relpos", q, k,
+            v, rh, rw, hw, q.shape[2], q.shape[3])
 
     def k13v2_simt(q, k, v, rh, rw, hw, heads):
         return sam_attention._launch_grid(
@@ -958,6 +979,26 @@ def _cases(torch):
         m, k = a[0].shape
         return 2 * m * k * a[1].shape[1], "bf16"
 
+    # K7a's yardstick: one bf16 GEMM on the dequantized (K, N) weight (the
+    # view the port's int4 prefill multiplies by), built outside the call
+    def k7a_library(x, wp, scale):
+        view = layers._int4_view(wp, scale, x.shape[1] // scale.shape[0],
+                                 x.dtype)
+        return lambda: torch.matmul(x, view)
+
+    # K7a's launch at each shape, as `_plan` makes it
+    def k7a_plan(args, got):
+        x, wp, scale = args
+        m, k = x.shape
+        n, g = wp.shape[1], k // scale.shape[0]
+        sms = int4_matmul._sms(x.device)
+        p = int4_matmul._plan(m, k, n, g, sms, x.element_size())
+        return (f"; plan: {p.ctas} CTAs ({p.tiles} tiles x cluster "
+                f"{p.cluster} x {p.row_blocks} row blocks of {p.mt}), at "
+                f"most {p.per_sm} an SM of {sms}, {p.vec}-byte copies, x "
+                f"{'staged' if p.staged else 'from global'}, {p.smem} B "
+                f"shared a CTA")
+
     def k7b_ops(a):                         # (xq, sx, wp, scale, dtype)
         m, k = a[0].shape
         return 2 * m * k * a[2].shape[1], "int8"
@@ -1051,6 +1092,12 @@ def _cases(torch):
                     check=check)
 
     proj_shapes = [(4096, 4096), (4096, 11008), (11008, 4096)]
+    # K7a's edges, fp32 and bf16: one row, a row block of 5, 5 row blocks,
+    # N % 16 != 0 (4-byte copies), K = 2G (a cluster of 1); and apart, K
+    # ranges too long for shared memory at 7 rows (x read from global
+    # memory: fp32 from K = 12288, bf16 from 24576)
+    k7a_edges = [(1, 512, 384, 128), (5, 512, 384, 128), (37, 768, 256, 32),
+                 (3, 1024, 68, 64), (3, 256, 96, 128)]
     # the training step's shapes: LLaMA-7B at S = 704 (batch 1); SAM's 21
     # windowed blocks (8 frames x 9 windows of 14 x 14) and 3 global ones
     # (8 frames of 32 x 32) after the first trainable adapter
@@ -1180,9 +1227,11 @@ def _cases(torch):
         "int4_matmul": case(
             int4_matmul.int4_matmul, int4_matmul.int4_matmul_torch,
             k7a_inputs, [(2, k, n, 128) for k, n in proj_shapes],
-            [(1, 512, 384, 128), (5, 512, 384, 128), (37, 768, 256, 32),
-             (3, 1024, 68, 64)],
-            k7a_ops, cold=True),
+            k7a_edges + [(7, 12288, 64, 128)], k7a_ops, cold=True,
+            edges=k7a_edges + [(7, 24576, 64, 128)],
+            library=k7a_library, check=k7a_plan,
+            library_is="torch.matmul on the bf16 dequantized (K, N) "
+                       "weight, four times K7a's bytes"),
         # 16 frames of CLIP (577 tokens, C 1024) and of SAM (32 x 32, 1280)
         "layernorm_quant": case(
             fused_ln.layernorm_quant_folded,
@@ -1397,11 +1446,21 @@ def _cases(torch):
             [(4, 8, 6, 64), (3, 2, 4, 8), (2, 4, 2, 64, "underflow")],
             lambda a: raw_ops(a, a[6]),
             int8={"full": (2, LSB_SHARE), "small": (1, FP32_LSB_SHARE)}),
+        # K13 v1, its SIMT entry called directly in bf16 at full width and
+        # in fp32 as the wrapper calls it
         "folded_window_attention": case(
+            k13_simt, sam_attention.grouped_window_attention_relpos_torch,
+            k2_inputs, [(144, 14, 16, 80)], [(4, 8, 6, 64), (2, 4, 4, 8)],
+            bshd_ops, library=k2_library),
+        # its tensor-core entry (K2's body), through the wrapper (bf16, D 64
+        # / 80 / 128), held to K2's body's arithmetic and to the fp32 twin;
+        # edges as K2's
+        "folded_window_attention_tc": case(
             sam_attention.folded_window_attention_relpos,
-            sam_attention.grouped_window_attention_relpos_torch, k2_inputs,
-            [(144, 14, 16, 80)], [(4, 8, 6, 64), (2, 4, 4, 8)], bshd_ops,
-            library=k2_library),
+            sam_attention.folded_window_attention_relpos_tc_torch,
+            k2_inputs, [(144, 14, 16, 80)], [], bshd_ops,
+            library=k2_library, edges=k2_edges, simt=k13_simt,
+            against=sam_attention.grouped_window_attention_relpos_torch),
         # K13 v2, its SIMT entry called directly in bf16 at full width and
         # in fp32 as the wrapper calls it
         "folded_window_attention_v2": case(
@@ -1727,8 +1786,8 @@ def phase_kernels(torch, gpu, compiles):
             if c["check"]:
                 note += c["check"](args, got)
             say(2, f"{name} bf16 edge {shape}: {note}")
-        errs, ms, plain_ms, bound = [], 0.0, 0.0, {"bytes": 0.0,
-                                                    "operations": 0.0}
+        errs, ms, plain_ms, one_ms = [], 0.0, 0.0, 0.0
+        bound = {"bytes": 0.0, "operations": 0.0}
         queued = {}
         library_ms = 0.0 if c["library"] else None
         for full in c["full"]:
@@ -1777,13 +1836,24 @@ def phase_kernels(torch, gpu, compiles):
                 timer = _graph_ms
                 how = f" (CUDA graph over {len(sets)} cold copies)"
             t, tp = timer(torch, fn, sets), timer(torch, plain, sets)
+            if c["cold"]:
+                t_one = _time_ms(torch, fn, [args])
+                one_ms += t_one
+                how += f", {t_one:.4f} ms one call alone"
             lib, call = "", None
             if c["library"]:
                 call = c["library"](*args)
                 t_lib = _time_ms(torch, call, [()])
-                library_ms += t_lib
                 lib = (f", one PyTorch call "
                        f"({c['library_is'] or 'SDPA'}) {t_lib:.4f} ms")
+                if c["cold"]:
+                    # the same cold copies, replayed as the kernel's
+                    calls = [call] + [c["library"](*a) for a in sets[1:]]
+                    t_lib = _graph_ms(torch, lambda f: f(),
+                                      [(f,) for f in calls])
+                    lib += f" alone, {t_lib:.4f} ms cold"
+                    del calls
+                library_ms += t_lib
             if c["simt"]:
                 # back to back, summed over the full shapes
                 timed = {"queued_ms": fn, "simt_queued_ms": c["simt"]}
@@ -1799,9 +1869,9 @@ def phase_kernels(torch, gpu, compiles):
                         + (f", SDPA {here['library_queued_ms']:.4f} ms"
                            if call else ""))
             del call
-            say(2, f"{name} bf16 {full}: {what}; kernel {t:.4f} ms, plain "
-                   f"{tp:.4f} ms{lib}{how}; bound {b_ms:.4f} ms by {b_by} "
-                   f"on {gpu}")
+            say(2, f"{name} bf16 {full}: {what}; kernel {t:.4f} ms{how}, "
+                   f"plain {tp:.4f} ms{lib}; bound {b_ms:.4f} ms by {b_by} "
+                   f"({100 * b_ms / t:.1f}% of it) on {gpu}")
             ms += t
             plain_ms += tp
             del args, sets
@@ -1816,6 +1886,8 @@ def phase_kernels(torch, gpu, compiles):
                       "bound_ms": bound["bytes"] + bound["operations"],
                       "bound_by": max(bound, key=bound.get),
                       "library_ms": library_ms, **queued}
+        if c["cold"]:
+            rows[name]["one_call_ms"] = one_ms
         simt = name.removesuffix("_tc")
         if simt != name:
             rows[name]["simt_ms"] = rows[simt]["ms"]
@@ -1826,6 +1898,7 @@ def phase_kernels(torch, gpu, compiles):
                    f"{rows[name]['bound_ms']:.4f} ms on {gpu}")
     _tc_build_report(gpu, compiles)
     _int8_matmul_padded(torch, gpu)
+    _k7a_fused_widths(torch, gpu)
     _ragged_routes(torch, gpu)
     _odd_grid_routes(torch, gpu)
     _trainable_forms(torch, gpu)
@@ -1836,17 +1909,17 @@ def phase_kernels(torch, gpu, compiles):
 
 
 def _tc_compiles():
-    """Start one `nvcc -Xptxas -v` of each tensor-core entry's source
-    (the library's own flags), so that its registers, stack and spills can
-    be read; they run beside the build and phase 2. Returns the processes
-    by source, and "dir", their output directory."""
+    """Start one `nvcc -Xptxas -v` of each tensor-core entry's source and
+    of K7a's (the library's own flags), so that its registers, stack and
+    spills can be read; they run beside the build and phase 2. Returns the
+    processes by source, and "dir", their output directory."""
     from grove_tpu_torch import _kernels
     out = tempfile.mkdtemp()
     procs = {src: subprocess.Popen(
         [_kernels.find_nvcc(), *_kernels.COMPILE_FLAGS, "-Xptxas", "-v",
          "-c", str(_kernels.CSRC / src), "-o", str(Path(out) / (src + ".o"))],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for src in set(TC_SOURCES.values())}
+        for src in PTXAS_SOURCES}
     return {"dir": out, **procs}
 
 
@@ -1862,7 +1935,7 @@ def _tc_build_report(gpu, compiles):
     (then it would not run on the tensor cores)."""
     from grove_tpu_torch import _kernels
     ptxas = {}
-    for src in set(TC_SOURCES.values()):
+    for src in PTXAS_SOURCES:
         proc = compiles.pop(src)
         log = proc.communicate()[0]
         if proc.returncode != 0:
@@ -1906,7 +1979,63 @@ def _tc_build_report(gpu, compiles):
                 raise PhaseError(f"{name} D = {d}: no ptxas report")
             if re.search(r"\b[1-9]\d* bytes spill", " ".join(lines)):
                 raise PhaseError(f"{name} D = {d} spills: {lines}")
+    _k7a_build_report(gpu, ptxas)
     _stop_tc_compiles(compiles)
+
+
+def _k7a_build_report(gpu, ptxas):
+    """Registers and spills of each K7a instantiation (x's dtype, rows of x
+    a CTA, bytes a weight copy, x staged or read from global memory) as
+    ptxas reports them; fails where one spills or none is
+    reported."""
+    fns = {f: lines for f, lines in ptxas.items()
+           if "int4_matmul_kernel" in f}
+    if not fns:
+        raise PhaseError(f"{K7A_SOURCE}: no ptxas report of "
+                         "int4_matmul_kernel")
+    for fn, lines in sorted(fns.items()):
+        m = re.search(r"(SimtDot|TcDot)ELi(\d+)ELi(\d+)ELb([01])", fn)
+        label = (f"{'fp32 x, FFMA' if m[1] == 'SimtDot' else 'bf16 x, mma'}"
+                 f", MT {m[2]}, {m[3]}-byte copies, x "
+                 f"{'staged' if m[4] == '1' else 'from global'}"
+                 if m else fn)
+        say(2, f"int4_matmul ({label}): ptxas "
+               f"{'; '.join(lines) or 'no report'} ({gpu})")
+        if re.search(r"\b[1-9]\d* bytes spill", " ".join(lines)):
+            raise PhaseError(f"int4_matmul ({label}) spills: {lines}")
+
+
+def _k7a_fused_widths(torch, gpu):
+    """K7a at LLaMA-7B's fused decode widths, (2, 4096, 12288) (q/k/v) and
+    (2, 4096, 22016) (gate/up), in fp32 and bf16, bit-equal to the
+    concatenation of its calls on the unfused parts' column slices: `_plan`
+    splits K by K and G alone and a column's arithmetic does not depend on
+    its place, so both sum every column in one order."""
+    from grove_tpu_torch.ops import int4_matmul
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    for n, parts in ((12288, 3), (22016, 2)):
+        wp = torch.randint(-128, 128, (2048, n), generator=gen,
+                           device="cuda", dtype=torch.int8)
+        scale = 0.001 + 0.019 * torch.rand((32, n), generator=gen,
+                                           device="cuda")
+        w = n // parts
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn((2, 4096), generator=gen, device="cuda",
+                            dtype=torch.float32).to(dtype)
+            whole = int4_matmul.int4_matmul(x, wp, scale)
+            cat = torch.cat([int4_matmul.int4_matmul(
+                x, wp[:, i * w:(i + 1) * w].contiguous(),
+                scale[:, i * w:(i + 1) * w].contiguous())
+                for i in range(parts)], dim=1)
+            torch.cuda.synchronize()
+            if not torch.equal(whole, cat):
+                diff = float((whole.float() - cat.float()).abs().max())
+                raise PhaseError(f"int4_matmul (2, 4096, {n}) {dtype}: not "
+                                 f"bit-equal to its {parts} parts (max "
+                                 f"|diff| {diff:.3e})")
+            say(2, f"int4_matmul fused (2, 4096, {n}) {dtype}: bit-equal to "
+                   f"{parts} calls on its (2, 4096, {w}) column slices "
+                   f"({gpu})")
 
 
 def _tc_instance(name):

@@ -160,7 +160,7 @@ KERNELS: Dict[str, Kernel] = {
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
         "grove_tpu_torch/csrc/sam_global_attention.cu",
         "grove_tpu/ops/sam_attention.py:235"),
-    # K1, K1q, K2, K3, K4, K5, K9's forward, K10, K11, K12 and K13 v2 on the
+    # K1, K1q, K2, K3, K4, K5, K9's forward, K10, K11, K12 and K13 on the
     # tensor-core body (attention_tc.cuh), which the wrappers take for bf16
     # at head dims 64, 80 and 128 (`TC_HEAD_DIMS`); fp32 and the head dim 8
     # take the SIMT entries
@@ -211,7 +211,7 @@ KERNELS: Dict[str, Kernel] = {
         "grove_tpu/ops/decode_attention.py:122"),
     "int4_matmul": Kernel(
         "grove_int4_matmul",
-        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+        [_P] * 4 + [_I] * 9 + [_P],
         "grove_tpu_torch/csrc/int4_matmul.cu",
         "grove_tpu/ops/int4_matmul.py:317"),
     "layernorm_quant": Kernel(
@@ -351,6 +351,13 @@ KERNELS: Dict[str, Kernel] = {
         "grove_tpu/ops/sam_attention.py:640"),
     "folded_window_attention": Kernel(
         "grove_folded_window_attention",
+        [_P] * 6 + [_I] * 6 + [_F, _I, _P],
+        "grove_tpu_torch/csrc/folded_window_attention.cu",
+        "grove_tpu/ops/sam_attention.py:327"),
+    # K13 v1 on the tensor-core forward body (K2's biased instantiation,
+    # which K13 v2 runs too), taken as K2's
+    "folded_window_attention_tc": Kernel(
+        "grove_folded_window_attention_tc",
         [_P] * 6 + [_I] * 6 + [_F, _I, _P],
         "grove_tpu_torch/csrc/folded_window_attention.cu",
         "grove_tpu/ops/sam_attention.py:327"),

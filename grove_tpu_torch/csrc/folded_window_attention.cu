@@ -22,16 +22,18 @@
 // take the term tables rel_h (B, H, S, gh), rel_w (B, H, S, gw), K2's
 // layout (the TPU v2 wrapper transposes them to (B, S, H * g) for its lane
 // slices). The entries:
-//   * grove_folded_window_attention_v2_tc: v2 in bf16 at head dims 64, 80
-//     and 128, chosen by the wrapper (ops/sam_attention.py through
+//   * grove_folded_window_attention_tc (v1) and
+//     grove_folded_window_attention_v2_tc (v2): bf16 at head dims 64, 80
+//     and 128, chosen by the wrappers (ops/sam_attention.py through
 //     ops/attention.py `_tc_takes`), on the tensor-core body
 //     (attention_tc.cuh, K2's BIAS instantiation, as K11 runs it: wgmma,
 //     64-key tiles, the bias added in fp32 after the scaled product, P
-//     rounded to bf16 before P.V). At the windowed (144, 196, 16, 80) shape
-//     each (window, head) runs 2 blocks of 128 rows over 4 key tiles, the
-//     last holding 4 keys;
-//   * grove_folded_window_attention_v2 (v2 in fp32 and at the head dim 8)
-//     and grove_folded_window_attention (v1, every dtype) on the SIMT body
+//     rounded to bf16 before P.V). Both run the one instantiation,
+//     folded_window_attention_tc_kernel, since the two layouts are the same
+//     memory. At the windowed (144, 196, 16, 80) shape each (window, head)
+//     runs 2 blocks of 128 rows over 4 key tiles, the last holding 4 keys;
+//   * grove_folded_window_attention (v1) and grove_folded_window_attention_v2
+//     (v2), in fp32 and at the head dim 8, on the SIMT body
 //     (attention_core.cuh: fp32 FMA issue and shared-memory reads, far from
 //     either bound).
 //
@@ -41,7 +43,7 @@
 //
 // Numerics against the TPU kernels: all subtract the row max and take the
 // denominator from the unrounded fp32 probabilities. The TPU kernels round
-// q * scale to the input dtype before the contraction (`:777`) and the
+// q * scale to the input dtype before the contraction (`:288`, `:777`) and the
 // probabilities before P.V; the tensor-core body scales the fp32 product
 // of the unscaled bf16 q (a recorded difference) and rounds the
 // probabilities to bf16 as the TPU does; the SIMT body keeps fp32
@@ -77,6 +79,18 @@ extern "C" int grove_folded_window_attention_v2(
 }
 
 // The tensor-core body (attention_tc.cuh): bf16, head dims 64, 80, 128.
+// v1's (B, S, H, D) and v2's raw (B, S, H * D) are the same memory, so both
+// entries run the one instantiation.
+extern "C" int grove_folded_window_attention_tc(
+    const void* q, const void* k, const void* v, const void* rel_h,
+    const void* rel_w, void* out, int b, int s, int heads, int head_dim,
+    int gh, int gw, float scale, int dtype, void* stream) {
+  return folded_window_attention_tc_dispatch(
+      grove::grid_args(q, k, v, rel_h, rel_w, out, b, s, heads, head_dim, gh,
+                       gw, scale),
+      dtype, head_dim, static_cast<cudaStream_t>(stream));
+}
+
 extern "C" int grove_folded_window_attention_v2_tc(
     const void* q, const void* k, const void* v, const void* rel_h,
     const void* rel_w, void* out, int b, int s, int heads, int head_dim,

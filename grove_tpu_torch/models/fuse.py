@@ -15,11 +15,14 @@ As in the JAX package, an attention module is fused only beside an
 stay as they are. `fuse_llama_` rebuilds a model's decoder layers IN PLACE
 with `fused_qkv=True`, one layer at a time.
 
-The JAX package calls fusion bit-identical. On the card the port's K7a and
-K7b choose their split of K from the number of column tiles
+The JAX package calls fusion bit-identical. On the card the port's K7a
+splits K by K and G alone (`ops/int4_matmul.py:_plan`) and sums each column
+the same way wherever it lies, so a fused W4A16 projection is bit-equal to
+the ones it replaces (`chip_smoke.py` checks it). K7b does not yet: it
+chooses its split of K from the number of column tiles
 (`ops/int4_matmul.py:_split`), which the fused width changes, so a fused
-projection may sum in another order than the three it replaces: fused and
-unfused agree there to a tolerance, not bit for bit.
+W4A8 projection may sum in another order than the ones it replaces: fused
+and unfused agree there to a tolerance, not bit for bit.
 """
 
 from __future__ import annotations

@@ -8,7 +8,10 @@ package's bytes: wp (K/2, N) int8 packed by `ops.quant.pack_int4` and scale
     out = x @ dequant(wp),  dequant[k, n] = q4[k, n] * scale[k // G, n].
 
 * `int4_matmul` is K7a: CPU tensors take `int4_matmul_torch`; CUDA tensors
-  launch `csrc/int4_matmul.cu` (G a multiple of 32, N of 4).
+  launch `csrc/int4_matmul.cu` (G a multiple of 32, N of 4) once, with the
+  launch `_plan` chooses: K split over a thread-block cluster by K and G
+  alone, so a fused projection sums each column as its unfused part does;
+  bf16 x on the tensor cores (mma.sync), fp32 x in FFMAs.
 * `int4_matmul_torch` is the plain twin, the JAX package's grouped einsum
   (`models/layers.py:268-273`): per-group fp32 partial products, times the
   group's scale, summed over groups.
@@ -22,6 +25,9 @@ Each has a plain twin `*_torch` that CPU tensors take.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -51,16 +57,79 @@ def int4_matmul_torch(x, wp, scale):
     return (y * scale.float()).sum(1).to(x.dtype)
 
 
-def _split(m: int, n: int, supers: int, device) -> tuple:
-    """(rows per block, K splits) for the CUDA kernel: a block takes up to
-    8 rows of x and 128 columns; K is split until about two blocks per SM
-    are in flight."""
-    mt = 1
+# K7a's launch (`csrc/int4_matmul.cu`): a CTA owns TILE_N columns and up to
+# 8 rows of x and streams STAGE_ROWS packed rows at a time through a ring of
+# STAGES stages of STAGE_BYTES (the weights and the scale rows of the up to
+# 4 super-groups the stage overlaps); the super-groups are split over a
+# cluster of CLUSTER CTAs. Clusters of 2 and 64-column tiles: an H100's
+# GPCs do not hold the 16 clusters of 8 of a 4096-wide output in 256-column
+# tiles one CTA an SM, so some SMs took two and set the time
+TILE_N = 64
+STAGE_ROWS = 128
+STAGE_BYTES = STAGE_ROWS * TILE_N + 4 * 2 * TILE_N * 4
+STAGES = 4
+CLUSTER = 2
+SMEM_LIMIT = 232448          # shared bytes one block can use on sm_90
+
+
+class Int4Plan(NamedTuple):
+    """One K7a launch. `ranges[r]` are the super-groups [first, end) of
+    cluster rank r, as the kernel computes them (`rank_start`)."""
+    mt: int             # rows of x per CTA: 1 (fp32 only), 2, 4 or 8
+    tiles: int          # column tiles of TILE_N
+    row_blocks: int     # ceil(M / mt)
+    cluster: int        # CTAs splitting the super-groups
+    ranges: Tuple[Tuple[int, int], ...]
+    vec: int            # bytes per weight copy: 16, or 4 where N % 16 or
+                        # the weights or scales lie off 16 bytes
+    staged: bool        # x copied into shared memory (else read from global)
+    smem: int           # dynamic shared bytes per CTA
+    per_sm: int         # CTAs an SM takes with the grid spread evenly
+
+    @property
+    def ctas(self) -> int:
+        return self.tiles * self.cluster * self.row_blocks
+
+
+def _smem(mt: int, xstride: int, x_bytes: int) -> int:
+    """`smem_bytes` of `csrc/int4_matmul.cu`: the ring, x's rows of
+    `xstride` elements, and the CTA's fp32 partial tile."""
+    return STAGES * STAGE_BYTES + mt * xstride * x_bytes + 4 * mt * TILE_N
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(m: int, k: int, n: int, g: int, sms: int, x_bytes: int = 2,
+          aligned: bool = True) -> Int4Plan:
+    """K7a's launch for x (m, k) of `x_bytes` per element (bf16: the tensor
+    cores; fp32: FFMAs) against (k/2, n) packed weights in groups of g, on a
+    card of `sms` SMs (which only sets `per_sm`). The split of K depends on
+    k and g alone: a cluster of min(CLUSTER, k / 2g) ranks, rank r taking
+    the super-groups [S r / C, S (r + 1) / C). `aligned`: the weights and
+    scales lie on 16 bytes (then N % 16 == 0 takes 16-byte copies). x is
+    staged in shared memory unless its K range does not fit beside the
+    ring. Pure, so memoised: a decode step asks for its few plans 224
+    times. Raises ValueError for what the kernel does not take: G off a
+    multiple of 32, N off a multiple of 4."""
+    if g % 32 or n % 4:
+        raise ValueError(f"int4_matmul: group {g} must be a multiple of 32 "
+                         f"and N = {n} of 4")
+    supers = k // (2 * g)
+    cluster = min(CLUSTER, supers)
+    ranges = tuple((supers * r // cluster, supers * (r + 1) // cluster)
+                   for r in range(cluster))
+    xstride = -(-supers // cluster) * 2 * g
+    mt = 1 if x_bytes == 4 else 2      # the tensor-core body takes 2 to 8
     while mt < min(m, 8):
         mt *= 2
-    tiles = -(-n // 128) * -(-m // mt)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return mt, max(1, min(supers, -(-2 * sms // tiles)))
+    tiles, row_blocks = -(-n // TILE_N), -(-m // mt)
+    vec = 16 if aligned and n % 16 == 0 else 4
+    staged = _smem(mt, xstride, x_bytes) <= SMEM_LIMIT
+    if not staged:
+        vec = 4
+    ctas = tiles * cluster * row_blocks
+    return Int4Plan(mt, tiles, row_blocks, cluster, ranges, vec, staged,
+                    _smem(mt, xstride if staged else 0, x_bytes),
+                    -(-ctas // sms))
 
 
 def int4_matmul(x, wp, scale):
@@ -68,8 +137,11 @@ def int4_matmul(x, wp, scale):
     scale (K/G, N) fp32 -> (M, N) in x's dtype, fp32 accumulation.
 
     CPU tensors take `int4_matmul_torch`; CUDA tensors launch
-    `csrc/int4_matmul.cu`, which reads the packed bytes once and unpacks
-    them in registers."""
+    `csrc/int4_matmul.cu` once, as `_plan` says: no scratch tensor, the
+    packed bytes read once in a deep cp.async stream and unpacked in
+    registers (onto the tensor cores for bf16 x), K split over a
+    thread-block cluster whose ranks add their partial sums through
+    distributed shared memory in a fixed order."""
     g = _group(x, wp, scale)
     if _kernels.on_cpu(x, wp, scale):
         return int4_matmul_torch(x, wp, scale)
@@ -79,18 +151,33 @@ def int4_matmul(x, wp, scale):
                                 (scale, torch.float32)])
     m, k = x.shape
     n = wp.shape[1]
-    if g % 32 or n % 4:
-        raise ValueError(f"{name}: group {g} must be a multiple of 32 and "
-                         f"N = {n} of 4")
-    mt, ksplit = _split(m, n, k // (2 * g), x.device)
-    part = torch.empty((ksplit, m, n), device=x.device, dtype=torch.float32)
+    p = _plan(m, k, n, g, _sms(x.device), x.element_size(),
+              aligned=wp.data_ptr() % 16 == 0 and scale.data_ptr() % 16 == 0)
+    if x.data_ptr() % 16:        # the kernel copies x in 16-byte pieces
+        x = x.clone()
     out = torch.empty((m, n), device=x.device, dtype=x.dtype)
     with torch.cuda.device(x.device):
-        _kernels.KERNELS["int4_matmul"](
-            x.data_ptr(), wp.data_ptr(), scale.data_ptr(), part.data_ptr(),
-            out.data_ptr(), m, k, n, g, mt, ksplit, dt,
+        _kernels.KERNELS[name](
+            x.data_ptr(), wp.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            m, k, n, g, p.mt, p.cluster, p.vec, int(p.staged), dt,
             _kernels.stream_ptr(x))
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _split(m: int, n: int, supers: int, device) -> tuple:
+    """K7b's (rows per block, K splits): a block takes up to 8 rows of x
+    and 128 columns; K is split until about two blocks per SM are in
+    flight."""
+    mt = 1
+    while mt < min(m, 8):
+        mt *= 2
+    tiles = -(-n // 128) * -(-m // mt)
+    return mt, max(1, min(supers, -(-2 * _sms(device) // tiles)))
 
 
 # ---------------------------------------------------------------------------

@@ -32,9 +32,9 @@ dispatches, have their kernels too:
 Each has a plain twin (`*_torch`) that materializes the bias. Wrappers pick
 by device: CPU tensors take the plain version, CUDA tensors the kernel. In
 bf16 at head dim 64, 80 or 128 (`ops.attention._tc_takes`) K1, K1q, K2,
-K11, K12 and K13 v2 launch their tensor-core entries, whose plain versions
-with the body's rounding points are the `*_tc_torch` functions; K12q8 and
-K13 v1 launch their SIMT entries at every dtype.
+K11, K12 and K13 launch their tensor-core entries, whose plain versions
+with the body's rounding points are the `*_tc_torch` functions; K12q8
+launches its SIMT entry at every dtype.
 """
 
 from __future__ import annotations
@@ -582,22 +582,37 @@ def sam_window_attention_raw_q8(q, k, v, rel_pos_h, rel_pos_w,
 # K13: the bias-folded experiments, head layout (v1) and raw layout (v2)
 # ---------------------------------------------------------------------------
 
+def folded_window_attention_relpos_tc_torch(q, k, v, rel_h_term,
+                                            rel_w_term, hw: Tuple[int, int]):
+    """K13 v1 with the tensor-core body's rounding points: K2's
+    (`ops.attention.tc_attention_torch` with the bias) on the (B, S, H, D)
+    q, k, v -> (B, S, H, D) in q's dtype. The plain version that
+    `chip_smoke.py` holds K13 v1's `_tc` entry to; no model path calls
+    it."""
+    out = tc_attention_torch(q, k, v, scale=1.0 / math.sqrt(q.shape[-1]),
+                             bias=(rel_h_term, rel_w_term, hw[1]))
+    return out.to(q.dtype)
+
+
 def folded_window_attention_relpos(q, k, v, rel_h_term, rel_w_term,
                                    hw: Tuple[int, int]):
     """K13 v1: q/k/v (B, S, H, D), rel terms (B, H, S, gh/gw) as from
     `relpos_terms` -> (B, S, H, D); the contract of
     `grouped_window_attention_relpos`: the TPU kernel's one-hot fold
     computes the decomposed rel-pos attention exactly, so its plain version
-    is K2's. CUDA tensors launch `csrc/folded_window_attention.cu`
-    (`grove_folded_window_attention`, the SIMT body, at every dtype)."""
+    is K2's. CUDA tensors launch `csrc/folded_window_attention.cu`: its
+    tensor-core entry (K2's body) where `ops.attention._tc_takes` holds
+    (bf16 at D 64, 80, 128) and its SIMT entry otherwise."""
     name = "folded_window_attention_relpos"
     _, _, h, d = q.shape
     _check_grid(name, q, k, v, rel_h_term, rel_w_term, hw, h, d)
     if _kernels.on_cpu(q, k, v, rel_h_term, rel_w_term):
         return grouped_window_attention_relpos_torch(q, k, v, rel_h_term,
                                                      rel_w_term, hw)
-    return _launch_grid("folded_window_attention", name, q, k, v,
-                        rel_h_term, rel_w_term, hw, h, d)
+    kernel = ("folded_window_attention_tc" if _tc_takes(q.dtype, d)
+              else "folded_window_attention")
+    return _launch_grid(kernel, name, q, k, v, rel_h_term, rel_w_term, hw,
+                        h, d)
 
 
 def folded_window_attention_relpos_v2_torch(q, k, v, rel_h_term,
@@ -615,17 +630,16 @@ def folded_window_attention_relpos_v2_tc_torch(q, k, v, rel_h_term,
                                                rel_w_term,
                                                hw: Tuple[int, int],
                                                num_heads: int):
-    """K13 v2 with the tensor-core body's rounding points: K2's
-    (`ops.attention.tc_attention_torch` with the bias) on the (B, S, H, D)
-    views of the raw (B, S, H*D) q, k, v -> (B, S, H*D) in q's dtype. The
-    plain version that `chip_smoke.py` holds K13 v2's `_tc` entry to; no
-    model path calls it."""
+    """K13 v2 with the tensor-core body's rounding points: K13 v1's
+    (`folded_window_attention_relpos_tc_torch`) on the (B, S, H, D) views
+    of the raw (B, S, H*D) q, k, v -> (B, S, H*D) in q's dtype. The plain
+    version that `chip_smoke.py` holds K13 v2's `_tc` entry to; no model
+    path calls it."""
     b, s, c = q.shape
-    hd = c // num_heads
-    out = tc_attention_torch(
-        *(t.reshape(b, s, num_heads, hd) for t in (q, k, v)),
-        scale=1.0 / math.sqrt(hd), bias=(rel_h_term, rel_w_term, hw[1]))
-    return out.to(q.dtype).reshape(b, s, c)
+    out = folded_window_attention_relpos_tc_torch(
+        *(t.reshape(b, s, num_heads, c // num_heads) for t in (q, k, v)),
+        rel_h_term, rel_w_term, hw)
+    return out.reshape(b, s, c)
 
 
 def folded_window_attention_relpos_v2(q, k, v, rel_h_term, rel_w_term,

@@ -1,4 +1,4 @@
-"""K5, K11, K12 and K13 v2 on the tensor-core forward body, and K9's and
+"""K5, K11, K12 and K13 on the tensor-core forward body, and K9's and
 K4b's dq and dkv on the tensor-core backward body, on the CPU, small sizes.
 
 * The routes: a CUDA call of K5 (`prefill_attention_raw`, and through it
@@ -54,19 +54,19 @@ K4b's dq and dkv on the tensor-core backward body, on the CPU, small sizes.
   is the body's one 64-key tile (4 x 8) all but SAME_TILE_SHARE of them
   are equal.
 * The routes of K4b's dq and of K11 by dtype and head dim, as above.
-* K13 v2: its model (K2's arithmetic on the raw layout) against the JAX
-  `folded_window_attention_relpos_v2` (Pallas, interpret mode) on bf16
-  arrays within FULL_TOL. The TPU kernel rounds q * scale to bf16 before
-  its contraction, the body does not (a recorded difference), so it is
-  the model with that rounding added that sits closer to the Pallas
-  output than the fp32 twin (at D 64, where the scale is a power of two,
-  the two models are one).
+* K13 v1 and v2: their model (K2's arithmetic, on the head and on the raw
+  layout) against the JAX `folded_window_attention_relpos` and `_v2`
+  (Pallas, interpret mode) on bf16 arrays within FULL_TOL. The TPU kernels
+  round q * scale to bf16 before their contraction, the body does not (a
+  recorded difference), so it is the model with that rounding added that
+  sits closer to the Pallas output than the fp32 twin (at D 64, where the
+  scale is a power of two, the two models are one).
 * K12: its model (K1's on split q, k, v) against the plain twin and the
   JAX `grouped_window_attention_relpos_v2` within FULL_TOL, the
   all-underflow row exactly 0 in all three, and bit-equal to K1's model on
   the concatenated qkv.
-* The routes of K13 v2 and K12 by dtype and head dim; K12q8 and K13 v1
-  keep their SIMT entries at every dtype.
+* The routes of K13 v1, K13 v2 and K12 by dtype and head dim; K12q8 keeps
+  its SIMT entry at every dtype.
 """
 
 import functools
@@ -489,52 +489,80 @@ def test_k4b_dq_and_k11_route_by_dtype_and_head_dim(monkeypatch, dtype,
 
 
 # ---------------------------------------------------------------------------
-# K13 v2 and K12 on the tensor-core forward body
+# K13 and K12 on the tensor-core forward body
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("grid", [(14, 14), (4, 8)])
 @pytest.mark.parametrize("d", [64, 80, 128])
-def test_tc_model_k13v2_matches_pallas(grid, d):
-    """K13 v2 on the tensor-core forward body: its model
-    (`folded_window_attention_relpos_v2_tc_torch`, K2's arithmetic on the
-    raw (B, S, H*D) layout) == the JAX `folded_window_attention_relpos_v2`
-    (Pallas, interpret mode: all keys in one block) on the same bf16 arrays
-    within FULL_TOL of max-abs.
+@pytest.mark.parametrize("layout", ["v1", "v2"])
+def test_tc_model_k13_matches_pallas(layout, grid, d):
+    """K13 on the tensor-core forward body: its model (K2's arithmetic,
+    `folded_window_attention_relpos_tc_torch` on v1's (B, S, H, D) layout,
+    `folded_window_attention_relpos_v2_tc_torch` on v2's raw (B, S, H*D))
+    == the JAX `folded_window_attention_relpos` / `_v2` (Pallas, interpret
+    mode: all keys in one block) on the same bf16 arrays within FULL_TOL
+    of max-abs. At D = 64 the scale 1/8 is a power of two and the model is
+    the one with q * scale rounded to bf16 first (scale 1 in the body), bit
+    for bit; at D = 80 and 128 it is not.
 
-    The TPU kernel rounds q * scale to bf16 before its folded contraction
-    and P to bf16 before P.V; the body scales the fp32 product (a recorded
-    difference) and rounds P as the TPU does. So the model with q * scale
-    rounded to bf16 first (scale 1 in the body) is closer to the Pallas
-    output than the fp32 twin (`folded_window_attention_relpos_v2_torch`,
-    P in fp32), counting the bf16 outputs that differ, and on 4 x 8 (one
-    key tile on both sides) all but SAME_TILE_SHARE of them are equal. At
-    D = 64 the scale 1/8 is a power of two, that rounding exact, and the
-    model itself the prescaled one, bit for bit. At D = 80 and 128 the
-    rounding of q * scale alone moves 38-49% of the bf16 outputs of either
-    twin, and the model is then no closer than the fp32 twin."""
+    Both TPU kernels round q * scale to bf16 before their folded
+    contraction; the body scales the fp32 product (a recorded difference).
+    v2 rounds the unnormalized P to bf16 before P.V and divides after, as
+    the body does, so there the prescaled model is closer to the Pallas
+    output than the fp32 twin (K2's plain version, P in fp32), counting the
+    bf16 outputs that differ, and on 4 x 8 (one key tile on both sides) all
+    but SAME_TILE_SHARE of them are equal; at D = 80 and 128 the rounding
+    of q * scale alone moves 38-49% of the bf16 outputs of either twin.
+    v1 normalizes P before it rounds it (a second recorded difference): the
+    model and the fp32 twin each differ from it on 39-52% of the bf16
+    outputs, and a plain computation with v1's two rounding points (q *
+    scale and the normalized P in bf16) on all but SAME_TILE_SHARE."""
     (gh, gw), b, h = grid, 2, 2
     s = gh * gw
     rng = np.random.default_rng(70 + s + d)
     q, k, v = (_bf16(rng, b, s, h * d) for _ in range(3))
     rh, rw = _bf16(rng, b, h, s, gh), _bf16(rng, b, h, s, gw)
-    want = torch.from_numpy(_np(jsam.folded_window_attention_relpos_v2(
-        *(_jax(t) for t in (q, k, v, rh, rw)), grid, num_heads=h)))
-    got = tsam.folded_window_attention_relpos_v2_tc_torch(q, k, v, rh, rw,
-                                                          grid, h)
-    plain = tsam.folded_window_attention_relpos_v2_torch(
-        *(t.float() for t in (q, k, v, rh, rw)), grid, h).to(torch.bfloat16)
     q_scaled = q * torch.tensor(d ** -0.5, dtype=torch.bfloat16)
+    heads = [t.reshape(b, s, h, d) for t in (q, k, v, q_scaled)]
     prescaled = tattn.tc_attention_torch(
-        *(t.reshape(b, s, h, d) for t in (q_scaled, k, v)), scale=1.0,
-        bias=(rh, rw, gw)).to(torch.bfloat16).reshape(b, s, h * d)
+        *heads[3:], *heads[1:3], scale=1.0,
+        bias=(rh, rw, gw)).to(torch.bfloat16).reshape(q.shape)
+    if layout == "v1":
+        q, k, v = heads[:3]
+        want = jsam.folded_window_attention_relpos(
+            *(_jax(t) for t in (q, k, v, rh, rw)), grid)
+        got = tsam.folded_window_attention_relpos_tc_torch(q, k, v, rh, rw,
+                                                           grid)
+        prescaled = prescaled.reshape(q.shape)
+    else:
+        want = jsam.folded_window_attention_relpos_v2(
+            *(_jax(t) for t in (q, k, v, rh, rw)), grid, num_heads=h)
+        got = tsam.folded_window_attention_relpos_v2_tc_torch(q, k, v, rh,
+                                                              rw, grid, h)
+    want = torch.from_numpy(_np(want))
+    plain = tsam.grouped_window_attention_relpos_torch(
+        *(t.float() for t in heads[:3]), rh.float(), rw.float(), grid)
+    plain = plain.to(torch.bfloat16).reshape(q.shape)
     assert got.dtype == torch.bfloat16 and got.shape == q.shape
     assert _rel(got.float(), want) <= FULL_TOL
     assert torch.equal(got, prescaled) == (d == 64)
-    share, share32 = ((x.float() != want).float().mean().item()
-                      for x in (prescaled, plain))
-    assert share < share32, (share, share32)
-    if s <= 64:
-        assert share <= SAME_TILE_SHARE < share32
+
+    def share(x):
+        return (x.float() != want).float().mean().item()
+
+    if layout == "v2":
+        assert share(prescaled) < share(plain), (share(prescaled),
+                                                 share(plain))
+        if s <= 64:
+            assert share(prescaled) <= SAME_TILE_SHARE < share(plain)
+    else:
+        logits = torch.einsum("bqhd,bkhd->bhqk", heads[3].float(),
+                              k.float()) + tsam._expand_bias(rh.float(),
+                                                             rw.float())
+        p = torch.softmax(logits, -1).to(torch.bfloat16).float()
+        tpu = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+        assert share(tpu.to(torch.bfloat16)) <= SAME_TILE_SHARE
+        assert min(share(got), share(plain)) > SAME_TILE_SHARE
 
 
 def _k12_inputs(win, d, heads=2, nw=2):
@@ -599,11 +627,11 @@ def test_tc_model_k12_is_k1_on_split_inputs(win, d):
     (torch.float32, 128, False), (torch.bfloat16, 8, False)])
 def test_k12_and_k13_route_by_dtype_and_head_dim(monkeypatch, dtype,
                                                  head_dim, tc):
-    """bf16 at head dim 64, 80 or 128 launches the `_tc` entries of K13 v2
-    and K12; fp32 and the head dim 8 their SIMT entries; K12q8
-    (`sam_window_attention_v2_q8`) and K13 v1 (`folded_window_attention`)
-    launch their SIMT entries at every dtype. The wrappers are driven past
-    `on_cpu` with the launches recorded by name."""
+    """bf16 at head dim 64, 80 or 128 launches the `_tc` entries of K13 v2,
+    K12 and K13 v1; fp32 and the head dim 8 their SIMT entries; K12q8
+    (`sam_window_attention_v2_q8`) launches its SIMT entry at every dtype.
+    The wrappers are driven past `on_cpu` with the launches recorded by
+    name."""
     launched = []
     monkeypatch.setattr(tattn._kernels, "on_cpu", lambda *t: False)
     monkeypatch.setattr(tsam, "_launch_grid",
@@ -624,4 +652,4 @@ def test_k12_and_k13_route_by_dtype_and_head_dim(monkeypatch, dtype,
     assert launched == ["folded_window_attention_v2" + suffix,
                         "sam_window_attention_v2" + suffix,
                         "sam_window_attention_v2_q8",
-                        "folded_window_attention"]
+                        "folded_window_attention" + suffix]
