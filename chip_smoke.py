@@ -31,7 +31,11 @@ Phases, each printing its own line; any failure exits non-zero:
      in the model (every layer has its own cache, weights or
      activations), so they are timed as CUDA-graph replays over copies of
      more than 64 MiB, beyond the 50 MB L2 (eager calls between events
-     would time the host's launch overhead). K7a, K7b and K7c have three
+     would time the host's launch overhead); each graph holds at least 8
+     calls, cycling over the copies (with one copy more than 64 MiB needs
+     where they are fewer than 8, so that the others read 64 MiB between
+     two reads of one copy), and its replay is divided by its calls: a
+     graph of 3 calls carried its own cost. K7a, K7b and K7c have three
      full-width shapes each (the q/k/v/o, gate/up and down projections of
      LLaMA-7B), K8a two (the CLIP and SAM norm sites); their JSON times are
      the sums. K7a's shapes are also timed one call alone, with its launch
@@ -51,7 +55,10 @@ Phases, each printing its own line; any failure exits non-zero:
      1979 TOP/s int8, 67 TFLOP/s fp32 off the tensor cores), and, for K1-K5
      and K10, the time of the one PyTorch call that computes the same
      function (`F.scaled_dot_product_attention`, rel-pos terms and pads as a
-     mask), which the port never calls. K1, K1q, K2, K3, K4, K4b (dq,
+     mask), which the port never calls, and the yardsticks of K6 (SDPA of
+     the query over a bf16 cache of the same shape, the bias as its mask)
+     and K7b (K7a's, on the dequantized activations), which compute
+     neighbouring functions and are labeled so. K1, K1q, K2, K3, K4, K4b (dq,
      dkv), K5, K9 (forward, dq, dkv), K10, K11, K12 and K13 (v1, v2) have
      two entries each:
      the tensor-core one (`_tc`, attention_tc.cuh; for K9's and K4b's dq
@@ -192,7 +199,8 @@ Phases, each printing its own line; any failure exits non-zero:
      through prefill and 16 decode steps within 1e-2 of max-abs, the card
      launching K7b, K7c and K8c and no K7a; then `fuse()` on the card:
      fused and unfused hidden states of the prompt within 1e-5 of max-abs,
-     and their greedy agreement printed.
+     of 16 int8-cache decode steps bit-equal (K7b splits K by K and G
+     alone), and their 64 greedy tokens equal.
   5  training: a fresh bf16 GroveConfig() with max_seq_len=129 (S = 129 +
      575 = 704 tokens, the JAX package's full-scale training shape) built
      from a seed, one batch from `data.collate.build_batch` (one synthetic
@@ -308,6 +316,10 @@ LSB_SHARE = 1e-3         # share of int8 outputs allowed off (K8a-c, K1q)
 FP32_LSB_SHARE = 1e-4    # the same for K1q in fp32
 SX_REL = 1e-6            # K8c's per-token scales, relative
 COLD_BYTES = 64 * 2**20  # inputs cycled past the L2 when timing cold kernels
+# the fewest calls a cold replay's graph holds: with fewer, the graph's own
+# cost a node sits in the time of the kernels whose copies of COLD_BYTES
+# are few (K6 and the 11008-wide K7a-K7c)
+COLD_NODES = 8
 # the int8-cache prefill's K5 runs its tensor-core entry (bf16, D = 128),
 # once in each of the 32 LLaMA layers of a prefill
 QUANT_KERNELS = ("prefill_attention_tc", "int8_decode_attention",
@@ -377,9 +389,12 @@ TC_SOURCES = {"flash_attention_tc": "flash_attention.cu",
 # instantiation named for K13's file (`folded_window_attention_tc_kernel`),
 # whose name K13 v1's `_tc` entry has
 TC_INSTANCES = {"folded_window_attention_v2_tc": "folded_window_attention_tc"}
-# K7a's source, whose instantiations phase 2 prints ptxas's report of too
-K7A_SOURCE = "int4_matmul.cu"
-PTXAS_SOURCES = sorted(set(TC_SOURCES.values()) | {K7A_SOURCE})
+# the sources of K7a, K7b (both on `int4_matmul.cuh`) and K6, whose
+# instantiations phase 2 prints ptxas's report of too
+INT4_SOURCES = ("int4_matmul.cu", "int4_matmul_a8.cu")
+K6_SOURCE = "int8_decode_attention.cu"
+PTXAS_SOURCES = sorted(set(TC_SOURCES.values()) | set(INT4_SOURCES)
+                       | {K6_SOURCE})
 TRAIN_SEQ = 129          # max_seq_len: 129 + 575 spliced = 704 tokens
 # K11-K14: public ops of the JAX package that no model path runs (nor do
 # their JAX originals), each entry on both bodies where it has two; held in
@@ -563,6 +578,7 @@ def _cases(torch):
     shapes, small fp32 shapes, cold, int8 limits, ops(args) -> (count,
     peak key), library(args) -> a call of PyTorch's own, or None)."""
     import torch.nn.functional as F
+    from grove_tpu_torch import _kernels
     from grove_tpu_torch.models import layers
     from grove_tpu_torch.ops import (attention, decode_attention,
                                      flash_backward, fused_ln, int4_matmul,
@@ -760,7 +776,7 @@ def _cases(torch):
         return f"; the {rows} rows inside the pads equal their v rows"
 
     def k6_inputs(gen, dtype, shape):
-        b, h, hkv, c, d = shape
+        b, h, hkv, c, d = shape[:5]
         q = randn(gen, (b, h, d), dtype)
         kt, vt = int8s(gen, (b, hkv, c, d)), int8s(gen, (b, hkv, c, d))
         ks, vs = (uniform(gen, (b, hkv, c), 0.001, 0.02).to(torch.bfloat16)
@@ -770,6 +786,11 @@ def _cases(torch):
         if b > 1:
             bias[1, :9] = decode_attention.NEG_INF        # a left pad
             bias[1, c - 100:] = decode_attention.NEG_INF
+        if len(shape) > 5:
+            # "masked": the last rank of batch 0 and the first of batch 1
+            # all masked (a tail past half the cache, a long left pad)
+            bias[0, c // 2:] = decode_attention.NEG_INF
+            bias[-1, :c // 2 + 3] = decode_attention.NEG_INF
         return (q, kt, vt, ks, vs, bias)
 
     def k7a_inputs(gen, dtype, shape):
@@ -986,12 +1007,11 @@ def _cases(torch):
                                  x.dtype)
         return lambda: torch.matmul(x, view)
 
-    # K7a's launch at each shape, as `_plan` makes it
-    def k7a_plan(args, got):
-        x, wp, scale = args
+    # the launch of K7a and K7b at each shape, as `_plan` makes it
+    def int4_plan(x, wp, scale):
         m, k = x.shape
         n, g = wp.shape[1], k // scale.shape[0]
-        sms = int4_matmul._sms(x.device)
+        sms = _kernels.sm_count(x.device)
         p = int4_matmul._plan(m, k, n, g, sms, x.element_size())
         return (f"; plan: {p.ctas} CTAs ({p.tiles} tiles x cluster "
                 f"{p.cluster} x {p.row_blocks} row blocks of {p.mt}), at "
@@ -999,9 +1019,45 @@ def _cases(torch):
                 f"{'staged' if p.staged else 'from global'}, {p.smem} B "
                 f"shared a CTA")
 
+    def k7a_plan(args, got):
+        return int4_plan(*args)
+
+    def k7b_plan(args, got):                # (xq, sx, wp, scale, dtype)
+        return int4_plan(args[0], *args[2:4])
+
+    # K6's launch, as `_plan` makes it
+    def k6_plan(args, got):
+        q, kt = args[0], args[1]
+        b, h, d = q.shape
+        hkv, c = kt.shape[1:3]
+        sms = _kernels.sm_count(q.device)
+        p = decode_attention._plan(b, h, hkv, c, d, sms)
+        return (f"; plan: {p.ctas} CTAs ({b * hkv} clusters of {p.cluster}, "
+                f"ranks of {p.span} slots at most), {p.ring} bulk-copy "
+                f"buffers of {decode_attention.CHUNK} slots, {p.smem} B "
+                f"shared a CTA, {sms} SMs")
+
     def k7b_ops(a):                         # (xq, sx, wp, scale, dtype)
         m, k = a[0].shape
         return 2 * m * k * a[2].shape[1], "int8"
+
+    # K7b's yardstick, K7a's: one bf16 GEMM of the dequantized activations
+    # on the dequantized (K, N) weight, both built outside the call
+    def k7b_library(xq, sx, wp, scale, dtype):
+        x = (xq.float() * sx).to(torch.bfloat16)
+        return k7a_library(x, wp, scale)
+
+    # K6's yardstick: SDPA of the one query over a bf16 cache of the same
+    # (B, H, C, D), the bias as its mask (what a bf16-cache decode step
+    # reads: twice K6's bytes), the cache built outside the call
+    def k6_library(q, kt, vt, ks, vs, bias):
+        group = q.shape[1] // kt.shape[1]
+        k, v = ((t.float() * sc[..., None].float()).to(q.dtype)
+                .repeat_interleave(group, 1) for t, sc in ((kt, ks),
+                                                           (vt, vs)))
+        mask = bias[:, None, None, :].to(q.dtype)
+        return lambda: F.scaled_dot_product_attention(q[:, :, None], k, v,
+                                                      attn_mask=mask)
 
     def norm_ops(a):
         return 8 * a[0].numel(), "fp32"
@@ -1098,6 +1154,15 @@ def _cases(torch):
     # memory: fp32 from K = 12288, bf16 from 24576)
     k7a_edges = [(1, 512, 384, 128), (5, 512, 384, 128), (37, 768, 256, 32),
                  (3, 1024, 68, 64), (3, 256, 96, 128)]
+    # K7b takes the same edges (int8 x from global memory past K = 47360
+    # at 7 rows). K6's, fp32 and bf16: GQA (2, 3, 4 and 8 query heads a kv
+    # head), D 64 and 128, C 128 to 768 (ranks of 64 to 384 slots, C / 128
+    # not a multiple of the ranks), "masked": a rank whose slots are all
+    # masked in each batch row
+    k6_small = [(2, 8, 2, 256, 64), (2, 4, 4, 128, 128), (1, 12, 12, 640, 64),
+                (2, 12, 4, 128, 64), (2, 8, 2, 384, 128, "masked"),
+                (2, 16, 2, 768, 128, "masked"), (2, 6, 3, 640, 64, "masked"),
+                (2, 32, 32, 768, 128, "masked")]
     # the training step's shapes: LLaMA-7B at S = 704 (batch 1); SAM's 21
     # windowed blocks (8 frames x 9 windows of 14 x 14) and 3 global ones
     # (8 frames of 32 x 32) after the first trainable adapter
@@ -1221,9 +1286,12 @@ def _cases(torch):
         "int8_decode_attention": case(
             decode_attention.int8_cache_decode_attention,
             decode_attention.int8_cache_decode_attention_torch,
-            k6_inputs, [(2, 32, 32, 768, 128)],
-            [(2, 8, 2, 256, 64), (2, 4, 4, 128, 128), (1, 12, 12, 640, 64)],
-            k6_ops, cold=True),
+            k6_inputs, [(2, 32, 32, 768, 128)], k6_small,
+            k6_ops, cold=True, library=k6_library, edges=k6_small,
+            check=k6_plan,
+            library_is="SDPA of the query over a bf16 cache of the same "
+                       "(B, H, C, D), the bias as its mask: a yardstick "
+                       "reading twice K6's bytes, not K6's function"),
         "int4_matmul": case(
             int4_matmul.int4_matmul, int4_matmul.int4_matmul_torch,
             k7a_inputs, [(2, k, n, 128) for k, n in proj_shapes],
@@ -1264,9 +1332,13 @@ def _cases(torch):
         "int4_matmul_a8": case(
             int4_matmul.int4_matmul_a8, int4_matmul.int4_matmul_a8_torch,
             k7b_inputs, [(2, k, n, 128) for k, n in proj_shapes],
-            [(1, 512, 384, 128), (2, 512, 384, 128), (37, 768, 256, 32),
-             (3, 1024, 68, 64)],
-            k7b_ops, cold=True),
+            k7a_edges + [(2, 512, 384, 128), (7, 49152, 64, 128)], k7b_ops,
+            cold=True, edges=k7a_edges + [(7, 49152, 64, 128)],
+            library=k7b_library, check=k7b_plan,
+            library_is="torch.matmul of the bf16 dequantized activations "
+                       "on the bf16 dequantized (K, N) weight: a yardstick "
+                       "reading four times K7b's weight bytes, not K7b's "
+                       "function"),
         "int4_requant_int8": case(
             int4_matmul.int4_requant_int8,
             int4_matmul.int4_requant_int8_torch, k7c_inputs,
@@ -1539,11 +1611,26 @@ def _queued_ms(torch, fn, args, n=20, reps=5):
     return statistics.median(times)
 
 
+def _cold_copies(nbytes):
+    """Copies of a call's inputs of `nbytes` that a cold replay cycles
+    over: enough for COLD_BYTES; where those are fewer than COLD_NODES, one
+    more, so that between two reads of one copy the others read at least
+    COLD_BYTES (the L2 holds 50 MB)."""
+    copies = -(-COLD_BYTES // nbytes)
+    return copies + 1 if copies < COLD_NODES else copies
+
+
+def _cycle(items, n):
+    """`items` repeated in order to max(n, len(items)) entries."""
+    return [items[i % len(items)] for i in range(max(n, len(items)))]
+
+
 def _graph_ms(torch, fn, arg_sets, reps=20):
     """Median device time of one call: every set of `arg_sets` called once
-    inside a captured CUDA graph, the graph replayed between CUDA events.
-    For kernels of a few microseconds, where timing eager calls would
-    measure the host's launch overhead instead."""
+    inside a captured CUDA graph, the graph replayed between CUDA events,
+    its time divided by the calls. For kernels of a few microseconds, where
+    timing eager calls would measure the host's launch overhead instead;
+    phase 2 gives it at least COLD_NODES calls (`_cycle`)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -1828,13 +1915,16 @@ def phase_kernels(torch, gpu, compiles):
                 what += c["check"](args, got)
             errs += new
             del got, want
-            sets, timer, how = [args], _time_ms, ""
+            distinct, timer, how = [args], _time_ms, ""
+            sets = distinct
             if c["cold"]:
-                copies = -(-COLD_BYTES // _nbytes(torch, args))
-                sets += [make(gen, torch.bfloat16, full)
-                         for _ in range(copies - 1)]
+                copies = _cold_copies(_nbytes(torch, args))
+                distinct += [make(gen, torch.bfloat16, full)
+                             for _ in range(copies - 1)]
+                sets = _cycle(distinct, COLD_NODES)
                 timer = _graph_ms
-                how = f" (CUDA graph over {len(sets)} cold copies)"
+                how = (f" (CUDA graph of {len(sets)} calls over {copies} "
+                       f"cold copies)")
             t, tp = timer(torch, fn, sets), timer(torch, plain, sets)
             if c["cold"]:
                 t_one = _time_ms(torch, fn, [args])
@@ -1848,9 +1938,11 @@ def phase_kernels(torch, gpu, compiles):
                        f"({c['library_is'] or 'SDPA'}) {t_lib:.4f} ms")
                 if c["cold"]:
                     # the same cold copies, replayed as the kernel's
-                    calls = [call] + [c["library"](*a) for a in sets[1:]]
+                    calls = [call] + [c["library"](*a)
+                                      for a in distinct[1:]]
                     t_lib = _graph_ms(torch, lambda f: f(),
-                                      [(f,) for f in calls])
+                                      [(f,) for f in _cycle(calls,
+                                                            len(sets))])
                     lib += f" alone, {t_lib:.4f} ms cold"
                     del calls
                 library_ms += t_lib
@@ -1874,7 +1966,7 @@ def phase_kernels(torch, gpu, compiles):
                    f"({100 * b_ms / t:.1f}% of it) on {gpu}")
             ms += t
             plain_ms += tp
-            del args, sets
+            del args, sets, distinct
             torch.cuda.empty_cache()
         if _kernels.KERNELS[name].launches == before:
             raise PhaseError(f"{name}: its case never launched it")
@@ -1898,7 +1990,7 @@ def phase_kernels(torch, gpu, compiles):
                    f"{rows[name]['bound_ms']:.4f} ms on {gpu}")
     _tc_build_report(gpu, compiles)
     _int8_matmul_padded(torch, gpu)
-    _k7a_fused_widths(torch, gpu)
+    _int4_fused_widths(torch, gpu)
     _ragged_routes(torch, gpu)
     _odd_grid_routes(torch, gpu)
     _trainable_forms(torch, gpu)
@@ -1977,42 +2069,96 @@ def _tc_build_report(gpu, compiles):
                                  f"the built library ({fns})")
             if not lines:
                 raise PhaseError(f"{name} D = {d}: no ptxas report")
-            if re.search(r"\b[1-9]\d* bytes spill", " ".join(lines)):
+            if _spills(lines):
                 raise PhaseError(f"{name} D = {d} spills: {lines}")
-    _k7a_build_report(gpu, ptxas)
+    _int4_build_report(gpu, ptxas)
+    _k6_build_report(gpu, ptxas)
     _stop_tc_compiles(compiles)
 
 
-def _k7a_build_report(gpu, ptxas):
-    """Registers and spills of each K7a instantiation (x's dtype, rows of x
-    a CTA, bytes a weight copy, x staged or read from global memory) as
-    ptxas reports them; fails where one spills or none is
-    reported."""
+def _spills(lines):
+    return re.search(r"\b[1-9]\d* bytes spill", " ".join(lines))
+
+
+def _int4_build_report(gpu, ptxas):
+    """Registers and spills of each instantiation of the int4 template
+    (K7a's Dots, fp32 x on FFMAs or bf16 x on mma.sync; K7b's, int8 x on
+    the int8 mma.sync; rows of x a CTA, bytes a weight copy, x staged or
+    read from global memory, the output's dtype) as ptxas reports them;
+    fails where one spills or either entry has none reported."""
     fns = {f: lines for f, lines in ptxas.items()
            if "int4_matmul_kernel" in f}
-    if not fns:
-        raise PhaseError(f"{K7A_SOURCE}: no ptxas report of "
-                         "int4_matmul_kernel")
+    kinds = {"SimtDot": ("int4_matmul", "fp32 x, FFMA"),
+             "TcDot": ("int4_matmul", "bf16 x, mma"),
+             "I8Dot": ("int4_matmul_a8", "int8 x, int8 mma")}
+    seen = set()
     for fn, lines in sorted(fns.items()):
-        m = re.search(r"(SimtDot|TcDot)ELi(\d+)ELi(\d+)ELb([01])", fn)
-        label = (f"{'fp32 x, FFMA' if m[1] == 'SimtDot' else 'bf16 x, mma'}"
-                 f", MT {m[2]}, {m[3]}-byte copies, x "
-                 f"{'staged' if m[4] == '1' else 'from global'}"
-                 if m else fn)
-        say(2, f"int4_matmul ({label}): ptxas "
+        m = re.search(r"(SimtDot|TcDot|I8Dot)ELi(\d+)ELi(\d+)ELb([01])E"
+                      r"(f|13__nv_bfloat16)E", fn)
+        name, label = kinds[m[1]] if m else ("int4 template", fn)
+        if m:
+            seen.add(name)
+            label += (f", MT {m[2]}, {m[3]}-byte copies, x "
+                      f"{'staged' if m[4] == '1' else 'from global'}, out "
+                      f"{'fp32' if m[5] == 'f' else 'bf16'}")
+        say(2, f"{name} ({label}): ptxas "
                f"{'; '.join(lines) or 'no report'} ({gpu})")
-        if re.search(r"\b[1-9]\d* bytes spill", " ".join(lines)):
-            raise PhaseError(f"int4_matmul ({label}) spills: {lines}")
+        if _spills(lines):
+            raise PhaseError(f"{name} ({label}) spills: {lines}")
+    if seen != {"int4_matmul", "int4_matmul_a8"}:
+        raise PhaseError(f"{INT4_SOURCES}: ptxas reported "
+                         f"int4_matmul_kernel of {sorted(seen)} only")
 
 
-def _k7a_fused_widths(torch, gpu):
-    """K7a at LLaMA-7B's fused decode widths, (2, 4096, 12288) (q/k/v) and
-    (2, 4096, 22016) (gate/up), in fp32 and bf16, bit-equal to the
-    concatenation of its calls on the unfused parts' column slices: `_plan`
-    splits K by K and G alone and a column's arithmetic does not depend on
-    its place, so both sum every column in one order."""
+def _k6_build_report(gpu, ptxas):
+    """K6's kernels (q in fp32 and bf16; 1 query head a kv head, or 4 a
+    pass): registers and spills as ptxas reports them (a spill fails), and
+    the shared memory of two launches (the full width; GQA at D 64) as the
+    library sizes it, which `_plan`'s `_smem` must equal."""
+    import ctypes
+
+    from grove_tpu_torch import _kernels
+    from grove_tpu_torch.ops import decode_attention
+    fns = {}
+    for fn, lines in ptxas.items():
+        m = re.search(r"decode_kernelI(f|13__nv_bfloat16)Li(\d+)E", fn)
+        if m:
+            fns[f"{'fp32' if m[1] == 'f' else 'bf16'} q, {m[2]} query "
+                f"head{'s' if m[2] != '1' else ''} a pass"] = lines
+    if len(fns) != 4:
+        raise PhaseError(f"{K6_SOURCE}: ptxas reported {sorted(fns)}")
+    for label, lines in sorted(fns.items()):
+        say(2, f"int8_decode_attention ({label}): ptxas "
+               f"{'; '.join(lines)} ({gpu})")
+        if _spills(lines):
+            raise PhaseError(f"int8_decode_attention ({label}) spills: "
+                             f"{lines}")
+    fn = _kernels.load().grove_int8_decode_attention_smem
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_longlong
+    for b, h, hkv, c, d in ((2, 32, 32, 768, 128), (2, 8, 2, 384, 64)):
+        p = decode_attention._plan(b, h, hkv, c, d, 132)
+        lib = fn(p.ring, p.span, h // hkv, d)
+        if lib != p.smem:
+            raise PhaseError(f"int8_decode_attention {(b, h, hkv, c, d)}: "
+                             f"the library sizes {lib} B of shared memory, "
+                             f"_plan {p.smem}")
+        say(2, f"int8_decode_attention {(b, h, hkv, c, d)}: its launch asks "
+               f"for {lib} B of shared memory, as _plan says ({gpu})")
+
+
+def _int4_fused_widths(torch, gpu):
+    """K7a and K7b at LLaMA-7B's fused decode widths, (2, 4096, 12288)
+    (q/k/v) and (2, 4096, 22016) (gate/up), in fp32 and bf16 (K7b: its
+    output's dtype), bit-equal to the concatenation of their calls on the
+    unfused parts' column slices: `_plan` splits K by K and G alone and a
+    column's arithmetic does not depend on its place, so both sum every
+    column in one order."""
     from grove_tpu_torch.ops import int4_matmul
     gen = torch.Generator(device="cuda").manual_seed(15)
+    xq = torch.randint(-127, 128, (2, 4096), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    sx = 0.002 + 0.018 * torch.rand((2, 1), generator=gen, device="cuda")
     for n, parts in ((12288, 3), (22016, 2)):
         wp = torch.randint(-128, 128, (2048, n), generator=gen,
                            device="cuda", dtype=torch.int8)
@@ -2022,20 +2168,26 @@ def _k7a_fused_widths(torch, gpu):
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.randn((2, 4096), generator=gen, device="cuda",
                             dtype=torch.float32).to(dtype)
-            whole = int4_matmul.int4_matmul(x, wp, scale)
-            cat = torch.cat([int4_matmul.int4_matmul(
-                x, wp[:, i * w:(i + 1) * w].contiguous(),
-                scale[:, i * w:(i + 1) * w].contiguous())
-                for i in range(parts)], dim=1)
-            torch.cuda.synchronize()
-            if not torch.equal(whole, cat):
-                diff = float((whole.float() - cat.float()).abs().max())
-                raise PhaseError(f"int4_matmul (2, 4096, {n}) {dtype}: not "
-                                 f"bit-equal to its {parts} parts (max "
-                                 f"|diff| {diff:.3e})")
-            say(2, f"int4_matmul fused (2, 4096, {n}) {dtype}: bit-equal to "
-                   f"{parts} calls on its (2, 4096, {w}) column slices "
-                   f"({gpu})")
+            calls = {
+                "int4_matmul": lambda wp, scale: int4_matmul.int4_matmul(
+                    x, wp, scale),
+                "int4_matmul_a8": lambda wp, scale:
+                    int4_matmul.int4_matmul_a8(xq, sx, wp, scale, dtype)}
+            for name, call in calls.items():
+                whole = call(wp, scale)
+                cat = torch.cat([call(
+                    wp[:, i * w:(i + 1) * w].contiguous(),
+                    scale[:, i * w:(i + 1) * w].contiguous())
+                    for i in range(parts)], dim=1)
+                torch.cuda.synchronize()
+                if not torch.equal(whole, cat):
+                    diff = float((whole.float() - cat.float()).abs().max())
+                    raise PhaseError(f"{name} (2, 4096, {n}) {dtype}: not "
+                                     f"bit-equal to its {parts} parts (max "
+                                     f"|diff| {diff:.3e})")
+                say(2, f"{name} fused (2, 4096, {n}) {dtype}: bit-equal to "
+                       f"{parts} calls on its (2, 4096, {w}) column slices "
+                       f"({gpu})")
 
 
 def _tc_instance(name):
@@ -3391,8 +3543,10 @@ def _w4a8_parity(torch, cfg, tok, clip, ap):
     information: per-token int8 flips cascade through the layers as in the
     W8A8 towers. Then `fuse()` on the card: the prompt's hidden states
     within FUSE_TOL of the unfused model's (the int8-view path sums
-    exactly in int32), and the greedy agreement of the two
-    (informational: K7b's split of K follows the fused width)."""
+    exactly in int32), the hidden states of 16 int8-cache decode steps
+    (K7b at the fused widths) bit-equal to the unfused model's, since
+    K7b splits K by K and G alone, and the two models' 64 greedy tokens
+    equal."""
     from grove_tpu_torch import _kernels
     from grove_tpu_torch.infer.generate import generate_grounded
     from grove_tpu_torch.infer.sliding import center_prompts
@@ -3439,6 +3593,9 @@ def _w4a8_parity(torch, cfg, tok, clip, ap):
     h_unfused = _hidden_on(torch, gpu, clip, p_ids, starts)
     h_fused = _hidden_on(torch, fused, clip, p_ids, starts)
     err = _rel_max(h_fused, h_unfused)
+    steps = [_int8_steps(torch, cfg, clip, model, p_ids, starts, ids)
+             for model in (gpu, fused)]
+    same = sum(bool(np.array_equal(a, b)) for a, b in zip(*steps))
     gens = []
     for model in (gpu, fused):
         g = generate_grounded(
@@ -3447,13 +3604,19 @@ def _w4a8_parity(torch, cfg, tok, clip, ap):
             torch.from_numpy(clip["frames_sam"][None]).to("cuda"),
             max_new_tokens=64, early_exit=False, cache_dtype=torch.int8)
         gens.append(g["generated_ids"][0])
-    agree = float(np.mean(gens[0] == gens[1]))
+    agree = int(np.sum(gens[0] == gens[1]))
     say(4, f"{label}, fuse() on the card: prompt hidden states fused vs "
-           f"unfused {err:.2e} of max-abs; greedy tokens fused vs unfused: "
-           f"{agree * 100:.1f}% of 64 agree (informational)")
+           f"unfused {err:.2e} of max-abs; prefill + {len(ids)} int8-cache "
+           f"decode steps: {same} of {len(steps[0])} hidden states "
+           f"bit-equal; greedy tokens fused vs unfused: {agree} of "
+           f"{len(gens[0])} agree")
     if not err <= FUSE_TOL:
         raise PhaseError(f"{label}: fused vs unfused {err:.2e} > "
                          f"{FUSE_TOL} of max-abs")
+    if same != len(steps[0]) or agree != len(gens[0]):
+        raise PhaseError(f"{label}: fused vs unfused decode differs ({same}"
+                         f" of {len(steps[0])} steps bit-equal, {agree} of "
+                         f"{len(gens[0])} tokens)")
 
 
 # ---------------------------------------------------------------------------

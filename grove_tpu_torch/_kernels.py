@@ -16,6 +16,7 @@ wrapper asks before it launches, also holds the grad guard
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -206,7 +207,7 @@ KERNELS: Dict[str, Kernel] = {
         "grove_tpu/ops/attention.py:248"),
     "int8_decode_attention": Kernel(
         "grove_int8_decode_attention",
-        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
+        [_P] * 7 + [_I] * 7 + [_F, _I, _P],
         "grove_tpu_torch/csrc/int8_decode_attention.cu",
         "grove_tpu/ops/decode_attention.py:122"),
     "int4_matmul": Kernel(
@@ -236,7 +237,7 @@ KERNELS: Dict[str, Kernel] = {
         "grove_tpu/ops/sam_attention.py:537"),
     "int4_matmul_a8": Kernel(
         "grove_int4_matmul_a8",
-        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+        [_P] * 5 + [_I] * 9 + [_P],
         "grove_tpu_torch/csrc/int4_matmul_a8.cu",
         "grove_tpu/ops/int4_matmul.py:372"),
     "int4_requant_int8": Kernel(
@@ -475,3 +476,10 @@ def check_cuda_inputs(name: str, tensors: Sequence[torch.Tensor],
 
 def stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """The card's SMs, which the launch plans of K6, K7a and K7b size their
+    grids for; memoised, since a decode step plans its launches each call."""
+    return torch.cuda.get_device_properties(device).multi_processor_count

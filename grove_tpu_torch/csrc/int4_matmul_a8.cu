@@ -9,56 +9,52 @@
 //
 //   out[m, n] = sx[m] * sum_g scale[g, n] * sum_{k in g} xq[m, k] * q4[k, n]
 //
-// xq (M, K) int8 with sx (M, 1) fp32; wp (K/2, N) int8 in the layout of
-// grove_tpu/ops/quant.py:pack_int4 (packed row p*G + i holds logical row
-// 2p*G + i in its low nibble and (2p+1)*G + i in its high nibble, so one
-// "super-group" p of G packed rows carries groups 2p and 2p+1); scale (K/G,
-// N) fp32. Each group's sum of products is exact in int32 (at most
-// 127 * 8 * G in magnitude), converted to fp32 (exact below 2^24), times the
-// group's scale and added into an fp32 sum; sx applies at the store.
-//
-// The TPU kernel's biased low nibble with its -8 * rowsum correction, its
-// 16 * hi plane and its super-group blocking exist because Mosaic legalises
-// only and/xor on int8 vectors; none of them is copied. Here each nibble is
-// sign-extended exactly, four lanes of one 32-bit word at a time (within
-// each byte: (n ^ 8) - 8, with the bytes' top bits set so that no borrow
-// crosses a byte), and __dp4a multiplies four int8 weights of consecutive k
-// with four int8 activations into an int32 sum.
+// xq (M, K) int8 with sx (M, 1) fp32; wp (K/2, N) int8 and scale (K/G, N)
+// fp32 as K7a's (int4_matmul.cuh). Each group's sum of products is exact in
+// int32, times the group's scale in fp32, added into an fp32 sum in group
+// order; sx applies at the store, in the output's dtype (bf16 or fp32).
 //
 // Bound on the H100: device-memory bytes of the weights, 0.5 B per weight
-// plus the group scales (8.9 MB for a 4096 x 4096 projection), read once per
-// call; the activations are a few KB. The design follows K7a
-// (csrc/int4_matmul.cu): a block owns 128 output columns and MT rows of xq;
-// each lane reads 4 consecutive bytes of 4 consecutive packed rows (four
-// 32-bit loads, each warp-wide load a 128-byte line), transposes the 4 x 4
-// bytes with __byte_perm so that each column's four k share a word, and the
-// block's 8 warps split the G packed rows of each super-group. The warps'
-// int32 partial sums of a group meet in shared memory (integer adds, so
-// their order does not matter), then one thread per (row, column) scales
-// and accumulates them in fp32. K is split over a third grid dimension so
-// that the few column tiles of a decode shape fill the card; each split
-// writes fp32 partial sums (ksplit, M, N) and a second small kernel adds
-// them in a fixed order, multiplies by sx and casts.
+// plus the group scales (8.9 MB for a 4096 x 4096 projection), read once
+// per call; the activations are a few KB. The kernel is K7a's template
+// (int4_matmul.cuh: one launch, no scratch; K split over a thread-block
+// cluster of min(2, K / 2G) ranks by K and G alone, so a fused projection
+// sums each column as its unfused part does; a ring of 4 stages of 128
+// packed rows x 64 columns fed by 16-byte cp.async; the ranks' fp32 tiles
+// added through distributed shared memory in rank order), instantiated over
+// an int8 Dot (I8Dot) on the tensor cores:
+//   * each warp takes a 32-row slice of a stage and 32 columns, and runs
+//     mma.sync m16n8k32 s8 x s8 -> s32 on the transposed product: the
+//     weights as the A operand (16 columns x the slice's 32 rows), up to 8
+//     rows of xq as B (staged in shared memory as they come);
+//   * a lane reads 4 bytes (4 columns) of 8 rows, transposes each 4 x 4
+//     block of bytes with PRMT so that a register holds 4 consecutive k of
+//     one column, and widens the nibbles to exact int8 by feeding 16 n, the
+//     TPU kernel's own device: w & 0xF0F0F0F0 for the high plane, (w << 4)
+//     & 0xF0F0F0F0 for the low one (one LOP3, or a shift and a LOP3);
+//   * the 1/16 folds into the scale: (float)(16 s) * (scale / 16) is
+//     exactly s * scale for |16 s| < 2^24 (G <= 512), the scale / 16 exact,
+//     as grove_tpu/ops/int4_matmul.py:115-121 does. The group's int32 sums
+//     are exact, so the warps of a slice may hold them in any order; each
+//     is scaled and folded into the warp's fp32 totals in group order, the
+//     slices' totals added in slice order, the ranks' in rank order.
+// About 1.8 instructions a weight byte (8 shared loads of weights and 4 of
+// x, 16 PRMT, 24 widening ops and 4 mma for 32 bytes a lane), against
+// K7a's ~3.6.
+//
+// The design it replaces made two launches: a partial kernel over a
+// grid split of K chosen from the number of column tiles, writing fp32
+// (ksplit, M, N) scratch that a second kernel added, with plain 4-byte loads
+// consumed at once, __dp4a after a 4-op sign extension of each nibble
+// plane, and shared-memory atomics a super-group. Its split made a fused
+// projection sum in another order than its unfused parts, and few bytes
+// were in flight an SM.
 
-#include <stdint.h>
+#include "int4_matmul.cuh"
 
-#include "attention_core.cuh"
+using namespace int4mm;
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kCols = 4;                  // columns per lane: one 32-bit load
-constexpr int kTileN = 32 * kCols;        // columns per block
-
-// the low / high nibbles of the four bytes of w, each sign-extended to an
-// int8 in its own byte
-__device__ __forceinline__ uint32_t lo_nibbles(uint32_t w) {
-  return (((w & 0x0F0F0F0Fu) ^ 0x88888888u) - 0x08080808u) ^ 0x80808080u;
-}
-__device__ __forceinline__ uint32_t hi_nibbles(uint32_t w) {
-  return lo_nibbles(w >> 4);
-}
 
 // the 4 x 4 byte transpose: in r[j] byte c is (row j, column c); out[c]
 // byte j is the same value
@@ -74,182 +70,155 @@ __device__ __forceinline__ void transpose4(const uint32_t r[4],
   out[3] = __byte_perm(t2, t3, 0x7632);
 }
 
+constexpr uint32_t kHigh = 0xF0F0F0F0u;
+
+// the four low / high nibbles of w as 16 n, each an exact int8
+__device__ __forceinline__ uint32_t lo16(uint32_t w) {
+  return (w << 4) & kHigh;
+}
+__device__ __forceinline__ uint32_t hi16(uint32_t w) { return w & kHigh; }
+
+__device__ __forceinline__ void mma_s8(int d[4], uint32_t a0, uint32_t a1,
+                                       uint32_t a2, uint32_t a3, uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// int8 x on the tensor cores. Warp w: columns 32 (w & 1) + [0, 32), the
+// slice w >> 1; lane (g, t) = (lane / 4, lane % 4), c0 = its first column.
+// D^T = W^T X^T over the slice's 32 rows: A row slots g and g + 8 are
+// columns c0 + 2h and c0 + 2h + 1 (h: the two mmas of the lane's 4
+// columns); k slot j is the slice's row j, so a0 / a1 hold rows 4t .. 4t + 3
+// and a2 / a3 rows 16 + 4t .. 16 + 4t + 3 of the two columns; B column g is
+// x row g, b0 / b1 its k 4t .. 4t + 3 and 16 + 4t .. 16 + 4t + 3 (4 bytes
+// each). D element i of mma h: column c0 + 2h + i / 2, x row 2t + i % 2,
+// as K7a's TcDot. 4 row groups a CTA (the slices).
 template <int MT>
-__global__ void __launch_bounds__(kThreads) int4_a8_partial_kernel(
-    const int8_t* __restrict__ xq, const int8_t* __restrict__ wp,
-    const float* __restrict__ scale, float* __restrict__ part, int M, int K,
-    int N, int G, int supers, int ksplit) {
-  // int32 group sums of the block: [MT][2 planes][kTileN]
-  extern __shared__ __align__(16) int isum[];
-  constexpr int kOwned = (MT * kTileN + kThreads - 1) / kThreads;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n0 = blockIdx.x * kTileN + lane * kCols;
-  const int m0 = blockIdx.y * MT;
-  const int z = blockIdx.z;
-  const int p0 = (int)((long long)supers * z / ksplit);
-  const int p1 = (int)((long long)supers * (z + 1) / ksplit);
-  const bool col_ok = n0 < N;             // N % 4 == 0: all 4 or none
-  const int* xw = reinterpret_cast<const int*>(xq);
-  const int kw = K / 4;                   // int32 words per row of xq
+struct I8Dot {
+  using Act = int8_t;
+  static constexpr int kGroups = kSlices;
+  // three CTAs an SM hold the 344 of a 4096 -> 11008 decode product at
+  // once (two rows of x, 16-byte copies, x staged); the edge shapes'
+  // instantiations (4-byte copies, x from global memory) spilled at that
+  // budget and take two
+  static constexpr int min_blocks(int vec, bool xs) {
+    return MT > 2 ? 1 : vec == 16 && xs ? 3 : 2;
+  }
+  static constexpr int kMinMT = 2;     // B holds 8 rows anyway
+  static constexpr bool kRowScale = true;
+  int lo[2][4], hi[2][4];              // the two groups' int32 sums of 16 s
+  float tot[4][2];
+  int g, t, c0;
 
-  for (int i = threadIdx.x; i < MT * 2 * kTileN; i += kThreads) isum[i] = 0;
-  float acc[kOwned];
+  __device__ void init() {
+    const int lane = threadIdx.x & 31;
+    g = lane >> 2;
+    t = lane & 3;
+    c0 = ((threadIdx.x >> 5) & 1) * 32 + 4 * g;
 #pragma unroll
-  for (int e = 0; e < kOwned; ++e) acc[e] = 0.f;
-  __syncthreads();
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) lo[h][i] = hi[h][i] = 0;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) tot[c][0] = tot[c][1] = 0.f;
+  }
+  __device__ static int slice() { return threadIdx.x >> 6; }
+  __device__ int group() const { return slice(); }
 
-  for (int p = p0; p < p1; ++p) {
-    int lo[MT][kCols], hi[MT][kCols];
+  // the B operands just before their mmas, the low plane's first: within
+  // the 80 registers of three CTAs an SM
+  template <bool XS>
+  __device__ void consume(const Slice& s, const int8_t* x, int xst, int gsz,
+                          int mrows) {
+    const int8_t* xr = x + g * xst + (XS ? s.xlo : s.kglob) + 4 * t;
+    const bool xok = g < MT && (XS || g < mrows);
+    uint32_t cr[4], cu[4];     // columns c0 + j: rows 4t .., 16 + 4t ..
+    {
+      uint32_t r[4];
 #pragma unroll
-    for (int m = 0; m < MT; ++m)
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) lo[m][c] = hi[m][c] = 0;
-    if (col_ok) {
-      const int8_t* w = wp + (long long)p * G * N + n0;
-      for (int i = 4 * warp; i < G; i += 4 * kWarps) {
-        uint32_t r[4], wl[4], wh[4], tl[4], th[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          r[j] = *reinterpret_cast<const uint32_t*>(
-              w + (long long)(i + j) * N);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          tl[j] = lo_nibbles(r[j]);
-          th[j] = hi_nibbles(r[j]);
-        }
-        transpose4(tl, wl);
-        transpose4(th, wh);
-        const int klo = (2 * p * G + i) / 4;      // word of xq, low plane
-        const int khi = ((2 * p + 1) * G + i) / 4;
-#pragma unroll
-        for (int m = 0; m < MT; ++m) {
-          const int row = m0 + m;
-          if (row >= M) break;
-          const int xl = __ldg(xw + (long long)row * kw + klo);
-          const int xh = __ldg(xw + (long long)row * kw + khi);
-#pragma unroll
-          for (int c = 0; c < kCols; ++c) {
-            lo[m][c] = __dp4a(xl, (int)wl[c], lo[m][c]);
-            hi[m][c] = __dp4a(xh, (int)wh[c], hi[m][c]);
-          }
-        }
-      }
-#pragma unroll
-      for (int m = 0; m < MT; ++m)
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) {
-          atomicAdd(&isum[(m * 2 + 0) * kTileN + lane * kCols + c], lo[m][c]);
-          atomicAdd(&isum[(m * 2 + 1) * kTileN + lane * kCols + c], hi[m][c]);
-        }
+      for (int i = 0; i < 4; ++i)
+        r[i] = *reinterpret_cast<const uint32_t*>(
+            s.st + swz(s.row0 + 4 * t + i, c0));
+      transpose4(r, cr);
     }
-    __syncthreads();
-    // one thread per (row, column): scale the group sums, clear them
+    {
+      uint32_t u[4];
 #pragma unroll
-    for (int e = 0; e < kOwned; ++e) {
-      const int idx = threadIdx.x + e * kThreads;
-      if (idx < MT * kTileN) {
-        const int m = idx / kTileN;
-        const int col = idx - m * kTileN;
-        const int n = blockIdx.x * kTileN + col;
-        int* s = isum + m * 2 * kTileN + col;
-        if (n < N) {
-          const float* sc = scale + (long long)2 * p * N + n;
-          const float both = __fadd_rn(__fmul_rn((float)s[0], sc[0]),
-                                       __fmul_rn((float)s[kTileN], sc[N]));
-          acc[e] = __fadd_rn(acc[e], both);
-        }
-        s[0] = 0;
-        s[kTileN] = 0;
-      }
+      for (int i = 0; i < 4; ++i)
+        u[i] = *reinterpret_cast<const uint32_t*>(
+            s.st + swz(s.row0 + 16 + 4 * t + i, c0));
+      transpose4(u, cu);
     }
-    __syncthreads();
-  }
-
+    {
+      const uint32_t b0 = xok ? *reinterpret_cast<const uint32_t*>(xr) : 0u;
+      const uint32_t b1 =
+          xok ? *reinterpret_cast<const uint32_t*>(xr + 16) : 0u;
 #pragma unroll
-  for (int e = 0; e < kOwned; ++e) {
-    const int idx = threadIdx.x + e * kThreads;
-    const int m = idx / kTileN;
-    const int row = m0 + m;
-    const int n = blockIdx.x * kTileN + idx - m * kTileN;
-    if (idx < MT * kTileN && row < M && n < N)
-      part[((long long)z * M + row) * N + n] = acc[e];
+      for (int h = 0; h < 2; ++h)
+        mma_s8(lo[h], lo16(cr[2 * h]), lo16(cr[2 * h + 1]), lo16(cu[2 * h]),
+               lo16(cu[2 * h + 1]), b0, b1);
+    }
+    const uint32_t b0 =
+        xok ? *reinterpret_cast<const uint32_t*>(xr + gsz) : 0u;
+    const uint32_t b1 =
+        xok ? *reinterpret_cast<const uint32_t*>(xr + gsz + 16) : 0u;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      mma_s8(hi[h], hi16(cr[2 * h]), hi16(cr[2 * h + 1]), hi16(cu[2 * h]),
+             hi16(cu[2 * h + 1]), b0, b1);
   }
-}
 
-template <typename T>
-__global__ void int4_a8_reduce_kernel(const float* __restrict__ part,
-                                      const float* __restrict__ sx,
-                                      T* __restrict__ out, int ksplit, int N,
-                                      long long mn) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < mn;
-       i += (long long)gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int z = 0; z < ksplit; ++z) s += part[z * mn + i];
-    out[i] = grove::from_f<T>(__fmul_rn(s, sx[i / N]));
+  // the two groups' sums of 16 s, times their scales / 16 (exact), into
+  // the totals, the low group first
+  __device__ void fold(const float* ss) {
+    const float4 sl = *reinterpret_cast<const float4*>(ss + c0);
+    const float4 sh = *reinterpret_cast<const float4*>(ss + kTileN + c0);
+    const float fl[4] = {sl.x * 0.0625f, sl.y * 0.0625f, sl.z * 0.0625f,
+                         sl.w * 0.0625f};
+    const float fh[4] = {sh.x * 0.0625f, sh.y * 0.0625f, sh.z * 0.0625f,
+                         sh.w * 0.0625f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int c = 2 * h + i / 2;
+        tot[c][i % 2] = fmaf((float)hi[h][i], fh[c],
+                             fmaf((float)lo[h][i], fl[c], tot[c][i % 2]));
+        lo[h][i] = hi[h][i] = 0;
+      }
   }
-}
 
-template <typename T, int MT>
-int launch_mt(const void* xq, const float* sx, const void* wp,
-              const float* scale, float* part, void* out, int m, int k, int n,
-              int g, int ksplit, cudaStream_t st) {
-  const size_t bytes = sizeof(int) * (size_t)MT * 2 * kTileN;
-  const int supers = k / (2 * g);
-  dim3 grid((n + kTileN - 1) / kTileN, (m + MT - 1) / MT, ksplit);
-  int4_a8_partial_kernel<MT><<<grid, kThreads, bytes, st>>>(
-      static_cast<const int8_t*>(xq), static_cast<const int8_t*>(wp), scale,
-      part, m, k, n, g, supers, ksplit);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const long long mn = (long long)m * n;
-  const int blocks = (int)((mn + 255) / 256 < 4096 ? (mn + 255) / 256 : 4096);
-  int4_a8_reduce_kernel<T><<<blocks, 256, 0, st>>>(
-      part, sx, static_cast<T*>(out), ksplit, n, mn);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch(const void* xq, const float* sx, const void* wp,
-           const float* scale, float* part, void* out, int m, int k, int n,
-           int g, int mt, int ksplit, cudaStream_t st) {
-  switch (mt) {
-    case 1:
-      return launch_mt<T, 1>(xq, sx, wp, scale, part, out, m, k, n, g, ksplit,
-                             st);
-    case 2:
-      return launch_mt<T, 2>(xq, sx, wp, scale, part, out, m, k, n, g, ksplit,
-                             st);
-    case 4:
-      return launch_mt<T, 4>(xq, sx, wp, scale, part, out, m, k, n, g, ksplit,
-                             st);
-    case 8:
-      return launch_mt<T, 8>(xq, sx, wp, scale, part, out, m, k, n, g, ksplit,
-                             st);
-    default:
-      return (int)cudaErrorInvalidValue;
+  __device__ void partial(float* part) const {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int m = 2 * t + e;
+      if (m < MT)
+        *reinterpret_cast<float4*>(part + (group() * MT + m) * kTileN + c0) =
+            make_float4(tot[0][e], tot[1][e], tot[2][e], tot[3][e]);
+    }
   }
-}
+};
 
 }  // namespace
 
-// part: (ksplit, M, N) fp32 scratch the caller allocates. mt: rows of xq per
-// block (1, 2, 4 or 8). ksplit: splits of the K / (2G) super-groups. dtype:
-// the output's, 0 fp32 or 1 bf16.
+// The plan's fields: int4_matmul.cuh `make_args` (ops/int4_matmul.py
+// `_plan` with one byte of x). G at most 512, so that a group's sum of 16 s
+// stays below 2^24. dtype: the output's, 0 fp32 or 1 bf16.
 extern "C" int grove_int4_matmul_a8(const void* xq, const float* sx,
                                     const void* wp, const float* scale,
-                                    float* part, void* out, int m, int k,
-                                    int n, int g, int mt, int ksplit,
+                                    void* out, int m, int k, int n, int g,
+                                    int mt, int cluster, int vec, int staged,
                                     int dtype, void* stream) {
-  if (g <= 0 || g % 32 != 0 || k % (2 * g) != 0 || n % 4 != 0 || m <= 0 ||
-      ksplit < 1 || ksplit > k / (2 * g))
-    return (int)cudaErrorInvalidValue;
+  if ((dtype != 0 && dtype != 1) || g > 512) return (int)cudaErrorInvalidValue;
+  Int4Args a;
+  const int bad = make_args(a, xq, wp, scale, sx, out, m, k, n, g, mt,
+                            cluster, vec, staged, 1);
+  if (bad) return bad;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float>(xq, sx, wp, scale, part, out, m, k, n, g, mt, ksplit,
-                         st);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(xq, sx, wp, scale, part, out, m, k, n, g, mt,
-                                 ksplit, st);
-  return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return run_dot<I8Dot, float>(a, mt, vec, staged, st);
+  return run_dot<I8Dot, __nv_bfloat16>(a, mt, vec, staged, st);
 }

@@ -16,13 +16,10 @@ stay as they are. `fuse_llama_` rebuilds a model's decoder layers IN PLACE
 with `fused_qkv=True`, one layer at a time.
 
 The JAX package calls fusion bit-identical. On the card the port's K7a
-splits K by K and G alone (`ops/int4_matmul.py:_plan`) and sums each column
-the same way wherever it lies, so a fused W4A16 projection is bit-equal to
-the ones it replaces (`chip_smoke.py` checks it). K7b does not yet: it
-chooses its split of K from the number of column tiles
-(`ops/int4_matmul.py:_split`), which the fused width changes, so a fused
-W4A8 projection may sum in another order than the ones it replaces: fused
-and unfused agree there to a tolerance, not bit for bit.
+and K7b (one kernel template, `csrc/int4_matmul.cuh`) split K by K and G
+alone (`ops/int4_matmul.py:_plan`) and sum each column the same way
+wherever it lies, so a fused W4A16 or W4A8 projection is bit-equal to the
+ones it replaces (`chip_smoke.py` checks both).
 """
 
 from __future__ import annotations

@@ -7,16 +7,18 @@ package's bytes: wp (K/2, N) int8 packed by `ops.quant.pack_int4` and scale
 
     out = x @ dequant(wp),  dequant[k, n] = q4[k, n] * scale[k // G, n].
 
-* `int4_matmul` is K7a: CPU tensors take `int4_matmul_torch`; CUDA tensors
-  launch `csrc/int4_matmul.cu` (G a multiple of 32, N of 4) once, with the
+* `int4_matmul` is K7a and `int4_matmul_a8` K7b: CPU tensors take their
+  plain twins; CUDA tensors launch one kernel template
+  (`csrc/int4_matmul.cuh`; G a multiple of 32, N of 4) once, with the
   launch `_plan` chooses: K split over a thread-block cluster by K and G
-  alone, so a fused projection sums each column as its unfused part does;
-  bf16 x on the tensor cores (mma.sync), fp32 x in FFMAs.
-* `int4_matmul_torch` is the plain twin, the JAX package's grouped einsum
-  (`models/layers.py:268-273`): per-group fp32 partial products, times the
-  group's scale, summed over groups.
-* `int4_matmul_a8` is K7b (`csrc/int4_matmul_a8.cu`): per-token int8
-  activations, each group's product exact in int32.
+  alone, so a fused projection sums each column as its unfused part does.
+  K7a (`csrc/int4_matmul.cu`) takes bf16 x on the tensor cores (mma.sync)
+  and fp32 x in FFMAs; K7b (`csrc/int4_matmul_a8.cu`) per-token int8
+  activations on the int8 tensor cores, each group's product exact in
+  int32, the per-token scale at the store.
+* `int4_matmul_torch` is the plain twin of K7a, the JAX package's grouped
+  einsum (`models/layers.py:268-273`): per-group fp32 partial products,
+  times the group's scale, summed over groups; `int4_matmul_a8_torch` K7b's.
 * `int4_requant_int8` is K7c (`csrc/int4_requant.cu`): the int8 view that
   the prefill's int8 GEMM (`ops.int8_matmul`) takes, stored column-major;
   `requant_multipliers` computes its fixed-point factors as
@@ -57,13 +59,13 @@ def int4_matmul_torch(x, wp, scale):
     return (y * scale.float()).sum(1).to(x.dtype)
 
 
-# K7a's launch (`csrc/int4_matmul.cu`): a CTA owns TILE_N columns and up to
-# 8 rows of x and streams STAGE_ROWS packed rows at a time through a ring of
-# STAGES stages of STAGE_BYTES (the weights and the scale rows of the up to
-# 4 super-groups the stage overlaps); the super-groups are split over a
-# cluster of CLUSTER CTAs. Clusters of 2 and 64-column tiles: an H100's
-# GPCs do not hold the 16 clusters of 8 of a 4096-wide output in 256-column
-# tiles one CTA an SM, so some SMs took two and set the time
+# The launch of K7a and K7b (`csrc/int4_matmul.cuh`): a CTA owns TILE_N
+# columns and up to 8 rows of x and streams STAGE_ROWS packed rows at a time
+# through a ring of STAGES stages of STAGE_BYTES (the weights and the scale
+# rows of the up to 4 super-groups the stage overlaps); the super-groups are
+# split over a cluster of CLUSTER CTAs. Clusters of 2 and 64-column tiles:
+# an H100's GPCs do not hold the 16 clusters of 8 of a 4096-wide output in
+# 256-column tiles one CTA an SM, so some SMs took two and set the time
 TILE_N = 64
 STAGE_ROWS = 128
 STAGE_BYTES = STAGE_ROWS * TILE_N + 4 * 2 * TILE_N * 4
@@ -73,9 +75,9 @@ SMEM_LIMIT = 232448          # shared bytes one block can use on sm_90
 
 
 class Int4Plan(NamedTuple):
-    """One K7a launch. `ranges[r]` are the super-groups [first, end) of
-    cluster rank r, as the kernel computes them (`rank_start`)."""
-    mt: int             # rows of x per CTA: 1 (fp32 only), 2, 4 or 8
+    """One launch of K7a or K7b. `ranges[r]` are the super-groups [first,
+    end) of cluster rank r, as the kernel computes them (`rank_start`)."""
+    mt: int             # rows of x per CTA: 1 (fp32 x only), 2, 4 or 8
     tiles: int          # column tiles of TILE_N
     row_blocks: int     # ceil(M / mt)
     cluster: int        # CTAs splitting the super-groups
@@ -92,7 +94,7 @@ class Int4Plan(NamedTuple):
 
 
 def _smem(mt: int, xstride: int, x_bytes: int) -> int:
-    """`smem_bytes` of `csrc/int4_matmul.cu`: the ring, x's rows of
+    """`smem_bytes` of `csrc/int4_matmul.cuh`: the ring, x's rows of
     `xstride` elements, and the CTA's fp32 partial tile."""
     return STAGES * STAGE_BYTES + mt * xstride * x_bytes + 4 * mt * TILE_N
 
@@ -100,9 +102,10 @@ def _smem(mt: int, xstride: int, x_bytes: int) -> int:
 @functools.lru_cache(maxsize=None)
 def _plan(m: int, k: int, n: int, g: int, sms: int, x_bytes: int = 2,
           aligned: bool = True) -> Int4Plan:
-    """K7a's launch for x (m, k) of `x_bytes` per element (bf16: the tensor
-    cores; fp32: FFMAs) against (k/2, n) packed weights in groups of g, on a
-    card of `sms` SMs (which only sets `per_sm`). The split of K depends on
+    """The launch of K7a or K7b for x (m, k) of `x_bytes` per element (K7a:
+    bf16 on the tensor cores, fp32 in FFMAs; K7b: int8 on the tensor cores)
+    against (k/2, n) packed weights in groups of g, on a card of `sms` SMs
+    (which only sets `per_sm`). The split of K depends on
     k and g alone: a cluster of min(CLUSTER, k / 2g) ranks, rank r taking
     the super-groups [S r / C, S (r + 1) / C). `aligned`: the weights and
     scales lie on 16 bytes (then N % 16 == 0 takes 16-byte copies). x is
@@ -118,7 +121,7 @@ def _plan(m: int, k: int, n: int, g: int, sms: int, x_bytes: int = 2,
     ranges = tuple((supers * r // cluster, supers * (r + 1) // cluster)
                    for r in range(cluster))
     xstride = -(-supers // cluster) * 2 * g
-    mt = 1 if x_bytes == 4 else 2      # the tensor-core body takes 2 to 8
+    mt = 1 if x_bytes == 4 else 2      # the tensor-core Dots take 2 to 8
     while mt < min(m, 8):
         mt *= 2
     tiles, row_blocks = -(-n // TILE_N), -(-m // mt)
@@ -151,8 +154,9 @@ def int4_matmul(x, wp, scale):
                                 (scale, torch.float32)])
     m, k = x.shape
     n = wp.shape[1]
-    p = _plan(m, k, n, g, _sms(x.device), x.element_size(),
-              aligned=wp.data_ptr() % 16 == 0 and scale.data_ptr() % 16 == 0)
+    p = _plan(m, k, n, g, _kernels.sm_count(x.device), x.element_size(),
+              aligned=wp.data_ptr() % 16 == 0
+              and scale.data_ptr() % 16 == 0)
     if x.data_ptr() % 16:        # the kernel copies x in 16-byte pieces
         x = x.clone()
     out = torch.empty((m, n), device=x.device, dtype=x.dtype)
@@ -162,22 +166,6 @@ def int4_matmul(x, wp, scale):
             m, k, n, g, p.mt, p.cluster, p.vec, int(p.staged), dt,
             _kernels.stream_ptr(x))
     return out
-
-
-@functools.lru_cache(maxsize=None)
-def _sms(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
-def _split(m: int, n: int, supers: int, device) -> tuple:
-    """K7b's (rows per block, K splits): a block takes up to 8 rows of x
-    and 128 columns; K is split until about two blocks per SM are in
-    flight."""
-    mt = 1
-    while mt < min(m, 8):
-        mt *= 2
-    tiles = -(-n // 128) * -(-m // mt)
-    return mt, max(1, min(supers, -(-2 * _sms(device) // tiles)))
 
 
 # ---------------------------------------------------------------------------
@@ -196,14 +184,22 @@ def int4_matmul_a8_torch(xq, sx, wp, scale, out_dtype=torch.bfloat16):
     return ((acc * scale.float()).sum(1) * sx.float()).to(out_dtype)
 
 
+# a group's sum of 16 s, the int8 tensor cores' form of K7b's products,
+# stays below 2^24 (exact in fp32) up to this group
+A8_MAX_GROUP = 512
+
+
 def int4_matmul_a8(xq, sx, wp, scale, out_dtype=torch.bfloat16):
     """K7b: xq (M, K) int8 with per-token scales sx (M, 1) fp32 @ packed
     int4 wp (K/2, N) int8 with group scales scale (K/G, N) fp32 -> (M, N)
     in `out_dtype` (`int4_matmul.py:338-393`), y ~= (sx * xq) @ dequant(wp).
 
     CPU tensors take `int4_matmul_a8_torch`; CUDA tensors launch
-    `csrc/int4_matmul_a8.cu` (G a multiple of 32, N of 4), which sums each
-    group's int8 x int4 products exactly in int32 with `__dp4a`."""
+    `csrc/int4_matmul_a8.cu` once (G a multiple of 32 up to 512, N of 4),
+    with `_plan`'s launch for one byte of x: K7a's template on the int8
+    tensor cores, each group's int8 x int4 product exact in int32, no
+    scratch tensor, K split by K and G alone (fused = unfused bit for
+    bit)."""
     g = _group(xq, wp, scale)
     m, k = xq.shape
     if sx.shape != (m, 1):
@@ -215,17 +211,19 @@ def int4_matmul_a8(xq, sx, wp, scale, out_dtype=torch.bfloat16):
     _kernels.check_typed(name, [(xq, torch.int8), (sx, torch.float32),
                                 (wp, torch.int8), (scale, torch.float32)])
     n = wp.shape[1]
-    if g % 32 or n % 4 or xq.data_ptr() % 4:
-        raise ValueError(f"{name}: group {g} must be a multiple of 32, N = "
-                         f"{n} of 4, and xq 4-byte aligned")
-    mt, ksplit = _split(m, n, k // (2 * g), xq.device)
-    part = torch.empty((ksplit, m, n), device=xq.device, dtype=torch.float32)
+    if g > A8_MAX_GROUP:
+        raise ValueError(f"{name}: group {g} above {A8_MAX_GROUP}")
+    p = _plan(m, k, n, g, _kernels.sm_count(xq.device), 1,
+              aligned=wp.data_ptr() % 16 == 0
+              and scale.data_ptr() % 16 == 0)
+    if xq.data_ptr() % 16:       # the kernel copies xq in 16-byte pieces
+        xq = xq.clone()
     out = torch.empty((m, n), device=xq.device, dtype=out_dtype)
     with torch.cuda.device(xq.device):
         _kernels.KERNELS[name](
             xq.data_ptr(), sx.data_ptr(), wp.data_ptr(), scale.data_ptr(),
-            part.data_ptr(), out.data_ptr(), m, k, n, g, mt, ksplit, dt,
-            _kernels.stream_ptr(xq))
+            out.data_ptr(), m, k, n, g, p.mt, p.cluster, p.vec,
+            int(p.staged), dt, _kernels.stream_ptr(xq))
     return out
 
 
