@@ -47,7 +47,14 @@ Phases, each printing its own line; any failure exits non-zero:
      times K7a's bytes), both ways too; and K7a at the fused widths (2,
      4096, 12288) and (2, 4096, 22016), fp32 and bf16, must be bit-equal to
      its unfused parts on the same column slices. Its kernels' registers
-     and spills are printed from nvcc -Xptxas -v (a spill fails). Beside
+     and spills are printed from nvcc -Xptxas -v (a spill fails). K7c and
+     K8c also print their launch (`ops.int4_matmul._requant_plan`,
+     `ops.fused_ln._rms_plan`), which must equal the one the library
+     reports (`grove_*_plan`), at every shape; their edges reach 64-row and
+     64-column K7c tiles, more tiles than CTAs, and K8c rows of 256 to 8192
+     on both instantiations with fewer rows than CTAs; K7c's view of each
+     fused width must be bit-equal to its parts' views; their registers
+     and spills are printed the same way. Beside
      each kernel the phase prints its bound, the least
      time the card could take for the same work: the larger of its bytes
      (inputs read once, outputs written once) over 3.35 TB/s and its
@@ -393,8 +400,11 @@ TC_INSTANCES = {"folded_window_attention_v2_tc": "folded_window_attention_tc"}
 # instantiations phase 2 prints ptxas's report of too
 INT4_SOURCES = ("int4_matmul.cu", "int4_matmul_a8.cu")
 K6_SOURCE = "int8_decode_attention.cu"
+# K7c's and K8c's sources, whose kernels phase 2 reports too
+K7C_SOURCE = "int4_requant.cu"
+K8C_SOURCE = "rmsnorm_quant.cu"
 PTXAS_SOURCES = sorted(set(TC_SOURCES.values()) | set(INT4_SOURCES)
-                       | {K6_SOURCE})
+                       | {K6_SOURCE, K7C_SOURCE, K8C_SOURCE})
 TRAIN_SEQ = 129          # max_seq_len: 129 + 575 spliced = 704 tokens
 # K11-K14: public ops of the JAX package that no model path runs (nor do
 # their JAX originals), each entry on both bodies where it has two; held in
@@ -1025,6 +1035,38 @@ def _cases(torch):
     def k7b_plan(args, got):                # (xq, sx, wp, scale, dtype)
         return int4_plan(args[0], *args[2:4])
 
+    # K7c's launch, as `_requant_plan` makes it; the library's must agree
+    def k7c_plan(args, got):
+        wp, mult = args
+        kh, n = wp.shape
+        g = 2 * kh // mult.shape[0]
+        sms = _kernels.sm_count(wp.device)
+        p = int4_matmul._requant_plan(kh, n, g, sms)
+        lib = _lib_plan("grove_int4_requant_int8_plan", 5, kh, n, g, sms)
+        if lib != (p.rows, p.tiles, p.ctas, p.stages, p.smem):
+            raise PhaseError(f"int4_requant_int8 {(kh, n, g)}: the library "
+                             f"plans {lib}, _requant_plan {p}")
+        return (f"; plan: {p.ctas} CTAs over {p.tiles} tiles of {p.rows} "
+                f"packed rows x {int4_matmul.REQUANT_TILE_N} columns, "
+                f"{p.stages} stages, {p.smem} B shared a CTA (the "
+                f"library's the same), {sms} SMs")
+
+    # K8c's launch, as `_rms_plan` makes it; the library's must agree
+    def k8c_plan(args, got):
+        a, add = args[0], len(args) == 4
+        rows, c = a.numel() // a.shape[-1], a.shape[-1]
+        sms = _kernels.sm_count(a.device)
+        p = fused_ln._rms_plan(rows, c, sms, a.element_size(), add)
+        lib = _lib_plan("grove_rmsnorm_quant_plan", 4, rows, c,
+                        _kernels.dtype_code("rmsnorm_quant", a), int(add),
+                        sms)
+        if lib != (p.slots, p.smem, p.per_sm, p.ctas):
+            raise PhaseError(f"rmsnorm_quant {(rows, c, add)}: the library "
+                             f"plans {lib}, _rms_plan {p}")
+        return (f"; plan: {p.ctas} CTAs, {p.per_sm} an SM, {p.slots} row "
+                f"slots, {p.smem} B shared a CTA (the library's the same), "
+                f"{sms} SMs")
+
     # K6's launch, as `_plan` makes it
     def k6_plan(args, got):
         q, kt = args[0], args[1]
@@ -1339,24 +1381,38 @@ def _cases(torch):
                        "on the bf16 dequantized (K, N) weight: a yardstick "
                        "reading four times K7b's weight bytes, not K7b's "
                        "function"),
+        # K7c's edges (K, N, G): fewer tiles than CTAs (the small ones),
+        # 64-row tiles (G = 64, and G = 192: three a super-group), a last
+        # tile of 64 columns (N % 128 == 64), 272 tiles on 264 CTAs
         "int4_requant_int8": case(
             int4_matmul.int4_requant_int8,
             int4_matmul.int4_requant_int8_torch, k7c_inputs,
             [(k, n, 128) for k, n in proj_shapes],
             [(512, 256, 128), (1024, 384, 256), (768, 128, 64)],
             lambda a: (0, "int8"), cold=True,
-            int8={"full": (0, 0.0), "small": (0, 0.0)}),
-        # the W4A8 prefill's norm sites: 2 x 640 tokens of C 4096
+            int8={"full": (0, 0.0), "small": (0, 0.0)},
+            edges=[(1024, 320, 128), (1024, 192, 64), (768, 256, 192),
+                   (4096, 2176, 128)], check=k7c_plan),
+        # the W4A8 prefill's norm sites: 2 x 640 tokens of C 4096; small
+        # and edges (fp32 and bf16): C 256 to 8192 on the run-time
+        # instantiation, 4096 on the compile-time one, rows fewer than CTAs
+        # and 997 (off the grid's multiple)
         "rmsnorm_quant": case(
             rms, rms_plain, rms_inputs, [(1280, 4096)],
-            [(300, 256), (37, 768), (5, 8192)], norm_ops, cold=True,
-            int8={"full": (1, LSB_SHARE), "small": (1, LSB_SHARE)}),
+            [(300, 256), (37, 768), (5, 8192), (300, 4096), (3, 4096)],
+            norm_ops, cold=True,
+            int8={"full": (1, LSB_SHARE), "small": (1, LSB_SHARE)},
+            edges=[(300, 256), (37, 768), (5, 8192), (997, 4096),
+                   (3, 4096)], check=k8c_plan),
         "add_rmsnorm_quant": case(
             add_rms, add_rms_plain,
             lambda g, d, sh: rms_inputs(g, d, sh, add=True),
-            [(1280, 4096)], [(300, 256), (37, 768), (70, 4096)], norm_ops,
-            cold=True,
-            int8={"full": (1, LSB_SHARE), "small": (1, LSB_SHARE)}),
+            [(1280, 4096)],
+            [(300, 256), (37, 768), (70, 4096), (5, 8192), (3, 4096)],
+            norm_ops, cold=True,
+            int8={"full": (1, LSB_SHARE), "small": (1, LSB_SHARE)},
+            edges=[(37, 768), (70, 4096), (5, 8192), (997, 4096),
+                   (3, 4096)], check=k8c_plan),
         # K4b's dq, its SIMT entry called directly in bf16 at full width
         # and in fp32 as the wrapper calls it
         "flash_backward_dq": case(
@@ -2073,6 +2129,7 @@ def _tc_build_report(gpu, compiles):
                 raise PhaseError(f"{name} D = {d} spills: {lines}")
     _int4_build_report(gpu, ptxas)
     _k6_build_report(gpu, ptxas)
+    _k7c_k8c_build_report(gpu, ptxas)
     _stop_tc_compiles(compiles)
 
 
@@ -2108,6 +2165,46 @@ def _int4_build_report(gpu, ptxas):
     if seen != {"int4_matmul", "int4_matmul_a8"}:
         raise PhaseError(f"{INT4_SOURCES}: ptxas reported "
                          f"int4_matmul_kernel of {sorted(seen)} only")
+
+
+def _k7c_k8c_build_report(gpu, ptxas):
+    """K7c's kernels (tiles of 128 and of 64 packed rows) and K8c's (fp32
+    or bf16 rows, with or without the residual, C = 4096 at compile time or
+    any C at run time): registers and spills as ptxas reports them; fails
+    where one spills or any of the 2 + 8 is missing."""
+    labels = {}
+    for fn, lines in ptxas.items():
+        m = re.search(r"requant_kernelILi(\d+)E", fn)
+        if m:
+            labels[f"int4_requant_int8 ({m[1]}-row tiles)"] = lines
+        m = re.search(r"rmsnorm_quant_kernelI(f|13__nv_bfloat16)Lb([01])ELi"
+                      r"(\d+)E", fn)
+        if m:
+            name = "add_rmsnorm_quant" if m[2] == "1" else "rmsnorm_quant"
+            labels[f"{name} ({'fp32' if m[1] == 'f' else 'bf16'}, C "
+                   f"{m[3] if m[3] != '0' else 'at run time'})"] = lines
+    if len(labels) != 10:
+        raise PhaseError(f"{K7C_SOURCE}, {K8C_SOURCE}: ptxas reported "
+                         f"{sorted(labels)}")
+    for label, lines in sorted(labels.items()):
+        say(2, f"{label}: ptxas {'; '.join(lines)} ({gpu})")
+        if _spills(lines):
+            raise PhaseError(f"{label} spills: {lines}")
+
+
+def _lib_plan(symbol, fields, *args):
+    """The launch a library entry reports (`grove_*_plan`): `fields` ints,
+    for the int arguments `args`."""
+    import ctypes
+
+    from grove_tpu_torch import _kernels
+    fn = getattr(_kernels.load(), symbol)
+    fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.POINTER(ctypes.c_int)]
+    out = (ctypes.c_int * fields)()
+    code = fn(*args, out)
+    if code != 0:
+        raise PhaseError(f"{symbol}{args}: error {code}")
+    return tuple(out)
 
 
 def _k6_build_report(gpu, ptxas):
@@ -2153,7 +2250,8 @@ def _int4_fused_widths(torch, gpu):
     output's dtype), bit-equal to the concatenation of their calls on the
     unfused parts' column slices: `_plan` splits K by K and G alone and a
     column's arithmetic does not depend on its place, so both sum every
-    column in one order."""
+    column in one order. K7c's int8 view of each fused weight likewise
+    against its parts' views."""
     from grove_tpu_torch.ops import int4_matmul
     gen = torch.Generator(device="cuda").manual_seed(15)
     xq = torch.randint(-127, 128, (2, 4096), generator=gen, device="cuda",
@@ -2188,6 +2286,19 @@ def _int4_fused_widths(torch, gpu):
                 say(2, f"{name} fused (2, 4096, {n}) {dtype}: bit-equal to "
                        f"{parts} calls on its (2, 4096, {w}) column slices "
                        f"({gpu})")
+        # K7c: the int8 view of the fused weight against its parts' views
+        mult = int4_matmul.requant_multipliers(scale)[1]
+        whole = int4_matmul.int4_requant_int8(wp, mult)
+        cat = torch.cat([int4_matmul.int4_requant_int8(
+            wp[:, i * w:(i + 1) * w].contiguous(),
+            mult[:, i * w:(i + 1) * w].contiguous())
+            for i in range(parts)], dim=1)
+        torch.cuda.synchronize()
+        if not torch.equal(whole, cat):
+            raise PhaseError(f"int4_requant_int8 (4096, {n}): not bit-equal "
+                             f"to its {parts} parts")
+        say(2, f"int4_requant_int8 fused (4096, {n}): bit-equal to {parts} "
+               f"calls on its (4096, {w}) column slices ({gpu})")
 
 
 def _tc_instance(name):

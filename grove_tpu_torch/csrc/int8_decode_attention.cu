@@ -68,6 +68,7 @@
 #include <cooperative_groups.h>
 #include <stdint.h>
 
+#include "async_copy.cuh"
 #include "attention_core.cuh"
 
 namespace cg = cooperative_groups;
@@ -143,46 +144,10 @@ struct DecodeArgs {
   float inv_sqrt_d;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-// `bytes` more to land on `bar` before its phase completes
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// one copy of `bytes` (a multiple of 16, both ends on 16 bytes) from
-// global into shared memory, completing on `bar`
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n"
-      "}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
-}
+using grove::bulk_copy;
+using grove::mbar_expect;
+using grove::mbar_init;
+using grove::mbar_wait;
 
 // four int8 to exact floats: each byte b + 128 under the bits of 2^23,
 // minus 2^23 + 128 (PRMT and FADD, no I2F)

@@ -22,7 +22,8 @@ CUDA tensor launches `csrc/layernorm_quant.cu`.
 
 from __future__ import annotations
 
-from typing import Tuple
+import functools
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -129,7 +130,48 @@ def add_layernorm_quant(a, b, gamma, beta, act_scale, *, eps: float = 1e-6):
 # K8c: [add +] RMSNorm -> dynamic per-token int8
 # ---------------------------------------------------------------------------
 
-RMS_MAX_C = 8192        # csrc/rmsnorm_quant.cu keeps a row in registers
+# csrc/rmsnorm_quant.cu: a thread holds at most 32 elements of a row in
+# registers (16 at C = 4096, its compile-time instantiation)
+RMS_MAX_C = 8192
+RMS_EXACT_C = 4096
+RMS_MAX_SLOTS = 2
+# CTAs an SM the register budget allows (the kernels' __launch_bounds__):
+# the C = 4096 instantiation, any other C
+RMS_BLOCKS = (3, 2)
+_SMEM_BLOCK = 232448    # dynamic shared bytes one block can use on sm_90
+_SMEM_SM = 233472       # shared bytes an SM holds
+_SMEM_RESERVED = 1024   # the runtime's share a block
+_SMEM_STATIC = 64       # the kernel's block reductions, 2 x 8 floats
+
+
+class RmsPlan(NamedTuple):
+    """One launch of K8c: CTA b takes rows b, b + ctas, ... through a ring
+    of `slots` row slots (a row of a, and of b with the add)."""
+    slots: int
+    smem: int           # dynamic shared bytes a CTA: the ring, its barriers
+    per_sm: int         # CTAs an SM: shared memory, then the register cap
+    ctas: int
+
+
+@functools.lru_cache(maxsize=None)
+def _rms_plan(rows: int, c: int, sms: int, elem_bytes: int = 2,
+              add: bool = True) -> RmsPlan:
+    """The launch of K8c for `rows` rows of C elements of `elem_bytes`
+    (4 fp32, 2 bf16), with or without the residual branch, on a card of
+    `sms` SMs, as the C entries make it (`grove_rmsnorm_quant_plan` reports
+    the library's): as many row slots as fit, up to RMS_MAX_SLOTS; as many
+    CTAs an SM as shared memory holds, up to RMS_BLOCKS; never more CTAs
+    than rows. Raises ValueError for C off a multiple of 128 or above
+    RMS_MAX_C."""
+    if rows <= 0 or c <= 0 or c % 128 or c > RMS_MAX_C:
+        raise ValueError(f"add_rmsnorm_quant_dyn: C = {c} must be a "
+                         f"multiple of 128 and at most {RMS_MAX_C}")
+    slot = (2 if add else 1) * c * elem_bytes
+    slots = min(RMS_MAX_SLOTS, (_SMEM_BLOCK - 8 * RMS_MAX_SLOTS) // slot)
+    smem = slots * slot + 8 * slots
+    cap = RMS_BLOCKS[0 if c == RMS_EXACT_C else 1]
+    per_sm = min(cap, _SMEM_SM // (smem + _SMEM_STATIC + _SMEM_RESERVED))
+    return RmsPlan(slots, smem, per_sm, min(rows, per_sm * sms))
 
 
 def add_rmsnorm_quant_dyn_torch(a, branch, weight, eps: float):
@@ -154,7 +196,8 @@ def add_rmsnorm_quant_dyn(a, branch, weight, *, eps: float = 1e-6):
     rmsnorm(resid) ~= q8 * sx, sx (..., 1) fp32.
 
     CPU tensors take `add_rmsnorm_quant_dyn_torch`; CUDA tensors launch
-    `csrc/rmsnorm_quant.cu` (C a multiple of 128, at most RMS_MAX_C). The
+    `csrc/rmsnorm_quant.cu` once (C a multiple of 128, at most RMS_MAX_C),
+    persistent CTAs streaming rows through a ring as `_rms_plan` says. The
     JAX package's non-kernel chain for other C has no caller in the model
     (the fused-norm carry requires C % 128 == 0) and is not ported."""
     w = weight.float().contiguous()

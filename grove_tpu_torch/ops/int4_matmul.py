@@ -20,7 +20,8 @@ package's bytes: wp (K/2, N) int8 packed by `ops.quant.pack_int4` and scale
   einsum (`models/layers.py:268-273`): per-group fp32 partial products,
   times the group's scale, summed over groups; `int4_matmul_a8_torch` K7b's.
 * `int4_requant_int8` is K7c (`csrc/int4_requant.cu`): the int8 view that
-  the prefill's int8 GEMM (`ops.int8_matmul`) takes, stored column-major;
+  the prefill's int8 GEMM (`ops.int8_matmul`) takes, stored column-major,
+  written by persistent CTAs over 128 x 128 tiles as `_requant_plan` says;
   `requant_multipliers` computes its fixed-point factors as
   `models/layers.py:226-227` does.
 Each has a plain twin `*_torch` that CPU tensors take.
@@ -261,6 +262,50 @@ def int4_requant_int8_torch(wp, mult):
     return column_major(q8.reshape(2 * kh, n))
 
 
+# The launch of K7c (`csrc/int4_requant.cu`, whose `plan` computes the same):
+# a tile is REQUANT_ROWS packed rows of one super-group (64 where G % 128 is
+# 64) by REQUANT_TILE_N columns (the last 64 wide where N % 128 is 64),
+# streamed by 16-byte cp.async into a ring of REQUANT_STAGES stages (rows
+# and the tile's 2 x 128 multipliers) beside a staging tile of the output;
+# REQUANT_PER_SM persistent CTAs an SM, CTA b taking tiles b, b + ctas, ...
+REQUANT_ROWS = 128
+REQUANT_TILE_N = 128
+REQUANT_STAGES = 4
+REQUANT_PER_SM = 2
+REQUANT_SMEM = (REQUANT_STAGES * (REQUANT_ROWS * REQUANT_TILE_N
+                                  + 2 * REQUANT_TILE_N * 4)
+                + 2 * REQUANT_TILE_N * 128)
+
+
+class RequantPlan(NamedTuple):
+    """One launch of K7c: tile `t` is row tile t // tiles_n (`rows` packed
+    rows from t // tiles_n * rows) by column tile t % tiles_n; CTA b walks
+    tiles b, b + ctas, ..."""
+    rows: int           # packed rows a tile: 128, or 64 where G % 128 is 64
+    tiles_n: int        # column tiles of REQUANT_TILE_N (the last may be 64)
+    tiles: int
+    ctas: int           # persistent CTAs, at most REQUANT_PER_SM an SM
+    stages: int
+    smem: int           # dynamic shared bytes a CTA
+
+
+@functools.lru_cache(maxsize=None)
+def _requant_plan(kh: int, n: int, g: int, sms: int) -> RequantPlan:
+    """The launch of K7c for packed wp (kh, n) in groups of g on a card of
+    `sms` SMs, as the C entry makes it (`grove_int4_requant_int8_plan`
+    reports the library's). Raises ValueError for what the kernel does not
+    take: G or N off a multiple of 64, kh off a multiple of G."""
+    if g <= 0 or g % 64 or kh % g or n <= 0 or n % 64:
+        raise ValueError(f"int4_requant_int8: group {g} and N = {n} must be "
+                         f"multiples of 64 and K / 2 = {kh} of the group")
+    rows = REQUANT_ROWS if g % REQUANT_ROWS == 0 else 64
+    tiles_n = -(-n // REQUANT_TILE_N)
+    tiles = kh // rows * tiles_n
+    return RequantPlan(rows, tiles_n, tiles,
+                       min(tiles, REQUANT_PER_SM * sms), REQUANT_STAGES,
+                       REQUANT_SMEM)
+
+
 def int4_requant_int8(wp, mult):
     """K7c: packed int4 wp (K/2, N) int8 and fixed-point multipliers mult
     (K/G, N) int32 -> the per-channel int8 view (K, N), stored column-major
@@ -268,16 +313,18 @@ def int4_requant_int8(wp, mult):
     on the card), `int4_matmul.py:251-283`.
 
     CPU tensors take `int4_requant_int8_torch`; CUDA tensors launch
-    `csrc/int4_requant.cu` (G and N multiples of 64)."""
+    `csrc/int4_requant.cu` once (G and N multiples of 64), as
+    `_requant_plan` says."""
     g = _requant_group(wp, mult)
     if _kernels.on_cpu(wp, mult):
         return int4_requant_int8_torch(wp, mult)
     name = "int4_requant_int8"
     _kernels.check_typed(name, [(wp, torch.int8), (mult, torch.int32)])
     kh, n = wp.shape
-    if g % 64 or n % 64:
-        raise ValueError(f"{name}: group {g} and N = {n} must be multiples "
-                         "of 64")
+    _requant_plan(kh, n, g, _kernels.sm_count(wp.device))
+    if wp.data_ptr() % 16 or mult.data_ptr() % 16:
+        raise ValueError(f"{name}: an input not 16-byte aligned (the kernel "
+                         "copies both in 16-byte pieces)")
     out = torch.empty((n, 2 * kh), device=wp.device, dtype=torch.int8)
     with torch.cuda.device(wp.device):
         _kernels.KERNELS[name](wp.data_ptr(), mult.data_ptr(),
