@@ -59,15 +59,17 @@ Phases, each printing its own line; any failure exits non-zero:
      time the card could take for the same work: the larger of its bytes
      (inputs read once, outputs written once) over 3.35 TB/s and its
      operations over the H100's peak for their type (989 TFLOP/s bf16,
-     1979 TOP/s int8, 67 TFLOP/s fp32 off the tensor cores), and, for K1-K5
+     1979 TOP/s int8, 67 TFLOP/s fp32 off the tensor cores; K14's bytes
+     are those a correct call must move: the valid pixels read, every output
+     byte written; a time under its bound fails), and, for K1-K5
      and K10, the time of the one PyTorch call that computes the same
      function (`F.scaled_dot_product_attention`, rel-pos terms and pads as a
      mask), which the port never calls, and the yardsticks of K6 (SDPA of
      the query over a bf16 cache of the same shape, the bias as its mask)
      and K7b (K7a's, on the dequantized activations), which compute
      neighbouring functions and are labeled so. K1, K1q, K2, K3, K4, K4b (dq,
-     dkv), K5, K9 (forward, dq, dkv), K10, K11, K12 and K13 (v1, v2) have
-     two entries each:
+     dkv), K5, K9 (forward, dq, dkv), K10, K11, K12, K12q8 and K13 (v1, v2)
+     have two entries each:
      the tensor-core one (`_tc`, attention_tc.cuh; for K9's and K4b's dq
      and dkv attention_bwd_tc.cuh), which
      the wrappers take for bf16 at head dim 64, 80 or 128, held through the
@@ -118,16 +120,23 @@ Phases, each printing its own line; any failure exits non-zero:
      at the shapes SAM ViT-H would give them (16 frames): K11 at the global
      (16, 1024, 16, 80) on 32 x 32 and the windowed (144, 196, 16, 80) on
      14 x 14 (times summed), K12 and K12q8 at (144, 196, 1280) x 3 (K12q8
-     in LSBs like K1q, fp32 cases with an all-underflow row like K1), K13
-     v1 and v2 at the windowed shape, K14 both ways at (16, 32, 32, 1280),
-     win 14 (padded to 42), bit-equal, also in int8 and bf16 at small
-     shapes; their library call is SDPA with the rel terms as a mask (K14:
-     torch's own pad + view + permute copy, labeled so). Last, the
+     in LSBs like K1q, its tensor-core entry also within 1 LSB on at most
+     3% of the fp32 twin's outputs, fp32 cases with an all-underflow row
+     like K1), K13 v1 and v2 at the windowed shape, K14 both ways at
+     (16, 32, 32, 1280), win 14 (padded to 42 inside the kernel),
+     bit-equal, timed as K6-K8c (its 41.94 MB input fits the L2), and at
+     small shapes on both of its bodies (the bulk one, and the vector one
+     for pixels off 16 bytes) in fp32, bf16 and int8, its launch
+     (`window_copy_plan`: the body, the CTAs and every row's bytes) equal
+     to the library's row for row at every shape; their library call is
+     SDPA with the rel terms as a mask (K14: torch's own pad + view +
+     permute copy, labeled so). Last, the
      trainable forms card vs CPU in fp32: `sam_window_attention_raw`
      (forward K12, backward K9) within 1e-3 of max-abs, the K14 pair and
-     its backward bit-equal; then K14's time split at full width (the pad,
-     each copy kernel alone, a contiguous copy_ of the same bytes), each
-     with the bytes it moves (`copy_ms` in the JSON rows);
+     its backward bit-equal; then K14's one-call times at full width
+     (torch's pad alone, each wrapper, each kernel alone, a contiguous
+     copy_ of the grid), each with the bytes it moves (`copy_ms` in the
+     JSON rows);
   3  slice: GroveConfig() (CLIP ViT-L/336, SAM ViT-H/512, LLaMA-7B) built
      on the card from a seed (GroveForCausalLM.from_pretrained), first in
      bf16, then quantized in place (quantize(bits=4): int4 projections,
@@ -279,7 +288,7 @@ float one, the tensor-core entries of K4b's two and K9's three from step 3
 of phase 5, K10's tensor-core entry from its bf16 S = 2111 step, the SIMT
 entries of K4b's two and K9's three from phase 6's fp32 step;
 the SIMT entries of K5 and K10, which no model path runs in fp32, and
-K11-K14 (both entries of K11, K12 and K13), which run on no model
+K11-K14 (both entries of K11, K12, K12q8 and K13), which run on no model
 path, show 0)
 and `phase2_launches`, the launches of phase 2's checks and timings; the
 tensor-core rows also carry `simt_ms`, the SIMT entry's bf16 time at the
@@ -321,6 +330,10 @@ W4A8_TOL = 1e-2          # phase 4 W4A8 LLM: boxes / objectness
 FUSE_TOL = 1e-5          # phase 4 fused vs unfused hidden states, of max-abs
 LSB_SHARE = 1e-3         # share of int8 outputs allowed off (K8a-c, K1q)
 FP32_LSB_SHARE = 1e-4    # the same for K1q in fp32
+# K12q8's tensor-core entry against the fp32 twin: the body's bf16 P moves
+# 1.1-1.3% of the int8 outputs by one LSB on the CPU's model of it
+# (tests/test_torch_sam_v2.py; K1q's 1.1-2.2%, tests/test_torch_flash.py)
+TC_TWIN_LSB = (1, 3e-2)
 SX_REL = 1e-6            # K8c's per-token scales, relative
 COLD_BYTES = 64 * 2**20  # inputs cycled past the L2 when timing cold kernels
 # the fewest calls a cold replay's graph holds: with fewer, the graph's own
@@ -373,8 +386,8 @@ FP32_STEP_SIMT = ("relpos_flash_fwd_lse", "relpos_flash_dq",
 FP32_SIMT = ("grouped_plain_attention", "flash_forward_lse",
              "sam_global_attention", "sam_window_attention_q8")
 # the tensor-core entries: phase 2 prints their registers, spills and
-# HGMMA count (nvcc -Xptxas -v, cuobjdump -sass of the built library); K12's
-# and K13's are K1's and K2's instantiations under other names
+# HGMMA count (nvcc -Xptxas -v, cuobjdump -sass of the built library); K12's,
+# K12q8's and K13's are K1's, K1q's and K2's instantiations under other names
 TC_SOURCES = {"flash_attention_tc": "flash_attention.cu",
               "grouped_plain_attention_tc": "grouped_plain_attention.cu",
               "flash_forward_lse_tc": "flash_forward_lse.cu",
@@ -389,6 +402,7 @@ TC_SOURCES = {"flash_attention_tc": "flash_attention.cu",
               "flash_backward_dq_tc": "flash_backward.cu",
               "flash_attention_relpos_tc": "streamed_relpos_attention.cu",
               "sam_window_attention_v2_tc": "sam_window_attention_v2.cu",
+              "sam_window_attention_v2_q8_tc": "sam_window_attention_v2.cu",
               "folded_window_attention_tc": "folded_window_attention.cu",
               "folded_window_attention_v2_tc": "folded_window_attention.cu"}
 # the entry macro names a kernel and its `_smem` export after its first
@@ -403,8 +417,10 @@ K6_SOURCE = "int8_decode_attention.cu"
 # K7c's and K8c's sources, whose kernels phase 2 reports too
 K7C_SOURCE = "int4_requant.cu"
 K8C_SOURCE = "rmsnorm_quant.cu"
+# K14's, whose two bodies phase 2 reports too
+K14_SOURCE = "window_partition.cu"
 PTXAS_SOURCES = sorted(set(TC_SOURCES.values()) | set(INT4_SOURCES)
-                       | {K6_SOURCE, K7C_SOURCE, K8C_SOURCE})
+                       | {K6_SOURCE, K7C_SOURCE, K8C_SOURCE, K14_SOURCE})
 TRAIN_SEQ = 129          # max_seq_len: 129 + 575 spliced = 704 tokens
 # K11-K14: public ops of the JAX package that no model path runs (nor do
 # their JAX originals), each entry on both bodies where it has two; held in
@@ -413,7 +429,8 @@ TRAIN_SEQ = 129          # max_seq_len: 129 + 575 spliced = 704 tokens
 # phase 5)
 OFF_PATH_KERNELS = ("flash_attention_relpos", "flash_attention_relpos_tc",
                     "sam_window_attention_v2", "sam_window_attention_v2_tc",
-                    "sam_window_attention_v2_q8", "folded_window_attention",
+                    "sam_window_attention_v2_q8",
+                    "sam_window_attention_v2_q8_tc", "folded_window_attention",
                     "folded_window_attention_tc", "folded_window_attention_v2",
                     "folded_window_attention_v2_tc", "window_partition",
                     "window_unpartition")
@@ -868,6 +885,10 @@ def _cases(torch):
         return sam_attention._split_launch("sam_window_attention_v2", q, k, v,
                                            rel, hw, heads)
 
+    def k12q_simt(q, k, v, rel, inv, hw, heads):
+        return sam_attention._split_launch("sam_window_attention_v2_q8", q, k,
+                                           v, rel, hw, heads, inv)
+
     def k13_simt(q, k, v, rh, rw, hw):
         return sam_attention._launch_grid(
             "folded_window_attention", "folded_window_attention_relpos", q, k,
@@ -912,6 +933,40 @@ def _cases(torch):
         wins = (int8s(gen, (n, win, win, c)) if dt == torch.int8
                 else randn(gen, (n, win, win, c), dt))
         return (wins, win, (h, w))
+
+    # K14's launch, as `window_copy_plan` makes it (its rows, their CTAs and
+    # the body); the library's must agree row for row
+    def k14_plan(args, got):
+        src, win = args[0], args[1]
+        unpart = len(args) == 3
+        b, h, w, c = got.shape if unpart else src.shape
+        sms = _kernels.sm_count(src.device)
+        dims = (b, h, w, c, win, src.element_size(), sms, int(unpart))
+        p = window_ops.window_copy_plan(*dims[:7], unpart)
+        lib = _lib_plan("grove_window_copy_plan", 6, *dims)
+        want = (window_ops.BODIES.index(p.body), p.slots, p.smem, p.per_sm,
+                p.ctas, p.rows)
+        rows = _lib_rows(dims, p.rows)
+        mine = np.stack([p.src, p.dst, p.valid, p.zero, p.cta], 1)
+        if lib != want or not np.array_equal(rows, mine):
+            raise PhaseError(f"{'un' * unpart}partition {dims[:5]}: the "
+                             f"library plans {lib}, window_copy_plan {want}"
+                             f"; rows equal: {np.array_equal(rows, mine)}")
+        return (f"; plan: the {p.body} body, {p.ctas} CTAs over {p.rows} "
+                f"rows" + (f", {p.per_sm} an SM, {p.slots} row slots, "
+                           f"{p.smem} B shared a CTA"
+                           if p.body == "bulk" else "")
+                + f" (the library's the same, row for row), {sms} SMs")
+
+    # the bytes a correct K14 call must move: the valid pixels read once,
+    # every output byte written once (the partition's zeros included)
+    def k14_bytes(args, out):
+        src, win = args[0], args[1]
+        unpart = len(args) == 3
+        b, h, w, c = out.shape if unpart else src.shape
+        p = window_ops.window_copy_plan(b, h, w, c, win,
+                                        src.element_size(), 1, unpart)
+        return int(p.valid.sum()) + out.numel() * out.element_size()
 
     # K14's plain versions: torch's own pad + view + permute copy (also
     # its library_ms, labeled so)
@@ -1163,7 +1218,8 @@ def _cases(torch):
     # runs (M = 2 rows, a 768-slot cache), and the W4A8 projections
     def case(fn, plain, make, full, small, ops, cold=False, int8=None,
              library=None, rows=False, exact=False, library_is=None,
-             edges=(), simt=None, tols=None, against=None, check=None):
+             edges=(), simt=None, tols=None, against=None, check=None,
+             against_lsb=None, nbytes=None):
         """int8: (LSB, share) limits of an int8 output, full bf16 and small
         fp32, instead of the float error limits. rows: every full bf16
         output (and each of `edges`') held row by row as well
@@ -1177,7 +1233,10 @@ def _cases(torch):
         fp32 twin of a tensor-core case whose plain version has the body's
         rounding points; it holds each full-width float output within
         FULL_TOL of its own max-abs, and of an int8 output prints how many
-        LSB apart on what share.
+        LSB apart on what share (and holds it within `against_lsb`, (LSB,
+        share), where given). nbytes(args, out): the bytes a correct call
+        moves, where not every input read whole and every output written
+        (`_bound`).
         check(args, got) -> note: a further check of the kernel's
         output at every shape, raising PhaseError where it fails. An int8
         case holds its edges in LSBs at its full limits; an edge or small
@@ -1187,7 +1246,7 @@ def _cases(torch):
                     cold=cold, int8=int8, ops=ops, library=library,
                     rows=rows, exact=exact, library_is=library_is,
                     edges=edges, simt=simt, tols=tols, against=against,
-                    check=check)
+                    check=check, against_lsb=against_lsb, nbytes=nbytes)
 
     proj_shapes = [(4096, 4096), (4096, 11008), (11008, 4096)]
     # K7a's edges, fp32 and bf16: one row, a row block of 5, 5 row blocks,
@@ -1232,6 +1291,12 @@ def _cases(torch):
     k2_edges = [(b, g, 2, d) for g, b in ((2, 2), (4, 1), (12, 1), (14, 2),
                                           (32, 1))
                 for d in (64, 80, 128)]
+    # K14's small shapes (b, h, w, c, win[, dtype]; fp32 where none is
+    # named): the vector body, then the bulk body
+    k14_small = [(2, 10, 10, 8, 4, "int8"), (2, 7, 9, 3, 4, "int8"),
+                 (1, 30, 30, 20, 14, "bfloat16"), (1, 8, 8, 16, 4),
+                 (2, 30, 30, 64, 14, "bfloat16"), (1, 20, 34, 16, 7, "int8"),
+                 (2, 28, 28, 32, 14)]
     return {
         # K1's SIMT entry, called directly in bf16 at full width (for its
         # time beside the tensor-core entry's) and in fp32 as the wrapper
@@ -1567,13 +1632,28 @@ def _cases(torch):
             lambda a: raw_ops(a, a[5]), library=k12_library,
             edges=window_edges, simt=k12_simt,
             against=sam_attention.grouped_window_attention_relpos_v2_torch),
+        # K12q8's SIMT entry, called directly in bf16 at full width and in
+        # fp32 as the wrapper calls it, held to the fp32 twin
         "sam_window_attention_v2_q8": case(
-            sam_attention.grouped_window_attention_relpos_v2_q8,
+            k12q_simt,
             sam_attention.grouped_window_attention_relpos_v2_q8_torch,
             k12q_inputs, [(144, 14, 16, 80)],
             [(4, 8, 6, 64), (3, 2, 4, 8), (2, 4, 2, 64, "underflow")],
             lambda a: raw_ops(a, a[6]),
             int8={"full": (2, LSB_SHARE), "small": (1, FP32_LSB_SHARE)}),
+        # its tensor-core entry (K1q's body), through the wrapper (bf16, D 64
+        # / 80 / 128), held to K1q's body's arithmetic on split inputs at
+        # K1q's limits and to the fp32 twin within TC_TWIN_LSB; edges as
+        # K1q's, all-underflow rows included
+        "sam_window_attention_v2_q8_tc": case(
+            sam_attention.grouped_window_attention_relpos_v2_q8,
+            sam_attention.grouped_window_attention_relpos_v2_q8_tc_torch,
+            k12q_inputs, [(144, 14, 16, 80)], [],
+            lambda a: raw_ops(a, a[6]),
+            int8={"full": (2, LSB_SHARE), "small": (1, FP32_LSB_SHARE)},
+            edges=window_edges, simt=k12q_simt,
+            against=sam_attention.grouped_window_attention_relpos_v2_q8_torch,
+            against_lsb=TC_TWIN_LSB),
         # K13 v1, its SIMT entry called directly in bf16 at full width and
         # in fp32 as the wrapper calls it
         "folded_window_attention": case(
@@ -1606,22 +1686,23 @@ def _cases(torch):
             lambda a: raw_ops(a, a[6]), library=k13v2_library,
             edges=k2_edges, simt=k13v2_simt,
             against=sam_attention.folded_window_attention_relpos_v2_torch),
-        # the SAM grid of 16 frames, padded 32 -> 42 for 9 windows of 14;
-        # small: int8, an exact divisor, pads on both axes, bf16
+        # the SAM grid of 16 frames, padded 32 -> 42 for 9 windows of 14,
+        # timed as K6-K8c are (its input, 41.94 MB, fits the L2); small:
+        # the vector body (int8 at C = 8 and 3, bf16 at C = 20: rows of 8, 3
+        # and 40 bytes a pixel) and the bulk body (fp32 at C = 16, bf16 at
+        # C = 64, int8 at C = 16, fp32 at C = 32), exact divisors, pads on
+        # one axis and both, more rows than CTAs
         "window_partition": case(
             window_ops.window_partition_fused, k14_part_plain, k14_grid,
-            [(16, 32, 32, 1280, 14)],
-            [(2, 10, 10, 8, 4, "int8"), (1, 8, 8, 16, 4),
-             (2, 7, 9, 3, 4, "int8"), (1, 30, 30, 20, 14, "bfloat16")],
-            lambda a: (0, "bf16"), exact=True,
+            [(16, 32, 32, 1280, 14)], k14_small, lambda a: (0, "bf16"),
+            cold=True, exact=True, check=k14_plan, nbytes=k14_bytes,
             library=lambda *a: (lambda: k14_part_plain(*a)),
             library_is="torch pad + view + permute copy"),
         "window_unpartition": case(
             window_ops.window_unpartition_fused, k14_unpart_plain,
-            k14_windows, [(16, 32, 32, 1280, 14)],
-            [(2, 10, 10, 8, 4, "int8"), (1, 8, 8, 16, 4),
-             (2, 7, 9, 3, 4, "int8"), (1, 30, 30, 20, 14, "bfloat16")],
-            lambda a: (0, "bf16"), exact=True,
+            k14_windows, [(16, 32, 32, 1280, 14)], k14_small,
+            lambda a: (0, "bf16"), cold=True, exact=True, check=k14_plan,
+            nbytes=k14_bytes,
             library=lambda *a: (lambda: k14_unpart_plain(*a)),
             library_is="torch view + permute copy + slice"),
     }
@@ -1858,12 +1939,17 @@ def _check_underflow(name, shape, got, want):
 
 def _bound(torch, c, args, out):
     """(ms, "bytes" or "operations") the card needs at least for one call:
-    every input read once and every output written once at HBM_BYTES_PER_S,
-    or the call's operations at the peak rate of their type, whichever is
-    longer. An output that is one of the inputs (K8c hands `a` back
-    unchanged) is not written."""
-    outs = [o for o in _tensors(out) if not any(o is a for a in args)]
-    t_bytes = (_nbytes(torch, args) + _nbytes(torch, outs)) / HBM_BYTES_PER_S
+    every input read once and every output written once at HBM_BYTES_PER_S
+    (or the case's own `nbytes`, K14's: only the bytes a correct call must
+    move), or the call's operations at the peak rate of their type,
+    whichever is longer. An output that is one of the inputs (K8c hands `a`
+    back unchanged) is not written."""
+    if c["nbytes"]:
+        nbytes = c["nbytes"](args, out)
+    else:
+        outs = [o for o in _tensors(out) if not any(o is a for a in args)]
+        nbytes = _nbytes(torch, args) + _nbytes(torch, outs)
+    t_bytes = nbytes / HBM_BYTES_PER_S
     ops, kind = c["ops"](args)
     t_ops = ops / PEAK_OPS_PER_S[kind]
     return (t_bytes * 1e3, "bytes") if t_bytes >= t_ops else \
@@ -1944,7 +2030,15 @@ def phase_kernels(torch, gpu, compiles):
                                          int8["full"])
                 new = [(float(lsb), share)]
                 what = f"int8 outputs {lsb} LSB apart on {share:.2e} of them"
-                if c["against"]:
+                if c["against"] and c["against_lsb"]:
+                    lsb, share = _check_int8(f"{name} (fp32 twin)",
+                                             f"bf16 {full}", got,
+                                             c["against"](*args),
+                                             c["against_lsb"])
+                    what += (f" (from the fp32 twin {lsb} LSB on "
+                             f"{share:.2e}, held within "
+                             f"{c['against_lsb']})")
+                elif c["against"]:
                     lsb, share = _int8_diff(got, c["against"](*args))
                     what += (f" (from the fp32 twin, printed, not held: "
                              f"{lsb} LSB on {share:.2e})")
@@ -2020,6 +2114,10 @@ def phase_kernels(torch, gpu, compiles):
             say(2, f"{name} bf16 {full}: {what}; kernel {t:.4f} ms{how}, "
                    f"plain {tp:.4f} ms{lib}; bound {b_ms:.4f} ms by {b_by} "
                    f"({100 * b_ms / t:.1f}% of it) on {gpu}")
+            if b_ms > t:
+                raise PhaseError(f"{name} bf16 {full}: {t:.4f} ms is faster "
+                                 f"than its bound {b_ms:.4f} ms: the bound "
+                                 f"or the timing is wrong")
             ms += t
             plain_ms += tp
             del args, sets, distinct
@@ -2130,6 +2228,7 @@ def _tc_build_report(gpu, compiles):
     _int4_build_report(gpu, ptxas)
     _k6_build_report(gpu, ptxas)
     _k7c_k8c_build_report(gpu, ptxas)
+    _k14_build_report(gpu, ptxas)
     _stop_tc_compiles(compiles)
 
 
@@ -2190,6 +2289,43 @@ def _k7c_k8c_build_report(gpu, ptxas):
         say(2, f"{label}: ptxas {'; '.join(lines)} ({gpu})")
         if _spills(lines):
             raise PhaseError(f"{label} spills: {lines}")
+
+
+def _k14_build_report(gpu, ptxas):
+    """K14's kernels (the bulk body; the vector body at 16-, 8-, 4-, 2- and
+    1-byte accesses): registers and spills as ptxas reports them; fails
+    where one spills or any of the 6 is missing."""
+    labels = {}
+    for fn, lines in ptxas.items():
+        if "window_bulk" in fn:
+            labels["window_partition / unpartition (bulk body)"] = lines
+        m = re.search(r"window_vectorI(\w+?)EEv", fn)
+        if m:
+            width = {"h": 1, "t": 2, "j": 4, "5uint2": 8, "5uint4": 16}
+            labels[f"window_partition / unpartition (vector body, "
+                   f"{width.get(m[1], m[1])}-byte accesses)"] = lines
+    if len(labels) != 6:
+        raise PhaseError(f"{K14_SOURCE}: ptxas reported {sorted(labels)}")
+    for label, lines in sorted(labels.items()):
+        say(2, f"{label}: ptxas {'; '.join(lines)} ({gpu})")
+        if _spills(lines):
+            raise PhaseError(f"{label} spills: {lines}")
+
+
+def _lib_rows(dims, rows):
+    """K14's rows as the library computes them (`grove_window_copy_rows`,
+    the kernels' own `row_of`): (rows, 5) int64 of source byte, destination
+    byte, bytes copied, zero bytes after them, CTA."""
+    import ctypes
+
+    from grove_tpu_torch import _kernels
+    fn = _kernels.load().grove_window_copy_rows
+    fn.argtypes = [ctypes.c_int] * len(dims) + [ctypes.c_void_p]
+    out = np.zeros((rows, 5), np.int64)
+    code = fn(*dims, out.ctypes.data)
+    if code != 0:
+        raise PhaseError(f"grove_window_copy_rows{dims}: error {code}")
+    return out
 
 
 def _lib_plan(symbol, fields, *args):
@@ -2337,52 +2473,48 @@ def _stop_tc_compiles(compiles):
 
 
 def _k14_breakdown(torch, gpu, rows):
-    """K14's wrapper time split at the full-width (16, 32, 32, 1280) bf16
-    grid, win 14: the zero pad (`F.pad`, 32 -> 42), the partition copy
-    kernel alone on the padded grid, the unpartition kernel alone, and a
-    contiguous device-to-device `copy_` of the padded grid's bytes (what
-    the card moves at this size with no relayout). Each with the bytes it
-    moves and the rate that gives. Adds `copy_ms` (the kernel alone) to
-    both K14 rows."""
+    """K14's wrapper time at the full-width (16, 32, 32, 1280) bf16 grid,
+    win 14, one call each between CUDA events (host launch included):
+    torch's zero pad (`F.pad`, 32 -> 42, the pass the wrappers no longer
+    run), each wrapper (its kernel pads or drops the pad itself), each
+    kernel alone (`_copy` into a preallocated output), and a contiguous
+    device-to-device `copy_` of the grid's bytes (what the card moves at
+    this size with no relayout). Each with the bytes it moves and the rate
+    that gives. Adds `copy_ms` (the kernel alone) to both K14 rows."""
     import torch.nn.functional as F
     from grove_tpu_torch.ops import window_ops
     b, h, win, c, hp = 16, 32, 14, 1280, 42
     x = torch.randn((b, h, h, c), device="cuda", dtype=torch.bfloat16)
-    xp = F.pad(x, (0, 0, 0, hp - h, 0, hp - h))
     wins = window_ops.window_partition_fused(x, win)
-    grid = torch.empty_like(xp)
+    grid = torch.empty_like(x)
     one = 2 * b * h * h * c                    # bytes of one (B, 32, 32, C)
     pad = 2 * b * hp * hp * c                  # ... of the padded grid
     parts = {
-        "F.pad 32 -> 42": (lambda: F.pad(x, (0, 0, 0, hp - h, 0, hp - h)),
-                           one + pad),
-        "partition kernel alone (padded input)": (
-            lambda: window_ops._copy("window_partition", xp,
-                                     torch.empty_like(wins), b, hp, hp, win),
-            2 * pad),
-        "window_partition_fused (pad + kernel)": (
-            lambda: window_ops.window_partition_fused(x, win),
-            one + 3 * pad),
-        "unpartition kernel alone": (
-            lambda: window_ops._copy("window_unpartition", wins,
-                                     torch.empty_like(xp), b, hp, hp, win),
-            2 * pad),
-        "window_unpartition_fused (kernel + slice view)": (
+        "F.pad 32 -> 42 alone": (
+            lambda: F.pad(x, (0, 0, 0, hp - h, 0, hp - h)), one + pad),
+        "window_partition_fused": (
+            lambda: window_ops.window_partition_fused(x, win), one + pad),
+        "partition kernel alone": (
+            lambda: window_ops._copy("window_partition", x,
+                                     torch.empty_like(wins), b, h, h, win),
+            one + pad),
+        "window_unpartition_fused": (
             lambda: window_ops.window_unpartition_fused(wins, win, (h, h)),
-            2 * pad),
-        "contiguous copy_ of the padded grid": (lambda: grid.copy_(xp),
-                                                2 * pad),
+            2 * one),
+        "unpartition kernel alone": (
+            lambda: window_ops._copy("window_unpartition", wins, grid, b, h,
+                                     h, win), 2 * one),
+        "contiguous copy_ of the grid": (lambda: grid.copy_(x), 2 * one),
     }
     notes, times = [], {}
     for what, (fn, nbytes) in parts.items():
         times[what] = t = _time_ms(torch, fn, [()])
-        notes.append(f"{what} {t:.4f} ms for {nbytes / 1e6:.1f} MB "
+        notes.append(f"{what} {t:.4f} ms for {nbytes / 1e6:.2f} MB "
                      f"({nbytes / t / 1e6:.0f} GB/s)")
-    rows["window_partition"]["copy_ms"] = times[
-        "partition kernel alone (padded input)"]
+    rows["window_partition"]["copy_ms"] = times["partition kernel alone"]
     rows["window_unpartition"]["copy_ms"] = times["unpartition kernel alone"]
-    say(2, f"K14 split, bf16 ({b}, {h}, {h}, {c}), win {win}: "
-           f"{'; '.join(notes)} on {gpu}")
+    say(2, f"K14 split, bf16 ({b}, {h}, {h}, {c}), win {win}, one call "
+           f"each: {'; '.join(notes)} on {gpu}")
 
 
 def _trainable_forms(torch, gpu):

@@ -161,8 +161,8 @@ KERNELS: Dict[str, Kernel] = {
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
         "grove_tpu_torch/csrc/sam_global_attention.cu",
         "grove_tpu/ops/sam_attention.py:235"),
-    # K1, K1q, K2, K3, K4, K5, K9's forward, K10, K11, K12 and K13 on the
-    # tensor-core body (attention_tc.cuh), which the wrappers take for bf16
+    # K1, K1q, K2, K3, K4, K5, K9's forward, K10, K11, K12, K12q8 and K13 on
+    # the tensor-core body (attention_tc.cuh), which the wrappers take for bf16
     # at head dims 64, 80 and 128 (`TC_HEAD_DIMS`); fp32 and the head dim 8
     # take the SIMT entries
     "sam_window_attention_tc": Kernel(
@@ -347,6 +347,13 @@ KERNELS: Dict[str, Kernel] = {
         "grove_tpu/ops/sam_attention.py:598"),
     "sam_window_attention_v2_q8": Kernel(
         "grove_sam_window_attention_v2_q8",
+        [_P] * 6 + [_I] * 6 + [_F, _I, _P],
+        "grove_tpu_torch/csrc/sam_window_attention_v2.cu",
+        "grove_tpu/ops/sam_attention.py:640"),
+    # K12q8 on the tensor-core forward body (K1q's instantiation on split
+    # q, k, v), taken as K1q's
+    "sam_window_attention_v2_q8_tc": Kernel(
+        "grove_sam_window_attention_v2_q8_tc",
         [_P] * 6 + [_I] * 6 + [_F, _I, _P],
         "grove_tpu_torch/csrc/sam_window_attention_v2.cu",
         "grove_tpu/ops/sam_attention.py:640"),

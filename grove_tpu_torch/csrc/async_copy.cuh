@@ -1,7 +1,9 @@
-// Asynchronous copies into shared memory, shared by the kernels that stream
-// through a ring: 16-byte cp.async copies completing on commit groups
-// (K7c, int4_requant.cu), and 1-D TMA bulk copies completing on mbarriers
-// (K6, int8_decode_attention.cu; K8c, rmsnorm_quant.cu).
+// Asynchronous copies, shared by the kernels that stream through a ring:
+// 16-byte cp.async copies into shared memory completing on commit groups
+// (K7c, int4_requant.cu), 1-D TMA bulk copies into shared memory completing
+// on mbarriers (K6, int8_decode_attention.cu; K8c, rmsnorm_quant.cu; K14,
+// window_partition.cu), and 1-D TMA bulk copies out of shared memory
+// completing on bulk groups (K14).
 
 #pragma once
 
@@ -65,6 +67,36 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
       "}\n" ::"r"(smem_u32(bar)),
       "r"(parity)
       : "memory");
+}
+
+// one copy of `bytes` (a multiple of 16, both ends on 16 bytes) from
+// shared into global memory, in this thread's open bulk group
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          dst),
+      "r"(smem_u32(src)), "r"(bytes)
+      : "memory");
+}
+
+// close this thread's open bulk group
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's bulk groups have not yet read
+// their shared-memory sources (the sources may then be overwritten)
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// wait until at most N of this thread's bulk groups are incomplete (their
+// writes to global memory done)
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 }  // namespace grove

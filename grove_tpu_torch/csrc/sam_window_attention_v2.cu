@@ -22,20 +22,22 @@
 // inv_scale a (1,) fp32 tensor on the card, as K1q reads it.
 //
 // This is K1's function and contract (the all-underflow rows are 0,
-// zero_underflow) with the row stride C instead of 3C. Two entries each,
-// chosen by the wrapper (ops/sam_attention.py through ops/attention.py
-// `_tc_takes`, by dtype and head dim only):
-//   * `grove_sam_window_attention_v2_tc` runs K12 in bf16 at head dims 64,
-//     80 and 128 on the tensor-core body (attention_tc.cuh, K1's
-//     packed-table instantiation, which reads q, k and v through strides:
-//     wgmma, 64-key tiles, the packed term table staged in shared memory,
-//     P rounded to bf16 before P.V). At the full-width shape (nW = 144,
-//     S = 196, 16 heads, D = 80) each (window, head) runs 2 blocks of 128
-//     rows over 4 key tiles, the last holding 4 keys, as K1;
-//   * `grove_sam_window_attention_v2` (fp32 and the head dim 8) and
-//     `grove_sam_window_attention_v2_q8` (K12q8, every dtype) run on the
-//     SIMT body (attention_core.cuh: fp32 FMA issue and shared-memory
-//     reads, far from either bound).
+// zero_underflow) with the row stride C instead of 3C: K12 is K1 on split
+// inputs, K12q8 K1q. Two entries each, chosen by the wrapper
+// (ops/sam_attention.py through ops/attention.py `_tc_takes`, by dtype and
+// head dim only):
+//   * `grove_sam_window_attention_v2_tc` (K12) and
+//     `grove_sam_window_attention_v2_q8_tc` (K12q8) run bf16 at head dims
+//     64, 80 and 128 on the tensor-core body (attention_tc.cuh, K1's and
+//     K1q's packed-table instantiations, which read q, k and v through
+//     strides: wgmma, 64-key tiles, the packed term table staged in shared
+//     memory, P rounded to bf16 before P.V; K12q8's int8 rows leave in
+//     16-byte stores as K1q's). At the full-width shape (nW = 144, S = 196,
+//     16 heads, D = 80) each (window, head) runs 2 blocks of 128 rows over
+//     4 key tiles, the last holding 4 keys, as K1;
+//   * `grove_sam_window_attention_v2` and `grove_sam_window_attention_v2_q8`
+//     run fp32 and the head dim 8 on the SIMT body (attention_core.cuh:
+//     fp32 FMA issue and shared-memory reads, far from either bound).
 //
 // Numerics against the TPU kernel, K1's recorded differences: the TPU
 // kernel folds scale * log2(e) into a bf16 q and log2(e) into the bf16
@@ -47,15 +49,17 @@
 // the TPU kernel does, the SIMT body keeps them in fp32 (see kExp2Shift in
 // attention_core.cuh and sam_window_attention.cu's note).
 //
-// Bound on the H100: bytes (q, k, v 217 MB, rel 25 MB, out 72 MB in bf16 at
-// the full-width (144, 196, 1280) on 14 x 14, 0.0938 ms over 3.35 TB/s,
-// against 28.3 GFLOP, 0.0286 ms at 989 TFLOP/s bf16), as K1.
+// Bound on the H100: bytes (q, k, v 217 MB, rel 25 MB, out 72 MB in bf16 or
+// 36 MB in int8 at the full-width (144, 196, 1280) on 14 x 14, 0.0938 ms
+// (K12q8 0.0830) over 3.35 TB/s, against 28.3 GFLOP, 0.0286 ms at
+// 989 TFLOP/s bf16), as K1 and K1q.
 
 #include "attention_core.cuh"
 #include "attention_tc.cuh"
 
 GROVE_ATTENTION_ENTRY(sam_window_attention_v2)
 GROVE_ATTENTION_TC_ENTRY(sam_window_attention_v2, true, false)
+GROVE_ATTENTION_TC_ENTRY(sam_window_attention_v2_q8, true, true)
 
 namespace {
 
@@ -126,4 +130,15 @@ extern "C" int grove_sam_window_attention_v2_tc(
       split_args(q, k, v, rel, out, nw, s, heads, head_dim, gh, gw, scale,
                  dtype),
       dtype, head_dim, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int grove_sam_window_attention_v2_q8_tc(
+    const void* q, const void* k, const void* v, const void* rel,
+    const void* inv_scale, void* out, int nw, int s, int heads, int head_dim,
+    int gh, int gw, float scale, int dtype, void* stream) {
+  grove::AttnArgs a = split_args(q, k, v, rel, out, nw, s, heads, head_dim,
+                                 gh, gw, scale, dtype);
+  a.out_inv = static_cast<const float*>(inv_scale);
+  return sam_window_attention_v2_q8_tc_dispatch(
+      a, dtype, head_dim, static_cast<cudaStream_t>(stream));
 }

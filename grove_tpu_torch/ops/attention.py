@@ -97,15 +97,14 @@ def grouped_plain_attention_torch(q, k, v, *,
 
 def _tc_takes(dtype: torch.dtype, head_dim: int) -> bool:
     """Whether a CUDA call of K1, K1q, K2, K3, K4, K5, K9's forward, K10,
-    K11, K12 or K13 v2 runs the tensor-core body (`csrc/attention_tc.cuh`,
-    the `_tc` entries), and K9's and K4b's dq and dkv the tensor-core
-    backward body (`csrc/attention_bwd_tc.cuh`): bf16 at head dim 64, 80 or
-    128 (`_kernels.TC_HEAD_DIMS`; K9's also needs its term tables aligned,
-    `sam_attention_bwd._tables_aligned`). fp32, and the head dim 8, run the
-    SIMT bodies (`csrc/attention_core.cuh`, `csrc/attention_bwd_core.cuh`),
-    and so do K12q8 and K13 v1 at every dtype. Two hand-written kernels
-    chosen by dtype and shape; a `_tc` launch that fails raises like any
-    other."""
+    K11, K12, K12q8 or K13 runs the tensor-core body
+    (`csrc/attention_tc.cuh`, the `_tc` entries), and K9's and K4b's dq and
+    dkv the tensor-core backward body (`csrc/attention_bwd_tc.cuh`): bf16 at
+    head dim 64, 80 or 128 (`_kernels.TC_HEAD_DIMS`; K9's also needs its
+    term tables aligned, `sam_attention_bwd._tables_aligned`). fp32, and the
+    head dim 8, run the SIMT bodies (`csrc/attention_core.cuh`,
+    `csrc/attention_bwd_core.cuh`). Two hand-written kernels chosen by dtype
+    and shape; a `_tc` launch that fails raises like any other."""
     return dtype == torch.bfloat16 and head_dim in _kernels.TC_HEAD_DIMS
 
 

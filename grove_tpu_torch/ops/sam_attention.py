@@ -32,9 +32,9 @@ dispatches, have their kernels too:
 Each has a plain twin (`*_torch`) that materializes the bias. Wrappers pick
 by device: CPU tensors take the plain version, CUDA tensors the kernel. In
 bf16 at head dim 64, 80 or 128 (`ops.attention._tc_takes`) K1, K1q, K2,
-K11, K12 and K13 launch their tensor-core entries, whose plain versions
-with the body's rounding points are the `*_tc_torch` functions; K12q8
-launches its SIMT entry at every dtype.
+K11, K12, K12q8 and K13 launch their tensor-core entries, whose plain versions
+with the body's rounding points are the `*_tc_torch` functions; so does
+K12q8.
 """
 
 from __future__ import annotations
@@ -247,7 +247,7 @@ def grouped_window_attention_relpos_v3_q8_torch(qkv, rel_packed,
 
 def _window_attention_tc_torch(q, k, v, rel_packed, hw: Tuple[int, int],
                                num_heads: int, inv_scale=None):
-    """K1's, K1q's and K12's arithmetic on the tensor-core body, on
+    """K1's, K1q's, K12's and K12q8's arithmetic on the tensor-core body, on
     (B, S, H, D) views (`ops.attention.tc_attention_torch`: 64-key tiles, P
     rounded to bf16 before P.V, the sum over the fp32 P, the output times
     1 / l), the all-underflow rows as zeros, then q's dtype or, with
@@ -442,6 +442,22 @@ def grouped_window_attention_relpos_v2_q8_torch(q, k, v, rel_packed,
         rel_packed, hw, num_heads, inv_scale.reshape(1))
 
 
+def grouped_window_attention_relpos_v2_q8_tc_torch(q, k, v, rel_packed,
+                                                   inv_scale,
+                                                   hw: Tuple[int, int],
+                                                   num_heads: int):
+    """K12q8 with the tensor-core body's rounding points: K1q's
+    (`_window_attention_tc_torch` with `inv_scale`: P rounded to bf16
+    before P.V, the sum over the fp32 P, the all-underflow rows 0, then
+    clip(rint(out * inv_scale), -127, 127)) on three raw (nW, S, C)
+    projections -> int8 (nW, S, C). The plain version that `chip_smoke.py`
+    holds K12q8's `_tc` entry to; no model path calls it."""
+    b, s, c = q.shape
+    return _window_attention_tc_torch(
+        *(t.reshape(b, s, num_heads, c // num_heads) for t in (q, k, v)),
+        rel_packed, hw, num_heads, inv_scale.reshape(1))
+
+
 def _check_v2(q, k, v, rel_packed, hw: Tuple[int, int],
               num_heads: int) -> int:
     """Raise ValueError unless q, k, v (nW, S, C) and the packed table fit
@@ -497,12 +513,9 @@ def _window_v2(q, k, v, rel_packed, hw: Tuple[int, int], num_heads: int,
                 q, k, v, rel_packed, inv_scale, hw, num_heads)
         return grouped_window_attention_relpos_v2_torch(q, k, v, rel_packed,
                                                         hw, num_heads)
-    if quantize:
-        name = "sam_window_attention_v2_q8"
-    elif _tc_takes(q.dtype, hd):
-        name = "sam_window_attention_v2_tc"
-    else:
-        name = "sam_window_attention_v2"
+    name = "sam_window_attention_v2" + ("_q8" if quantize else "")
+    if _tc_takes(q.dtype, hd):
+        name += "_tc"
     return _split_launch(name, q, k, v, rel_packed, hw, num_heads, inv_scale)
 
 
@@ -523,8 +536,12 @@ def grouped_window_attention_relpos_v2_q8(q, k, v, rel_packed, inv_scale,
                                           hw: Tuple[int, int],
                                           num_heads: int):
     """K12q8: K12 with the int8 epilogue, `inv_scale` a (1,) fp32 tensor
-    1 / act_scale -> int8 (nW, S, H*D). CUDA tensors launch its SIMT entry
-    at every dtype."""
+    1 / act_scale -> int8 (nW, S, H*D), K1q's contract on split inputs.
+
+    CPU tensors take `grouped_window_attention_relpos_v2_q8_torch`; CUDA
+    tensors launch `csrc/sam_window_attention_v2.cu`: its tensor-core entry
+    (K1q's body) where `ops.attention._tc_takes` holds (bf16 at D 64, 80,
+    128) and its SIMT entry otherwise."""
     return _window_v2(q, k, v, rel_packed, hw, num_heads,
                       inv_scale.float())
 

@@ -221,9 +221,9 @@ def test_launch_counts_untouched_by_plain_path():
     assert {k.source.split("/")[-1] for k in _kernels.KERNELS.values()} == {
         p.name for p in _kernels.sources() if p.name != "errors.cu"}
     # K1, K1q, K2, K3, K4, K4b's dq and dkv, K5, K9's forward, dq and dkv,
-    # K10, K11, K12 and K13 (v1 and v2) each have a tensor-core entry beside
-    # the SIMT one: the same source file, TPU kernel and arguments, the
-    # symbol `_tc`
+    # K10, K11, K12, K12q8 and K13 (v1 and v2) each have a tensor-core entry
+    # beside the SIMT one: the same source file, TPU kernel and arguments,
+    # the symbol `_tc`
     tc = {n: k for n, k in _kernels.KERNELS.items() if n.endswith("_tc")}
     assert sorted(tc) == ["flash_attention_relpos_tc", "flash_attention_tc",
                           "flash_backward_dkv_tc", "flash_backward_dq_tc",
@@ -237,6 +237,7 @@ def test_launch_counts_untouched_by_plain_path():
                           "sam_global_attention_tc",
                           "sam_window_attention_q8_tc",
                           "sam_window_attention_tc",
+                          "sam_window_attention_v2_q8_tc",
                           "sam_window_attention_v2_tc"]
     for name, k in tc.items():
         simt = _kernels.KERNELS[name.removesuffix("_tc")]

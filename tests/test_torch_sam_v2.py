@@ -26,6 +26,8 @@ from grove_tpu.ops import window_ops as jwin  # noqa: E402
 from grove_tpu_torch import _kernels  # noqa: E402
 from grove_tpu_torch.ops import sam_attention as tsam  # noqa: E402
 from grove_tpu_torch.ops import window_ops as twin  # noqa: E402
+from test_torch_flash import (K1Q_BF16_SHARE, K1Q_SHARE,  # noqa: E402
+                              _k1_inputs)
 
 RTOL, ATOL = 2e-4, 2e-5
 GRAD_TOL = 1e-4
@@ -119,6 +121,76 @@ def test_v2_q8_within_one_lsb_of_jax(seed):
         diff = np.abs(out.astype(np.int32) - want.astype(np.int32))
         assert diff.max() <= 1 and (diff > 0).mean() <= LSB_SHARE
     assert np.abs(want).max() > 60
+
+
+def _k12q8_inputs(win, d, heads=2, nw=2, seed=11):
+    """K1q's inputs of `test_torch_flash` (bf16 values of an unsplit qkv
+    whose row 0 of window 0 underflows everywhere, and its packed term
+    table), q, k and v split -> (q, k, v, rel) numpy fp32."""
+    qkv, rel = _k1_inputs(np.random.default_rng(seed), nw, win, heads, d)
+    c = heads * d
+    return (*(np.ascontiguousarray(qkv[..., i * c:(i + 1) * c])
+              for i in range(3)), rel)
+
+
+def _lsb(a, b):
+    diff = np.abs(np.asarray(a).astype(np.int32)
+                  - np.asarray(b).astype(np.int32))
+    return diff.max(), (diff > 0).mean()
+
+
+@pytest.mark.parametrize("d", [64, 80, 128])
+def test_v2_q8_tc_model_within_lsb_of_pallas(d):
+    """K12q8 on the tensor-core body (`grouped_window_attention_relpos_v2_
+    q8_tc_torch`: P rounded to bf16 before P.V, the sum over the fp32 P,
+    the all-underflow rows 0, the int8 epilogue) against the Pallas K12q8
+    (`grouped_window_attention_relpos_v2_q8`, interpret mode) on fp32 and
+    on bf16 arrays of the same bf16 values, and against the fp32 twin:
+    outputs across the int8 range, at most 1 LSB apart on at most the
+    shares recorded for K1q's tensor-core twin (K1Q_SHARE against the fp32
+    arrays and the twin, K1Q_BF16_SHARE against the bf16 arrays, where the
+    TPU kernel rounds q * scale * log2(e), the terms and P at a fixed
+    offset); the all-underflow row is exactly 0 in all four. Measured on
+    these inputs: 1.1-1.3% against the fp32 arrays and the twin, 3.7-5.9%
+    against the bf16 arrays (the twin 3.4-5.6%)."""
+    heads, hw = 2, (14, 14)
+    q, k, v, rel = _k12q8_inputs(14, d, heads)
+    inv = np.full((1,), 80.0, np.float32)
+    got = tsam.grouped_window_attention_relpos_v2_q8_tc_torch(
+        *_t(q, k, v, rel, inv), hw, heads)
+    plain = tsam.grouped_window_attention_relpos_v2_q8_torch(
+        *_t(q, k, v, rel, inv), hw, heads)
+    want, want_bf16 = (np.asarray(jsam.grouped_window_attention_relpos_v2_q8(
+        *(jnp.asarray(x, dt) for x in (q, k, v, rel)), jnp.asarray(inv), hw,
+        num_heads=heads)) for dt in (jnp.float32, jnp.bfloat16))
+    assert got.dtype == torch.int8 and got.shape == plain.shape == want.shape
+    assert np.abs(want).max() == 127
+    for out in (got.numpy(), plain.numpy(), want, want_bf16):
+        assert np.all(out[0, 0] == 0)
+    for ref in (plain.numpy(), want):
+        most, share = _lsb(got.numpy(), ref)
+        assert most <= 1 and share <= K1Q_SHARE, (most, share)
+    most, share = _lsb(got.numpy(), want_bf16)
+    assert most <= 1 and share <= K1Q_BF16_SHARE, (most, share)
+
+
+@pytest.mark.parametrize("win", [14, 5])
+def test_v2_q8_tc_model_is_k1q_on_split_inputs(win):
+    """K12q8's and K1q's tensor-core models are one function: on the same
+    values the split form equals `grouped_window_attention_relpos_v3_tc_
+    torch(cat([q, k, v], -1), ..., inv_scale=)` bit for bit, on fp32 and on
+    bf16 tensors."""
+    heads, hw = 2, (win, win)
+    q, k, v, rel = _t(*_k12q8_inputs(win, 80, heads))
+    inv = torch.full((1,), 80.0)
+    for dt in (torch.float32, torch.bfloat16):
+        args = [x.to(dt) for x in (q, k, v, rel)]
+        split = tsam.grouped_window_attention_relpos_v2_q8_tc_torch(
+            *args, inv, hw, heads)
+        fused = tsam.grouped_window_attention_relpos_v3_tc_torch(
+            torch.cat(args[:3], -1), args[3], hw, heads, inv_scale=inv)
+        assert split.dtype == fused.dtype == torch.int8
+        assert torch.equal(split, fused)
 
 
 def test_v2_all_underflow_row_is_zero():

@@ -628,9 +628,8 @@ def test_tc_model_k12_is_k1_on_split_inputs(win, d):
 def test_k12_and_k13_route_by_dtype_and_head_dim(monkeypatch, dtype,
                                                  head_dim, tc):
     """bf16 at head dim 64, 80 or 128 launches the `_tc` entries of K13 v2,
-    K12 and K13 v1; fp32 and the head dim 8 their SIMT entries; K12q8
-    (`sam_window_attention_v2_q8`) launches its SIMT entry at every dtype.
-    The wrappers are driven past `on_cpu` with the launches recorded by
+    K12, K12q8 and K13 v1; fp32 and the head dim 8 their SIMT entries. The
+    wrappers are driven past `on_cpu` with the launches recorded by
     name."""
     launched = []
     monkeypatch.setattr(tattn._kernels, "on_cpu", lambda *t: False)
@@ -651,5 +650,5 @@ def test_k12_and_k13_route_by_dtype_and_head_dim(monkeypatch, dtype,
     suffix = "_tc" if tc else ""
     assert launched == ["folded_window_attention_v2" + suffix,
                         "sam_window_attention_v2" + suffix,
-                        "sam_window_attention_v2_q8",
+                        "sam_window_attention_v2_q8" + suffix,
                         "folded_window_attention" + suffix]
