@@ -270,7 +270,28 @@ Phases, each printing its own line; any failure exits non-zero:
      pure-Python writer: the config's special ids are the tokenizer's, the
      load onto the card is bit-equal to the same load onto the CPU (the
      pairs merged, the tables resized), and the loaded SAM's embeddings on
-     the card are within 1e-3 of the CPU's max-abs (fp32).
+     the card are within 1e-3 of the CPU's max-abs (fp32);
+  8  driver: `train.driver.main` in this process (`--max_restarts 0`, a
+     fresh temporary log directory). At full width: `--model_size full
+     --synthetic --model_max_length 129` (bf16, S = 704), batch 1, 2
+     epochs x 2 steps, giou validation, 2 loader workers; each step's
+     kernel launches (the counts set to 0 just before it) equal phase 5's
+     at S = 704, every loss term finite, only trainable tensors moved by
+     step 4 and every trainable group did, the saves of steps 2 and 4 and
+     one best marker made, the checkpoint files not written (the machine's
+     disk takes 45 GiB of writes a run; one step is 18.3 GiB). The checkpoint half
+     at GroveConfig.small() in bf16: the same run, steps 2 and 4 kept,
+     step 4 restored bit-equal to the card's parameters and optimizer
+     state, one best marker; then `--auto_resume --epochs 3` resumes at
+     epoch 2 from step 4 (the state on the card bit-equal to the
+     checkpoint before its first step) and takes two steps, each with the
+     launches `_step_launches` gives. Then GroveConfig.small() in
+     fp32 (the driver's dtype patched from bf16) with
+     `--grad_accumulation_steps 2`, 4 micro-steps from one `.bin` loaded
+     by `--version`, on the card and on the CPU: loss terms within 1e-4
+     relative, the moments within 1e-3 of their max-abs, the trainable
+     parameters within 1e-3 of their update's max-abs weighted by |mu| /
+     max|mu| at each element, the frozen ones bit-equal.
 Phase 2 also holds the five training kernels (K4b dq and dkv at LLaMA's
 (1, 704, 32, 128) causal; K9's forward with its LSE, dq with d_rh and d_rw,
 and dkv at SAM's windowed (72, 196, 16, 80) and global (8, 1024, 16, 80)
@@ -301,6 +322,7 @@ import contextlib
 import copy
 import dataclasses
 import json
+import os
 import re
 import shutil
 import statistics
@@ -4579,6 +4601,453 @@ def _full_sam_load(torch, gpu, cfg=None, device="cuda"):
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 8: the training driver
+# ---------------------------------------------------------------------------
+
+# `python -m grove_tpu_torch.train.driver` at full width: GroveConfig() in
+# bf16 at S = 129 + 575 = 704 (phase 5's TRAIN_SEQ), the synthetic dataset,
+# validation in giou mode; warmup 1, so the second update moves the bf16
+# weights as phase 5's do (lr(0) = 0)
+DRIVER_FULL = ["--model_size", "full", "--synthetic", "--model_max_length",
+               str(TRAIN_SEQ), "--batch_size", "1", "--steps_per_epoch", "2",
+               "--val_mode", "giou", "--num_workers", "2", "--warmup_steps",
+               "1", "--max_restarts", "0", "--device", "cuda"]
+# the same driver on GroveConfig.small() in fp32, card against CPU: two
+# updates of two accumulated micro-batches from one `.bin` of weights
+DRIVER_SMALL = ["--model_size", "small", "--synthetic", "--model_max_length",
+                str(TRAIN_SEQ), "--grad_accumulation_steps", "2",
+                "--steps_per_epoch", "4", "--epochs", "1", "--num_workers",
+                "1", "--warmup_steps", "1", "--max_restarts", "0"]
+# the card's machine stops a command once it has written 45 GiB to its
+# disk, deleted files included (a run was stopped at 47.6 GiB inside the
+# full-width run's first saves); a full-width run of 2 epochs writes two
+# steps of 18.32 GiB and two best copies of 15.68 GiB. So the full-width
+# run's checkpoints are counted and checked on the card but not written
+# (`_unwritten_checkpoints`), and the checkpoint half of the driver (save,
+# restore bit for bit, resume) runs at GroveConfig.small() in bf16
+# (DRIVER_RESUME, 0.85 GiB a step), as the same code at another width
+DRIVER_RESUME = ["--model_size", "small"] + DRIVER_FULL[2:]
+
+
+class _Tee:
+    """Write to the real stdout and keep a copy (the driver's log)."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+    def text(self):
+        return "".join(self.parts)
+
+
+class _DriverSpy:
+    """Wrap `train.driver.make_train_step` for one driver run: keep the
+    run's model and optimizer, call `first(model, optimizer)` before its
+    first step, and for each step record the ms, the loss terms and the
+    kernel launches (every count set to 0 just before the step and read
+    just after)."""
+
+    def __init__(self, torch, first=None):
+        self.torch, self.first = torch, first
+        self.model = self.opt = self.first_out = None
+        self.steps = []
+
+    def __enter__(self):
+        from grove_tpu_torch.train import driver
+        self._driver, self._real = driver, driver.make_train_step
+        driver.make_train_step = self._make
+        return self
+
+    def __exit__(self, *exc):
+        self._driver.make_train_step = self._real
+
+    def _make(self, model, optimizer):
+        from grove_tpu_torch import _kernels
+        torch, inner = self.torch, self._real(model, optimizer)
+        self.model, self.opt = model, optimizer
+        cuda = model.device.type == "cuda"
+
+        def step(batch):
+            if self.first is not None and not self.steps:
+                self.first_out = self.first(model, optimizer)
+            if cuda:
+                torch.cuda.synchronize()
+            _kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = inner(batch)
+            if cuda:
+                torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            self.steps.append((ms, {k: v.launches for k, v in
+                                    _kernels.KERNELS.items() if v.launches},
+                               _check_losses(out, f"driver step "
+                                             f"{len(self.steps) + 1}")))
+            return out
+        return step
+
+
+def _run_driver(torch, argv, first=None):
+    """`train.driver.main(argv)` in this process with its stdout kept;
+    returns (its best metric, the spy, its log, seconds)."""
+    from grove_tpu_torch.train import driver
+    tee = _Tee(sys.stdout)
+    t0 = time.perf_counter()
+    with _DriverSpy(torch, first) as spy, contextlib.redirect_stdout(tee):
+        best = driver.main(argv)
+    return best, spy, tee.text(), time.perf_counter() - t0
+
+
+def _meter_times(log):
+    """(secs/batch, data_secs) of each step the driver's ProgressMeter
+    printed."""
+    return [(float(a), float(b)) for a, b in re.findall(
+        r"secs/batch ([\d.]+) \([\d.]+\)\tdata_secs ([\d.]+)", log)]
+
+
+def _state_equal(torch, model, opt, saved, label):
+    """The model's state dict and the optimizer's state bit-equal to a
+    restored checkpoint (on the CPU); returns the bytes compared."""
+    nbytes = 0
+
+    def same(got, want, where):
+        nonlocal nbytes
+        if isinstance(want, dict):
+            if set(got) != set(want):
+                raise PhaseError(f"{label}: {where} keys differ")
+            for k in want:
+                same(got[k], want[k], f"{where}/{k}")
+        elif isinstance(want, torch.Tensor):
+            if (got.dtype != want.dtype or got.shape != want.shape
+                    or not torch.equal(got, want.to(got.device))):
+                raise PhaseError(f"{label}: {where} differs from the "
+                                 "checkpoint")
+            nbytes += want.numel() * want.element_size()
+        elif got != want:
+            raise PhaseError(f"{label}: {where} {got} != {want}")
+    same(model.state_dict(), saved["params"], "params")
+    same(opt.state_dict(), saved["opt_state"], "opt_state")
+    return nbytes
+
+
+def _check_driver_steps(spy, cfg, label, n, full=True):
+    """The driver run took `n` steps, each launching the kernels
+    `_step_launches` gives for `cfg` at S = 704 (at full width also
+    TRAIN_LAUNCHES: phase 5's steps)."""
+    if len(spy.steps) != n:
+        raise PhaseError(f"{label} took {len(spy.steps)} steps, not {n}")
+    want = _step_launches(cfg, 704, False)
+    for i, (ms, launches, losses) in enumerate(spy.steps):
+        got = {k: launches.get(k, 0) for k in want}
+        train = {k: launches.get(k, 0) for k in TRAIN_LAUNCHES}
+        if got != want or (full and train != TRAIN_LAUNCHES):
+            raise PhaseError(f"{label} step {i + 1} launched {launches}, "
+                             f"not phase 5's {want}")
+
+
+def _checkpoint_bytes(torch, cfg):
+    """Bytes of one driver checkpoint of `cfg` in bf16 and of its
+    parameters alone (a meta-device model: no memory)."""
+    from grove_tpu_torch.models.grove import GroveModel
+    from grove_tpu_torch.train.step import OptimizerConfig, trainable_mask
+    meta = GroveModel(cfg, device="meta", dtype=torch.bfloat16)
+    params = sum(t.numel() * t.element_size()
+                 for t in meta.state_dict().values())
+    mask = trainable_mask(meta, OptimizerConfig())
+    moments = sum(2 * p.numel() * p.element_size()
+                  for n, p in meta.named_parameters() if mask[n])
+    return params + moments, params
+
+
+def phase_driver(torch, gpu):
+    """The training driver in this process: at full width (steps,
+    validation, the checkpoints checked but not written), its checkpoint
+    half at small in bf16 (save, restore, resume), and in fp32 at small
+    with accumulation, card against CPU."""
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="grove_driver_"))
+    try:
+        _driver_full(torch, gpu, tmp)
+        torch.cuda.empty_cache()
+        _driver_resume(torch, gpu, tmp)
+        torch.cuda.empty_cache()
+        _driver_small(torch, gpu, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    say(8, f"phase 8 took {time.perf_counter() - t0:.1f} s")
+
+
+@contextlib.contextmanager
+def _unwritten_checkpoints(on_save):
+    """`checkpoint.manager` with the write left out: each save hands
+    `on_save(path, state)` the live tensors (no copy to the host, no
+    file); the markers are still written."""
+    from grove_tpu_torch.checkpoint import manager
+    real = manager._write_dir, manager.to_cpu
+    manager._write_dir, manager.to_cpu = on_save, (lambda tree: tree)
+    try:
+        yield
+    finally:
+        manager._write_dir, manager.to_cpu = real
+
+
+def _moved(torch, snap, params, trainable, label):
+    """Names of the tensors that moved from `snap`; raises if a frozen one
+    did or a trainable group did not."""
+    moved = {n for n, t in snap.items()
+             if not torch.equal(t, params[n].to(t.device))}
+    if moved - trainable:
+        raise PhaseError(f"{label} moved frozen tensors: "
+                         f"{sorted(moved - trainable)[:4]}")
+    still = [g for g, pairs in _groups({n: None for n in trainable}).items()
+             if not any(n in moved for n, _ in pairs)]
+    if still:
+        raise PhaseError(f"{label}: trainable groups unchanged: {still}")
+    return moved
+
+
+def _losses_text(spy):
+    return "; ".join(", ".join(f"{k} {v:.4f}" for k, v in losses.items())
+                     for _, _, losses in spy.steps)
+
+
+def _driver_full(torch, gpu, tmp):
+    """`--model_size full` at S = 704: two epochs of two steps with giou
+    validation; each step's launches equal phase 5's at S = 704, every
+    loss finite, only trainable tensors moved by step 4, the saves at steps
+    2 and 4 and the best marker made, the checkpoint files not written."""
+    from grove_tpu_torch.config import GroveConfig
+    cfg = dataclasses.replace(GroveConfig(), max_seq_len=TRAIN_SEQ)
+    step_bytes, param_bytes = _checkpoint_bytes(torch, cfg)
+    snap, saves, moved = {}, [], {}
+
+    def first(model, opt):
+        snap.update({k: v.detach().clone()
+                     for k, v in model.state_dict().items()})
+
+    def on_save(path, state):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        saves.append(Path(path).relative_to(tmp / "full").as_posix())
+        if saves[-1] == "ckpt_model/4":
+            moved["trainable"] = set(state["opt_state"]["mu"])
+            moved["moved"] = _moved(torch, snap, state["params"],
+                                    moved["trainable"],
+                                    "driver at full width")
+
+    argv = DRIVER_FULL + ["--epochs", "2", "--log_base_dir", str(tmp),
+                          "--exp_name", "full"]
+    with _unwritten_checkpoints(on_save):
+        best, spy, log, secs = _run_driver(torch, argv, first)
+    _check_driver_steps(spy, cfg, "driver at full width", 4)
+    snap.clear()
+    markers = sorted(f.name for f in (tmp / "full" / "ckpt_model_best")
+                     .glob("*.marker"))
+    if (saves[-1] != "ckpt_model/4" or "ckpt_model/2" not in saves
+            or len(markers) != 1
+            or not markers[0].endswith(f"_{best:.4f}.marker")):
+        raise PhaseError(f"driver at full width: saves {saves}, markers "
+                         f"{markers}, best {best}")
+    times = _meter_times(log)
+    say(8, f"driver --model_size full (bf16, S = 704, batch 1, 2 epochs x "
+           f"2 steps, giou validation, 2 loader threads) in {secs:.1f} s: "
+           f"losses by step {_losses_text(spy)}; step ms "
+           + ", ".join(f"{ms:.1f}" for ms, _, _ in spy.steps)
+           + "; the driver's secs/batch / data_secs "
+           + ", ".join(f"{a:.2f}/{b:.2f}" for a, b in times)
+           + f"; each step's launches equal phase 5's at S = 704 "
+           f"({spy.steps[-1][1]}); "
+           f"{len(moved['moved'])} of {len(moved['trainable'])} trainable "
+           f"tensors moved by step "
+           f"4, every frozen one bit-equal; saves {saves} and marker "
+           f"{markers[0]} made, the files ({step_bytes / 2**30:.2f} GiB a "
+           f"step, {param_bytes / 2**30:.2f} GiB a best copy) not written: "
+           f"the machine's disk takes 45 GiB of writes a run; on {gpu}")
+    del spy
+    shutil.rmtree(tmp / "full")
+
+
+def _driver_resume(torch, gpu, tmp):
+    """The checkpoint half at GroveConfig.small() in bf16: two epochs of
+    two steps (the launches per step `_step_launches` gives at S = 704),
+    steps 2 and 4 kept, step 4 restored bit-equal to the card's parameters
+    and optimizer state, only trainable tensors moved, one best marker;
+    then `--auto_resume --epochs 3` resumes at epoch 2 from step 4 with
+    the state on the card bit-equal to the checkpoint before its first
+    step, and takes two steps."""
+    from grove_tpu_torch.checkpoint.manager import CheckpointManager
+    from grove_tpu_torch.config import GroveConfig
+    cfg = dataclasses.replace(GroveConfig.small(), max_seq_len=TRAIN_SEQ)
+    snap = {}
+
+    def first(model, opt):
+        snap.update({k: v.detach().clone()
+                     for k, v in model.state_dict().items()})
+
+    argv = DRIVER_RESUME + ["--log_base_dir", str(tmp), "--exp_name",
+                            "resume"]
+    best, spy, log, secs = _run_driver(torch, argv + ["--epochs", "2"],
+                                       first)
+    _check_driver_steps(spy, cfg, "driver run 1 at small", 4, full=False)
+    mgr = CheckpointManager(str(tmp / "resume"))
+    if mgr.steps() != [2, 4]:
+        raise PhaseError(f"driver run 1 saved steps {mgr.steps()}, not "
+                         "[2, 4]")
+    saved = mgr.restore(4)
+    nbytes = _state_equal(torch, spy.model, spy.opt, saved, "step 4")
+    trainable = {n for n, p in spy.model.named_parameters()
+                 if p.requires_grad}
+    moved = _moved(torch, snap, saved["params"], trainable,
+                   "driver run 1 at small")
+    snap.clear()
+    markers = [f for f in os.listdir(mgr.best_dir) if f.endswith(".marker")]
+    if (len(markers) != 1
+            or mgr.best_metric_from_marker() != round(best, 4)):
+        raise PhaseError(f"best marker {markers}, best {best}")
+    say(8, f"driver --model_size small (bf16, S = 704, 2 epochs x 2 steps, "
+           f"giou validation, checkpoints written) in {secs:.1f} s: losses "
+           f"{_losses_text(spy)}; each step's launches as "
+           f"`_step_launches` at S = 704; {len(moved)} of {len(trainable)} "
+           f"trainable tensors moved, every frozen one bit-equal; steps "
+           f"{mgr.steps()} kept, step 4 restored ({nbytes / 2**30:.2f} GiB) "
+           f"bit-equal to the card's parameters and optimizer state; best "
+           f"marker {markers[0]}")
+    del spy
+
+    def resumed(model, opt):
+        return _state_equal(torch, model, opt, saved, "resumed step 4")
+
+    best2, spy, log, secs = _run_driver(
+        torch, argv + ["--epochs", "3", "--auto_resume"], resumed)
+    if "resumed from step 4 (epoch 2)" not in log:
+        raise PhaseError("driver run 2 did not resume at step 4")
+    _check_driver_steps(spy, cfg, "driver run 2 at small", 2, full=False)
+    if mgr.steps() != [4, 6] or spy.opt.state_dict()["count"] != 6:
+        raise PhaseError(f"driver run 2: steps {mgr.steps()}, count "
+                         f"{spy.opt.state_dict()['count']}")
+    times = _meter_times(log)
+    say(8, f"driver --auto_resume --epochs 3 at small in {secs:.1f} s: "
+           f"resumed at epoch 2 from step 4, the model and optimizer state "
+           f"on the card bit-equal to the checkpoint before its first step "
+           f"({spy.first_out / 2**30:.2f} GiB); losses {_losses_text(spy)}; "
+           "step ms " + ", ".join(f"{ms:.1f}" for ms, _, _ in spy.steps)
+           + "; secs/batch / data_secs "
+           + ", ".join(f"{a:.2f}/{b:.2f}" for a, b in times)
+           + f"; steps kept {mgr.steps()}, best {best2:.4f} on {gpu}")
+    del saved, spy
+    shutil.rmtree(tmp / "resume")
+
+
+def _driver_small(torch, gpu, tmp):
+    """Two accumulated updates at GroveConfig.small() in fp32 from one
+    `.bin`, card and CPU: every micro-step's loss terms within
+    TRAIN_LOSS_REL, the moments of every trainable tensor within
+    TRAIN_GRAD_TOL of their max-abs (phase 6's gradient tolerance, with its
+    floor), and each trainable parameter's difference, over its update's
+    max-abs and weighted by |mu| / max|mu| at the element (max|mu| held at
+    phase 6's floor for a gradient zero up to rounding), within
+    TRAIN_GRAD_TOL (Adam's m / sqrt(v) turns an element's gradient error
+    relative to the tensor into one relative to that element); the frozen
+    ones bit-equal to the `.bin`."""
+    from grove_tpu_torch.checkpoint.manager import CheckpointManager
+    from grove_tpu_torch.config import GroveConfig
+    from grove_tpu_torch.models.grove import init_grove_params
+    from grove_tpu_torch.train import driver
+    torch.backends.cuda.matmul.allow_tf32 = False     # as phase 6
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(GroveConfig.small(), max_seq_len=TRAIN_SEQ)
+    src = init_grove_params(cfg, device="cpu", dtype=torch.float32, seed=18)
+    init = {k: v.clone() for k, v in src.state_dict().items()}
+    torch.save(init, tmp / "small.bin")
+    del src
+    runs = {}
+    real_dtype = driver.model_dtype
+    # the driver builds `small` in bf16; phase 6's comparison is in fp32
+    driver.model_dtype = lambda size: torch.float32
+    try:
+        for dev in ("cuda", "cpu"):
+            _, spy, log, secs = _run_driver(torch, DRIVER_SMALL + [
+                "--version", str(tmp / "small.bin"), "--device", dev,
+                "--log_base_dir", str(tmp), "--exp_name", f"small_{dev}"])
+            if "missing=0 mismatched=0" not in log:
+                raise PhaseError(f"--version on {dev}: {log[-300:]}")
+            runs[dev] = (CheckpointManager(str(tmp / f"small_{dev}"))
+                         .restore(4), spy.steps, secs,
+                         re.findall(r"val_giou=(\S+)", log))
+    finally:
+        driver.model_dtype = real_dtype
+    (card, card_steps, card_s, card_val), (cpu, cpu_steps, cpu_s,
+                                           cpu_val) = runs["cuda"], runs["cpu"]
+    for i, ((_, _, a), (_, _, b)) in enumerate(zip(card_steps, cpu_steps,
+                                                   strict=True)):
+        for k, w in b.items():
+            if abs(a[k] - w) > TRAIN_LOSS_REL * abs(w):
+                raise PhaseError(f"small driver micro-step {i + 1} {k}: "
+                                 f"card {a[k]}, CPU {w}")
+    inner = [r["opt_state"]["inner_opt_state"] for r in (card, cpu)]
+    if ([i["count"] for i in inner] != [2, 2]
+            or [r["opt_state"]["gradient_step"] for r in (card, cpu)]
+            != [2, 2]):
+        raise PhaseError(f"small driver: counts {[i['count'] for i in inner]}")
+    worst = {}
+    for key in ("mu", "nu"):
+        want = inner[1][key]
+        floor = TRAIN_GRAD_FLOOR * max(float(t.abs().max())
+                                       for t in want.values())
+        for name, t in want.items():
+            tol = TRAIN_GRAD_TOL * max(float(t.abs().max()), floor)
+            err = float((inner[0][key][name] - t).abs().max())
+            if err > tol:
+                raise PhaseError(f"small driver {key}[{name}] card vs CPU "
+                                 f"{err:.3e} > {tol:.3e}")
+            worst[key] = max(worst.get(key, 0.0), err / tol * TRAIN_GRAD_TOL)
+    mu = inner[1]["mu"]
+    upd = {n: (cpu["params"][n] - init[n]).abs() for n in mu}
+    floor = TRAIN_GRAD_FLOOR * max(float(u.max()) for u in upd.values())
+    # Adam divides each element's moment by its own scale, so an element's
+    # update carries its gradient's error relative to that element: weight
+    # the difference by |mu| over the tensor's max-abs, or over phase 6's
+    # floor where the tensor's gradient is zero up to rounding
+    mu_floor = TRAIN_GRAD_FLOOR * max(float(t.abs().max())
+                                      for t in mu.values())
+    plain, scaled, moved, bad = 0.0, 0.0, 0, {}
+    for name, u in upd.items():
+        diff = ((card["params"][name] - cpu["params"][name]).abs()
+                / max(float(u.max()), floor))
+        weight = mu[name].abs() / max(float(mu[name].abs().max()), mu_floor)
+        err = float((diff * weight).max())
+        plain, scaled = max(plain, float(diff.max())), max(scaled, err)
+        if err > TRAIN_GRAD_TOL:
+            bad[name] = err
+        moved += bool(u.max() > 0)
+    if bad:
+        raise PhaseError(f"small driver: {len(bad)} trainable tensors card "
+                         f"vs CPU beyond {TRAIN_GRAD_TOL} of their update's "
+                         f"max-abs weighted by |mu|: {bad}")
+    frozen = [n for n in init if n not in mu
+              and not (torch.equal(card["params"][n], init[n])
+                       and torch.equal(cpu["params"][n], init[n]))]
+    if frozen or not moved:
+        raise PhaseError(f"small driver: frozen tensors moved {frozen[:4]}, "
+                         f"{moved} trainable moved")
+    say(8, f"GroveConfig.small() fp32 driver, 2 updates of 2 accumulated "
+           f"micro-batches from one .bin, card vs CPU: {len(card_steps)} "
+           f"micro-steps' loss terms within {TRAIN_LOSS_REL} relative; "
+           f"moments of {len(mu)} trainable tensors within "
+           f"{worst['mu']:.2e} (mu) and {worst['nu']:.2e} (nu) of "
+           f"their max-abs (limit {TRAIN_GRAD_TOL}); {moved} tensors moved, "
+           f"the parameters within {scaled:.2e} of their update's max-abs "
+           f"weighted by |mu| / max|mu| (limit {TRAIN_GRAD_TOL}; unweighted "
+           f"{plain:.2e}); frozen bit-equal; val_giou card {card_val}, CPU "
+           f"{cpu_val}; card run {card_s:.1f} s, CPU run {cpu_s:.1f} s on "
+           f"{gpu}")
+
+
 def main() -> int:
     compiles = {}
     try:
@@ -4600,6 +5069,7 @@ def main() -> int:
         fp32_train = phase_train_parity(torch)
         launches.update({k: fp32_train[k] for k in FP32_STEP_SIMT})
         phase_loader(torch, gpu)
+        phase_driver(torch, gpu)
     except Exception:                       # report, then fail the run
         traceback.print_exc()
         print("chip_smoke FAILED", file=sys.stderr, flush=True)

@@ -17,8 +17,14 @@ methods, as `api/model.py:204-239` does. `quantize`, `calibrate` and
 `fuse` work IN PLACE on the one model (a
 full-width model quantizes on the card without a second copy of the
 weights), where the JAX methods return a new instance beside the old one.
-The HF-layout / Orbax directory loaders and `save_pretrained` raise,
-naming their ROADMAP item.
+
+`save_pretrained(dir)` writes the port's model directory: `config.json`
+(`GroveConfig.save_json`) and `STATE_FILE`, the model's own `state_dict()`
+under the port's module names, quantized buffers and static activation
+scales included; `from_pretrained(dir)` reads it back, and also a training
+log directory of `checkpoint.manager.CheckpointManager` (best, else
+latest). Directories the JAX package wrote (`flax_model.msgpack`, Orbax)
+raise NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -35,12 +41,19 @@ from ..checkpoint.convert import load_reference_state_dict
 from ..checkpoint.peft import normalize_peft_state_dict
 from ..models.grove import GroveModel, init_grove_params
 from ..models.fuse import fuse_llama_
+from ..ops.int8_matmul import column_major
 from ..ops.quant import (calibrate_vision_, quantize_llama_,
                          quantize_vision_, set_llm_act_quant_)
 from ..text.tokenizer import special_token_ids_from
 
 _SIZES = {"tiny": GroveConfig.tiny, "small": GroveConfig.small,
           "full": GroveConfig}
+# the port's model file in a `save_pretrained` directory: a torch state dict
+# under the port's module names, not a reference `.bin`
+STATE_FILE = "grove_torch_state_dict.pt"
+JAX_DIR_ITEM = ("model directories written by the JAX package "
+                "(flax_model.msgpack) and Orbax checkpoints are not ported "
+                "yet (ROADMAP Queue 1 item 18)")
 
 
 def read_checkpoint(path: str) -> Dict[str, np.ndarray]:
@@ -53,6 +66,17 @@ def read_checkpoint(path: str) -> Dict[str, np.ndarray]:
         {k: v.float().numpy() for k, v in sd.items() if hasattr(v, "numpy")})
 
 
+def _column_major_int8(model) -> None:
+    """Give each column-major int8 weight its `column_major` storage back
+    (`to_empty` allocates it dense, without the room for a 2-D weight's N
+    padding that `ops.int8_matmul` reads in place)."""
+    for mod in model.modules():
+        kq = getattr(mod, "kernel_q", None)
+        if (isinstance(kq, torch.Tensor) and kq.dim() == 2
+                and kq.t().is_contiguous() and not kq.is_contiguous()):
+            mod.kernel_q = column_major(kq)
+
+
 class GroveForCausalLM:
     def __init__(self, cfg: GroveConfig, model: GroveModel):
         self.cfg = cfg
@@ -63,7 +87,9 @@ class GroveForCausalLM:
                         model_size: str = "full", tokenizer=None,
                         dtype: torch.dtype = torch.bfloat16, seed: int = 0,
                         device="cuda") -> "GroveForCausalLM":
-        """Fresh weights from `seed` (checkpoint=None), or a strict load
+        """Fresh weights from `seed` (checkpoint=None), a directory
+        (`_from_dir`: one `save_pretrained` wrote, or a training log
+        directory), or a strict load
         of a reference torch state dict file, built directly on `device`
         (the card unless the caller asks for another) in `dtype`. The file
         goes the JAX package's way (`grove_tpu/api/model.py:76-86`): its
@@ -75,10 +101,8 @@ class GroveForCausalLM:
         (`text.tokenizer.special_token_ids_from`), as JAX's do
         (`api/model.py:48-52`)."""
         if checkpoint is not None and os.path.isdir(checkpoint):
-            raise NotImplementedError(
-                "HF-layout (flax_model.msgpack) and Orbax checkpoint "
-                "directories are not ported yet (ROADMAP Queue 1 item 14, "
-                "checkpoint I/O)")
+            return cls._from_dir(checkpoint, model_size, tokenizer, dtype,
+                                 seed, device)
         cfg = _SIZES[model_size]()
         if tokenizer is not None:
             cfg = dataclasses.replace(
@@ -143,10 +167,64 @@ class GroveForCausalLM:
         self.cfg = self.model.cfg
         return self
 
-    def save_pretrained(self, save_dir: str):
-        raise NotImplementedError(
-            "save_pretrained is not ported yet (ROADMAP Queue 1 item 14, "
-            "checkpoint I/O)")
+    @classmethod
+    def _from_dir(cls, path: str, model_size: str, tokenizer, dtype, seed,
+                  device) -> "GroveForCausalLM":
+        """The directory dispatch of `api/model.py:34-86`: a
+        `save_pretrained` directory (`config.json` + `STATE_FILE`) builds
+        its own config on `device` (meta, then `to_empty`) in `dtype` and
+        loads strictly; a `CheckpointManager` log directory loads its best
+        parameters, else its latest, into the `model_size` config (fresh
+        weights from `seed` where it holds neither, as JAX's); a directory
+        the JAX package wrote raises NotImplementedError."""
+        from ..checkpoint.manager import STATE_FILE as CKPT_FILE
+        from ..checkpoint.manager import CheckpointManager
+        if os.path.isfile(os.path.join(path, "flax_model.msgpack")):
+            raise NotImplementedError(f"{path}: {JAX_DIR_ITEM}")
+        if os.path.isfile(os.path.join(path, "config.json")):
+            if not os.path.isfile(os.path.join(path, STATE_FILE)):
+                raise NotImplementedError(f"{path}: no {STATE_FILE}; "
+                                          f"{JAX_DIR_ITEM}")
+            cfg = GroveConfig.load_json(os.path.join(path, "config.json"))
+            sd = torch.load(os.path.join(path, STATE_FILE),
+                            map_location="cpu", weights_only=True, mmap=True)
+        else:
+            written = [os.path.join(path, d, s) for d, s in (
+                ("ckpt_model", ""), ("ckpt_model_best", "params"))]
+            if not any(os.path.isdir(d) for d in written):
+                raise NotImplementedError(f"{path}: not a directory the "
+                                          f"port wrote; {JAX_DIR_ITEM}")
+            mgr = CheckpointManager(path)
+            restored = mgr.restore_best() or mgr.restore()
+            if restored is None and any(
+                    os.listdir(d) for d in written if os.path.isdir(d)):
+                raise NotImplementedError(
+                    f"{path}: no {CKPT_FILE} in its checkpoints; "
+                    f"{JAX_DIR_ITEM}")
+            cfg = _SIZES[model_size]()
+            sd = restored["params"] if restored else None
+        if tokenizer is not None:
+            cfg = dataclasses.replace(
+                cfg, tokens=special_token_ids_from(tokenizer))
+        if sd is None:
+            return cls(cfg, init_grove_params(cfg, device=device,
+                                              dtype=dtype, seed=seed))
+        model = GroveModel(cfg, device="meta", dtype=dtype)
+        model = model.to_empty(device=device)
+        model.load_state_dict(sd, strict=True)
+        _column_major_int8(model)
+        return cls(model.cfg, model.eval())
+
+    def save_pretrained(self, save_dir: str) -> None:
+        """Write the port's model directory (`api/model.py:190-199`):
+        `config.json` and `STATE_FILE`, the model's `state_dict()` on the
+        CPU. `from_pretrained(save_dir, dtype=...)` with the model's dtype
+        gives the same model back, quantized and fused ones included."""
+        from ..checkpoint.manager import to_cpu
+        os.makedirs(save_dir, exist_ok=True)
+        self.cfg.save_json(os.path.join(save_dir, "config.json"))
+        torch.save(to_cpu(self.model.state_dict()),
+                   os.path.join(save_dir, STATE_FILE))
 
     # ------------------------------------------------------------------
     # mode-multiplexed surface (reference `model/GROVE.py:138-154`)

@@ -2,7 +2,7 @@
 //
 // Replaces grove_tpu/ops/attention.py:_grouped_plain_kernel (its pallas_call
 // is at :404, reached through grouped_plain_attention and
-// multi_head_attention(impl="grouped")), used by the 24 CLIP layers at
+// multi_head_attention(_impl="grouped")), used by the 24 CLIP layers at
 // S = 577 (576 patches + cls), 16 heads, D = 64.
 //
 //   out[b, i, h] = softmax_j(q[b, i, h] . k[b, j, h] * scale) . v[b, j, h]

@@ -1,13 +1,36 @@
-"""Sliding-window frame coverage for inference.
+"""Temporal frame sampling: sparse sampling for training, sliding-window
+coverage for inference.
 
-Copy of `grove_tpu/data/sampling.py:38-79` (reference
+Copy of `grove_tpu/data/sampling.py` (reference `HowTo100M.py:229-256`,
 `infer_iground.py:110-148,168-172`). It is copied, not imported, because
 importing `grove_tpu.data` pulls in PIL; a test holds the two equal.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+
+
+def sparse_sample(num_frames_total: int, num_segments: int = 8,
+                  mode: str = "center",
+                  rng: Optional[np.random.Generator] = None) -> np.ndarray:
+    """Pick one frame per segment. mode: "random" (train) | "center" (val).
+
+    Exact reference arithmetic (`HowTo100M.py:229-256`): segment starts are
+    i * (T // num_segments); the last segment absorbs the remainder.
+    """
+    T = num_frames_total
+    segment_length = T // num_segments
+    starts = np.arange(num_segments) * segment_length
+    ends = np.append(starts[1:], T)
+    if mode == "random":
+        assert rng is not None
+        idx = np.array([int(rng.integers(s, e)) for s, e in zip(starts, ends)])
+    else:
+        idx = (starts + ends) // 2
+    return idx.astype(np.int64)
 
 
 def sliding_segment_with_mask(num_frames: int, num_segments: int = 8

@@ -10,7 +10,11 @@ calls, so a thread pool can decode several clips at once.
 A library that is missing or cannot load (a libav shared object absent)
 raises at `VideoDecoder` construction; `probe_library` says why without
 raising. `SyntheticVideo` is the file-free stand-in for tests and for a
-machine without libav.
+machine without libav. `NpyVideo` reads a clip stored as a uint8
+(T, H, W, 3) `.npy` array with its fps in a JSON file beside it
+(`write_npy_clip`): the clip format of the port's synthetic datasets, which
+a machine without libav can read. `open_video(path)` picks the decoder by
+extension.
 
 Differences from the JAX module: it does not run `make` for a missing
 library, and `decode_at_yuv` raises ValueError for an odd output size
@@ -21,6 +25,8 @@ for such a source is the caller's decision.
 from __future__ import annotations
 
 import ctypes
+import json
+import os
 from pathlib import Path
 from typing import Optional, Sequence, Tuple
 
@@ -200,3 +206,111 @@ class SyntheticVideo:
 
     def __exit__(self, *a):
         self.close()
+
+
+NPY_FPS_SUFFIX = ".json"         # the fps file beside a `.npy` clip
+NATIVE_TS_SLACK = 1e-6           # `native/video_decoder.cc:142-165`'s slack
+
+
+def write_npy_clip(path: str, frames: np.ndarray, fps: float) -> None:
+    """Store a clip for `NpyVideo`: `path` (a `.npy` file) holds the uint8
+    (T, H, W, 3) frames, `path + ".json"` the fps."""
+    frames = np.asarray(frames)
+    if frames.dtype != np.uint8 or frames.ndim != 4 or frames.shape[-1] != 3:
+        raise ValueError(f"write_npy_clip: frames {frames.dtype} "
+                         f"{frames.shape}, expected uint8 (T, H, W, 3)")
+    np.save(path, frames, allow_pickle=False)
+    with open(path + NPY_FPS_SUFFIX, "w") as f:
+        json.dump({"fps": float(fps)}, f)
+
+
+class NpyVideo:
+    """A `.npy` clip with `VideoDecoder`'s surface (`decode_at`,
+    `decode_at_yuv`, `decode_fps`, `width`, `height`, `fps`, `duration`, a
+    context manager). Frame k lies at k / fps. `decode_at` serves each
+    timestamp t as the native decoder's sweep does: the first frame whose
+    time is at least t - 1e-6, the last frame for a t past the end, the
+    timestamps sorted. `out_size` resizes bilinearly with
+    `preprocess.resize_uint8` (Pillow's filter, where the native decoder
+    runs swscale's: a constant colour comes out the same)."""
+
+    def __init__(self, path: str):
+        self._frames = np.load(path, mmap_mode="r", allow_pickle=False)
+        if (self._frames.dtype != np.uint8 or self._frames.ndim != 4
+                or self._frames.shape[-1] != 3 or not len(self._frames)):
+            raise IOError(f"{path}: {self._frames.dtype} "
+                          f"{self._frames.shape}, expected uint8 "
+                          "(T, H, W, 3) with T > 0")
+        with open(path + NPY_FPS_SUFFIX) as f:
+            self.fps = float(json.load(f)["fps"])
+        self.height, self.width = self._frames.shape[1:3]
+        self.duration = len(self._frames) / self.fps
+
+    def _frame_indices(self, timestamps: Sequence[float]) -> np.ndarray:
+        """The frame each (sorted) timestamp is served by."""
+        times = np.arange(len(self._frames)) / self.fps
+        ts = np.sort(np.asarray(timestamps, np.float64))
+        idx = np.searchsorted(times, ts - NATIVE_TS_SLACK, side="left")
+        return np.minimum(idx, len(times) - 1)
+
+    def _resized(self, frames: np.ndarray, out_size) -> np.ndarray:
+        if out_size is None or tuple(out_size) == (self.width, self.height):
+            return np.ascontiguousarray(frames)
+        from .preprocess import resize_uint8
+        w, h = out_size
+        return resize_uint8(np.asarray(frames), w, h, "bilinear")
+
+    def decode_at(self, timestamps: Sequence[float],
+                  out_size: Optional[Tuple[int, int]] = None) -> np.ndarray:
+        """Frames covering the given timestamps (sorted) -> (N, H, W, 3)
+        RGB uint8."""
+        return self._resized(self._frames[self._frame_indices(timestamps)],
+                             out_size)
+
+    def decode_at_yuv(self, timestamps: Sequence[float],
+                      out_size: Optional[Tuple[int, int]] = None
+                      ) -> np.ndarray:
+        """`decode_at` as packed YUV420P, (N, 3H/2, W) uint8
+        (`preprocess.rgb_to_yuv420`); ValueError for an odd size, as
+        `VideoDecoder.decode_at_yuv`."""
+        from .preprocess import rgb_to_yuv420
+        w, h = out_size if out_size else (self.width, self.height)
+        if w % 2 or h % 2:
+            raise ValueError(f"decode_at_yuv: {w}x{h} output; YUV420 needs "
+                             "an even width and height (decode_at gives "
+                             "RGB at any size)")
+        return rgb_to_yuv420(self.decode_at(timestamps, out_size))
+
+    def decode_fps(self, fps: float = 5.0,
+                   out_size: Optional[Tuple[int, int]] = None,
+                   max_frames: int = 2048) -> np.ndarray:
+        """Whole-clip decode resampled at `fps`, by the native decoder's
+        ticks (`vd_decode_fps`): a frame is kept when its time reaches the
+        next tick, and the ticks behind it are skipped."""
+        keep, tick = [], 0.0
+        for k in range(len(self._frames)):
+            if len(keep) >= max_frames:
+                break
+            t = k / self.fps
+            if t + 1e-9 >= tick:
+                keep.append(k)
+                while tick <= t + 1e-9:
+                    tick += 1.0 / fps
+        return self._resized(self._frames[keep], out_size)
+
+    def close(self):
+        self._frames = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *a):
+        self.close()
+
+
+def open_video(path: str):
+    """The decoder for `path`: `NpyVideo` for a `.npy` clip, the libav
+    `VideoDecoder` for anything else."""
+    if os.path.splitext(str(path))[1].lower() == ".npy":
+        return NpyVideo(path)
+    return VideoDecoder(path)

@@ -32,12 +32,13 @@ dtype.
   pass at a ragged S, with the recompute backward through causal
   `xla_attention` (`attention.py:276-303`), in torch ops.
 * `multi_head_attention` takes the JAX package's `impl` ("auto",
-  "grouped", "pallas", "xla") with its meaning: "pallas" is K4 + K4b
+  "grouped", "pallas", "xla") with its meaning as the private keyword
+  `_impl`: "pallas" is K4 + K4b
   (`ops.flash_backward.flash_attention_trainable`) where `_block_for(S)`
   finds a block and Sq == Sk, else K10 with its recompute backward;
   "grouped" is K3; `attention_route` names the kernel each call runs. No
-  caller of the port sets `impl`: the other values exist for parity with
-  the JAX package and for tests. "auto" picks as the JAX package does on
+  caller of the port sets it, the training driver included: the other
+  values exist for the tests. "auto" picks as the JAX package does on
   the TPU, with
   the two choices the port made for the card from its first slice: the
   route does not depend on the device, because each wrapper launches its
@@ -463,22 +464,22 @@ def multi_head_attention(q, k, v, *, causal: bool = False,
                          bias: Optional[torch.Tensor] = None,
                          mask: Optional[torch.Tensor] = None,
                          scale: Optional[float] = None,
-                         impl: str = "auto") -> torch.Tensor:
+                         _impl: str = "auto") -> torch.Tensor:
     """Dispatching attention entry point (`attention.py:454-484`). Shapes
     (B, S, H, D). Runs the route `attention_route` names: K4 forward with
     the K4b backward, K10 or K3 with the recompute backward, or
-    `xla_attention`. The port's callers leave `impl` at "auto"; the other
-    values are JAX's, for parity and tests. A bias or mask with a kernel
-    impl raises ValueError (the kernels take neither)."""
+    `xla_attention`. The port's callers leave the private `_impl` (JAX's
+    `impl`) at "auto"; the other values are JAX's, for the tests. A bias or
+    mask with a kernel impl raises ValueError (the kernels take neither)."""
     simple = bias is None and mask is None
     route = attention_route(q.shape[1], k.shape[1], q.shape[-1], causal,
-                            simple, impl)
+                            simple, _impl)
     if route == "xla":
         return xla_attention(q, k, v, causal=causal, bias=bias, mask=mask,
                              scale=scale)
     if not simple:
-        raise ValueError(f"multi_head_attention: impl {impl!r} takes no bias "
-                         "or mask")
+        raise ValueError(f"multi_head_attention: impl {_impl!r} takes no "
+                         "bias or mask")
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if route == "grouped_plain_attention":

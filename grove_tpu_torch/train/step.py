@@ -27,9 +27,16 @@ WarmupDecayLR (linear warmup over `warmup_steps`, linear decay to 0 at
   QLoRA recipe: bf16 moments, and with `lowmem.apply_updates_sr`
   stochastic rounding of bf16 parameters). LoRA adapters (`_lora`) are
   trainable, as in JAX (`step.py:37`).
+* `MultiSteps` is `optax.MultiSteps` (the driver's
+  `--grad_accumulation_steps`, `grove_tpu/train/driver.py:325-328`): the
+  gradients of k micro-batches are averaged (Welford's running mean, as
+  optax's), and the wrapped optimizer's update runs on the k-th only, so
+  its `count`, and with it the schedule, advances once per update.
+* `state_dict` / `load_state_dict` carry the optimizer's state (the count
+  and the moments; for `MultiSteps` also its step counters and the
+  accumulated gradients) through `checkpoint.manager`.
 
-Not ported yet: the pipelined step and the training driver (ROADMAP
-Queue 1).
+Not ported yet: the pipelined step (ROADMAP Queue 1 item 16).
 """
 
 from __future__ import annotations
@@ -205,6 +212,20 @@ class AdamW:
         count."""
         return dict(self._updates())
 
+    def state_dict(self) -> Dict:
+        """{"count", "mu", "nu"}: the moments by parameter name, the live
+        tensors (`checkpoint.manager` copies them off)."""
+        return {"count": self.count, "mu": dict(self.mu),
+                "nu": dict(self.nu)}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict) -> None:
+        """Copy a `state_dict()` into this optimizer's tensors (their
+        device and dtype stay); the names and shapes must match."""
+        for key in ("mu", "nu"):
+            _copy_tensors(getattr(self, key), state[key], key)
+        self.count = int(state["count"])
+
     @torch.no_grad()
     def step(self) -> None:
         """`update()` and a plain add, p <- (p + u) in p's dtype, each
@@ -212,6 +233,79 @@ class AdamW:
         for name, u in self._updates():
             p = self.params[name]
             p.copy_(p + u)
+
+
+def _copy_tensors(dst: Dict[str, torch.Tensor], src: Dict, what: str):
+    if set(dst) != set(src):
+        raise ValueError(f"load_state_dict: {what} names differ: "
+                         f"{sorted(set(dst) ^ set(src))[:4]}")
+    for name, t in dst.items():
+        if tuple(t.shape) != tuple(src[name].shape):
+            raise ValueError(f"load_state_dict: {what}[{name}] is "
+                             f"{tuple(src[name].shape)}, not "
+                             f"{tuple(t.shape)}")
+        t.copy_(src[name])
+
+
+class MultiSteps:
+    """`optax.MultiSteps(optimizer, every_k)` with the default mean
+    (`use_grad_mean=True`): each `step()` folds the parameters' gradients
+    into a running mean, acc += (g - acc) / (mini_step + 1) in the
+    parameter's dtype, and on every k-th it hands that mean to the wrapped
+    optimizer as the gradient, takes its step and zeroes the mean. The
+    other steps leave the parameters and the wrapped optimizer alone."""
+
+    def __init__(self, optimizer, every_k: int):
+        if every_k < 1:
+            raise ValueError(f"MultiSteps: every_k {every_k} < 1")
+        self.opt = optimizer
+        self.every_k = every_k
+        self.mini_step = 0
+        self.gradient_step = 0
+        self.acc = {n: torch.zeros_like(p) for n, p in self.params.items()}
+
+    @property
+    def params(self) -> Dict[str, nn.Parameter]:
+        return self.opt.params
+
+    @property
+    def count(self) -> int:
+        return self.opt.count
+
+    def zero_grad(self) -> None:
+        self.opt.zero_grad()
+
+    @torch.no_grad()
+    def step(self) -> None:
+        n = self.mini_step
+        for name, p in self.params.items():
+            acc = self.acc[name]
+            g = p.grad if p.grad is not None else torch.zeros_like(acc)
+            acc.copy_(acc + (g - acc) / (n + 1))
+        self.zero_grad()
+        self.mini_step = (n + 1) % self.every_k
+        if self.mini_step:
+            return
+        for name, p in self.params.items():
+            p.grad = self.acc[name]
+        self.opt.step()
+        self.zero_grad()
+        for acc in self.acc.values():
+            acc.zero_()
+        self.gradient_step += 1
+
+    def state_dict(self) -> Dict:
+        return {"mini_step": self.mini_step,
+                "gradient_step": self.gradient_step,
+                "inner_opt_state": self.opt.state_dict(),
+                "acc_grads": dict(self.acc)}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict) -> None:
+        self.opt.load_state_dict(state["inner_opt_state"])
+        _copy_tensors(self.acc, state["acc_grads"], "acc_grads")
+        self.mini_step = int(state["mini_step"])
+        self.gradient_step = int(state["gradient_step"])
 
 
 def make_optimizer(params: Dict[str, nn.Parameter], cfg: OptimizerConfig):

@@ -230,7 +230,7 @@ def test_multi_head_attention_impls():
         for impl in ("auto", "pallas", "xla") + (("grouped",) if not causal
                                                  else ()):
             got = tattn.multi_head_attention(q, k, v, causal=causal,
-                                             impl=impl)
+                                             _impl=impl)
             _close(got, want)
     qs = jnp.zeros((1, 577, 1, 64))
     assert tattn._grouped_plain_ok(577, 577, 64) == \
@@ -247,9 +247,9 @@ def test_multi_head_attention_impls():
     q = _t(_randn(rng, 1, 9, 2, 8))
     with pytest.raises(ValueError, match="no bias or mask"):
         tattn.multi_head_attention(q, q, q, mask=torch.ones(9, 9).bool(),
-                                   impl="pallas")
+                                   _impl="pallas")
     with pytest.raises(ValueError, match="impl"):
-        tattn.multi_head_attention(q, q, q, impl="flash")
+        tattn.multi_head_attention(q, q, q, _impl="flash")
 
 
 # ---------------------------------------------------------------------------

@@ -131,13 +131,13 @@ def test_k2_global_attention_matches_pallas(b, g, heads, d):
 @pytest.mark.parametrize("b,s,heads,d", [(2, 37, 2, 8), (1, 20, 3, 64)])
 def test_k3_grouped_plain_matches_pallas(b, s, heads, d):
     """K3 plain == `grouped_plain_attention` (Pallas, interpret mode) at a
-    ragged S, and `multi_head_attention(impl="grouped")` routes there."""
+    ragged S, and `multi_head_attention(_impl="grouped")` routes there."""
     rng = np.random.default_rng(3)
     q, k, v = (_randn(rng, b, s, heads, d) for _ in range(3))
     want = jattn.grouped_plain_attention(jnp.asarray(q), jnp.asarray(k),
                                          jnp.asarray(v))
     _close(tattn.grouped_plain_attention(_t(q), _t(k), _t(v)), want)
-    _close(tattn.multi_head_attention(_t(q), _t(k), _t(v), impl="grouped"),
+    _close(tattn.multi_head_attention(_t(q), _t(k), _t(v), _impl="grouped"),
            want)
 
 

@@ -361,6 +361,62 @@ def test_video_adapter_matches_jax():
                                atol=1e-5)
 
 
+# the training data pipeline's copies (the datasets' parsers, the index,
+# sparse sampling, the loader's sharding and prefetch, the meters), held to
+# their originals' source; their results are held equal in
+# tests/test_torch_data.py and tests/test_torch_driver.py
+TRAIN_DATA_COPIES = [
+    ("data.sampling", "sparse_sample"),
+    ("data.index", "build_manifest"), ("data.index", "read_manifest"),
+    ("data.index", "ShardedKeyIndex"),
+    ("data.datasets.base", "ClipAnnotation"),
+    ("data.datasets.base", "phrase_spans_from_tagged"),
+    ("data.datasets.base", "sort_phrases_by_span"),
+    ("data.datasets.base", "GroundingVideoDataset"),
+    ("data.datasets.howto100m", "parse_howto_annotation"),
+    ("data.datasets.howto100m", "HowTo100MDataset"),
+    ("data.datasets.vidstg", "parse_vidstg_video"),
+    ("data.datasets.vidstg", "VidSTGDataset"),
+    ("data.datasets.anet_entities", "find_first_occurrences"),
+    ("data.datasets.anet_entities", "compute_midpoint_timestamps"),
+    ("data.datasets.anet_entities", "ActivityNetEntitiesDataset.__init__"),
+    ("data.datasets.anet_entities",
+     "ActivityNetEntitiesDataset.parse_segment"),
+    ("data.datasets.anet_entities",
+     "ActivityNetEntitiesDataset.sample_timestamps"),
+    ("data.datasets.anet_entities",
+     "ActivityNetEntitiesDataset.decode_frames"),
+    ("data.loader", "GroundingLoader._indices"),
+    ("data.loader", "GroundingLoader.__iter__"),
+    ("utils.meters", "ProgressMeter"), ("utils.meters", "Timer"),
+    ("utils.meters", "AverageMeter.update"),
+    # the makers write `.npy` clips where the originals write `.gif`
+    ("data.synthetic", "make_synthetic_howto_dataset"),
+    ("data.synthetic", "make_synthetic_vidstg"),
+    ("data.synthetic", "make_synthetic_pointing"),
+    ("data.synthetic", "make_synthetic_anet"),
+]
+
+
+@pytest.mark.parametrize("module,name", TRAIN_DATA_COPIES)
+def test_train_data_copies_equal_originals(module, name):
+    import functools
+    import importlib
+    got, want = (inspect.getsource(functools.reduce(
+        getattr, name.split("."), importlib.import_module(f"{pkg}.{module}")))
+        for pkg in ("grove_tpu_torch", "grove_tpu"))
+    if module == "data.synthetic":     # (and a line broken differently)
+        got, want = (" ".join(src.split()) for src in (
+            got, want.replace('.gif"', '{CLIP_EXT}"')))
+    assert got == want
+
+
+def test_synthetic_constants_equal_originals():
+    from grove_tpu.data import synthetic as jsyn
+    from grove_tpu_torch.data import synthetic as tsyn
+    assert (tsyn._OBJECTS, tsyn._VERBS) == (jsyn._OBJECTS, jsyn._VERBS)
+
+
 def test_skip_patterns_copy_equals_original():
     from grove_tpu.checkpoint import torch_convert
     from grove_tpu_torch.checkpoint import convert
@@ -398,7 +454,7 @@ def _tiny_model():
                              dtype=torch.float32, seed=0)
 
 
-def test_unported_paths_raise():
+def test_unported_paths_raise(tmp_path):
     from grove_tpu_torch.infer.generate import greedy_decode
     model = _tiny_model()
     cfg = model.cfg
@@ -421,6 +477,19 @@ def test_unported_paths_raise():
     with pytest.raises(ValueError, match="KV cache dtype"):
         tllama.init_kv_caches(cfg.llama, 1, 4, dtype=torch.int16,
                               device="cpu")
+    # the training driver's parallel flags (item 16)
+    from grove_tpu_torch.train import driver
+    for argv in (["--multihost"], ["--mesh_model", "2"],
+                 ["--pipeline_stages", "2"]):
+        with pytest.raises(NotImplementedError, match="item 16"):
+            driver.main(["--device", "cpu", "--synthetic"] + argv)
+    # a model directory the JAX package's save_pretrained writes (item 18)
+    from grove_tpu_torch.api import GroveForCausalLM
+    GroveConfig.tiny().save_json(str(tmp_path / "config.json"))
+    (tmp_path / "flax_model.msgpack").write_bytes(b"")
+    with pytest.raises(NotImplementedError, match="item 18"):
+        GroveForCausalLM.from_pretrained(str(tmp_path), "tiny",
+                                         device="cpu")
 
 
 def test_calibrate_requires_quantized_towers():

@@ -377,7 +377,7 @@ def test_int4_forward_boxes_matches(slice_models):
     _close(got["objectness_logits"], want["objectness_logits"])
 
 
-def test_grove_for_causal_lm_quantize_in_place():
+def test_grove_for_causal_lm_quantize_in_place(tmp_path):
     from grove_tpu_torch.api import GroveForCausalLM
     lm = GroveForCausalLM.from_pretrained(None, "tiny", dtype=torch.float32,
                                           seed=3, device="cpu")
@@ -385,8 +385,15 @@ def test_grove_for_causal_lm_quantize_in_place():
     assert lm.quantize(bits=4) is lm and lm.model is model
     assert lm.cfg.llama.weight_quant_bits == 4 and model.cfg is lm.cfg
     assert isinstance(model.model.layers[0].mlp.down_proj, Int4Linear)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        lm.save_pretrained("x")
+    # the quantized instance round-trips through its model directory
+    lm.save_pretrained(str(tmp_path))
+    back = GroveForCausalLM.from_pretrained(str(tmp_path),
+                                            dtype=torch.float32,
+                                            device="cpu")
+    assert back.cfg.to_dict() == lm.cfg.to_dict()
+    assert isinstance(back.model.model.layers[0].mlp.down_proj, Int4Linear)
+    for name, t in model.state_dict().items():
+        assert torch.equal(back.model.state_dict()[name], t), name
     cfg = dataclasses.replace(port_config(GroveConfig.tiny()).llama,
                               weight_quant=True, weight_quant_bits=3)
     with pytest.raises(ValueError, match="4 or 8"):
