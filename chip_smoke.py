@@ -46,7 +46,12 @@ Phases, each printing its own line; any failure exits non-zero:
      the bf16 dequantized (K, N) weight built outside the timed call (four
      times K7a's bytes), both ways too; and K7a at the fused widths (2,
      4096, 12288) and (2, 4096, 22016), fp32 and bf16, must be bit-equal to
-     its unfused parts on the same column slices. Its kernels' registers
+     its unfused parts on the same column slices. K6's small shapes and
+     edges, fp32 and bf16, include the continuous engine's tick of phase 9
+     at (4, 32, 32, 2432, 128), each slot with its own left pad (1471 to
+     1537 columns) and the columns past the tick masked; K6 prints its
+     launch (`ops.decode_attention._plan`) at every shape, and the shared
+     memory that plan sizes must equal the library's. Its kernels' registers
      and spills are printed from nvcc -Xptxas -v (a spill fails). K7c and
      K8c also print their launch (`ops.int4_matmul._requant_plan`,
      `ops.fused_ln._rms_plan`), which must equal the one the library
@@ -291,7 +296,39 @@ Phases, each printing its own line; any failure exits non-zero:
      by `--version`, on the card and on the CPU: loss terms within 1e-4
      relative, the moments within 1e-3 of their max-abs, the trainable
      parameters within 1e-3 of their update's max-abs weighted by |mu| /
-     max|mu| at each element, the frozen ones bit-equal.
+     max|mu| at each element, the frozen ones bit-equal;
+  9  serving: a fresh bf16 GroveConfig() from a seed. Sampling
+     (`greedy_decode`, temperature 0.7, top-k 50, top-p 0.9, 32 new tokens)
+     on phase 3's two prompts: the same seed twice gives the same tokens,
+     every pick lies in its step's filtered support (`filter_logits`
+     recomputed on the recorded logits), and on those logits with the same
+     injected noise the card's filter and draw equal the CPU's (tokens and
+     -inf masks; rows whose nucleus lies within 1e-6 of top_p, where the
+     order of a reduction decides, are counted apart). Beam search, 2
+     clips, bf16 cache: num_beams=1 bit-equal to greedy_decode, num_beams=4
+     the same ids and scores with early_exit on and off, ms per step and
+     peak memory. The continuous engine (`serve.continuous.
+     ContinuousEngine`, 4 slots, the default capacity of 2367 columns, 64
+     new tokens) on 6 requests admitted 2, then 2 after 5 ticks, then as
+     slots free, in the bf16 and then the int8 cache: each request's tokens
+     held to an offline greedy_decode of its prompt at batch 1 up to the
+     first that differs: every logit finite, the logits within 5e-2 of
+     their max-abs up to and at it, and there the offline top-two logit
+     gap at most twice the max-abs difference of the two runs' logits; at
+     least 3 of 6 requests equal in full and 70% of the tokens in the
+     equal prefixes; the int8 run launches
+     K5's tensor-core entry exactly 32 times an admission, K6 32 times a
+     tick, no SIMT entry; ms per tick and admission, peak memory. Then
+     `serve.serve` with GroveProcessor(decoder_factory=open_video) over
+     two 24-frame 640 x 360 .npy clips on 127.0.0.1:0: /healthz, four
+     concurrent /generate posts (two greedy, one sampled with a seed, one
+     with 2 beams) run as 3 batches, each response equal to generate_batch
+     over its group called again directly; then ContinuousService behind
+     a second server, three concurrent greedy posts and a 400 for
+     temperature. Last, GroveConfig.small() in fp32 (TF32 off): beam
+     search card vs CPU, ids identical and scores within 1e-4 relative,
+     and the continuous engine's tokens all equal to offline
+     greedy_decode's on the card.
 Phase 2 also holds the five training kernels (K4b dq and dkv at LLaMA's
 (1, 704, 32, 128) causal; K9's forward with its LSE, dq with d_rh and d_rw,
 and dkv at SAM's windowed (72, 196, 16, 80) and global (8, 1024, 16, 80)
@@ -311,7 +348,9 @@ entries of K4b's two and K9's three from phase 6's fp32 step;
 the SIMT entries of K5 and K10, which no model path runs in fp32, and
 K11-K14 (both entries of K11, K12, K12q8 and K13), which run on no model
 path, show 0)
-and `phase2_launches`, the launches of phase 2's checks and timings; the
+and `phase2_launches`, the launches of phase 2's checks and timings, and
+`serve_launches`, those of phase 9's int8-cache continuous-engine run
+(K5's tensor-core entry and K6); the
 tensor-core rows also carry `simt_ms`, the SIMT entry's bf16 time at the
 same shape; the last line is {"ok": true, "device": {...}}.
 """
@@ -436,6 +475,13 @@ TC_INSTANCES = {"folded_window_attention_v2_tc": "folded_window_attention_tc"}
 # instantiations phase 2 prints ptxas's report of too
 INT4_SOURCES = ("int4_matmul.cu", "int4_matmul_a8.cu")
 K6_SOURCE = "int8_decode_attention.cu"
+# K6 as the continuous engine of phase 9 calls it at full width: 4 slots
+# over the default capacity of 2367 columns (padded to 2432), a tick at
+# column 2432 - K6_ENGINE_TAIL, each slot's left pad col - Lb + pad as
+# staggered admissions of 640-column buckets leave them
+K6_ENGINE = (4, 32, 32, 2432, 128, "engine")
+K6_ENGINE_TAIL = 300
+K6_ENGINE_PADS = (1471, 1500, 1513, 1537)
 # K7c's and K8c's sources, whose kernels phase 2 reports too
 K7C_SOURCE = "int4_requant.cu"
 K8C_SOURCE = "rmsnorm_quant.cu"
@@ -831,6 +877,16 @@ def _cases(torch):
         ks, vs = (uniform(gen, (b, hkv, c), 0.001, 0.02).to(torch.bfloat16)
                   for _ in range(2))
         bias = torch.zeros((b, c), device="cuda")
+        if shape[5:] == ("engine",):
+            # a continuous-engine tick (`serve/continuous.py`): each slot's
+            # own left pad col - Lb + pad, the columns up to col written,
+            # the rest (and the pad past the capacity) not yet
+            col = c - K6_ENGINE_TAIL
+            for i in range(b):
+                bias[i, :K6_ENGINE_PADS[i % len(K6_ENGINE_PADS)]] = \
+                    decode_attention.NEG_INF
+            bias[:, col + 1:] = decode_attention.NEG_INF
+            return (q, kt, vt, ks, vs, bias)
         bias[0, c - 60:] = decode_attention.NEG_INF       # unwritten tail
         if b > 1:
             bias[1, :9] = decode_attention.NEG_INF        # a left pad
@@ -1285,7 +1341,7 @@ def _cases(torch):
     k6_small = [(2, 8, 2, 256, 64), (2, 4, 4, 128, 128), (1, 12, 12, 640, 64),
                 (2, 12, 4, 128, 64), (2, 8, 2, 384, 128, "masked"),
                 (2, 16, 2, 768, 128, "masked"), (2, 6, 3, 640, 64, "masked"),
-                (2, 32, 32, 768, 128, "masked")]
+                (2, 32, 32, 768, 128, "masked"), K6_ENGINE]
     # the training step's shapes: LLaMA-7B at S = 704 (batch 1); SAM's 21
     # windowed blocks (8 frames x 9 windows of 14 x 14) and 3 global ones
     # (8 frames of 32 x 32) after the first trainable adapter
@@ -2391,7 +2447,8 @@ def _k6_build_report(gpu, ptxas):
     fn = _kernels.load().grove_int8_decode_attention_smem
     fn.argtypes = [ctypes.c_int] * 4
     fn.restype = ctypes.c_longlong
-    for b, h, hkv, c, d in ((2, 32, 32, 768, 128), (2, 8, 2, 384, 64)):
+    for b, h, hkv, c, d in ((2, 32, 32, 768, 128), (2, 8, 2, 384, 64),
+                            K6_ENGINE[:5]):
         p = decode_attention._plan(b, h, hkv, c, d, 132)
         lib = fn(p.ring, p.span, h // hkv, d)
         if lib != p.smem:
@@ -5048,6 +5105,616 @@ def _driver_small(torch, gpu, tmp):
            f"{gpu}")
 
 
+# ---------------------------------------------------------------------------
+# phase 9: serving
+# ---------------------------------------------------------------------------
+
+# sampled and beam decodes at full width: new tokens, the sampler's knobs,
+# the generator's seed
+SERVE_STEPS = 32
+# the card phase 9 runs on (a CPU rehearsal of its control flow sets "cpu")
+SAMPLING = {"temperature": 0.7, "top_k": 50, "top_p": 0.9}
+SAMPLE_SEED = 1234
+# a nucleus row is held card against CPU only where no `cum - probs` lies
+# within this of top_p (past the top token): closer, the order of the
+# reductions decides
+NUCLEUS_MARGIN = 1e-6
+BEAM_SCORE_REL = 1e-4    # small() fp32 beam scores, card vs CPU, relative
+# the continuous engine: slots, requests, admitted 2, then 2 after
+# SERVE_STAGGER ticks, then as slots free; up to and at the first engine
+# token that differs from the offline greedy_decode's, their logits agree
+# within SERVE_LOGIT_TOL of the offline max-abs, and where one differs, the
+# offline top-two gap is at most twice their max-abs difference. At least
+# SERVE_MIN_FULL requests equal the offline tokens in full, and at least
+# SERVE_MIN_EQUAL of all tokens lie in the equal prefixes (the bf16 and
+# int8 runs at full width gave 4 of 6 and 309 / 310 of 384)
+SERVE_SLOTS = 4
+SERVE_REQUESTS = 6
+SERVE_STAGGER = 5
+SERVE_LOGIT_TOL = 5e-2
+SERVE_MIN_FULL = 3
+SERVE_MIN_EQUAL = 0.7
+SMALL_NEW = 16           # new tokens of the small() fp32 engine and beams
+HTTP_FRAMES = 24
+
+
+@contextlib.contextmanager
+def _lm_head_outputs(model):
+    """Every lm_head output of the block, in call order."""
+    outs = []
+    hook = model.lm_head.register_forward_hook(
+        lambda m, a, out: outs.append(out.detach()))
+    try:
+        yield outs
+    finally:
+        hook.remove()
+
+
+def _nucleus_margins(torch, logits, temperature, top_k, top_p):
+    """Per row, min |cum - probs - top_p| of the nucleus past the top
+    token (on the CPU, in fp32)."""
+    from grove_tpu_torch.infer.generate import filter_logits
+    l = filter_logits(logits.cpu(), temperature, top_k)
+    probs = torch.softmax(torch.sort(l, -1, descending=True).values, -1)
+    cum = torch.cumsum(probs, -1)
+    return (cum - probs - top_p).abs()[:, 1:].amin(-1)
+
+
+def phase_serve(torch, gpu, decoder):
+    """Returns the launches of the int8-cache continuous-engine run."""
+    from grove_tpu_torch.api import GroveForCausalLM
+    from grove_tpu_torch.text.mock_tokenizer import MockTokenizer
+    t_phase = time.perf_counter()
+    lm = GroveForCausalLM.from_pretrained(None, "full", device="cuda",
+                                          dtype=torch.bfloat16, seed=0)
+    cfg, model = lm.cfg, lm.model
+    tok = MockTokenizer(base_vocab_size=cfg.llama.vocab_size)
+    nf = cfg.num_frames
+    clips = _synthetic_clips(cfg, 3, nf, seed=9)
+    with torch.inference_mode():
+        emb, _ = model.encode_video(torch.from_numpy(np.stack(
+            [c["frames_clip"] for c in clips])).to("cuda"))
+        img = model.encode_grounding_auto(torch.from_numpy(np.stack(
+            [c["frames_sam"] for c in clips])).to("cuda"))
+    say(9, f"GroveConfig() bf16 built, 3 clips of {nf} frames encoded on "
+           f"{gpu}")
+    _serve_sampling(torch, gpu, model, cfg, tok, emb[:2])
+    _serve_beams(torch, gpu, model, cfg, tok, emb[:2])
+    _serve_engine(torch, gpu, model, cfg, tok, emb, img, torch.bfloat16)
+    launches = _serve_engine(torch, gpu, model, cfg, tok, emb, img,
+                             torch.int8)
+    del emb, img
+    _serve_http(torch, gpu, model, cfg, tok)
+    del model, lm
+    torch.cuda.empty_cache()
+    _serve_small(torch, gpu)
+    say(9, f"phase 9 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def _serve_sampling(torch, gpu, model, cfg, tok, emb):
+    """greedy_decode sampling on phase 3's two prompts (left-padded to
+    640): the same seed twice gives the same tokens; every pick lies in its
+    step's filtered support; on the recorded logits and the same injected
+    noise the card's filter and draw equal the CPU's."""
+    from grove_tpu_torch.infer import generate as tgen
+    from grove_tpu_torch.infer.sliding import center_prompts
+    ids, starts, pads = center_prompts(cfg, tok, list(PROMPTS))
+    ids_t = torch.from_numpy(ids).to("cuda")
+    pads_t = torch.from_numpy(pads).to("cuda")
+    picks, pick = [], tgen.next_tokens
+
+    def recording(logits, step, *a, **kw):
+        out = pick(logits, step, *a, **kw)
+        picks.append((step, logits.float().clone(), out.clone()))
+        return out
+
+    def run():
+        gen = torch.Generator(device="cuda").manual_seed(SAMPLE_SEED)
+        return tgen.greedy_decode(
+            model, ids_t, emb, starts, pad_lens=pads_t,
+            max_new_tokens=SERVE_STEPS, eos_id=cfg.tokens.eos,
+            early_exit=False, generator=gen, **SAMPLING)[0]
+
+    tgen.next_tokens = recording
+    try:
+        first, ms = _timed(torch, run)
+        recorded = list(picks)
+        second = run()
+    finally:
+        tgen.next_tokens = pick
+    if not torch.equal(first, second):
+        raise PhaseError("sampling: the same seed gave other tokens")
+    outside = sum(int((~torch.isfinite(tgen.filter_logits(
+        l, **SAMPLING))).gather(1, t[:, None]).sum()) for _, l, t in recorded)
+    if outside or len(recorded) != SERVE_STEPS + 1:
+        raise PhaseError(f"sampling: {outside} picks outside their step's "
+                         f"filtered support ({len(recorded)} steps)")
+    cpu_gen = torch.Generator().manual_seed(SAMPLE_SEED)
+    held = skipped = 0
+    for step, logits, _ in recorded:
+        g = tgen.gumbel_noise(logits.shape, cpu_gen, "cpu")
+        keep = _nucleus_margins(torch, logits, **SAMPLING) > NUCLEUS_MARGIN
+        got = [tgen.next_tokens(x, step, _noise=lambda s: g, **SAMPLING)
+               for x in (logits, logits.cpu())]
+        masks = [torch.isfinite(tgen.filter_logits(x, **SAMPLING)).cpu()
+                 for x in (logits, logits.cpu())]
+        if not (torch.equal(got[0].cpu()[keep], got[1][keep])
+                and torch.equal(masks[0][keep], masks[1][keep])):
+            raise PhaseError(f"sampling step {step}: the card's filter or "
+                             f"draw differs from the CPU's: tokens "
+                             f"{got[0].tolist()} vs {got[1].tolist()}")
+        held += int(keep.sum())
+        skipped += int((~keep).sum())
+    if held < skipped:
+        raise PhaseError(f"sampling: only {held} rows held card vs CPU")
+    kept = [int(torch.isfinite(tgen.filter_logits(l, **SAMPLING)).sum(-1)
+                .max()) for _, l, _ in recorded]
+    say(9, f"sampling {SAMPLING}, seed {SAMPLE_SEED}, 2 x {ids.shape[1]}-"
+           f"token prompts, {SERVE_STEPS} new tokens: {ms:.1f} ms; the same "
+           f"seed twice identical; every pick in its filtered support (at "
+           f"most {max(kept)} tokens kept a step); card filter and draw "
+           f"equal the CPU's on {held} rows of the recorded logits with the "
+           f"same noise ({skipped} rows within {NUCLEUS_MARGIN} of top_p "
+           f"not held) on {gpu}")
+
+
+def _serve_beams(torch, gpu, model, cfg, tok, emb):
+    """beam_decode on the two prompts: num_beams=1 bit-equal to
+    greedy_decode; num_beams=4 the same ids and scores with early_exit on
+    and off; ms per step and peak memory."""
+    from grove_tpu_torch.infer.beam import beam_decode
+    from grove_tpu_torch.infer.generate import greedy_decode
+    from grove_tpu_torch.infer.sliding import center_prompts
+    from grove_tpu_torch.models.llama import init_kv_caches
+    ids, starts, pads = center_prompts(cfg, tok, list(PROMPTS))
+    kw = dict(max_new_tokens=SERVE_STEPS, eos_id=cfg.tokens.eos,
+              pad_lens=torch.from_numpy(pads).to("cuda"))
+    ids_t = torch.from_numpy(ids).to("cuda")
+    greedy = greedy_decode(model, ids_t, emb, starts, early_exit=False,
+                           **kw)[0]
+    one = beam_decode(model, ids_t, emb, starts, num_beams=1, **kw)[0]
+    if not torch.equal(one, greedy):
+        raise PhaseError(f"beams: num_beams=1 {one.tolist()} differs from "
+                         f"greedy_decode {greedy.tolist()}")
+    with torch.inference_mode():
+        caches = init_kv_caches(cfg.llama, 2, ids.shape[1],
+                                device="cuda", dtype=torch.bfloat16)
+        _, ms_prefill = _timed(torch, lambda: model.prefill(
+            ids_t, emb, starts, caches, kw["pad_lens"]))
+        del caches
+    torch.cuda.reset_peak_memory_stats()
+    (a_ids, _, a_scores), ms = _timed(torch, lambda: beam_decode(
+        model, ids_t, emb, starts, num_beams=4, early_exit=True, **kw))
+    peak = torch.cuda.max_memory_allocated()
+    b_ids, _, b_scores = beam_decode(model, ids_t, emb, starts, num_beams=4,
+                                     early_exit=False, **kw)
+    if not (torch.equal(a_ids, b_ids) and torch.equal(a_scores, b_scores)):
+        raise PhaseError("beams: early_exit on and off differ")
+    if not bool(torch.isfinite(a_scores).all()):
+        raise PhaseError(f"beams: scores {a_scores.tolist()}")
+    say(9, f"beam search, 2 clips x 4 beams, bf16 cache, {SERVE_STEPS} "
+           f"steps: num_beams=1 bit-equal to greedy_decode; num_beams=4 "
+           f"identical with early_exit on and off; {ms:.1f} ms, "
+           f"{(ms - ms_prefill) / SERVE_STEPS:.2f} ms per step net of the "
+           f"{ms_prefill:.1f} ms prefill; peak {peak / 2**30:.2f} GiB; "
+           f"scores {[round(float(s), 4) for s in a_scores[:, 0]]} on {gpu}")
+
+
+def _engine_requests(torch, cfg, tok, emb, img):
+    """SERVE_REQUESTS requests over the clips and the two PROMPTS: each its
+    unpadded center prompt, video start, video tokens and SAM embeddings."""
+    from grove_tpu_torch.infer.sliding import center_prompts
+    nf, n = cfg.num_frames, emb.shape[0]
+    reqs = []
+    for r in range(SERVE_REQUESTS):
+        ids, starts, _ = center_prompts(cfg, tok, [PROMPTS[r % 2]])
+        c = r % n
+        reqs.append({"ids": ids[0], "vstart": int(starts[0]),
+                     "ve": emb[c:c + 1], "img": img[c * nf:(c + 1) * nf]})
+    return reqs
+
+
+def _run_engine(torch, eng, reqs):
+    """The staggered schedule: 2 admitted, 2 more after SERVE_STAGGER
+    ticks, the rest as slots free. Returns each request's result and the
+    logits its tokens came from (the prefill's, then its ticks'), the
+    launches, the tick times and the admissions' times."""
+    from grove_tpu_torch import _kernels
+    logits = {r: [] for r in range(len(reqs))}
+    slot_of, pending = {}, list(range(len(reqs)))
+    tick_ms, admit_ms = [], []
+    _kernels.reset_launch_counts()
+    with _lm_head_outputs(eng.model) as outs:
+        def admit(n):
+            for _ in range(n):
+                r = pending.pop(0)
+                q = reqs[r]
+                slot, ms = _timed(torch, lambda: eng.admit(
+                    r, q["ids"], q["ve"], q["vstart"], q["img"]))
+                admit_ms.append(ms)
+                slot_of[slot] = r
+                logits[r].append(outs[-1][0, -1].float())
+
+        def tick():
+            before = {s: r for s, r in slot_of.items()
+                      if eng._slots[s].active}
+            done, ms = _timed(torch, eng.tick)
+            tick_ms.append(ms)
+            for s, r in before.items():
+                logits[r].append(outs[-1][s, -1].float())
+            return done
+
+        admit(2)
+        for _ in range(SERVE_STAGGER):
+            tick()
+        admit(2)
+        while pending or eng.active():
+            if pending and eng.can_admit(-(-len(reqs[pending[0]]["ids"])
+                                           // eng.bucket) * eng.bucket):
+                admit(1)
+                continue
+            if not eng.active():
+                raise PhaseError("engine: idle with requests pending")
+            tick()
+    launches = {k: v.launches for k, v in _kernels.KERNELS.items()}
+    results = {r: eng.pop_result(r) for r in range(len(reqs))}
+    return results, logits, launches, tick_ms, admit_ms
+
+
+def _offline_logits(torch, model, cfg, q, max_new, cache_dtype):
+    """An offline greedy_decode of one request at batch 1 (its unpadded
+    prompt): its tokens and the logits each came from."""
+    from grove_tpu_torch.infer.generate import greedy_decode
+    with _lm_head_outputs(model) as outs:
+        gen, _ = greedy_decode(model, q["ids"][None], q["ve"], [q["vstart"]],
+                               max_new_tokens=max_new, eos_id=cfg.tokens.eos,
+                               cache_dtype=cache_dtype, early_exit=False)
+    return gen[0].cpu().numpy(), [o[0, -1].float() for o in outs]
+
+
+def _divergence(torch, eng_tok, eng_logits, off_tok, off_logits, label):
+    """The engine's tokens against the offline ones up to the first that
+    differs: every logit of both runs finite; up to and at it, logits
+    within SERVE_LOGIT_TOL of the offline max-abs; at it, also the offline
+    top-two gap at most twice the max-abs logit difference. Returns
+    (tokens equal, the worst relative logit difference up to there)."""
+    for name, rows in (("engine", eng_logits), ("offline", off_logits)):
+        bad = [j for j, row in enumerate(rows)
+               if not bool(torch.isfinite(row).all())]
+        if bad:
+            raise PhaseError(f"{label}: {name} logits not finite at steps "
+                             f"{bad}")
+    worst = 0.0
+    for j, (e, o) in enumerate(zip(eng_tok, off_tok)):
+        diff = float((eng_logits[j] - off_logits[j]).abs().max())
+        rel = diff / max(float(off_logits[j].abs().max()), 1e-30)
+        worst = max(worst, rel)
+        if rel > SERVE_LOGIT_TOL:
+            raise PhaseError(f"{label}: step {j} logits {rel:.3g} of max-abs "
+                             f"off the offline decode's (limit "
+                             f"{SERVE_LOGIT_TOL})")
+        if e != o:
+            top2 = torch.topk(off_logits[j], 2).values
+            gap = float(top2[0] - top2[1])
+            if gap > 2 * diff:
+                raise PhaseError(f"{label}: token {j} is {e}, offline {o}, "
+                                 f"with an offline top-two gap {gap:.4g} > 2 "
+                                 f"x the logit difference {diff:.4g}")
+            return j, worst
+    return len(eng_tok), worst
+
+
+def _serve_engine(torch, gpu, model, cfg, tok, emb, img, cache_dtype,
+                  exact=False, max_new=64):
+    """The continuous engine at n_slots=4 and the default capacity on the
+    staggered schedule, each request held to an offline greedy_decode;
+    with an int8 cache, the exact launches of its route."""
+    from grove_tpu_torch.serve.continuous import ContinuousEngine
+    label = (f"continuous engine ({cfg.llama.hidden_size}-wide, "
+             f"{str(cache_dtype).split('.')[-1]} cache)")
+    reqs = _engine_requests(torch, cfg, tok, emb, img)
+    torch.cuda.reset_peak_memory_stats()
+    eng = ContinuousEngine(model, cfg, n_slots=SERVE_SLOTS,
+                           max_new_tokens=max_new, cache_dtype=cache_dtype)
+    results, logits, launches, tick_ms, admit_ms = _run_engine(torch, eng,
+                                                               reqs)
+    peak = torch.cuda.max_memory_allocated()
+    capacity, start = eng.capacity, eng.start_col
+    del eng
+    full = prefix = 0
+    worst = 0.0
+    for r, q in enumerate(reqs):
+        res = results[r]
+        boxes = None if res is None else res["pred_boxes"]
+        if boxes is None or boxes.shape != (
+                cfg.num_frames, cfg.max_phrases, 4) or not np.all(
+                np.isfinite(boxes)):
+            raise PhaseError(f"{label}: request {r}: boxes "
+                             f"{None if boxes is None else boxes.shape}, "
+                             "or not finite")
+        off_tok, off_logits = _offline_logits(torch, model, cfg, q, max_new,
+                                              cache_dtype)
+        n, w = _divergence(torch, res["generated_ids"].tolist(), logits[r],
+                           off_tok.tolist(), off_logits, f"{label} request "
+                           f"{r}")
+        worst = max(worst, w)
+        full += n == res["steps"]
+        prefix += n
+        if exact and n != res["steps"]:
+            raise PhaseError(f"{label}: request {r} leaves the offline "
+                             f"tokens at step {n}")
+    tokens = sum(results[r]["steps"] for r in range(len(reqs)))
+    if full < SERVE_MIN_FULL or prefix < SERVE_MIN_EQUAL * tokens:
+        raise PhaseError(f"{label}: {full} of {len(reqs)} requests equal the "
+                         f"offline decode in full (at least {SERVE_MIN_FULL})"
+                         f", {prefix} of {tokens} tokens in the equal "
+                         f"prefixes (at least {SERVE_MIN_EQUAL:.0%})")
+    ticks = len(tick_ms)
+    if cache_dtype == torch.int8:
+        _check_engine_launches(launches, cfg, len(reqs), ticks, label)
+    used = {k: v for k, v in launches.items() if v}
+    say(9, f"{label}: {len(reqs)} requests on {SERVE_SLOTS} slots, capacity "
+           f"{capacity} (start column {start}), {len(admit_ms)} admissions "
+           f"{statistics.median(admit_ms):.1f} ms median, {ticks} ticks "
+           f"{statistics.median(tick_ms):.2f} ms median "
+           f"({sum(tick_ms) / ticks:.2f} mean); {full} of {len(reqs)} "
+           f"requests equal the offline greedy_decode in full ({prefix} of "
+           f"{tokens} tokens in the equal prefixes; logits up to a "
+           f"divergence within "
+           f"{worst:.2e} of max-abs); peak {peak / 2**30:.2f} GiB; launches "
+           f"{used} on {gpu}")
+    return launches
+
+
+def _check_engine_launches(launches, cfg, admissions, ticks, label):
+    """The int8-cache route: K5's tensor-core entry in each LLaMA layer of
+    each admission's prefill (its 640-token bucket), K6 in each layer of
+    each tick, no SIMT entry and no off-path kernel."""
+    nl = cfg.llama.num_layers
+    want = {"prefill_attention_tc": nl * admissions, "prefill_attention": 0,
+            "int8_decode_attention": nl * ticks}
+    got = {k: launches[k] for k in want}
+    simt = {k: launches[k] for k in SIMT_ENTRIES + OFF_PATH_KERNELS
+            if launches[k]}
+    if got != want or simt:
+        raise PhaseError(f"{label}: launches {got}, want {want}; SIMT or "
+                         f"off-path entries {simt}")
+
+
+def _serve_small(torch, gpu):
+    """GroveConfig.small() in fp32, TF32 off: beam search card vs CPU
+    (identical ids, scores within BEAM_SCORE_REL), and the continuous
+    engine's tokens all equal to offline greedy_decode on the card."""
+    from grove_tpu_torch.config import GroveConfig
+    from grove_tpu_torch.infer.beam import beam_decode
+    from grove_tpu_torch.infer.sliding import center_prompts
+    from grove_tpu_torch.models.grove import init_grove_params
+    from grove_tpu_torch.text.mock_tokenizer import MockTokenizer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = GroveConfig.small()
+    tok = MockTokenizer(base_vocab_size=cfg.llama.vocab_size)
+    cpu = init_grove_params(cfg, device="cpu", dtype=torch.float32,
+                            seed=5).eval()
+    card = copy.deepcopy(cpu).to("cuda")
+    clips = _synthetic_clips(cfg, 3, cfg.num_frames, seed=10)
+    with torch.inference_mode():
+        emb, _ = cpu.encode_video(torch.from_numpy(np.stack(
+            [c["frames_clip"] for c in clips])))
+        img = cpu.encode_grounding_auto(torch.from_numpy(np.stack(
+            [c["frames_sam"] for c in clips])))
+    ids, starts, pads = center_prompts(cfg, tok, list(PROMPTS))
+    kw = dict(max_new_tokens=SMALL_NEW, eos_id=cfg.tokens.eos, num_beams=4,
+              pad_lens=pads)
+    want = beam_decode(cpu, ids, emb[:2], starts, **kw)
+    got = beam_decode(card, ids, emb[:2].to("cuda"), starts, **kw)
+    rel = float(((got[2].cpu() - want[2]).abs()
+                 / want[2].abs().clamp_min(1e-30)).max())
+    if not torch.equal(got[0].cpu(), want[0]) or rel > BEAM_SCORE_REL:
+        raise PhaseError(f"small() fp32 beams: ids {got[0].tolist()} vs "
+                         f"{want[0].tolist()}, scores {rel:.2e} relative")
+    say(9, f"GroveConfig.small() fp32 beam search (2 clips x 4 beams, "
+           f"{SMALL_NEW} steps) card vs CPU: ids identical, scores within "
+           f"{rel:.2e} relative (limit {BEAM_SCORE_REL}) on {gpu}")
+    _serve_engine(torch, gpu, card, cfg, tok, emb.to("cuda"),
+                  img.to("cuda"), torch.float32, exact=True,
+                  max_new=SMALL_NEW)
+
+
+class _RecordingProcessor:
+    """A GroveProcessor whose generate_batch calls are kept (paths,
+    instructions, knobs), so that each can be repeated directly."""
+
+    def __init__(self, proc):
+        self.proc, self.cfg, self.calls = proc, proc.cfg, []
+
+    def generate_batch(self, model, paths, instructions=None, **kw):
+        self.calls.append((list(paths), instructions, dict(kw)))
+        return self.proc.generate_batch(model, paths,
+                                        instructions=instructions, **kw)
+
+    def __getattr__(self, name):
+        return getattr(self.proc, name)
+
+
+def _post_json(base, payload, timeout=600):
+    import urllib.request
+    req = urllib.request.Request(
+        f"{base}/generate", data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+class _Front:
+    """One engine behind a GroveServer on 127.0.0.1:0. `call` returns
+    (status, body)."""
+
+    def __init__(self, engine, name):
+        import threading
+
+        from grove_tpu_torch.serve.server import GroveServer
+        self.engine = engine
+        try:
+            self.server = GroveServer(("127.0.0.1", 0), engine, name)
+        except BaseException:
+            engine.close()
+            raise
+        self.thread = threading.Thread(target=self.server.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+        host, port = self.server.server_address[:2]
+        self.base = f"http://{host}:{port}"
+
+    def health(self):
+        import urllib.request
+        with urllib.request.urlopen(f"{self.base}/healthz",
+                                    timeout=60) as r:
+            return json.loads(r.read())
+
+    def call(self, payload):
+        import urllib.error
+        try:
+            return 200, _post_json(self.base, payload)
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read() or b"{}")
+
+    def close(self):
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(60)
+        self.engine.close()
+
+
+def _concurrent(calls):
+    """Run the callables in threads started together; their results."""
+    import threading
+    out = [None] * len(calls)
+
+    def run(i):
+        try:
+            out[i] = calls[i]()
+        except Exception as e:                      # noqa: BLE001
+            out[i] = e
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(calls))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    if any(t.is_alive() for t in threads):
+        raise PhaseError("HTTP: a request thread did not finish")
+    errors = [r for r in out if isinstance(r, Exception)]
+    if errors:
+        raise PhaseError(f"HTTP: {errors[0]!r}")
+    return out
+
+
+def _serve_http(torch, gpu, model, cfg, tok):
+    """`serve(...)` with GroveProcessor(decoder_factory=open_video) over two
+    24-frame 640 x 360 .npy clips: /healthz, then four concurrent
+    /generate posts in three knob groups (two greedy, one sampled with a
+    seed, one with num_beams=2), each response equal to generate_batch
+    over its group called directly; then ContinuousService behind a second
+    server: three concurrent greedy posts and a 400 for temperature."""
+    from grove_tpu_torch.api import GroveProcessor
+    from grove_tpu_torch.data.synthetic import clip_frames
+    from grove_tpu_torch.data.video import open_video, write_npy_clip
+    from grove_tpu_torch.serve.continuous import ContinuousService
+    from grove_tpu_torch.serve.server import (_KNOBS, BatchingEngine,
+                                              _jsonable)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = []
+        for i in range(2):
+            p = str(Path(tmp) / f"serve{i}.npy")
+            write_npy_clip(p, clip_frames(HTTP_FRAMES, 640, 360,
+                                          np.random.default_rng(30 + i)),
+                           5.0)
+            paths.append(p)
+        proc = GroveProcessor(tok, cfg, decoder_factory=open_video)
+        rec = _RecordingProcessor(proc)
+        front = _Front(BatchingEngine(rec, model, max_batch=4,
+                                      batch_timeout_ms=3000.0),
+                       "grove-full")
+        try:
+            if front.health()["status"] != "ok":
+                raise PhaseError("HTTP: /healthz")
+            payloads = [
+                {"video_path": paths[0], "max_new_tokens": SERVE_STEPS},
+                {"video_path": paths[1], "instruction": PROMPTS[1],
+                 "max_new_tokens": SERVE_STEPS},
+                {"video_path": paths[0], "max_new_tokens": SERVE_STEPS,
+                 "seed": 5, **SAMPLING},
+                {"video_path": paths[1], "max_new_tokens": SERVE_STEPS,
+                 "num_beams": 2}]
+            before = front.engine.batches_run
+            replies, ms = _timed(torch, lambda: _concurrent(
+                [lambda p=p: front.call(p) for p in payloads]))
+            batches = front.engine.batches_run - before
+            for p, (code, body) in zip(payloads, replies):
+                if code != 200:
+                    raise PhaseError(f"HTTP: {code} {body} for {p}")
+                _check_output(body, CLIP_KEYS, HTTP_FRAMES, f"HTTP {p}")
+            if batches != 3 or len(rec.calls) != 3:
+                raise PhaseError(f"HTTP: {batches} batches, {len(rec.calls)} "
+                                 "generate_batch calls, not 3")
+            held = 0
+            for call_paths, instructions, kw in rec.calls:
+                direct = proc.generate_batch(model, call_paths,
+                                             instructions=instructions, **kw)
+                for i, path in enumerate(call_paths):
+                    ins = instructions[i] if instructions else None
+                    for p, (_, body) in zip(payloads, replies):
+                        knobs = {k: p[k] for k in _KNOBS
+                                 if k != "instruction" and k in p}
+                        if (p["video_path"], p.get("instruction"),
+                                knobs) != (path, ins, kw):
+                            continue
+                        if json.loads(json.dumps(_jsonable(direct[i]))) \
+                                != body:
+                            raise PhaseError(f"HTTP: the response to {p} "
+                                             "differs from generate_batch "
+                                             "called directly")
+                        held += 1
+            if held != len(payloads):
+                raise PhaseError(f"HTTP: {held} responses matched a group")
+            say(9, f"batch engine (HTTP on 127.0.0.1): /healthz ok; 4 concurrent "
+                   f"/generate posts ({HTTP_FRAMES}-frame 640 x 360 .npy "
+                   f"clips, {SERVE_STEPS} new tokens: two greedy, one sampled "
+                   f"with a seed, one with 2 beams) in {ms:.1f} ms as "
+                   f"{batches} batches, each response equal to generate_batch "
+                   f"over its group called directly; captions "
+                   f"{[b['text'][:30] for _, b in replies]} on {gpu}")
+        finally:
+            front.close()
+
+        front = _Front(ContinuousService(proc, model, n_slots=SERVE_SLOTS),
+                       "grove-full-continuous")
+        try:
+            payloads = [{"video_path": paths[0]},
+                        {"video_path": paths[1], "instruction": PROMPTS[1]},
+                        {"video_path": paths[1]}]
+            replies, ms = _timed(torch, lambda: _concurrent(
+                [lambda p=p: front.call(p) for p in payloads]))
+            for p, (code, body) in zip(payloads, replies):
+                if code != 200:
+                    raise PhaseError(f"continuous HTTP: {code} {body}")
+                _check_output(body, CLIP_KEYS, HTTP_FRAMES,
+                              f"continuous HTTP {p}")
+            code, body = front.call({"video_path": paths[0],
+                                     "temperature": 0.7})
+            if code != 400:
+                raise PhaseError(f"continuous HTTP: temperature gave {code}")
+            served = front.engine.requests_served
+            say(9, f"ContinuousService (HTTP on 127.0.0.1, {SERVE_SLOTS} slots, 64 new "
+                   f"tokens): 3 concurrent greedy posts in {ms:.1f} ms, "
+                   f"{served} served, {front.engine.batches_run} ticks; "
+                   f"temperature rejected with {code} on {gpu}")
+        finally:
+            front.close()
+
+
 def main() -> int:
     compiles = {}
     try:
@@ -5070,6 +5737,7 @@ def main() -> int:
         launches.update({k: fp32_train[k] for k in FP32_STEP_SIMT})
         phase_loader(torch, gpu)
         phase_driver(torch, gpu)
+        serve_launches = phase_serve(torch, gpu, decoder)
     except Exception:                       # report, then fail the run
         traceback.print_exc()
         print("chip_smoke FAILED", file=sys.stderr, flush=True)
@@ -5081,7 +5749,8 @@ def main() -> int:
     kernels = []
     for name, k in _kernels.KERNELS.items():
         row = {"name": name, "route": "cuda", "source": k.source,
-               "replaces": k.replaces, "launches": launches[name]}
+               "replaces": k.replaces, "launches": launches[name],
+               "serve_launches": serve_launches[name]}
         row.update(rows[name])
         kernels.append(row)
     print(json.dumps({"kernels": kernels, "decoder": decoder}), flush=True)

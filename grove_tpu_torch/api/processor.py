@@ -14,8 +14,11 @@ pipeline (`infer.sliding`), returning the reference's output dict:
     out = proc.generate(lm.model, "clip.mp4")
 
 The model argument is the port's `GroveModel` (it holds its weights: there
-is no separate `variables`). `generate_with_backend` waits for the serving
-engine and raises.
+is no separate `variables`). `temperature > 0` samples, seeded by `seed`
+(a `torch.Generator` on the model's device); `num_beams > 1` runs beam
+search. `generate_with_backend` hands the center window's decode to a
+backend, the continuous-batching serving engine's
+(`serve.continuous.ContinuousService`).
 """
 
 from __future__ import annotations
@@ -39,12 +42,13 @@ KV_CACHE_DTYPES = {None: torch.bfloat16, "bf16": torch.bfloat16,
 def _decode_kwargs(kv_cache_dtype: Optional[str], early_stop: bool,
                    temperature: float = 0.0, top_k: int = 0,
                    top_p: float = 1.0, seed: Optional[int] = None,
-                   num_beams: int = 1,
-                   length_penalty: float = 1.0) -> Dict:
+                   num_beams: int = 1, length_penalty: float = 1.0,
+                   device=None) -> Dict:
     """Map user-facing strings to the decode kwargs of
     `infer.sliding.infer_clips_batched(..., decode_kwargs=...)`; the same
-    checks as the JAX function (`processor.py:25-57`), whose table is
-    copied here with torch dtypes."""
+    checks as the JAX function (`processor.py:25-66`), whose table is
+    copied here with torch dtypes. A seed with sampling becomes a
+    `torch.Generator` on `device` (the CPU when None)."""
     if kv_cache_dtype not in KV_CACHE_DTYPES:
         raise ValueError(f"kv_cache_dtype must be one of "
                          f"{sorted(k for k in KV_CACHE_DTYPES if k)}, "
@@ -66,14 +70,17 @@ def _decode_kwargs(kv_cache_dtype: Optional[str], early_stop: bool,
     if num_beams > 1 and kv_cache_dtype == "int8":
         raise ValueError("num_beams > 1 requires a reorderable KV cache; "
                          "use kv_cache_dtype='bf16' or 'fp32'")
+    out = {"cache_dtype": KV_CACHE_DTYPES[kv_cache_dtype],
+           "early_exit": bool(early_stop),
+           "temperature": float(temperature), "top_k": int(top_k),
+           "top_p": float(top_p), "num_beams": int(num_beams),
+           "length_penalty": float(length_penalty)}
+    # a seed without sampling is inert: drop it, so that identical greedy
+    # requests stay batchable (the serving layer groups by knob values)
     if seed is not None and temperature > 0:
-        raise NotImplementedError("seeded sampling is not ported yet "
-                                  "(ROADMAP Queue 1 item 8)")
-    return {"cache_dtype": KV_CACHE_DTYPES[kv_cache_dtype],
-            "early_exit": bool(early_stop),
-            "temperature": float(temperature), "top_k": int(top_k),
-            "top_p": float(top_p), "num_beams": int(num_beams),
-            "length_penalty": float(length_penalty)}
+        out["generator"] = torch.Generator(
+            device=device or "cpu").manual_seed(int(seed))
+    return out
 
 
 DEFAULT_INSTRUCTION = VIDEO_GROUNDING_QUESTIONS[0]
@@ -128,8 +135,10 @@ class GroveProcessor:
                  length_penalty: float = 1.0) -> Dict:
         """One clip -> the reference's output dict. `kv_cache_dtype`:
         None / 'bf16' (default), 'int8' or 'fp32'; `early_stop` ends the
-        decode once every sequence emitted EOS (identical ids). Sampling
-        and beam search are not ported yet (they raise)."""
+        decode once every sequence emitted EOS (identical ids).
+        `temperature` > 0 samples with optional `top_k` / nucleus `top_p`
+        truncation, seeded by `seed`; `num_beams` > 1 runs beam search
+        (deterministic; `length_penalty` normalizes the final scores)."""
         s = self._sample(video_path, start_frame, end_frame, video_fps)
         return infer_clip(
             model, self.cfg, self.tokenizer, s["frames_clip"],
@@ -138,13 +147,24 @@ class GroveProcessor:
             threshold=temp_objectness_threshold,
             decode_kwargs=_decode_kwargs(kv_cache_dtype, early_stop,
                                          temperature, top_k, top_p, seed,
-                                         num_beams, length_penalty))
+                                         num_beams, length_penalty,
+                                         model.device))
 
     def generate_with_backend(self, model, video_path: str, decode_backend,
-                              **kw) -> Dict:
-        raise NotImplementedError(
-            "generate_with_backend needs the continuous-batching serving "
-            "engine, which is not ported yet (ROADMAP Queue 1 item 13)")
+                              instruction: Optional[str] = None,
+                              temp_objectness_threshold=None,
+                              start_frame=None, end_frame=None,
+                              video_fps=None) -> Dict:
+        """`generate` with the center window's decode handed to
+        `decode_backend` (`infer.sliding.infer_clip`'s argument; the
+        continuous-batching engine supplies one). Greedy semantics; the
+        knobs live in the backend."""
+        s = self._sample(video_path, start_frame, end_frame, video_fps)
+        return infer_clip(
+            model, self.cfg, self.tokenizer, s["frames_clip"],
+            s["frames_sam"], s["original_size"], instruction=instruction,
+            threshold=temp_objectness_threshold,
+            decode_backend=decode_backend)
 
     def generate_batch(self, model, video_paths, instructions=None,
                        max_new_tokens: int = 64,
@@ -165,4 +185,5 @@ class GroveProcessor:
             threshold=temp_objectness_threshold,
             decode_kwargs=_decode_kwargs(kv_cache_dtype, early_stop,
                                          temperature, top_k, top_p, seed,
-                                         num_beams, length_penalty))
+                                         num_beams, length_penalty,
+                                         model.device))

@@ -171,19 +171,63 @@ def infer_clip(model: GroveModel, cfg: GroveConfig, tokenizer,
                frames_clip_all: np.ndarray, frames_sam_all: np.ndarray,
                original_size, *, instruction: Optional[str] = None,
                max_new_tokens: int = 64, threshold: Optional[float] = None,
-               decode_kwargs: Optional[Dict] = None,
+               decode_kwargs: Optional[Dict] = None, decode_backend=None,
                sam_valid=None) -> Dict:
     """One clip: frames_*_all (T_total, H, W, 3) uint8 at the towers'
-    sizes. Equals `infer_clips_batched` on a one-clip batch."""
+    sizes. Equals `infer_clips_batched` on a one-clip batch.
+
+    `decode_backend(spliced_ids (Lp,), video_start, fc, fs)` replaces the
+    center window's `generate_grounded` call (the continuous-batching
+    serving engine supplies one, `sliding.py:147-190`): fc / fs are the
+    center window's frames (1, T, H, W, 3) on the model's device, and it
+    returns the same dict surface (generated_ids (1, n), pred_boxes,
+    objectness_logits, phrase_mask)."""
     sample = {"frames_clip": frames_clip_all, "frames_sam": frames_sam_all,
               "original_size": original_size}
     if sam_valid is not None:
         sample["sam_valid_hw"] = sam_valid
-    return infer_clips_batched(model, cfg, tokenizer, [sample],
-                               instruction=instruction,
-                               max_new_tokens=max_new_tokens,
-                               threshold=threshold,
-                               decode_kwargs=decode_kwargs)[0]
+    if decode_backend is None:
+        return infer_clips_batched(model, cfg, tokenizer, [sample],
+                                   instruction=instruction,
+                                   max_new_tokens=max_new_tokens,
+                                   threshold=threshold,
+                                   decode_kwargs=decode_kwargs)[0]
+    threshold = (threshold if threshold is not None
+                 else cfg.temp_objectness_threshold)
+    windows, masks = sliding_segment_with_mask(frames_clip_all.shape[0],
+                                               cfg.num_frames)
+    ci = center_window_index(masks)
+    ids, starts, _ = center_prompts(cfg, tokenizer, [instruction])
+    dev = model.device
+    fc = torch.from_numpy(frames_clip_all[windows[ci]][None]).to(dev)
+    fs = (fc if frames_sam_all is frames_clip_all else
+          torch.from_numpy(frames_sam_all[windows[ci]][None]).to(dev))
+    gen = decode_backend(ids[0], int(starts[0]), fc, fs)
+    return _clip_output(model, cfg, tokenizer, sample, (windows, masks, ci),
+                        gen, 0, threshold, instruction)
+
+
+def _clip_output(model, cfg, tokenizer, s, meta, gen, i, threshold,
+                 instruction):
+    """Row `i` of a center-window generation `gen` -> the clip's output
+    dict: the caption parsed, the center window's boxes, then the other
+    windows teacher-forced (`_finish_clip`)."""
+    windows, masks, ci = meta
+    text_output = _caption_text(tokenizer, gen["generated_ids"][i],
+                                cfg.tokens.pad)
+    parsed = tagging.parse_generation(text_output)
+    phrases = parsed["phrases"]
+    num_dets = int(gen["phrase_mask"][i].sum())
+    all_bboxes, all_labels, all_probs = postprocess_window(
+        gen["pred_boxes"][i],
+        (gen["objectness_logits"][i]
+         if gen["objectness_logits"] is not None else None),
+        phrases, num_dets, s["original_size"], threshold)
+    return _finish_clip(
+        model, cfg, tokenizer, s["frames_clip"], s["frames_sam"],
+        s["original_size"], windows, masks, ci, windows[ci], text_output,
+        parsed, phrases, num_dets, threshold, instruction, all_bboxes,
+        all_labels, all_probs, sam_valid=s.get("sam_valid_hw"))
 
 
 def _finish_clip(model, cfg, tokenizer, frames_clip_all, frames_sam_all,
@@ -306,7 +350,7 @@ def infer_clips_batched(model: GroveModel, cfg: GroveConfig, tokenizer,
         windows, masks = sliding_segment_with_mask(s["frames_clip"].shape[0],
                                                    cfg.num_frames)
         ci = center_window_index(masks)
-        metas.append((windows, masks, ci, windows[ci]))
+        metas.append((windows, masks, ci))
         fcs.append(s["frames_clip"][windows[ci]])
         if not raw:
             fss.append(s["frames_sam"][windows[ci]])
@@ -325,23 +369,6 @@ def infer_clips_batched(model: GroveModel, cfg: GroveConfig, tokenizer,
                       if vals else None),
         **(decode_kwargs or {}))
 
-    outputs = []
-    for i, (s, (windows, masks, ci, center)) in enumerate(zip(samples,
-                                                              metas)):
-        text_output = _caption_text(tokenizer, gen["generated_ids"][i],
-                                    cfg.tokens.pad)
-        parsed = tagging.parse_generation(text_output)
-        phrases = parsed["phrases"]
-        num_dets = int(gen["phrase_mask"][i].sum())
-        all_bboxes, all_labels, all_probs = postprocess_window(
-            gen["pred_boxes"][i],
-            (gen["objectness_logits"][i]
-             if gen["objectness_logits"] is not None else None),
-            phrases, num_dets, s["original_size"], threshold)
-        outputs.append(_finish_clip(
-            model, cfg, tokenizer, s["frames_clip"], s["frames_sam"],
-            s["original_size"], windows, masks, ci, center, text_output,
-            parsed, phrases, num_dets, threshold, instructions[i],
-            all_bboxes, all_labels, all_probs,
-            sam_valid=s.get("sam_valid_hw")))
-    return outputs
+    return [_clip_output(model, cfg, tokenizer, s, meta, gen, i, threshold,
+                         instructions[i])
+            for i, (s, meta) in enumerate(zip(samples, metas))]

@@ -279,7 +279,9 @@ def test_processor_generate_batch_matches_jax(models, clips):
 
 def test_processor_on_synthetic_video_and_the_api_surface(models):
     """`decoder_factory` takes any decoder (here `SyntheticVideo`, through
-    a lambda); `GroveForCausalLM`'s wrappers equal the model methods."""
+    a lambda); `generate_with_backend` with a greedy backend equals
+    `generate`; `GroveForCausalLM`'s wrappers equal the model methods."""
+    from grove_tpu_torch.infer.generate import generate_grounded
     from grove_tpu_torch.api import GroveForCausalLM, GroveProcessor
     from grove_tpu_torch.text.mock_tokenizer import MockTokenizer
     _, _, _, tmodel = models
@@ -289,8 +291,11 @@ def test_processor_on_synthetic_video_and_the_api_surface(models):
     out = proc.generate(tmodel, "unused", max_new_tokens=3)
     assert out["frame_indices"] == list(range(6))
     assert out["original_size"] == (40, 30)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        proc.generate_with_backend(tmodel, "unused", None)
+    backend = (lambda ids, start, fc, fs: generate_grounded(
+        tmodel, tmodel.cfg, tok, ids[None], [start], fc, fs,
+        max_new_tokens=3))
+    assert proc.generate_with_backend(tmodel, "unused", backend)["text"] \
+        == out["text"]
     lm = GroveForCausalLM(tmodel.cfg, tmodel)
     frames = np.random.default_rng(5).integers(0, 256, (1, 2, 28, 28, 3),
                                                dtype=np.uint8)

@@ -122,7 +122,9 @@ def test_import_leaves_jax_and_pil_out():
             "grove_tpu_torch.ops.window_ops",
             "grove_tpu_torch.data.collate", "grove_tpu_torch.data.video",
             "grove_tpu_torch.data.preprocess",
-            "grove_tpu_torch.api.processor"} <= set(mods)
+            "grove_tpu_torch.api.processor", "grove_tpu_torch.infer.beam",
+            "grove_tpu_torch.serve.server",
+            "grove_tpu_torch.serve.continuous"} <= set(mods)
     assert out.stdout.strip() == "[]"
 
 
@@ -455,13 +457,8 @@ def _tiny_model():
 
 
 def test_unported_paths_raise(tmp_path):
-    from grove_tpu_torch.infer.generate import greedy_decode
     model = _tiny_model()
     cfg = model.cfg
-    from grove_tpu_torch.api import GroveProcessor
-    with pytest.raises(NotImplementedError, match="item 13"):
-        GroveProcessor(None, cfg).generate_with_backend(model, "clip.mp4",
-                                                        None)
     with pytest.raises(NotImplementedError, match="region encoder"):
         model.encode_regions((), torch.zeros(1, 4), torch.zeros(1))
     pe = model.model.grounding_encoder.prompt_encoder
@@ -469,11 +466,6 @@ def test_unported_paths_raise(tmp_path):
         pe(points=torch.zeros(1, 1, 2))
     with pytest.raises(NotImplementedError, match="mask path"):
         model.model.grounding_encoder.mask_decoder.predict_masks()
-    ids = torch.ones(1, 10, dtype=torch.long)
-    feats = torch.zeros(1, cfg.num_video_tokens, cfg.llama.hidden_size)
-    with pytest.raises(NotImplementedError, match="sampled decoding"):
-        greedy_decode(model, ids, feats, [-1], max_new_tokens=2, eos_id=2,
-                      temperature=0.7)
     with pytest.raises(ValueError, match="KV cache dtype"):
         tllama.init_kv_caches(cfg.llama, 1, 4, dtype=torch.int16,
                               device="cpu")
