@@ -328,7 +328,39 @@ Phases, each printing its own line; any failure exits non-zero:
      temperature. Last, GroveConfig.small() in fp32 (TF32 off): beam
      search card vs CPU, ids identical and scores within 1e-4 relative,
      and the continuous engine's tokens all equal to offline
-     greedy_decode's on the card.
+     greedy_decode's on the card;
+  10 task drivers and evals: the port's synthetic set of each task written
+     into a temporary directory (`.npy` clips: iground 8 clips of 16
+     frames, vidstg 2 clips, the two pointing tasks 2 clips of 20 frames,
+     anet 2 segments of 10 frames), then `infer.drivers.main` (`--task ...
+     --model_size full --device cuda`) for all five tasks and iground again
+     with `--kv_cache_dtype int8`, on one bf16 GroveConfig() built on the
+     card once and handed to each run through a wrapper of the driver's
+     `build_model` (`_InferSpy`), which also records each stage call of
+     the model (CLIP, SAM, the cache-free LLaMA pass and its S, the
+     prefill and its S and cache, each decode step) and sets every launch
+     count to 0 just before the run's inference. Each run's launches must
+     equal the launches those calls make by the port's routes
+     (`_infer_launches`: K3 24, K1 28 and K2 4 a CLIP or SAM call, K4 32 a
+     teacher-forced pass at S a multiple of 64, K5 32 an int8-cache prefill
+     at S % 8 == 0, K6 32 an int8-cache decode step), with no other entry,
+     SIMT or not; each pickle must carry the JAX driver's entries, one per
+     clip, with finite boxes and probabilities; iground's prefetched
+     outputs (two groups of 4, the second loaded and uploaded on a side
+     stream during the first) must equal two inline `infer_clips_batched`
+     calls on the same groups bit for bit; each pickle goes through the
+     port's evals (`evals.run_iground.main` for iground, `evals.run_all.
+     main` for the others), which must return the JAX evals' metric keys
+     with finite numbers. Then GroveConfig.small() in fp32 (TF32 off), one
+     set of weights on the CPU and its copy on the card, the five tasks
+     through `main` on each (16 new tokens; sets of fewer and shorter
+     clips, `INFER_SMALL_SETS`, for the CPU's sake): the same pickles,
+     text and ids equal, boxes within 1e-3 of their array's largest
+     coordinate (about the frame's side) and probabilities within 1e-3.
+     Last, `tools.run_experiment.main` (anet, synthetic, small(), on the
+     card: infer, then the evals) and `python -m grove_tpu_torch.serve
+     --help` in a subprocess, rc 0. Prints each run's wall seconds,
+     clips/s and peak memory.
 Phase 2 also holds the five training kernels (K4b dq and dkv at LLaMA's
 (1, 704, 32, 128) causal; K9's forward with its LSE, dq with d_rh and d_rw,
 and dkv at SAM's windowed (72, 196, 16, 80) and global (8, 1024, 16, 80)
@@ -350,18 +382,23 @@ K11-K14 (both entries of K11, K12, K12q8 and K13), which run on no model
 path, show 0)
 and `phase2_launches`, the launches of phase 2's checks and timings, and
 `serve_launches`, those of phase 9's int8-cache continuous-engine run
-(K5's tensor-core entry and K6); the
+(K5's tensor-core entry and K6), and `infer_launches`, those of each of
+phase 10's full-width driver runs by task ("iground_int8": the int8-cache
+run); the
 tensor-core rows also carry `simt_ms`, the SIMT entry's bf16 time at the
 same shape; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import copy
 import dataclasses
 import json
+import math
 import os
+import pickle
 import re
 import shutil
 import statistics
@@ -5715,6 +5752,466 @@ def _serve_http(torch, gpu, model, cfg, tok):
             front.close()
 
 
+
+# ---------------------------------------------------------------------------
+# phase 10: the task drivers and the evals
+# ---------------------------------------------------------------------------
+
+INFER_TASKS = ("iground", "vidstg", "groundingyoutube",
+               "youcookinteractions", "anet")
+# the synthetic sets' makers' arguments at full width: iground 8 clips of
+# 16 frames, two groups of 4, so that the prefetch thread loads and
+# uploads the second group while the first generates; the others the
+# makers' defaults (vidstg 2 clips of 23 frames in their tubes, the
+# pointing tasks 2 clips of 20 frames, anet 2 segments of 10 frames)
+INFER_SETS = {"iground": {"num_videos": 8}}
+# and for the small() fp32 card-vs-CPU runs, whose CPU side takes most of
+# their time: fewer and shorter clips (iground one group of 4 clips of 8
+# frames, vidstg 11 frames, the pointing tasks 10; anet's 10 frames are
+# the task's)
+INFER_SMALL_SETS = {"iground": {"num_videos": 4, "num_frames": 8},
+                    "vidstg": {"num_frames": 12},
+                    "groundingyoutube": {"num_frames": 10},
+                    "youcookinteractions": {"num_frames": 10}}
+INFER_SMALL_NEW = 16     # new tokens of the small() fp32 card-vs-CPU runs
+# the entries of each task's pickle (`grove_tpu/infer/drivers.py`; held to
+# the JAX driver's by tests/test_torch_drivers.py)
+INFER_ENTRY_KEYS = {
+    "iground": {"pred_bboxes", "pred_labels", "pred_phrases", "pred_text",
+                "pred_text_tagged", "probs_temp_objectness", "original_size",
+                "frame_indices"},
+    "vidstg": {"frame_ids", "boxes", "qtype"},
+    "groundingyoutube": {"pts_to_bbox", "final_boxes", "selected_pts"},
+    "youcookinteractions": {"pts_to_bbox", "final_boxes", "selected_pts"},
+    "anet": {"clss", "idx_in_sent", "bbox_for_all_frames", "pred_text"},
+}
+# the metrics the evals return for each task (`evals/run_iground.py`,
+# `evals/run_all.py`; held to the JAX evals' by tests/test_torch_evals.py);
+# SPICE is None by design (no CoreNLP), the *_variant and backend entries
+# are labels
+INFER_METRICS = {
+    "iground": {"AP", "AP50", "AP75", "AP_video", "mIoU_flatten",
+                "mIoU_video", "recall_flatten", "recall_video", "Bleu_1",
+                "Bleu_2", "Bleu_3", "Bleu_4", "ROUGE_L", "CIDEr", "METEOR",
+                "METEOR_exact_stem", "METEOR_variant", "SPICE", "SPICE_rule",
+                "SPICE_variant", "text_sim_backend"},
+    "vidstg": {f"{q}_gt_viou{t}" for q in ("declarative", "interrogative")
+               for t in ("", "@0.3", "@0.5")},
+    "groundingyoutube": {"pointing_accuracy", "correct", "valid"},
+    "youcookinteractions": {"pointing_accuracy", "correct", "valid"},
+    "anet": {"localization_accuracy", "num_classes", "precision_all",
+             "recall_all", "f1_all"},
+}
+INFER_LABELS = ("SPICE", "METEOR_variant", "SPICE_variant",
+                "text_sim_backend")
+
+
+def _infer_sets(root, makers):
+    """The port's synthetic set of each task under `root` (`.npy` clips),
+    its maker given `makers[task]`: {task: (annotations, video dir, frame
+    timestamps or None, the pointing ground truth's pickle or None)}."""
+    from grove_tpu_torch.infer.drivers import make_synthetic
+    sets = {}
+    for task in INFER_TASKS:
+        sub = os.path.join(root, task)
+        os.makedirs(sub)
+        ann, videos, fts, gt = make_synthetic(task, sub,
+                                              **makers.get(task, {}))
+        gt_path = None
+        if gt is not None:
+            gt_path = os.path.join(sub, "pointing_gt.pkl")
+            with open(gt_path, "wb") as f:
+                pickle.dump(gt, f)
+        sets[task] = (ann, videos, fts, gt_path)
+    return sets
+
+
+def _infer_argv(task, sets, out, device, size="full", extra=()):
+    ann, videos, fts, _ = sets[task]
+    argv = ["--task", task, "--model_size", size, "--ann_dir", ann,
+            "--video_dir", videos, "--output", out, "--device", device]
+    if fts:
+        argv += ["--frame_timestamps", fts]
+    return argv + list(extra)
+
+
+class _InferSpy:
+    """Wrap `infer.drivers.build_model` for driver runs: hand the driver
+    `pick(cfg, device)`'s model instead of building one, record every
+    call of that model's stages (CLIP, SAM, the cache-free LLaMA pass with
+    its S, the prefill with its S and cache, each decode step), and set
+    every launch count to 0 just before the driver's inference starts."""
+
+    def __init__(self, torch, pick):
+        self.torch, self.pick = torch, pick
+        self.calls, self.model, self.cfg = [], None, None
+
+    def __enter__(self):
+        from grove_tpu_torch.infer import drivers
+        self._drivers, self._real = drivers, drivers.build_model
+        drivers.build_model = self._build
+        return self
+
+    def __exit__(self, *exc):
+        self._drivers.build_model = self._real
+        if self.model is not None:
+            for name in ("encode_video", "encode_grounding", "_lm_hidden",
+                         "prefill", "decode_step"):
+                self.model.__dict__.pop(name, None)
+
+    def _build(self, args, cfg, device):
+        from grove_tpu_torch import _kernels
+        model = self.pick(cfg, device)
+        if model.cfg != cfg:
+            raise PhaseError(f"the driver asked for {cfg}, not the model's "
+                             f"{model.cfg}")
+        self.model, self.cfg, calls = model, cfg, self.calls
+
+        def record(name, tag):
+            real = getattr(model, name)
+
+            def call(*a, **kw):
+                calls.append(tag(*a, **kw))
+                return real(*a, **kw)
+            model.__dict__[name] = call
+        record("encode_video", lambda *a, **k: ("clip",))
+        record("encode_grounding", lambda *a, **k: ("sam",))
+        record("_lm_hidden", lambda ids, *a, **k: ("lm", ids.shape[1]))
+        record("prefill", lambda ids, emb, vs, caches, *a, **k: (
+            "prefill", ids.shape[1], "k_s" in caches[0]))
+        record("decode_step", lambda tok, pos, caches, *a, **k: (
+            "decode", "k_s" in caches[0]))
+        if device.type == "cuda":
+            self.torch.cuda.synchronize()
+            self.torch.cuda.reset_peak_memory_stats()
+        _kernels.reset_launch_counts()
+        return model
+
+
+def _infer_launches(cfg, calls):
+    """The launches the recorded stage calls make at full width in bf16,
+    by the routes the port takes (JAX's): CLIP's self-attention on K3, 4
+    global and 28 windowed SAM blocks on K2 and K1, a cache-free LLaMA pass
+    (teacher-forced windows) on K4 where S is a multiple of 64 (a flash
+    block divides it), on K5 where S % 8 == 0 and 128 <= S <= 1100
+    otherwise, else on K10 (`models/llama.py:228-236`,
+    `ops.attention.attention_route`); a prefill over the int8 cache on K5
+    where S % 8 == 0 and 128 <= S <= 1100 (else the plain path), each
+    decode step over it on K6; a bf16 cache's prefill and decode take the
+    plain path. Every count is per layer."""
+    from collections import Counter
+    n_global = len(cfg.sam_enc.global_attn_indexes)
+    layers = cfg.llama.num_layers
+    want = Counter()
+
+    def k5_takes(s):
+        return s % 8 == 0 and 128 <= s <= 1100
+    for call in calls:
+        if call[0] == "clip":
+            want["grouped_plain_attention_tc"] += cfg.clip.num_layers
+        elif call[0] == "sam":
+            want["sam_window_attention_tc"] += cfg.sam_enc.depth - n_global
+            want["sam_global_attention_tc"] += n_global
+        elif call[0] == "lm":
+            s = call[1]
+            if s % 64 == 0 and s >= 128:
+                want["flash_forward_lse_tc"] += layers
+            elif k5_takes(s):
+                want["prefill_attention_tc"] += layers
+            elif s >= 128:
+                want["flash_attention_tc"] += layers
+        elif call[0] == "prefill" and call[2] and k5_takes(call[1]):
+            want["prefill_attention_tc"] += layers
+        elif call[0] == "decode" and call[1]:
+            want["int8_decode_attention"] += layers
+    return want
+
+
+def _frames_of(task, preds, uid):
+    """The frame count of one entry of a task's predictions."""
+    entry = preds[uid]
+    if task == "iground":
+        return len(entry["frame_indices"])
+    if task == "vidstg":
+        return len(entry["frame_ids"])
+    if task == "anet":
+        return 10
+    return len(entry["pts_to_bbox"])
+
+
+def _check_preds(task, preds, makers, what):
+    """The pickle's entries carry the JAX driver's keys; every box and
+    probability is finite; one entry per clip of the set (each maker
+    writes 2 clips by default, iground's 4)."""
+    entries = ([e for segs in preds.values() for e in segs.values()]
+               if task == "anet" else list(preds.values()))
+    want_n = makers.get(task, {}).get("num_videos",
+                                      4 if task == "iground" else 2)
+    if len(entries) != want_n:
+        raise PhaseError(f"{what}: {len(entries)} entries, not {want_n}")
+    for e in entries:
+        if set(e) != INFER_ENTRY_KEYS[task]:
+            raise PhaseError(f"{what}: keys {sorted(e)}")
+        for key in ("pred_bboxes", "probs_temp_objectness", "boxes",
+                    "final_boxes", "bbox_for_all_frames"):
+            for a in e.get(key, []):
+                if not np.all(np.isfinite(np.asarray(a, np.float64))):
+                    raise PhaseError(f"{what}: non-finite {key}")
+        for a in e.get("pts_to_bbox", {}).values():
+            if not np.all(np.isfinite(np.asarray(a, np.float64))):
+                raise PhaseError(f"{what}: non-finite pts_to_bbox")
+    return entries
+
+
+def _same_preds(got, want, tol, where, boxes=False):
+    """Equal structure and values; floats and arrays within `tol`, boxes
+    (under a key naming them) within `tol` of their array's largest
+    coordinate (about the frame's side, at least 1), everything else equal.
+    Returns the largest difference seen over its limit's unit."""
+    worst = 0.0
+    if isinstance(want, dict):
+        if list(got) != list(want):
+            raise PhaseError(f"{where}: keys {list(got)} != {list(want)}")
+        for k in want:
+            worst = max(worst, _same_preds(
+                got[k], want[k], tol, f"{where}/{k}",
+                boxes or k in ("pred_bboxes", "boxes", "final_boxes",
+                               "pts_to_bbox", "bbox_for_all_frames")))
+    elif isinstance(want, (list, tuple)):
+        if len(got) != len(want):
+            raise PhaseError(f"{where}: {len(got)} != {len(want)} items")
+        for i, (g, w) in enumerate(zip(got, want)):
+            worst = max(worst, _same_preds(g, w, tol, f"{where}[{i}]",
+                                           boxes))
+    elif isinstance(want, (np.ndarray, float, np.floating)):
+        g, w = (np.asarray(x, np.float64) for x in (got, want))
+        if g.shape != w.shape:
+            raise PhaseError(f"{where}: shape {g.shape} != {w.shape}")
+        if not g.size:
+            return 0.0
+        scale = max(1.0, float(np.abs(w).max())) if boxes else 1.0
+        err = float(np.abs(g - w).max()) / scale
+        if not err <= tol:
+            raise PhaseError(f"{where}: card vs CPU {err:.3e} > {tol:.3e}"
+                             f" (of {scale:.4g})")
+        worst = err
+    elif got != want:
+        raise PhaseError(f"{where}: {got!r} != {want!r}")
+    return worst
+
+
+def phase_infer(torch, gpu):
+    """The task drivers and the evals. Returns the full-width runs'
+    launches, {task: {kernel: launches}} (iground's int8-cache run as
+    "iground_int8")."""
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="grove_infer_"))
+    try:
+        launches = _infer_full(torch, gpu, _infer_sets(
+            str(tmp / "sets"), INFER_SETS), tmp)
+        torch.cuda.empty_cache()
+        _infer_small(torch, gpu, _infer_sets(str(tmp / "small_sets"),
+                                             INFER_SMALL_SETS), tmp)
+        _infer_experiment(torch, gpu, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    say(10, f"phase 10 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def _infer_full(torch, gpu, sets, tmp):
+    """GroveConfig() in bf16, built once on the card: every task through
+    `infer.drivers.main`, then iground with the int8 cache; the launches
+    each run makes equal `_infer_launches` of its recorded stage calls;
+    iground's prefetched outputs bit-equal to inline `infer_clips_batched`
+    calls on the same groups; each pickle scored by the evals."""
+    from grove_tpu_torch.infer import drivers
+    build, built = drivers.build_model, {}
+
+    def pick(cfg, device):
+        if "model" not in built:
+            t0 = time.perf_counter()
+            built["model"] = build(
+                argparse.Namespace(model_size="full", seed=0, version=None),
+                cfg, device)
+            say(10, f"GroveConfig() bf16 built on the card from a seed in "
+                    f"{time.perf_counter() - t0:.1f} s")
+        return built["model"]
+
+    out = {}
+    runs = [(t, t, ()) for t in INFER_TASKS]
+    runs.append(("iground_int8", "iground", ("--kv_cache_dtype", "int8")))
+    for label, task, extra in runs:
+        path = str(tmp / f"{label}.pkl")
+        with _InferSpy(torch, pick) as spy:
+            t0 = time.perf_counter()
+            preds = drivers.main(_infer_argv(task, sets, path, "cuda",
+                                             extra=extra))
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        from grove_tpu_torch import _kernels
+        got = {k: v.launches for k, v in _kernels.KERNELS.items()
+               if v.launches}
+        peak = torch.cuda.max_memory_allocated()
+        with open(path, "rb") as f:
+            if pickle.load(f).keys() != preds.keys():
+                raise PhaseError(f"{label}: the pickle is not the run's")
+        entries = _check_preds(task, preds, INFER_SETS, f"driver {label}")
+        want = dict(_infer_launches(spy.cfg, spy.calls))
+        if got != want:
+            raise PhaseError(f"driver {label}: launches {got}, not the "
+                             f"stage calls' {want}")
+        from collections import Counter
+        calls = Counter(c[0] for c in spy.calls)
+        lm = sorted({c[1] for c in spy.calls if c[0] in ("lm", "prefill")})
+        frames = sum(_frames_of(task, preds, u) for u in preds)
+        say(10, f"driver --task {task} --model_size full"
+                f"{' ' + ' '.join(extra) if extra else ''}: {len(entries)} "
+                f"clips, {frames} frames in {secs:.2f} s "
+                f"({len(entries) / secs:.3f} clips/s), peak "
+                f"{peak / 2**30:.2f} GiB; stage calls {dict(calls)} at S "
+                f"{lm}; launches {got} (= the calls' routes); captions "
+                f"{[e.get('pred_text', '')[:40] for e in entries][:2]} on "
+                f"{gpu}")
+        out[label] = got
+        if label == "iground":
+            _infer_inline(torch, gpu, spy.model, spy.cfg, sets, preds)
+        _infer_eval(task, sets, path, gpu)
+    del built
+    return out
+
+
+def _infer_inline(torch, gpu, model, cfg, sets, preds):
+    """iground's groups run again, each in one inline `infer_clips_batched`
+    call (no prefetch thread, no side stream): every output bit-equal to
+    the prefetched run's."""
+    from grove_tpu_torch.api.processor import _decode_kwargs
+    from grove_tpu_torch.infer.drivers import FullClipIGroundDataset
+    from grove_tpu_torch.infer.sliding import infer_clips_batched
+    from grove_tpu_torch.text.mock_tokenizer import MockTokenizer
+    ann, videos, _, _ = sets["iground"]
+    ds = FullClipIGroundDataset(ann, videos, cfg)
+    tok = MockTokenizer(model_max_length=cfg.max_seq_len)
+    t0 = time.perf_counter()
+    for g in range(0, len(ds), 4):
+        samples = [ds[i] for i in range(g, min(g + 4, len(ds)))]
+        outs = infer_clips_batched(
+            model, cfg, tok, samples, max_new_tokens=64,
+            decode_kwargs=_decode_kwargs(None, True, device=model.device))
+        for s, o in zip(samples, outs):
+            uid = f"{s['video_id']}_{s['clip_id']}"
+            # tolerance 0: bit-equal (every value was checked finite)
+            _same_preds(preds[uid], {
+                "pred_bboxes": o["bboxes"],
+                "pred_labels": o["labels_per_frame"],
+                "pred_phrases": o["phrases"], "pred_text": o["text"],
+                "pred_text_tagged": o["text_tagged"],
+                "probs_temp_objectness": o["probs_temp_objectness"],
+                "original_size": o["original_size"],
+                "frame_indices": o["frame_indices"]}, 0.0,
+                f"iground {uid}")
+    torch.cuda.synchronize()
+    say(10, f"iground: the prefetched run's {len(ds)} outputs bit-equal to "
+            f"{-(-len(ds) // 4)} inline infer_clips_batched calls on the same "
+            f"groups ({time.perf_counter() - t0:.2f} s) on {gpu}")
+
+
+def _infer_eval(task, sets, path, gpu):
+    """The task's pickle through the evals (`run_iground.main` for iground,
+    `run_all.main` for the others): the metrics the JAX evals return, each
+    number finite."""
+    from grove_tpu_torch.evals import run_all, run_iground
+    ann, videos, _, gt = sets[task]
+    with contextlib.redirect_stdout(sys.stderr):
+        if task == "iground":
+            metrics = run_iground.main(["--ann_dir", ann, "--video_dir",
+                                        videos, "--pred", path])
+        elif task in ("vidstg", "anet"):
+            metrics = run_all.main([task, "--ann", ann, "--pred", path])
+        else:
+            from grove_tpu_torch.infer.drivers import pointing_keys
+            metrics = run_all.main(["pointing", "--ann", gt, "--pred", path,
+                                    "--segment_key", pointing_keys(task)[0]])
+    if set(metrics) != INFER_METRICS[task]:
+        raise PhaseError(f"{task} evals: metrics {sorted(metrics)}")
+    bad = [k for k, v in metrics.items() if k not in INFER_LABELS
+           and not (isinstance(v, (int, float)) and math.isfinite(v))]
+    if bad or metrics.get("SPICE", None) is not None:
+        raise PhaseError(f"{task} evals: not finite {bad}")
+    say(10, f"{task} scored by the port's evals: " + ", ".join(
+        f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+        for k, v in metrics.items() if k not in INFER_LABELS) + f" on {gpu}")
+
+
+def _infer_small(torch, gpu, sets, tmp):
+    """GroveConfig.small() in fp32 (TF32 off), one set of weights built on
+    the CPU and deep-copied to the card: every task through
+    `infer.drivers.main` on each, the pickles equal (token ids and text
+    equal, boxes within PARITY_TOL of their largest coordinate, objectness
+    within PARITY_TOL)."""
+    from grove_tpu_torch.infer import drivers
+    from grove_tpu_torch.models.grove import init_grove_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    built = {}
+
+    def pick(cfg, device):
+        if "cpu" not in built:
+            built["cpu"] = init_grove_params(cfg, device="cpu",
+                                             dtype=torch.float32, seed=21)
+            built["cuda"] = copy.deepcopy(built["cpu"]).to("cuda")
+        return built[device.type]
+
+    extra = ("--max_new_tokens", str(INFER_SMALL_NEW))
+    for task in INFER_TASKS:
+        preds, secs = {}, {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            with _InferSpy(torch, pick):
+                preds[dev] = drivers.main(_infer_argv(
+                    task, sets, str(tmp / f"small_{task}_{dev}.pkl"), dev,
+                    "small", extra if task in ("iground", "anet") else ()))
+            secs[dev] = time.perf_counter() - t0
+        _check_preds(task, preds["cuda"], INFER_SMALL_SETS,
+                     f"small {task} card")
+        worst = _same_preds(preds["cuda"], preds["cpu"], PARITY_TOL,
+                            f"small {task}")
+        say(10, f"GroveConfig.small() fp32 --task {task}: card vs CPU "
+                f"equal (text and ids), largest difference {worst:.2e} of "
+                f"a box array's largest coordinate / of a probability "
+                f"(limit {PARITY_TOL}); "
+                f"card {secs['cuda']:.2f} s, CPU {secs['cpu']:.2f} s on "
+                f"{gpu}")
+    del built
+
+
+def _infer_experiment(torch, gpu, tmp):
+    """`tools.run_experiment.main` once at small() on the card (synthetic
+    anet: infer, then the evals), and `python -m grove_tpu_torch.serve
+    --help` in a subprocess."""
+    from grove_tpu_torch.tools.run_experiment import main as run_experiment
+    t0 = time.perf_counter()
+    metrics = run_experiment(["--task", "anet", "--synthetic", "--model_size",
+                              "small", "--device", "cuda", "--workdir",
+                              str(tmp / "experiment"), "--max_new_tokens",
+                              str(INFER_SMALL_NEW)])
+    if set(metrics) != INFER_METRICS["anet"] or not all(
+            math.isfinite(v) for v in metrics.values()):
+        raise PhaseError(f"run_experiment anet: {metrics}")
+    secs = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "grove_tpu_torch.serve",
+                           "--help"], cwd=ROOT, capture_output=True,
+                          text=True, timeout=300)
+    if proc.returncode != 0 or "--model_size" not in proc.stdout:
+        raise PhaseError(f"python -m grove_tpu_torch.serve --help: rc "
+                         f"{proc.returncode}, {proc.stderr[-500:]}")
+    say(10, f"run_experiment --task anet --synthetic --model_size small on "
+            f"the card in {secs:.1f} s: {metrics}; python -m "
+            f"grove_tpu_torch.serve --help rc 0 in "
+            f"{time.perf_counter() - t0:.1f} s on {gpu}")
+
+
 def main() -> int:
     compiles = {}
     try:
@@ -5738,6 +6235,7 @@ def main() -> int:
         phase_loader(torch, gpu)
         phase_driver(torch, gpu)
         serve_launches = phase_serve(torch, gpu, decoder)
+        infer_launches = phase_infer(torch, gpu)
     except Exception:                       # report, then fail the run
         traceback.print_exc()
         print("chip_smoke FAILED", file=sys.stderr, flush=True)
@@ -5750,7 +6248,9 @@ def main() -> int:
     for name, k in _kernels.KERNELS.items():
         row = {"name": name, "route": "cuda", "source": k.source,
                "replaces": k.replaces, "launches": launches[name],
-               "serve_launches": serve_launches[name]}
+               "serve_launches": serve_launches[name],
+               "infer_launches": {task: got.get(name, 0)
+                                  for task, got in infer_launches.items()}}
         row.update(rows[name])
         kernels.append(row)
     print(json.dumps({"kernels": kernels, "decoder": decoder}), flush=True)

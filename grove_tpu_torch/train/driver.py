@@ -315,7 +315,7 @@ def _device(name: str) -> torch.device:
     device = torch.device(name)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {name}: no CUDA device is available "
-                           "(pass --device cpu to train on the CPU)")
+                           "(pass --device cpu to run on the CPU)")
     return device
 
 

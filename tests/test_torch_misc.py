@@ -124,7 +124,13 @@ def test_import_leaves_jax_and_pil_out():
             "grove_tpu_torch.data.preprocess",
             "grove_tpu_torch.api.processor", "grove_tpu_torch.infer.beam",
             "grove_tpu_torch.serve.server",
-            "grove_tpu_torch.serve.continuous"} <= set(mods)
+            "grove_tpu_torch.serve.continuous",
+            "grove_tpu_torch.serve.__main__",
+            "grove_tpu_torch.infer.drivers",
+            "grove_tpu_torch.tools.run_experiment"} <= set(mods)
+    assert {f"grove_tpu_torch.evals.{m}" for m in (
+        "anet", "captions", "iground", "lemma", "meteor", "pointing", "ptb",
+        "run_all", "run_iground", "spice", "textsim", "vidstg")} <= set(mods)
     assert out.stdout.strip() == "[]"
 
 
