@@ -360,7 +360,29 @@ Phases, each printing its own line; any failure exits non-zero:
      Last, `tools.run_experiment.main` (anet, synthetic, small(), on the
      card: infer, then the evals) and `python -m grove_tpu_torch.serve
      --help` in a subprocess, rc 0. Prints each run's wall seconds,
-     clips/s and peak memory.
+     clips/s and peak memory;
+  11 region encoder and SAM mask path: on phase 10's bf16 GroveConfig(),
+     8 SyntheticVideo frames (640 x 360, host-resized to 336 and 512)
+     through `encode_video`, then `encode_regions` on its four CLIP levels
+     with 8 RoIs over the frames (one straddling the image's edge, one
+     partly outside the [-1, size] band of every level), `splice_regions`
+     of the queries into a prompt with 8 <bbox> tokens after the video
+     splice (padded to S a multiple of 64), the cache-free LLaMA pass and
+     lm_head; `encode_grounding` of the same frames, then `segment` with
+     two points and a box a frame, and again with two points and the
+     first run's masks as the mask input, single-mask and multimask. Every
+     launch count is set to 0 just before and read just after: they must
+     be REGION_LAUNCHES exactly (K3 24, K1 28, K2 4, K4 32; the region
+     encoder and the mask path run torch ops only). Prints each stage's
+     CUDA-event ms and the peak memory; the <bbox> rows must equal the
+     queries, every output finite and of its shape. `roi_align` on the
+     card against the CPU in fp32 on level 1's grid (within 1e-5 of
+     max-abs). Then GroveConfig.small() in fp32 (TF32 off), one set of
+     weights on the CPU and its copy on the card, fed the same CPU-made
+     CLIP levels and SAM embeddings: `encode_regions`, `splice_regions`
+     (bit-equal, more <bbox> tokens than rows), `segment` with six prompt
+     mixes and `predict_masks` with a text prompt, single-mask and
+     multimask, each within 1e-3 of the CPU's max-abs.
 Phase 2 also holds the five training kernels (K4b dq and dkv at LLaMA's
 (1, 704, 32, 128) causal; K9's forward with its LSE, dq with d_rh and d_rw,
 and dkv at SAM's windowed (72, 196, 16, 80) and global (8, 1024, 16, 80)
@@ -384,7 +406,8 @@ and `phase2_launches`, the launches of phase 2's checks and timings, and
 `serve_launches`, those of phase 9's int8-cache continuous-engine run
 (K5's tensor-core entry and K6), and `infer_launches`, those of each of
 phase 10's full-width driver runs by task ("iground_int8": the int8-cache
-run); the
+run), and `region_launches`, those of phase 11's full-width region and
+mask path; the
 tensor-core rows also carry `simt_ms`, the SIMT entry's bf16 time at the
 same shape; the last line is {"ok": true, "device": {...}}.
 """
@@ -3499,8 +3522,7 @@ def _boxes_parity(torch, clip, ap, cpu, gpu, label, tol):
     return used
 
 
-def _parity_pass(torch, cfg, tok, clip, ap, cpu, gpu, label,
-                 cache_dtype=None):
+def _parity_pass(torch, cfg, tok, clip, ap, cpu, gpu, label, cache_dtype):
     """Teacher-forced boxes and objectness card vs CPU (within 1e-3), then
     the greedy-token agreement; returns the CPU's greedy ids."""
     from grove_tpu_torch import _kernels
@@ -3588,7 +3610,7 @@ def phase_parity(torch, decoder):
                    pad_id=tok.pad_token_id, with_labels=False)
     _kernels.reset_launch_counts()
     _parity_pass(torch, cfg, tok, clip, ap, cpu, gpu,
-                 "GroveConfig.small() fp32")
+                 "GroveConfig.small() fp32", cpu.dtype)
     # K1's SIMT entry: the float towers' windowed blocks in fp32
     k1_fp32 = _kernels.KERNELS["sam_window_attention"].launches
     if not k1_fp32:
@@ -5543,7 +5565,7 @@ def _serve_small(torch, gpu):
             [c["frames_sam"] for c in clips])))
     ids, starts, pads = center_prompts(cfg, tok, list(PROMPTS))
     kw = dict(max_new_tokens=SMALL_NEW, eos_id=cfg.tokens.eos, num_beams=4,
-              pad_lens=pads)
+              pad_lens=pads, cache_dtype=cpu.dtype)
     want = beam_decode(cpu, ids, emb[:2], starts, **kw)
     got = beam_decode(card, ids, emb[:2].to("cuda"), starts, **kw)
     rel = float(((got[2].cpu() - want[2]).abs()
@@ -6003,11 +6025,12 @@ def _same_preds(got, want, tol, where, boxes=False):
 def phase_infer(torch, gpu):
     """The task drivers and the evals. Returns the full-width runs'
     launches, {task: {kernel: launches}} (iground's int8-cache run as
-    "iground_int8")."""
+    "iground_int8"), and the full-width bf16 model they ran on (phase 11
+    reuses it)."""
     t_phase = time.perf_counter()
     tmp = Path(tempfile.mkdtemp(prefix="grove_infer_"))
     try:
-        launches = _infer_full(torch, gpu, _infer_sets(
+        launches, model = _infer_full(torch, gpu, _infer_sets(
             str(tmp / "sets"), INFER_SETS), tmp)
         torch.cuda.empty_cache()
         _infer_small(torch, gpu, _infer_sets(str(tmp / "small_sets"),
@@ -6016,7 +6039,7 @@ def phase_infer(torch, gpu):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     say(10, f"phase 10 took {time.perf_counter() - t_phase:.1f} s")
-    return launches
+    return launches, model
 
 
 def _infer_full(torch, gpu, sets, tmp):
@@ -6024,7 +6047,8 @@ def _infer_full(torch, gpu, sets, tmp):
     `infer.drivers.main`, then iground with the int8 cache; the launches
     each run makes equal `_infer_launches` of its recorded stage calls;
     iground's prefetched outputs bit-equal to inline `infer_clips_batched`
-    calls on the same groups; each pickle scored by the evals."""
+    calls on the same groups; each pickle scored by the evals. Returns
+    (launches by run, the model)."""
     from grove_tpu_torch.infer import drivers
     build, built = drivers.build_model, {}
 
@@ -6077,8 +6101,7 @@ def _infer_full(torch, gpu, sets, tmp):
         if label == "iground":
             _infer_inline(torch, gpu, spy.model, spy.cfg, sets, preds)
         _infer_eval(task, sets, path, gpu)
-    del built
-    return out
+    return out, built["model"]
 
 
 def _infer_inline(torch, gpu, model, cfg, sets, preds):
@@ -6212,6 +6235,297 @@ def _infer_experiment(torch, gpu, tmp):
             f"{time.perf_counter() - t0:.1f} s on {gpu}")
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the region encoder, RoIAlign and the SAM mask path
+# ---------------------------------------------------------------------------
+
+REGION_FRAMES = 8
+# normalized xyxy and frame of each RoI: the last but one straddles the
+# image's right edge, the last lies partly outside the [-1, size] band of
+# every level (224 / stride is 2/3 of each level's grid)
+REGION_ROIS = (((0.10, 0.10, 0.45, 0.50), 0), ((0.30, 0.20, 0.90, 0.70), 1),
+               ((0.05, 0.55, 0.40, 0.95), 2), ((0.50, 0.05, 0.95, 0.35), 3),
+               ((0.20, 0.30, 0.60, 0.80), 4), ((0.60, 0.50, 0.98, 0.92), 5),
+               ((0.85, 0.60, 1.10, 0.95), 6), ((1.30, -0.20, 1.70, 0.30), 7))
+REGION_QUESTION = ("how do " + " and ".join(["<bbox>"] * len(REGION_ROIS))
+                   + " move in the video")
+# one CLIP call (K3 a layer), one SAM call (K1 28, K2 4) and one cache-free
+# LLaMA pass at S a multiple of 64 (K4 32), as phase 10's `_infer_launches`
+REGION_LAUNCHES = {"grouped_plain_attention_tc": 24,
+                   "sam_window_attention_tc": 28,
+                   "sam_global_attention_tc": 4, "flash_forward_lse_tc": 32}
+ROI_CARD_TOL = 1e-5      # fp32 roi_align card vs CPU, of max-abs
+# the small() fp32 prompt mixes of `segment`
+REGION_MIXES = (("points",), ("boxes",), ("points", "boxes"),
+                ("points", "masks"), ("boxes", "masks"),
+                ("points", "boxes", "masks"))
+
+
+def _event_ms(torch, fn):
+    """fn() and its CUDA-event time in ms."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _region_rois(torch, device):
+    rois = torch.tensor([r for r, _ in REGION_ROIS], dtype=torch.float32,
+                        device=device)
+    return rois, torch.tensor([f for _, f in REGION_ROIS], device=device)
+
+
+def _mask_prompts(torch, cfg, n, kinds, seed, device):
+    """Seeded SAM prompts for n instances: two points (one positive, one
+    negative), a box, a low-resolution mask input (N, 4g, 4g, 1)."""
+    rng = np.random.default_rng(seed)
+    size = cfg.sam_dec.input_image_size
+    g4 = 4 * cfg.sam_dec.image_embedding_size
+    out = {}
+    if "points" in kinds:
+        out["points"] = rng.uniform(0, size, (n, 2, 2))
+        out["point_labels"] = np.tile(np.array([[1, 0]]), (n, 1))
+    if "boxes" in kinds:
+        lo = rng.uniform(0, size / 2, (n, 2))
+        out["boxes"] = np.concatenate(
+            [lo, lo + rng.uniform(size / 8, size / 2, (n, 2))], 1)
+    if "masks" in kinds:
+        out["mask_inputs"] = rng.normal(size=(n, g4, g4, 1))
+    return {k: torch.from_numpy(v.astype(np.int64 if k == "point_labels"
+                                         else np.float32)).to(device)
+            for k, v in out.items()}
+
+
+def _finite(torch, what, t, shape):
+    if tuple(t.shape) != tuple(shape) or not bool(torch.isfinite(t).all()):
+        raise PhaseError(f"region path: {what} {tuple(t.shape)} (want "
+                         f"{tuple(shape)}) or not finite")
+
+
+def phase_region(torch, gpu, model):
+    """The region encoder and the SAM mask path: at full width on phase
+    10's bf16 model, then GroveConfig.small() fp32 card vs CPU. Returns the
+    full-width path's launches by kernel."""
+    t_phase = time.perf_counter()
+    launches = _region_full(torch, gpu, model)
+    del model
+    torch.cuda.empty_cache()
+    _region_small(torch, gpu)
+    say(11, f"phase 11 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def _region_full(torch, gpu, model):
+    from grove_tpu_torch import _kernels
+    from grove_tpu_torch.data.preprocess import preprocess_frames_uint8
+    from grove_tpu_torch.data.video import SyntheticVideo
+    from grove_tpu_torch.infer.sliding import center_prompts
+    from grove_tpu_torch.ops.roi_align import roi_align
+    from grove_tpu_torch.text.mock_tokenizer import MockTokenizer
+    cfg = model.cfg
+    d, g = cfg.llama.hidden_size, cfg.sam_dec.image_embedding_size
+    # the model's special ids come from the tokenizer it was made with
+    # (phase 10's `infer.drivers.main`: a MockTokenizer whose extra
+    # tokens start at vid_start)
+    tok = MockTokenizer(base_vocab_size=cfg.tokens.vid_start)
+    if tok.token_id("<bbox>") != cfg.tokens.bbox:
+        raise PhaseError(f"<bbox> is {tok.token_id('<bbox>')} in the "
+                         f"tokenizer, {cfg.tokens.bbox} in the model")
+    video = SyntheticVideo(num_frames=REGION_FRAMES, width=640, height=360,
+                           seed=21)
+    fc, fs, valid = preprocess_frames_uint8(
+        video.decode_at(np.arange(REGION_FRAMES) / video.fps),
+        cfg.clip.image_size, cfg.sam_enc.img_size)
+    fc, fs = (torch.from_numpy(f[None]).to("cuda") for f in (fc, fs))
+    valid = torch.from_numpy(valid[None]).to("cuda")
+    rois, bidx = _region_rois(torch, "cuda")
+    ids, starts, _ = center_prompts(cfg, tok, [REGION_QUESTION])
+    bbox_at = np.nonzero(ids[0] == cfg.tokens.bbox)[0]
+    if len(bbox_at) != len(REGION_ROIS):
+        raise PhaseError(f"region prompt holds {len(bbox_at)} <bbox>")
+    s = -(-ids.shape[1] // 64) * 64             # K4's route: S % 64 == 0
+    ids = torch.from_numpy(np.pad(ids, ((0, 0), (0, s - ids.shape[1])),
+                                  constant_values=tok.pad_token_id))
+    ids = ids.to("cuda")
+    n = REGION_FRAMES
+    prompts = _mask_prompts(torch, cfg, n, ("points", "boxes"), 22, "cuda")
+    pos = torch.arange(s, device="cuda")[None]
+
+    @torch.inference_mode()
+    def run():
+        """The path once -> (outputs, CUDA-event ms by stage)."""
+        ms, out = {}, {}
+
+        def stage(label, fn):
+            out[label], ms[label] = _event_ms(torch, fn)
+            return out[label]
+
+        emb, mlvl = stage("encode_video", lambda: model.encode_video(fc))
+        queries = stage("encode_regions", lambda: model.encode_regions(
+            mlvl, rois, bidx))
+        x = stage("splice (video, regions)", lambda: model.splice_regions(
+            model._splice(ids, emb, starts), ids, queries[None]))
+        stage("LLaMA + lm_head", lambda: model.lm_head(model.model(x, pos)))
+        img = stage("encode_grounding", lambda: model.encode_grounding(
+            fs, valid))
+        for multi in (False, True):
+            stage(f"segment points + boxes{', multimask' * multi}",
+                  lambda: model.segment(img, multimask_output=multi,
+                                        **prompts))
+        low_res = out["segment points + boxes"][0].permute(0, 2, 3, 1)
+        for multi in (False, True):
+            stage(f"segment points + mask input{', multimask' * multi}",
+                  lambda: model.segment(
+                      img, points=prompts["points"],
+                      point_labels=prompts["point_labels"],
+                      mask_inputs=low_res, multimask_output=multi))
+        return out, ms
+
+    _, cold = run()                     # the process's first region call
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launch_counts()
+    out, ms = run()
+    launches = {k: v.launches for k, v in _kernels.KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    mlvl, queries = out["encode_video"][1], out["encode_regions"]
+    x, logits = out["splice (video, regions)"], out["LLaMA + lm_head"]
+    img = out["encode_grounding"]
+    out = {k: v for k, v in out.items() if k.startswith("segment")}
+
+    got = {k: v for k, v in launches.items() if v}
+    if got != REGION_LAUNCHES:
+        raise PhaseError(f"region path launches {got}, not "
+                         f"{REGION_LAUNCHES}")
+    _finite(torch, "encode_regions", queries, (n, d))
+    _finite(torch, "logits", logits, (1, s, cfg.llama.padded_vocab_size))
+    _finite(torch, "encode_grounding", img, (n, g * g, cfg.sam_dec.embed_dim))
+    if not torch.equal(x[0, bbox_at], queries.to(x.dtype)):
+        raise PhaseError("splice_regions: the <bbox> rows are not the "
+                         "region queries")
+    for label, (masks, iou) in out.items():
+        m = 3 if "multimask" in label else 1
+        _finite(torch, f"{label} masks", masks, (n, m, 4 * g, 4 * g))
+        _finite(torch, f"{label} iou", iou, (n, m))
+    if torch.equal(out["segment points + mask input"][0],
+                   out["segment points + boxes"][0]):
+        raise PhaseError("segment: the mask input changed nothing")
+    say(11, f"GroveConfig() bf16 region + mask path ({n} SyntheticVideo "
+            f"frames, {len(REGION_ROIS)} RoIs, a prompt of S = {s} with "
+            f"{len(bbox_at)} <bbox>), the second run: CUDA-event ms "
+            + ", ".join(f"{k} {v:.2f}" for k, v in ms.items())
+            + " (the first run: "
+            + ", ".join(f"{v:.2f}" for v in cold.values())
+            + f"); peak {peak / 2**30:.2f} GiB (weights "
+            f"{_model_bytes(model) / 2**30:.2f}); launches {got} (= "
+            f"REGION_LAUNCHES); queries max-abs "
+            f"{float(queries.float().abs().max()):.3e} on {gpu}")
+
+    # roi_align on the card against the CPU, fp32, on level 1's grid
+    with torch.inference_mode():
+        b, p, c = mlvl[1].shape
+        gl = math.isqrt(p)
+        feat = torch.nn.functional.interpolate(
+            mlvl[1].float().reshape(b, gl, gl, c).permute(0, 3, 1, 2),
+            size=(4 * gl, 4 * gl), mode="bilinear", align_corners=True)
+        feat = feat.permute(0, 2, 3, 1).contiguous()
+        rois5 = torch.cat([bidx[:, None].float(), rois * 224.0], 1)
+        card, t = _event_ms(torch, lambda: roi_align(feat, rois5, 14,
+                                                     1 / 3.5))
+        host = roi_align(feat.cpu(), rois5.cpu(), 14, 1 / 3.5)
+    err = float((card.cpu() - host).abs().max() / host.abs().max())
+    say(11, f"roi_align fp32 on level 1 {tuple(feat.shape)}, "
+            f"{len(REGION_ROIS)} RoIs: card vs CPU {err:.2e} of max-abs "
+            f"(limit {ROI_CARD_TOL}), {t:.3f} ms on the card")
+    if not err <= ROI_CARD_TOL:
+        raise PhaseError(f"roi_align card vs CPU {err:.2e} > {ROI_CARD_TOL}")
+    return launches
+
+
+def _region_small(torch, gpu):
+    """GroveConfig.small() in fp32 (TF32 off), one set of weights on the
+    CPU and its copy on the card, fed the same inputs: encode_regions,
+    splice_regions (bit-equal), segment with every prompt mix and
+    predict_masks with a text prompt, single-mask and multimask, each
+    within PARITY_TOL of the CPU's max-abs."""
+    from grove_tpu_torch.config import GroveConfig
+    from grove_tpu_torch.models.grove import init_grove_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = GroveConfig.small()
+    cpu = init_grove_params(cfg, device="cpu", dtype=torch.float32,
+                            seed=8).eval()
+    card = copy.deepcopy(cpu).to("cuda")
+    clip = _synthetic_clips(cfg, 1, cfg.num_frames, seed=23)[0]
+    rng = np.random.default_rng(24)
+    n = cfg.num_frames
+    with torch.inference_mode():
+        _, mlvl = cpu.encode_video(torch.from_numpy(clip["frames_clip"][None]))
+        img = cpu.encode_grounding(torch.from_numpy(clip["frames_sam"][None]))
+    ids = torch.from_numpy(rng.integers(3, 1000, (2, 40)))
+    ids[0, [3, 9, 17]] = cfg.tokens.bbox
+    ids[1, [5, 6, 7, 30]] = cfg.tokens.bbox             # more than rows
+    embeds = torch.from_numpy(rng.normal(
+        size=(2, 40, cfg.llama.hidden_size)).astype(np.float32))
+    text = torch.from_numpy(rng.normal(size=(n, 1, cfg.out_dim)).astype(
+        np.float32))
+    worst = {}
+
+    def both(label, fn, exact=False):
+        outs = []
+        for model, dev in ((card, "cuda"), (cpu, "cpu")):
+            with torch.inference_mode():
+                got = fn(model, dev)
+            outs.append([t.cpu() for t in (got if isinstance(got, tuple)
+                                           else (got,))])
+        for g, c in zip(*outs):
+            if g.shape != c.shape or not bool(torch.isfinite(g).all()):
+                raise PhaseError(f"small() fp32 {label}: {tuple(g.shape)} "
+                                 f"vs {tuple(c.shape)}, or not finite")
+            if exact:
+                if not torch.equal(g, c):
+                    raise PhaseError(f"small() fp32 {label}: not equal")
+                continue
+            rel = float((g - c).abs().max() / c.abs().max())
+            worst[label] = max(worst.get(label, 0.0), rel)
+            if not rel <= PARITY_TOL:
+                raise PhaseError(f"small() fp32 {label} card vs CPU "
+                                 f"{rel:.2e} > {PARITY_TOL} of max-abs")
+
+    def regions(model, dev):
+        rois, bidx = _region_rois(torch, dev)
+        return model.encode_regions([m.to(dev) for m in mlvl], rois, bidx)
+
+    both("encode_regions", regions)
+    with torch.inference_mode():
+        q = regions(cpu, "cpu")[None].expand(2, -1, -1)[:, :2]
+    both("splice_regions", lambda m, dev: m.splice_regions(
+        embeds.to(dev), ids.to(dev), q.to(dev)), exact=True)
+    for mix in REGION_MIXES:
+        for multi in (False, True):
+            kw = _mask_prompts(torch, cfg, n, mix, 25, "cpu")
+            both(f"segment {'+'.join(mix)}", lambda m, dev: m.segment(
+                img.to(dev), multimask_output=multi,
+                **{k: v.to(dev) for k, v in kw.items()}))
+
+    def masks(model, dev, multi):
+        sam = model.model.grounding_encoder
+        sparse, dense = sam.prompt_encoder(text_embeds=text.to(dev))
+        return sam.mask_decoder.predict_masks(
+            img.to(dev), model.dense_pe(), sparse, dense,
+            multimask_output=multi)
+
+    for multi in (False, True):
+        both("predict_masks text", lambda m, dev: masks(m, dev, multi))
+    say(11, "GroveConfig.small() fp32 card vs CPU on the same inputs, of "
+            "max-abs (limit " + f"{PARITY_TOL}): "
+            + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+            + "; splice_regions bit-equal; segment and predict_masks "
+            f"single-mask and multimask on {gpu}")
+
+
 def main() -> int:
     compiles = {}
     try:
@@ -6235,7 +6549,9 @@ def main() -> int:
         phase_loader(torch, gpu)
         phase_driver(torch, gpu)
         serve_launches = phase_serve(torch, gpu, decoder)
-        infer_launches = phase_infer(torch, gpu)
+        infer_launches, full = phase_infer(torch, gpu)
+        region_launches = phase_region(torch, gpu, full)
+        del full
     except Exception:                       # report, then fail the run
         traceback.print_exc()
         print("chip_smoke FAILED", file=sys.stderr, flush=True)
@@ -6250,7 +6566,8 @@ def main() -> int:
                "replaces": k.replaces, "launches": launches[name],
                "serve_launches": serve_launches[name],
                "infer_launches": {task: got.get(name, 0)
-                                  for task, got in infer_launches.items()}}
+                                  for task, got in infer_launches.items()},
+               "region_launches": region_launches[name]}
         row.update(rows[name])
         kernels.append(row)
     print(json.dumps({"kernels": kernels, "decoder": decoder}), flush=True)

@@ -52,8 +52,9 @@ def beam_decode(model: GroveModel, spliced_ids, video_embeds, video_start,
     `early_exit` stops once every beam of every clip has recorded its EOS
     (identical results). Returns (best_ids (B, max_new), hidden (B,
     Ls+max_new, D), beam scores (B, K) length-normalized). With
-    num_beams=1 the ids equal `greedy_decode`'s."""
-    cache_dtype = cache_dtype or model.dtype
+    num_beams=1 the ids equal `greedy_decode`'s. The cache is bf16 when
+    `cache_dtype` is None, as the JAX default (`beam.py:164`)."""
+    cache_dtype = cache_dtype or torch.bfloat16
     if cache_dtype == torch.int8:
         raise ValueError("beam search needs a reorderable KV cache; "
                          "use bf16/fp32 (int8's transposed layout would "

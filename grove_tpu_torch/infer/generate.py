@@ -2,7 +2,9 @@
 
 Counterpart of `grove_tpu/infer/generate.py` (reference `evaluate()`,
 `model/GROVE.py:412-451`): prefill, then a Python decode loop over the KV
-cache (bf16 by default, `cache_dtype=torch.int8` for the quantized one) that
+cache (bf16 when `cache_dtype` is None, whatever the model's dtype, as the
+JAX defaults `cache_dtype=jnp.bfloat16` (`generate.py:144,204`);
+`cache_dtype=torch.int8` for the quantized one) that
 keeps every step's post-norm hidden state in a (B, max_new, D)
 buffer for the [DET] gather, and freezes each sequence after its EOS,
 exactly as `_decode_fn` (`generate.py:60-139`). With `early_exit` the loop
@@ -123,7 +125,7 @@ def greedy_decode(model: GroveModel, spliced_ids, video_embeds, video_start,
     b, ls = ids.shape
     d = model.cfg.llama.hidden_size
     caches = init_kv_caches(model.cfg.llama, b, ls + max_new_tokens,
-                            dtype=cache_dtype or model.dtype, device=dev)
+                            dtype=cache_dtype or torch.bfloat16, device=dev)
     prefill_hidden, logits, caches = model.prefill(
         ids, video_embeds, video_start, caches, pad_lens)
     tok = pick(logits[:, -1, :], 0)

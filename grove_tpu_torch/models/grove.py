@@ -14,6 +14,12 @@ reference torch names (`model.*`, `lm_head.*`):
                       two-way transformer -> box/objectness heads
   forward_boxes       teacher-forced boxes for the sliding windows
   forward_train       the loss dict of one batch (`ops.losses`)
+  encode_regions      `<bbox>` region queries from the CLIP levels
+                      (`models.region`); `splice_regions` writes them at
+                      the `<bbox>` tokens
+  segment             SAM-style promptable masks: points, boxes and a mask
+                      input through the prompt encoder, then the legacy
+                      mask path (`GroveBoxDecoder.predict_masks`)
 
 Static-shape contract as in the JAX package:
   frames_clip  (B, T, Hc, Wc, 3) uint8 at the CLIP size, or normalized
@@ -24,8 +30,6 @@ Static-shape contract as in the JAX package:
 Frames may also arrive raw (uint8 at the source size) or as packed YUV420P
 (B, T, 3H/2, W): `_norm_clip` / `_norm_sam` then convert and resize on the
 device as the JAX package does with `jax.image.resize` (`_resize_weights`).
-Not ported yet (they raise): the region encoder and the legacy SAM mask
-path.
 """
 
 from __future__ import annotations
@@ -280,8 +284,26 @@ class GroveModel(nn.Module):
         return self.model.grounding_encoder.prompt_encoder.get_dense_pe()
 
     def encode_regions(self, mlvl_feats, rois_norm, roi_batch_idx):
+        """`<bbox>`-prompt region queries (`grove.py:212-218`, reference
+        `llava_with_region_arch.py:114-125`). mlvl_feats: the CLIP levels
+        of `encode_video`; rois_norm (N, 4) normalized xyxy;
+        roi_batch_idx (N,) frame of each RoI. Returns (N, D)."""
         return self.model.region_encoder(mlvl_feats, rois_norm,
                                          roi_batch_idx)
+
+    def splice_regions(self, embeds, input_ids, region_embeds):
+        """Token embeddings (B, L, D) with the k-th `<bbox>` token of row b
+        replaced by region_embeds[b, k] (B, R, D), k clamped to R - 1
+        (`grove.py:220-239`, reference `llava_with_region_arch.py:
+        333-347`)."""
+        ids = torch.as_tensor(input_ids, device=embeds.device)
+        is_bbox = ids == self.cfg.tokens.bbox
+        occ = (torch.cumsum(is_bbox.long(), dim=1) - 1).clamp(
+            0, region_embeds.shape[1] - 1)
+        gathered = torch.gather(region_embeds, 1, occ[..., None].expand(
+            -1, -1, region_embeds.shape[-1]))
+        return torch.where(is_bbox[..., None], gathered.to(embeds.dtype),
+                           embeds)
 
     # ------------------------------------------------------------------
     # language model
@@ -369,6 +391,22 @@ class GroveModel(nn.Module):
         if obj is not None:
             obj = obj.reshape(b, t, p)
         return boxes, obj
+
+    def segment(self, image_embeddings, *, points=None, point_labels=None,
+                boxes=None, mask_inputs=None, multimask_output=False):
+        """SAM-style promptable segmentation (`grove.py:370-386`, the
+        reference's legacy mask path). image_embeddings (N, HW, C) from
+        `encode_grounding`, one prompt per row: points (N, K, 2) pixel xy
+        with point_labels (N, K), boxes (N, 4) xyxy pixels, mask_inputs
+        (N, 4g, 4g, 1). Returns (masks (N, M, 4g, 4g) logits, iou
+        predictions (N, M)), M = 3 with `multimask_output`, else 1."""
+        sam = self.model.grounding_encoder
+        sparse, dense = sam.prompt_encoder(
+            points=points, point_labels=point_labels, boxes=boxes,
+            masks=mask_inputs)
+        return sam.mask_decoder.predict_masks(
+            image_embeddings, self.dense_pe(), sparse, dense,
+            multimask_output=multimask_output)
 
     def forward_boxes(self, batch: Dict[str, torch.Tensor]):
         """Teacher-forced boxes + objectness logits (reference

@@ -5,11 +5,17 @@ tree (`model.grounding_encoder.{prompt_encoder,mask_decoder}.*`). Every
 (frame, phrase) pair is one decoder instance whose token sequence is
 [iou_token, 4 mask_tokens, text_embed] (`mask_decoder.py:164-199`).
 
-Ported: the text-prompt path of `PromptEncoder` with its dense PE, the
-`TwoWayTransformer`, and `GroveBoxDecoder.forward` (box + objectness heads).
-The legacy SAM mask path (point/box/mask prompts, `predict_masks`) declares
-its parameters so a strict load works; its forward raises until it is
-ported (ROADMAP Queue 1 item 7).
+`PromptEncoder` embeds any mix of text, points, boxes and a mask input;
+`GroveBoxDecoder.forward` runs the box + objectness heads (the GROVE
+path) and `predict_masks` the legacy SAM mask path (upscaling,
+hypernetwork MLPs, IoU head), which `GroveModel.segment` drives.
+
+The mask path's two `ConvTranspose2d` keep torch's semantics on the
+reference's (in, out, kh, kw) weights, so a reference checkpoint computes
+as the reference does. The JAX package loads those weights with a plain
+transpose into flax's `nn.ConvTranspose`, which does not flip the kernel
+(`torch_convert.py:43-45`): its masks equal the port's only with the 2x2
+kernels flipped in both spatial axes (a JAX fault, ROADMAP).
 
 LayerNorms use eps = 1e-6, the flax default the JAX package runs with
 (the reference's torch modules use 1e-5).
@@ -28,8 +34,6 @@ from ..config import SamDecoderConfig
 from .layers import MLP, LayerNorm2d, MLPBlock
 
 _LN_EPS = 1e-6
-_MASK_PATH = ("the legacy SAM mask path (point/box/mask prompts, "
-              "predict_masks) is not ported yet (ROADMAP Queue 1 item 7)")
 
 
 class PositionEmbeddingRandom(nn.Module):
@@ -78,17 +82,70 @@ class PromptEncoder(nn.Module):
         g = self.cfg.image_embedding_size
         return self.pe_layer.grid_pe((g, g))            # (g, g, C) fp32
 
+    def embed_points(self, points, labels, pad: bool = True):
+        """points (N, K, 2) pixel xy; labels (N, K) in {-1, 0, 1}
+        (`sam_decoder.py:86-103`): shifted to pixel centres, a
+        not-a-point appended when `pad` (no box follows), label -1 takes
+        the not-a-point embedding in place of its PE, 0 and 1 add the
+        negative and positive embeddings. Returns (N, K (+1), C) fp32."""
+        dev = self.no_mask_embed.weight.device
+        points = torch.as_tensor(points, device=dev).float() + 0.5
+        labels = torch.as_tensor(labels, device=dev)
+        if pad:
+            points = torch.cat([points, torch.zeros_like(points[:, :1])], 1)
+            labels = torch.cat([labels, -torch.ones_like(labels[:, :1])], 1)
+        pe = self.pe_layer(points / self.cfg.input_image_size)
+        lab = labels[..., None]
+        emb = [e.weight[0].float() for e in self.point_embeddings]
+        zero = torch.zeros((), device=dev)
+        pe = torch.where(lab == -1, self.not_a_point_embed.weight[0].float(),
+                         pe)
+        pe = pe + torch.where(lab == 0, emb[0], zero)
+        return pe + torch.where(lab == 1, emb[1], zero)
+
+    def embed_boxes(self, boxes):
+        """boxes (N, 4) xyxy pixels -> (N, 2, C) fp32 corner embeddings
+        (`sam_decoder.py:105-112`)."""
+        dev = self.no_mask_embed.weight.device
+        boxes = torch.as_tensor(boxes, device=dev).float()
+        coords = (boxes + 0.5).reshape(-1, 2, 2) / self.cfg.input_image_size
+        corners = torch.stack([self.point_embeddings[2].weight[0],
+                               self.point_embeddings[3].weight[0]]).float()
+        return self.pe_layer(coords) + corners
+
+    def embed_masks(self, masks):
+        """(N, 4g, 4g, 1) mask inputs -> (N, g, g, C) dense embeddings
+        (`sam_decoder.py:114-120`: 2x2 stride-2 convs, LayerNorm2d and
+        exact GELU, then a 1x1 conv)."""
+        w = self.no_mask_embed.weight
+        x = torch.as_tensor(masks, device=w.device).to(w.dtype)
+        return self.mask_downscaling(x.permute(0, 3, 1, 2)).permute(
+            0, 2, 3, 1)
+
     def forward(self, text_embeds=None, points=None, point_labels=None,
                 boxes=None, masks=None):
-        """GROVE text path: (sparse = text_embeds (N, 1, C), dense = the
-        no-mask embedding over the grid (g, g, C)), both in the model
-        dtype."""
-        if points is not None or boxes is not None or masks is not None:
-            raise NotImplementedError(_MASK_PATH)
+        """Any mix of prompts (`sam_decoder.py:122-147`) -> (sparse (N, K,
+        C): points, then box corners, then text; dense: the mask input's
+        embedding (N, g, g, C), or the no-mask embedding over the grid (g,
+        g, C)), both in the model dtype. The GROVE path passes only
+        `text_embeds` (N, 1, C)."""
         w = self.no_mask_embed.weight
+        parts = []
+        if points is not None:
+            parts.append(self.embed_points(points, point_labels,
+                                           pad=boxes is None))
+        if boxes is not None:
+            parts.append(self.embed_boxes(boxes))
+        if text_embeds is not None:
+            parts.append(text_embeds.float())
+        if not parts:
+            raise ValueError("a prompt needs text, points or boxes (the "
+                             "JAX package has no mask-only prompt)")
+        sparse = torch.cat(parts, dim=1).to(w.dtype)
+        if masks is not None:
+            return sparse, self.embed_masks(masks)
         g = self.cfg.image_embedding_size
-        dense = w[0].expand(g, g, self.cfg.embed_dim)
-        return text_embeds.to(w.dtype), dense
+        return sparse, w[0].expand(g, g, self.cfg.embed_dim)
 
 
 class DownsampleAttention(nn.Module):
@@ -194,7 +251,7 @@ class GroveBoxDecoder(nn.Module):
             nn.Linear(c, c, **f), nn.ReLU(), nn.Linear(c, 4, **f))
         if cfg.use_temp_objectness:
             self.temporal_objectness_head = nn.Linear(c, 1, **f)
-        # legacy mask path (`mask_decoder.py:57-77`): parameters only
+        # legacy mask path (`mask_decoder.py:57-77`)
         self.output_upscaling = nn.Sequential(
             nn.ConvTranspose2d(c, c // 4, 2, stride=2, **f),
             LayerNorm2d(c // 4, **f), nn.GELU(),
@@ -205,11 +262,11 @@ class GroveBoxDecoder(nn.Module):
                                        cfg.num_mask_tokens,
                                        cfg.iou_head_depth, **f)
 
-    def forward(self, image_embeddings, image_pe, sparse_embeddings,
-                dense_embeddings):
-        """image_embeddings (N, HW, C) per instance; image_pe (g, g, C);
-        sparse (N, 1, C); dense (g, g, C). Returns (boxes (N, 4) sigmoid
-        cxcywh, objectness logits (N,) or None)."""
+    def _run_transformer(self, image_embeddings, image_pe,
+                         sparse_embeddings, dense_embeddings):
+        """Tokens [iou, mask tokens, sparse] against the image embeddings
+        plus the dense embeddings (one grid for all, or one per instance)
+        -> (hs (N, T, C), keys (N, HW, C))."""
         cfg = self.cfg
         dt = image_embeddings.dtype
         n = sparse_embeddings.shape[0]
@@ -218,10 +275,19 @@ class GroveBoxDecoder(nn.Module):
         out_tokens = out_tokens.to(dt)[None].expand(n, -1, -1)
         tokens = torch.cat([out_tokens, sparse_embeddings.to(dt)], dim=1)
         hw = image_embeddings.shape[1]
-        src = image_embeddings + dense_embeddings.reshape(1, hw,
+        src = image_embeddings + dense_embeddings.reshape(-1, hw,
                                                           cfg.embed_dim)
         pos = image_pe.reshape(1, hw, cfg.embed_dim).to(dt).expand_as(src)
-        hs, _ = self.transformer(src, pos, tokens)
+        return self.transformer(src, pos, tokens)
+
+    def forward(self, image_embeddings, image_pe, sparse_embeddings,
+                dense_embeddings):
+        """image_embeddings (N, HW, C) per instance; image_pe (g, g, C);
+        sparse (N, 1, C); dense (g, g, C). Returns (boxes (N, 4) sigmoid
+        cxcywh, objectness logits (N,) or None)."""
+        cfg = self.cfg
+        hs, _ = self._run_transformer(image_embeddings, image_pe,
+                                      sparse_embeddings, dense_embeddings)
         query_out = hs[:, 1 + cfg.num_mask_tokens:, :]   # (N, 1, C)
         boxes = torch.sigmoid(self.bbox_prediction_head(query_out))[:, 0, :]
         obj = None
@@ -229,5 +295,25 @@ class GroveBoxDecoder(nn.Module):
             obj = self.temporal_objectness_head(query_out)[:, 0, 0]
         return boxes, obj
 
-    def predict_masks(self, *args, **kwargs):
-        raise NotImplementedError(_MASK_PATH)
+    def predict_masks(self, image_embeddings, image_pe, sparse_embeddings,
+                      dense_embeddings, multimask_output: bool = False):
+        """Legacy SAM mask outputs (`sam_decoder.py:330-354`): the attended
+        image embedding upscaled 4x (ConvTranspose2d, LayerNorm2d, GELU,
+        ConvTranspose2d, GELU; exact GELU), dotted with the mask tokens'
+        hypernetwork MLPs, and the IoU head on the iou token. Arguments as
+        `forward`'s, dense also (N, g, g, C). Returns (masks (N, 1 or 3,
+        4g, 4g) logits, iou predictions (N, 1 or 3)): the first mask
+        token, or with `multimask_output` the other three."""
+        cfg = self.cfg
+        g, m = cfg.image_embedding_size, cfg.num_mask_tokens
+        hs, keys = self._run_transformer(image_embeddings, image_pe,
+                                         sparse_embeddings, dense_embeddings)
+        src = keys.reshape(-1, g, g, cfg.embed_dim).permute(0, 3, 1, 2)
+        up = self.output_upscaling(src)                  # (N, C/8, 4g, 4g)
+        hyper_in = torch.stack([mlp(hs[:, 1 + i])
+                                for i, mlp in enumerate(
+                                    self.output_hypernetworks_mlps)], dim=1)
+        masks = torch.einsum("nmc,nchw->nmhw", hyper_in, up)
+        iou = self.iou_prediction_head(hs[:, 0])
+        keep = slice(1, m) if multimask_output else slice(0, 1)
+        return masks[:, keep], iou[:, keep]

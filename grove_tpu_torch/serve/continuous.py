@@ -70,7 +70,9 @@ class ContinuousEngine:
         self.n_slots = n_slots
         self.max_new = max_new_tokens
         self.bucket = prompt_bucket
-        self.cache_dtype = cache_dtype or model.dtype
+        # bf16 when None, whatever the model's dtype, as JAX's default
+        # (`continuous.py:71`)
+        self.cache_dtype = cache_dtype or torch.bfloat16
         # room for the longest prompt plus a decode horizon of several
         # request generations before a rewind
         self.capacity = capacity or (cfg.spliced_seq_len

@@ -102,8 +102,10 @@ def _datasets(task, sets, jcfg, tcfg):
                                        secs_key=secs))
 
 
-def _run(task, models, sets, clip_batch=4, timing=None):
-    """The task's run_* function of each package -> (JAX, port)."""
+def _run(task, models, sets, clip_batch=4, timing=None, main_kwargs=True):
+    """The task's run_* function of each package -> (JAX, port); iground
+    with `main_kwargs=False` passes no decode kwargs (each function's
+    default cache dtype)."""
     cfg, jmodel, variables, tmodel = models
     tok = MockTokenizer()
     jds, tds = _datasets(task, sets, cfg, tmodel.cfg)
@@ -111,14 +113,15 @@ def _run(task, models, sets, clip_batch=4, timing=None):
     tkw = dict(progress=False)
     if task == "iground":
         jt, tt = (timing or ([], []))
+        jdk, tdk = ((jax_decode_kwargs(None, True),
+                     port_decode_kwargs(None, True)) if main_kwargs
+                    else (None, None))
         return (jd.run_inference(jds, jmodel, variables, cfg, tok,
                                  max_new_tokens=NEW, clip_batch=clip_batch,
-                                 decode_kwargs=jax_decode_kwargs(None, True),
-                                 timing=jt, **jkw),
+                                 decode_kwargs=jdk, timing=jt, **jkw),
                 td.run_inference(tds, tmodel, tmodel.cfg, tok,
                                  max_new_tokens=NEW, clip_batch=clip_batch,
-                                 decode_kwargs=port_decode_kwargs(None, True),
-                                 timing=tt, **tkw))
+                                 decode_kwargs=tdk, timing=tt, **tkw))
     if task == "anet":
         return (jd.run_anet_inference(
                     jds, jmodel, variables, cfg, tok, max_new_tokens=NEW,
@@ -235,6 +238,21 @@ def test_run_inference_matches(clip_batch, models, sets):
         assert list(tt) == list(jt) == ["wait_s", "load_s", "upload_s",
                                         "model_s"]
         assert all(v >= 0 for v in tt.values())
+
+
+def test_run_inference_default_cache_dtype_matches(models, sets):
+    """No decode kwargs on either side: the port's default KV cache is
+    bf16, as the JAX package's (`generate.py:204`), so the tiny fp32 model
+    picks the JAX tokens on all 5 clips (a model-dtype cache took other
+    tokens on 2 of them, at a near-tie that the bf16 rounding decides)."""
+    want, got = _run("iground", models, sets, main_kwargs=False)
+    cfg, _, _, tmodel = models
+    assert len(want) == 5
+    for uid in want:
+        assert got[uid]["pred_text"] == want[uid]["pred_text"], uid
+    _assert_outputs_match(got, want, "iground", _sizes(
+        "iground", td.FullClipIGroundDataset(*sets["iground"][:2],
+                                             tmodel.cfg)))
 
 
 @pytest.mark.parametrize("task", ["vidstg", *POINTING])
