@@ -2,6 +2,15 @@
 """Drive the PyTorch / CUDA port (grove_tpu_torch) once on one NVIDIA GPU.
 
     python3 chip_smoke.py        # one card, no arguments
+    python3 chip_smoke.py --phases slice,serve [--tree DIR]
+    python3 chip_smoke.py --phases cards,cards_steps   # on 4 cards
+
+The second form runs phases 0-1 and then only phase 3 (slice) and / or
+9 (serve), from DIR's chip_smoke.py and package (this checkout by
+default), and prints no result line: an A/B of the decode and engine-tick
+times of two checkouts, run in turns in one call. The third runs the
+parallel paths across 4 cards over NCCL (`phase_cards`: the driver;
+`phase_cards_steps`: fp32 steps against the unsharded one, the demo).
 
 Phases, each printing its own line; any failure exits non-zero:
   0  device: requires CUDA (there is no CPU path) and prints the card's
@@ -382,7 +391,27 @@ Phases, each printing its own line; any failure exits non-zero:
      CLIP levels and SAM embeddings: `encode_regions`, `splice_regions`
      (bit-equal, more <bbox> tokens than rows), `segment` with six prompt
      mixes and `predict_masks` with a text prompt, single-mask and
-     multimask, each within 1e-3 of the CPU's max-abs.
+     multimask, each within 1e-3 of the CPU's max-abs;
+  12 parallel training (`grove_tpu_torch.parallel`): on phase 10's bf16
+     GroveConfig(), a batch of 2 rows at S = 704, one untimed step, then
+     one `train.step.make_pipelined_train_step` step with the LLaMA stack
+     GPipe-scheduled over 2 stages on [cuda:0, cuda:0] in 2 microbatches
+     and one `make_train_step` step, each with a fresh optimizer (lr(0) =
+     0: no weight moves) and every launch count set to 0 just before and
+     read just after: the sequential step must launch phase 5's kernels
+     exactly, the pipelined one the same but K4 and K4b's dq and dkv once
+     a microbatch (2 x 32); their loss terms within 2e-2 relative and
+     every trainable gradient within 2e-2 of its max-abs (or of 1e-3 of
+     the largest); ms and peak memory of each beside phase 5's. Then
+     `train.driver.main --multihost` at small() bf16 (2 steps, validation,
+     a checkpoint of finite tensors) under a world-1 NCCL group from
+     torchrun's environment, set here and restored after; the driver
+     leaves no process group behind. Then two processes on the one card
+     over gloo (`parallel.launch`): the multi-host demo (`--device cuda`,
+     disjoint shards, the same loss on both ranks at every step), and a
+     TP = 2 small() fp32 step (`parallel.workers.train_step`, TF32 off)
+     against the unsharded step here: loss terms within 1e-4 relative,
+     each first-step gradient within 2e-3 of its max-abs.
 Phase 2 also holds the five training kernels (K4b dq and dkv at LLaMA's
 (1, 704, 32, 128) causal; K9's forward with its LSE, dq with d_rh and d_rw,
 and dkv at SAM's windowed (72, 196, 16, 80) and global (8, 1024, 16, 80)
@@ -407,7 +436,8 @@ and `phase2_launches`, the launches of phase 2's checks and timings, and
 (K5's tensor-core entry and K6), and `infer_launches`, those of each of
 phase 10's full-width driver runs by task ("iground_int8": the int8-cache
 run), and `region_launches`, those of phase 11's full-width region and
-mask path; the
+mask path, and `parallel_launches`, those of phase 12's pipelined step;
+the
 tensor-core rows also carry `simt_ms`, the SIMT entry's bf16 time at the
 same shape; the last line is {"ok": true, "device": {...}}.
 """
@@ -589,6 +619,7 @@ SIMT_K1_STEP_MS = {"bf16 S = 704": 519.2, "bf16 S = 2111": 983.6,
 # default freeze policy - 131,100,672 (lm_head, int8 and frozen) +
 # 4,194,304 (LoRA: 32 layers x 2 x (4096 x 8 + 8 x 4096))
 QLORA_R = 8
+PHASE5_STEP = {}         # phase 5's median step ms and peak, for phase 12
 QLORA_TRAINABLE = 581_683_189
 # kernels a QLoRA step must not launch: K5 (the driver's ragged S takes
 # K10), and the int4 decode kernels K7a-K7c (the frozen LLM's backward
@@ -4004,23 +4035,24 @@ def _w4a8_parity(torch, cfg, tok, clip, ap):
 # phases 5 and 6: the training step
 # ---------------------------------------------------------------------------
 
-def _train_batch(cfg, tok, seed):
-    """One `data.collate.build_batch` batch: a synthetic clip of
-    cfg.num_frames uint8 frames, TRAIN_CAPTION with its three phrases, and
-    random boxes (cxcywh) and objectness for every phrase slot."""
+def _train_batch(cfg, tok, seed, n=1):
+    """One `data.collate.build_batch` batch of `n` rows: each a synthetic
+    clip of cfg.num_frames uint8 frames, TRAIN_CAPTION with its three
+    phrases, and random boxes (cxcywh) and objectness for every phrase
+    slot."""
     from grove_tpu_torch.data.collate import build_batch
     rng = np.random.default_rng(seed)
     t, p = cfg.num_frames, cfg.max_phrases
     c, s = cfg.clip.image_size, cfg.sam_enc.img_size
-    sample = {
+    samples = [{
         "frames_clip": rng.integers(0, 256, (t, c, c, 3), np.uint8),
         "frames_sam": rng.integers(0, 256, (t, s, s, 3), np.uint8),
         "caption": TRAIN_CAPTION, "tokens_positive": TRAIN_SPANS,
         "gt_boxes": rng.uniform(0.2, 0.6, (t, p, 4)).astype(np.float32),
         "gt_objectness": (rng.uniform(size=(t, p)) < 0.7).astype(
-            np.float32)}
-    batch, _ = build_batch([sample], tok, cfg, rng)
-    phrases = int(batch["phrase_mask"].sum())
+            np.float32)} for _ in range(n)]
+    batch, _ = build_batch(samples, tok, cfg, rng)
+    phrases = int(batch["phrase_mask"].sum()) // n
     if phrases != len(TRAIN_SPANS):
         raise PhaseError(f"build_batch kept {phrases} of the caption's "
                          f"{len(TRAIN_SPANS)} [DET] tokens in "
@@ -4135,6 +4167,7 @@ def phase_train(torch, gpu):
                    "trainable group: " + ", ".join(
                        f"{k} {v:.3e}" for k, v in norms.items()))
     peak = torch.cuda.max_memory_allocated()
+    PHASE5_STEP.update(ms=statistics.median(times[1:]), peak=peak)
     changed = set(_changed(torch, model, snap))
     frozen = [n for n, p in model.named_parameters()
               if not p.requires_grad and n in changed]
@@ -4784,9 +4817,9 @@ class _DriverSpy:
     def __exit__(self, *exc):
         self._driver.make_train_step = self._real
 
-    def _make(self, model, optimizer):
+    def _make(self, model, optimizer, *mesh):
         from grove_tpu_torch import _kernels
-        torch, inner = self.torch, self._real(model, optimizer)
+        torch, inner = self.torch, self._real(model, optimizer, *mesh)
         self.model, self.opt = model, optimizer
         cuda = model.device.type == "cuda"
 
@@ -6526,6 +6559,316 @@ def _region_small(torch, gpu):
             f"single-mask and multimask on {gpu}")
 
 
+# ---------------------------------------------------------------------------
+# phase 12: parallel training (grove_tpu_torch.parallel)
+# ---------------------------------------------------------------------------
+
+PIPE_STAGES = 2
+PIPE_MICRO = 2
+PIPE_BATCH = 2
+PIPE_KERNELS = ("flash_forward_lse_tc", "flash_backward_dq_tc",
+                "flash_backward_dkv_tc")    # the LLaMA's: once a microbatch
+# small() fp32 TP = 2 step vs the unsharded one: the loss terms within
+# TRAIN_LOSS_REL relative; each first-step gradient within this share of
+# its max-abs (or of TRAIN_GRAD_FLOOR of the largest, as phase 6), the
+# parity suite's 2e-3: the split GEMMs and the all-reduce add in another
+# order, and the SAM adapters' weight gradients, sums that mostly cancel,
+# carry that to 1.1e-3 (measured on an H100 80GB HBM3 at 700 W)
+PARALLEL_TOL = 2e-3
+TP_PROCS = 2
+
+
+def phase_parallel(torch, gpu, model):
+    """Parallel training on the card: (a) on phase 10's full-width bf16
+    model, one GPipe step over 2 stages on [cuda:0, cuda:0] in 2
+    microbatches and one sequential step from the same weights and batch
+    (2 rows, S = 704): loss and every trainable gradient within FULL_TOL,
+    and the launches of each step exact; (b) `train.driver.main
+    --multihost` under a world-1 NCCL group; (c) two processes on the one
+    card over gloo at `small()`: the multi-host demo, and a TP = 2 step
+    against the unsharded step in fp32. Returns the pipelined step's
+    launches by kernel."""
+    t_phase = time.perf_counter()
+    launches = _parallel_pipeline(torch, gpu, model)
+    del model
+    torch.cuda.empty_cache()
+    _parallel_driver(torch, gpu)
+    _parallel_processes(torch, gpu)
+    say(12, f"phase 12 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def _pipe_launches(cfg, s):
+    """The exact launches of the pipelined step: the sequential step's
+    (`_step_launches`), with the LLaMA layers' attention kernels once a
+    microbatch (each microbatch is its own call); the encoders, ground and
+    the losses run once on the whole batch."""
+    want = _step_launches(cfg, s, False)
+    for k in PIPE_KERNELS:
+        want[k] *= PIPE_MICRO
+    return want
+
+
+def _parallel_pipeline(torch, gpu, model):
+    from grove_tpu_torch import _kernels
+    from grove_tpu_torch.parallel.pipeline import (make_pipe_mesh,
+                                                   place_stages)
+    from grove_tpu_torch.text.mock_tokenizer import MockTokenizer
+    from grove_tpu_torch.train.step import (OptimizerConfig, batch_to_device,
+                                            make_optimizer,
+                                            make_pipelined_train_step)
+    cfg = dataclasses.replace(model.cfg, max_seq_len=TRAIN_SEQ)
+    # the model's special ids come from phase 10's tokenizer
+    tok = MockTokenizer(base_vocab_size=model.cfg.tokens.vid_start)
+    batch = batch_to_device(_train_batch(cfg, tok, seed=31, n=PIPE_BATCH),
+                            "cuda")
+    seq = batch["input_ids"].shape[1]
+    if seq != 704:
+        raise PhaseError(f"the training batch has {seq} tokens, not 704")
+    pipe = make_pipe_mesh(PIPE_STAGES, ["cuda:0"] * PIPE_STAGES)
+    place_stages(model.model, pipe)
+    # one untimed step first (a fresh optimizer: lr(0) = 0, no weight
+    # moves), so that neither timed step pays the first call's costs
+    _train_setup(torch, model, warmup_steps=1)[1](batch)
+    runs = {}
+    for name in ("pipelined", "sequential"):
+        # a fresh optimizer each: lr(0) = 0, so neither step moves a weight
+        params, step = _train_setup(torch, model, warmup_steps=1)
+        if name == "pipelined":
+            step = make_pipelined_train_step(
+                model, make_optimizer(params, OptimizerConfig(
+                    warmup_steps=1)), pipe, PIPE_MICRO)
+        _kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        out, ms = _timed(torch, lambda: step(batch))
+        used = {k: v.launches for k, v in _kernels.KERNELS.items()
+                if v.launches}
+        want = (_pipe_launches(cfg, seq) if name == "pipelined"
+                else _step_launches(cfg, seq, False))
+        _check_launches(f"{name} step", want)
+        _check_off_path(f"{name} step")
+        losses = _check_losses(out, f"{name} step")
+        peak = torch.cuda.max_memory_allocated()
+        grads = {n: p.grad.detach().clone() for n, p in params.items()
+                 if p.grad is not None}
+        runs[name] = (losses, grads, used)
+        how = (f" ({PIPE_STAGES} stages on {[str(d) for d in pipe.devices]},"
+               f" {PIPE_MICRO} microbatches)" if name == "pipelined" else "")
+        say(12, f"{name} step{how}: {ms:.1f} ms, peak {peak / 2**30:.2f} "
+                f"GiB (phase 5's step, batch 1: "
+                f"{PHASE5_STEP.get('ms', float('nan')):.1f} ms, "
+                f"{PHASE5_STEP.get('peak', float('nan')) / 2**30:.2f} GiB),"
+                f" batch {PIPE_BATCH} x S = {seq}, losses "
+                + ", ".join(f"{k} {v:.4f}" for k, v in losses.items())
+                + f", launches {used} on {gpu}")
+        PARALLEL_STEP[name] = {"ms": ms, "peak_gib": peak / 2**30}
+        del out, step, params
+    (lp, gp, up), (ls, gs, us) = runs["pipelined"], runs["sequential"]
+    for k, v in ls.items():
+        if abs(lp[k] - v) > FULL_TOL * max(abs(v), 1.0):
+            raise PhaseError(f"pipelined {k} {lp[k]} vs sequential {v}")
+    if set(gp) != set(gs):
+        raise PhaseError(f"gradients of {sorted(set(gp) ^ set(gs))[:4]} "
+                         "in one step only")
+    top = max(float(g.float().abs().max()) for g in gs.values())
+    worst = 0.0
+    for n, g in gs.items():
+        scale = max(float(g.float().abs().max()), TRAIN_GRAD_FLOOR * top)
+        err = float((gp[n].float() - g.float()).abs().max()) / scale
+        worst = max(worst, err)
+        if err > FULL_TOL:
+            raise PhaseError(f"pipelined gradient {n}: {err:.3e} of its "
+                             f"max-abs from the sequential one")
+    diff = {k: (up.get(k, 0), us.get(k, 0)) for k in set(up) | set(us)
+            if up.get(k, 0) != us.get(k, 0)}
+    say(12, f"pipelined = sequential: losses within {FULL_TOL} relative, "
+            f"{len(gs)} trainable gradients within {worst:.3e} of their "
+            f"max-abs; launches differ only in {diff} (the LLaMA's "
+            f"attention once a microbatch: {PIPE_MICRO} x)")
+    if set(diff) != {k for k in PIPE_KERNELS if us.get(k)}:
+        raise PhaseError(f"the launches differ in {diff}")
+    del runs, gp, gs
+    return up
+
+
+def _free_port():
+    import socket
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    return port
+
+
+def _parallel_driver(torch, gpu):
+    """`train.driver.main --multihost` in this process, a world-1 NCCL group
+    from torchrun's environment set here: small() bf16, 2 steps."""
+    import torch.distributed as dist
+    from grove_tpu_torch.parallel import mesh as pmesh
+    from grove_tpu_torch.train import driver
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "LOCAL_WORLD_SIZE": "1", "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(_free_port())}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    seen = {}
+    real = pmesh.make_mesh
+
+    def spy(*a, **kw):
+        seen.update(backend=dist.get_backend(),
+                    world=dist.get_world_size())
+        mesh = real(*a, **kw)
+        seen["mesh"] = dict(zip(mesh.mesh_dim_names, mesh.shape))
+        return mesh
+    tmp = tempfile.mkdtemp(prefix="grove_multihost_")
+    t0 = time.perf_counter()
+    try:
+        pmesh.make_mesh = spy
+        best = driver.main(DRIVER_RESUME[:DRIVER_RESUME.index("--device")]
+                           + ["--device", "cuda", "--multihost",
+                              "--epochs", "1", "--log_base_dir", tmp])
+        ckpt = Path(tmp) / "grove_tpu" / "ckpt_model" / "2" / "state.pt"
+        state = torch.load(ckpt, map_location="cpu", weights_only=True)
+        bad = [k for k, v in state["params"].items()
+               if v.is_floating_point() and not bool(torch.isfinite(v).all())]
+    finally:
+        pmesh.make_mesh = real
+        shutil.rmtree(tmp, ignore_errors=True)
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if seen.get("backend") != "nccl" or seen.get("world") != 1:
+        raise PhaseError(f"--multihost ran on {seen}, not a world-1 NCCL "
+                         "group")
+    if dist.is_initialized():
+        raise PhaseError("the driver left its process group behind")
+    if bad:
+        raise PhaseError(f"non-finite checkpoint tensors {bad[:4]}")
+    say(12, f"driver --multihost: world 1 over {seen['backend']}, mesh "
+            f"{seen['mesh']}, 2 steps + validation (best {best:.4f}) and a "
+            f"checkpoint of {len(state['params'])} finite tensors in "
+            f"{time.perf_counter() - t0:.1f} s on {gpu}")
+
+
+def _parallel_processes(torch, gpu):
+    """Two processes on the one card over gloo: the multi-host demo
+    (--device cuda) and a TP = 2 small() fp32 step against the unsharded
+    step in this process."""
+    from grove_tpu_torch.config import GroveConfig
+    from grove_tpu_torch.text.mock_tokenizer import MockTokenizer
+    from grove_tpu_torch.tools import multihost_demo
+    tmp = Path(tempfile.mkdtemp(prefix="grove_procs_"))
+    try:
+        t0 = time.perf_counter()
+        result = multihost_demo.main(["--num_processes", str(TP_PROCS),
+                                      "--steps", "2", "--device", "cuda",
+                                      "--workdir", str(tmp / "demo"),
+                                      "--timeout", "300"])
+        say(12, f"multi-host demo, {TP_PROCS} processes on cuda:0 over "
+                f"gloo: disjoint shards {result['shards']}, losses by step "
+                f"{result['losses']} in {time.perf_counter() - t0:.1f} s")
+
+        cfg = GroveConfig.small()
+        tok = MockTokenizer(base_vocab_size=cfg.llama.vocab_size)
+        _worker_steps(torch, tmp, [_train_batch(cfg, tok, seed=42)],
+                      {f"TP = {TP_PROCS}": (TP_PROCS, TP_PROCS)},
+                      f"{TP_PROCS} processes on cuda:0 over gloo")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _reference_step(torch, tmp, batches):
+    """Two unsharded fp32 `small()` train steps on the card on the
+    concatenation of `batches`, from weights of seed 41 saved to
+    tmp / "small.pt"; returns (that path, each step's loss terms, the
+    first step's gradients on the CPU)."""
+    from grove_tpu_torch.config import GroveConfig
+    from grove_tpu_torch.models.grove import init_grove_params
+    from grove_tpu_torch.train.step import (OptimizerConfig, batch_to_device,
+                                            make_optimizer, make_train_step,
+                                            partition_params, trainable_mask)
+    cfg = GroveConfig.small()
+    model = init_grove_params(cfg, device="cuda", dtype=torch.float32,
+                              seed=41)
+    weights = tmp / "small.pt"
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()},
+               weights)
+    batch = {k: np.concatenate([b[k] for b in batches]) for k in batches[0]}
+    ocfg = OptimizerConfig(warmup_steps=0)
+    params = partition_params(model, trainable_mask(model, ocfg))
+    step = make_train_step(model, make_optimizer(params, ocfg))
+    want, want_g = [], None
+    with _no_tf32(torch):
+        for _ in range(2):
+            out = step(batch_to_device(batch, "cuda"))
+            want.append({k: float(v) for k, v in out.items()})
+            if want_g is None:           # the first step's, as the workers'
+                want_g = {n: p.grad.detach().cpu()
+                          for n, p in params.items() if p.grad is not None}
+    del model, step, params
+    torch.cuda.empty_cache()
+    return weights, want, want_g
+
+
+def _worker_steps(torch, tmp, batches, runs, where):
+    """Two fp32 `small()` train steps of `parallel.workers.train_step`
+    against the unsharded step in this process on the global batch (the
+    concatenation of `batches`, data rank r taking batches[r]): for each
+    run label -> (processes, tp), losses within TRAIN_LOSS_REL and the
+    first step's gradients within PARALLEL_TOL of their max-abs."""
+    from grove_tpu_torch.parallel.launch import launch
+    weights, want, want_g = _reference_step(torch, tmp, batches)
+    torch.save(batches, tmp / "batches.pt")
+    top = max(float(g.abs().max()) for g in want_g.values())
+    for label, (procs, tp) in runs.items():
+        t0 = time.perf_counter()
+        launch(["-m", "grove_tpu_torch.parallel.workers", "train_step",
+                json.dumps(dict(weights=str(weights),
+                                batches=str(tmp / "batches.pt"),
+                                out=str(tmp / "run.pt"), tp=tp,
+                                size="small", device="cuda",
+                                optimizer={"warmup_steps": 0}))],
+               procs, timeout=600, env={"NVIDIA_TF32_OVERRIDE": "0"})
+        got = torch.load(tmp / "run.pt", weights_only=False)
+        for g, w in zip(got["metrics"], want):
+            for k, v in w.items():
+                if abs(g[k] - v) > TRAIN_LOSS_REL * max(abs(v), 1.0):
+                    raise PhaseError(f"{label} {k} {g[k]} vs unsharded {v}")
+        errs = {}
+        for n, w in want_g.items():
+            scale = max(float(w.abs().max()), TRAIN_GRAD_FLOOR * top)
+            errs[n] = float((got["grads"][n] - w).abs().max()) / scale
+        worst = sorted(errs.items(), key=lambda kv: -kv[1])[:3]
+        if worst[0][1] > PARALLEL_TOL:
+            raise PhaseError(f"{label} gradients off the unsharded step by "
+                             f"more than {PARALLEL_TOL} of their max-abs: "
+                             f"{worst}")
+        say(12, f"{label} small() fp32, {where}, 2 steps on "
+                f"{len(batches)} local batch(es): losses "
+                f"{got['metrics'][-1]} = unsharded within {TRAIN_LOSS_REL}, "
+                f"the first step's {len(want_g)} gradients within "
+                f"{PARALLEL_TOL} of their max-abs, the worst {worst} "
+                f"({time.perf_counter() - t0:.1f} s)")
+
+
+@contextlib.contextmanager
+def _no_tf32(torch):
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = old
+
+
+PARALLEL_STEP = {}
+
+
 def main() -> int:
     compiles = {}
     try:
@@ -6551,6 +6894,7 @@ def main() -> int:
         serve_launches = phase_serve(torch, gpu, decoder)
         infer_launches, full = phase_infer(torch, gpu)
         region_launches = phase_region(torch, gpu, full)
+        parallel_launches = phase_parallel(torch, gpu, full)
         del full
     except Exception:                       # report, then fail the run
         traceback.print_exc()
@@ -6567,7 +6911,8 @@ def main() -> int:
                "serve_launches": serve_launches[name],
                "infer_launches": {task: got.get(name, 0)
                                   for task, got in infer_launches.items()},
-               "region_launches": region_launches[name]}
+               "region_launches": region_launches[name],
+               "parallel_launches": parallel_launches.get(name, 0)}
         row.update(rows[name])
         kernels.append(row)
     print(json.dumps({"kernels": kernels, "decoder": decoder}), flush=True)
@@ -6577,5 +6922,190 @@ def main() -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# --phases cards: the parallel paths across cards (not part of the one-card
+# run above)
+# ---------------------------------------------------------------------------
+
+CARDS = 4
+ZERO_GRAD = 1e-6         # an fp32 gradient zero up to rounding, of the largest
+CARDS_DRIVER = ["--synthetic", "--model_size", "small", "--model_max_length",
+                "129", "--epochs", "1", "--steps_per_epoch", "3",
+                "--num_workers", "1", "--warmup_steps", "0", "--lr", "1e-5",
+                "--seed", "7", "--val_mode", "loss", "--batch_size", "2",
+                "--device", "cuda"]
+
+
+def _driver_ckpt(torch, argv, nprocs, root):
+    """`train.driver` on `nprocs` ranks (one card each, NCCL) with
+    CARDS_DRIVER; returns its last checkpoint."""
+    from grove_tpu_torch.parallel.launch import launch
+    launch(["-m", "grove_tpu_torch.train.driver", *CARDS_DRIVER, *argv,
+            "--log_base_dir", str(root)], nprocs, timeout=600)
+    return torch.load(root / "grove_tpu" / "ckpt_model" / "3" / "state.pt",
+                      map_location="cpu", weights_only=True)
+
+
+def _zero_grads(torch, tmp):
+    """The trainable tensors of `small()` whose gradient is zero up to
+    rounding (below ZERO_GRAD of the largest) in an unsharded fp32 step
+    on the card: zero in exact arithmetic, as the attention's key biases
+    (softmax ignores a shift of the keys)."""
+    from grove_tpu_torch.config import GroveConfig
+    from grove_tpu_torch.text.mock_tokenizer import MockTokenizer
+    cfg = GroveConfig.small()
+    tok = MockTokenizer(base_vocab_size=cfg.llama.vocab_size)
+    _, _, grads = _reference_step(torch, tmp,
+                                  [_train_batch(cfg, tok, seed=42)])
+    top = max(float(g.abs().max()) for g in grads.values())
+    return {n for n, g in grads.items()
+            if float(g.abs().max()) <= ZERO_GRAD * top}
+
+
+def _ckpt_distance(got, want, zero):
+    """Each checkpoint parameter's max-abs distance, relative to its own
+    max-abs, split into the tensors of `zero` (gradients zero up to
+    rounding: Adam turns their rounding noise into steps of about lr, of
+    either sign) and the rest; each as (name, distance) worst first."""
+    if set(got["params"]) != set(want["params"]):
+        raise PhaseError("the checkpoints hold other parameters")
+    dist = {}
+    for n, w in want["params"].items():
+        w, g = w.float(), got["params"][n].float()
+        if not bool(g.isfinite().all()):
+            raise PhaseError(f"non-finite checkpoint tensor {n}")
+        dist[n] = float((g - w).abs().max()) / max(float(w.abs().max()),
+                                                   1e-30)
+    order = sorted(dist.items(), key=lambda kv: -kv[1])
+    return ([kv for kv in order if kv[0] in zero],
+            [kv for kv in order if kv[0] not in zero])
+
+
+def _need_cards(torch):
+    if torch.cuda.device_count() < CARDS:
+        raise PhaseError(f"--phases cards needs {CARDS} cards, this machine "
+                         f"has {torch.cuda.device_count()}")
+
+
+def phase_cards(torch, gpu, decoder):
+    """The driver across cards over NCCL, one card a rank (`--phases
+    cards`, on a machine of CARDS cards), small() in bf16, 3 steps: world
+    1; `--pipeline_stages 2` with its stages on cuda:0 and cuda:1, whose
+    checkpoint must be bit-equal to world 1's; `--multihost --mesh_model
+    2`, whose checkpoint is compared tensor by tensor with world 1's
+    (`_ckpt_distance`, printed), the tensors whose gradient is zero up to
+    rounding in an fp32 step (`_zero_grads`) apart."""
+    _need_cards(torch)
+    tmp = Path(tempfile.mkdtemp(prefix="grove_cards_"))
+    try:
+        t0 = time.perf_counter()
+        zero = _zero_grads(torch, tmp)
+        one = _driver_ckpt(torch, [], 1, tmp / "one")
+        pp = _driver_ckpt(torch, ["--pipeline_stages", "2",
+                                  "--pipeline_microbatches", "2"], 1,
+                          tmp / "pp")
+        same = sum(torch.equal(v, pp["params"][k])
+                   for k, v in one["params"].items())
+        if same != len(one["params"]):
+            raise PhaseError(f"the 2-card pipelined checkpoint: {same} of "
+                             f"{len(one['params'])} tensors bit-equal to "
+                             "world 1's")
+        say(12, f"driver small() bf16, 3 steps: --pipeline_stages 2 on "
+                f"cuda:0, cuda:1 = world 1, {same} of {same} checkpoint "
+                "tensors bit-equal")
+        tp = _driver_ckpt(torch, ["--multihost", "--mesh_model", "2"], 2,
+                          tmp / "tp")
+        noise, rest = _ckpt_distance(tp, one, zero)
+        say(12, f"driver --multihost --mesh_model 2 on 2 cards vs world 1, "
+                f"each parameter's max-abs distance / its max-abs: the "
+                f"{len(noise)} whose fp32 gradient is zero up to rounding "
+                f"(< {ZERO_GRAD} of the largest), the worst {noise[:4]}; "
+                f"the {len(rest)} others, the worst {rest[:4]} "
+                f"({time.perf_counter() - t0:.1f} s)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_cards_steps(torch, gpu, decoder):
+    """`--phases cards_steps`, on a machine of CARDS cards over NCCL, one
+    card a rank: `parallel.workers.train_step` in fp32 against the
+    unsharded step on the global batch, DP = 2 on two local batches with
+    different box counts and TP = 2 x DP = 2 (`_worker_steps`); then the
+    multi-host demo on CARDS processes, twice."""
+    from grove_tpu_torch.config import GroveConfig
+    from grove_tpu_torch.text.mock_tokenizer import MockTokenizer
+    from grove_tpu_torch.tools import multihost_demo
+    _need_cards(torch)
+    tmp = Path(tempfile.mkdtemp(prefix="grove_cards_"))
+    try:
+        cfg = GroveConfig.small()
+        tok = MockTokenizer(base_vocab_size=cfg.llama.vocab_size)
+        batches = [_train_batch(cfg, tok, seed=42),
+                   _train_batch(cfg, tok, seed=43)]
+        boxes = [int(b["gt_objectness"].sum()) for b in batches]
+        if boxes[0] == boxes[1]:
+            raise PhaseError(f"the local batches hold {boxes} boxes")
+        _worker_steps(torch, tmp, batches,
+                      {"DP = 2": (2, 1), "TP = 2 x DP = 2": (CARDS, 2)},
+                      f"one card a rank over NCCL, {boxes} visible boxes")
+
+        for run in range(2):
+            t0 = time.perf_counter()
+            result = multihost_demo.main([
+                "--num_processes", str(CARDS), "--num_videos",
+                str(2 * CARDS), "--steps", "2", "--device", "cuda",
+                "--workdir", str(tmp / f"demo{run}"),
+                "--timeout", "300"])
+            say(12, f"multi-host demo run {run + 1}, {CARDS} processes on "
+                    f"{CARDS} cards: disjoint shards {result['shards']}, "
+                    f"losses by step {result['losses']} in "
+                    f"{time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+AB_PHASES = ("slice", "serve", "cards", "cards_steps")
+
+
+def main_phases(argv) -> int:
+    """`--phases`: see the module docstring."""
+    import importlib.util
+    ap = argparse.ArgumentParser(prog="chip_smoke.py")
+    ap.add_argument("--phases", required=True,
+                    help=f"comma-separated, of {', '.join(AB_PHASES)}")
+    ap.add_argument("--tree", default=str(ROOT),
+                    help="the checkout whose chip_smoke.py runs them")
+    args = ap.parse_args(argv)
+    names = args.phases.split(",")
+    if not set(names) <= set(AB_PHASES):
+        ap.error(f"--phases: {args.phases} is not a list of {AB_PHASES}")
+    tree = Path(args.tree).resolve()
+    spec = importlib.util.spec_from_file_location("chip_smoke_tree",
+                                                  tree / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    if not (tree / "grove_tpu_torch" / "__init__.py").is_file():
+        print(f"grove_tpu_torch not found in {tree}", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(tree))
+    import torch
+    compiles = {}
+    try:
+        gpu = mod.phase_device(torch)
+        decoder = mod.phase_decoder()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        mod.phase_build(compiles)
+        mod._stop_tc_compiles(compiles)     # their reports are phase 2's
+        for name in names:
+            getattr(mod, f"phase_{name}")(torch, gpu, decoder)
+    except Exception:                       # report, then fail the run
+        traceback.print_exc()
+        print("chip_smoke FAILED", file=sys.stderr, flush=True)
+        return 1
+    finally:
+        mod._stop_tc_compiles(compiles)
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main_phases(sys.argv[1:]) if len(sys.argv) > 1 else main())

@@ -17,6 +17,11 @@ ints and floats, read back with `weights_only=True`. A save writes into a
 hidden temporary directory and renames it into place, so a save killed
 midway leaves no step that `latest_step` would pick. Restores come back on
 the CPU, memory-mapped; the caller copies them onto its tensors.
+
+Under `torch.distributed` every rank calls `save` / `save_best`: a
+sharded tensor (a DTensor parameter or moment) is gathered whole first,
+which takes every rank; rank 0 alone writes, and the others wait for it.
+The files equal an unsharded run's.
 """
 
 from __future__ import annotations
@@ -33,9 +38,24 @@ STATE_FILE = "state.pt"
 _MARKER = re.compile(r"epoch_\d+_val_.+_([-\d.]+)\.marker")
 
 
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
+
+
 def to_cpu(tree):
     """A nest of dicts and tensors with every tensor detached on the CPU (a
-    CPU tensor is cloned, so later in-place steps leave it alone)."""
+    CPU tensor is cloned, so later in-place steps leave it alone; a DTensor
+    is gathered whole, on every rank)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(tree, DTensor):
+        tree = tree.full_tensor()
     if isinstance(tree, torch.Tensor):
         t = tree.detach()
         return t.clone() if t.device.type == "cpu" else t.to("cpu")
@@ -91,22 +111,26 @@ class CheckpointManager:
             state["opt_state"] = to_cpu(opt_state)
         if extra:
             state["extra"] = to_cpu(extra)
-        _write_dir(os.path.join(self.ckpt_dir, str(step)), state)
-        for old in self.steps()[:-self.max_to_keep]:
-            shutil.rmtree(os.path.join(self.ckpt_dir, str(old)))
+        if _rank() == 0:
+            _write_dir(os.path.join(self.ckpt_dir, str(step)), state)
+            for old in self.steps()[:-self.max_to_keep]:
+                shutil.rmtree(os.path.join(self.ckpt_dir, str(old)))
+        _barrier()
 
     def save_best(self, epoch: int, params, metric_name: str,
                   metric_value: float):
         """Best-checkpoint save + the reference-style marker file."""
-        _write_dir(os.path.join(self.best_dir, "params"),
-                   {"params": to_cpu(params)})
-        for f in os.listdir(self.best_dir):
-            if f.endswith(".marker"):
-                os.remove(os.path.join(self.best_dir, f))
-        marker = os.path.join(
-            self.best_dir,
-            f"epoch_{epoch}_val_{metric_name}_{metric_value:.4f}.marker")
-        open(marker, "w").close()
+        state = {"params": to_cpu(params)}
+        if _rank() == 0:
+            _write_dir(os.path.join(self.best_dir, "params"), state)
+            for f in os.listdir(self.best_dir):
+                if f.endswith(".marker"):
+                    os.remove(os.path.join(self.best_dir, f))
+            marker = os.path.join(
+                self.best_dir,
+                f"epoch_{epoch}_val_{metric_name}_{metric_value:.4f}.marker")
+            open(marker, "w").close()
+        _barrier()
 
     def latest_step(self) -> Optional[int]:
         steps = self.steps()

@@ -27,7 +27,6 @@ from typing import Optional, Tuple
 import torch
 
 from ..models.grove import GroveModel
-from ..models.llama import init_kv_caches
 from .generate import _as_device
 
 NEG_INF = -1.0e9
@@ -67,8 +66,8 @@ def beam_decode(model: GroveModel, spliced_ids, video_embeds, video_start,
     r = b * k
     d = model.cfg.llama.hidden_size
 
-    caches = init_kv_caches(model.cfg.llama, b, ls + max_new_tokens,
-                            dtype=cache_dtype, device=dev)
+    caches = model.model.init_kv_caches(b, ls + max_new_tokens,
+                                        dtype=cache_dtype, device=dev)
     prefill_hidden, logits, caches = model.prefill(
         ids, video_embeds, video_start, caches, pad_lens)
     logprobs0 = torch.log_softmax(logits[:, -1, :].float(), dim=-1)

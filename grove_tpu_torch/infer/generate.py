@@ -31,7 +31,6 @@ from ..config import GroveConfig
 from ..text import tagging
 from ..text.packing import det_gather_positions
 from ..models.grove import GroveModel
-from ..models.llama import init_kv_caches
 
 
 def filter_logits(logits: torch.Tensor, temperature: float, top_k: int = 0,
@@ -124,8 +123,9 @@ def greedy_decode(model: GroveModel, spliced_ids, video_embeds, video_start,
     pad_lens = _as_device(pad_lens, dev, torch.long)
     b, ls = ids.shape
     d = model.cfg.llama.hidden_size
-    caches = init_kv_caches(model.cfg.llama, b, ls + max_new_tokens,
-                            dtype=cache_dtype or torch.bfloat16, device=dev)
+    caches = model.model.init_kv_caches(
+        b, ls + max_new_tokens, dtype=cache_dtype or torch.bfloat16,
+        device=dev)
     prefill_hidden, logits, caches = model.prefill(
         ids, video_embeds, video_start, caches, pad_lens)
     tok = pick(logits[:, -1, :], 0)

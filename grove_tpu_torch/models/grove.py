@@ -141,12 +141,22 @@ class GroveBackbone(LlamaModel):
 class GroveModel(nn.Module):
     """`remat` (`grove.py:46`): the CLIP layers, the SAM blocks and, on the
     cache-free pass, the LLaMA layers run under `torch.utils.checkpoint`
-    when gradients are on, recomputed in the backward instead of kept."""
+    when gradients are on, recomputed in the backward instead of kept.
+
+    `llm_act_sharding` (`grove.py:48-56`) takes a ("data", "model")
+    `DeviceMesh` (`parallel.mesh.make_mesh`) and adds no parameter: with
+    it, `parallel.sharding.shard_pytree` makes the LLaMA's cache-free
+    residual stream sequence-parallel over "model"
+    (`LlamaModel.act_sharding`). JAX's `ground_act_sharding`, which pins
+    the ground path's rows to "data", has no counterpart: every data rank
+    holds only its own rows, so the ground path already runs per data
+    rank."""
 
     def __init__(self, cfg: GroveConfig, *, remat: bool = False, device=None,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, llm_act_sharding=None):
         super().__init__()
         self.cfg = cfg
+        self.llm_act_sharding = llm_act_sharding
         self.model = GroveBackbone(cfg, remat=remat, device=device,
                                    dtype=dtype)
         # int8 even in the int4 config, as `llama.py:459-466` pins it
@@ -314,6 +324,10 @@ class GroveModel(nn.Module):
         `video_start` (rows with start < 0 keep their tokens). The start is
         clamped so the run fits, like `lax.dynamic_update_slice`."""
         embeds = self.model.embed_tokens(input_ids)     # (B, Ls, D)
+        if embeds._base is not None:
+            # a vocab-parallel embedding hands back a view of its reduced
+            # DTensor, which autograd forbids writing in place
+            embeds = embeds.clone()
         ls, n = embeds.shape[1], video_embeds.shape[1]
         starts = [int(s) for s in torch.as_tensor(video_start).tolist()]
         for row, start in enumerate(starts):
@@ -420,16 +434,25 @@ class GroveModel(nn.Module):
                                  image_embeddings)
         return {"pred_boxes": boxes, "objectness_logits": obj}
 
-    def forward_train(self, batch: Dict[str, torch.Tensor]):
+    def forward_train(self, batch: Dict[str, torch.Tensor],
+                      count_reduce=None):
         """Training forward -> the loss dict of `ops.losses.
         grove_total_loss` (`grove.py:352-368`, the reference's
-        model_forward train path)."""
-        cfg = self.cfg
+        model_forward train path). `count_reduce`: see `ops.losses`."""
         video_embeds, _ = self.encode_video(batch["frames_clip"])
         image_embeddings = self.encode_grounding(batch["frames_sam"],
                                                  batch.get("sam_valid_hw"))
         hidden, logits = self.lm_forward(batch["input_ids"], video_embeds,
                                          batch["video_start"])
+        return self.losses(batch, hidden, logits, image_embeddings,
+                           count_reduce)
+
+    def losses(self, batch, hidden, logits, image_embeddings,
+               count_reduce=None):
+        """`ground` on the LM's hidden states, then the loss dict against
+        the batch's targets (the tail of `forward_train`, shared with the
+        pipelined step)."""
+        cfg = self.cfg
         boxes, obj = self.ground(hidden, batch["det_positions"],
                                  image_embeddings)
         return grove_total_loss(
@@ -438,7 +461,7 @@ class GroveModel(nn.Module):
             ce_weight=cfg.ce_loss_weight, giou_weight=cfg.giou_loss_weight,
             objectness_weight=cfg.temp_objectness_loss_weight,
             use_temp_objectness=cfg.use_temp_objectness,
-            ignore_index=cfg.tokens.ignore_index)
+            ignore_index=cfg.tokens.ignore_index, count_reduce=count_reduce)
 
 
 # ---------------------------------------------------------------------------
@@ -501,13 +524,16 @@ def init_params_(model: nn.Module, generator: torch.Generator) -> nn.Module:
 
 
 def init_grove_params(cfg: GroveConfig, *, device, dtype=torch.bfloat16,
-                      seed: int = 0, remat: bool = False) -> GroveModel:
+                      seed: int = 0, remat: bool = False,
+                      llm_act_sharding=None) -> GroveModel:
     """Build a GroveModel with synthetic weights from `seed`, directly on
     `device` in `dtype`: the modules are made on the meta device, given
     uninitialized storage on `device`, then filled by `init_params_` with
     a generator on that device (no fp32 copy of the model ever exists).
-    `remat` as `GroveModel`'s (`grove.py:424-425`)."""
-    model = GroveModel(cfg, remat=remat, device="meta", dtype=dtype)
+    `remat` and `llm_act_sharding` as `GroveModel`'s
+    (`grove.py:424-425`)."""
+    model = GroveModel(cfg, remat=remat, device="meta", dtype=dtype,
+                       llm_act_sharding=llm_act_sharding)
     model = model.to_empty(device=device)
     gen = torch.Generator(device=device).manual_seed(seed)
     init_params_(model, gen)

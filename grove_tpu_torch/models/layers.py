@@ -101,6 +101,15 @@ def gelu_tanh(x):
     return F.gelu(x, approximate="tanh")
 
 
+def rms_norm(x, weight, eps: float):
+    """RMSNorm of x over its last dim with `weight`, statistics in fp32,
+    the result in x's dtype (`layers.py:343-365`)."""
+    xf = x.float()
+    var = xf.pow(2).mean(-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * weight.float()).to(x.dtype)
+
+
 class RMSNorm(nn.Module):
     """LLaMA RMSNorm; statistics in fp32 (`layers.py:343-365`).
 
@@ -121,10 +130,7 @@ class RMSNorm(nn.Module):
             return add_rmsnorm_quant_dyn(x, branch, self.weight, eps=self.eps)
         if branch is not None:
             x = x + branch.to(x.dtype)
-        xf = x.float()
-        var = xf.pow(2).mean(-1, keepdim=True)
-        out = xf * torch.rsqrt(var + self.eps)
-        return (out * self.weight.float()).to(x.dtype)
+        return rms_norm(x, self.weight, self.eps)
 
 
 class Int8Linear(nn.Module):

@@ -62,6 +62,7 @@ PLACE at `cache_offset` (the JAX package returns updated copies).
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, Optional
 
 import torch
@@ -152,13 +153,25 @@ class LoraDelta(nn.Module):
         return self.lora_B(self.lora_A(x)) * self.scaling
 
 
-def use_raw_prefill(cfg: LlamaConfig, s: int) -> bool:
+def use_raw_prefill(cfg: LlamaConfig, s: int, heads: Optional[int] = None,
+                    kv_heads: Optional[int] = None) -> bool:
     """`use_raw` of `llama.py:176-179`: K5 can take this layer's q/k/v at S
     tokens (the device test and the lane term are the port's, see the
-    module docstring)."""
-    return (cfg.num_kv_heads == cfg.num_heads
-            and prefill_attention_ok((1, s, cfg.num_heads * cfg.head_dim),
-                                     cfg.num_heads))
+    module docstring). `heads` / `kv_heads`: the heads this rank holds
+    under tensor parallelism (the config's by default)."""
+    heads = cfg.num_heads if heads is None else heads
+    kv_heads = cfg.num_kv_heads if kv_heads is None else kv_heads
+    return (kv_heads == heads
+            and prefill_attention_ok((1, s, heads * cfg.head_dim), heads))
+
+
+def _local_cols(t: torch.Tensor, width: int, tp) -> torch.Tensor:
+    """This tensor-parallel rank's `width` columns of a replicated output
+    (a LoRA delta beside a column-sharded projection); `tp` = (rank,
+    size)."""
+    if t.shape[-1] == width:
+        return t
+    return t.narrow(-1, tp[0] * width, width)
 
 
 def _project(mod: nn.Module, x, sx):
@@ -173,10 +186,19 @@ def _project(mod: nn.Module, x, sx):
 
 
 class LlamaAttention(nn.Module):
+    """Under tensor parallelism (`parallel.sharding.shard_pytree`) q/k/v
+    are column-sharded and o row-sharded: this rank's projections hand it
+    `num_heads / tp` heads as plain local tensors, and the head counts
+    below are read from their widths, so the attention kernels never see a
+    DTensor. `tp` = (rank, size) on the "model" axis; the LoRA deltas stay
+    replicated (no JAX rule matches them) and give this rank its
+    columns."""
+
     def __init__(self, cfg: LlamaConfig, *, device=None, dtype=None):
         super().__init__()
         f = dict(device=device, dtype=dtype)
         self.cfg = cfg
+        self.tp = (0, 1)
         d, hd = cfg.hidden_size, cfg.head_dim
         nq, nkv = cfg.num_heads * hd, cfg.num_kv_heads * hd
         if cfg.fused_qkv:
@@ -199,11 +221,10 @@ class LlamaAttention(nn.Module):
         """`sx` given: x arrived per-token int8 from the fused-norm carry
         (x ~= x_int8 * sx)."""
         cfg = self.cfg
-        b, s, _ = x.shape
         hd = cfg.head_dim
-        nq, nkv = cfg.num_heads * hd, cfg.num_kv_heads * hd
-        reps = cfg.num_heads // cfg.num_kv_heads
         if cfg.fused_qkv:
+            # no JAX rule shards the fused projection: all heads, here too
+            nq, nkv = cfg.num_heads * hd, cfg.num_kv_heads * hd
             # contiguous thirds: the attention kernels take no strides
             q, k, v = (t.contiguous() for t in torch.split(
                 _project(self.qkv_proj, x, sx), (nq, nkv, nkv), dim=-1))
@@ -214,23 +235,26 @@ class LlamaAttention(nn.Module):
             if sx is not None:
                 raise ValueError("the fused-norm int8 carry reached a LoRA "
                                  "attention, which reads float activations")
-            q = q + self.q_proj_lora(x)
-            v = v + self.v_proj_lora(x)
-        q = q.reshape(b, s, cfg.num_heads, hd)
-        k = k.reshape(b, s, cfg.num_kv_heads, hd)
-        v = v.reshape(b, s, cfg.num_kv_heads, hd)
+            q = q + _local_cols(self.q_proj_lora(x), q.shape[-1], self.tp)
+            v = v + _local_cols(self.v_proj_lora(x), v.shape[-1], self.tp)
+        b, s = q.shape[:2]
+        nh, nkh = q.shape[-1] // hd, k.shape[-1] // hd
+        reps = nh // nkh
+        q = q.reshape(b, s, nh, hd)
+        k = k.reshape(b, s, nkh, hd)
+        v = v.reshape(b, s, nkh, hd)
         cos, sin = rope_angles(positions, hd, cfg.rope_theta)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
 
         if kv_cache is None:
             # pure self-attention (teacher-forced inference, training)
-            if (use_raw_prefill(cfg, s) and attn_mask is None
+            if (use_raw_prefill(cfg, s, nh, nkh) and attn_mask is None
                     and _block_for(s) is None):
                 out = prefill_attention_trainable(
                     q.reshape(b, s, -1), k.reshape(b, s, -1),
-                    v.reshape(b, s, -1), cfg.num_heads,
-                    1.0 / hd ** 0.5).reshape(b, s, cfg.num_heads, hd)
+                    v.reshape(b, s, -1), nh,
+                    1.0 / hd ** 0.5).reshape(b, s, nh, hd)
             else:
                 out = multi_head_attention(q, _repeat_kv(k, reps),
                                            _repeat_kv(v, reps), causal=True,
@@ -255,7 +279,7 @@ class LlamaAttention(nn.Module):
                 mask = mask & ((kpos >= pad_lens[:, None, None, None])
                                | (kpos == qpos))
             out = xla_attention(q, kk, vv, mask=mask)
-        return self.o_proj(out.reshape(b, s, cfg.num_heads * hd))
+        return self.o_proj(out.reshape(b, s, nh * hd))
 
     def _int8_cache_attention(self, q, k, v, cache, offset: int, pad_lens):
         """`llama.py:201-273`: write the quantized k/v slabs at `offset`;
@@ -264,7 +288,7 @@ class LlamaAttention(nn.Module):
         cache."""
         cfg = self.cfg
         b, s, hq, hd = q.shape
-        reps = cfg.num_heads // cfg.num_kv_heads
+        reps = hq // k.shape[2]
         for name, x in (("k", k), ("v", v)):
             xq, xs = quantize_kv(x)
             cache[name][:, :, offset:offset + s] = xq.transpose(1, 2)
@@ -282,13 +306,13 @@ class LlamaAttention(nn.Module):
                 q[:, 0].contiguous(), cache["k"], cache["v"], cache["k_s"],
                 cache["v_s"], bias)
             return out[:, None]
-        if use_raw_prefill(cfg, s):
+        if use_raw_prefill(cfg, s, hq, k.shape[2]):
             pad_eff = (pad_lens - offset if pad_lens is not None
                        else torch.zeros((b,), dtype=torch.long,
                                         device=q.device))
             return prefill_attention_raw(
                 q.reshape(b, s, -1), k.to(q.dtype).reshape(b, s, -1),
-                v.to(q.dtype).reshape(b, s, -1), pad_eff, cfg.num_heads,
+                v.to(q.dtype).reshape(b, s, -1), pad_eff, hq,
                 1.0 / hd ** 0.5).reshape(b, s, hq, hd)
         kidx = torch.arange(s, device=q.device)[None, None, None, :]
         qidx = torch.arange(s, device=q.device)[None, None, :, None]
@@ -340,6 +364,20 @@ class LlamaDecoderLayer(nn.Module):
                                cache_offset, attn_mask, pad_lens)
         return x + self.mlp(self.post_attention_layernorm(x))
 
+    def forward_seq_parallel(self, x, positions, mesh):
+        """The cache-free block under sequence parallelism: x is this
+        rank's (B, S / tp, D) slice of the residual stream, normalized
+        here (the norms' weight gradients summed over the "model" ranks);
+        the projections take the whole sequence, gathered, and their
+        replicated output is sliced back (`parallel.mesh.seq_gather` /
+        `seq_slice`)."""
+        from ..parallel.mesh import seq_gather, seq_slice, seq_rms_norm
+        h = seq_gather(seq_rms_norm(self.input_layernorm, x, mesh), mesh)
+        x = x + seq_slice(self.self_attn(h, positions), mesh)
+        h = seq_gather(seq_rms_norm(self.post_attention_layernorm, x, mesh),
+                       mesh)
+        return x + seq_slice(self.mlp(h), mesh)
+
     def forward_fused_ln(self, x, branch, positions, kv_cache=None,
                          cache_offset: int = 0, attn_mask=None,
                          pad_lens=None):
@@ -361,7 +399,18 @@ class LlamaModel(nn.Module):
     `llama_cfg` is the config its modules were built for; the in-place
     transforms of `ops.quant` and `models.fuse` update it through
     `set_llama_cfg_`. With `remat`, the cache-free pass checkpoints each
-    decoder layer when gradients are on (`llama.py:420-422`)."""
+    decoder layer when gradients are on (`llama.py:420-422`).
+
+    `act_sharding` (`llama.py:377-396`): None, or the "model" mesh of a
+    tensor-parallel model (`parallel.sharding.shard_pytree` sets it from
+    `GroveModel(llm_act_sharding=)`): the cache-free pass then keeps the
+    residual stream between blocks sharded on S over that mesh (sequence
+    parallelism) where S divides by its size; elsewhere the stream stays
+    whole on every rank, the same numbers (a placement, no parameter).
+
+    `stages`: None, or the device of each decoder layer, which
+    `parallel.pipeline.place_stages` sets where it spreads the layers over
+    pipeline stages."""
 
     def __init__(self, cfg: LlamaConfig, *, remat: bool = False, device=None,
                  dtype=None):
@@ -370,6 +419,8 @@ class LlamaModel(nn.Module):
         f = dict(device=device, dtype=dtype)
         self.llama_cfg = cfg
         self.remat = remat
+        self.act_sharding = None
+        self.stages = None
         self.embed_tokens = nn.Embedding(cfg.padded_vocab_size,
                                          cfg.hidden_size, **f)
         self.layers = nn.ModuleList(LlamaDecoderLayer(cfg, **f)
@@ -380,8 +431,7 @@ class LlamaModel(nn.Module):
         """The gate of the fused-norm carry (`llama.py:408-419`): W4A8
         weights on the card, no LoRA, a multi-token shape of 64 tokens or
         more, every width the int8-view path takes, and no remat of a
-        cache-free pass. The port has no `act_sharding`, the gate's last
-        term."""
+        cache-free pass, and no sequence parallelism."""
         cfg = self.llama_cfg
         b, s = x.shape[:2]
         hd = cfg.head_dim
@@ -393,6 +443,7 @@ class LlamaModel(nn.Module):
                 and cfg.intermediate_size % 128 == 0
                 and (cfg.num_heads * hd) % 128 == 0
                 and (cfg.num_kv_heads * hd) % 128 == 0
+                and self.act_sharding is None
                 and not (self.remat and cache_free))
 
     def forward(self, inputs_embeds, positions,
@@ -400,6 +451,13 @@ class LlamaModel(nn.Module):
                 cache_offset: int = 0, attn_mask=None, pad_lens=None):
         x = inputs_embeds
         cache_free = kv_caches is None
+        mesh = self.act_sharding
+        if (mesh is not None and cache_free and attn_mask is None
+                and x.shape[1] % mesh.size() == 0):
+            return self._forward_seq_parallel(x, positions, mesh)
+        if self.stages is not None:
+            return self._forward_stages(x, positions, kv_caches,
+                                        cache_offset, attn_mask, pad_lens)
         fuse_ln = self._fuse_ln(x, cache_free)
         branch = None
         for i, layer in enumerate(self.layers):
@@ -410,6 +468,61 @@ class LlamaModel(nn.Module):
             else:
                 x = remat_call(self.remat and cache_free, layer, x, *args)
         return self.norm(x, branch)
+
+    def _forward_stages(self, x, positions, kv_caches, cache_offset,
+                        attn_mask, pad_lens):
+        """`forward` with each layer on the device `stages` names: the
+        layer's inputs follow it there, and its card is the current one
+        while it launches kernels (a kernel runs on the current card); the
+        final norm runs on its own device. The KV caches are not moved:
+        a cached pass needs every stage on one device."""
+        cache_free = kv_caches is None
+        fuse_ln = self._fuse_ln(x, cache_free)
+        branch = None
+        for i, (layer, dev) in enumerate(zip(self.layers, self.stages)):
+            x, branch, positions, attn_mask, pad_lens = _to_device(
+                dev, x, branch, positions, attn_mask, pad_lens)
+            args = (positions, None if cache_free else kv_caches[i],
+                    cache_offset, attn_mask, pad_lens)
+            with _current_card(dev):
+                if fuse_ln:
+                    x, branch = layer.forward_fused_ln(x, branch, *args)
+                else:
+                    x = remat_call(self.remat and cache_free, layer, x,
+                                   *args)
+        x, branch = _to_device(self.norm.weight.device, x, branch)
+        return self.norm(x, branch)
+
+    def _forward_seq_parallel(self, x, positions, mesh):
+        from ..parallel.mesh import seq_gather, seq_rms_norm, seq_slice
+        x = seq_slice(x, mesh)
+        for layer in self.layers:
+            x = remat_call(self.remat, layer.forward_seq_parallel, x,
+                           positions, mesh)
+        return seq_gather(seq_rms_norm(self.norm, x, mesh), mesh)
+
+    def init_kv_caches(self, batch: int, max_len: int, *,
+                       dtype: torch.dtype, device) -> List[Dict]:
+        """`init_kv_caches` for this model: under tensor parallelism each
+        rank caches the KV heads its k/v projections hand it."""
+        attn = self.layers[0].self_attn
+        kv_heads = self.llama_cfg.num_kv_heads
+        if not self.llama_cfg.fused_qkv:
+            kv_heads //= attn.tp[1]
+        return init_kv_caches(self.llama_cfg, batch, max_len, dtype=dtype,
+                              device=device, kv_heads=kv_heads)
+
+
+def _to_device(dev, *tensors):
+    """`tensors` on `dev` (None stays None)."""
+    return tuple(t if t is None else t.to(dev) for t in tensors)
+
+
+def _current_card(dev):
+    """`dev` as the current card where it is another card."""
+    if dev.type == "cuda" and dev.index != torch.cuda.current_device():
+        return torch.cuda.device(dev)
+    return contextlib.nullcontext()
 
 
 def set_llama_cfg_(model: LlamaModel, cfg: LlamaConfig) -> None:
@@ -422,16 +535,20 @@ def set_llama_cfg_(model: LlamaModel, cfg: LlamaConfig) -> None:
 
 
 def init_kv_caches(cfg: LlamaConfig, batch: int, max_len: int, *,
-                   dtype: torch.dtype, device) -> List[Dict]:
+                   dtype: torch.dtype, device,
+                   kv_heads: Optional[int] = None) -> List[Dict]:
     """Empty per-layer cache buffers (`llama.py:469-497`): (B, C, H_kv, D)
     k/v of a float dtype, or with `dtype=torch.int8` the JAX package's
     quantized layout, (B, H_kv, Cpad, D) int8 k/v and (B, H_kv, Cpad) bf16
     scales, Cpad = max_len rounded up to a multiple of 128 (the pad slots
-    are masked by the decode bias)."""
+    are masked by the decode bias). `kv_heads`: the heads cached, the
+    config's by default (`LlamaModel.init_kv_caches` gives a
+    tensor-parallel rank's)."""
+    heads = cfg.num_kv_heads if kv_heads is None else kv_heads
     if dtype == torch.int8:
         cpad = -(-max_len // 128) * 128
-        kshape = (batch, cfg.num_kv_heads, cpad, cfg.head_dim)
-        sshape = (batch, cfg.num_kv_heads, cpad)
+        kshape = (batch, heads, cpad, cfg.head_dim)
+        sshape = (batch, heads, cpad)
         return [{"k": torch.zeros(kshape, dtype=torch.int8, device=device),
                  "v": torch.zeros(kshape, dtype=torch.int8, device=device),
                  "k_s": torch.zeros(sshape, dtype=torch.bfloat16,
@@ -442,7 +559,7 @@ def init_kv_caches(cfg: LlamaConfig, batch: int, max_len: int, *,
     if dtype not in (torch.bfloat16, torch.float16, torch.float32):
         raise ValueError(f"KV cache dtype {dtype}: expected a float dtype or "
                          "torch.int8")
-    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    shape = (batch, max_len, heads, cfg.head_dim)
     return [{"k": torch.zeros(shape, dtype=dtype, device=device),
              "v": torch.zeros(shape, dtype=dtype, device=device)}
             for _ in range(cfg.num_layers)]

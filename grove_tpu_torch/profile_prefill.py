@@ -108,7 +108,6 @@ def main() -> int:
     from . import _kernels
     from .api import GroveForCausalLM
     from .infer.sliding import center_prompts
-    from .models.llama import init_kv_caches
     from .ops import attention
     from .text.mock_tokenizer import MockTokenizer
 
@@ -140,8 +139,9 @@ def main() -> int:
             ids_t = torch.from_numpy(ids).to("cuda")
             pads_t = None if pads is None else torch.from_numpy(pads).to(
                 "cuda")
-            caches = init_kv_caches(cfg.llama, 2, ids.shape[1],
-                                    dtype=torch.int8, device="cuda")
+            caches = model.model.init_kv_caches(2, ids.shape[1],
+                                                dtype=torch.int8,
+                                                device="cuda")
             print(f"int4 + int8 KV prefill of {tuple(ids.shape)} tokens, "
                   f"pads {pads}: {cfg.llama.num_layers} LLaMA layers",
                   flush=True)

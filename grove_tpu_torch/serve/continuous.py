@@ -40,7 +40,6 @@ import torch
 
 from ..config import GroveConfig
 from ..models.grove import GroveModel
-from ..models.llama import init_kv_caches
 from ..text.packing import det_gather_positions
 from .server import OverloadedError, _jsonable, model_context
 
@@ -85,8 +84,8 @@ class ContinuousEngine:
         self._results: Dict[int, Dict] = {}
         dev, b = model.device, n_slots
         with torch.inference_mode():
-            self.caches = init_kv_caches(cfg.llama, b, self.capacity,
-                                         dtype=self.cache_dtype, device=dev)
+            self.caches = model.model.init_kv_caches(
+                b, self.capacity, dtype=self.cache_dtype, device=dev)
             self.cur_tok = torch.zeros((b,), dtype=torch.long, device=dev)
             self.done = torch.ones((b,), dtype=torch.bool, device=dev)
             self.pad_lens = torch.zeros((b,), dtype=torch.long, device=dev)
@@ -141,8 +140,9 @@ class ContinuousEngine:
         dev = self.model.device
         ids_b = np.full((1, lb), int(self.cfg.tokens.pad), np.int64)
         ids_b[0, pad:] = ids
-        slab = init_kv_caches(self.cfg.llama, 1, lb, dtype=self.cache_dtype,
-                              device=dev)
+        slab = self.model.model.init_kv_caches(1, lb,
+                                               dtype=self.cache_dtype,
+                                               device=dev)
         hidden, logits, slab = self.model.prefill(
             torch.from_numpy(ids_b).to(dev), video_embeds,
             [int(video_start) + pad], slab,

@@ -26,13 +26,31 @@ Counterpart of `grove_tpu/train/driver.py` (the reference `train.py`):
   through `checkpoint.manager.CheckpointManager`;
 * `--max_restarts` in-process restarts with auto-resume (`:486-503`).
 
+Parallel training (`parallel/`, `driver.py:281-360, 425-440`):
+
+* `--multihost`: join torchrun's process group (`parallel.mesh.
+  init_distributed`); every data rank reads its own shard through the
+  loader, and the step is the global batch's (`make_train_step(mesh=)`:
+  global loss normalizers, gradients summed over the ranks);
+* `--mesh_model N > 1`: tensor parallelism over N ranks of the
+  ("data", "model") mesh with the rules of `parallel.sharding` (run
+  under torchrun with a world divisible by N; implies `--multihost`);
+* `--pipeline_stages N > 1` with `--pipeline_microbatches`: the GPipe step
+  (`make_pipelined_train_step`), one process, its stages on one card
+  each where there are N cards, else all on `--device`; not with
+  `--mesh_model > 1` nor across processes.
+
+Rank 0 alone writes logs and checkpoints; a checkpoint holds whole
+tensors (sharded parameters and moments gathered first), equal to an
+unsharded run's.
+
 `--synthetic` builds the synthetic dataset of `data.synthetic` (`.npy`
-clips, readable without libav). `--multihost`, `--mesh_model > 1` and
-`--pipeline_stages > 1` raise NotImplementedError (ROADMAP Queue 1 item
-16, parallel training).
+clips, readable without libav).
 
     python -m grove_tpu_torch.train.driver --synthetic --model_size tiny \\
         --device cpu --epochs 1 --steps_per_epoch 2
+    torchrun --nproc_per_node 2 -m grove_tpu_torch.train.driver \\
+        --multihost --mesh_model 2 --synthetic --model_size small
 """
 
 from __future__ import annotations
@@ -50,13 +68,11 @@ from ..config import GroveConfig
 from ..data.loader import GroundingLoader, process_rank_world
 from ..data.video import open_video
 from ..models.grove import init_grove_params
+from ..parallel import mesh as pmesh
 from ..utils.meters import AverageMeter, ProgressMeter
 from .step import (MultiSteps, OptimizerConfig, batch_to_device,
-                   make_optimizer, make_train_step, partition_params,
-                   trainable_mask)
-
-PARALLEL_ITEM = ("parallel training is not ported yet (ROADMAP Queue 1 "
-                 "item 16)")
+                   make_optimizer, make_pipelined_train_step,
+                   make_train_step, partition_params, trainable_mask)
 
 
 def parse_args(args=None):
@@ -112,7 +128,7 @@ def parse_args(args=None):
                    help="train all params (reference trains adapters/heads)")
     p.add_argument("--lora_r", default=0, type=int)
     p.add_argument("--lora_alpha", default=16.0, type=float)
-    # parallelism (not ported: item 16)
+    # parallelism
     p.add_argument("--mesh_model", default=1, type=int)
     p.add_argument("--pipeline_stages", default=0, type=int)
     p.add_argument("--pipeline_microbatches", default=4, type=int)
@@ -174,7 +190,7 @@ def build_tokenizer(args, cfg):
     return tok
 
 
-def build_datasets(args, cfg):
+def build_datasets(args, cfg, data_rank: int = 0, data_size: int = 1):
     if args.synthetic:
         import tempfile
         root = tempfile.mkdtemp(prefix="grove_synth_")
@@ -218,11 +234,10 @@ def build_datasets(args, cfg):
         from ..data.datasets.howto100m import HowTo100MDataset
         shard = {}
         if getattr(args, "manifest", None):
-            # streaming-scale: pre-shard the index across processes; the
-            # loader then must not shard again (see _run)
-            rank, world = process_rank_world()
-            shard = dict(manifest=args.manifest, shard_rank=rank,
-                         shard_world=world)
+            # streaming-scale: pre-shard the index across the data ranks;
+            # the loader then must not shard again (see _run)
+            shard = dict(manifest=args.manifest, shard_rank=data_rank,
+                         shard_world=data_size)
         train_ds = HowTo100MDataset(ann_dir=args.ann_dir,
                                     video_dir=args.video_dir,
                                     validation=False, **shard, **common)
@@ -330,12 +345,20 @@ def _profiler(profile_dir: str):
     return prof
 
 
+def _pipe_devices(device: torch.device, n_stages: int):
+    """One card per stage where there are `n_stages` cards, else every
+    stage on `device`."""
+    if device.type == "cuda" and torch.cuda.device_count() >= n_stages:
+        return [torch.device("cuda", i) for i in range(n_stages)]
+    return [device] * n_stages
+
+
 def _run(args):
-    if args.multihost or args.mesh_model > 1 or args.pipeline_stages > 1:
-        raise NotImplementedError(
-            f"--multihost / --mesh_model > 1 / --pipeline_stages > 1: "
-            f"{PARALLEL_ITEM}")
-    device = _device(args.device)
+    parallel = args.multihost or args.mesh_model > 1
+    if parallel:
+        device = pmesh.init_distributed(args.device)
+    else:
+        device = _device(args.device)
     args.device = str(device)
     np.random.seed(args.seed)
 
@@ -345,7 +368,11 @@ def _run(args):
     # defaults assume the published 32000-base vocab)
     from ..text.tokenizer import special_token_ids_from
     cfg = dataclasses.replace(cfg, tokens=special_token_ids_from(tokenizer))
-    train_ds, val_ds = build_datasets(args, cfg)
+    mesh = (pmesh.make_mesh(model=args.mesh_model, device_type=device.type)
+            if parallel else None)
+    data_rank = pmesh.axis_rank(mesh, "data")
+    data_size = pmesh.axis_size(mesh, "data")
+    train_ds, val_ds = build_datasets(args, cfg, data_rank, data_size)
 
     model = init_grove_params(cfg, device=device,
                               dtype=model_dtype(args.model_size),
@@ -362,14 +389,47 @@ def _run(args):
         grad_clip=args.grad_clip, train_mask_decoder=args.train_mask_decoder,
         freeze=not args.no_freeze, moment_dtype=args.moment_dtype,
         train_embeddings=not args.no_train_embeddings)
-    params = partition_params(model, trainable_mask(model, opt_cfg))
+    mask = trainable_mask(model, opt_cfg)
+    partition_params(model, mask)
+    if args.mesh_model > 1:
+        from ..parallel.sharding import shard_pytree
+        shard_pytree(model, mesh)
+    params = {n: p for n, p in model.named_parameters() if mask[n]}
     optimizer = make_optimizer(params, opt_cfg)
     if args.grad_accumulation_steps > 1:
         optimizer = MultiSteps(optimizer, args.grad_accumulation_steps)
     n_train = sum(p.numel() for p in params.values())
     n_total = sum(p.numel() for p in model.parameters())
     print(f"trainable params: {n_train/1e6:.1f}M / {n_total/1e6:.1f}M")
-    train_step = make_train_step(model, optimizer)
+    if args.pipeline_stages > 1:
+        if args.mesh_model != 1:
+            raise ValueError("--pipeline_stages and --mesh_model > 1 are "
+                             "mutually exclusive")
+        if cfg.llama.num_layers % args.pipeline_stages:
+            raise ValueError(f"--pipeline_stages {args.pipeline_stages} "
+                             f"does not divide {cfg.llama.num_layers} "
+                             "layers")
+        if args.batch_size % args.pipeline_microbatches:
+            raise ValueError(f"--batch_size {args.batch_size} does not "
+                             f"divide into {args.pipeline_microbatches} "
+                             "microbatches")
+        if process_rank_world()[1] > 1:
+            raise ValueError("--pipeline_stages runs in one process (no "
+                             "pipeline across processes)")
+        from ..parallel.pipeline import make_pipe_mesh, place_stages
+        pipe = make_pipe_mesh(args.pipeline_stages,
+                              _pipe_devices(device, args.pipeline_stages))
+        place_stages(model.model, pipe)
+        print(f"pipeline-parallel LLM: {args.pipeline_stages} stages x "
+              f"{cfg.llama.num_layers // args.pipeline_stages} layers on "
+              f"{[str(d) for d in pipe.devices]}, "
+              f"{args.pipeline_microbatches} microbatches")
+        train_step = make_pipelined_train_step(model, optimizer, pipe,
+                                               args.pipeline_microbatches)
+    elif mesh is None:
+        train_step = make_train_step(model, optimizer)
+    else:
+        train_step = make_train_step(model, optimizer, mesh)
 
     rank, _ = process_rank_world()
     log_dir = os.path.join(args.log_base_dir, args.exp_name)
@@ -387,8 +447,9 @@ def _run(args):
     if args.auto_resume:
         latest = ckpt.latest_step()
         if latest is not None:
+            from ..parallel.sharding import load_full_state_dict
             restored = ckpt.restore(latest)
-            model.load_state_dict(restored["params"])
+            load_full_state_dict(model, restored["params"])
             optimizer.load_state_dict(restored["opt_state"])
             del restored
             start_epoch = latest // args.steps_per_epoch
@@ -398,22 +459,26 @@ def _run(args):
                                 VIDEO_STG_QUESTIONS)
     qts = (VIDEO_STG_QUESTIONS if args.dataset == "VidSTG"
            else VIDEO_GROUNDING_QUESTIONS)
-    # with a manifest the dataset is already sharded by process: the
-    # loader must not stride it again (shuffle then happens shard-locally,
-    # the streaming-scale recipe; see data/index.py)
-    presharded = (dict(process_index=0, process_count=1)
-                  if getattr(args, "manifest", None) else {})
+    # every rank of one "data" index reads the same shard; with a manifest
+    # the dataset is already sharded by data rank: the loader must not
+    # stride it again (shuffle then happens shard-locally, the
+    # streaming-scale recipe; see data/index.py)
+    shard = (dict(process_index=0, process_count=1)
+             if getattr(args, "manifest", None)
+             else dict(process_index=data_rank, process_count=data_size))
     loader = GroundingLoader(train_ds, tokenizer, cfg,
                              batch_size=args.batch_size,
                              num_workers=args.num_workers, seed=args.seed,
-                             question_templates=qts, **presharded)
+                             question_templates=qts, **shard)
     val_loader = None
     if val_ds is not None:
         val_loader = GroundingLoader(val_ds, tokenizer, cfg,
                                      batch_size=args.batch_size,
                                      shuffle=False, drop_last=False,
                                      num_workers=args.num_workers,
-                                     question_templates=qts)
+                                     question_templates=qts,
+                                     process_index=data_rank,
+                                     process_count=data_size)
 
     best_metric = ckpt.best_metric_from_marker() or -1e9
     global_step = start_epoch * args.steps_per_epoch
@@ -441,7 +506,7 @@ def _run(args):
             dt.update(time.time() - t_end)
             if args.profile_dir and global_step == 2:
                 prof = _profiler(args.profile_dir)
-            metrics = train_step(batch_to_device(batch, device))
+            metrics = train_step(pmesh.globalize_batch(batch, mesh, device))
             loss = float(metrics["loss"])
             if prof is not None and global_step == 4:
                 if device.type == "cuda":
@@ -477,9 +542,8 @@ def _run(args):
                         writer.add_scalar(f"val/{k}", v, global_step)
             if val_metrics["key_metric"] > best_metric:
                 best_metric = val_metrics["key_metric"]
-                if rank == 0:
-                    ckpt.save_best(epoch, model.state_dict(), "metric",
-                                   best_metric)
+                ckpt.save_best(epoch, model.state_dict(), "metric",
+                               best_metric)
         ckpt.save(global_step, model.state_dict(), optimizer.state_dict())
 
     if prof is not None:
@@ -494,21 +558,28 @@ def _run(args):
 def main(args=None):
     """Entry with in-process elastic restarts (reference torchrun
     `--max_restarts`, `train_scripts/train_howtoground.sh:21-29`)."""
+    import torch.distributed as dist
     parsed = parse_args(args)
+    owned = not dist.is_initialized()
     attempt = 0
-    while True:
-        try:
-            return _run(parsed)
-        except KeyboardInterrupt:
-            raise
-        except Exception as e:
-            if attempt >= parsed.max_restarts:
+    try:
+        while True:
+            try:
+                return _run(parsed)
+            except KeyboardInterrupt:
                 raise
-            attempt += 1
-            print(f"training failed ({type(e).__name__}: {e}); "
-                  f"restart {attempt}/{parsed.max_restarts} with "
-                  f"auto_resume", flush=True)
-            parsed.auto_resume = True
+            except Exception as e:
+                if attempt >= parsed.max_restarts:
+                    raise
+                attempt += 1
+                print(f"training failed ({type(e).__name__}: {e}); "
+                      f"restart {attempt}/{parsed.max_restarts} with "
+                      f"auto_resume", flush=True)
+                parsed.auto_resume = True
+    finally:
+        # a process group this run joined is left with it
+        if owned and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

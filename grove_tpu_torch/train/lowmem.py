@@ -60,10 +60,9 @@ class AdamWBf16(AdamW):
         and rounded to that dtype, the leaf sums added in their promoted
         dtype, the square root in it (bf16 for bf16 gradients)."""
         total = None
-        for p in self.params.values():
-            if p.grad is not None:
-                s = (p.grad * p.grad).float().sum().to(p.grad.dtype)
-                total = s if total is None else total + s
+        for s, dtype in self._leaf_sq_sums(lambda g: (g * g).float()):
+            s = s.to(dtype)
+            total = s if total is None else total + s
         return torch.zeros(()) if total is None else total.sqrt()
 
     def _bias_corrections(self, count: int):

@@ -35,8 +35,17 @@ WarmupDecayLR (linear warmup over `warmup_steps`, linear decay to 0 at
 * `state_dict` / `load_state_dict` carry the optimizer's state (the count
   and the moments; for `MultiSteps` also its step counters and the
   accumulated gradients) through `checkpoint.manager`.
-
-Not ported yet: the pipelined step (ROADMAP Queue 1 item 16).
+* Parallel training (`parallel/`): a parameter may be a DTensor (tensor
+  parallelism, FSDP2). `AdamW` then keeps each moment as the parameter's
+  local shard and updates the shard in place (Adam is elementwise), and
+  `global_norm` is the norm over the whole gradients: each leaf's local
+  sum of squares summed over the mesh dims it is sharded on.
+  `AdamW.shard_state_` gives replicated parameters ZeRO-2 moments
+  (`parallel.sharding.zero_sharding`): each data rank updates its slice,
+  and the slices are gathered into the parameter.
+  `make_train_step(mesh=)` runs the data-parallel step with JAX's global
+  normalizers (`parallel.mesh`); `make_pipelined_train_step` is the
+  GPipe step of `step.py:165-223` (`parallel.pipeline`).
 """
 
 from __future__ import annotations
@@ -47,6 +56,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 TRAINABLE_PATTERNS_FINETUNE = (
@@ -139,6 +149,19 @@ def partition_params(model: nn.Module, mask: Dict[str, bool]
     return trainable
 
 
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def _reduced_dims(placements) -> Tuple[int, ...]:
+    """The mesh dims over which a DTensor's local sums add up to the whole
+    (sharded or partial ones; a replicated dim holds copies)."""
+    from torch.distributed.tensor import Replicate
+    return tuple(i for i, pl in enumerate(placements)
+                 if not isinstance(pl, Replicate))
+
+
 class AdamW:
     """`optax.chain(clip_by_global_norm(grad_clip), adamw(schedule, b1, b2,
     weight_decay=...))` over `params` (name -> parameter), written out
@@ -146,7 +169,10 @@ class AdamW:
     `update()` returns the updates by name and leaves the parameters alone;
     `step()` adds them in place (optax's `apply_updates`: the sum in the
     parameter's dtype). `lowmem.AdamWBf16` changes only how the moments are
-    stored and updated and how the clipping norm is summed."""
+    stored and updated and how the clipping norm is summed. For a DTensor
+    parameter the moments, the updates and the add are this rank's local
+    shard; `shard_state_` makes a replicated parameter's moments ZeRO-2
+    shards."""
 
     def __init__(self, params: Dict[str, nn.Parameter], schedule, *,
                  b1: float = 0.9, b2: float = 0.999, weight_decay: float = 0.0,
@@ -156,23 +182,76 @@ class AdamW:
         self.b1, self.b2 = b1, b2
         self.weight_decay, self.grad_clip = weight_decay, grad_clip
         self.count = 0
-        self.mu = {n: self._zeros(p) for n, p in self.params.items()}
-        self.nu = {n: self._zeros(p) for n, p in self.params.items()}
+        self.zero: Dict[str, Tuple] = {}
+        self.mu = {n: self._zeros(_local(p)) for n, p in self.params.items()}
+        self.nu = {n: self._zeros(_local(p)) for n, p in self.params.items()}
 
     @staticmethod
     def _zeros(p: torch.Tensor) -> torch.Tensor:
         return torch.zeros_like(p)
 
+    def shard_state_(self, mesh, placements: Dict[str, Tuple]) -> None:
+        """ZeRO-2 (`parallel.sharding.zero_sharding`): each plain
+        (replicated) parameter whose placements shard a dim over "data"
+        keeps its moments as this data rank's slice of that dim."""
+        from torch.distributed.tensor import Shard
+        data = mesh.mesh_dim_names.index("data")
+        size, rank = mesh.size(data), mesh.get_local_rank("data")
+        for name, pl in placements.items():
+            p = self.params.get(name)
+            if (p is None or _is_dtensor(p) or size == 1
+                    or not isinstance(pl[data], Shard)):
+                continue
+            dim = pl[data].dim
+            n = p.shape[dim] // size
+            self.zero[name] = (mesh, tuple(pl), dim, rank * n, n)
+            self.mu[name] = self._zeros(p.detach().narrow(dim, 0, n))
+            self.nu[name] = self._zeros(p.detach().narrow(dim, 0, n))
+
     def zero_grad(self) -> None:
         for p in self.params.values():
             p.grad = None
+
+    def _local_grad(self, name: str, p) -> Optional[torch.Tensor]:
+        """The gradient of `name` as this rank holds it in the parameter's
+        own placements (a partial or other layout redistributed first)."""
+        g = p.grad
+        if g is None or not _is_dtensor(g):
+            return g
+        if tuple(g.placements) != tuple(p.placements):
+            g = g.redistribute(p.device_mesh, p.placements)
+        return g.to_local()
+
+    def _leaf_sq_sums(self, square) -> list:
+        """[(sum of square(g) over the whole gradient, fp32, 0-dim), g's
+        dtype] of each trainable gradient: a DTensor's local sum summed
+        over the mesh dims it is sharded on (one all-reduce per mesh and
+        dims)."""
+        out, pending = [], {}
+        for name, p in self.params.items():
+            if p.grad is None:
+                continue
+            g = self._local_grad(name, p)
+            s = square(g).sum()
+            dims = _reduced_dims(p.placements) if _is_dtensor(p) else ()
+            if dims:
+                pending.setdefault((id(p.device_mesh), dims),
+                                   (p.device_mesh, dims, []))[2].append(
+                                       len(out))
+            out.append([s, g.dtype])
+        for mesh, dims, idx in pending.values():
+            vec = torch.stack([out[i][0] for i in idx])
+            for d in dims:
+                dist.all_reduce(vec, group=mesh.get_group(d))
+            for i, v in zip(idx, vec.unbind()):
+                out[i][0] = v
+        return out
 
     @torch.no_grad()
     def global_norm(self) -> torch.Tensor:
         """fp32 global norm of the trainable gradients (0-dim, on the
         parameters' device: no host sync)."""
-        sq = [p.grad.float().pow(2).sum() for p in self.params.values()
-              if p.grad is not None]
+        sq = [s for s, _ in self._leaf_sq_sums(lambda g: g.float().pow(2))]
         return torch.stack(sq).sum().sqrt() if sq else torch.zeros(())
 
     def _bias_corrections(self, count: int) -> Tuple[float, float]:
@@ -186,9 +265,17 @@ class AdamW:
         nu.copy_((1 - self.b2) * (g * g) + self.b2 * nu)
         return (mu / bc1) / (torch.sqrt(nu / bc2) + EPS)
 
+    def _slice(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's part of a parameter-shaped local tensor: its ZeRO
+        slice, or all of it."""
+        if name not in self.zero:
+            return t
+        _, _, dim, start, n = self.zero[name]
+        return t.narrow(dim, start, n)
+
     def _updates(self):
-        """(name, update) of one step, one parameter at a time; the count
-        advances once all are taken."""
+        """(name, update of this rank's part) of one step, one parameter at
+        a time; the count advances once all are taken."""
         clip_at = self.grad_clip
         if clip_at is not None:
             norm = self.global_norm()
@@ -197,42 +284,86 @@ class AdamW:
         bc1, bc2 = self._bias_corrections(count)
         lr = self.schedule(self.count)
         for name, p in self.params.items():
-            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            pl = self._slice(name, _local(p))
+            g = self._local_grad(name, p)
+            g = self._slice(name, g) if g is not None else torch.zeros_like(
+                pl)
             if clip_at is not None:
                 g = torch.where(clip, (g / norm.to(g.dtype)) * clip_at, g)
             u = self._adam(name, g, bc1, bc2)
             if self.weight_decay:
-                u = u + self.weight_decay * p
+                u = u + self.weight_decay * pl
             yield name, u * -lr
         self.count = count
 
     @torch.no_grad()
     def update(self) -> Dict[str, torch.Tensor]:
-        """One step's updates by name; advances the moments and the
-        count."""
+        """One step's updates by name (of each parameter's local part);
+        advances the moments and the count."""
         return dict(self._updates())
+
+    def _layout(self, name: str):
+        """(mesh, placements) of a sharded parameter's moments, or None."""
+        if name in self.zero:
+            return self.zero[name][:2]
+        p = self.params[name]
+        return (p.device_mesh, tuple(p.placements)) if _is_dtensor(p) \
+            else None
 
     def state_dict(self) -> Dict:
         """{"count", "mu", "nu"}: the moments by parameter name, the live
-        tensors (`checkpoint.manager` copies them off)."""
-        return {"count": self.count, "mu": dict(self.mu),
-                "nu": dict(self.nu)}
+        tensors (`checkpoint.manager` copies them off); a sharded moment as
+        a DTensor of the parameter's shape, which the manager gathers."""
+        from torch.distributed.tensor import DTensor
+
+        def wrap(name, t):
+            layout = self._layout(name)
+            if layout is None:
+                return t
+            p = self.params[name]
+            return DTensor.from_local(t, layout[0], layout[1],
+                                      run_check=False, shape=p.shape,
+                                      stride=p.stride())
+        return {"count": self.count,
+                "mu": {n: wrap(n, t) for n, t in self.mu.items()},
+                "nu": {n: wrap(n, t) for n, t in self.nu.items()}}
 
     @torch.no_grad()
     def load_state_dict(self, state: Dict) -> None:
         """Copy a `state_dict()` into this optimizer's tensors (their
-        device and dtype stay); the names and shapes must match."""
+        device and dtype stay); the names and shapes must match. Whole
+        moments of a sharded parameter are cut to this rank's shard."""
         for key in ("mu", "nu"):
-            _copy_tensors(getattr(self, key), state[key], key)
+            src = {}
+            for name, t in state[key].items():
+                layout = self._layout(name) if name in self.params else None
+                src[name] = (_local_piece(t, *layout) if layout is not None
+                             else t)
+            _copy_tensors(getattr(self, key), src, key)
         self.count = int(state["count"])
 
     @torch.no_grad()
     def step(self) -> None:
         """`update()` and a plain add, p <- (p + u) in p's dtype, each
-        parameter as soon as its update is made."""
+        parameter as soon as its update is made (a ZeRO slice is added,
+        then the data ranks' slices are gathered into the parameter)."""
+        from torch.distributed.tensor import DTensor
         for name, u in self._updates():
-            p = self.params[name]
-            p.copy_(p + u)
+            p = _local(self.params[name])
+            part = self._slice(name, p)
+            new = part + u
+            if name in self.zero:
+                mesh, pl = self.zero[name][:2]
+                p.copy_(DTensor.from_local(
+                    new.contiguous(), mesh, pl, run_check=False,
+                    shape=p.shape, stride=p.stride()).full_tensor())
+            else:
+                part.copy_(new)
+
+
+def _local(p: torch.Tensor) -> torch.Tensor:
+    """A parameter's local tensor (the DTensor's shard, or itself)."""
+    return p.to_local() if _is_dtensor(p) else p
 
 
 def _copy_tensors(dst: Dict[str, torch.Tensor], src: Dict, what: str):
@@ -245,6 +376,17 @@ def _copy_tensors(dst: Dict[str, torch.Tensor], src: Dict, what: str):
                              f"{tuple(src[name].shape)}, not "
                              f"{tuple(t.shape)}")
         t.copy_(src[name])
+
+
+def _local_piece(t: torch.Tensor, mesh, placements) -> torch.Tensor:
+    """This rank's shard, under `placements` on `mesh`, of `t` (a whole
+    tensor, or a DTensor whose local shard is taken as it is)."""
+    from torch.distributed.tensor import distribute_tensor
+    if _is_dtensor(t):
+        return t.to_local()
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if mesh.device_type == "cuda" else torch.device("cpu"))
+    return distribute_tensor(t.to(device), mesh, list(placements)).to_local()
 
 
 class MultiSteps:
@@ -330,17 +472,29 @@ def batch_to_device(batch: Dict[str, np.ndarray], device) -> Dict:
             for k, v in batch.items()}
 
 
-def make_train_step(model: nn.Module, optimizer):
+def make_train_step(model: nn.Module, optimizer, mesh=None):
     """train_step(batch) -> the loss dict (detached): forward_train,
     backward, clip, update. Gradients exist only for the parameters that
-    `partition_params` left trainable."""
+    `partition_params` left trainable.
+
+    With a ("data", "model") `mesh` (`parallel.mesh.make_mesh`) the batch
+    is this rank's local batch: the loss counts are summed over "data"
+    before they divide, the gradients summed over "data" where FSDP does
+    not reduce them, and the returned terms are the global batch's
+    (`parallel.mesh`): the step of the global batch, as JAX's SPMD
+    step."""
+    from ..parallel import mesh as pmesh
+    reduce = pmesh.count_reduce(mesh)
 
     def train_step(batch):
         optimizer.zero_grad()
-        out = model.forward_train(batch)
+        out = (model.forward_train(batch) if reduce is None
+               else model.forward_train(batch, count_reduce=reduce))
         out["loss"].backward()
+        pmesh.sync_gradients(optimizer.params, mesh)
         optimizer.step()
-        return {k: v.detach() for k, v in out.items()}
+        return pmesh.reduce_metrics({k: v.detach() for k, v in out.items()},
+                                    mesh)
     return train_step
 
 
@@ -349,3 +503,37 @@ def make_eval_step(model: nn.Module):
     def eval_step(batch):
         return model.forward_train(batch)
     return eval_step
+
+
+def make_pipelined_train_step(model: nn.Module, optimizer, pipe,
+                              n_microbatches: int):
+    """The train step with the LLaMA decoder stack GPipe-pipelined over
+    `pipe` (`parallel.pipeline.make_pipe_mesh`; `step.py:165-223`). The
+    encoders, the splice, the final norm, `lm_head`, `ground` and the
+    losses run on stage 0's device, as `make_train_step` runs them; only
+    the decoder layers run in the schedule, each on its stage's device
+    (`parallel.pipeline.place_stages`), in microbatches of
+    B / n_microbatches rows. The same loss and gradients as
+    `make_train_step`; equal-length packed prompts (the collator's), and
+    num_layers divisible by the stages."""
+    from ..parallel.pipeline import pipelined_llama_forward
+
+    def loss_fn(batch):
+        video_embeds, _ = model.encode_video(batch["frames_clip"])
+        image_embeddings = model.encode_grounding(batch["frames_sam"],
+                                                  batch.get("sam_valid_hw"))
+        x = model._splice(batch["input_ids"], video_embeds,
+                          batch["video_start"])
+        positions = torch.arange(x.shape[1], device=x.device)
+        hidden = pipelined_llama_forward(model.model, x, positions, pipe,
+                                         n_microbatches)
+        return model.losses(batch, hidden, model.lm_head(hidden),
+                            image_embeddings)
+
+    def train_step(batch):
+        optimizer.zero_grad()
+        out = loss_fn(batch)
+        out["loss"].backward()
+        optimizer.step()
+        return {k: v.detach() for k, v in out.items()}
+    return train_step

@@ -133,7 +133,14 @@ def test_import_leaves_jax_and_pil_out():
             "grove_tpu_torch.tools.preprocess_annotations",
             "grove_tpu_torch.tools.build_index",
             "grove_tpu_torch.utils.visualize",
-            "grove_tpu_torch.ops.roi_align"} <= set(mods)
+            "grove_tpu_torch.ops.roi_align",
+            "grove_tpu_torch.parallel.mesh",
+            "grove_tpu_torch.parallel.sharding",
+            "grove_tpu_torch.parallel.pipeline",
+            "grove_tpu_torch.parallel.launch",
+            "grove_tpu_torch.parallel.workers",
+            "grove_tpu_torch.parallel.dryrun",
+            "grove_tpu_torch.tools.multihost_demo"} <= set(mods)
     assert {f"grove_tpu_torch.evals.{m}" for m in (
         "anet", "captions", "iground", "lemma", "meteor", "pointing", "ptb",
         "run_all", "run_iground", "spice", "textsim", "vidstg")} <= set(mods)
@@ -184,6 +191,23 @@ def test_from_pretrained_defaults_to_the_card():
     from grove_tpu_torch.api import GroveForCausalLM
     sig = inspect.signature(GroveForCausalLM.from_pretrained)
     assert sig.parameters["device"].default == "cuda"
+
+
+def test_parallel_entry_points_default_to_the_card():
+    """The parallel entry points run on the card unless the caller asks
+    for the CPU: `init_distributed`, the multi-host demo's workers, the
+    pipe mesh (one card a stage), and no CPU fallback without a card."""
+    from grove_tpu_torch.parallel import mesh, pipeline
+    from grove_tpu_torch.tools import multihost_demo
+    sig = inspect.signature(mesh.init_distributed)
+    assert sig.parameters["device"].default == "cuda"
+    src = inspect.getsource(multihost_demo.main)
+    assert 'p.add_argument("--device", default="cuda"' in src
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            mesh.init_distributed()
+        with pytest.raises(ValueError, match="CUDA devices"):
+            pipeline.make_pipe_mesh(2)
 
 
 @pytest.mark.parametrize("name", CONFIG_CLASSES)
@@ -474,11 +498,12 @@ def test_unported_paths_raise(tmp_path):
     with pytest.raises(ValueError, match="KV cache dtype"):
         tllama.init_kv_caches(cfg.llama, 1, 4, dtype=torch.int16,
                               device="cpu")
-    # the training driver's parallel flags (item 16)
+    # the training driver's multi-process flags run since item 16 was
+    # ported (tests/test_torch_distributed_driver.py); outside torchrun's
+    # environment their rendezvous raises instead of training alone
     from grove_tpu_torch.train import driver
-    for argv in (["--multihost"], ["--mesh_model", "2"],
-                 ["--pipeline_stages", "2"]):
-        with pytest.raises(NotImplementedError, match="item 16"):
+    for argv in (["--multihost"], ["--mesh_model", "2"]):
+        with pytest.raises(ValueError, match="env://"):
             driver.main(["--device", "cpu", "--synthetic"] + argv)
     # a model directory the JAX package's save_pretrained writes (item 18)
     from grove_tpu_torch.api import GroveForCausalLM
