@@ -411,7 +411,23 @@ Phases, each printing its own line; any failure exits non-zero:
      disjoint shards, the same loss on both ranks at every step), and a
      TP = 2 small() fp32 step (`parallel.workers.train_step`, TF32 off)
      against the unsharded step here: loss terms within 1e-4 relative,
-     each first-step gradient within 2e-3 of its max-abs.
+     each first-step gradient within 2e-3 of its max-abs;
+  13 the JAX package's model directories (`checkpoint.flax_msgpack`,
+     `checkpoint.convert.load_jax_tree`): phase 10's bf16 GroveConfig()
+     written as one (`save_jax_pretrained`: config.json and
+     flax_model.msgpack, the layout `grove_tpu`'s `save_pretrained`
+     writes) and read back with `GroveForCausalLM.from_pretrained(dir)`
+     on the card: every tensor of the state bit-equal; then
+     `infer_clips_batched` over 4 clips of phase 10's iground maker on
+     both models, every launch count set to 0 just before each run and
+     read just after: the greedy tokens identical, every output bit-equal,
+     the launches equal. The same for the flagship (the model quantized in
+     place to W4A8 with W8A8 towers, calibrated on one clip; the int8 KV
+     cache). Each directory is deleted after use; bytes written and read,
+     write and load seconds, the process's peak RSS (`resource.getrusage`)
+     and the phase's own peak (sampled from /proc/self/statm), peak device
+     memory. Orbax runs cannot be read here (no tensorstore on this
+     machine): tests/test_torch_orbax.py holds them on the CPU.
 Phase 2 also holds the five training kernels (K4b dq and dkv at LLaMA's
 (1, 704, 32, 128) causal; K9's forward with its LSE, dq with d_rh and d_rw,
 and dkv at SAM's windowed (72, 196, 16, 80) and global (8, 1024, 16, 80)
@@ -436,7 +452,9 @@ and `phase2_launches`, the launches of phase 2's checks and timings, and
 (K5's tensor-core entry and K6), and `infer_launches`, those of each of
 phase 10's full-width driver runs by task ("iground_int8": the int8-cache
 run), and `region_launches`, those of phase 11's full-width region and
-mask path, and `parallel_launches`, those of phase 12's pipelined step;
+mask path, and `parallel_launches`, those of phase 12's pipelined step,
+and `jax_dir_launches`, those of phase 13's runs on the models read back
+from the JAX package's directories (bf16 and flagship, summed);
 the
 tensor-core rows also carry `simt_ms`, the SIMT entry's bf16 time at the
 same shape; the last line is {"ok": true, "device": {...}}.
@@ -6869,6 +6887,220 @@ def _no_tf32(torch):
 PARALLEL_STEP = {}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the JAX package's model directories
+# ---------------------------------------------------------------------------
+
+JAX_DIR_CLIPS = 4        # one group of phase 10's iground clips
+# kernels the main path must launch on each model read back (the bf16
+# towers' K1, K2 and K3; the flagship's K1q, K6 and K7b), beside launches
+# equal to the in-memory model's
+JAX_DIR_NEED = {"bf16": ("sam_window_attention_tc", "sam_global_attention_tc",
+                         "grouped_plain_attention_tc"),
+                "flagship": ("sam_window_attention_q8_tc",
+                             "int8_decode_attention", "int4_matmul_a8")}
+
+
+class _RssPeak:
+    """The process's peak resident set while the block runs, sampled from
+    /proc/self/statm every 20 ms by a thread (ru_maxrss is the peak of the
+    whole process's life, earlier phases included)."""
+
+    def __enter__(self):
+        import threading
+        self.page = os.sysconf("SC_PAGE_SIZE")
+        self.peak = self.start = self._now()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    def _now(self):
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * self.page
+
+    def _run(self):
+        while not self._stop.wait(0.02):
+            self.peak = max(self.peak, self._now())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self._now())
+
+
+class _GenSpy:
+    """Record the generated ids of `infer.sliding.generate_grounded`."""
+
+    def __enter__(self):
+        from grove_tpu_torch.infer import sliding
+        self._mod, self._real, self.ids = sliding, sliding.generate_grounded, []
+
+        def gen(*a, **kw):
+            out = self._real(*a, **kw)
+            self.ids.append(np.array(out["generated_ids"]))
+            return out
+        sliding.generate_grounded = gen
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.generate_grounded = self._real
+
+
+def phase_jax_dirs(torch, gpu, model):
+    """Phase 10's bf16 model, then the flagship made from it in place,
+    each written as the JAX package's model directory and read back on the
+    card (see the module docstring). Returns the launches of the main-path
+    runs on the models read back, summed, by kernel."""
+    from grove_tpu_torch.api import GroveForCausalLM
+    from grove_tpu_torch.infer.drivers import (FullClipIGroundDataset,
+                                               make_synthetic)
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="grove_jax_dirs_"))
+    launches, written = {}, 0
+    try:
+        ann, videos, _, _ = make_synthetic("iground", str(tmp / "set"),
+                                           num_videos=JAX_DIR_CLIPS)
+        ds = FullClipIGroundDataset(ann, videos, model.cfg)
+        samples = [ds[i] for i in range(JAX_DIR_CLIPS)]
+        model.model.stages = None        # phase 12's placement: one card
+        for p in model.parameters():
+            p.grad = None
+        lm = GroveForCausalLM(model.cfg, model.eval())
+        for label in ("bf16", "flagship"):
+            if label == "flagship":
+                t0 = time.perf_counter()
+                nf = lm.cfg.num_frames
+                lm.quantize(bits=4, vision=True, act_quant=True)
+                lm.calibrate(
+                    torch.from_numpy(samples[0]["frames_clip"][None, :nf]
+                                     ).cuda(),
+                    torch.from_numpy(samples[0]["frames_sam"][None, :nf]
+                                     ).cuda())
+                torch.cuda.synchronize()
+                say(13, f"flagship made in place (W4A8, W8A8 towers "
+                        f"calibrated on one clip) in "
+                        f"{time.perf_counter() - t0:.1f} s: weights "
+                        f"{_model_bytes(lm.model) / 2**30:.2f} GiB")
+            got, n = _jax_dir_round_trip(torch, gpu, lm, samples, label,
+                                         tmp / label)
+            written += n
+            for k, v in got.items():
+                launches[k] = launches.get(k, 0) + v
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    say(13, f"phase 13 wrote {written / 2**30:.2f} GiB of model files in "
+            f"all (each deleted after use); Orbax runs: not read on this "
+            f"machine (no tensorstore), held on the CPU by "
+            f"tests/test_torch_orbax.py; phase 13 took "
+            f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def _jax_dir_round_trip(torch, gpu, lm, samples, label, path):
+    """Write `lm` as the JAX package's model directory at `path`, read it
+    back on the card, hold the state and the main path's outputs and
+    launches bit-equal, delete the directory. Returns (the read-back
+    run's launches, the model file's bytes)."""
+    import resource
+    from grove_tpu_torch import _kernels
+    from grove_tpu_torch.api import GroveForCausalLM
+    from grove_tpu_torch.checkpoint.flax_msgpack import (MODEL_FILE,
+                                                          save_jax_pretrained)
+    with _RssPeak() as rss_w:
+        t0 = time.perf_counter()
+        n = save_jax_pretrained(lm, str(path))
+        write_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with _RssPeak() as rss_r:
+        t0 = time.perf_counter()
+        back = GroveForCausalLM.from_pretrained(str(path),
+                                                dtype=lm.model.dtype,
+                                                device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    peak_dev = torch.cuda.max_memory_allocated()
+    read = os.path.getsize(path / MODEL_FILE)
+    shutil.rmtree(path)
+    if back.cfg != lm.cfg:
+        raise PhaseError(f"{label}: the config read back differs")
+    want, got = lm.model.state_dict(), back.model.state_dict()
+    if set(want) != set(got):
+        raise PhaseError(f"{label}: state keys differ: "
+                         f"{sorted(set(want) ^ set(got))[:4]}")
+    for k, v in want.items():
+        if got[k].dtype != v.dtype or not torch.equal(got[k], v):
+            raise PhaseError(f"{label}: {k} read back differs")
+    say(13, f"{label}: wrote {n} B ({n / 2**30:.2f} GiB) in {write_s:.1f} s "
+            f"({n / write_s / 1e9:.2f} GB/s), read {read} B back onto the "
+            f"card in {load_s:.1f} s ({read / load_s / 1e9:.2f} GB/s); "
+            f"{len(want)} tensors bit-equal; RSS peak while writing "
+            f"{rss_w.peak / 2**30:.2f} GiB (from {rss_w.start / 2**30:.2f}),"
+            f" while reading {rss_r.peak / 2**30:.2f} GiB (from "
+            f"{rss_r.start / 2**30:.2f}); the process's ru_maxrss "
+            f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.2f}"
+            f" GiB; device peak while reading {peak_dev / 2**30:.2f} GiB "
+            f"({(peak_dev - base) / 2**30:.2f} above the "
+            f"{base / 2**30:.2f} before) on {gpu}")
+    from grove_tpu_torch.api.processor import _decode_kwargs
+    from grove_tpu_torch.infer.sliding import infer_clips_batched
+    from grove_tpu_torch.text.mock_tokenizer import MockTokenizer
+    tok = MockTokenizer(model_max_length=lm.cfg.max_seq_len)
+    runs = {}
+    for who, m in (("in memory", lm.model), ("read back", back.model)):
+        kw = _decode_kwargs("int8" if label == "flagship" else None, True,
+                            device=m.device)
+        with _GenSpy() as spy:
+            _kernels.reset_launch_counts()
+            outs, ms = _timed(torch, lambda: infer_clips_batched(
+                m, m.cfg, tok, samples, max_new_tokens=64,
+                decode_kwargs=kw))
+            used = {k: v.launches for k, v in _kernels.KERNELS.items()
+                    if v.launches}
+        runs[who] = (outs, spy.ids, used, ms)
+    (o1, ids1, l1, ms1), (o2, ids2, l2, ms2) = runs.values()
+    if len(ids1) != len(ids2) or not all(
+            a.shape == b.shape and np.array_equal(a, b)
+            for a, b in zip(ids1, ids2)):
+        raise PhaseError(f"{label}: the greedy tokens differ")
+    for i, (a, b) in enumerate(zip(o1, o2)):
+        if not _bit_equal(a, b):
+            raise PhaseError(f"{label} clip {i}: the outputs differ")
+    if l1 != l2:
+        raise PhaseError(f"{label}: launches {l2} read back, {l1} in "
+                         "memory")
+    missing = [k for k in JAX_DIR_NEED[label] if not l2.get(k)]
+    if missing:
+        raise PhaseError(f"{label}: the main path launched no {missing}")
+    say(13, f"{label}: infer_clips_batched over {len(samples)} clips, in "
+            f"memory {ms1:.1f} ms, read back {ms2:.1f} ms: "
+            f"{sum(a.size for a in ids1)} greedy tokens identical, every "
+            f"output bit-equal (captions {[o['text'][:30] for o in o2][:2]})"
+            f", launches equal {l2} on {gpu}")
+    del back
+    torch.cuda.empty_cache()
+    return l2, n
+
+
+def _bit_equal(x, y) -> bool:
+    """Nested outputs (dicts, lists, tuples, arrays, numbers, str) equal
+    bit for bit."""
+    if isinstance(x, dict):
+        return (isinstance(y, dict) and set(x) == set(y)
+                and all(_bit_equal(x[k], y[k]) for k in x))
+    if isinstance(x, (list, tuple)):
+        return (isinstance(y, (list, tuple)) and len(x) == len(y)
+                and all(_bit_equal(a, b) for a, b in zip(x, y)))
+    if isinstance(x, (np.ndarray, np.generic)):
+        x, y = np.asarray(x), np.asarray(y)
+        return (x.dtype == y.dtype and x.shape == y.shape
+                and x.tobytes() == y.tobytes())
+    return type(x) is type(y) and x == y
+
+
 def main() -> int:
     compiles = {}
     try:
@@ -6895,6 +7127,7 @@ def main() -> int:
         infer_launches, full = phase_infer(torch, gpu)
         region_launches = phase_region(torch, gpu, full)
         parallel_launches = phase_parallel(torch, gpu, full)
+        jax_dir_launches = phase_jax_dirs(torch, gpu, full)
         del full
     except Exception:                       # report, then fail the run
         traceback.print_exc()
@@ -6912,7 +7145,8 @@ def main() -> int:
                "infer_launches": {task: got.get(name, 0)
                                   for task, got in infer_launches.items()},
                "region_launches": region_launches[name],
-               "parallel_launches": parallel_launches.get(name, 0)}
+               "parallel_launches": parallel_launches.get(name, 0),
+               "jax_dir_launches": jax_dir_launches.get(name, 0)}
         row.update(rows[name])
         kernels.append(row)
     print(json.dumps({"kernels": kernels, "decoder": decoder}), flush=True)

@@ -21,10 +21,14 @@ weights), where the JAX methods return a new instance beside the old one.
 `save_pretrained(dir)` writes the port's model directory: `config.json`
 (`GroveConfig.save_json`) and `STATE_FILE`, the model's own `state_dict()`
 under the port's module names, quantized buffers and static activation
-scales included; `from_pretrained(dir)` reads it back, and also a training
-log directory of `checkpoint.manager.CheckpointManager` (best, else
-latest). Directories the JAX package wrote (`flax_model.msgpack`, Orbax)
-raise NotImplementedError naming their ROADMAP item.
+scales included. `from_pretrained(dir)` reads it back, and also what the
+JAX package writes: its model directory (`config.json` and
+`flax_model.msgpack`, `grove_tpu/api/model.py:190-199`: float, quantized,
+calibrated, fused or with LoRA, read by `checkpoint.flax_msgpack` and
+`checkpoint.convert.load_jax_tree`) and a training log directory, the
+port's or an Orbax one (`checkpoint.manager.CheckpointManager`: best,
+else latest). `checkpoint.flax_msgpack.save_jax_pretrained(lm, dir)`
+writes the JAX package's model directory from a port model.
 """
 
 from __future__ import annotations
@@ -37,7 +41,7 @@ import numpy as np
 import torch
 
 from ..config import GroveConfig
-from ..checkpoint.convert import load_reference_state_dict
+from ..checkpoint.convert import load_jax_tree, load_reference_state_dict
 from ..checkpoint.peft import normalize_peft_state_dict
 from ..models.grove import GroveModel, init_grove_params
 from ..models.fuse import fuse_llama_
@@ -51,9 +55,6 @@ _SIZES = {"tiny": GroveConfig.tiny, "small": GroveConfig.small,
 # the port's model file in a `save_pretrained` directory: a torch state dict
 # under the port's module names, not a reference `.bin`
 STATE_FILE = "grove_torch_state_dict.pt"
-JAX_DIR_ITEM = ("model directories written by the JAX package "
-                "(flax_model.msgpack) and Orbax checkpoints are not ported "
-                "yet (ROADMAP Queue 1 item 18)")
 
 
 def read_checkpoint(path: str) -> Dict[str, np.ndarray]:
@@ -88,8 +89,9 @@ class GroveForCausalLM:
                         dtype: torch.dtype = torch.bfloat16, seed: int = 0,
                         device="cuda") -> "GroveForCausalLM":
         """Fresh weights from `seed` (checkpoint=None), a directory
-        (`_from_dir`: one `save_pretrained` wrote, or a training log
-        directory), or a strict load
+        (`_from_dir`: a model directory of the port's or the JAX package's
+        `save_pretrained`, or a training log directory, the port's or an
+        Orbax one), or a strict load
         of a reference torch state dict file, built directly on `device`
         (the card unless the caller asks for another) in `dtype`. The file
         goes the JAX package's way (`grove_tpu/api/model.py:76-86`): its
@@ -170,48 +172,61 @@ class GroveForCausalLM:
     @classmethod
     def _from_dir(cls, path: str, model_size: str, tokenizer, dtype, seed,
                   device) -> "GroveForCausalLM":
-        """The directory dispatch of `api/model.py:34-86`: a
-        `save_pretrained` directory (`config.json` + `STATE_FILE`) builds
-        its own config on `device` (meta, then `to_empty`) in `dtype` and
-        loads strictly; a `CheckpointManager` log directory loads its best
-        parameters, else its latest, into the `model_size` config (fresh
-        weights from `seed` where it holds neither, as JAX's); a directory
-        the JAX package wrote raises NotImplementedError."""
-        from ..checkpoint.manager import STATE_FILE as CKPT_FILE
+        """The directory dispatch of `api/model.py:34-86`. A model
+        directory (`config.json` beside `STATE_FILE` or the JAX package's
+        `flax_model.msgpack`) builds its own config on `device` (meta,
+        then `to_empty`) in `dtype` and loads strictly (`load_jax_tree` for
+        the JAX file). A training log directory (`CheckpointManager`: the
+        port's `state.pt` steps or Orbax ones) loads its best parameters,
+        else its latest, into the `model_size` config (fresh weights from
+        `seed` where it holds neither, as JAX's)."""
+        from ..checkpoint.flax_msgpack import MODEL_FILE, load
         from ..checkpoint.manager import CheckpointManager
-        if os.path.isfile(os.path.join(path, "flax_model.msgpack")):
-            raise NotImplementedError(f"{path}: {JAX_DIR_ITEM}")
+        tree = sd = None
         if os.path.isfile(os.path.join(path, "config.json")):
-            if not os.path.isfile(os.path.join(path, STATE_FILE)):
-                raise NotImplementedError(f"{path}: no {STATE_FILE}; "
-                                          f"{JAX_DIR_ITEM}")
             cfg = GroveConfig.load_json(os.path.join(path, "config.json"))
-            sd = torch.load(os.path.join(path, STATE_FILE),
-                            map_location="cpu", weights_only=True, mmap=True)
+            if os.path.isfile(os.path.join(path, STATE_FILE)):
+                sd = torch.load(os.path.join(path, STATE_FILE),
+                                map_location="cpu", weights_only=True,
+                                mmap=True)
+            elif os.path.isfile(os.path.join(path, MODEL_FILE)):
+                tree = load(os.path.join(path, MODEL_FILE))
+            else:
+                raise FileNotFoundError(f"{path}: config.json without "
+                                        f"{STATE_FILE} or {MODEL_FILE}")
         else:
             written = [os.path.join(path, d, s) for d, s in (
                 ("ckpt_model", ""), ("ckpt_model_best", "params"))]
             if not any(os.path.isdir(d) for d in written):
-                raise NotImplementedError(f"{path}: not a directory the "
-                                          f"port wrote; {JAX_DIR_ITEM}")
+                raise FileNotFoundError(
+                    f"{path}: neither a model directory (config.json) nor "
+                    "a training log directory (ckpt_model/, "
+                    "ckpt_model_best/)")
             mgr = CheckpointManager(path)
             restored = mgr.restore_best() or mgr.restore()
             if restored is None and any(
                     os.listdir(d) for d in written if os.path.isdir(d)):
-                raise NotImplementedError(
-                    f"{path}: no {CKPT_FILE} in its checkpoints; "
-                    f"{JAX_DIR_ITEM}")
+                raise ValueError(f"{path}: its checkpoints hold no step "
+                                 "the port or Orbax wrote")
             cfg = _SIZES[model_size]()
             sd = restored["params"] if restored else None
         if tokenizer is not None:
             cfg = dataclasses.replace(
                 cfg, tokens=special_token_ids_from(tokenizer))
-        if sd is None:
+        if sd is None and tree is None:
             return cls(cfg, init_grove_params(cfg, device=device,
                                               dtype=dtype, seed=seed))
         model = GroveModel(cfg, device="meta", dtype=dtype)
         model = model.to_empty(device=device)
-        model.load_state_dict(sd, strict=True)
+        if tree is not None:
+            try:
+                load_jax_tree(model, tree)
+            except ValueError as e:
+                raise ValueError(f"{os.path.join(path, MODEL_FILE)}: "
+                                 f"{e}") from e
+            del tree
+        else:
+            model.load_state_dict(sd, strict=True)
         _column_major_int8(model)
         return cls(model.cfg, model.eval())
 
@@ -219,7 +234,9 @@ class GroveForCausalLM:
         """Write the port's model directory (`api/model.py:190-199`):
         `config.json` and `STATE_FILE`, the model's `state_dict()` on the
         CPU. `from_pretrained(save_dir, dtype=...)` with the model's dtype
-        gives the same model back, quantized and fused ones included."""
+        gives the same model back, quantized and fused ones included. The
+        JAX package's layout is `checkpoint.flax_msgpack.
+        save_jax_pretrained(self, save_dir)`."""
         from ..checkpoint.manager import to_cpu
         os.makedirs(save_dir, exist_ok=True)
         self.cfg.save_json(os.path.join(save_dir, "config.json"))

@@ -1,5 +1,7 @@
-"""Load a reference-named state dict into `models.grove.GroveModel`, and
-carry the JAX package's quantized LLM and tower leaves across.
+"""Load a reference-named state dict into `models.grove.GroveModel`, carry
+the JAX package's quantized LLM and tower leaves across, and read and
+write the JAX package's whole parameter tree (`load_jax_tree`,
+`jax_tree_from_model`).
 
 The port's module tree carries the reference torch names
 (`model.vision_tower.vision_tower.vision_model.*`, `model.layers.N.*`,
@@ -27,13 +29,11 @@ import torch
 from torch import nn
 
 from ..models.grove import _resize_weights
+# the JAX converter's patterns (`torch_convert.py:330-333`, copied there);
+# tests/test_torch_misc.py holds the two equal
+from .torch_convert import (SKIP_PATTERNS, convert_state_dict,
+                            to_torch_state_dict)
 
-# copy of grove_tpu/checkpoint/torch_convert.py:330-333 (that module imports
-# jax); tests/test_torch_misc.py holds the two equal
-SKIP_PATTERNS = (
-    r"vision_model\.post_layernorm",
-    r"rotary_emb\.inv_freq",
-)
 _SKIP = re.compile("|".join(SKIP_PATTERNS))
 
 
@@ -263,3 +263,278 @@ def load_jax_quantized_towers(model: nn.Module, params: Mapping) -> nn.Module:
         raise KeyError(f"load_jax_quantized_towers: no leaf for "
                        f"{missing[:4]}{' ...' if len(missing) > 4 else ''}")
     return model
+
+
+# ---------------------------------------------------------------------------
+# the JAX package's whole parameter tree <-> the port's state dict
+# ---------------------------------------------------------------------------
+
+# the mask decoder's transposed convolutions: flax's ConvTranspose does not
+# flip its kernel as torch's does, so the converter's layout of a JAX
+# kernel computes the JAX package's masks in the port only flipped in both
+# spatial axes; the reader flips, the writer flips back (a reference `.bin`
+# carries torch's own kernels and loads unflipped)
+_UPSCALING = re.compile(r"^model\.grounding_encoder\.mask_decoder\."
+                        r"output_upscaling\.[03]\.weight$")
+# a fused LLaMA projection is laid out as its first part
+_FUSED_PARTS = {"qkv_proj": "q_proj", "gate_up_proj": "gate_proj"}
+_FUSED_PATH = re.compile(r"^(llama/layers_\d+/(?:self_attn|mlp)/)"
+                         r"(qkv_proj|gate_up_proj)(/kernel)$")
+_FUSED_NAME = re.compile(r"^(model\.layers\.\d+\.(?:self_attn|mlp)\.)"
+                         r"(qkv_proj|gate_up_proj)(\.weight)$")
+_QUANT_NAME = re.compile(r"^model\.layers\.(\d+)\.(self_attn|mlp)\.(\w+_proj)"
+                         r"\.(kernel_q4p|kernel_q|scale)$")
+_LM_HEAD_NAME = re.compile(r"^lm_head\.(kernel_q|scale)$")
+_LORA_NAME = re.compile(r"^model\.layers\.(\d+)\.self_attn\."
+                        r"((?:q|v)_proj_lora)\.(lora_[AB])\.weight$")
+# the towers' JAX tree keys, their module prefixes in the port, and whether
+# the tower is CLIP's (`ops.quant.jax_site_path`)
+_TOWERS = {"vision_tower": ("model.vision_tower.vision_tower.vision_model.",
+                            True),
+           "grounding_encoder": ("model.grounding_encoder.image_encoder.",
+                                 False)}
+_ACT_SCALES = ("act_scale", "proj_act_scale")
+_PROBE = (2, 3, 5, 7, 11)      # distinct sizes, so a probe's axes tell apart
+
+
+def _nest(flat: Mapping[str, object]) -> Dict:
+    """{"a/b/c": v} -> {"a": {"b": {"c": v}}}."""
+    out: Dict = {}
+    for path, v in flat.items():
+        node = out
+        *parents, leaf = path.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return out
+
+
+def _probe(ndim: int) -> np.ndarray:
+    dims = _PROBE[:ndim]
+    return np.arange(int(np.prod(dims))).reshape(dims)
+
+
+def _read_layout(path: str, ndim: int):
+    """(port name, axis order, leading unit axes) of the copied
+    `to_torch_state_dict` for a leaf of `ndim` axes at `path`, or None
+    where it has no rule. Learned from an index array whose axes have
+    distinct sizes, and checked to be a pure layout, so that the tensor
+    itself is permuted where it lies (on the card for a load there)."""
+    probe = _probe(ndim)
+    out = to_torch_state_dict(_nest({path: probe}), None)
+    if not out:
+        return None
+    (name, arr), = out.items()
+    lead = arr.ndim - ndim
+    body = arr.shape[max(lead, 0):]
+    order = tuple(probe.shape.index(d) if d in probe.shape else -1
+                  for d in body)
+    if (lead < 0 or arr.shape[:lead] != (1,) * lead
+            or sorted(order) != list(range(ndim))
+            or not np.array_equal(arr.reshape(body), probe.transpose(order))):
+        raise ValueError(f"{path}: the converter's transform is not a "
+                         "layout")
+    return name, order, lead
+
+
+def _tower_module(site: str, clip: bool) -> str:
+    """The inverse of `ops.quant.jax_site_path`: a JAX module path inside a
+    tower -> the port's (`layers_3/fc2` -> `encoder.layers.3.mlp.fc2`)."""
+    from ..ops.quant import jax_site_path
+    p = re.sub(r"\b(layers|blocks|adapters)_(\d+)", r"\1.\2",
+               site.replace("/", "."))
+    if clip:
+        p = re.sub(r"^(layers\.\d+)\.(fc[12])\b", r"\1.mlp.\2", p)
+        p = re.sub(r"^(adapters\.\d+)\.adapter\.", r"\1.", p)
+        if p.startswith(("layers.", "adapters.")):
+            p = "encoder." + p
+    if jax_site_path(p, clip) != site:
+        raise ValueError(f"{site}: no module of the port's tower")
+    return p
+
+
+def _port_entry(path: str, ndim: int):
+    """(port name, axis order, leading unit axes) of the JAX leaf at
+    `path`; ValueError where the port has no place for it."""
+    m = _FUSED_PATH.match(path)
+    if m:
+        name, order, lead = _read_layout(
+            f"{m[1]}{_FUSED_PARTS[m[2]]}{m[3]}", ndim)
+        return name.replace(_FUSED_PARTS[m[2]], m[2]), order, lead
+    entry = _read_layout(path, ndim)
+    if entry is not None:
+        return entry
+    ident = tuple(range(ndim))
+    m = _QUANT_LEAF.match(path)
+    if m:
+        return f"model.layers.{m[1]}.{m[2]}.{m[3]}.{m[4]}", ident, 0
+    if _LM_HEAD_LEAF.match(path):
+        return f"lm_head.{path.rsplit('/', 1)[-1]}", ident, 0
+    m = _LORA_LEAF.match(path)
+    if m and ndim == 2:
+        return (f"model.layers.{m[1]}.self_attn.{m[2]}.{m[3]}.weight",
+                (1, 0), 0)
+    key, _, rest = path.partition("/")
+    site, _, leaf = rest.rpartition("/")
+    if key in _TOWERS and leaf in _TOWER_LEAVES and site:
+        prefix, clip = _TOWERS[key]
+        return f"{prefix}{_tower_module(site, clip)}.{leaf}", ident, 0
+    raise ValueError(f"{path}: no tensor of the port takes this leaf")
+
+
+def _leaf_tensor(leaf) -> torch.Tensor:
+    """A tree leaf as a CPU tensor over the same memory where it can be
+    (a read-only array is copied; bf16 arrays of the `bfloat16` numpy
+    type that JAX and tensorstore use are viewed as torch.bfloat16)."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf
+    a = np.asarray(leaf)
+    bf16 = a.dtype.name == "bfloat16"
+    if bf16:
+        a = a.view(np.int16)
+    if not a.flags.writeable:
+        a = a.copy()
+    t = torch.from_numpy(a)
+    return t.view(torch.bfloat16) if bf16 else t
+
+
+def _laid_out(t: torch.Tensor, name: str, order, lead: int) -> torch.Tensor:
+    t = t.permute(order)
+    for _ in range(lead):
+        t = t.unsqueeze(0)
+    return torch.flip(t, (2, 3)) if _UPSCALING.match(name) else t
+
+
+def jax_state_dict(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """Every leaf of a JAX GroveModel parameter tree (float, quantized,
+    calibrated, fused, with LoRA; or any tree of the same paths, as Adam's
+    moments) under its port name, laid out as the port keeps it, on the
+    CPU: the float leaves as the copied `to_torch_state_dict` lays them
+    out (a fused kernel as its first part), the mask decoder's
+    ConvTranspose kernels flipped, quantized leaves as they are, LoRA
+    kernels transposed. Raises ValueError for a leaf the port has no
+    place for."""
+    out = {}
+    for path, leaf in _flatten(tree):
+        t = _leaf_tensor(leaf)
+        name, order, lead = _port_entry(path, t.dim())
+        out[name] = _laid_out(t, name, order, lead)
+    return out
+
+
+def _unwritten_act_scale(name: str, cfg) -> bool:
+    """A W8A8 tower's activation scale before `calibrate`: the JAX tree
+    has no leaf for it until `install_act_scales` (the port's buffer holds
+    1.0 then)."""
+    if name.rsplit(".", 1)[-1] not in _ACT_SCALES:
+        return False
+    for prefix, clip in _TOWERS.values():
+        if name.startswith(prefix):
+            tower = cfg.clip if clip else cfg.sam_enc
+            return not tower.quant_static_act
+    return False
+
+
+@torch.no_grad()
+def load_jax_tree(model: nn.Module, tree: Mapping) -> nn.Module:
+    """Copy a JAX GroveModel parameter tree into a port model of the same
+    config (`jax_state_dict`'s mapping), leaf by leaf: each leaf moves to
+    the model's device as it is and is laid out there. Float leaves are
+    cast to the tensor's dtype, as the JAX package casts to its template
+    (`grove_tpu/api/model.py:63-65`); integer leaves must have the
+    buffer's dtype; each tensor keeps its own strides (a W8A8 `kernel_q`
+    stays column-major). Strict both ways, as flax's `from_bytes` onto a
+    template: a leaf with no place in the model raises ValueError, and so
+    does a parameter or buffer that no leaf wrote,
+    but for the activation scales of W8A8 towers not yet calibrated, which
+    the JAX tree lacks and which are set to 1.0."""
+    cfg = model.cfg
+    own = model.state_dict()
+    written = set()
+    for path, leaf in _flatten(tree):
+        t = _leaf_tensor(leaf)
+        name, order, lead = _port_entry(path, t.dim())
+        dst = own.get(name)
+        if dst is None:
+            raise ValueError(f"load_jax_tree: {path} ({name}) has no "
+                             "tensor in the model")
+        t = _laid_out(t.to(dst.device), name, order, lead)
+        if tuple(t.shape) != tuple(dst.shape) or (
+                not (t.is_floating_point() and dst.is_floating_point())
+                and t.dtype != dst.dtype):
+            raise ValueError(f"load_jax_tree: {path} is {t.dtype}"
+                             f"{tuple(t.shape)}, {name} is {dst.dtype}"
+                             f"{tuple(dst.shape)}")
+        dst.copy_(t)
+        written.add(name)
+    missing = []
+    for name in sorted(set(own) - written):
+        if _unwritten_act_scale(name, cfg):
+            own[name].fill_(1.0)
+        else:
+            missing.append(name)
+    if missing:
+        raise ValueError(f"load_jax_tree: no leaf for {missing[:4]}"
+                         f"{' ...' if len(missing) > 4 else ''}")
+    return model
+
+
+def _jax_entry(name: str, t: torch.Tensor, cfg):
+    """(JAX path, the tensor in the JAX layout) of a port tensor: the
+    inverse of `_port_entry`, the path from the copied `convert_state_dict`
+    and the layout from the reader's."""
+    m = _FUSED_NAME.match(name)
+    part = f"{m[1]}{_FUSED_PARTS[m[2]]}{m[3]}" if m else name
+    tree, _ = convert_state_dict({part: _probe(t.dim())}, cfg)
+    flat = dict(_flatten(tree))
+    if flat:
+        (path, probe), = flat.items()
+        got, order, lead = _read_layout(path, probe.ndim)
+        if got != part:
+            raise ValueError(f"{name}: {path} reads back as {got}")
+        if m:
+            path = path.replace(f"/{_FUSED_PARTS[m[2]]}/", f"/{m[2]}/")
+        if _UPSCALING.match(name):
+            t = torch.flip(t, (2, 3))
+        for _ in range(lead):
+            t = t.squeeze(0)
+        inverse = tuple(order.index(i) for i in range(len(order)))
+        return path, t.permute(inverse)
+    m = _QUANT_NAME.match(name)
+    if m:
+        return f"llama/layers_{m[1]}/{m[2]}/{m[3]}/{m[4]}", t
+    m = _LM_HEAD_NAME.match(name)
+    if m:
+        return f"lm_head/lm_head/{m[1]}", t
+    m = _LORA_NAME.match(name)
+    if m:
+        return (f"llama/layers_{m[1]}/self_attn/{m[2]}/{m[3]}/kernel",
+                t.t())
+    from ..ops.quant import jax_site_path
+    for key, (prefix, clip) in _TOWERS.items():
+        mod, _, leaf = name.rpartition(".")
+        if name.startswith(prefix) and leaf in _TOWER_LEAVES:
+            site = jax_site_path(mod[len(prefix):], clip)
+            return f"{key}/{site}/{leaf}", t
+    raise ValueError(f"{name}: no leaf of the JAX tree takes this tensor")
+
+
+def jax_tree_from_model(model: nn.Module) -> Dict:
+    """The JAX GroveModel parameter tree of a port model: the exact
+    inverse of `load_jax_tree` for every model it reads (float, quantized,
+    calibrated, fused, LoRA). Each leaf is a view of the model's tensor in
+    the JAX layout, on the model's device and in its dtype (a transposed
+    Linear weight, the ConvTranspose kernels flipped back are copies);
+    `flax_msgpack.dump` copies one leaf at a time to the host. The
+    activation scales of uncalibrated W8A8 towers are left out, as the
+    JAX tree has none."""
+    cfg = model.cfg
+    flat = {}
+    for name, t in model.state_dict().items():
+        if _unwritten_act_scale(name, cfg):
+            continue
+        path, leaf = _jax_entry(name, t, cfg)
+        if path in flat:
+            raise ValueError(f"jax_tree_from_model: two tensors for {path}")
+        flat[path] = leaf
+    return _nest(flat)

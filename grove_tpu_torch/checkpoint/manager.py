@@ -13,7 +13,13 @@ layout under a run's log directory:
   beside it, which `best_metric_from_marker` parses.
 
 Each checkpoint is one `torch.save` file (`STATE_FILE`) of CPU tensors,
-ints and floats, read back with `weights_only=True`. A save writes into a
+ints and floats, read back with `weights_only=True`. The JAX package's
+Orbax checkpoints of the same run layout (`ckpt_model/<step>/default`,
+`ckpt_model_best/params`) are steps and best parameters too:
+`latest_step`, `restore` and `restore_best` see them beside the port's own,
+and restore them in the port's layout through `checkpoint.orbax_read`
+(which needs `tensorstore`; without it they raise ImportError naming the
+conversion to the port's layout). A save writes into a
 hidden temporary directory and renames it into place, so a save killed
 midway leaves no step that `latest_step` would pick. Restores come back on
 the CPU, memory-mapped; the caller copies them onto its tensors.
@@ -33,6 +39,9 @@ import tempfile
 from typing import Any, Dict, Optional
 
 import torch
+
+from .orbax_read import ITEM, is_orbax
+from .orbax_read import restore as orbax_restore
 
 STATE_FILE = "state.pt"
 _MARKER = re.compile(r"epoch_\d+_val_.+_([-\d.]+)\.marker")
@@ -84,9 +93,20 @@ def _write_dir(path: str, state: Dict[str, Any]) -> None:
         raise
 
 
-def _read_dir(path: str) -> Dict[str, Any]:
-    return torch.load(os.path.join(path, STATE_FILE), map_location="cpu",
-                      weights_only=True, mmap=True)
+def _readable(path: str, item: str = ITEM) -> bool:
+    """Whether `path` holds a checkpoint: the port's `STATE_FILE`, or an
+    Orbax checkpoint (in its `item` subdirectory for a step)."""
+    return (os.path.isfile(os.path.join(path, STATE_FILE))
+            or is_orbax(os.path.join(path, item)))
+
+
+def _read_dir(path: str, item: str = ITEM) -> Dict[str, Any]:
+    """The port's `STATE_FILE` of `path`, else its Orbax checkpoint in the
+    port's layout (`orbax_read.restore`)."""
+    if os.path.isfile(os.path.join(path, STATE_FILE)):
+        return torch.load(os.path.join(path, STATE_FILE),
+                          map_location="cpu", weights_only=True, mmap=True)
+    return orbax_restore(os.path.join(path, item))
 
 
 class CheckpointManager:
@@ -98,10 +118,11 @@ class CheckpointManager:
         os.makedirs(self.ckpt_dir, exist_ok=True)
 
     def steps(self):
-        """The saved steps, ascending (only published directories)."""
+        """The saved steps, ascending: the published directories of the
+        port's saves and the JAX package's Orbax steps."""
         return sorted(int(d) for d in os.listdir(self.ckpt_dir)
-                      if d.isdigit() and os.path.isfile(
-                          os.path.join(self.ckpt_dir, d, STATE_FILE)))
+                      if d.isdigit() and _readable(
+                          os.path.join(self.ckpt_dir, d)))
 
     def save(self, step: int, params, opt_state=None,
              extra: Optional[Dict[str, Any]] = None):
@@ -147,9 +168,9 @@ class CheckpointManager:
     def restore_best(self):
         """{"params"} of the best checkpoint, or None."""
         path = os.path.join(self.best_dir, "params")
-        if not os.path.isfile(os.path.join(path, STATE_FILE)):
+        if not _readable(path, item=""):
             return None
-        return _read_dir(path)
+        return _read_dir(path, item="")
 
     def best_metric_from_marker(self) -> Optional[float]:
         if not os.path.isdir(self.best_dir):

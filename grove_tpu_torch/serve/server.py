@@ -377,9 +377,11 @@ def _parser():
     p.add_argument("--model_size", default="small",
                    choices=["tiny", "small", "full"])
     p.add_argument("--version", default=None,
-                   help="checkpoint: a reference torch .bin, a "
-                        "save_pretrained or training log directory (random "
-                        "weights from seed 0 if omitted)")
+                   help="checkpoint: a reference torch .bin, a model "
+                        "directory (the port's save_pretrained or the JAX "
+                        "package's flax_model.msgpack) or a training log "
+                        "directory (the port's or Orbax; random weights "
+                        "from seed 0 if omitted)")
     p.add_argument("--tokenizer", default=None,
                    help="tokenizer path (MockTokenizer if omitted)")
     p.add_argument("--max_batch", default=8, type=int)

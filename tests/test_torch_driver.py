@@ -16,7 +16,8 @@ JAX package on the CPU, at tiny sizes:
   for bit;
 * `save_pretrained` -> `from_pretrained(dir)` in bf16, quantized (int4
   LLM, calibrated W8A8 towers) and fused: the same `forward_boxes` bit for
-  bit; directories the JAX package writes raise.
+  bit; directories the JAX package writes (a model directory, an Orbax
+  log directory) load to the same state.
 """
 
 import argparse
@@ -373,12 +374,35 @@ def test_save_pretrained_round_trip(tmp_path, kind):
 
 
 def test_jax_written_directories_raise(tmp_path):
+    """Directories the JAX package writes load: a `save_pretrained` model
+    directory and an Orbax log directory (its latest step) give the same
+    state; a one-byte `flax_model.msgpack` raises ValueError (the Orbax
+    reader and driver resume: tests/test_torch_orbax.py)."""
+    from grove_tpu.api.model import GroveForCausalLM as JaxLM
+    from grove_tpu.checkpoint.orbax_io import CheckpointManager as JaxMgr
+    jcfg = JConfig.tiny()
+    jmodel, variables = jinit(jcfg, jax.random.PRNGKey(0), dtype=jnp.float32)
     flax_dir = tmp_path / "flax"
-    flax_dir.mkdir()
-    GroveConfig.tiny().save_json(str(flax_dir / "config.json"))
-    (flax_dir / "flax_model.msgpack").write_bytes(b"\x80")
+    JaxLM(jcfg, jmodel, variables).save_pretrained(str(flax_dir))
     orbax_dir = tmp_path / "orbax"
-    (orbax_dir / "ckpt_model" / "4" / "default").mkdir(parents=True)
-    for d in (flax_dir, orbax_dir, tmp_path / "orbax" / "ckpt_model" / "4"):
-        with pytest.raises(NotImplementedError, match="item 18"):
-            GroveForCausalLM.from_pretrained(str(d), "tiny", device="cpu")
+    mgr = JaxMgr(str(orbax_dir))
+    mgr.save(4, variables["params"])
+    mgr.close()
+    from_flax = GroveForCausalLM.from_pretrained(
+        str(flax_dir), "tiny", dtype=torch.float32, device="cpu")
+    from_orbax = GroveForCausalLM.from_pretrained(
+        str(orbax_dir), "tiny", dtype=torch.float32, device="cpu")
+    assert from_flax.cfg.to_dict() == port_config(jcfg).to_dict()
+    _equal_trees(dict(from_orbax.model.state_dict()),
+                 dict(from_flax.model.state_dict()))
+    want = to_torch_state_dict(variables["params"], jcfg)
+    assert np.array_equal(from_orbax.model.state_dict()[
+        "lm_head.weight"].numpy(), np.asarray(want["lm_head.weight"]))
+    (flax_dir / "flax_model.msgpack").write_bytes(b"\x80")
+    with pytest.raises(ValueError, match="flax_model.msgpack"):
+        GroveForCausalLM.from_pretrained(str(flax_dir), "tiny", device="cpu")
+    with pytest.raises(ValueError, match="no step the port or Orbax wrote"):
+        (tmp_path / "empty" / "ckpt_model" / "4" / "default").mkdir(
+            parents=True)
+        GroveForCausalLM.from_pretrained(str(tmp_path / "empty"), "tiny",
+                                         device="cpu")

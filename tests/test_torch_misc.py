@@ -103,18 +103,24 @@ def test_synthetic_video_copy_equals_original():
 
 
 def test_import_leaves_jax_and_pil_out():
-    """Importing every module of the port loads no jax, flax or PIL, and no
-    module of the JAX package `grove_tpu`."""
+    """Importing every module of the port loads no jax, flax or PIL, no
+    module of the JAX package `grove_tpu`, and neither `msgpack` nor
+    `tensorstore` (the card's machine has neither: the flax reader is the
+    port's own, and tensorstore is imported inside the Orbax read)."""
     mods = sorted("grove_tpu_torch." + ".".join(
         p.relative_to(ROOT / "grove_tpu_torch").with_suffix("").parts)
         for p in (ROOT / "grove_tpu_torch").rglob("*.py")
         if p.name != "__init__.py")
     code = ("import sys, grove_tpu_torch, " + ", ".join(mods) + "; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'PIL', 'flax', 'grove_tpu')))")
+            "('jax', 'PIL', 'flax', 'grove_tpu', 'msgpack', "
+            "'tensorstore')))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, check=True, cwd=ROOT)
     assert "grove_tpu_torch.models.fuse" in mods
+    assert {"grove_tpu_torch.checkpoint.torch_convert",
+            "grove_tpu_torch.checkpoint.flax_msgpack",
+            "grove_tpu_torch.checkpoint.orbax_read"} <= set(mods)
     assert {"grove_tpu_torch.train.step", "grove_tpu_torch.train.lowmem",
             "grove_tpu_torch.ops.boxes",
             "grove_tpu_torch.ops.losses",
@@ -461,6 +467,80 @@ def test_skip_patterns_copy_equals_original():
     assert convert.SKIP_PATTERNS == torch_convert.SKIP_PATTERNS
 
 
+# grove_tpu_torch/checkpoint/torch_convert.py: the functions copied as their
+# text; `resize_abs_pos` and `resize_rel_pos` resize with the port's
+# `_resize_axes` where the original calls `jax.image.resize`, and
+# `merge_into` copies the nested dicts itself where the original maps with
+# `jax.tree.map` and unfreezes with flax (held to the originals' results
+# below); the original's `cast_params` (a `jax.tree.map`) has no copy
+TORCH_CONVERT_COPIES = ("_t", "_conv2d", "_conv3d", "_convT2d", "_ident",
+                        "_rules", "convert_state_dict", "_flatten",
+                        "_inv_linear", "_inv_conv2d", "_inv_conv3d",
+                        "to_torch_state_dict")
+
+
+@pytest.mark.parametrize("name", TORCH_CONVERT_COPIES)
+def test_torch_convert_copies_equal_originals(name):
+    from grove_tpu.checkpoint import torch_convert as original
+    from grove_tpu_torch.checkpoint import torch_convert as copy
+    assert (inspect.getsource(getattr(copy, name))
+            == inspect.getsource(getattr(original, name)))
+    assert copy.SKIP_PATTERNS == original.SKIP_PATTERNS
+
+
+def test_torch_convert_rewritten_functions_match_originals():
+    """The three functions whose text differs give the originals' results:
+    the resizes within 1e-5 of jax.image.resize's (up and down, and the
+    no-op at the same size), `convert_state_dict` of a state dict on
+    another SAM grid likewise, and `merge_into` the same tree, casts and
+    reports."""
+    from grove_tpu.checkpoint import torch_convert as original
+    from grove_tpu_torch.checkpoint import torch_convert as copy
+    rng = np.random.default_rng(4)
+    for shape, grid in (((1, 8, 8, 6), 5), ((6, 6, 4), 9), ((4, 4, 3), 4)):
+        pos = rng.normal(size=shape).astype(np.float32)
+        want = original.resize_abs_pos(pos, grid)
+        got = copy.resize_abs_pos(pos, grid)
+        assert got.shape == want.shape and got.dtype == want.dtype
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    for rows, target in ((27, 9), (7, 13), (9, 9)):
+        rel = rng.normal(size=(rows, 5)).astype(np.float32)
+        np.testing.assert_allclose(copy.resize_rel_pos(rel, target),
+                                   original.resize_rel_pos(rel, target),
+                                   rtol=1e-5, atol=1e-5)
+    jcfg = jconfig.GroveConfig.tiny()
+    g = jcfg.sam_enc.grid
+    sd = {"model.grounding_encoder.image_encoder.pos_embed":
+          rng.normal(size=(1, 2 * g, 2 * g, 32)).astype(np.float32),
+          "model.grounding_encoder.image_encoder.blocks.0.attn.rel_pos_h":
+          rng.normal(size=(31, 8)).astype(np.float32),
+          "model.layers.0.mlp.up_proj.weight":
+          rng.normal(size=(64, 32)).astype(np.float32),
+          "model.norm.weight": np.ones(32, np.float32), "unknown.key":
+          np.zeros(2, np.float32),
+          "model.vision_tower.vision_tower.vision_model.post_layernorm."
+          "weight": np.ones(4, np.float32)}
+    got, got_report = copy.convert_state_dict(sd, tconfig.GroveConfig.tiny())
+    want, want_report = original.convert_state_dict(sd, jcfg)
+    assert got_report == want_report
+    got, want = dict(copy._flatten(got)), dict(original._flatten(want))
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-5, atol=1e-5,
+                                   err_msg=k)
+    template = {"a": {"w": np.zeros((2, 3), np.float32),
+                      "b": np.zeros(3, np.int32)}, "c": np.ones(4)}
+    converted = {"a": {"w": np.arange(6.0).reshape(2, 3), "b": np.ones(3),
+                       "x": np.ones(1)}, "c": np.ones(5), "d": {"e": 1}}
+    got = copy.merge_into(template, converted)
+    want = original.merge_into(template, converted)
+    assert got[1:] == want[1:]
+    for path, w in original._flatten(want[0]).items():
+        v = copy._flatten(got[0])[path]
+        assert v.dtype == w.dtype and np.array_equal(v, w), path
+    assert template["a"]["w"].sum() == 0          # the template is left
+
+
 @pytest.mark.parametrize("key", [None, "bf16", "bfloat16", "int8", "fp32",
                                  "float32"])
 def test_decode_kwargs_table_equals_original(key):
@@ -505,11 +585,28 @@ def test_unported_paths_raise(tmp_path):
     for argv in (["--multihost"], ["--mesh_model", "2"]):
         with pytest.raises(ValueError, match="env://"):
             driver.main(["--device", "cpu", "--synthetic"] + argv)
-    # a model directory the JAX package's save_pretrained writes (item 18)
+    # a model directory the JAX package's save_pretrained writes loads
+    # (held in full by tests/test_torch_jax_dirs.py); an empty model file
+    # raises, naming it
+    from grove_tpu.api.model import GroveForCausalLM as JaxLM
+    from grove_tpu.checkpoint.torch_convert import to_torch_state_dict
     from grove_tpu_torch.api import GroveForCausalLM
-    GroveConfig.tiny().save_json(str(tmp_path / "config.json"))
+    jlm = JaxLM.from_pretrained(None, "tiny", dtype=jnp.float32)
+    jlm.save_pretrained(str(tmp_path))
+    lm = GroveForCausalLM.from_pretrained(str(tmp_path), "tiny",
+                                          dtype=torch.float32, device="cpu")
+    want = to_torch_state_dict(jlm.variables["params"], jlm.cfg)
+    got = lm.model.state_dict()
+    assert set(got) == set(want)
+    for k in ("lm_head.weight", "model.embed_tokens.weight",
+              "model.layers.1.mlp.down_proj.weight"):
+        assert np.array_equal(got[k].numpy(), np.asarray(want[k])), k
     (tmp_path / "flax_model.msgpack").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="item 18"):
+    with pytest.raises(ValueError, match="flax_model.msgpack: truncated"):
+        GroveForCausalLM.from_pretrained(str(tmp_path), "tiny",
+                                         device="cpu")
+    (tmp_path / "flax_model.msgpack").unlink()
+    with pytest.raises(FileNotFoundError, match="config.json without"):
         GroveForCausalLM.from_pretrained(str(tmp_path), "tiny",
                                          device="cpu")
 

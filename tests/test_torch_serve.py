@@ -515,8 +515,18 @@ def test_generate_with_backend_equals_generate(model, clips):
     assert seen[0][1][:2] == (1, model.cfg.num_frames)
 
 
-def test_build_from_flags(tmp_path):
-    for extra in ([], ["--continuous", "--n_slots", "2"]):
+def test_build_from_flags(tmp_path, models):
+    """`server.build` from flags: the batch and continuous servers answer
+    /healthz; `--version` serves a model directory the JAX package's
+    `save_pretrained` wrote (its weights as the port loads a JAX tree: the
+    exported state, the ConvTranspose kernels flipped)."""
+    from grove_tpu.api.model import GroveForCausalLM as JaxLM
+    from test_torch_region import UPSCALING, flip_conv_transpose
+    cfg, jmodel, variables, tmodel = models
+    jax_dir = tmp_path / "jax"
+    JaxLM(cfg, jmodel, variables).save_pretrained(str(jax_dir))
+    for extra in ([], ["--continuous", "--n_slots", "2"],
+                  ["--version", str(jax_dir)]):
         srv, engine = tserver.build(["--model_size", "tiny", "--device",
                                      "cpu", "--port", "0"] + extra)
         t = threading.Thread(target=srv.serve_forever, daemon=True)
@@ -526,17 +536,26 @@ def test_build_from_flags(tmp_path):
             with urllib.request.urlopen(f"http://{host}:{port}/healthz",
                                         timeout=WAIT) as r:
                 out = json.loads(r.read())
-            assert out["model"] == ("grove-tiny-continuous" if extra
+            assert out["model"] == ("grove-tiny-continuous"
+                                    if "--continuous" in extra
                                     else "grove-tiny")
+            if "--version" in extra:
+                want = tmodel.state_dict()
+                flipped = flip_conv_transpose(
+                    {k: want[k].numpy() for k in UPSCALING})
+                got = engine.model.state_dict()
+                assert set(got) == set(want)
+                for k, v in want.items():
+                    v = torch.from_numpy(flipped[k]) if k in flipped else v
+                    assert torch.equal(got[k], v.to(got[k].dtype)), k
         finally:
             srv.shutdown()
             srv.server_close()
             engine.close()
             t.join(WAIT)
         assert not t.is_alive()
-    # a model directory the JAX package writes raises its ROADMAP item
-    GroveConfig.tiny().save_json(str(tmp_path / "config.json"))
-    (tmp_path / "flax_model.msgpack").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="item 18"):
+    # a model file cut short raises, naming the file
+    (jax_dir / "flax_model.msgpack").write_bytes(b"\x81")
+    with pytest.raises(ValueError, match="flax_model.msgpack: truncated"):
         tserver.build(["--model_size", "tiny", "--device", "cpu",
-                       "--version", str(tmp_path)])
+                       "--version", str(jax_dir)])
