@@ -9,8 +9,9 @@ The second form runs phases 0-1 and then only phase 3 (slice) and / or
 9 (serve), from DIR's chip_smoke.py and package (this checkout by
 default), and prints no result line: an A/B of the decode and engine-tick
 times of two checkouts, run in turns in one call. The third runs the
-parallel paths across 4 cards over NCCL (`phase_cards`: the driver;
-`phase_cards_steps`: fp32 steps against the unsharded one, the demo).
+parallel paths across 4 cards over NCCL (`phase_cards`: the driver, and
+the pipeline one stage a card; `phase_cards_steps`: fp32 steps against
+the unsharded one, the demo).
 
 Phases, each printing its own line; any failure exits non-zero:
   0  device: requires CUDA (there is no CPU path) and prints the card's
@@ -406,7 +407,26 @@ Phases, each printing its own line; any failure exits non-zero:
      `train.driver.main --multihost` at small() bf16 (2 steps, validation,
      a checkpoint of finite tensors) under a world-1 NCCL group from
      torchrun's environment, set here and restored after; the driver
-     leaves no process group behind. Then two processes on the one card
+     leaves no process group behind. Then the pipeline one stage a
+     process (`parallel.pipeline.RankPipe`): two processes on the one card
+     over gloo (messages through pinned host buffers), each building
+     phase 10's GroveConfig() from its seed with only its stage's 16
+     layers (the others on the meta device; each tensor's bits summed as
+     integers equal to the model's here), one row of the same 2-row batch
+     a rank, 2 microbatches: one warm step, then one with the launch counts set to
+     0 just before and read just after in each process: each rank's
+     launches exact (phase 5's, K4 and K4b's per rank and microbatch),
+     the loss terms within 2e-2 relative and every trainable gradient
+     within 2e-2 of its max-abs of the same step computed here a row at a
+     time (each row's loss with the batch's normalizers, the gradients
+     summed in bf16: the ranks' arithmetic); their distance from the
+     sequential step on both rows printed beside that step's a row at a
+     time; each rank's step ms, peak memory and busy share (CUDA events
+     around its microbatch work). Then the same comparison, the batched
+     step against the step a row at a time, at GroveConfig()'s widths with
+     2 LLaMA layers: in fp32 (TF32 off) every trainable gradient within
+     2e-3 of its max-abs, the same draws in bf16 printed beside it. Then
+     two processes on the one card
      over gloo (`parallel.launch`): the multi-host demo (`--device cuda`,
      disjoint shards, the same loss on both ranks at every step), and a
      TP = 2 small() fp32 step (`parallel.workers.train_step`, TF32 off)
@@ -453,6 +473,8 @@ and `phase2_launches`, the launches of phase 2's checks and timings, and
 phase 10's full-width driver runs by task ("iground_int8": the int8-cache
 run), and `region_launches`, those of phase 11's full-width region and
 mask path, and `parallel_launches`, those of phase 12's pipelined step,
+and `ranks_launches`, each rank's of phase 12's pipeline one stage a
+process,
 and `jax_dir_launches`, those of phase 13's runs on the models read back
 from the JAX package's directories (bf16 and flagship, summed);
 the
@@ -6604,16 +6626,21 @@ def phase_parallel(torch, gpu, model):
     and the launches of each step exact; (b) `train.driver.main
     --multihost` under a world-1 NCCL group; (c) two processes on the one
     card over gloo at `small()`: the multi-host demo, and a TP = 2 step
-    against the unsharded step in fp32. Returns the pipelined step's
-    launches by kernel."""
+    against the unsharded step in fp32. Between (a) and (b), the pipeline
+    one stage a process (`_parallel_ranks`) and what a batch's shape does
+    to the step in fp32 and bf16 (`_batch_shape_witness`). Returns the
+    pipelined step's launches by kernel and each rank's."""
     t_phase = time.perf_counter()
-    launches = _parallel_pipeline(torch, gpu, model)
-    del model
+    launches, seq, host_batch = _parallel_pipeline(torch, gpu, model)
+    ranks = _parallel_ranks(torch, gpu, model, seq, host_batch)
+    cfg = model.cfg
+    del model, seq
     torch.cuda.empty_cache()
+    _batch_shape_witness(torch, gpu, cfg, host_batch)
     _parallel_driver(torch, gpu)
     _parallel_processes(torch, gpu)
     say(12, f"phase 12 took {time.perf_counter() - t_phase:.1f} s")
-    return launches
+    return launches, ranks
 
 
 def _pipe_launches(cfg, s):
@@ -6638,8 +6665,8 @@ def _parallel_pipeline(torch, gpu, model):
     cfg = dataclasses.replace(model.cfg, max_seq_len=TRAIN_SEQ)
     # the model's special ids come from phase 10's tokenizer
     tok = MockTokenizer(base_vocab_size=model.cfg.tokens.vid_start)
-    batch = batch_to_device(_train_batch(cfg, tok, seed=31, n=PIPE_BATCH),
-                            "cuda")
+    host_batch = _train_batch(cfg, tok, seed=31, n=PIPE_BATCH)
+    batch = batch_to_device(host_batch, "cuda")
     seq = batch["input_ids"].shape[1]
     if seq != 704:
         raise PhaseError(f"the training batch has {seq} tokens, not 704")
@@ -6688,15 +6715,10 @@ def _parallel_pipeline(torch, gpu, model):
     if set(gp) != set(gs):
         raise PhaseError(f"gradients of {sorted(set(gp) ^ set(gs))[:4]} "
                          "in one step only")
-    top = max(float(g.float().abs().max()) for g in gs.values())
-    worst = 0.0
-    for n, g in gs.items():
-        scale = max(float(g.float().abs().max()), TRAIN_GRAD_FLOOR * top)
-        err = float((gp[n].float() - g.float()).abs().max()) / scale
-        worst = max(worst, err)
-        if err > FULL_TOL:
-            raise PhaseError(f"pipelined gradient {n}: {err:.3e} of its "
-                             f"max-abs from the sequential one")
+    n, worst = _grad_distance(gp, gs)[0]
+    if worst > FULL_TOL:
+        raise PhaseError(f"pipelined gradient {n}: {worst:.3e} of its "
+                         f"max-abs from the sequential one")
     diff = {k: (up.get(k, 0), us.get(k, 0)) for k in set(up) | set(us)
             if up.get(k, 0) != us.get(k, 0)}
     say(12, f"pipelined = sequential: losses within {FULL_TOL} relative, "
@@ -6705,8 +6727,275 @@ def _parallel_pipeline(torch, gpu, model):
             f"attention once a microbatch: {PIPE_MICRO} x)")
     if set(diff) != {k for k in PIPE_KERNELS if us.get(k)}:
         raise PhaseError(f"the launches differ in {diff}")
-    del runs, gp, gs
-    return up
+    del runs, gp
+    return up, (ls, gs), host_batch
+
+
+def _rank_launches(cfg, s, ranks, micro):
+    """The exact launches of one rank of the pipeline one stage a process,
+    its local batch of one row, and no other kernel: the encoders' of
+    phase 5's batch-1 step (K3 once a CLIP layer), and K4's and K4b's once
+    a layer of its stage and microbatch."""
+    want = _step_launches(cfg, s, False)
+    for k in PIPE_KERNELS:
+        want[k] = want[k] * micro // ranks
+    want["grouped_plain_attention_tc"] = cfg.clip.num_layers
+    return {k: v for k, v in want.items() if v}
+
+
+def _stage_shares(ranks, step, n, m):
+    """From each rank's CUDA-event marks of timed step `step` (host-clock
+    seconds): each stage's busy ms and its share of the step, and the
+    pipeline's bubble: 1 - the stages' busy time over n x the span from
+    the first microbatch's start to the last one's end, forward and
+    backward spans added, beside GPipe's (n - 1) / (m + n - 1)."""
+    spans, busy = 0.0, []
+    for kind in ("forward", "backward"):
+        marks = [(a, b) for r in ranks for k, _, a, b in
+                 r["steps"][step]["marks"] if k == kind]
+        spans += max(b for _, b in marks) - min(a for a, _ in marks)
+    for r in ranks:
+        busy.append(sum(b - a for _, _, a, b in r["steps"][step]["marks"]))
+    shares = [b * 1e3 / r["steps"][step]["ms"] for b, r in zip(busy, ranks)]
+    return ([b * 1e3 for b in busy], shares, 1 - sum(busy) / (n * spans),
+            (n - 1) / (m + n - 1))
+
+
+def _check_ranks(got, cfg, s, n, m, label):
+    """Each rank of a `parallel.workers.pipeline_step` run: its stage and
+    layers (the others on the meta device), and every timed step's
+    launches exact (`_rank_launches`)."""
+    per = cfg.llama.num_layers // n
+    want = _rank_launches(cfg, s, n, m)
+    for rank, r in enumerate(got["ranks"]):
+        layers = list(range(rank * per, (rank + 1) * per))
+        rest = [i for i in range(cfg.llama.num_layers) if i not in layers]
+        if (r["stage"], r["held"], r["meta"]) != (rank, layers, rest):
+            raise PhaseError(f"{label} rank {rank}: stage {r['stage']}, "
+                             f"layers {r['held']} held, {r['meta']} on meta")
+        for i, st in enumerate(r["steps"]):
+            if st["launches"] != want:
+                raise PhaseError(f"{label} rank {rank} step {i + 1}: "
+                                 f"launches {st['launches']}, not {want}")
+    return want
+
+
+RANK_PROCS = 2
+
+
+def _grad_distance(got, want):
+    """Each gradient's max-abs distance from `want`'s, relative to its
+    max-abs (or to TRAIN_GRAD_FLOOR of the largest), as (name, distance)
+    worst first (`_rounded` to print); a name of `got` that `want` lacks
+    must hold zeros."""
+    extra = [n for n in set(got) - set(want) if bool(got[n].any())]
+    if not set(want) <= set(got) or extra:
+        raise PhaseError(f"gradients of {sorted(set(want) - set(got))[:4]} "
+                         f"missing, {extra[:4]} not zero")
+    top = max(float(g.float().abs().max()) for g in want.values())
+    dist = {}
+    for n, w in want.items():
+        scale = max(float(w.float().abs().max()), TRAIN_GRAD_FLOOR * top)
+        dist[n] = float((got[n].to(w.device).float() - w.float()).abs()
+                        .max()) / scale
+    return sorted(dist.items(), key=lambda kv: -kv[1])
+
+
+def _rounded(pairs):
+    return [(n, float(f"{d:.3e}")) for n, d in pairs]
+
+
+def _row_at_a_time(torch, model, host_batch):
+    """The sequential step of `host_batch` computed as the pipeline's ranks
+    compute it, one row at a time: each row's loss with the whole batch's
+    normalizers (each count summed over the rows, as `count_reduce` sums
+    it over the ranks), its backward, the gradients summed in their dtype;
+    returns (the summed loss terms, the gradients). No weight moves."""
+    from grove_tpu_torch.train.step import (OptimizerConfig, batch_to_device,
+                                            partition_params, trainable_mask)
+    params = partition_params(model, trainable_mask(
+        model, OptimizerConfig(warmup_steps=1)))
+    rows = [batch_to_device({k: v[r:r + 1] for k, v in host_batch.items()},
+                            model.device)
+            for r in range(len(host_batch["labels"]))]
+    counts = []
+    with torch.no_grad():
+        for b in rows:
+            seen = []
+            model.forward_train(b, count_reduce=lambda c: seen.append(
+                c.detach().clone()) or c)
+            counts.append(seen)
+    totals = [sum(c) for c in zip(*counts)]
+    terms, grads = {}, {}
+    for b in rows:
+        left = iter(totals)
+        for p in params.values():
+            p.grad = None
+        out = model.forward_train(b, count_reduce=lambda c: next(left))
+        out["loss"].backward()
+        for k, v in out.items():
+            terms[k] = terms.get(k, 0.0) + float(v.detach())
+        for n, p in params.items():
+            if p.grad is not None:
+                grads[n] = (p.grad.detach().clone() if n not in grads
+                            else grads[n] + p.grad)
+        del out
+    for p in params.values():
+        p.grad = None
+    return terms, grads
+
+
+def _parallel_ranks(torch, gpu, model, seq, host_batch):
+    """The pipeline one stage a process on the one card: RANK_PROCS
+    processes over gloo (`parallel.workers.pipeline_step`), each building
+    `model`'s GroveConfig() in bf16 from its seed 0 (phase 10's) with its
+    stage's layers only, one row of `host_batch` a rank, PIPE_MICRO
+    microbatches, with this process's TF32 settings (the earlier phases
+    turn cuDNN's off, and an fp32 op then takes other algorithms): a warm
+    step, then a step whose loss terms and trainable gradients must lie
+    within FULL_TOL of the same step a row at a time
+    (`_row_at_a_time`), each rank's launches exact; the distances from
+    `seq` (the sequential step's (losses, gradients) on the whole batch)
+    are printed. Returns each rank's launches by kernel."""
+    from grove_tpu_torch.parallel.launch import launch
+    from grove_tpu_torch.parallel.workers import fingerprint
+    ls, gs = seq
+    tmp = Path(tempfile.mkdtemp(prefix="grove_ranks_"))
+    try:
+        with open(tmp / "cfg.pkl", "wb") as f:
+            pickle.dump(model.cfg, f)
+        torch.save(host_batch, tmp / "batch.pt")
+        sums = fingerprint(model)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        launch(["-m", "grove_tpu_torch.parallel.workers", "pipeline_step",
+                json.dumps(dict(out=str(tmp / "run.pt"),
+                                batch=str(tmp / "batch.pt"),
+                                microbatches=PIPE_MICRO,
+                                config_file=str(tmp / "cfg.pkl"), seed=0,
+                                dtype="bf16",
+                                optimizer={"warmup_steps": 1},
+                                warm_steps=1, steps=1, tf32=[
+                                    torch.backends.cuda.matmul.allow_tf32,
+                                    torch.backends.cudnn.allow_tf32],
+                                device="cuda"))],
+               RANK_PROCS, timeout=600)
+        secs = time.perf_counter() - t0
+        got = torch.load(tmp / "run.pt", weights_only=False)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    seq_len = host_batch["input_ids"].shape[1]
+    _check_ranks(got, model.cfg, seq_len, RANK_PROCS, PIPE_MICRO,
+                 "pipeline ranks")
+    for rank, r in enumerate(got["ranks"]):
+        off = [n for n, v in r["fingerprint"].items() if v != sums[n]]
+        if off:
+            raise PhaseError(f"rank {rank}'s weights are not phase 10's: "
+                             f"{off[:4]}")
+    terms = got["metrics"][0]
+    for k, v in ls.items():
+        if abs(terms[k] - v) > FULL_TOL * max(abs(v), 1.0):
+            raise PhaseError(f"pipeline ranks {k} {terms[k]} vs sequential "
+                             f"{v}")
+    grads = got["grads"]
+    extra = [n for n in set(grads) - set(gs) if bool(grads[n].any())]
+    if not set(gs) <= set(grads) or extra:
+        raise PhaseError(f"pipeline ranks: gradients of "
+                         f"{sorted(set(gs) - set(grads))[:4]} missing, "
+                         f"{extra[:4]} not zero")
+    rows_terms, rows_grads = _row_at_a_time(torch, model, host_batch)
+    worst = _grad_distance(grads, rows_grads)
+    for k, v in rows_terms.items():
+        if abs(terms[k] - v) > FULL_TOL * max(abs(v), 1.0):
+            raise PhaseError(f"pipeline ranks {k} {terms[k]} vs a row at a "
+                             f"time {v}")
+    if worst[0][1] > FULL_TOL:
+        raise PhaseError(f"pipeline ranks gradients off the step a row at "
+                         f"a time by more than {FULL_TOL} of their max-abs: "
+                         f"{_rounded(worst[:4])}")
+    worst = _rounded(worst)
+    batched = _rounded(_grad_distance(grads, gs))
+    rows_batched = _rounded(_grad_distance(rows_grads, gs))
+    del rows_grads
+    frames = torch.as_tensor(host_batch["frames_clip"]).to(model.device)
+    with torch.no_grad():
+        both = model.encode_video(frames)[0][:1]
+        alone = model.encode_video(frames[:1])[0]
+    clip_diff = float((both.float() - alone.float()).abs().max()) / float(
+        both.float().abs().max())
+    del frames, both, alone
+    busy, shares, bubble, gpipe = _stage_shares(got["ranks"], 0, RANK_PROCS,
+                                                PIPE_MICRO)
+    for rank, r in enumerate(got["ranks"]):
+        st = r["steps"][0]
+        say(12, f"pipeline one stage a process, rank {rank} (stage "
+                f"{r['stage']}, layers {r['held'][0]}-{r['held'][-1]}, the "
+                f"other {len(r['meta'])} on meta) over {r['transport']}: "
+                f"step {st['ms']:.1f} ms, peak {st['peak'] / 2**30:.2f} "
+                f"GiB, stage busy {busy[rank]:.1f} ms ({shares[rank]:.3f} "
+                f"of the step), launches {st['launches']} (exact) on {gpu}")
+    say(12, f"pipeline one stage a process: {RANK_PROCS} processes on "
+            f"cuda:0, batch {PIPE_BATCH} x S = {seq_len}, {PIPE_MICRO} "
+            f"microbatches: losses {terms}; against the step a row at a "
+            f"time (each rank's arithmetic: the encoders on one row), "
+            f"losses within {FULL_TOL} relative and {len(gs)} trainable "
+            f"gradients within {FULL_TOL} of their max-abs, the worst "
+            f"{worst[:3]}; against the sequential step on both rows (held "
+            f"to nothing: bf16 encoders on one row and on two differ, the "
+            f"projected CLIP tokens by {clip_diff:.3e} of their max-abs), "
+            f"losses {ls}, the worst gradients {batched[:4]}, and the step "
+            f"a row at a time's {rows_batched[:4]}; bubble {bubble:.3f} "
+            f"(GPipe {gpipe:.3f}; the processes share one card); weights "
+            f"equal to phase 10's; {secs:.1f} s with the processes' start")
+    return [r["steps"][0]["launches"] for r in got["ranks"]]
+
+
+WITNESS_LAYERS = 2
+
+
+def _batch_shape_witness(torch, gpu, cfg, host_batch):
+    """The step on phase 12's batch of 2 rows against the same step a row
+    at a time (`_row_at_a_time`, the pipeline ranks' arithmetic), at
+    `cfg`'s full width with the LLaMA cut to WITNESS_LAYERS layers, built
+    from seed 0: in fp32 (TF32 off) every trainable gradient within
+    PARALLEL_TOL of its max-abs, so that a step of one row treats it as
+    the batch does; then the same draws in bf16, whose distance is
+    printed beside it (bf16 rounds another way at each batch shape)."""
+    from grove_tpu_torch.models.grove import init_grove_params
+    from grove_tpu_torch.train.step import batch_to_device
+    t0 = time.perf_counter()
+    cut = dataclasses.replace(
+        cfg, max_seq_len=TRAIN_SEQ,
+        llama=dataclasses.replace(cfg.llama, num_layers=WITNESS_LAYERS))
+    batch = batch_to_device(host_batch, "cuda")
+    found = {}
+    for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        model = init_grove_params(cut, device="cuda", dtype=dtype, seed=0)
+        with (_no_tf32(torch) if dtype == torch.float32
+              else contextlib.nullcontext()):
+            # a fresh optimizer: lr(0) = 0, no weight moves
+            params, step = _train_setup(torch, model, warmup_steps=1)
+            _check_losses(step(batch), f"{name} witness step")
+            batched = {n: p.grad.detach().clone() for n, p in params.items()
+                       if p.grad is not None}
+            _, rows = _row_at_a_time(torch, model, host_batch)
+        found[name] = _grad_distance(rows, batched)
+        del model, params, step, batched, rows
+        torch.cuda.empty_cache()
+    del batch
+    fp32, bf16 = found["fp32"], found["bf16"]
+    if fp32[0][1] > PARALLEL_TOL:
+        raise PhaseError(f"fp32 step a row at a time off the batched one "
+                         f"by more than {PARALLEL_TOL} of the max-abs: "
+                         f"{_rounded(fp32[:4])}")
+    say(12, f"batch shape, GroveConfig() widths with {WITNESS_LAYERS} LLaMA "
+            f"layers, batch {len(host_batch['labels'])} x S = "
+            f"{host_batch['input_ids'].shape[1]}: the step a row at a time "
+            f"vs the batched step, {len(fp32)} trainable gradients, in fp32 "
+            f"(TF32 off) within {PARALLEL_TOL} of their max-abs, the worst "
+            f"{_rounded(fp32[:3])}; the same draws in bf16, the worst "
+            f"{_rounded(bf16[:3])} (held to nothing); "
+            f"{time.perf_counter() - t0:.1f} s on {gpu}")
 
 
 def _free_port():
@@ -6839,7 +7128,6 @@ def _worker_steps(torch, tmp, batches, runs, where):
     from grove_tpu_torch.parallel.launch import launch
     weights, want, want_g = _reference_step(torch, tmp, batches)
     torch.save(batches, tmp / "batches.pt")
-    top = max(float(g.abs().max()) for g in want_g.values())
     for label, (procs, tp) in runs.items():
         t0 = time.perf_counter()
         launch(["-m", "grove_tpu_torch.parallel.workers", "train_step",
@@ -6854,11 +7142,7 @@ def _worker_steps(torch, tmp, batches, runs, where):
             for k, v in w.items():
                 if abs(g[k] - v) > TRAIN_LOSS_REL * max(abs(v), 1.0):
                     raise PhaseError(f"{label} {k} {g[k]} vs unsharded {v}")
-        errs = {}
-        for n, w in want_g.items():
-            scale = max(float(w.abs().max()), TRAIN_GRAD_FLOOR * top)
-            errs[n] = float((got["grads"][n] - w).abs().max()) / scale
-        worst = sorted(errs.items(), key=lambda kv: -kv[1])[:3]
+        worst = _rounded(_grad_distance(got["grads"], want_g)[:3])
         if worst[0][1] > PARALLEL_TOL:
             raise PhaseError(f"{label} gradients off the unsharded step by "
                              f"more than {PARALLEL_TOL} of their max-abs: "
@@ -7126,7 +7410,8 @@ def main() -> int:
         serve_launches = phase_serve(torch, gpu, decoder)
         infer_launches, full = phase_infer(torch, gpu)
         region_launches = phase_region(torch, gpu, full)
-        parallel_launches = phase_parallel(torch, gpu, full)
+        parallel_launches, ranks_launches = phase_parallel(torch, gpu,
+                                                           full)
         jax_dir_launches = phase_jax_dirs(torch, gpu, full)
         del full
     except Exception:                       # report, then fail the run
@@ -7146,6 +7431,7 @@ def main() -> int:
                                   for task, got in infer_launches.items()},
                "region_launches": region_launches[name],
                "parallel_launches": parallel_launches.get(name, 0),
+               "ranks_launches": [r.get(name, 0) for r in ranks_launches],
                "jax_dir_launches": jax_dir_launches.get(name, 0)}
         row.update(rows[name])
         kernels.append(row)
@@ -7168,6 +7454,18 @@ CARDS_DRIVER = ["--synthetic", "--model_size", "small", "--model_max_length",
                 "--num_workers", "1", "--warmup_steps", "0", "--lr", "1e-5",
                 "--seed", "7", "--val_mode", "loss", "--batch_size", "2",
                 "--device", "cuda"]
+
+
+# `--phases cards`' pipeline one stage a card: small() in fp32 (TF32 off)
+# against data parallelism on the same shards, 3 steps, 2 rows a rank in 2
+# microbatches; and the full width in bf16 over CARDS stages
+CARDS_PIPE_FP32 = ["--synthetic", "--model_size", "small",
+                   "--model_max_length", "129", "--epochs", "1",
+                   "--steps_per_epoch", "3", "--num_workers", "1",
+                   "--warmup_steps", "0", "--lr", "1e-5", "--seed", "7",
+                   "--val_mode", "loss", "--device", "cuda"]
+CARDS_PIPE_TOL = 2e-5    # checkpoints vs data parallelism, abs. and rel.
+CARDS_MICRO = 4
 
 
 def _driver_ckpt(torch, argv, nprocs, root):
@@ -7228,7 +7526,10 @@ def phase_cards(torch, gpu, decoder):
     checkpoint must be bit-equal to world 1's; `--multihost --mesh_model
     2`, whose checkpoint is compared tensor by tensor with world 1's
     (`_ckpt_distance`, printed), the tensors whose gradient is zero up to
-    rounding in an fp32 step (`_zero_grads`) apart."""
+    rounding in an fp32 step (`_zero_grads`) apart. Then the pipeline one
+    stage a card: `--multihost --pipeline_stages 2` in fp32 against data
+    parallelism (`_cards_pipeline_driver`), and GroveConfig() in bf16 over
+    CARDS cards with its bubble (`_cards_pipeline_full`)."""
     _need_cards(torch)
     tmp = Path(tempfile.mkdtemp(prefix="grove_cards_"))
     try:
@@ -7256,8 +7557,138 @@ def phase_cards(torch, gpu, decoder):
                 f"(< {ZERO_GRAD} of the largest), the worst {noise[:4]}; "
                 f"the {len(rest)} others, the worst {rest[:4]} "
                 f"({time.perf_counter() - t0:.1f} s)")
+        _cards_pipeline_driver(torch, tmp, zero)
+        _cards_pipeline_full(torch, gpu, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _fp32_driver_ckpt(torch, argv, nprocs, root):
+    """`train.driver.main` through `parallel.workers.driver` in fp32 on
+    `nprocs` ranks, one card each (NCCL), TF32 off, with CARDS_PIPE_FP32;
+    returns its last checkpoint and rank 0's output."""
+    from grove_tpu_torch.parallel.launch import launch
+    outs = launch(["-m", "grove_tpu_torch.parallel.workers", "driver",
+                   json.dumps(dict(argv=CARDS_PIPE_FP32 + list(argv) + [
+                       "--log_base_dir", str(root)], dtype="fp32",
+                       device="cuda"))],
+                  nprocs, timeout=600, env={"NVIDIA_TF32_OVERRIDE": "0"})
+    return torch.load(root / "grove_tpu" / "ckpt_model" / "3" / "state.pt",
+                      map_location="cpu", weights_only=True), outs[0]
+
+
+def _allclose_excess(torch, got, want, zero):
+    """Every tensor of two checkpoints (parameters and optimizer state)
+    against |got - want| <= CARDS_PIPE_TOL (1 + |want|), elementwise, as
+    the CPU tests hold the pipelined driver's checkpoint to data
+    parallelism's (`tests/test_torch_pipeline_ranks.py`), but those named
+    in `zero`:
+    [(key, the largest excess over that bound)], worst first."""
+    flat = {}
+
+    def walk(a, b, path):
+        if isinstance(b, dict):
+            if set(a) != set(b):
+                raise PhaseError(f"the checkpoints differ in {path} keys")
+            for k in b:
+                walk(a[k], b[k], f"{path}/{k}")
+        elif isinstance(b, torch.Tensor):
+            if path.split("/")[-1] not in zero and b.is_floating_point():
+                d = (a.double() - b.double()).abs()
+                flat[path] = float((d - CARDS_PIPE_TOL * (1 + b.double()
+                                                          .abs())).max())
+        elif a != b:
+            raise PhaseError(f"the checkpoints differ at {path}: {a}, {b}")
+    walk(got, want, "")
+    return sorted(flat.items(), key=lambda kv: -kv[1])
+
+
+def _cards_pipeline_driver(torch, tmp, zero):
+    """`--multihost --pipeline_stages 2` on 2 cards (one stage a rank over
+    NCCL, 2 rows a rank in 2 microbatches) against `--multihost` data
+    parallelism on 2 cards at 2 rows a rank (each rank reading the same
+    shard: the same global batch of 4), small() in fp32, 3 steps: every
+    tensor of the checkpoint, moments included, within CARDS_PIPE_TOL
+    (absolute and relative, `_allclose_excess`), but those of `zero`
+    (gradients zero up to rounding); each parameter's max-abs distance
+    relative to its max-abs printed (`_ckpt_distance`)."""
+    t0 = time.perf_counter()
+    one, _ = _fp32_driver_ckpt(torch, ["--multihost", "--batch_size", "2"],
+                               2, tmp / "fp32_dp")
+    pp, out = _fp32_driver_ckpt(torch, [
+        "--multihost", "--pipeline_stages", "2", "--pipeline_microbatches",
+        "2", "--batch_size", "2"], 2, tmp / "fp32_pp")
+    line = next((x for x in out.splitlines()
+                 if x.startswith("pipeline-parallel LLM")), "")
+    if "one a rank" not in line or "over nccl" not in line:
+        raise PhaseError(f"the 2-card pipeline ran as {line!r}")
+    excess = _allclose_excess(torch, pp, one, zero)
+    if excess[0][1] > 0:
+        raise PhaseError(f"the 2-card pipeline's checkpoint is off data "
+                         f"parallelism's by more than {CARDS_PIPE_TOL} "
+                         f"(1 + |x|): {excess[:4]}")
+    noise, rest = _ckpt_distance(pp, one, zero)
+    say(12, f"driver small() fp32, 3 steps: {line!r}; its checkpoint vs "
+            f"--multihost data parallelism on 2 cards, 2 rows a rank: "
+            f"{len(excess)} tensors (parameters and "
+            f"moments) within {CARDS_PIPE_TOL} (1 + |x|), the closest to "
+            f"the bound {excess[:3]} (excess, <= 0); each parameter's "
+            f"max-abs distance / its max-abs, the worst {rest[:4]}; the "
+            f"{len(noise)} whose fp32 gradient is zero up to rounding, the "
+            f"worst {noise[:4]} ({time.perf_counter() - t0:.1f} s)")
+
+
+def _cards_pipeline_full(torch, gpu, tmp):
+    """GroveConfig() in bf16 one stage a card over NCCL: CARDS stages of
+    8 layers, one row a rank (a global batch of CARDS at S = 704),
+    CARDS_MICRO microbatches; a warm step, then two steps with every
+    launch count set to 0 before each: each rank's launches exact, finite
+    losses, each rank's step ms, peak memory and busy share, and the
+    bubble from CUDA events around each stage's microbatch work beside
+    GPipe's (n - 1) / (m + n - 1)."""
+    from grove_tpu_torch.config import GroveConfig
+    from grove_tpu_torch.parallel.launch import launch
+    from grove_tpu_torch.text.mock_tokenizer import MockTokenizer
+    from grove_tpu_torch.text.tokenizer import special_token_ids_from
+    cfg = dataclasses.replace(GroveConfig(), max_seq_len=TRAIN_SEQ)
+    tok = MockTokenizer(base_vocab_size=cfg.llama.vocab_size)
+    cfg = dataclasses.replace(cfg, tokens=special_token_ids_from(tok))
+    batch = _train_batch(cfg, tok, seed=37, n=CARDS)
+    with open(tmp / "full.pkl", "wb") as f:
+        pickle.dump(cfg, f)
+    torch.save(batch, tmp / "full_batch.pt")
+    t0 = time.perf_counter()
+    launch(["-m", "grove_tpu_torch.parallel.workers", "pipeline_step",
+            json.dumps(dict(out=str(tmp / "full.pt"),
+                            batch=str(tmp / "full_batch.pt"),
+                            microbatches=CARDS_MICRO,
+                            config_file=str(tmp / "full.pkl"), seed=0,
+                            dtype="bf16", optimizer={"warmup_steps": 1},
+                            warm_steps=1, steps=2, grads=False,
+                            device="cuda"))], CARDS, timeout=900)
+    secs = time.perf_counter() - t0
+    got = torch.load(tmp / "full.pt", weights_only=False)
+    s = batch["input_ids"].shape[1]
+    _check_ranks(got, cfg, s, CARDS, CARDS_MICRO, "full-width pipeline")
+    for terms in got["metrics"]:
+        _check_losses(terms, "full-width pipeline")
+    for step in range(len(got["metrics"])):
+        busy, shares, bubble, gpipe = _stage_shares(got["ranks"], step,
+                                                    CARDS, CARDS_MICRO)
+        per = ", ".join(
+            f"stage {r['stage']} {r['steps'][step]['ms']:.1f} ms, peak "
+            f"{r['steps'][step]['peak'] / 2**30:.2f} GiB, busy "
+            f"{busy[k]:.1f} ms = {shares[k]:.3f}"
+            for k, r in enumerate(got["ranks"]))
+        say(12, f"GroveConfig() bf16 pipeline one stage a card, {CARDS} "
+                f"stages x {cfg.llama.num_layers // CARDS} layers over "
+                f"{got['ranks'][0]['transport']}, batch {CARDS} x S = {s}, "
+                f"{CARDS_MICRO} microbatches, step {step + 1}: {per}; "
+                f"bubble {bubble:.3f} (GPipe (n - 1) / (m + n - 1) = "
+                f"{gpipe:.3f}); losses {got['metrics'][step]}; launches "
+                f"exact on each rank, {gpu}")
+    say(12, f"full-width pipeline across {CARDS} cards: {secs:.1f} s with "
+            "the processes' start and the warm step")
 
 
 def phase_cards_steps(torch, gpu, decoder):

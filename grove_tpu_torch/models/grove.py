@@ -491,9 +491,12 @@ def init_params_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     from .layers import LayerNorm2d, LayerNormQuant, RMSNorm
 
     def randn(p, std):
-        x = torch.randn(p.shape, generator=generator, device=p.device,
+        # a tensor left on the meta device still takes its draws
+        x = torch.randn(p.shape, generator=generator,
+                        device=generator.device if p.is_meta else p.device,
                         dtype=torch.float32)
-        p.copy_(x * std)
+        if not p.is_meta:
+            p.copy_(x * std)
 
     for mname, mod in model.named_modules():
         if hasattr(mod, "reset_placeholders_"):
@@ -525,16 +528,27 @@ def init_params_(model: nn.Module, generator: torch.Generator) -> nn.Module:
 
 def init_grove_params(cfg: GroveConfig, *, device, dtype=torch.bfloat16,
                       seed: int = 0, remat: bool = False,
-                      llm_act_sharding=None) -> GroveModel:
+                      llm_act_sharding=None, layers=None) -> GroveModel:
     """Build a GroveModel with synthetic weights from `seed`, directly on
     `device` in `dtype`: the modules are made on the meta device, given
     uninitialized storage on `device`, then filled by `init_params_` with
     a generator on that device (no fp32 copy of the model ever exists).
     `remat` and `llm_act_sharding` as `GroveModel`'s
-    (`grove.py:424-425`)."""
+    (`grove.py:424-425`). `layers`: None, or the decoder layers to hold
+    (a pipeline stage's, `parallel.pipeline.stage_layers`): the others
+    stay on the meta device, with no storage, and their draws are made
+    and dropped, so that every tensor held equals the whole model's."""
     model = GroveModel(cfg, remat=remat, device="meta", dtype=dtype,
                        llm_act_sharding=llm_act_sharding)
-    model = model.to_empty(device=device)
+    if layers is None:
+        model = model.to_empty(device=device)
+    else:
+        dropped = tuple(f"model.layers.{i}."
+                        for i in range(cfg.llama.num_layers)
+                        if i not in set(layers))
+        for name, mod in model.named_modules():
+            if not f"{name}.".startswith(dropped):
+                mod.to_empty(device=device, recurse=False)
     gen = torch.Generator(device=device).manual_seed(seed)
     init_params_(model, gen)
     return model.eval()

@@ -130,16 +130,20 @@ def global_batch_size(batch: Dict, mesh) -> int:
     return int(np.shape(batch["input_ids"])[0]) * axis_size(mesh, "data")
 
 
-def _data_group(mesh):
+def _data_group(mesh, group=None):
+    """`group` where given (the ranks of a pipeline), else the "data" group
+    of `mesh` (None without data parallelism)."""
+    if group is not None:
+        return group
     if mesh is None or axis_size(mesh, "data") == 1:
         return None
     return mesh.get_group("data")
 
 
-def count_reduce(mesh):
-    """A function that sums a count over "data" (None without data
-    parallelism): `ops.losses`' `count_reduce`."""
-    group = _data_group(mesh)
+def count_reduce(mesh, group=None):
+    """A function that sums a count over "data", or over `group` where
+    given (None without either): `ops.losses`' `count_reduce`."""
+    group = _data_group(mesh, group)
     if group is None:
         return None
 
@@ -159,14 +163,15 @@ def _fsdp_managed(p) -> bool:
 
 
 @torch.no_grad()
-def sync_gradients(params: Dict[str, torch.nn.Parameter], mesh) -> None:
-    """Sum the gradients of `params` over "data": FSDP's shards, which its
-    reduce-scatter averaged, times the "data" size; the others (plain and
-    tensor-parallel parameters) by one all-reduce per dtype of the
-    flattened local gradients. A trainable parameter without a gradient
-    takes zeros, as optax sees them."""
+def sync_gradients(params: Dict[str, torch.nn.Parameter], mesh,
+                   group=None) -> None:
+    """Sum the gradients of `params` over "data" (or over `group` where
+    given): FSDP's shards, which its reduce-scatter averaged, times the
+    "data" size; the others (plain and tensor-parallel parameters) by one
+    all-reduce per dtype of the flattened local gradients. A trainable
+    parameter without a gradient takes zeros, as optax sees them."""
     from torch.distributed.tensor import DTensor
-    group = _data_group(mesh)
+    group = _data_group(mesh, group)
     if group is None:
         return
     by_dtype: Dict[torch.dtype, list] = {}
@@ -189,11 +194,12 @@ def sync_gradients(params: Dict[str, torch.nn.Parameter], mesh) -> None:
 
 
 @torch.no_grad()
-def reduce_metrics(metrics: Dict[str, torch.Tensor], mesh
+def reduce_metrics(metrics: Dict[str, torch.Tensor], mesh, group=None
                    ) -> Dict[str, torch.Tensor]:
-    """Each rank's share of the loss terms summed over "data": the global
-    batch's terms, equal on every rank."""
-    group = _data_group(mesh)
+    """Each rank's share of the loss terms summed over "data" (or over
+    `group` where given): the global batch's terms, equal on every
+    rank."""
+    group = _data_group(mesh, group)
     if group is None:
         return metrics
     keys = sorted(metrics)

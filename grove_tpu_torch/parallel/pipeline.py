@@ -4,12 +4,15 @@ Counterpart of `grove_tpu/parallel/pipeline.py`. The JAX package stacks
 the layers' parameters on a leading axis sharded over a "pipe" mesh axis
 and runs the GPipe schedule in one `shard_map` program: at step t, stage k
 runs microbatch t - k and hands its activation to stage k + 1 with
-`ppermute`. The port's pipeline is one process over a list of devices:
+`ppermute`. Its pipe mesh is the first `n_stages` of `jax.devices()`,
+which under `jax.distributed` span every process. The port has two
+pipelines.
+
+In one process, over a list of devices:
 
 * `make_pipe_mesh(n_stages, devices)` names the stages' devices. Where
   JAX asserts `n_stages <= len(devices)`, the port takes an explicit list
-  that may repeat a device: on one card every stage sits on `cuda:0`.
-  There is no pipeline across processes;
+  that may repeat a device: on one card every stage sits on `cuda:0`;
 * `place_stages` moves stage k's `num_layers / n_stages` layers onto its
   device and records each layer's device in `LlamaModel.stages`, so that
   the model's own forward carries its activations from stage to stage
@@ -21,18 +24,53 @@ runs microbatch t - k and hands its activation to stage k + 1 with
   the same as one `LlamaModel.forward` of the whole batch (the final
   RMSNorm is per row), with the same gradients; `remat` is the model's
   own (each layer under `torch.utils.checkpoint`), as JAX's
-  `jax.checkpoint` on the layer body. The bubble and the overlap across
-  cards were not measured.
+  `jax.checkpoint` on the layer body.
+
+Across processes, one stage a rank (`RankPipe`, `make_rank_pipe`): rank k
+holds only stage k's layers (`stage_layers`; the others stay on the meta
+device, `models.grove.init_grove_params(layers=)`) and the rest of the
+model whole. Each rank holds its local batch; the global batch is their
+concatenation in rank order, as JAX's under `--multihost`. A pass
+(`rank_forward`, `rank_backward`):
+
+1. each rank runs the encoders and the splice on its own rows;
+2. the spliced rows go to stage 0, which splits the global batch into
+   microbatches; stage k takes microbatch i from stage k - 1, runs its
+   layers (under `torch.utils.checkpoint` with `remat`) and sends the
+   result to stage k + 1;
+3. the last stage sends each rank its rows of the output; each rank runs
+   the final norm, `lm_head`, `ground` and the losses on them, with the
+   global batch's normalizers (`parallel.mesh.count_reduce`);
+4. backward: each rank's d hidden goes to the last stage, the stages run
+   the microbatches' backward in reverse order (receive dy from k + 1,
+   `torch.autograd.backward`, send dx to k - 1), and stage 0 sends each
+   rank the gradient of its spliced rows, which runs back through the
+   splice and the encoders.
+
+The messages are point-to-point (`dist.batch_isend_irecv`: every send is
+posted with its receive): device tensors over NCCL; over gloo, whose
+send and receive take CPU tensors only (the backend table of
+`torch.distributed`), through pinned host buffers, the compute staying on
+the card. The gradients of the replicated parameters are summed over the
+ranks, those of the layers stay on their stage, and the clipping norm sums
+each stage's squares once (`train.step.AdamW.sum_norm_over_`). A
+checkpoint gathers every stage's layers and their optimizer state to rank
+0 in the world-1 layout (`gather_stages`). `RankPipelineModel` runs the
+driver's validation through the same forward.
 
 Scope, as in JAX: the cache-free (training, teacher-forced) pass.
 """
 
 from __future__ import annotations
 
+import contextlib
+import math
+import re
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 LAYER = "layers."
@@ -131,3 +169,328 @@ def pipelined_llama_forward(llama: nn.Module, inputs_embeds: torch.Tensor,
         place_stages(llama, pipe)
     return torch.cat([llama(mb, positions)
                       for mb in inputs_embeds.chunk(m, dim=0)], dim=0)
+
+
+# ---------------------------------------------------------------------------
+# across processes: one stage a rank
+# ---------------------------------------------------------------------------
+
+LAYER_KEY = re.compile(r"^model\.layers\.(\d+)\.")
+
+
+@dataclass(frozen=True)
+class RankPipe:
+    """A pipeline of one stage a rank: stage k is rank k of the world, on
+    `device`. Over gloo with CUDA tensors (`staged`) the messages travel
+    through pinned host buffers."""
+    n_stages: int
+    stage: int
+    device: torch.device
+    backend: str
+
+    @property
+    def last(self) -> int:
+        return self.n_stages - 1
+
+    @property
+    def staged(self) -> bool:
+        return self.backend == "gloo" and self.device.type == "cuda"
+
+    @property
+    def transport(self) -> str:
+        return (f"{self.backend} through pinned host buffers" if self.staged
+                else self.backend)
+
+
+def make_rank_pipe(n_stages: int, device) -> RankPipe:
+    """One stage a rank over the initialized world (`parallel.mesh.
+    init_distributed`), which must hold `n_stages` processes; `device` is
+    this rank's. Every rank calls it (a barrier: the first collective of
+    the pipeline involves every rank)."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != n_stages:
+        raise ValueError(f"--pipeline_stages {n_stages} across processes "
+                         f"runs one stage a rank: the world holds {world} "
+                         f"processes, not {n_stages}")
+    dist.barrier()
+    return RankPipe(n_stages, dist.get_rank(), torch.device(device),
+                    dist.get_backend())
+
+
+def stage_layers(num_layers: int, n_stages: int, stage: int) -> range:
+    """The decoder layers of `stage`: the k-th `num_layers / n_stages`."""
+    per = num_layers // n_stages
+    _stage_of(num_layers, n_stages)
+    return range(stage * per, (stage + 1) * per)
+
+
+def owned_by(name: str, num_layers: int, n_stages: int) -> Optional[int]:
+    """The stage whose layer `name` (a parameter or state-dict key) belongs
+    to, or None for the replicated rest."""
+    m = LAYER_KEY.match(name)
+    return None if m is None else int(m.group(1)) // (num_layers // n_stages)
+
+
+def _post(pipe: RankPipe, sends=(), recvs=()):
+    """Post every send [(tensor, dst)] and receive [(shape, dtype, src)]
+    together; returns (works, the receive buffers, the buffers kept alive
+    until the works complete)."""
+    ops, keep, bufs = [], [], []
+    for t, dst in sends:
+        t = t.detach()
+        if pipe.staged:
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            h.copy_(t)
+            t = h
+        else:
+            t = t.to(pipe.device).contiguous()
+        keep.append(t)
+        ops.append(dist.P2POp(dist.isend, t, dst))
+    for shape, dtype, src in recvs:
+        buf = (torch.empty(shape, dtype=dtype, pin_memory=True)
+               if pipe.staged else
+               torch.empty(shape, dtype=dtype, device=pipe.device))
+        bufs.append(buf)
+        ops.append(dist.P2POp(dist.irecv, buf, src))
+    works = dist.batch_isend_irecv(ops) if ops else []
+    return works, bufs, keep
+
+
+def _wait(pending) -> None:
+    for works, _, _ in pending:
+        for w in works:
+            w.wait()
+
+
+def _exchange(pipe: RankPipe, sends=(), recvs=()) -> List[torch.Tensor]:
+    """`_post`, waited for; the received tensors on this rank's device."""
+    posted = _post(pipe, sends, recvs)
+    _wait([posted])
+    return [b.to(pipe.device) for b in posted[1]]
+
+
+def _mark(timer, kind: str, i: int):
+    return contextlib.nullcontext() if timer is None else timer(kind, i)
+
+
+def _run_stage(llama: nn.Module, x, positions, layers) -> torch.Tensor:
+    from ..models.layers import remat_call
+    for i in layers:
+        x = remat_call(llama.remat, llama.layers[i], x, positions)
+    return x
+
+
+@dataclass
+class _Flight:
+    """What the backward of one pipelined pass needs on this rank."""
+    x: torch.Tensor                     # its spliced rows, with their graph
+    ins: List[torch.Tensor]             # its stage's microbatch inputs
+    ys: List[torch.Tensor]              # its stage's microbatch outputs
+    gathered: Optional[torch.Tensor]    # stage 0: the global batch's rows
+    h: torch.Tensor                     # its rows of the stack's output
+
+
+def front(model: nn.Module, batch: Dict):
+    """The encoders and the splice on a batch's rows: (spliced embeddings
+    (B, S, D), SAM image embeddings)."""
+    video_embeds, _ = model.encode_video(batch["frames_clip"])
+    image_embeddings = model.encode_grounding(batch["frames_sam"],
+                                              batch.get("sam_valid_hw"))
+    x = model._splice(batch["input_ids"], video_embeds, batch["video_start"])
+    return x, image_embeddings
+
+
+def rank_forward(model: nn.Module, batch: Dict, pipe: RankPipe,
+                 n_microbatches: int, timer=None):
+    """Steps 1-3 of the module docstring on this rank's local `batch`:
+    (post-final-norm hidden states of its rows, its SAM image embeddings,
+    what `rank_backward` needs). With gradients on, the hidden states
+    lead back to a leaf of the stack's output rows. Every rank calls it,
+    with local batches of one size. `timer(kind, i)`, where given, is a
+    context manager around each microbatch's work on this stage."""
+    llama = model.model
+    x, image_embeddings = front(model, batch)
+    b, s, d = x.shape
+    n, m, k = pipe.n_stages, n_microbatches, pipe.stage
+    if (b * n) % m:
+        raise ValueError(f"rank_forward: the global batch of {n} x {b} "
+                         f"rows does not divide into {m} microbatches")
+    grad = torch.is_grad_enabled()
+    positions = torch.arange(s, device=x.device)
+    layers = stage_layers(len(llama.layers), n, k)
+    gathered, ins = None, []
+    if k == 0:
+        got = _exchange(pipe, recvs=[((b, s, d), x.dtype, r)
+                                     for r in range(1, n)])
+        gathered = torch.cat([x.detach()] + got)
+        if grad:
+            gathered.requires_grad_()
+        ins = list(gathered.chunk(m))
+    else:
+        _exchange(pipe, sends=[(x, 0)])
+    ys, pending = [], []
+    rows = b * n // m
+    for i in range(m):
+        if k > 0:
+            xi = _exchange(pipe, recvs=[((rows, s, d), x.dtype, k - 1)])[0]
+            ins.append(xi.requires_grad_() if grad else xi)
+        with _mark(timer, "forward", i):
+            ys.append(_run_stage(llama, ins[i], positions, layers))
+        if k < n - 1:
+            pending.append(_post(pipe, sends=[(ys[i], k + 1)]))
+    _wait(pending)
+    if k == pipe.last:
+        out = torch.cat([y.detach() for y in ys])
+        _exchange(pipe, sends=[(out[r * b:(r + 1) * b], r)
+                               for r in range(n - 1)])
+        h = out[k * b:(k + 1) * b].clone()
+    else:
+        h = _exchange(pipe, recvs=[((b, s, d), x.dtype, pipe.last)])[0]
+    if grad:
+        h.requires_grad_()
+    flight = _Flight(x, ins, ys, gathered, h)
+    return llama.norm(h), image_embeddings, flight
+
+
+def rank_backward(flight: _Flight, pipe: RankPipe, n_microbatches: int,
+                  timer=None) -> None:
+    """Step 4 of the module docstring, once this rank's loss has run its
+    backward into `flight.h`: the stack's backward over the stages in
+    reverse microbatch order, then the splice's and the encoders' on each
+    rank. Every rank calls it."""
+    n, m, k = pipe.n_stages, n_microbatches, pipe.stage
+    dh = flight.h.grad
+    if dh is None:
+        dh = torch.zeros_like(flight.h)
+    if k == pipe.last:
+        got = _exchange(pipe, recvs=[(dh.shape, dh.dtype, r)
+                                     for r in range(n - 1)])
+        douts = list(torch.cat(got + [dh]).chunk(m))
+    else:
+        _exchange(pipe, sends=[(dh, pipe.last)])
+    pending = []
+    for i in reversed(range(m)):
+        y = flight.ys[i]
+        dy = (douts[i] if k == pipe.last else
+              _exchange(pipe, recvs=[(y.shape, y.dtype, k + 1)])[0])
+        with _mark(timer, "backward", i):
+            torch.autograd.backward(y, dy)
+        if k > 0:
+            pending.append(_post(pipe, sends=[(flight.ins[i].grad, k - 1)]))
+    _wait(pending)
+    x = flight.x
+    b = x.shape[0]
+    if k == 0:
+        dx = flight.gathered.grad
+        _exchange(pipe, sends=[(dx[r * b:(r + 1) * b], r)
+                               for r in range(1, n)])
+        dx = dx[:b]
+    else:
+        dx = _exchange(pipe, recvs=[(x.shape, x.dtype, 0)])[0]
+    if x.requires_grad:
+        x.backward(dx)
+
+
+def local_rows(batch: Dict, pipe: RankPipe) -> Dict:
+    """This rank's rows of a global batch (every rank holding the same):
+    the k-th of `n_stages` equal parts of each entry's leading dim."""
+    out = {}
+    for key, v in batch.items():
+        b = len(v) // pipe.n_stages
+        out[key] = v[pipe.stage * b:(pipe.stage + 1) * b]
+    return out
+
+
+class RankPipelineModel:
+    """`forward_train` and `forward_boxes` of a GroveModel pipelined one
+    stage a rank, for the driver's `validate`: each takes this rank's
+    local batch (the ranks' batches of one size, as the sharded loader
+    gives them) and returns its rows' result, the losses with this
+    batch's own normalizers, as `validate` takes them on every process of
+    the JAX package and of data parallelism; the microbatches are as many
+    of `n_microbatches` as divide the global batch."""
+
+    def __init__(self, model: nn.Module, pipe: RankPipe,
+                 n_microbatches: int):
+        self.model, self.pipe, self.m = model, pipe, n_microbatches
+
+    def _forward(self, batch: Dict):
+        rows = len(batch["input_ids"]) * self.pipe.n_stages
+        return rank_forward(self.model, batch, self.pipe,
+                            math.gcd(self.m, rows))
+
+    def forward_train(self, batch: Dict) -> Dict[str, torch.Tensor]:
+        hidden, image_embeddings, _ = self._forward(batch)
+        out = self.model.losses(batch, hidden, self.model.lm_head(hidden),
+                                image_embeddings)
+        return {k: v for k, v in out.items() if k.endswith("loss")}
+
+    def forward_boxes(self, batch: Dict) -> Dict[str, torch.Tensor]:
+        hidden, image_embeddings, _ = self._forward(batch)
+        boxes, obj = self.model.ground(hidden, batch["det_positions"],
+                                       image_embeddings)
+        return {"pred_boxes": boxes, "objectness_logits": obj}
+
+
+# ---------------------------------------------------------------------------
+# whole tensors of a pipelined model: every stage's layers on rank 0
+# ---------------------------------------------------------------------------
+
+def _leaves(tree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, path + (k,))
+    else:
+        yield path, tree
+
+
+def _stage_entry(path, num_layers: int, pipe: RankPipe) -> bool:
+    return any(isinstance(key, str)
+               and owned_by(key, num_layers, pipe.n_stages) == pipe.stage
+               for key in path)
+
+
+def _put(tree: Dict, path, value) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
+
+
+def gather_stages(tree, pipe: RankPipe, num_layers: int):
+    """On rank 0, `tree` (a state dict, or an optimizer's state: nests of
+    dicts whose keys name parameters) with every other stage's entries for
+    its own decoder layers filled in (a meta tensor replaced) or added, as
+    whole CPU tensors: the world-1 layout. On the other ranks None. Every
+    rank calls it; each stage sends rank 0 a list of its entries, then the
+    tensors one at a time."""
+    mine = [(path, t) for path, t in _leaves(tree)
+            if isinstance(t, torch.Tensor) and not t.is_meta
+            and _stage_entry(path, num_layers, pipe)]
+    if pipe.stage != 0:
+        dist.send_object_list([[(p, tuple(t.shape), t.dtype)
+                                for p, t in mine]], dst=0)
+        for _, t in mine:
+            _exchange(pipe, sends=[(t, 0)])
+        return None
+    out = {}
+    for path, t in _leaves(tree):
+        _put(out, path, t)
+    for src in range(1, pipe.n_stages):
+        header = [None]
+        dist.recv_object_list(header, src=src)
+        for path, shape, dtype in header[0]:
+            t = _exchange(pipe, recvs=[(shape, dtype, src)])[0]
+            _put(out, path, t.cpu())
+    meta = [path for path, t in _leaves(out)
+            if isinstance(t, torch.Tensor) and t.is_meta]
+    if meta:
+        raise RuntimeError(f"gather_stages: no stage sent {meta[:4]}")
+    return out
+
+
+def local_entries(tree, like):
+    """The entries of `tree` (a whole state, as `gather_stages` gives)
+    that `like` (this rank's own state of the same form) has."""
+    if isinstance(like, dict):
+        return {k: local_entries(tree[k], v) for k, v in like.items()}
+    return tree

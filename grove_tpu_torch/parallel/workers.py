@@ -1,9 +1,10 @@
 """Worker programs of the parallel paths, one per rank under
 `parallel.launch`: a train step or a greedy decode of a `GroveModel`
 (`tiny()` by default, `small()` with "size") under a ("data", "model")
-mesh, whose results rank 0 writes to a file for the caller to compare with
-an unsharded run. They run on the card (several ranks on one card over
-gloo), or with "device": "cpu" on the CPU.
+mesh, the pipelined step one stage a rank, or the training driver in
+another dtype, whose results rank 0 writes to a file for the caller to
+compare with an unsharded run. They run on the card (several ranks on one
+card over gloo), or with "device": "cpu" on the CPU.
 
     python -m grove_tpu_torch.parallel.workers train_step '{"weights": ...}'
 
@@ -13,9 +14,11 @@ imports its target's module and must import no JAX.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import sys
+import time
 from typing import Dict, Optional
 
 import numpy as np
@@ -159,7 +162,207 @@ def greedy(weights: str, inputs: str, out: str, tp: int = 1,
         torch.save([merged[i] for i in range(len(data["ids"]))], out)
 
 
-WORKERS = {"train_step": train_step, "greedy": greedy}
+class StageTimer:
+    """`timer(kind, i)` of `parallel.pipeline.rank_forward`: CUDA events
+    around each microbatch's work on this stage (host clocks on the CPU),
+    read back as (kind, i, start s, end s) on the host's monotonic clock,
+    which every process of one host shares: each event's time from an
+    anchor event recorded when the card was idle at a known host time."""
+
+    def __init__(self, cuda: bool):
+        self.cuda, self.marks = cuda, []
+
+    def start(self) -> None:
+        self.marks = []
+        if self.cuda:
+            torch.cuda.synchronize()
+            self.anchor = torch.cuda.Event(enable_timing=True)
+            self.t0 = time.perf_counter()
+            self.anchor.record()
+
+    @contextlib.contextmanager
+    def __call__(self, kind: str, i: int):
+        if not self.cuda:
+            t = time.perf_counter()
+            yield
+            self.marks.append((kind, i, t, time.perf_counter()))
+            return
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        yield
+        end.record()
+        self.marks.append((kind, i, start, end))
+
+    def read(self):
+        if not self.cuda:
+            return list(self.marks)
+        torch.cuda.synchronize()
+
+        def at(event):
+            return self.t0 + self.anchor.elapsed_time(event) / 1e3
+        return [(k, i, at(s), at(e)) for k, i, s, e in self.marks]
+
+
+_BITS = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
+
+
+def fingerprint(model) -> Dict[str, int]:
+    """The sum of the bits of every tensor `model` holds, read as integers,
+    by name: exact and independent of the order of the sum."""
+    return {n: int(t.contiguous().view(_BITS[t.element_size()]).long().sum())
+            for n, t in model.state_dict().items()
+            if not t.is_meta and t.is_floating_point()}
+
+
+def pipeline_step(out: str, batch: str, microbatches: int,
+                  weights: Optional[str] = None,
+                  config_file: Optional[str] = None,
+                  seed: int = 0, dtype: str = "fp32",
+                  optimizer: Optional[Dict] = None, warm_steps: int = 0,
+                  steps: int = 1, remat: bool = False, grads: bool = True,
+                  val: bool = False, tf32=None,
+                  device: str = "cuda") -> None:
+    """Steps of `train.step.make_pipelined_train_step` one stage a rank
+    (`parallel.pipeline.RankPipe`) on `device`: rank r takes its rows of
+    the global batch in `batch` (a `torch.save`d numpy batch dict). The
+    model is the pickled GroveConfig in `config_file` (`tiny()` without
+    one), built from `seed` in `dtype` with each rank holding its stage's
+    layers only, each layer under `torch.utils.checkpoint` with `remat`,
+    the whole `weights` laid over where given.
+    `tf32`: where given, (cuBLAS's, cuDNN's) `allow_tf32`, as the caller
+    holds them, so that an fp32 op takes the caller's algorithms.
+    `warm_steps` untimed steps first, then `steps` timed ones, each with
+    the launch counts set to 0 just before it and `StageTimer` marks.
+    Rank 0 writes {"ranks": each rank's {"stage", "held" (its layers with
+    storage), "meta" (the others'), "transport", "fingerprint", "steps"
+    ("launches", "ms", "peak", "marks" by step), "val" (with `val`:
+    `RankPipelineModel`'s forward_boxes and forward_train on its rows)},
+    "metrics": each timed step's loss terms, "norm": the clipping norm of
+    the last step's gradients, "grads": the whole trainable gradients of
+    the first timed step (with `grads`)} to `out`."""
+    import pickle
+    from .. import _kernels
+    from ..models.grove import init_grove_params
+    from ..train.step import (OptimizerConfig, batch_to_device,
+                              make_optimizer, make_pipelined_train_step,
+                              partition_params, trainable_mask)
+    from .pipeline import (RankPipelineModel, gather_stages, local_rows,
+                           make_rank_pipe, stage_layers)
+    from .sharding import load_full_state_dict
+    dev = _device(device)
+    if tf32 is not None:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    if config_file:
+        with open(config_file, "rb") as f:
+            cfg = pickle.load(f)
+    else:
+        cfg = grove_config()
+    n, rank = dist.get_world_size(), dist.get_rank()
+    num_layers = cfg.llama.num_layers
+    layers = stage_layers(num_layers, n, rank)
+    model = init_grove_params(
+        cfg, device=dev, seed=seed, remat=remat, layers=layers,
+        dtype=DTYPES[dtype])
+    if weights:
+        load_full_state_dict(model, torch.load(weights, weights_only=True))
+    ocfg = OptimizerConfig(**(optimizer or {}))
+    mask = trainable_mask(model, ocfg)
+    partition_params(model, mask)
+    params = {k: p for k, p in model.named_parameters()
+              if mask[k] and not p.is_meta}
+    opt = make_optimizer(params, ocfg)
+    pipe = make_rank_pipe(n, dev)
+    cuda = dev.type == "cuda"
+    timer = StageTimer(cuda)
+    step = make_pipelined_train_step(model, opt, pipe, microbatches, timer)
+    whole = torch.load(batch, weights_only=False)
+    local = batch_to_device(local_rows(whole, pipe), dev)
+    held = sorted({int(k.split(".")[2]) for k, p in model.named_parameters()
+                   if k.startswith("model.layers.") and not p.is_meta})
+    meta = sorted({int(k.split(".")[2]) for k, p in model.named_parameters()
+                   if k.startswith("model.layers.") and p.is_meta})
+    for _ in range(warm_steps):
+        step(local)
+    mine = {"stage": pipe.stage, "held": held, "meta": meta,
+            "layers": list(layers), "transport": pipe.transport,
+            "fingerprint": fingerprint(model), "steps": []}
+    metrics, first = [], None
+    for _ in range(steps):
+        dist.barrier()
+        _kernels.reset_launch_counts()
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        timer.start()
+        t0 = time.perf_counter()
+        m = step(local)
+        if cuda:
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        mine["steps"].append({
+            "ms": ms, "marks": timer.read(),
+            "launches": {k: v.launches for k, v in _kernels.KERNELS.items()
+                         if v.launches},
+            "peak": torch.cuda.max_memory_allocated() if cuda else None})
+        metrics.append({k: float(v) for k, v in m.items()})
+        if first is None and grads:
+            first = {k: p.grad.detach().cpu().clone()
+                     for k, p in params.items() if p.grad is not None}
+    norm = float(opt.global_norm())
+    if grads:
+        first = gather_stages(first, pipe, num_layers)
+    if val:
+        ranked = RankPipelineModel(model, pipe, microbatches)
+        with torch.inference_mode():
+            boxes = ranked.forward_boxes(local)
+            mine["val"] = {"boxes": {k: v.cpu() for k, v in boxes.items()},
+                           "losses": {k: float(v) for k, v in
+                                      ranked.forward_train(local).items()}}
+    got = [None] * n
+    dist.all_gather_object(got, mine)
+    if rank == 0:
+        torch.save({"ranks": got, "metrics": metrics, "norm": norm,
+                    "grads": first}, out)
+
+
+def driver(argv, dtype: Optional[str] = None, state_out: Optional[str] = None,
+           device: str = "cuda") -> None:
+    """`train.driver.main(argv)` in this rank's process group, the model in
+    `dtype` ("fp32" or "bf16") where given instead of the size's
+    (`driver.model_dtype`). With `state_out`, rank 0 writes there the
+    whole state ({"params", "opt_state"}, every pipeline stage's gathered)
+    as the first train step finds it: after `--auto_resume`, the state
+    restored."""
+    from ..checkpoint.manager import to_cpu
+    from ..train import driver as drv
+    from .pipeline import RankPipe, gather_stages
+    if dtype is not None:
+        drv.model_dtype = lambda size: DTYPES[dtype]
+    real = drv.make_pipelined_train_step
+
+    def spy(model, optimizer, pipe, *args, **kw):
+        step, seen = real(model, optimizer, pipe, *args, **kw), []
+
+        def first(batch):
+            if state_out and not seen and isinstance(pipe, RankPipe):
+                seen.append(True)
+                n = model.cfg.llama.num_layers
+                state = {"params": gather_stages(model.state_dict(), pipe, n),
+                         "opt_state": gather_stages(optimizer.state_dict(),
+                                                    pipe, n)}
+                if pipe.stage == 0:
+                    torch.save(to_cpu(state), state_out)
+            return step(batch)
+        return first
+    drv.make_pipelined_train_step = spy
+    drv.main(list(argv))
+
+
+WORKERS = {"train_step": train_step, "greedy": greedy,
+           "pipeline_step": pipeline_step, "driver": driver}
 
 
 def _device(name: str) -> torch.device:

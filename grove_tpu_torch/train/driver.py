@@ -36,13 +36,20 @@ Parallel training (`parallel/`, `driver.py:281-360, 425-440`):
   ("data", "model") mesh with the rules of `parallel.sharding` (run
   under torchrun with a world divisible by N; implies `--multihost`);
 * `--pipeline_stages N > 1` with `--pipeline_microbatches`: the GPipe step
-  (`make_pipelined_train_step`), one process, its stages on one card
-  each where there are N cards, else all on `--device`; not with
-  `--mesh_model > 1` nor across processes.
+  (`make_pipelined_train_step`). In one process, its stages on one card
+  each where there are N cards, else all on `--device`. With
+  `--multihost`, one stage a rank (`parallel.pipeline.RankPipe`) in a
+  world of N processes: each rank holds its stage's layers and the rest
+  of the model, and reads its shard of the data (`--batch_size` rows a
+  step, as a data-parallel rank reads it); the step is the global
+  batch's of N x `--batch_size` rows, and validation runs through the
+  same forward. A world that is not N is refused (JAX's layout of data
+  over every device, piped over the first N, has no counterpart here);
+  not with `--mesh_model > 1`.
 
 Rank 0 alone writes logs and checkpoints; a checkpoint holds whole
-tensors (sharded parameters and moments gathered first), equal to an
-unsharded run's.
+tensors (sharded parameters and moments gathered first, and every
+pipeline stage's layers), equal to an unsharded run's.
 
 `--synthetic` builds the synthetic dataset of `data.synthetic` (`.npy`
 clips, readable without libav).
@@ -51,6 +58,9 @@ clips, readable without libav).
         --device cpu --epochs 1 --steps_per_epoch 2
     torchrun --nproc_per_node 2 -m grove_tpu_torch.train.driver \\
         --multihost --mesh_model 2 --synthetic --model_size small
+    torchrun --nproc_per_node 4 -m grove_tpu_torch.train.driver \\
+        --multihost --pipeline_stages 4 --pipeline_microbatches 4 \\
+        --synthetic --model_size full
 """
 
 from __future__ import annotations
@@ -69,6 +79,7 @@ from ..data.loader import GroundingLoader, process_rank_world
 from ..data.video import open_video
 from ..models.grove import init_grove_params
 from ..parallel import mesh as pmesh
+from ..parallel import pipeline as ppipe
 from ..utils.meters import AverageMeter, ProgressMeter
 from .step import (MultiSteps, OptimizerConfig, batch_to_device,
                    make_optimizer, make_pipelined_train_step,
@@ -353,13 +364,39 @@ def _pipe_devices(device: torch.device, n_stages: int):
     return [device] * n_stages
 
 
+def _pipeline_checks(args, cfg) -> None:
+    """JAX's asserts on the pipeline flags (`driver.py:346-352`)."""
+    if cfg.llama.num_layers % args.pipeline_stages:
+        raise ValueError(f"--pipeline_stages {args.pipeline_stages} "
+                         f"does not divide {cfg.llama.num_layers} layers")
+    if args.batch_size % args.pipeline_microbatches:
+        raise ValueError(f"--batch_size {args.batch_size} does not "
+                         f"divide into {args.pipeline_microbatches} "
+                         "microbatches")
+
+
+def _whole(tree, pipe, num_layers: int):
+    """A state to save: with one pipeline stage a rank, every stage's
+    entries gathered on rank 0 (`parallel.pipeline.gather_stages`; {} on
+    the other ranks)."""
+    if pipe is None:
+        return tree
+    return ppipe.gather_stages(tree, pipe, num_layers) or {}
+
+
 def _run(args):
+    if args.pipeline_stages > 1 and args.mesh_model != 1:
+        raise ValueError("--pipeline_stages and --mesh_model > 1 are "
+                         "mutually exclusive")
     parallel = args.multihost or args.mesh_model > 1
     if parallel:
         device = pmesh.init_distributed(args.device)
     else:
         device = _device(args.device)
     args.device = str(device)
+    # one pipeline stage a rank
+    pipe = (ppipe.make_rank_pipe(args.pipeline_stages, device)
+            if args.multihost and args.pipeline_stages > 1 else None)
     np.random.seed(args.seed)
 
     cfg = build_config(args)
@@ -368,15 +405,21 @@ def _run(args):
     # defaults assume the published 32000-base vocab)
     from ..text.tokenizer import special_token_ids_from
     cfg = dataclasses.replace(cfg, tokens=special_token_ids_from(tokenizer))
+    if args.pipeline_stages > 1:
+        _pipeline_checks(args, cfg)
     mesh = (pmesh.make_mesh(model=args.mesh_model, device_type=device.type)
-            if parallel else None)
-    data_rank = pmesh.axis_rank(mesh, "data")
-    data_size = pmesh.axis_size(mesh, "data")
+            if parallel and pipe is None else None)
+    # a pipeline rank reads its shard of the data, as a "data" rank does
+    data_rank, data_size = ((pipe.stage, pipe.n_stages) if pipe else
+                            (pmesh.axis_rank(mesh, "data"),
+                             pmesh.axis_size(mesh, "data")))
     train_ds, val_ds = build_datasets(args, cfg, data_rank, data_size)
 
+    layers = (ppipe.stage_layers(cfg.llama.num_layers, pipe.n_stages,
+                                 pipe.stage) if pipe else None)
     model = init_grove_params(cfg, device=device,
                               dtype=model_dtype(args.model_size),
-                              seed=args.seed, remat=args.remat)
+                              seed=args.seed, remat=args.remat, layers=layers)
     if args.version and os.path.exists(args.version):
         copied, missing, mismatched = load_version(model, args.version)
         print(f"loaded {copied} tensors from {args.version}; "
@@ -394,37 +437,34 @@ def _run(args):
     if args.mesh_model > 1:
         from ..parallel.sharding import shard_pytree
         shard_pytree(model, mesh)
-    params = {n: p for n, p in model.named_parameters() if mask[n]}
+    # a pipeline rank holds its own stage's layers only
+    params = {n: p for n, p in model.named_parameters()
+              if mask[n] and not p.is_meta}
     optimizer = make_optimizer(params, opt_cfg)
     if args.grad_accumulation_steps > 1:
         optimizer = MultiSteps(optimizer, args.grad_accumulation_steps)
-    n_train = sum(p.numel() for p in params.values())
+    n_train = sum(p.numel() for n, p in model.named_parameters() if mask[n])
     n_total = sum(p.numel() for p in model.parameters())
     print(f"trainable params: {n_train/1e6:.1f}M / {n_total/1e6:.1f}M")
-    if args.pipeline_stages > 1:
-        if args.mesh_model != 1:
-            raise ValueError("--pipeline_stages and --mesh_model > 1 are "
-                             "mutually exclusive")
-        if cfg.llama.num_layers % args.pipeline_stages:
-            raise ValueError(f"--pipeline_stages {args.pipeline_stages} "
-                             f"does not divide {cfg.llama.num_layers} "
-                             "layers")
-        if args.batch_size % args.pipeline_microbatches:
-            raise ValueError(f"--batch_size {args.batch_size} does not "
-                             f"divide into {args.pipeline_microbatches} "
-                             "microbatches")
-        if process_rank_world()[1] > 1:
-            raise ValueError("--pipeline_stages runs in one process (no "
-                             "pipeline across processes)")
+    if pipe is not None:
+        print(f"pipeline-parallel LLM: {args.pipeline_stages} stages x "
+              f"{len(layers)} layers, one a rank (this rank: stage "
+              f"{pipe.stage}, layers {layers.start}-{layers.stop - 1} on "
+              f"{device}) over {pipe.transport}, "
+              f"{args.pipeline_microbatches} microbatches of the global "
+              f"batch of {args.batch_size * pipe.n_stages} rows")
+        train_step = make_pipelined_train_step(model, optimizer, pipe,
+                                               args.pipeline_microbatches)
+    elif args.pipeline_stages > 1:
         from ..parallel.pipeline import make_pipe_mesh, place_stages
-        pipe = make_pipe_mesh(args.pipeline_stages,
-                              _pipe_devices(device, args.pipeline_stages))
-        place_stages(model.model, pipe)
+        stages = make_pipe_mesh(args.pipeline_stages,
+                                _pipe_devices(device, args.pipeline_stages))
+        place_stages(model.model, stages)
         print(f"pipeline-parallel LLM: {args.pipeline_stages} stages x "
               f"{cfg.llama.num_layers // args.pipeline_stages} layers on "
-              f"{[str(d) for d in pipe.devices]}, "
+              f"{[str(d) for d in stages.devices]}, "
               f"{args.pipeline_microbatches} microbatches")
-        train_step = make_pipelined_train_step(model, optimizer, pipe,
+        train_step = make_pipelined_train_step(model, optimizer, stages,
                                                args.pipeline_microbatches)
     elif mesh is None:
         train_step = make_train_step(model, optimizer)
@@ -450,7 +490,11 @@ def _run(args):
             from ..parallel.sharding import load_full_state_dict
             restored = ckpt.restore(latest)
             load_full_state_dict(model, restored["params"])
-            optimizer.load_state_dict(restored["opt_state"])
+            opt_state = restored["opt_state"]
+            if pipe is not None:
+                opt_state = ppipe.local_entries(opt_state,
+                                                optimizer.state_dict())
+            optimizer.load_state_dict(opt_state)
             del restored
             start_epoch = latest // args.steps_per_epoch
             print(f"resumed from step {latest} (epoch {start_epoch})")
@@ -481,6 +525,7 @@ def _run(args):
                                      process_count=data_size)
 
     best_metric = ckpt.best_metric_from_marker() or -1e9
+    L = cfg.llama.num_layers
     global_step = start_epoch * args.steps_per_epoch
     prof = None
     for epoch in range(start_epoch, args.epochs):
@@ -506,7 +551,9 @@ def _run(args):
             dt.update(time.time() - t_end)
             if args.profile_dir and global_step == 2:
                 prof = _profiler(args.profile_dir)
-            metrics = train_step(pmesh.globalize_batch(batch, mesh, device))
+            metrics = train_step(
+                batch_to_device(batch, device) if pipe is not None else
+                pmesh.globalize_batch(batch, mesh, device))
             loss = float(metrics["loss"])
             if prof is not None and global_step == 4:
                 if device.type == "cuda":
@@ -533,7 +580,10 @@ def _run(args):
                                   global_step)
 
         if val_loader is not None:
-            val_metrics = validate(model, val_loader, cfg, args)
+            val_metrics = validate(
+                model if pipe is None else ppipe.RankPipelineModel(
+                    model, pipe, args.pipeline_microbatches),
+                val_loader, cfg, args)
             print(f"epoch {epoch} val: "
                   + " ".join(f"{k}={v:.4f}" for k, v in val_metrics.items()))
             if writer:
@@ -542,9 +592,10 @@ def _run(args):
                         writer.add_scalar(f"val/{k}", v, global_step)
             if val_metrics["key_metric"] > best_metric:
                 best_metric = val_metrics["key_metric"]
-                ckpt.save_best(epoch, model.state_dict(), "metric",
-                               best_metric)
-        ckpt.save(global_step, model.state_dict(), optimizer.state_dict())
+                ckpt.save_best(epoch, _whole(model.state_dict(), pipe, L),
+                               "metric", best_metric)
+        ckpt.save(global_step, _whole(model.state_dict(), pipe, L),
+                  _whole(optimizer.state_dict(), pipe, L))
 
     if prof is not None:
         prof.stop()

@@ -45,7 +45,8 @@ WarmupDecayLR (linear warmup over `warmup_steps`, linear decay to 0 at
   and the slices are gathered into the parameter.
   `make_train_step(mesh=)` runs the data-parallel step with JAX's global
   normalizers (`parallel.mesh`); `make_pipelined_train_step` is the
-  GPipe step of `step.py:165-223` (`parallel.pipeline`).
+  GPipe step of `step.py:165-223` (`parallel.pipeline`), in one process
+  or one stage a rank.
 """
 
 from __future__ import annotations
@@ -74,6 +75,7 @@ MASK_DECODER = r"\.mask_decoder\."
 FULL_LLM = r"^model\.(layers|norm)\."            # the JAX tree's `llama/`
 QUANTIZED_BUFFERS = ("kernel_q", "kernel_q4p")
 EPS = 1e-8                  # Adam's eps, added outside the square root
+_LAYER_LEAF = re.compile(r"^(.*?\.)(\d+)\.(.*)$")   # prefix, layer, rest
 
 
 @dataclasses.dataclass
@@ -183,6 +185,7 @@ class AdamW:
         self.weight_decay, self.grad_clip = weight_decay, grad_clip
         self.count = 0
         self.zero: Dict[str, Tuple] = {}
+        self.stage_norm = None
         self.mu = {n: self._zeros(_local(p)) for n, p in self.params.items()}
         self.nu = {n: self._zeros(_local(p)) for n, p in self.params.items()}
 
@@ -208,6 +211,17 @@ class AdamW:
             self.mu[name] = self._zeros(p.detach().narrow(dim, 0, n))
             self.nu[name] = self._zeros(p.detach().narrow(dim, 0, n))
 
+    def sum_norm_over_(self, names, num_layers: int, group) -> None:
+        """Pipeline stages (`parallel.pipeline`): the gradients of `names`
+        (`<prefix><layer>.<rest>`, this rank's stage's of `num_layers`
+        layers) are this rank's alone. Their per-leaf sums of squares are
+        laid into one vector by layer and summed over `group` (every rank
+        calling), then taken in the one-process order with each leaf's
+        dtype, so that each leaf's rounding is the one-process norm's; the
+        other gradients are equal on every rank of `group` and count
+        once."""
+        self.stage_norm = (frozenset(names), num_layers, group)
+
     def zero_grad(self) -> None:
         for p in self.params.values():
             p.grad = None
@@ -226,13 +240,16 @@ class AdamW:
         """[(sum of square(g) over the whole gradient, fp32, 0-dim), g's
         dtype] of each trainable gradient: a DTensor's local sum summed
         over the mesh dims it is sharded on (one all-reduce per mesh and
-        dims)."""
-        out, pending = [], {}
+        dims); with `sum_norm_over_`, every stage's layers
+        (`_all_stages`)."""
+        out, pending, staged = [], {}, {}
         for name, p in self.params.items():
             if p.grad is None:
                 continue
             g = self._local_grad(name, p)
             s = square(g).sum()
+            if self.stage_norm is not None and name in self.stage_norm[0]:
+                staged[name] = len(out)
             dims = _reduced_dims(p.placements) if _is_dtensor(p) else ()
             if dims:
                 pending.setdefault((id(p.device_mesh), dims),
@@ -245,7 +262,34 @@ class AdamW:
                 dist.all_reduce(vec, group=mesh.get_group(d))
             for i, v in zip(idx, vec.unbind()):
                 out[i][0] = v
+        if staged:
+            out = self._all_stages(out, staged)
         return out
+
+    def _all_stages(self, out: list, staged: Dict[str, int]) -> list:
+        """`out` with this stage's layer entries (`staged`: name -> index)
+        replaced, where the first of them stood, by every layer's of every
+        stage: a vector of num_layers x (leaves a layer) sums, each rank
+        filling its layers' slots, summed over the group."""
+        _, num_layers, group = self.stage_norm
+        parts = {n: _LAYER_LEAF.match(n).groups() for n in staged}
+        rests = list(dict.fromkeys(rest for _, _, rest in parts.values()))
+        dtypes = {rest: out[staged[n]][1] for n, (_, _, rest)
+                  in parts.items()}
+        first = min(staged.values())
+        vec = torch.zeros(num_layers * len(rests),
+                          device=out[first][0].device)
+        for n, (_, layer, rest) in parts.items():
+            vec[int(layer) * len(rests) + rests.index(rest)] = \
+                out[staged[n]][0].float()
+        dist.all_reduce(vec, group=group)
+        every = [[v, dtypes[rests[i % len(rests)]]]
+                 for i, v in enumerate(vec.unbind())]
+        skip = set(staged.values())
+        return ([e for i, e in enumerate(out[:first]) if i not in skip]
+                + every
+                + [e for i, e in enumerate(out) if i > first
+                   and i not in skip])
 
     @torch.no_grad()
     def global_norm(self) -> torch.Tensor:
@@ -506,17 +550,32 @@ def make_eval_step(model: nn.Module):
 
 
 def make_pipelined_train_step(model: nn.Module, optimizer, pipe,
-                              n_microbatches: int):
-    """The train step with the LLaMA decoder stack GPipe-pipelined over
-    `pipe` (`parallel.pipeline.make_pipe_mesh`; `step.py:165-223`). The
-    encoders, the splice, the final norm, `lm_head`, `ground` and the
-    losses run on stage 0's device, as `make_train_step` runs them; only
-    the decoder layers run in the schedule, each on its stage's device
-    (`parallel.pipeline.place_stages`), in microbatches of
-    B / n_microbatches rows. The same loss and gradients as
-    `make_train_step`; equal-length packed prompts (the collator's), and
-    num_layers divisible by the stages."""
-    from ..parallel.pipeline import pipelined_llama_forward
+                              n_microbatches: int, timer=None):
+    """The train step with the LLaMA decoder stack GPipe-pipelined
+    (`step.py:165-223`), in microbatches of the batch's rows /
+    n_microbatches; the same loss and gradients as `make_train_step` on
+    that batch. Equal-length packed prompts (the collator's), and
+    num_layers divisible by the stages.
+
+    * `pipe` a `parallel.pipeline.PipeMesh` (one process): the encoders,
+      the splice, the final norm, `lm_head`, `ground` and the losses run
+      on stage 0's device, as `make_train_step` runs them; only the
+      decoder layers run in the schedule, each on its stage's device
+      (`parallel.pipeline.place_stages`).
+    * `pipe` a `parallel.pipeline.RankPipe` (one stage a rank, JAX's step
+      under `--multihost`): the batch is this rank's local batch, and the
+      step is the global batch's (the ranks' local batches in rank order):
+      each rank runs the encoders, the splice, the heads and the losses on
+      its rows with the global normalizers, the stages run the stack
+      (`parallel.pipeline.rank_forward` / `rank_backward`), the gradients
+      of the replicated parameters are summed over the ranks, the clipping
+      norm counts each stage's once (`AdamW.sum_norm_over_`), and the
+      returned terms are the global batch's. `timer` as `rank_forward`'s.
+    """
+    from ..parallel.pipeline import RankPipe, pipelined_llama_forward
+    if isinstance(pipe, RankPipe):
+        return _rank_pipelined_step(model, optimizer, pipe, n_microbatches,
+                                    timer)
 
     def loss_fn(batch):
         video_embeds, _ = model.encode_video(batch["frames_clip"])
@@ -536,4 +595,29 @@ def make_pipelined_train_step(model: nn.Module, optimizer, pipe,
         out["loss"].backward()
         optimizer.step()
         return {k: v.detach() for k, v in out.items()}
+    return train_step
+
+
+def _rank_pipelined_step(model, optimizer, pipe, n_microbatches, timer):
+    from ..parallel import mesh as pmesh
+    from ..parallel.pipeline import LAYER_KEY, rank_backward, rank_forward
+    world = dist.group.WORLD
+    staged = {n for n in optimizer.params if LAYER_KEY.match(n)}
+    getattr(optimizer, "opt", optimizer).sum_norm_over_(
+        staged, len(model.model.layers), world)
+    shared = {n: p for n, p in optimizer.params.items() if n not in staged}
+    reduce = pmesh.count_reduce(None, world)
+
+    def train_step(batch):
+        optimizer.zero_grad()
+        hidden, image_embeddings, flight = rank_forward(
+            model, batch, pipe, n_microbatches, timer)
+        out = model.losses(batch, hidden, model.lm_head(hidden),
+                           image_embeddings, reduce)
+        out["loss"].backward()
+        rank_backward(flight, pipe, n_microbatches, timer)
+        pmesh.sync_gradients(shared, None, world)
+        optimizer.step()
+        return pmesh.reduce_metrics({k: v.detach() for k, v in out.items()},
+                                    None, world)
     return train_step
