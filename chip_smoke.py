@@ -446,8 +446,17 @@ Phases, each printing its own line; any failure exits non-zero:
      cache). Each directory is deleted after use; bytes written and read,
      write and load seconds, the process's peak RSS (`resource.getrusage`)
      and the phase's own peak (sampled from /proc/self/statm), peak device
-     memory. Orbax runs cannot be read here (no tensorstore on this
-     machine): tests/test_torch_orbax.py holds them on the CPU.
+     memory. Then a training run written as the JAX package's Orbax run
+     (`checkpoint.orbax_write`): a fresh bf16 GroveConfig() with the
+     LLaMA cut to WITNESS_LAYERS layers at S = 704, the default trainable
+     set, a warm step and a counted step (launches exact), then
+     `save_step` and `save_best` straight from the card and
+     `orbax_read.restore` with tensorstore made unimportable: every
+     parameter, moment and count bit-equal to the state on the card;
+     bytes written, write and read seconds, GB/s, host RSS peaks, and
+     the phase's storage writes (the cut keeps them under the machine's
+     45 GiB a command). JAX's Orbax layouts that need tensorstore cannot
+     be read here: tests/test_torch_orbax.py holds them on the CPU.
 Phase 2 also holds the five training kernels (K4b dq and dkv at LLaMA's
 (1, 704, 32, 128) causal; K9's forward with its LSE, dq with d_rh and d_rw,
 and dkv at SAM's windowed (72, 196, 16, 80) and global (8, 1024, 16, 80)
@@ -476,7 +485,9 @@ mask path, and `parallel_launches`, those of phase 12's pipelined step,
 and `ranks_launches`, each rank's of phase 12's pipeline one stage a
 process,
 and `jax_dir_launches`, those of phase 13's runs on the models read back
-from the JAX package's directories (bf16 and flagship, summed);
+from the JAX package's directories (bf16 and flagship, summed), and
+`orbax_step_launches`, those of phase 13's counted step before the Orbax
+write;
 the
 tensor-core rows also carry `simt_ms`, the SIMT entry's bf16 time at the
 same shape; the last line is {"ok": true, "device": {...}}.
@@ -494,6 +505,7 @@ import os
 import pickle
 import re
 import shutil
+import stat
 import statistics
 import subprocess
 import sys
@@ -6805,46 +6817,6 @@ def _rounded(pairs):
     return [(n, float(f"{d:.3e}")) for n, d in pairs]
 
 
-def _row_at_a_time(torch, model, host_batch):
-    """The sequential step of `host_batch` computed as the pipeline's ranks
-    compute it, one row at a time: each row's loss with the whole batch's
-    normalizers (each count summed over the rows, as `count_reduce` sums
-    it over the ranks), its backward, the gradients summed in their dtype;
-    returns (the summed loss terms, the gradients). No weight moves."""
-    from grove_tpu_torch.train.step import (OptimizerConfig, batch_to_device,
-                                            partition_params, trainable_mask)
-    params = partition_params(model, trainable_mask(
-        model, OptimizerConfig(warmup_steps=1)))
-    rows = [batch_to_device({k: v[r:r + 1] for k, v in host_batch.items()},
-                            model.device)
-            for r in range(len(host_batch["labels"]))]
-    counts = []
-    with torch.no_grad():
-        for b in rows:
-            seen = []
-            model.forward_train(b, count_reduce=lambda c: seen.append(
-                c.detach().clone()) or c)
-            counts.append(seen)
-    totals = [sum(c) for c in zip(*counts)]
-    terms, grads = {}, {}
-    for b in rows:
-        left = iter(totals)
-        for p in params.values():
-            p.grad = None
-        out = model.forward_train(b, count_reduce=lambda c: next(left))
-        out["loss"].backward()
-        for k, v in out.items():
-            terms[k] = terms.get(k, 0.0) + float(v.detach())
-        for n, p in params.items():
-            if p.grad is not None:
-                grads[n] = (p.grad.detach().clone() if n not in grads
-                            else grads[n] + p.grad)
-        del out
-    for p in params.values():
-        p.grad = None
-    return terms, grads
-
-
 def _parallel_ranks(torch, gpu, model, seq, host_batch):
     """The pipeline one stage a process on the one card: RANK_PROCS
     processes over gloo (`parallel.workers.pipeline_step`), each building
@@ -6854,11 +6826,12 @@ def _parallel_ranks(torch, gpu, model, seq, host_batch):
     turn cuDNN's off, and an fp32 op then takes other algorithms): a warm
     step, then a step whose loss terms and trainable gradients must lie
     within FULL_TOL of the same step a row at a time
-    (`_row_at_a_time`), each rank's launches exact; the distances from
-    `seq` (the sequential step's (losses, gradients) on the whole batch)
-    are printed. Returns each rank's launches by kernel."""
+    (`train.step.row_at_a_time`), each rank's launches exact; the
+    distances from `seq` (the sequential step's (losses, gradients) on
+    the whole batch) are printed. Returns each rank's launches by kernel."""
     from grove_tpu_torch.parallel.launch import launch
     from grove_tpu_torch.parallel.workers import fingerprint
+    from grove_tpu_torch.train.step import row_at_a_time
     ls, gs = seq
     tmp = Path(tempfile.mkdtemp(prefix="grove_ranks_"))
     try:
@@ -6903,7 +6876,7 @@ def _parallel_ranks(torch, gpu, model, seq, host_batch):
         raise PhaseError(f"pipeline ranks: gradients of "
                          f"{sorted(set(gs) - set(grads))[:4]} missing, "
                          f"{extra[:4]} not zero")
-    rows_terms, rows_grads = _row_at_a_time(torch, model, host_batch)
+    rows_terms, rows_grads = row_at_a_time(model, host_batch)
     worst = _grad_distance(grads, rows_grads)
     for k, v in rows_terms.items():
         if abs(terms[k] - v) > FULL_TOL * max(abs(v), 1.0):
@@ -6953,37 +6926,68 @@ def _parallel_ranks(torch, gpu, model, seq, host_batch):
 WITNESS_LAYERS = 2
 
 
+@contextlib.contextmanager
+def _plain_twins():
+    """Every wrapper takes its plain PyTorch version on CUDA tensors too
+    (`_kernels.on_cpu` answers True for them), for a comparison run only;
+    raises if a kernel launched inside all the same."""
+    from grove_tpu_torch import _kernels
+    real = _kernels.on_cpu
+
+    def plain(*tensors):
+        if any(t.device != tensors[0].device for t in tensors):
+            raise ValueError("kernel inputs lie on different devices: "
+                             f"{[str(t.device) for t in tensors]}")
+        return True
+    before = {k: v.launches for k, v in _kernels.KERNELS.items()}
+    _kernels.on_cpu = plain
+    try:
+        yield
+    finally:
+        _kernels.on_cpu = real
+    ran = {k: v.launches - before[k] for k, v in _kernels.KERNELS.items()
+           if v.launches != before[k]}
+    if ran:
+        raise PhaseError(f"kernels launched in a plain-twin run: {ran}")
+
+
 def _batch_shape_witness(torch, gpu, cfg, host_batch):
     """The step on phase 12's batch of 2 rows against the same step a row
-    at a time (`_row_at_a_time`, the pipeline ranks' arithmetic), at
-    `cfg`'s full width with the LLaMA cut to WITNESS_LAYERS layers, built
-    from seed 0: in fp32 (TF32 off) every trainable gradient within
-    PARALLEL_TOL of its max-abs, so that a step of one row treats it as
-    the batch does; then the same draws in bf16, whose distance is
-    printed beside it (bf16 rounds another way at each batch shape)."""
+    at a time (`train.step.row_at_a_time`, the pipeline ranks'
+    arithmetic), at `cfg`'s full width with the LLaMA cut to
+    WITNESS_LAYERS layers, built from seed 0: in fp32 (TF32 off) every
+    trainable gradient within PARALLEL_TOL of its max-abs, so that a step
+    of one row treats it as the batch does; then the same draws in bf16,
+    whose distance is printed beside it (bf16 rounds another way at each
+    batch shape), and in bf16 once more with every kernel replaced by its
+    plain PyTorch version (`_plain_twins`): a distance of the same order
+    there clears the kernels of the bf16 one."""
     from grove_tpu_torch.models.grove import init_grove_params
-    from grove_tpu_torch.train.step import batch_to_device
+    from grove_tpu_torch.train.step import batch_to_device, row_at_a_time
     t0 = time.perf_counter()
     cut = dataclasses.replace(
         cfg, max_seq_len=TRAIN_SEQ,
         llama=dataclasses.replace(cfg.llama, num_layers=WITNESS_LAYERS))
     batch = batch_to_device(host_batch, "cuda")
     found = {}
-    for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+    for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16),
+                        ("bf16 plain", torch.bfloat16)):
         model = init_grove_params(cut, device="cuda", dtype=dtype, seed=0)
         with (_no_tf32(torch) if dtype == torch.float32
-              else contextlib.nullcontext()):
+              else contextlib.nullcontext()), \
+                (_plain_twins() if name == "bf16 plain"
+                 else contextlib.nullcontext()):
             # a fresh optimizer: lr(0) = 0, no weight moves
             params, step = _train_setup(torch, model, warmup_steps=1)
             _check_losses(step(batch), f"{name} witness step")
             batched = {n: p.grad.detach().clone() for n, p in params.items()
                        if p.grad is not None}
-            _, rows = _row_at_a_time(torch, model, host_batch)
+            _, rows = row_at_a_time(model, host_batch)
         found[name] = _grad_distance(rows, batched)
         del model, params, step, batched, rows
         torch.cuda.empty_cache()
     del batch
-    fp32, bf16 = found["fp32"], found["bf16"]
+    fp32, bf16, plain = found["fp32"], found["bf16"], found["bf16 plain"]
     if fp32[0][1] > PARALLEL_TOL:
         raise PhaseError(f"fp32 step a row at a time off the batched one "
                          f"by more than {PARALLEL_TOL} of the max-abs: "
@@ -6994,8 +6998,9 @@ def _batch_shape_witness(torch, gpu, cfg, host_batch):
             f"vs the batched step, {len(fp32)} trainable gradients, in fp32 "
             f"(TF32 off) within {PARALLEL_TOL} of their max-abs, the worst "
             f"{_rounded(fp32[:3])}; the same draws in bf16, the worst "
-            f"{_rounded(bf16[:3])} (held to nothing); "
-            f"{time.perf_counter() - t0:.1f} s on {gpu}")
+            f"{_rounded(bf16[:3])}, and in bf16 through the plain twins "
+            f"(no kernel), the worst {_rounded(plain[:3])} (both held to "
+            f"nothing); {time.perf_counter() - t0:.1f} s on {gpu}")
 
 
 def _free_port():
@@ -7213,6 +7218,115 @@ class _RssPeak:
         self.peak = max(self.peak, self._now())
 
 
+def _wchar() -> int:
+    """The bytes this process has passed to write calls (/proc/self/io
+    `wchar`: files, pipes and terminals alike; the card's machine reports
+    no block-level `write_bytes`)."""
+    with open("/proc/self/io") as f:
+        return int(dict(line.split(": ") for line in f.read().splitlines()
+                        if ": " in line)["wchar"])
+
+
+def _tree_bytes(path) -> int:
+    """The bytes of the regular files under `path` (0 where it is gone)."""
+    total = 0
+    for root, _, files in os.walk(path):
+        for f in files:
+            try:
+                st = os.lstat(os.path.join(root, f))
+            except OSError:
+                continue
+            if stat.S_ISREG(st.st_mode):
+                total += st.st_size
+    return total
+
+
+def _filesystem(path: str) -> str:
+    """The type of the mount that holds `path` (/proc/mounts)."""
+    best, kind = "", "?"
+    with open("/proc/mounts") as f:
+        for line in f:
+            fields = line.split()
+            if len(fields) > 2 and (path + "/").startswith(
+                    fields[1].rstrip("/") + "/") and len(fields[1]) > len(best):
+                best, kind = fields[1], fields[2]
+    return f"{kind} at {best}"
+
+
+class _DiskLedger:
+    """What each phase writes, against the 45 GiB a command that the card's
+    machine allows: the bytes of every directory tree removed in the phase
+    (`shutil.rmtree` is wrapped; `tempfile`'s directories go through it
+    too), a bound below on its file writes, since an overwrite or a file
+    removed alone is missed; this process's write calls (`_wchar`), a
+    bound above on this process's file writes, which counts pipes and
+    sockets too and no child process; and the peak of the temporary
+    directory's filesystem's used bytes above the run's start (statvfs,
+    sampled every 0.1 s by a thread: what the files held at once, other
+    users of that filesystem included)."""
+
+    def __init__(self):
+        import threading
+        self.removed, self.rows = 0, []
+        self.start = self.last = _wchar()
+        self.fs = tempfile.gettempdir()
+        st = os.statvfs(self.fs)
+        self.capacity = st.f_blocks * st.f_frsize
+        self.used0 = self._used()
+        self.peak = self.phase_peak = 0
+        self._real = real = shutil.rmtree
+
+        def rmtree(path, *a, **kw):
+            self.removed += _tree_bytes(path)
+            return real(path, *a, **kw)
+        rmtree.avoids_symlink_attacks = real.avoids_symlink_attacks
+        shutil.rmtree = rmtree
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+
+    def _used(self) -> int:
+        st = os.statvfs(self.fs)
+        return (st.f_blocks - st.f_bfree) * st.f_frsize
+
+    def _sample(self):
+        while not self._stop.wait(0.1):
+            up = self._used() - self.used0
+            self.phase_peak = max(self.phase_peak, up)
+            self.peak = max(self.peak, up)
+
+    def mark(self, label: str) -> None:
+        now = _wchar()
+        self.rows.append((label, self.removed, now - self.last))
+        say("io", f"{label}: files removed {self.removed / 2**30:.2f} GiB, "
+                  f"write calls {(now - self.last) / 2**30:.2f} GiB, used "
+                  f"bytes at most {self.phase_peak / 2**30:.2f} GiB above "
+                  f"the start; since the start "
+                  f"{sum(r[1] for r in self.rows) / 2**30:.2f} and "
+                  f"{(now - self.start) / 2**30:.2f} GiB")
+        self.removed, self.last, self.phase_peak = 0, now, 0
+
+    def close(self) -> None:
+        shutil.rmtree = self._real
+        self._stop.set()
+        self._thread.join()
+        build = _tree_bytes(ROOT / "grove_tpu_torch" / "_build")
+        removed = sum(r[1] for r in self.rows)
+        counted = (removed + build) / 2**30
+        say("io", f"the command: {removed} B of files removed and {build} B "
+                  f"of kernel build left, {counted:.2f} GiB of file writes "
+                  f"counted (a bound below: overwrites, files removed one by "
+                  f"one and child processes' own removals are missed), "
+                  f"{45 - counted:.2f} GiB under the 45 GiB a command; this "
+                  f"process's write calls {(_wchar() - self.start) / 2**30:.2f}"
+                  f" GiB (a bound above on its own file writes, pipes and "
+                  f"sockets included); the used bytes of {self.fs}'s "
+                  f"filesystem ({_filesystem(self.fs)}, "
+                  f"{self.capacity / 2**30:.2f} GiB, {self.used0 / 2**30:.2f} "
+                  f"used at the start) at most {self.peak / 2**30:.2f} GiB "
+                  f"above the start; the checkout on {_filesystem(str(ROOT))}")
+
+
 class _GenSpy:
     """Record the generated ids of `infer.sliding.generate_grounded`."""
 
@@ -7240,6 +7354,7 @@ def phase_jax_dirs(torch, gpu, model):
     from grove_tpu_torch.infer.drivers import (FullClipIGroundDataset,
                                                make_synthetic)
     t_phase = time.perf_counter()
+    wchar = _wchar()
     tmp = Path(tempfile.mkdtemp(prefix="grove_jax_dirs_"))
     launches, written = {}, 0
     try:
@@ -7271,14 +7386,131 @@ def phase_jax_dirs(torch, gpu, model):
             written += n
             for k, v in got.items():
                 launches[k] = launches.get(k, 0) + v
+        orbax_launches, n = _orbax_round_trip(torch, gpu, tmp / "orbax")
+        written += n
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    say(13, f"phase 13 wrote {written / 2**30:.2f} GiB of model files in "
-            f"all (each deleted after use); Orbax runs: not read on this "
-            f"machine (no tensorstore), held on the CPU by "
-            f"tests/test_torch_orbax.py; phase 13 took "
-            f"{time.perf_counter() - t_phase:.1f} s")
-    return launches
+    now = _wchar()
+    say(13, f"phase 13 wrote {written} B ({written / 2**30:.2f} GiB) of "
+            f"model and checkpoint files in all (each deleted after use); "
+            f"this process's write calls: {(now - wchar) / 2**30:.2f} GiB "
+            f"in phase 13, {now / 2**30:.2f} GiB since it started "
+            f"(/proc/self/io wchar, sockets and pipes included: a bound on "
+            f"its disk writes, of which the machine takes 45 GiB a "
+            f"command); JAX's own Orbax layouts (OCDBT, "
+            f"tensorstore): held on the CPU by tests/test_torch_orbax.py; "
+            f"phase 13 took {time.perf_counter() - t_phase:.1f} s")
+    return launches, orbax_launches
+
+
+def _orbax_round_trip(torch, gpu, log):
+    """A training run written as the JAX package's Orbax run and read back
+    on the card (see the module docstring). Returns (the counted step's
+    launches, the bytes written)."""
+    from grove_tpu_torch import _kernels
+    from grove_tpu_torch.checkpoint import orbax_read, orbax_write
+    from grove_tpu_torch.checkpoint.manager import CheckpointManager
+    from grove_tpu_torch.config import GroveConfig
+    from grove_tpu_torch.models.grove import init_grove_params
+    from grove_tpu_torch.text.mock_tokenizer import MockTokenizer
+    from grove_tpu_torch.train.step import (OptimizerConfig, batch_to_device,
+                                            make_optimizer, make_train_step,
+                                            partition_params, trainable_mask)
+    t0 = time.perf_counter()
+    base = GroveConfig()
+    cfg = dataclasses.replace(
+        base, max_seq_len=TRAIN_SEQ,
+        llama=dataclasses.replace(base.llama, num_layers=WITNESS_LAYERS))
+    model = init_grove_params(cfg, device="cuda", dtype=torch.bfloat16,
+                              seed=7)
+    tok = MockTokenizer(base_vocab_size=cfg.llama.vocab_size)
+    batch = batch_to_device(_train_batch(cfg, tok, seed=8), "cuda")
+    seq = batch["input_ids"].shape[1]
+    oc = OptimizerConfig(warmup_steps=1)
+    params = partition_params(model, trainable_mask(model, oc))
+    opt = make_optimizer(params, oc)
+    step = make_train_step(model, opt)
+    _check_losses(step(batch), "Orbax run, warm step")
+    _kernels.reset_launch_counts()
+    out, ms = _timed(torch, lambda: step(batch))
+    used = {k: v.launches for k, v in _kernels.KERNELS.items() if v.launches}
+    losses = _check_losses(out, "Orbax run, counted step")
+    want = _step_launches(cfg, seq, False)
+    want["grouped_plain_attention_tc"] = cfg.clip.num_layers
+    _check_launches("Orbax run, counted step", want)
+    say(13, f"Orbax run: bf16 GroveConfig() with {WITNESS_LAYERS} LLaMA "
+            f"layers, S = {seq}, {len(params)} trainable tensors: warm step,"
+            f" then {ms:.1f} ms, losses "
+            + ", ".join(f"{k} {v:.4f}" for k, v in losses.items())
+            + f", launches {used} (exact) on {gpu}; built and stepped in "
+            f"{time.perf_counter() - t0:.1f} s")
+    del batch, out
+    torch.cuda.synchronize()
+    state = opt.state_dict()
+    with _RssPeak() as rss_w:
+        t0 = time.perf_counter()
+        n_step = orbax_write.save_step(str(log), 2, model, state,
+                                       opt_cfg=oc)
+        step_s = time.perf_counter() - t0
+        n_best = orbax_write.save_best(str(log), 0, model, "metric",
+                                       losses["loss"])
+        best_s = time.perf_counter() - t0 - step_s
+    from unittest import mock
+    # the read must not need tensorstore
+    with mock.patch.dict(sys.modules, {"tensorstore": None}):
+        with _RssPeak() as rss_r:
+            t0 = time.perf_counter()
+            back = orbax_read.restore(str(log / "ckpt_model" / "2" /
+                                          "default"))
+            back = {"params": {k: v.to("cuda")
+                               for k, v in back["params"].items()},
+                    "opt_state": {"count": back["opt_state"]["count"], **{
+                        key: {k: v.to("cuda") for k, v in
+                              back["opt_state"][key].items()}
+                        for key in ("mu", "nu")}}}
+            torch.cuda.synchronize()
+            read_s = time.perf_counter() - t0
+            mgr = CheckpointManager(str(log))
+            best = mgr.restore_best()["params"]
+            best_read_s = time.perf_counter() - t0 - read_s
+    live = model.state_dict()
+    for label, got, want in (("parameter", back["params"], live),
+                             ("best parameter", best, live),
+                             ("mu", back["opt_state"]["mu"], state["mu"]),
+                             ("nu", back["opt_state"]["nu"], state["nu"])):
+        if set(got) != set(want):
+            raise PhaseError(f"Orbax run: {label} names differ: "
+                             f"{sorted(set(got) ^ set(want))[:4]}")
+        for k, v in want.items():
+            g = got[k]
+            if g.dtype != v.dtype or not torch.equal(g.to(v.device), v):
+                raise PhaseError(f"Orbax run: {label} {k} read back "
+                                 "differs")
+    if back["opt_state"]["count"] != state["count"] or mgr.steps() != [2]:
+        raise PhaseError(f"Orbax run: count {back['opt_state']['count']} "
+                         f"of {state['count']}, steps {mgr.steps()}")
+    if mgr.best_metric_from_marker() != float(f"{losses['loss']:.4f}"):
+        raise PhaseError("Orbax run: the best marker reads "
+                         f"{mgr.best_metric_from_marker()}")
+    step_read = sum(t.numel() * t.element_size() for t in (
+        *back["params"].values(), *back["opt_state"]["mu"].values(),
+        *back["opt_state"]["nu"].values()))
+    say(13, f"Orbax run: save_step wrote {n_step} B ({n_step / 2**30:.2f} "
+            f"GiB: {len(live)} parameters, {len(state['mu'])} x 2 moments, "
+            f"counts) in {step_s:.2f} s ({n_step / step_s / 1e9:.2f} GB/s), "
+            f"save_best {n_best} B in {best_s:.2f} s "
+            f"({n_best / best_s / 1e9:.2f} GB/s); RSS peak while writing "
+            f"{rss_w.peak / 2**30:.2f} GiB (from {rss_w.start / 2**30:.2f}); "
+            f"orbax_read.restore without tensorstore read {step_read} B "
+            f"onto the card in {read_s:.2f} s "
+            f"({step_read / read_s / 1e9:.2f} GB/s; warm page cache), the "
+            f"best parameters in {best_read_s:.2f} s; RSS peak while reading"
+            f" {rss_r.peak / 2**30:.2f} GiB (from {rss_r.start / 2**30:.2f})"
+            f"; every parameter, moment and the count bit-equal, the marker "
+            f"{mgr.best_metric_from_marker()} on {gpu}")
+    del model, opt, step, params, state, back, best, live
+    torch.cuda.empty_cache()
+    return used, n_step + n_best
 
 
 def _jax_dir_round_trip(torch, gpu, lm, samples, label, path):
@@ -7387,6 +7619,7 @@ def _bit_equal(x, y) -> bool:
 
 def main() -> int:
     compiles = {}
+    disk = None
     try:
         if not (ROOT / "grove_tpu_torch" / "__init__.py").is_file():
             raise PhaseError(f"grove_tpu_torch not found beside {__file__}")
@@ -7394,32 +7627,49 @@ def main() -> int:
         import torch
         gpu = phase_device(torch)
         decoder = phase_decoder()
+        disk = _DiskLedger()
         torch.backends.cuda.matmul.allow_tf32 = False
         phase_build(compiles)
+        disk.mark("phase 1")
         rows = phase_kernels(torch, gpu, compiles)
+        disk.mark("phase 2")
         launches = phase_slice(torch, gpu, decoder)
+        disk.mark("phase 3")
         fp32 = phase_parity(torch, decoder)
+        disk.mark("phase 4")
         launches.update({k: fp32[k] for k in (LN_KERNEL, *FP32_SIMT,
                                               "sam_window_attention")})
         train = phase_train(torch, gpu)
         launches.update({k: train[k] for k in TRAIN_KERNELS})
+        disk.mark("phase 5")
         fp32_train = phase_train_parity(torch)
         launches.update({k: fp32_train[k] for k in FP32_STEP_SIMT})
+        disk.mark("phase 6")
         phase_loader(torch, gpu)
+        disk.mark("phase 7")
         phase_driver(torch, gpu)
+        disk.mark("phase 8")
         serve_launches = phase_serve(torch, gpu, decoder)
+        disk.mark("phase 9")
         infer_launches, full = phase_infer(torch, gpu)
+        disk.mark("phase 10")
         region_launches = phase_region(torch, gpu, full)
+        disk.mark("phase 11")
         parallel_launches, ranks_launches = phase_parallel(torch, gpu,
                                                            full)
-        jax_dir_launches = phase_jax_dirs(torch, gpu, full)
+        disk.mark("phase 12")
+        jax_dir_launches, orbax_launches = phase_jax_dirs(torch, gpu, full)
+        disk.mark("phase 13")
         del full
+        disk.close()
     except Exception:                       # report, then fail the run
         traceback.print_exc()
         print("chip_smoke FAILED", file=sys.stderr, flush=True)
         return 1
     finally:
         _stop_tc_compiles(compiles)
+        if disk is not None:
+            shutil.rmtree = disk._real
 
     from grove_tpu_torch import _kernels
     kernels = []
@@ -7432,7 +7682,8 @@ def main() -> int:
                "region_launches": region_launches[name],
                "parallel_launches": parallel_launches.get(name, 0),
                "ranks_launches": [r.get(name, 0) for r in ranks_launches],
-               "jax_dir_launches": jax_dir_launches.get(name, 0)}
+               "jax_dir_launches": jax_dir_launches.get(name, 0),
+               "orbax_step_launches": orbax_launches.get(name, 0)}
         row.update(rows[name])
         kernels.append(row)
     print(json.dumps({"kernels": kernels, "decoder": decoder}), flush=True)

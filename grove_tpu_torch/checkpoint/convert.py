@@ -22,7 +22,7 @@ Every other shape mismatch raises.
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -519,6 +519,24 @@ def _jax_entry(name: str, t: torch.Tensor, cfg):
     raise ValueError(f"{name}: no leaf of the JAX tree takes this tensor")
 
 
+def jax_entries(state: Mapping[str, torch.Tensor], cfg
+                ) -> Dict[str, Tuple[str, torch.Tensor]]:
+    """port name -> (JAX path, the tensor in the JAX layout) for every
+    tensor of a port model's `state_dict()` (`_jax_entry`); the activation
+    scales of uncalibrated W8A8 towers are left out, as the JAX tree has
+    none. Raises ValueError where two tensors take one path."""
+    out, seen = {}, set()
+    for name, t in state.items():
+        if _unwritten_act_scale(name, cfg):
+            continue
+        path, leaf = _jax_entry(name, t, cfg)
+        if path in seen:
+            raise ValueError(f"jax_entries: two tensors for {path}")
+        seen.add(path)
+        out[name] = (path, leaf)
+    return out
+
+
 def jax_tree_from_model(model: nn.Module) -> Dict:
     """The JAX GroveModel parameter tree of a port model: the exact
     inverse of `load_jax_tree` for every model it reads (float, quantized,
@@ -528,13 +546,4 @@ def jax_tree_from_model(model: nn.Module) -> Dict:
     `flax_msgpack.dump` copies one leaf at a time to the host. The
     activation scales of uncalibrated W8A8 towers are left out, as the
     JAX tree has none."""
-    cfg = model.cfg
-    flat = {}
-    for name, t in model.state_dict().items():
-        if _unwritten_act_scale(name, cfg):
-            continue
-        path, leaf = _jax_entry(name, t, cfg)
-        if path in flat:
-            raise ValueError(f"jax_tree_from_model: two tensors for {path}")
-        flat[path] = leaf
-    return _nest(flat)
+    return _nest(dict(jax_entries(model.state_dict(), model.cfg).values()))

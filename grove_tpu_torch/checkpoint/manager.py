@@ -36,7 +36,7 @@ import os
 import re
 import shutil
 import tempfile
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -74,13 +74,20 @@ def to_cpu(tree):
 
 
 def _write_dir(path: str, state: Dict[str, Any]) -> None:
-    """`state` into `path/STATE_FILE`, published by a rename of a hidden
-    temporary directory beside `path` (an old `path` is replaced)."""
+    """`state` into `path/STATE_FILE`, published as `publish_dir` does."""
+    publish_dir(path, lambda tmp: torch.save(
+        state, os.path.join(tmp, STATE_FILE)))
+
+
+def publish_dir(path: str, fill: Callable[[str], Any]) -> Any:
+    """`fill(tmp)` writes a hidden temporary directory beside `path`, which
+    is then renamed to `path` (an old `path` is replaced), so that a write
+    killed midway publishes nothing. Returns what `fill` returns."""
     parent = os.path.dirname(path)
     os.makedirs(parent, exist_ok=True)
     tmp = tempfile.mkdtemp(prefix=".tmp-", dir=parent)
     try:
-        torch.save(state, os.path.join(tmp, STATE_FILE))
+        out = fill(tmp)
         old = None
         if os.path.exists(path):
             old = tempfile.mkdtemp(prefix=".old-", dir=parent)
@@ -91,6 +98,7 @@ def _write_dir(path: str, state: Dict[str, Any]) -> None:
     except BaseException:
         shutil.rmtree(tmp, ignore_errors=True)
         raise
+    return out
 
 
 def _readable(path: str, item: str = ITEM) -> bool:

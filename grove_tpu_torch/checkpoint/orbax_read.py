@@ -8,9 +8,11 @@ directory, `ckpt_model/<step>/default` (Orbax's `StandardSave` of
 Each is a directory with `_METADATA` (JSON: every leaf's key path and
 value type) and the arrays in zarr under an OCDBT key-value store, whose
 manifest and b-tree nodes are zstd-compressed: they are read through
-`tensorstore`, imported inside `read_tree` only. On a machine without it
-(the card's) a read raises ImportError naming the conversion, to be run
-on a host that has it:
+`tensorstore`, imported inside `read_tree` only. The layout that
+`checkpoint.orbax_write` writes (no OCDBT, each array one uncompressed
+zarr chunk) is read with numpy alone, on any machine. On a machine
+without tensorstore (the card's) a read of any other layout raises
+ImportError naming the conversion, to be run on a host that has it:
 
     python -m grove_tpu_torch.checkpoint.orbax_read SRC DST
 
@@ -65,16 +67,65 @@ def _tensorstore(path: str):
     return tensorstore
 
 
+# the zarr v2 dtypes of the uncompressed layout, both ways (numpy reads
+# bfloat16 as int16, viewed as torch's)
+ZARR_DTYPES = {"<f4": torch.float32, "<f8": torch.float64,
+               "<f2": torch.float16, "<i4": torch.int32, "<i8": torch.int64,
+               "<i2": torch.int16, "|i1": torch.int8, "|u1": torch.uint8,
+               "|b1": torch.bool, "bfloat16": torch.bfloat16}
+_MMAP_BYTES = 1 << 20         # arrays from this size are memory-mapped
+
+
+def _read_plain(path: str, name: str):
+    """The zarr v2 array `name` of the checkpoint at `path` when it is
+    stored as one uncompressed, unfiltered C-order chunk (what
+    `orbax_write` and Orbax without compression write), read with numpy:
+    an array (memory-mapped copy-on-write from _MMAP_BYTES), a bf16 one as
+    a torch.bfloat16 tensor over it; None for any other storage."""
+    d = os.path.join(path, name)
+    try:
+        with open(os.path.join(d, ".zarray")) as f:
+            z = json.load(f)
+    except FileNotFoundError:
+        return None
+    shape = tuple(z.get("shape", ()))
+    if (z.get("zarr_format") != 2 or z.get("compressor") is not None
+            or z.get("filters") or z.get("order", "C") != "C"
+            or tuple(z.get("chunks", ())) != shape
+            or z.get("dtype") not in ZARR_DTYPES):
+        return None
+    sep = z.get("dimension_separator", ".")
+    chunk = os.path.join(d, sep.join(["0"] * max(len(shape), 1)))
+    if not os.path.isfile(chunk):
+        return None
+    dtype = np.dtype("<i2" if z["dtype"] == "bfloat16" else z["dtype"])
+    nbytes = int(np.prod(shape)) * dtype.itemsize
+    if os.path.getsize(chunk) != nbytes:
+        raise ValueError(f"{chunk}: {os.path.getsize(chunk)} bytes, not "
+                         f"the {nbytes} of {z['dtype']}{list(shape)}")
+    if nbytes >= _MMAP_BYTES:
+        arr = np.memmap(chunk, dtype=dtype, mode="c", shape=shape)
+    else:
+        arr = np.fromfile(chunk, dtype=dtype).reshape(shape)
+    if z["dtype"] == "bfloat16":
+        return torch.from_numpy(arr).view(torch.bfloat16)
+    return arr
+
+
 def read_tree(path: str) -> Dict:
-    """The nested dict an Orbax checkpoint directory holds: numpy arrays
-    (bf16 ones as tensorstore's bfloat16 numpy type), Python scalars for
-    Orbax's scalar leaves; None leaves (optax's empty states, the frozen
-    parameters' holes) left out."""
-    ts = _tensorstore(path)
+    """The nested dict an Orbax checkpoint directory holds: arrays (bf16
+    ones as tensorstore's bfloat16 numpy type, or as torch.bfloat16
+    tensors where numpy reads them), Python scalars for Orbax's scalar
+    leaves; None leaves (optax's empty states, the frozen parameters'
+    holes) left out. Without OCDBT, an array stored as one uncompressed
+    chunk (`orbax_write`'s layout) is read with numpy; anything else
+    through tensorstore."""
     with open(os.path.join(path, METADATA)) as f:
         meta = json.load(f)
+    plain = not meta.get("use_ocdbt", True) and not meta.get("use_zarr3")
     driver = "zarr3" if meta.get("use_zarr3") else "zarr"
     base = os.path.abspath(path)
+    ts = None
     out: Dict = {}
     for entry in meta["tree_metadata"].values():
         keys = [str(k["key"]) for k in entry["key_metadata"]]
@@ -85,11 +136,15 @@ def read_tree(path: str) -> Dict:
             raise ValueError(f"{path}: leaf {'.'.join(keys)} of type "
                              f"{value['value_type']} is not an array")
         name = ".".join(keys)
-        kvstore = ({"driver": "ocdbt", "base": f"file://{base}/",
-                    "path": name} if meta.get("use_ocdbt", True)
-                   else {"driver": "file", "path": os.path.join(base, name)})
-        arr = ts.open({"driver": driver, "kvstore": kvstore},
-                      open=True).result().read().result()
+        arr = _read_plain(base, name) if plain else None
+        if arr is None:
+            ts = ts or _tensorstore(path)
+            kvstore = ({"driver": "ocdbt", "base": f"file://{base}/",
+                        "path": name} if meta.get("use_ocdbt", True)
+                       else {"driver": "file",
+                             "path": os.path.join(base, name)})
+            arr = ts.open({"driver": driver, "kvstore": kvstore},
+                          open=True).result().read().result()
         node = out
         for k in keys[:-1]:
             node = node.setdefault(k, {})

@@ -187,6 +187,18 @@ def build_config(args) -> GroveConfig:
     return dataclasses.replace(cfg, **overrides)
 
 
+def optimizer_config(args) -> OptimizerConfig:
+    """The optimizer config of the flags
+    (`grove_tpu/train/driver.py:317-323`)."""
+    return OptimizerConfig(
+        lr=args.lr, betas=(args.beta1, args.beta2),
+        warmup_steps=args.warmup_steps,
+        total_steps=args.epochs * args.steps_per_epoch,
+        grad_clip=args.grad_clip, train_mask_decoder=args.train_mask_decoder,
+        freeze=not args.no_freeze, moment_dtype=args.moment_dtype,
+        train_embeddings=not args.no_train_embeddings)
+
+
 def build_tokenizer(args, cfg):
     if args.synthetic or args.version is None:
         from ..text.mock_tokenizer import MockTokenizer
@@ -425,13 +437,7 @@ def _run(args):
         print(f"loaded {copied} tensors from {args.version}; "
               f"missing={len(missing)} mismatched={len(mismatched)}")
 
-    total_steps = args.epochs * args.steps_per_epoch
-    opt_cfg = OptimizerConfig(
-        lr=args.lr, betas=(args.beta1, args.beta2),
-        warmup_steps=args.warmup_steps, total_steps=total_steps,
-        grad_clip=args.grad_clip, train_mask_decoder=args.train_mask_decoder,
-        freeze=not args.no_freeze, moment_dtype=args.moment_dtype,
-        train_embeddings=not args.no_train_embeddings)
+    opt_cfg = optimizer_config(args)
     mask = trainable_mask(model, opt_cfg)
     partition_params(model, mask)
     if args.mesh_model > 1:

@@ -542,6 +542,45 @@ def make_train_step(model: nn.Module, optimizer, mesh=None):
     return train_step
 
 
+def row_at_a_time(model: nn.Module, host_batch: Dict[str, np.ndarray]):
+    """The step of `host_batch` computed as the pipeline's ranks compute
+    it, one row at a time: each row's loss with the whole batch's
+    normalizers (each count summed over the rows, as `count_reduce` sums
+    it over the ranks), its backward, the gradients of the default
+    trainable set summed in their dtype. Returns (the summed loss
+    terms, the gradients by name). No weight moves."""
+    params = partition_params(model, trainable_mask(
+        model, OptimizerConfig(warmup_steps=1)))
+    rows = [batch_to_device({k: v[r:r + 1] for k, v in host_batch.items()},
+                            model.device)
+            for r in range(len(host_batch["labels"]))]
+    counts = []
+    with torch.no_grad():
+        for b in rows:
+            seen = []
+            model.forward_train(b, count_reduce=lambda c: seen.append(
+                c.detach().clone()) or c)
+            counts.append(seen)
+    totals = [sum(c) for c in zip(*counts)]
+    terms, grads = {}, {}
+    for b in rows:
+        left = iter(totals)
+        for p in params.values():
+            p.grad = None
+        out = model.forward_train(b, count_reduce=lambda c: next(left))
+        out["loss"].backward()
+        for k, v in out.items():
+            terms[k] = terms.get(k, 0.0) + float(v.detach())
+        for n, p in params.items():
+            if p.grad is not None:
+                grads[n] = (p.grad.detach().clone() if n not in grads
+                            else grads[n] + p.grad)
+        del out
+    for p in params.values():
+        p.grad = None
+    return terms, grads
+
+
 def make_eval_step(model: nn.Module):
     @torch.no_grad()
     def eval_step(batch):

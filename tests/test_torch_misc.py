@@ -104,23 +104,25 @@ def test_synthetic_video_copy_equals_original():
 
 def test_import_leaves_jax_and_pil_out():
     """Importing every module of the port loads no jax, flax or PIL, no
-    module of the JAX package `grove_tpu`, and neither `msgpack` nor
-    `tensorstore` (the card's machine has neither: the flax reader is the
-    port's own, and tensorstore is imported inside the Orbax read)."""
+    module of the JAX package `grove_tpu`, and neither `msgpack`, `orbax`
+    nor `tensorstore` (the card's machine has none: the flax reader and
+    the Orbax writer are the port's own, and tensorstore is imported
+    inside the Orbax read of a layout numpy does not read)."""
     mods = sorted("grove_tpu_torch." + ".".join(
         p.relative_to(ROOT / "grove_tpu_torch").with_suffix("").parts)
         for p in (ROOT / "grove_tpu_torch").rglob("*.py")
         if p.name != "__init__.py")
     code = ("import sys, grove_tpu_torch, " + ", ".join(mods) + "; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'PIL', 'flax', 'grove_tpu', 'msgpack', "
+            "('jax', 'PIL', 'flax', 'grove_tpu', 'msgpack', 'orbax', "
             "'tensorstore')))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, check=True, cwd=ROOT)
     assert "grove_tpu_torch.models.fuse" in mods
     assert {"grove_tpu_torch.checkpoint.torch_convert",
             "grove_tpu_torch.checkpoint.flax_msgpack",
-            "grove_tpu_torch.checkpoint.orbax_read"} <= set(mods)
+            "grove_tpu_torch.checkpoint.orbax_read",
+            "grove_tpu_torch.checkpoint.orbax_write"} <= set(mods)
     assert {"grove_tpu_torch.train.step", "grove_tpu_torch.train.lowmem",
             "grove_tpu_torch.ops.boxes",
             "grove_tpu_torch.ops.losses",
