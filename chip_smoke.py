@@ -9,9 +9,11 @@ The second form runs phases 0-1 and then only phase 3 (slice) and / or
 9 (serve), from DIR's chip_smoke.py and package (this checkout by
 default), and prints no result line: an A/B of the decode and engine-tick
 times of two checkouts, run in turns in one call. The third runs the
-parallel paths across 4 cards over NCCL (`phase_cards`: the driver, and
-the pipeline one stage a card; `phase_cards_steps`: fp32 steps against
-the unsharded one, the demo).
+parallel paths across 4 cards over NCCL (`phase_cards`: the driver, the
+pipeline one stage a card, and the pipeline under data parallelism, 2
+stages x 2 replicas, in fp32 against data parallelism and at full width;
+`phase_cards_steps`: fp32 steps against the unsharded one, DP, TP x DP
+with and without sequence parallelism, FSDP2 and ZeRO-2, and the demo).
 
 Phases, each printing its own line; any failure exits non-zero:
   0  device: requires CUDA (there is no CPU path) and prints the card's
@@ -431,7 +433,16 @@ Phases, each printing its own line; any failure exits non-zero:
      disjoint shards, the same loss on both ranks at every step), and a
      TP = 2 small() fp32 step (`parallel.workers.train_step`, TF32 off)
      against the unsharded step here: loss terms within 1e-4 relative,
-     each first-step gradient within 2e-3 of its max-abs;
+     each first-step gradient within 2e-3 of its max-abs. Last, the
+     pipeline under data parallelism: four processes on the one card over
+     gloo as 2 stages x 2 replicas (`pipeline_step(replicas=2)`), small()
+     fp32 (TF32 off), one row a rank, 2 microbatches a replica, 2 steps,
+     and data parallelism over four processes on the same shards
+     (`train_step`), launched at once: each step's loss terms and every
+     trainable parameter after the steps within 2e-5 (1 + |x|) (those
+     whose gradient is zero up to rounding left out), the first step's
+     gradients within 2e-3 of their max-abs, each rank's launches exact
+     on the SIMT entries, the replicas' copies of each stage bit-equal;
   13 the JAX package's model directories (`checkpoint.flax_msgpack`,
      `checkpoint.convert.load_jax_tree`): phase 10's bf16 GroveConfig()
      written as one (`save_jax_pretrained`: config.json and
@@ -6651,6 +6662,7 @@ def phase_parallel(torch, gpu, model):
     _batch_shape_witness(torch, gpu, cfg, host_batch)
     _parallel_driver(torch, gpu)
     _parallel_processes(torch, gpu)
+    _parallel_replicas(torch, gpu)
     say(12, f"phase 12 took {time.perf_counter() - t_phase:.1f} s")
     return launches, ranks
 
@@ -6743,53 +6755,89 @@ def _parallel_pipeline(torch, gpu, model):
     return up, (ls, gs), host_batch
 
 
-def _rank_launches(cfg, s, ranks, micro):
-    """The exact launches of one rank of the pipeline one stage a process,
-    its local batch of one row, and no other kernel: the encoders' of
-    phase 5's batch-1 step (K3 once a CLIP layer), and K4's and K4b's once
-    a layer of its stage and microbatch."""
+def _rank_launches(cfg, s, ranks, micro, simt=False):
+    """The exact launches of one rank of the pipeline one stage a process
+    over `ranks` stages, its local batch of one row (or more: each kernel
+    takes a rank's rows in one call), and no other kernel: the encoders'
+    of phase 5's batch-1 step (K3 once a CLIP layer), and K4's and K4b's
+    once a layer of its stage and microbatch. `simt`: an fp32 run's, the
+    same counts on the SIMT entries."""
     want = _step_launches(cfg, s, False)
     for k in PIPE_KERNELS:
         want[k] = want[k] * micro // ranks
     want["grouped_plain_attention_tc"] = cfg.clip.num_layers
-    return {k: v for k, v in want.items() if v}
+    return {(k.removesuffix("_tc") if simt else k): v
+            for k, v in want.items() if v}
 
 
 def _stage_shares(ranks, step, n, m):
     """From each rank's CUDA-event marks of timed step `step` (host-clock
-    seconds): each stage's busy ms and its share of the step, and the
-    pipeline's bubble: 1 - the stages' busy time over n x the span from
-    the first microbatch's start to the last one's end, forward and
-    backward spans added, beside GPipe's (n - 1) / (m + n - 1)."""
+    seconds), `ranks` one pipeline's n stages: each stage's busy ms and
+    its share of the step, and the pipeline's bubble: 1 - the stages'
+    busy time over n x the span from the first microbatch's start to the
+    last one's end, forward and backward spans added, beside GPipe's
+    (n - 1) / (m + n - 1)."""
     spans, busy = 0.0, []
     for kind in ("forward", "backward"):
         marks = [(a, b) for r in ranks for k, _, a, b in
                  r["steps"][step]["marks"] if k == kind]
         spans += max(b for _, b in marks) - min(a for a, _ in marks)
     for r in ranks:
-        busy.append(sum(b - a for _, _, a, b in r["steps"][step]["marks"]))
+        busy.append(sum(b - a for k, _, a, b in r["steps"][step]["marks"]
+                        if k in ("forward", "backward")))
     shares = [b * 1e3 / r["steps"][step]["ms"] for b, r in zip(busy, ranks)]
     return ([b * 1e3 for b in busy], shares, 1 - sum(busy) / (n * spans),
             (n - 1) / (m + n - 1))
 
 
-def _check_ranks(got, cfg, s, n, m, label):
-    """Each rank of a `parallel.workers.pipeline_step` run: its stage and
-    layers (the others on the meta device), and every timed step's
-    launches exact (`_rank_launches`)."""
+def _stage_sum_ms(rank, step):
+    """The CUDA-event ms of rank's stage-group gradient sum in `step`."""
+    return sum((b - a) * 1e3 for k, _, a, b in rank["steps"][step]["marks"]
+               if k == "stage_sum")
+
+
+def _check_ranks(got, cfg, s, n, m, label, simt=False):
+    """Each rank of a `parallel.workers.pipeline_step` run over n stages
+    (rank r stage r % n of replica r // n): its stage and layers (the
+    others on the meta device), and every timed step's launches exact
+    (`_rank_launches`)."""
     per = cfg.llama.num_layers // n
-    want = _rank_launches(cfg, s, n, m)
+    want = _rank_launches(cfg, s, n, m, simt)
     for rank, r in enumerate(got["ranks"]):
-        layers = list(range(rank * per, (rank + 1) * per))
+        stage = rank % n
+        layers = list(range(stage * per, (stage + 1) * per))
         rest = [i for i in range(cfg.llama.num_layers) if i not in layers]
-        if (r["stage"], r["held"], r["meta"]) != (rank, layers, rest):
-            raise PhaseError(f"{label} rank {rank}: stage {r['stage']}, "
-                             f"layers {r['held']} held, {r['meta']} on meta")
+        if (r["replica"], r["stage"], r["held"], r["meta"]) != (
+                rank // n, stage, layers, rest):
+            raise PhaseError(f"{label} rank {rank}: replica {r['replica']},"
+                             f" stage {r['stage']}, layers {r['held']} "
+                             f"held, {r['meta']} on meta")
         for i, st in enumerate(r["steps"]):
             if st["launches"] != want:
                 raise PhaseError(f"{label} rank {rank} step {i + 1}: "
                                  f"launches {st['launches']}, not {want}")
     return want
+
+
+def _check_replicas(got, n, label):
+    """After a `pipeline_step` run of replicas of n stages: each stage's
+    copies on every replica, parameters and moments, with equal bit sums
+    tensor by tensor (`parallel.workers.bit_sums`), and the replicated
+    rest equal on every rank. Returns the tensors compared on rank 0."""
+    ranks = got["ranks"]
+    for rank, r in enumerate(ranks):
+        for kind, sums in r["after"].items():
+            first = ranks[rank % n]["after"][kind]
+            if sums != first:
+                raise PhaseError(f"{label}: rank {rank}'s {kind} differ "
+                                 f"from rank {rank % n}'s, its stage on "
+                                 "replica 0")
+            rest = {k: v for k, v in sums.items()
+                    if not k.startswith("model.layers.")}
+            if rest != {k: ranks[0]["after"][kind][k] for k in rest}:
+                raise PhaseError(f"{label}: rank {rank}'s replicated {kind} "
+                                 "differ from rank 0's")
+    return sum(len(v) for v in ranks[0]["after"].values())
 
 
 RANK_PROCS = 2
@@ -7085,10 +7133,116 @@ def _parallel_processes(torch, gpu):
         cfg = GroveConfig.small()
         tok = MockTokenizer(base_vocab_size=cfg.llama.vocab_size)
         _worker_steps(torch, tmp, [_train_batch(cfg, tok, seed=42)],
-                      {f"TP = {TP_PROCS}": (TP_PROCS, TP_PROCS)},
+                      {f"TP = {TP_PROCS}": (TP_PROCS, TP_PROCS, {})},
                       f"{TP_PROCS} processes on cuda:0 over gloo")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+REPLICA_STAGES = 2       # the pipeline under data parallelism: 2 stages x
+REPLICAS = 2             # 2 replicas, rank r stage r % 2 of replica r // 2
+
+
+def _parallel_replicas(torch, gpu):
+    """The pipeline under data parallelism on the one card: small() in
+    fp32 (TF32 off) as REPLICA_STAGES stages x REPLICAS replicas, 4
+    processes over gloo (messages through pinned host buffers), one row a
+    rank, 2 microbatches a replica, 2 steps (`parallel.workers.
+    pipeline_step`), against data parallelism over 4 processes on the same
+    shards (`parallel.workers.train_step`, the step `--multihost` runs),
+    the two launched at once: each step's loss terms and every trainable
+    parameter after the 2 steps within CARDS_PIPE_TOL (1 + |x|), but
+    those whose gradient is zero up to rounding (below ZERO_GRAD of the
+    largest in data parallelism's first step: Adam turns their noise into
+    lr-sized steps); the first step's gradients within PARALLEL_TOL of
+    their max-abs; each rank's launches exact on the SIMT entries; the
+    replicas' copies of each stage bit-equal after the 2 steps."""
+    from concurrent.futures import ThreadPoolExecutor
+    from grove_tpu_torch.config import GroveConfig
+    from grove_tpu_torch.models.grove import init_grove_params
+    from grove_tpu_torch.parallel.launch import launch
+    from grove_tpu_torch.text.mock_tokenizer import MockTokenizer
+    procs = REPLICA_STAGES * REPLICAS
+    cfg = dataclasses.replace(GroveConfig.small(), max_seq_len=TRAIN_SEQ)
+    tok = MockTokenizer(base_vocab_size=cfg.llama.vocab_size)
+    batches = [_train_batch(cfg, tok, seed=50 + r) for r in range(procs)]
+    whole = {k: np.concatenate([b[k] for b in batches]) for k in batches[0]}
+    seq = whole["input_ids"].shape[1]
+    tmp = Path(tempfile.mkdtemp(prefix="grove_replicas_"))
+    try:
+        model = init_grove_params(cfg, device="cpu", dtype=torch.float32,
+                                  seed=41)
+        torch.save(model.state_dict(), tmp / "small.pt")
+        del model
+        with open(tmp / "cfg.pkl", "wb") as f:
+            pickle.dump(cfg, f)
+        torch.save(batches, tmp / "batches.pt")
+        torch.save(whole, tmp / "batch.pt")
+        common = dict(optimizer={"warmup_steps": 0}, device="cuda")
+        argvs = [
+            ["-m", "grove_tpu_torch.parallel.workers", "train_step",
+             json.dumps(dict(weights=str(tmp / "small.pt"),
+                             batches=str(tmp / "batches.pt"),
+                             out=str(tmp / "dp.pt"), size="small",
+                             config={"max_seq_len": TRAIN_SEQ}, **common))],
+            ["-m", "grove_tpu_torch.parallel.workers", "pipeline_step",
+             json.dumps(dict(out=str(tmp / "pp.pt"),
+                             batch=str(tmp / "batch.pt"), microbatches=2,
+                             weights=str(tmp / "small.pt"),
+                             config_file=str(tmp / "cfg.pkl"),
+                             dtype="fp32", steps=2, replicas=REPLICAS,
+                             tf32=[False, False], **common))]]
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(2) as pool:
+            list(pool.map(lambda argv: launch(
+                argv, procs, timeout=600,
+                env={"NVIDIA_TF32_OVERRIDE": "0"}), argvs))
+        secs = time.perf_counter() - t0
+        dp = torch.load(tmp / "dp.pt", weights_only=False)
+        pp = torch.load(tmp / "pp.pt", weights_only=False)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    label = f"{REPLICA_STAGES} stages x {REPLICAS} replicas"
+    _check_ranks(pp, cfg, seq, REPLICA_STAGES, 2, label, simt=True)
+    compared = _check_replicas(pp, REPLICA_STAGES, label)
+    for step, (g, w) in enumerate(zip(pp["metrics"], dp["metrics"])):
+        for k, v in w.items():
+            if abs(g[k] - v) > CARDS_PIPE_TOL * (1 + abs(v)):
+                raise PhaseError(f"{label} step {step + 1} {k} {g[k]} vs "
+                                 f"data parallelism's {v}")
+    top = max(float(g.abs().max()) for g in dp["grads"].values())
+    zero = {n for n, g in dp["grads"].items()
+            if float(g.abs().max()) <= ZERO_GRAD * top}
+    if set(pp["params"]) != set(dp["params"]):
+        raise PhaseError(f"{label}: other trainable parameters than data "
+                         "parallelism's")
+    excess = sorted(((n, float(((pp["params"][n].double() - w.double())
+                                .abs() - CARDS_PIPE_TOL * (1 + w.double()
+                                                           .abs())).max()))
+                     for n, w in dp["params"].items() if n not in zero),
+                    key=lambda kv: -kv[1])
+    if excess[0][1] > 0:
+        raise PhaseError(f"{label}: parameters after 2 steps off data "
+                         f"parallelism's by more than {CARDS_PIPE_TOL} (1 + "
+                         f"|x|): {excess[:4]}")
+    worst = _rounded(_grad_distance(pp["grads"], dp["grads"])[:3])
+    if worst[0][1] > PARALLEL_TOL:
+        raise PhaseError(f"{label}: first-step gradients off data "
+                         f"parallelism's by more than {PARALLEL_TOL} of "
+                         f"their max-abs: {worst}")
+    say(12, f"pipeline under data parallelism, small() fp32 (TF32 off), "
+            f"{label} = {procs} processes on cuda:0 over "
+            f"{pp['ranks'][0]['transport']}, one row a rank, 2 microbatches "
+            f"a replica, S = {seq}, 2 steps: losses {pp['metrics'][-1]} = "
+            f"data parallelism over {procs} processes on the same shards "
+            f"within {CARDS_PIPE_TOL} (1 + |x|); {len(excess)} trainable "
+            f"parameters within it after 2 steps, the closest to the bound "
+            f"{_rounded(excess[:3])} (excess, <= 0; {len(zero)} with a "
+            f"gradient zero up to rounding left out); the first step's "
+            f"gradients, the worst {worst}; each rank's launches exact "
+            f"{pp['ranks'][0]['steps'][0]['launches']}; {compared} tensors "
+            f"of each stage's copies bit-equal across the replicas; "
+            f"{secs:.1f} s for both launches on {gpu}")
 
 
 def _reference_step(torch, tmp, batches):
@@ -7128,19 +7282,20 @@ def _worker_steps(torch, tmp, batches, runs, where):
     """Two fp32 `small()` train steps of `parallel.workers.train_step`
     against the unsharded step in this process on the global batch (the
     concatenation of `batches`, data rank r taking batches[r]): for each
-    run label -> (processes, tp), losses within TRAIN_LOSS_REL and the
-    first step's gradients within PARALLEL_TOL of their max-abs."""
+    run label -> (processes, tp, the worker's `fsdp` / `sp` / `zero`
+    options), losses within TRAIN_LOSS_REL and the first step's gradients
+    within PARALLEL_TOL of their max-abs."""
     from grove_tpu_torch.parallel.launch import launch
     weights, want, want_g = _reference_step(torch, tmp, batches)
     torch.save(batches, tmp / "batches.pt")
-    for label, (procs, tp) in runs.items():
+    for label, (procs, tp, options) in runs.items():
         t0 = time.perf_counter()
         launch(["-m", "grove_tpu_torch.parallel.workers", "train_step",
                 json.dumps(dict(weights=str(weights),
                                 batches=str(tmp / "batches.pt"),
                                 out=str(tmp / "run.pt"), tp=tp,
                                 size="small", device="cuda",
-                                optimizer={"warmup_steps": 0}))],
+                                optimizer={"warmup_steps": 0}, **options))],
                procs, timeout=600, env={"NVIDIA_TF32_OVERRIDE": "0"})
         got = torch.load(tmp / "run.pt", weights_only=False)
         for g, w in zip(got["metrics"], want):
@@ -7780,7 +7935,10 @@ def phase_cards(torch, gpu, decoder):
     rounding in an fp32 step (`_zero_grads`) apart. Then the pipeline one
     stage a card: `--multihost --pipeline_stages 2` in fp32 against data
     parallelism (`_cards_pipeline_driver`), and GroveConfig() in bf16 over
-    CARDS cards with its bubble (`_cards_pipeline_full`)."""
+    CARDS cards with its bubble (`_cards_pipeline_full`). Then the same
+    under data parallelism, 2 stages x 2 replicas: the driver in fp32
+    against data parallelism over CARDS cards, and GroveConfig() in bf16
+    (`_cards_replicas_full`)."""
     _need_cards(torch)
     tmp = Path(tempfile.mkdtemp(prefix="grove_cards_"))
     try:
@@ -7810,6 +7968,8 @@ def phase_cards(torch, gpu, decoder):
                 f"({time.perf_counter() - t0:.1f} s)")
         _cards_pipeline_driver(torch, tmp, zero)
         _cards_pipeline_full(torch, gpu, tmp)
+        _cards_pipeline_driver(torch, tmp, zero, replicas=REPLICAS)
+        _cards_replicas_full(torch, gpu, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -7854,34 +8014,46 @@ def _allclose_excess(torch, got, want, zero):
     return sorted(flat.items(), key=lambda kv: -kv[1])
 
 
-def _cards_pipeline_driver(torch, tmp, zero):
-    """`--multihost --pipeline_stages 2` on 2 cards (one stage a rank over
-    NCCL, 2 rows a rank in 2 microbatches) against `--multihost` data
-    parallelism on 2 cards at 2 rows a rank (each rank reading the same
-    shard: the same global batch of 4), small() in fp32, 3 steps: every
-    tensor of the checkpoint, moments included, within CARDS_PIPE_TOL
-    (absolute and relative, `_allclose_excess`), but those of `zero`
-    (gradients zero up to rounding); each parameter's max-abs distance
-    relative to its max-abs printed (`_ckpt_distance`)."""
+# rows a rank and microbatches of `_cards_pipeline_driver` by replicas of 2
+# stages: the synthetic set holds max(4, 2 x --batch_size) clips, so 4
+# ranks read one row each and a replica's 2 rows run as one microbatch
+CARDS_PIPE_LAYOUTS = {1: (2, 2), 2: (1, 1)}
+
+
+def _cards_pipeline_driver(torch, tmp, zero, replicas=1):
+    """`--multihost --pipeline_stages 2` on 2 x `replicas` cards (one stage
+    a rank over NCCL, `replicas` replicas; rows a rank and microbatches
+    from CARDS_PIPE_LAYOUTS) against `--multihost` data parallelism on as
+    many cards at as many rows a rank (each rank reading the same shard:
+    the same global batch), small() in fp32, 3 steps: every tensor of the
+    checkpoint, moments included, within CARDS_PIPE_TOL (absolute and
+    relative, `_allclose_excess`), but those of `zero` (gradients zero up
+    to rounding); each parameter's max-abs distance relative to its
+    max-abs printed (`_ckpt_distance`)."""
     t0 = time.perf_counter()
-    one, _ = _fp32_driver_ckpt(torch, ["--multihost", "--batch_size", "2"],
-                               2, tmp / "fp32_dp")
+    procs = 2 * replicas
+    rows, micro = CARDS_PIPE_LAYOUTS[replicas]
+    one, _ = _fp32_driver_ckpt(torch, ["--multihost", "--batch_size",
+                                       str(rows)], procs,
+                               tmp / f"fp32_dp{procs}")
     pp, out = _fp32_driver_ckpt(torch, [
         "--multihost", "--pipeline_stages", "2", "--pipeline_microbatches",
-        "2", "--batch_size", "2"], 2, tmp / "fp32_pp")
+        str(micro), "--batch_size", str(rows)], procs,
+        tmp / f"fp32_pp{procs}")
     line = next((x for x in out.splitlines()
                  if x.startswith("pipeline-parallel LLM")), "")
-    if "one a rank" not in line or "over nccl" not in line:
-        raise PhaseError(f"the 2-card pipeline ran as {line!r}")
+    if (f"one a rank, 2 stages x {replicas} replicas" not in line
+            or "over nccl" not in line):
+        raise PhaseError(f"the {procs}-card pipeline ran as {line!r}")
     excess = _allclose_excess(torch, pp, one, zero)
     if excess[0][1] > 0:
-        raise PhaseError(f"the 2-card pipeline's checkpoint is off data "
-                         f"parallelism's by more than {CARDS_PIPE_TOL} "
+        raise PhaseError(f"the {procs}-card pipeline's checkpoint is off "
+                         f"data parallelism's by more than {CARDS_PIPE_TOL} "
                          f"(1 + |x|): {excess[:4]}")
     noise, rest = _ckpt_distance(pp, one, zero)
     say(12, f"driver small() fp32, 3 steps: {line!r}; its checkpoint vs "
-            f"--multihost data parallelism on 2 cards, 2 rows a rank: "
-            f"{len(excess)} tensors (parameters and "
+            f"--multihost data parallelism on {procs} cards, {rows} row(s) "
+            f"a rank: {len(excess)} tensors (parameters and "
             f"moments) within {CARDS_PIPE_TOL} (1 + |x|), the closest to "
             f"the bound {excess[:3]} (excess, <= 0); each parameter's "
             f"max-abs distance / its max-abs, the worst {rest[:4]}; the "
@@ -7942,12 +8114,94 @@ def _cards_pipeline_full(torch, gpu, tmp):
             "the processes' start and the warm step")
 
 
+# the full width under data parallelism: the decoder trainable (under the
+# default freeze policy its layers hold no trainable tensor, and the stage
+# groups would sum nothing), 2 rows a rank, CARDS_MICRO microbatches a
+# replica
+REPLICAS_FULL_OPT = {"warmup_steps": 1, "full_llm": True}
+REPLICAS_FULL_ROWS = 2
+
+
+def _cards_replicas_full(torch, gpu, tmp):
+    """GroveConfig() in bf16 as REPLICA_STAGES stages x REPLICAS replicas,
+    one card a rank over NCCL: REPLICA_STAGES stages of 16 layers, the
+    decoder trainable (REPLICAS_FULL_OPT), REPLICAS_FULL_ROWS rows a rank
+    (a global batch of 8 at S = 704), CARDS_MICRO microbatches a replica;
+    a warm step, then two steps with every launch count set to 0 before
+    each: each rank's launches exact, finite losses, the replicas' copies
+    of each stage bit-equal after the steps; each rank's step ms, peak
+    memory, busy share and the CUDA-event ms of its stage group's
+    gradient sum (its bytes beside it), and each replica's bubble beside
+    GPipe's (n - 1) / (m + n - 1)."""
+    from grove_tpu_torch.config import GroveConfig
+    from grove_tpu_torch.parallel.launch import launch
+    from grove_tpu_torch.text.mock_tokenizer import MockTokenizer
+    from grove_tpu_torch.text.tokenizer import special_token_ids_from
+    cfg = dataclasses.replace(GroveConfig(), max_seq_len=TRAIN_SEQ)
+    tok = MockTokenizer(base_vocab_size=cfg.llama.vocab_size)
+    cfg = dataclasses.replace(cfg, tokens=special_token_ids_from(tok))
+    n = REPLICA_STAGES
+    batch = _train_batch(cfg, tok, seed=38, n=REPLICAS_FULL_ROWS * CARDS)
+    with open(tmp / "full.pkl", "wb") as f:
+        pickle.dump(cfg, f)
+    torch.save(batch, tmp / "replicas_batch.pt")
+    t0 = time.perf_counter()
+    launch(["-m", "grove_tpu_torch.parallel.workers", "pipeline_step",
+            json.dumps(dict(out=str(tmp / "replicas.pt"),
+                            batch=str(tmp / "replicas_batch.pt"),
+                            microbatches=CARDS_MICRO,
+                            config_file=str(tmp / "full.pkl"), seed=0,
+                            dtype="bf16", optimizer=REPLICAS_FULL_OPT,
+                            warm_steps=1, steps=2, grads=False,
+                            replicas=REPLICAS, device="cuda"))], CARDS,
+           timeout=900)
+    secs = time.perf_counter() - t0
+    got = torch.load(tmp / "replicas.pt", weights_only=False)
+    s = batch["input_ids"].shape[1]
+    label = f"full-width {n} stages x {REPLICAS} replicas"
+    want = _check_ranks(got, cfg, s, n, CARDS_MICRO, label)
+    compared = _check_replicas(got, n, label)
+    for terms in got["metrics"]:
+        _check_losses(terms, label)
+    ranks = got["ranks"]
+    for step in range(len(got["metrics"])):
+        per, bubbles = [], []
+        for d in range(REPLICAS):
+            mine = ranks[d * n:(d + 1) * n]
+            busy, shares, bubble, gpipe = _stage_shares(mine, step, n,
+                                                        CARDS_MICRO)
+            bubbles.append(f"replica {d} {bubble:.3f}")
+            per += [f"rank {d * n + k} (replica {d}, stage {r['stage']}) "
+                    f"{r['steps'][step]['ms']:.1f} ms, peak "
+                    f"{r['steps'][step]['peak'] / 2**30:.2f} GiB, busy "
+                    f"{busy[k]:.1f} ms = {shares[k]:.3f}, stage sum "
+                    f"{_stage_sum_ms(r, step):.2f} ms"
+                    for k, r in enumerate(mine)]
+        say(12, f"GroveConfig() bf16 pipeline under data parallelism, {n} "
+                f"stages x {cfg.llama.num_layers // n} layers x {REPLICAS} "
+                f"replicas over {ranks[0]['transport']}, the decoder "
+                f"trainable, {REPLICAS_FULL_ROWS} rows a rank (batch "
+                f"{REPLICAS_FULL_ROWS * CARDS} x S = {s}), {CARDS_MICRO} "
+                f"microbatches a replica, step {step + 1}: "
+                + "; ".join(per) + f"; bubble {', '.join(bubbles)} (GPipe "
+                f"(n - 1) / (m + n - 1) = {gpipe:.3f}); stage sums of "
+                f"{ranks[0]['stage_bytes']:,} B a rank; losses "
+                f"{got['metrics'][step]}; launches exact on each rank "
+                f"{want}, {gpu}")
+    say(12, f"{label} across {CARDS} cards: {compared} tensors of each "
+            f"stage's copies bit-equal across the replicas after the "
+            f"steps; {secs:.1f} s with the processes' start and the warm "
+            "step")
+
+
 def phase_cards_steps(torch, gpu, decoder):
     """`--phases cards_steps`, on a machine of CARDS cards over NCCL, one
     card a rank: `parallel.workers.train_step` in fp32 against the
     unsharded step on the global batch, DP = 2 on two local batches with
-    different box counts and TP = 2 x DP = 2 (`_worker_steps`); then the
-    multi-host demo on CARDS processes, twice."""
+    different box counts and TP = 2 x DP = 2 (`_worker_steps`), then at
+    S = 704 TP = 2 x DP = 2 with sequence parallelism, and FSDP2 and
+    ZeRO-2 moments at DP = 4; then the multi-host demo on CARDS processes,
+    twice."""
     from grove_tpu_torch.config import GroveConfig
     from grove_tpu_torch.text.mock_tokenizer import MockTokenizer
     from grove_tpu_torch.tools import multihost_demo
@@ -7962,8 +8216,10 @@ def phase_cards_steps(torch, gpu, decoder):
         if boxes[0] == boxes[1]:
             raise PhaseError(f"the local batches hold {boxes} boxes")
         _worker_steps(torch, tmp, batches,
-                      {"DP = 2": (2, 1), "TP = 2 x DP = 2": (CARDS, 2)},
+                      {"DP = 2": (2, 1, {}),
+                       "TP = 2 x DP = 2": (CARDS, 2, {})},
                       f"one card a rank over NCCL, {boxes} visible boxes")
+        _cards_sharded_steps(torch, tmp)
 
         for run in range(2):
             t0 = time.perf_counter()
@@ -7978,6 +8234,28 @@ def phase_cards_steps(torch, gpu, decoder):
                     f"{time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _cards_sharded_steps(torch, tmp):
+    """`_worker_steps` at S = 704 over CARDS cards: TP = 2 x DP = 2 with
+    sequence parallelism, FSDP2 at DP = 4 and ZeRO-2 moments at DP = 4,
+    each against the unsharded fp32 step. S = 704 because the LLaMA
+    slices the sequence over "model" only where S divides by its size
+    (small()'s own 1087 tokens run unsliced)."""
+    from grove_tpu_torch.config import GroveConfig
+    from grove_tpu_torch.text.mock_tokenizer import MockTokenizer
+    cfg = dataclasses.replace(GroveConfig.small(), max_seq_len=TRAIN_SEQ)
+    tok = MockTokenizer(base_vocab_size=cfg.llama.vocab_size)
+    four = [_train_batch(cfg, tok, seed=44 + i) for i in range(CARDS)]
+    s = four[0]["input_ids"].shape[1]
+    if s % 2:
+        raise PhaseError(f"sequence parallelism needs an even S, not {s}")
+    where = f"one card a rank over NCCL, S = {s}"
+    _worker_steps(torch, tmp, four[:2],
+                  {"TP = 2 x DP = 2 + SP": (CARDS, 2, {"sp": True})}, where)
+    _worker_steps(torch, tmp, four,
+                  {"FSDP, DP = 4": (CARDS, 1, {"fsdp": True}),
+                   "ZeRO-2, DP = 4": (CARDS, 1, {"zero": True})}, where)
 
 
 AB_PHASES = ("slice", "serve", "cards", "cards_steps")

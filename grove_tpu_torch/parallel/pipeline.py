@@ -26,37 +26,46 @@ In one process, over a list of devices:
   own (each layer under `torch.utils.checkpoint`), as JAX's
   `jax.checkpoint` on the layer body.
 
-Across processes, one stage a rank (`RankPipe`, `make_rank_pipe`): rank k
-holds only stage k's layers (`stage_layers`; the others stay on the meta
-device, `models.grove.init_grove_params(layers=)`) and the rest of the
-model whole. Each rank holds its local batch; the global batch is their
-concatenation in rank order, as JAX's under `--multihost`. A pass
-(`rank_forward`, `rank_backward`):
+Across processes, one stage a rank (`RankPipe`, `make_rank_pipe`), in a
+world of N x D ranks: D replicas of an N-stage pipeline, rank r replica
+r // N and stage r % N (replica 0 is ranks 0..N-1). Stage k holds only
+its layers (`stage_layers`; the others stay on the meta device,
+`models.grove.init_grove_params(layers=)`) and the rest of the model
+whole. Each rank holds its local batch; the global batch is their
+concatenation in rank order, as JAX's under `--multihost`. JAX pipes
+over the first N of `jax.devices()` and lays the global batch over
+every device: its N stages run the whole global batch. Here each
+replica runs its N ranks' rows through its own stages; every op but the
+sums is per row, so the step is the same. A pass (`rank_forward`,
+`rank_backward`), every message inside one replica:
 
 1. each rank runs the encoders and the splice on its own rows;
-2. the spliced rows go to stage 0, which splits the global batch into
-   microbatches; stage k takes microbatch i from stage k - 1, runs its
-   layers (under `torch.utils.checkpoint` with `remat`) and sends the
-   result to stage k + 1;
-3. the last stage sends each rank its rows of the output; each rank runs
-   the final norm, `lm_head`, `ground` and the losses on them, with the
-   global batch's normalizers (`parallel.mesh.count_reduce`);
-4. backward: each rank's d hidden goes to the last stage, the stages run
-   the microbatches' backward in reverse order (receive dy from k + 1,
-   `torch.autograd.backward`, send dx to k - 1), and stage 0 sends each
-   rank the gradient of its spliced rows, which runs back through the
-   splice and the encoders.
+2. the spliced rows go to the replica's stage 0, which splits the
+   replica's rows into microbatches; stage k takes microbatch i from
+   stage k - 1, runs its layers (under `torch.utils.checkpoint` with
+   `remat`) and sends the result to stage k + 1;
+3. the last stage sends each rank of the replica its rows of the output;
+   each rank runs the final norm, `lm_head`, `ground` and the losses on
+   them, with the global batch's normalizers (`parallel.mesh.
+   count_reduce` over the world);
+4. backward: each rank's d hidden goes to the replica's last stage, the
+   stages run the microbatches' backward in reverse order (receive dy
+   from k + 1, `torch.autograd.backward`, send dx to k - 1), and stage 0
+   sends each rank the gradient of its spliced rows, which runs back
+   through the splice and the encoders.
 
 The messages are point-to-point (`dist.batch_isend_irecv`: every send is
 posted with its receive): device tensors over NCCL; over gloo, whose
 send and receive take CPU tensors only (the backend table of
 `torch.distributed`), through pinned host buffers, the compute staying on
 the card. The gradients of the replicated parameters are summed over the
-ranks, those of the layers stay on their stage, and the clipping norm sums
-each stage's squares once (`train.step.AdamW.sum_norm_over_`). A
-checkpoint gathers every stage's layers and their optimizer state to rank
-0 in the world-1 layout (`gather_stages`). `RankPipelineModel` runs the
-driver's validation through the same forward.
+world, those of stage k's layers over stage k's D ranks (`RankPipe.
+stage_group`; with one replica, no sum), and the clipping norm sums each
+stage's squares once over the replica (`RankPipe.pipe_group`, `train.
+step.AdamW.sum_norm_over_`). A checkpoint gathers replica 0's stages'
+layers and their optimizer state to rank 0 in the world-1 layout
+(`gather_stages`). `RankPipelineModel` runs the driver's validation
+through the same forward.
 
 Scope, as in JAX: the cache-free (training, teacher-forced) pass.
 """
@@ -180,17 +189,37 @@ LAYER_KEY = re.compile(r"^model\.layers\.(\d+)\.")
 
 @dataclass(frozen=True)
 class RankPipe:
-    """A pipeline of one stage a rank: stage k is rank k of the world, on
-    `device`. Over gloo with CUDA tensors (`staged`) the messages travel
-    through pinned host buffers."""
+    """A pipeline of one stage a rank, in `replicas` replicas: this rank is
+    `stage` of `replica`, on `device`, global rank replica x n_stages +
+    stage. `pipe_group` holds its replica's ranks (the world with one
+    replica) and `stage_group` this stage's rank in every replica (None
+    with one replica). Over gloo with CUDA tensors (`staged`) the
+    messages travel through pinned host buffers."""
     n_stages: int
     stage: int
     device: torch.device
     backend: str
+    replicas: int = 1
+    replica: int = 0
+    pipe_group: object = None
+    stage_group: object = None
 
     @property
     def last(self) -> int:
         return self.n_stages - 1
+
+    @property
+    def rank(self) -> int:
+        """This rank's index in the world: its shard of the data."""
+        return self.peer(self.stage)
+
+    @property
+    def world(self) -> int:
+        return self.replicas * self.n_stages
+
+    def peer(self, stage: int) -> int:
+        """The global rank of `stage` in this rank's replica."""
+        return self.replica * self.n_stages + stage
 
     @property
     def staged(self) -> bool:
@@ -204,17 +233,32 @@ class RankPipe:
 
 def make_rank_pipe(n_stages: int, device) -> RankPipe:
     """One stage a rank over the initialized world (`parallel.mesh.
-    init_distributed`), which must hold `n_stages` processes; `device` is
-    this rank's. Every rank calls it (a barrier: the first collective of
-    the pipeline involves every rank)."""
+    init_distributed`), which must hold `n_stages` processes or a multiple
+    D of them: D replicas, rank r stage r % n_stages of replica
+    r // n_stages; `device` is this rank's. Every rank calls it (a
+    barrier: the first collective of the pipeline involves every rank),
+    and with D > 1 every rank creates, in one order, the D pipe groups and
+    then the `n_stages` stage groups."""
     world = dist.get_world_size() if dist.is_initialized() else 1
-    if world != n_stages:
+    if world % n_stages:
         raise ValueError(f"--pipeline_stages {n_stages} across processes "
                          f"runs one stage a rank: the world holds {world} "
-                         f"processes, not {n_stages}")
+                         f"processes, not {n_stages} or a multiple of "
+                         f"{n_stages}")
     dist.barrier()
-    return RankPipe(n_stages, dist.get_rank(), torch.device(device),
-                    dist.get_backend())
+    replicas = world // n_stages
+    replica, stage = divmod(dist.get_rank(), n_stages)
+    pipe_group, stage_group = dist.group.WORLD, None
+    if replicas > 1:
+        pipes = [dist.new_group(list(range(d * n_stages,
+                                           (d + 1) * n_stages)))
+                 for d in range(replicas)]
+        stages = [dist.new_group(list(range(k, world, n_stages)))
+                  for k in range(n_stages)]
+        pipe_group, stage_group = pipes[replica], stages[stage]
+    return RankPipe(n_stages, stage, torch.device(device),
+                    dist.get_backend(), replicas, replica, pipe_group,
+                    stage_group)
 
 
 def stage_layers(num_layers: int, n_stages: int, stage: int) -> range:
@@ -286,7 +330,7 @@ class _Flight:
     x: torch.Tensor                     # its spliced rows, with their graph
     ins: List[torch.Tensor]             # its stage's microbatch inputs
     ys: List[torch.Tensor]              # its stage's microbatch outputs
-    gathered: Optional[torch.Tensor]    # stage 0: the global batch's rows
+    gathered: Optional[torch.Tensor]    # stage 0: the replica's rows
     h: torch.Tensor                     # its rows of the stack's output
 
 
@@ -313,39 +357,41 @@ def rank_forward(model: nn.Module, batch: Dict, pipe: RankPipe,
     b, s, d = x.shape
     n, m, k = pipe.n_stages, n_microbatches, pipe.stage
     if (b * n) % m:
-        raise ValueError(f"rank_forward: the global batch of {n} x {b} "
-                         f"rows does not divide into {m} microbatches")
+        raise ValueError(f"rank_forward: a replica's {n} x {b} rows do "
+                         f"not divide into {m} microbatches")
     grad = torch.is_grad_enabled()
     positions = torch.arange(s, device=x.device)
     layers = stage_layers(len(llama.layers), n, k)
     gathered, ins = None, []
     if k == 0:
-        got = _exchange(pipe, recvs=[((b, s, d), x.dtype, r)
+        got = _exchange(pipe, recvs=[((b, s, d), x.dtype, pipe.peer(r))
                                      for r in range(1, n)])
         gathered = torch.cat([x.detach()] + got)
         if grad:
             gathered.requires_grad_()
         ins = list(gathered.chunk(m))
     else:
-        _exchange(pipe, sends=[(x, 0)])
+        _exchange(pipe, sends=[(x, pipe.peer(0))])
     ys, pending = [], []
     rows = b * n // m
     for i in range(m):
         if k > 0:
-            xi = _exchange(pipe, recvs=[((rows, s, d), x.dtype, k - 1)])[0]
+            xi = _exchange(pipe, recvs=[((rows, s, d), x.dtype,
+                                         pipe.peer(k - 1))])[0]
             ins.append(xi.requires_grad_() if grad else xi)
         with _mark(timer, "forward", i):
             ys.append(_run_stage(llama, ins[i], positions, layers))
         if k < n - 1:
-            pending.append(_post(pipe, sends=[(ys[i], k + 1)]))
+            pending.append(_post(pipe, sends=[(ys[i], pipe.peer(k + 1))]))
     _wait(pending)
     if k == pipe.last:
         out = torch.cat([y.detach() for y in ys])
-        _exchange(pipe, sends=[(out[r * b:(r + 1) * b], r)
+        _exchange(pipe, sends=[(out[r * b:(r + 1) * b], pipe.peer(r))
                                for r in range(n - 1)])
         h = out[k * b:(k + 1) * b].clone()
     else:
-        h = _exchange(pipe, recvs=[((b, s, d), x.dtype, pipe.last)])[0]
+        h = _exchange(pipe, recvs=[((b, s, d), x.dtype,
+                                    pipe.peer(pipe.last))])[0]
     if grad:
         h.requires_grad_()
     flight = _Flight(x, ins, ys, gathered, h)
@@ -363,41 +409,44 @@ def rank_backward(flight: _Flight, pipe: RankPipe, n_microbatches: int,
     if dh is None:
         dh = torch.zeros_like(flight.h)
     if k == pipe.last:
-        got = _exchange(pipe, recvs=[(dh.shape, dh.dtype, r)
+        got = _exchange(pipe, recvs=[(dh.shape, dh.dtype, pipe.peer(r))
                                      for r in range(n - 1)])
         douts = list(torch.cat(got + [dh]).chunk(m))
     else:
-        _exchange(pipe, sends=[(dh, pipe.last)])
+        _exchange(pipe, sends=[(dh, pipe.peer(pipe.last))])
     pending = []
     for i in reversed(range(m)):
         y = flight.ys[i]
         dy = (douts[i] if k == pipe.last else
-              _exchange(pipe, recvs=[(y.shape, y.dtype, k + 1)])[0])
+              _exchange(pipe, recvs=[(y.shape, y.dtype,
+                                      pipe.peer(k + 1))])[0])
         with _mark(timer, "backward", i):
             torch.autograd.backward(y, dy)
         if k > 0:
-            pending.append(_post(pipe, sends=[(flight.ins[i].grad, k - 1)]))
+            pending.append(_post(pipe, sends=[(flight.ins[i].grad,
+                                               pipe.peer(k - 1))]))
     _wait(pending)
     x = flight.x
     b = x.shape[0]
     if k == 0:
         dx = flight.gathered.grad
-        _exchange(pipe, sends=[(dx[r * b:(r + 1) * b], r)
+        _exchange(pipe, sends=[(dx[r * b:(r + 1) * b], pipe.peer(r))
                                for r in range(1, n)])
         dx = dx[:b]
     else:
-        dx = _exchange(pipe, recvs=[(x.shape, x.dtype, 0)])[0]
+        dx = _exchange(pipe, recvs=[(x.shape, x.dtype, pipe.peer(0))])[0]
     if x.requires_grad:
         x.backward(dx)
 
 
 def local_rows(batch: Dict, pipe: RankPipe) -> Dict:
     """This rank's rows of a global batch (every rank holding the same):
-    the k-th of `n_stages` equal parts of each entry's leading dim."""
+    the r-th of the world's equal parts of each entry's leading dim, r
+    this rank's place in the world (`RankPipe.rank`)."""
     out = {}
     for key, v in batch.items():
-        b = len(v) // pipe.n_stages
-        out[key] = v[pipe.stage * b:(pipe.stage + 1) * b]
+        b = len(v) // pipe.world
+        out[key] = v[pipe.rank * b:(pipe.rank + 1) * b]
     return out
 
 
@@ -408,14 +457,14 @@ class RankPipelineModel:
     gives them) and returns its rows' result, the losses with this
     batch's own normalizers, as `validate` takes them on every process of
     the JAX package and of data parallelism; the microbatches are as many
-    of `n_microbatches` as divide the global batch."""
+    of `n_microbatches` as divide the replica's rows."""
 
     def __init__(self, model: nn.Module, pipe: RankPipe,
                  n_microbatches: int):
         self.model, self.pipe, self.m = model, pipe, n_microbatches
 
     def _forward(self, batch: Dict):
-        rows = len(batch["input_ids"]) * self.pipe.n_stages
+        rows = len(batch["input_ids"]) * self.pipe.n_stages   # a replica's
         return rank_forward(self.model, batch, self.pipe,
                             math.gcd(self.m, rows))
 
@@ -461,25 +510,28 @@ def gather_stages(tree, pipe: RankPipe, num_layers: int):
     dicts whose keys name parameters) with every other stage's entries for
     its own decoder layers filled in (a meta tensor replaced) or added, as
     whole CPU tensors: the world-1 layout. On the other ranks None. Every
-    rank calls it; each stage sends rank 0 a list of its entries, then the
-    tensors one at a time."""
+    rank calls it; each stage of replica 0 sends rank 0 a list of its
+    entries, then the tensors one at a time; the other replicas, whose
+    copies are equal, send nothing."""
+    if pipe.replica != 0:
+        return None
     mine = [(path, t) for path, t in _leaves(tree)
             if isinstance(t, torch.Tensor) and not t.is_meta
             and _stage_entry(path, num_layers, pipe)]
     if pipe.stage != 0:
         dist.send_object_list([[(p, tuple(t.shape), t.dtype)
-                                for p, t in mine]], dst=0)
+                                for p, t in mine]], dst=pipe.peer(0))
         for _, t in mine:
-            _exchange(pipe, sends=[(t, 0)])
+            _exchange(pipe, sends=[(t, pipe.peer(0))])
         return None
     out = {}
     for path, t in _leaves(tree):
         _put(out, path, t)
     for src in range(1, pipe.n_stages):
         header = [None]
-        dist.recv_object_list(header, src=src)
+        dist.recv_object_list(header, src=pipe.peer(src))
         for path, shape, dtype in header[0]:
-            t = _exchange(pipe, recvs=[(shape, dtype, src)])[0]
+            t = _exchange(pipe, recvs=[(shape, dtype, pipe.peer(src))])[0]
             _put(out, path, t.cpu())
     meta = [path for path, t in _leaves(out)
             if isinstance(t, torch.Tensor) and t.is_meta]

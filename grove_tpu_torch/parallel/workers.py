@@ -208,12 +208,18 @@ _BITS = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
 DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
 
 
-def fingerprint(model) -> Dict[str, int]:
-    """The sum of the bits of every tensor `model` holds, read as integers,
-    by name: exact and independent of the order of the sum."""
+def bit_sums(tensors: Dict[str, torch.Tensor]) -> Dict[str, int]:
+    """The sum of the bits of each float tensor of `tensors` that has
+    storage, read as integers, by name: exact and independent of the order
+    of the sum."""
     return {n: int(t.contiguous().view(_BITS[t.element_size()]).long().sum())
-            for n, t in model.state_dict().items()
+            for n, t in tensors.items()
             if not t.is_meta and t.is_floating_point()}
+
+
+def fingerprint(model) -> Dict[str, int]:
+    """`bit_sums` of every tensor `model` holds."""
+    return bit_sums(model.state_dict())
 
 
 def pipeline_step(out: str, batch: str, microbatches: int,
@@ -222,11 +228,12 @@ def pipeline_step(out: str, batch: str, microbatches: int,
                   seed: int = 0, dtype: str = "fp32",
                   optimizer: Optional[Dict] = None, warm_steps: int = 0,
                   steps: int = 1, remat: bool = False, grads: bool = True,
-                  val: bool = False, tf32=None,
+                  val: bool = False, tf32=None, replicas: int = 1,
                   device: str = "cuda") -> None:
     """Steps of `train.step.make_pipelined_train_step` one stage a rank
-    (`parallel.pipeline.RankPipe`) on `device`: rank r takes its rows of
-    the global batch in `batch` (a `torch.save`d numpy batch dict). The
+    (`parallel.pipeline.RankPipe`) on `device`, `replicas` replicas of
+    world / `replicas` stages: rank r takes its rows of the global batch
+    in `batch` (a `torch.save`d numpy batch dict). The
     model is the pickled GroveConfig in `config_file` (`tiny()` without
     one), built from `seed` in `dtype` with each rank holding its stage's
     layers only, each layer under `torch.utils.checkpoint` with `remat`,
@@ -235,21 +242,26 @@ def pipeline_step(out: str, batch: str, microbatches: int,
     holds them, so that an fp32 op takes the caller's algorithms.
     `warm_steps` untimed steps first, then `steps` timed ones, each with
     the launch counts set to 0 just before it and `StageTimer` marks.
-    Rank 0 writes {"ranks": each rank's {"stage", "held" (its layers with
-    storage), "meta" (the others'), "transport", "fingerprint", "steps"
-    ("launches", "ms", "peak", "marks" by step), "val" (with `val`:
-    `RankPipelineModel`'s forward_boxes and forward_train on its rows)},
-    "metrics": each timed step's loss terms, "norm": the clipping norm of
-    the last step's gradients, "grads": the whole trainable gradients of
-    the first timed step (with `grads`)} to `out`."""
+    Rank 0 writes {"ranks": each rank's {"stage", "replica", "held" (its
+    layers with storage), "meta" (the others'), "transport", "stage_bytes"
+    (the bytes of its layers' trainable parameters, as of their
+    gradients), "fingerprint", "after" (`bit_sums` of its parameters and
+    moments after the last step), "steps" ("launches", "ms", "peak", "marks" by
+    step; with replicas, a "stage_sum" mark around the stage group's
+    gradient sum), "val" (with `val`: `RankPipelineModel`'s forward_boxes
+    and forward_train on its rows)}, "metrics": each timed step's loss
+    terms, "norm": the clipping norm of the last step's gradients,
+    "grads": the whole trainable gradients of the first timed step and
+    "params": the whole trainable parameters after the last (with
+    `grads`; replica 0's)} to `out`."""
     import pickle
     from .. import _kernels
     from ..models.grove import init_grove_params
     from ..train.step import (OptimizerConfig, batch_to_device,
                               make_optimizer, make_pipelined_train_step,
                               partition_params, trainable_mask)
-    from .pipeline import (RankPipelineModel, gather_stages, local_rows,
-                           make_rank_pipe, stage_layers)
+    from .pipeline import (LAYER_KEY, RankPipelineModel, gather_stages,
+                           local_rows, make_rank_pipe, stage_layers)
     from .sharding import load_full_state_dict
     dev = _device(device)
     if tf32 is not None:
@@ -260,9 +272,9 @@ def pipeline_step(out: str, batch: str, microbatches: int,
             cfg = pickle.load(f)
     else:
         cfg = grove_config()
-    n, rank = dist.get_world_size(), dist.get_rank()
+    n, rank = dist.get_world_size() // replicas, dist.get_rank()
     num_layers = cfg.llama.num_layers
-    layers = stage_layers(num_layers, n, rank)
+    layers = stage_layers(num_layers, n, rank % n)
     model = init_grove_params(
         cfg, device=dev, seed=seed, remat=remat, layers=layers,
         dtype=DTYPES[dtype])
@@ -286,9 +298,12 @@ def pipeline_step(out: str, batch: str, microbatches: int,
                    if k.startswith("model.layers.") and p.is_meta})
     for _ in range(warm_steps):
         step(local)
-    mine = {"stage": pipe.stage, "held": held, "meta": meta,
-            "layers": list(layers), "transport": pipe.transport,
-            "fingerprint": fingerprint(model), "steps": []}
+    mine = {"stage": pipe.stage, "replica": pipe.replica, "held": held,
+            "meta": meta, "layers": list(layers), "transport": pipe.transport,
+            "fingerprint": fingerprint(model), "steps": [],
+            "stage_bytes": sum(p.numel() * p.element_size()
+                               for k, p in params.items()
+                               if LAYER_KEY.match(k))}
     metrics, first = [], None
     for _ in range(steps):
         dist.barrier()
@@ -312,8 +327,14 @@ def pipeline_step(out: str, batch: str, microbatches: int,
             first = {k: p.grad.detach().cpu().clone()
                      for k, p in params.items() if p.grad is not None}
     norm = float(opt.global_norm())
+    mine["after"] = {"params": fingerprint(model),
+                     "mu": bit_sums(opt.mu), "nu": bit_sums(opt.nu)}
+    trained = None
     if grads:
         first = gather_stages(first, pipe, num_layers)
+        trained = gather_stages({k: p.detach().cpu()
+                                 for k, p in params.items()}, pipe,
+                                num_layers)
     if val:
         ranked = RankPipelineModel(model, pipe, microbatches)
         with torch.inference_mode():
@@ -321,11 +342,11 @@ def pipeline_step(out: str, batch: str, microbatches: int,
             mine["val"] = {"boxes": {k: v.cpu() for k, v in boxes.items()},
                            "losses": {k: float(v) for k, v in
                                       ranked.forward_train(local).items()}}
-    got = [None] * n
+    got = [None] * dist.get_world_size()
     dist.all_gather_object(got, mine)
     if rank == 0:
         torch.save({"ranks": got, "metrics": metrics, "norm": norm,
-                    "grads": first}, out)
+                    "grads": first, "params": trained}, out)
 
 
 def driver(argv, dtype: Optional[str] = None, state_out: Optional[str] = None,
@@ -335,7 +356,9 @@ def driver(argv, dtype: Optional[str] = None, state_out: Optional[str] = None,
     (`driver.model_dtype`). With `state_out`, rank 0 writes there the
     whole state ({"params", "opt_state"}, every pipeline stage's gathered)
     as the first train step finds it: after `--auto_resume`, the state
-    restored."""
+    restored; every rank of a pipeline one stage a rank writes its own
+    (its parameters with storage and its optimizer's state) to
+    `state_out` + ".rank<r>"."""
     from ..checkpoint.manager import to_cpu
     from ..train import driver as drv
     from .pipeline import RankPipe, gather_stages
@@ -353,8 +376,12 @@ def driver(argv, dtype: Optional[str] = None, state_out: Optional[str] = None,
                 state = {"params": gather_stages(model.state_dict(), pipe, n),
                          "opt_state": gather_stages(optimizer.state_dict(),
                                                     pipe, n)}
-                if pipe.stage == 0:
+                if pipe.rank == 0:
                     torch.save(to_cpu(state), state_out)
+                own = {"params": {k: v for k, v in model.state_dict().items()
+                                  if not v.is_meta},
+                       "opt_state": optimizer.state_dict()}
+                torch.save(to_cpu(own), f"{state_out}.rank{pipe.rank}")
             return step(batch)
         return first
     drv.make_pipelined_train_step = spy

@@ -39,17 +39,22 @@ Parallel training (`parallel/`, `driver.py:281-360, 425-440`):
   (`make_pipelined_train_step`). In one process, its stages on one card
   each where there are N cards, else all on `--device`. With
   `--multihost`, one stage a rank (`parallel.pipeline.RankPipe`) in a
-  world of N processes: each rank holds its stage's layers and the rest
-  of the model, and reads its shard of the data (`--batch_size` rows a
-  step, as a data-parallel rank reads it); the step is the global
-  batch's of N x `--batch_size` rows, and validation runs through the
-  same forward. A world that is not N is refused (JAX's layout of data
-  over every device, piped over the first N, has no counterpart here);
-  not with `--mesh_model > 1`.
+  world of N x D processes: D replicas of the N-stage pipeline, rank r
+  stage r % N of replica r // N. Each rank holds its stage's layers and
+  the rest of the model, and reads its shard of the data (`--batch_size`
+  rows a step, the r-th of the world's shards, as a data-parallel rank
+  reads it); the step is the global batch's of N x D x `--batch_size`
+  rows, each replica pipelining its ranks' rows in
+  `--pipeline_microbatches` microbatches, and validation runs through
+  the same forward. JAX's layout under the same flags: the pipe over the
+  first N devices, the data over all of them, its microbatches splitting
+  the global batch; the loss and the gradients are the same up to
+  rounding. A world that is not a multiple of N is refused; not with
+  `--mesh_model > 1`.
 
 Rank 0 alone writes logs and checkpoints; a checkpoint holds whole
 tensors (sharded parameters and moments gathered first, and every
-pipeline stage's layers), equal to an unsharded run's.
+pipeline stage's layers, from replica 0), equal to an unsharded run's.
 
 `--synthetic` builds the synthetic dataset of `data.synthetic` (`.npy`
 clips, readable without libav).
@@ -61,6 +66,9 @@ clips, readable without libav).
     torchrun --nproc_per_node 4 -m grove_tpu_torch.train.driver \\
         --multihost --pipeline_stages 4 --pipeline_microbatches 4 \\
         --synthetic --model_size full
+    torchrun --nproc_per_node 4 -m grove_tpu_torch.train.driver \\
+        --multihost --pipeline_stages 2 --pipeline_microbatches 2 \\
+        --batch_size 2 --synthetic --model_size full   # 2 stages x 2 replicas
 """
 
 from __future__ import annotations
@@ -389,8 +397,8 @@ def _pipeline_checks(args, cfg) -> None:
 
 def _whole(tree, pipe, num_layers: int):
     """A state to save: with one pipeline stage a rank, every stage's
-    entries gathered on rank 0 (`parallel.pipeline.gather_stages`; {} on
-    the other ranks)."""
+    entries of replica 0 gathered on rank 0 (`parallel.pipeline.
+    gather_stages`; {} on the other ranks)."""
     if pipe is None:
         return tree
     return ppipe.gather_stages(tree, pipe, num_layers) or {}
@@ -422,7 +430,7 @@ def _run(args):
     mesh = (pmesh.make_mesh(model=args.mesh_model, device_type=device.type)
             if parallel and pipe is None else None)
     # a pipeline rank reads its shard of the data, as a "data" rank does
-    data_rank, data_size = ((pipe.stage, pipe.n_stages) if pipe else
+    data_rank, data_size = ((pipe.rank, pipe.world) if pipe else
                             (pmesh.axis_rank(mesh, "data"),
                              pmesh.axis_size(mesh, "data")))
     train_ds, val_ds = build_datasets(args, cfg, data_rank, data_size)
@@ -454,11 +462,13 @@ def _run(args):
     print(f"trainable params: {n_train/1e6:.1f}M / {n_total/1e6:.1f}M")
     if pipe is not None:
         print(f"pipeline-parallel LLM: {args.pipeline_stages} stages x "
-              f"{len(layers)} layers, one a rank (this rank: stage "
-              f"{pipe.stage}, layers {layers.start}-{layers.stop - 1} on "
-              f"{device}) over {pipe.transport}, "
-              f"{args.pipeline_microbatches} microbatches of the global "
-              f"batch of {args.batch_size * pipe.n_stages} rows")
+              f"{len(layers)} layers, one a rank, {pipe.n_stages} stages x "
+              f"{pipe.replicas} replicas (this rank: replica "
+              f"{pipe.replica}, stage {pipe.stage}, layers "
+              f"{layers.start}-{layers.stop - 1} on {device}) over "
+              f"{pipe.transport}, {args.pipeline_microbatches} microbatches "
+              f"of a replica's {args.batch_size * pipe.n_stages} rows, the "
+              f"global batch of {args.batch_size * pipe.world} rows")
         train_step = make_pipelined_train_step(model, optimizer, pipe,
                                                args.pipeline_microbatches)
     elif args.pipeline_stages > 1:

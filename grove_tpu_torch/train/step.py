@@ -215,11 +215,11 @@ class AdamW:
         """Pipeline stages (`parallel.pipeline`): the gradients of `names`
         (`<prefix><layer>.<rest>`, this rank's stage's of `num_layers`
         layers) are this rank's alone. Their per-leaf sums of squares are
-        laid into one vector by layer and summed over `group` (every rank
-        calling), then taken in the one-process order with each leaf's
-        dtype, so that each leaf's rounding is the one-process norm's; the
-        other gradients are equal on every rank of `group` and count
-        once."""
+        laid into one vector by layer and summed over `group` (a
+        pipeline's ranks, each calling), then taken in the one-process
+        order with each leaf's dtype, so that each leaf's rounding is the
+        one-process norm's; the other gradients are equal on every rank of
+        `group` and count once."""
         self.stage_norm = (frozenset(names), num_layers, group)
 
     def zero_grad(self) -> None:
@@ -602,14 +602,21 @@ def make_pipelined_train_step(model: nn.Module, optimizer, pipe,
       decoder layers run in the schedule, each on its stage's device
       (`parallel.pipeline.place_stages`).
     * `pipe` a `parallel.pipeline.RankPipe` (one stage a rank, JAX's step
-      under `--multihost`): the batch is this rank's local batch, and the
-      step is the global batch's (the ranks' local batches in rank order):
-      each rank runs the encoders, the splice, the heads and the losses on
-      its rows with the global normalizers, the stages run the stack
-      (`parallel.pipeline.rank_forward` / `rank_backward`), the gradients
-      of the replicated parameters are summed over the ranks, the clipping
-      norm counts each stage's once (`AdamW.sum_norm_over_`), and the
-      returned terms are the global batch's. `timer` as `rank_forward`'s.
+      under `--multihost`; D replicas of the pipeline in a world of N x D):
+      the batch is this rank's local batch, and the step is the global
+      batch's (the ranks' local batches in rank order): each rank runs
+      the encoders, the splice, the heads and the losses on its rows with
+      the global normalizers, each replica's stages run its ranks' rows
+      through the stack in `n_microbatches` microbatches (`parallel.
+      pipeline.rank_forward` / `rank_backward`; JAX splits the global
+      batch instead, the same math: every op but the sums is per row),
+      the gradients of the replicated parameters are summed over the
+      world and those of stage k's layers over stage k's ranks
+      (`RankPipe.stage_group`, timed as "stage_sum" by `timer`), the
+      clipping norm counts each stage's once over the replica
+      (`AdamW.sum_norm_over_` on `RankPipe.pipe_group`: after the sums
+      every replica holds the same gradients), and the returned terms are
+      the global batch's. `timer` as `rank_forward`'s.
     """
     from ..parallel.pipeline import RankPipe, pipelined_llama_forward
     if isinstance(pipe, RankPipe):
@@ -639,12 +646,14 @@ def make_pipelined_train_step(model: nn.Module, optimizer, pipe,
 
 def _rank_pipelined_step(model, optimizer, pipe, n_microbatches, timer):
     from ..parallel import mesh as pmesh
-    from ..parallel.pipeline import LAYER_KEY, rank_backward, rank_forward
+    from ..parallel.pipeline import (LAYER_KEY, _mark, rank_backward,
+                                     rank_forward)
     world = dist.group.WORLD
     staged = {n for n in optimizer.params if LAYER_KEY.match(n)}
     getattr(optimizer, "opt", optimizer).sum_norm_over_(
-        staged, len(model.model.layers), world)
+        staged, len(model.model.layers), pipe.pipe_group)
     shared = {n: p for n, p in optimizer.params.items() if n not in staged}
+    layers = {n: p for n, p in optimizer.params.items() if n in staged}
     reduce = pmesh.count_reduce(None, world)
 
     def train_step(batch):
@@ -656,6 +665,9 @@ def _rank_pipelined_step(model, optimizer, pipe, n_microbatches, timer):
         out["loss"].backward()
         rank_backward(flight, pipe, n_microbatches, timer)
         pmesh.sync_gradients(shared, None, world)
+        if pipe.stage_group is not None:
+            with _mark(timer, "stage_sum", 0):
+                pmesh.sync_gradients(layers, None, pipe.stage_group)
         optimizer.step()
         return pmesh.reduce_metrics({k: v.detach() for k, v in out.items()},
                                     None, world)
